@@ -5,19 +5,28 @@
 
 Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 
-1. build the three CUDA kernels from ``vq_gnn_tpu_torch/csrc`` (nvcc, sm_90a);
+1. build the five CUDA kernels from ``vq_gnn_tpu_torch/csrc`` (nvcc, sm_90a);
 2. build the bench's arxiv-scale synthetic graph (N = 169,343, degree 13.7,
-   128 features, 40 classes) and its 80-part partition;
-3. drive the flagship training path through the trainer: layerwise init
-   sweep, one epoch of ``train_step`` (40 parts per batch), ten more timed
-   steps, one ``evaluate`` — GCN B + B', 3 layers x 128, num_D = 4, M = 256,
-   K = 8, live VQ updates, f32, vq_backend = 'pallas_fast';
-4. check that every kernel's launch counter moved during that run;
+   128 features, 40 classes) and its 80-part partition, normalised once per
+   conv (GCN, SAGE and GAT normalise differently);
+3. drive the flagship training path through the trainer, one path after the
+   other, each with the launch counters zeroed just before it and read just
+   after — 3 layers x 128, num_D = 4, M = 256, K = 8, live VQ updates, f32,
+   vq_backend = 'pallas_fast', 40 parts per batch:
+   - GCN B + B': layerwise init sweep, one epoch of ``train_step``, ten more
+     timed steps, three profiled steps, one ``evaluate``;
+   - SAGE: init sweep, one epoch, five timed steps;
+   - GAT: as GCN;
+   - GAT with hidden 256 and 2 layers (layer 1 runs the GAT kernels at
+     C = 256): init sweep, one epoch, two more steps;
+4. check that each path launched each of its kernels;
 5. hold each kernel against its plain PyTorch version on the card at the
-   shapes of the real batch (exact and fast modes; kernel 2 also at nb = 1);
-6. time each kernel, its plain version and a PyTorch library yardstick;
-7. run a small graph through the same path (GCN, then SAGE) on the GPU and
-   on the CPU (plain versions) from one state and compare losses and logits.
+   shapes of the real batch (kernel 2 also at nb = 1; kernel 4 with and
+   without the masked channels; kernel 5 at C = 128 and 256);
+6. time each kernel, its plain version and a PyTorch library yardstick where
+   one call computes the same function;
+7. run a small graph through the same path (GCN, SAGE, GAT) on the GPU and on
+   the CPU (plain versions) from one state and compare losses and logits.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -25,6 +34,7 @@ and the script exits non-zero without that line.  Without a CUDA device, or
 without the package beside it, it exits non-zero at once.
 """
 
+import copy
 import json
 import math
 import subprocess
@@ -39,6 +49,11 @@ TIMED_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+PATH_KERNELS = {  # kernels each conv's training path must launch
+    "GCN": ("ell_aggregate", "vq_assign", "vq_lookup"),
+    "SAGE": ("ell_aggregate", "vq_assign", "vq_lookup"),
+    "GAT": ("gat_aggregate", "gat_backward", "vq_assign", "vq_lookup"),
+}
 
 
 def log(*a):
@@ -85,7 +100,7 @@ def bound(bytes_moved: float, flops: float, flop_rate: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def profile_steps(torch, tr, batches, lr, gpu, steps=3):
+def profile_steps(torch, tr, batches, lr, gpu, tag, steps=3):
     """Device busy share and device time by kernel over a few train steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -109,14 +124,89 @@ def profile_steps(torch, tr, batches, lr, gpu, steps=3):
             rows.append((us, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        log("[3 profile] the profiler saw no device time: not measured")
+        log(f"[{tag} profile] the profiler saw no device time: not measured")
         return
-    log(f"[3 profile] {steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step, device busy "
+    log(f"[{tag} profile] {steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step, device busy "
         f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
         f"idle {100 * (1 - busy / wall_us):.1f}% | {gpu}")
     for us, count, key in sorted(rows, reverse=True)[:15]:
-        log(f"[3 profile]   {us / steps / 1e3:8.3f} ms/step  {count // steps:4d} calls/step  "
+        log(f"[{tag} profile]   {us / steps / 1e3:8.3f} ms/step  {count // steps:4d} calls/step  "
             f"{key[:90]}")
+
+
+def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profile, evaluate):
+    """One training path through the trainer, launch counters zeroed just
+    before it and read just after.  Returns what the later phases need."""
+    g, c, ci = graph
+    t0 = time.time()
+    tr = NodeTrainer(g, cfg, c, ci, device="cuda")
+    test_batches = tr.test_batches()  # host build of the eval batches (set-up)
+    log(f"[{tag} setup] trainer + eval batches in {time.time() - t0:.1f}s; channels "
+        f"{tr.ms.channels}")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr.run_init_sweep()
+    torch.cuda.synchronize()
+    log(f"[{tag} init sweep] {time.time() - t0:.2f}s over {len(test_batches)} eval batch(es) "
+        f"B_pad={test_batches[0][0][0].B_pad}; launches {ops.launch_counts()}")
+    bad = [bool(s.bad_init) for s in tr.state.vq_states]
+    assert not any(bad), f"bad_init after the init sweep: {bad}"
+
+    t0 = time.time()
+    loss, loss_cls = tr.train_epoch(1)
+    torch.cuda.synchronize()
+    log(f"[{tag} epoch 1] loss={loss:.4f} loss_cls={loss_cls:.4f} in {time.time() - t0:.2f}s")
+    assert math.isfinite(loss) and math.isfinite(loss_cls)
+
+    batches = [w[0] for w, _ in tr.train_loader]  # one epoch of batches
+    b0 = batches[0]
+    e0 = b0.edges
+    E_batch = int((e0.ell_val != 0).sum())
+    log(f"[{tag} batch] B={b0.num_B} B_pad={b0.B_pad} B'={int(b0.valid_fo.sum())} "
+        f"Bp_pad={b0.Bp_pad} E={E_batch} S_pad={e0.ell_row.shape[0]} "
+        f"St_pad={e0.t_ell_row.shape[0]} t_b_slots={e0.t_b_slots} b_rows={e0.b_rows}")
+    before = ops.launch_counts()
+    times, losses = [], []
+    for i in range(timed_steps):
+        b = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.state, m = tr.fns.train_step(tr.state, tr.X_dev, b, 1.0, cfg.lr, 1.0, tr.generator)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        assert not bool(m["bad_init"]), "Bad Init!"
+    per_step = {k: (v - before[k]) / timed_steps for k, v in ops.launch_counts().items()}
+    if profile:
+        profile_steps(torch, tr, batches, cfg.lr, gpu, tag)
+    mean = sum(times) / len(times)
+    std = (sum((t - mean) ** 2 for t in times) / max(len(times) - 1, 1)) ** 0.5
+    median = sorted(times)[len(times) // 2]
+    log(f"[{tag} train] {timed_steps} steps: {mean:.2f} ms/step (std {std:.2f}, median "
+        f"{median:.2f}, min {min(times):.2f}, max {max(times):.2f}) | {gpu}")
+    log(f"[{tag} train] edges/s at this batch: {E_batch / (mean / 1e3):.4g}; launches per step "
+        f"{per_step}; losses {[round(x, 4) for x in losses]}")
+    assert all(math.isfinite(x) for x in losses)
+    if evaluate:
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        acc = tr.evaluate()
+        torch.cuda.synchronize()
+        per_eval = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        log(f"[{tag} eval] train/val/test acc {acc} in {time.time() - t0:.2f}s; launches "
+            f"{per_eval}")
+        assert all(0.0 <= a <= 1.0 for a in acc)
+    launches = ops.launch_counts()
+    by_width = dict(ops.KERNELS["gat_backward"].by_width)
+
+    # ---- 4. the path went through every one of its kernels ----
+    log(f"[4 launches] {tag} path: {launches}; gat_backward by width {by_width}")
+    for name in PATH_KERNELS[cfg.conv_type]:
+        assert launches[name] > 0, f"kernel {name} was not launched on the {tag} path"
+    return dict(tr=tr, batch0=b0, test_batches=test_batches, launches=launches,
+                by_width=by_width, ms=mean, std=std)
 
 
 def main() -> int:
@@ -130,6 +220,12 @@ def main() -> int:
     from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm
     from vq_gnn_tpu_torch.ops import _build
     from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+    from vq_gnn_tpu_torch.ops.gat_kernels import (
+        gat_aggregate,
+        gat_aggregate_plain,
+        gat_backward,
+        gat_backward_plain,
+    )
     from vq_gnn_tpu_torch.ops.vq_kernels import (
         codeword_sqnorm,
         fused_assign_branches,
@@ -157,78 +253,42 @@ def main() -> int:
     log(f"[1 build] {time.time() - t0:.1f}s  registers per thread: {', '.join(regs)}  "
         f"spilling entries: {len(spills)}")
 
-    # ---- 2. graph ----
+    # ---- 2. graph, normalised per conv ----
     t0 = time.time()
-    cfg = flagship_cfg(Config)
-    g, c = synthetic_sbm(num_nodes=N_NODES, num_classes=N_CLASSES, num_features=N_FEAT,
-                         avg_degree=AVG_DEG, seed=0)
-    g, c, ci = prepare(g, cfg, c)
-    log(f"[2 graph] N={g.num_nodes} E(normalized, with self-loops)={g.num_edges} "
-        f"parts={len(ci)} in {time.time() - t0:.1f}s")
+    raw = synthetic_sbm(num_nodes=N_NODES, num_classes=N_CLASSES, num_features=N_FEAT,
+                        avg_degree=AVG_DEG, seed=0)
+    graphs = {}
+    for conv in ("GCN", "SAGE", "GAT"):
+        g, c = copy.deepcopy(raw)
+        graphs[conv] = prepare(g, flagship_cfg(Config, conv_type=conv), c)
+    del raw
+    g = graphs["GCN"][0]
+    log(f"[2 graph] N={g.num_nodes} E(GCN-normalized, with self-loops)={g.num_edges} "
+        f"parts={len(graphs['GCN'][2])} in {time.time() - t0:.1f}s")
 
-    # ---- 3. the main path, through the trainer ----
-    t0 = time.time()
-    tr = NodeTrainer(g, cfg, c, ci, device="cuda")
-    test_batches = tr.test_batches()  # host build of the eval batch (set-up)
-    log(f"[3 setup] trainer + eval batch in {time.time() - t0:.1f}s")
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    tr.run_init_sweep()
-    torch.cuda.synchronize()
-    n_init = ops.launch_counts()
-    log(f"[3 init sweep] {time.time() - t0:.2f}s over {len(test_batches)} eval batch(es) "
-        f"B_pad={test_batches[0][0][0].B_pad}; launches {n_init}")
-    bad = [bool(s.bad_init) for s in tr.state.vq_states]
-    assert not any(bad), f"bad_init after the init sweep: {bad}"
-
-    t0 = time.time()
-    loss, loss_cls = tr.train_epoch(1)
-    torch.cuda.synchronize()
-    log(f"[3 epoch 1] loss={loss:.4f} loss_cls={loss_cls:.4f} in {time.time() - t0:.2f}s")
-    assert math.isfinite(loss) and math.isfinite(loss_cls)
-
-    batches = [w[0] for w, _ in tr.train_loader]  # one epoch of batches
-    b0 = batches[0]
+    # ---- 3-4. the training paths, through the trainer ----
+    runs = {}
+    for tag, conv, kw, steps, full in (
+        ("3 GCN", "GCN", {}, TIMED_STEPS, True),
+        ("3 SAGE", "SAGE", {}, 5, False),
+        ("3 GAT", "GAT", {}, TIMED_STEPS, True),
+        ("3 GAT-256", "GAT", dict(num_layers=2, hidden_channels=256), 2, False),
+    ):
+        cfg_p = flagship_cfg(Config, conv_type=conv, **kw)
+        runs[tag] = drive_path(torch, ops, NodeTrainer, tag, graphs[conv], cfg_p, gpu, steps,
+                               profile=full, evaluate=full)
+        if tag != "3 GCN":
+            runs[tag].pop("tr")  # only the GCN trainer's state is read later
+    assert runs["3 GAT-256"]["by_width"].get(256, 0) > 0, "gat_backward never ran at C = 256"
+    log(f"[3 summary] ms/step GCN {runs['3 GCN']['ms']:.2f} (std {runs['3 GCN']['std']:.2f}), "
+        f"SAGE {runs['3 SAGE']['ms']:.2f} (std {runs['3 SAGE']['std']:.2f}), "
+        f"GAT {runs['3 GAT']['ms']:.2f} (std {runs['3 GAT']['std']:.2f}), "
+        f"GAT hidden 256 x 2 layers {runs['3 GAT-256']['ms']:.2f} | {gpu}")
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in ops.KERNELS}
+    log(f"[4 launches] all paths: {launches}")
+    tr, b0, test_batches = (runs["3 GCN"][k] for k in ("tr", "batch0", "test_batches"))
+    cfg = tr.cfg
     e0 = b0.edges
-    E_batch = int((e0.ell_val != 0).sum())
-    log(f"[3 batch] B={b0.num_B} B_pad={b0.B_pad} B'={int(b0.valid_fo.sum())} "
-        f"Bp_pad={b0.Bp_pad} E={E_batch} S_pad={e0.ell_row.shape[0]} "
-        f"St_pad={e0.t_ell_row.shape[0]} t_b_slots={e0.t_b_slots} b_rows={e0.b_rows}")
-    before = ops.launch_counts()
-    times, losses = [], []
-    for i in range(TIMED_STEPS):
-        b = batches[i % len(batches)]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        tr.state, m = tr.fns.train_step(tr.state, tr.X_dev, b, 1.0, cfg.lr, 1.0, tr.generator)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(m["loss"]))
-        assert not bool(m["bad_init"]), "Bad Init!"
-    per_step = {k: (v - before[k]) / TIMED_STEPS for k, v in ops.launch_counts().items()}
-    profile_steps(torch, tr, batches, cfg.lr, gpu)
-    mean = sum(times) / len(times)
-    std = (sum((t - mean) ** 2 for t in times) / (len(times) - 1)) ** 0.5
-    log(f"[3 train] {TIMED_STEPS} steps: {mean:.2f} ms/step (std {std:.2f}, "
-        f"min {min(times):.2f}, max {max(times):.2f}) | {gpu}")
-    log(f"[3 train] edges/s at this batch: {E_batch / (mean / 1e3):.4g}; launches per step "
-        f"{per_step}; losses {[round(x, 4) for x in losses]}")
-    assert all(math.isfinite(x) for x in losses)
-    before = ops.launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    acc = tr.evaluate()
-    torch.cuda.synchronize()
-    per_eval = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    log(f"[3 eval] train/val/test acc {acc} in {time.time() - t0:.2f}s; launches {per_eval}")
-    assert all(0.0 <= a <= 1.0 for a in acc)
-    launches = ops.launch_counts()
-
-    # ---- 4. the path went through every kernel ----
-    log(f"[4 launches] main path: {launches}")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
 
     # ---- 5. kernels against their plain versions at the real shapes ----
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -290,6 +350,43 @@ def main() -> int:
         assert torch.equal(out, ref)
     err["vq_lookup"] = 0.0
 
+    # GAT kernels on the GAT batch's edges, random inputs at the real widths.
+    # Tolerance: f32 sums in another order (exp of the same logits on both
+    # sides), so 1e-5 relative to the largest |ref| of each output.
+    ge = runs["3 GAT"]["batch0"].edges
+    Rg = ge.num_rows
+
+    def gat_inputs(width):
+        return (torch.randn((Rg, width), generator=gen, device=dev),
+                torch.randn(Rg, generator=gen, device=dev),  # al (already / scale)
+                torch.randn(Rg, generator=gen, device=dev))  # ar
+
+    def hold(label, name, outs, refs):
+        torch.cuda.synchronize()
+        for i, (o, r) in enumerate(zip(outs, refs)):
+            if r is None:
+                assert o is None
+                continue
+            d = float((o - r).abs().max())
+            tol = 1e-5 * max(1.0, float(r.abs().max()))
+            log(f"[5 {name} {label}] output {i} {tuple(o.shape)} max|err| {d:.3g} (tol {tol:.3g})")
+            assert torch.isfinite(o).all() and d <= tol
+            err[name] = max(err.get(name, 0.0), d)
+
+    xg, al, ar = gat_inputs(C)
+    gat_fwd = (xg, ge.ell_row, ge.ell_col, ge.ell_val, al, ar, Rg)
+    for with_neg in (True, False):
+        hold(f"with_neg={with_neg}", "gat_aggregate", gat_aggregate(*gat_fwd, with_neg=with_neg),
+             gat_aggregate_plain(*gat_fwd, with_neg=with_neg))
+    gat_bwd = {}
+    for width in (C, 256):
+        xw, alw, arw = gat_inputs(width)
+        g_agg = torch.randn((Rg, width), generator=gen, device=dev)
+        g_rs = torch.randn(Rg, generator=gen, device=dev)
+        gat_bwd[width] = (xw, ge.t_ell_row, ge.t_ell_col, ge.t_ell_val, g_agg, g_rs, alw, arw, Rg)
+        hold(f"C={width}", "gat_backward", gat_backward(*gat_bwd[width]),
+             gat_backward_plain(*gat_bwd[width]))
+
     # ---- 6. times: kernel, plain version, library yardstick ----
     S, K = e0.ell_col.shape
     nnz_mask = e0.ell_val != 0
@@ -317,43 +414,56 @@ def main() -> int:
         f"dx rows={e0.b_rows} slots={tb}: {dx_ms:.4f} ms | {gpu}")
 
     emb1 = vq1.embedding.contiguous()
-    e2 = codeword_sqnorm(emb1)
 
-    def assign_library():
-        d = torch.baddbmm(e2[:, None, :], xn, emb1.transpose(1, 2), alpha=-2.0)
-        idx = d.argmin(2)
-        flat = (idx + torch.arange(nb, device=dev)[:, None] * M).reshape(-1)
-        v = valid.float().expand(nb, B_pad).reshape(-1)
-        cnt = torch.zeros(nb * M, device=dev).index_add_(0, flat, v)
-        sums = torch.zeros((nb * M, Kq), device=dev).index_add_(
-            0, flat, (xn * valid.float()[None, :, None]).reshape(-1, Kq))
-        return idx, cnt, sums
+    def assign_times(xn_, emb_):
+        """(times, exact ms, bound, its kind, exact bound, its kind) of kernel
+        2 on these inputs, against its plain version and the library
+        sequence (TF32 baddbmm + argmin + 2 x index_add_)."""
+        nb_, B_, K_ = xn_.shape
+        e2 = codeword_sqnorm(emb_)
 
-    t = {
-        "ms": cuda_time_ms(torch, lambda: fused_assign_branches(xn, emb1, valid, fast=True)),
-        "plain_ms": cuda_time_ms(
-            torch, lambda: fused_assign_branches_plain(xn, emb1, valid, fast=True), reps=5),
-        "library_ms": cuda_time_ms(torch, assign_library, reps=5),
-    }
-    exact_ms = cuda_time_ms(torch, lambda: fused_assign_branches(xn, emb1, valid, fast=False))
-    byts = nb * B_pad * Kq * 4 + nb * M * Kq * 4 + B_pad + nb * B_pad * 4 + nb * M * (Kq + 1) * 4
-    b_ms, b_by = bound(byts, 2 * nb * B_pad * M * Kq, BF16_FLOPS)
-    b_ms_exact, b_by_exact = bound(byts, 2 * nb * B_pad * M * Kq, F32_FLOPS)
+        def library():
+            d = torch.baddbmm(e2[:, None, :], xn_, emb_.transpose(1, 2), alpha=-2.0)
+            idx = d.argmin(2)
+            flat = (idx + torch.arange(nb_, device=dev)[:, None] * M).reshape(-1)
+            v = valid.float().expand(nb_, B_).reshape(-1)
+            cnt = torch.zeros(nb_ * M, device=dev).index_add_(0, flat, v)
+            sums = torch.zeros((nb_ * M, K_), device=dev).index_add_(
+                0, flat, (xn_ * valid.float()[None, :, None]).reshape(-1, K_))
+            return idx, cnt, sums
+
+        tt = {
+            "ms": cuda_time_ms(torch, lambda: fused_assign_branches(xn_, emb_, valid, fast=True)),
+            "plain_ms": cuda_time_ms(
+                torch, lambda: fused_assign_branches_plain(xn_, emb_, valid, fast=True), reps=5),
+            "library_ms": cuda_time_ms(torch, library, reps=5),
+        }
+        ex = cuda_time_ms(torch, lambda: fused_assign_branches(xn_, emb_, valid, fast=False))
+        byts = nb_ * B_ * K_ * 4 + nb_ * M * K_ * 4 + B_ + nb_ * B_ * 4 + nb_ * M * (K_ + 1) * 4
+        return (tt, ex, *bound(byts, 2 * nb_ * B_ * M * K_, BF16_FLOPS),
+                *bound(byts, 2 * nb_ * B_ * M * K_, F32_FLOPS))
+
+    t, exact_ms, b_ms, b_by, b_ms_exact, b_by_exact = assign_times(xn, emb1)
     kern["vq_assign"] = dict(
         source="vq_gnn_tpu_torch/csrc/vq_assign.cu",
         replaces="vq_gnn_tpu/ops/pallas_vq.py:140", **t, bound_ms=b_ms, bound_by=b_by)
     log(f"[6 vq_assign] fast nb={nb} B={B_pad} M={M} K={Kq}: {t} bound {b_ms:.4f} ms "
         f"({b_by}, bf16); exact {exact_ms:.4f} ms, bound {b_ms_exact:.4f} ms "
         f"({b_by_exact}, f32) | {gpu}")
+    # the single-branch TPU kernel (pallas_vq.py:33) is kernel 2 at nb = 1
+    t1, exact1, b1, by1, b1x, by1x = assign_times(xn[:1].contiguous(), emb1[:1].contiguous())
+    log(f"[6 vq_assign nb=1] (replaces vq_gnn_tpu/ops/pallas_vq.py:33) fast B={B_pad} M={M} "
+        f"K={Kq}: {t1} bound {b1:.4f} ms ({by1}, bf16); exact {exact1:.4f} ms, bound "
+        f"{b1x:.4f} ms ({by1x}, f32) | {gpu}")
 
     c0, fo, emb_out = vq0.c_indices, b0.fo_ids, vq0.embedding_output
     n = fo.shape[0]
-    ar = torch.arange(emb_out.shape[0], device=dev)[None, :]
+    ar_idx = torch.arange(emb_out.shape[0], device=dev)[None, :]
     t = {
         "ms": cuda_time_ms(torch, lambda: lookup_codewords(c0, fo, emb_out, fast=True)),
         "plain_ms": cuda_time_ms(
             torch, lambda: lookup_codewords_plain(c0, fo, emb_out, fast=True)),
-        "library_ms": cuda_time_ms(torch, lambda: emb_out[ar, c0[fo].long()]),
+        "library_ms": cuda_time_ms(torch, lambda: emb_out[ar_idx, c0[fo].long()]),
     }
     b_ms, b_by = bound(n * 8 + n * nb * 2 + emb_out.numel() * 4 + n * nb * Kq * 4, 0, F32_FLOPS)
     kern["vq_lookup"] = dict(
@@ -361,12 +471,57 @@ def main() -> int:
         replaces="vq_gnn_tpu/ops/pallas_vq.py:276", **t, bound_ms=b_ms, bound_by=b_by)
     log(f"[6 vq_lookup] fast n={n} nb={nb}: {t} bound {b_ms:.4f} ms ({b_by}) | {gpu}")
 
+    # GAT: no single PyTorch call computes an attention-weighted aggregate or
+    # its transposed backward, so there is no library yardstick
+    Sg, Kg = ge.ell_col.shape
+    Stg = ge.t_ell_col.shape[0]
+    nnz_g = int((ge.ell_val != 0).sum())
+    nnz_gt = int((ge.t_ell_val != 0).sum())
+    ell_bytes = Sg * 4 + 2 * Sg * Kg * 4
+    t = {
+        "ms": cuda_time_ms(torch, lambda: gat_aggregate(*gat_fwd, with_neg=True)),
+        "plain_ms": cuda_time_ms(torch, lambda: gat_aggregate_plain(*gat_fwd, with_neg=True),
+                                 reps=5),
+        "library_ms": None,
+    }
+    noneg_ms = cuda_time_ms(torch, lambda: gat_aggregate(*gat_fwd, with_neg=False))
+    # x, al, ar and the ELL in; agg, rowsum, aggn, rsn out; 2 accumulators x FMA
+    b_ms, b_by = bound(Rg * C * 4 + 2 * Rg * 4 + ell_bytes + 2 * (Rg * C * 4 + Rg * 4),
+                       4 * nnz_g * C, F32_FLOPS)
+    b_nn, b_nn_by = bound(Rg * C * 4 + 2 * Rg * 4 + ell_bytes + Rg * C * 4 + Rg * 4,
+                          2 * nnz_g * C, F32_FLOPS)
+    kern["gat_aggregate"] = dict(
+        source="vq_gnn_tpu_torch/csrc/gat_aggregate.cu",
+        replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms, bound_by=b_by)
+    log(f"[6 gat_aggregate] with_neg R={Rg} C={C} S={Sg} nnz={nnz_g}: {t} bound {b_ms:.4f} ms "
+        f"({b_by}); without the masked channels {noneg_ms:.4f} ms, bound {b_nn:.4f} ms "
+        f"({b_nn_by}); library_ms null: no single PyTorch call computes it | {gpu}")
+    tell_bytes = Stg * 4 + 2 * Stg * Kg * 4
+    bwd_t = {}
+    for width, args in gat_bwd.items():
+        tt = {
+            "ms": cuda_time_ms(torch, lambda: gat_backward(*args)),
+            "plain_ms": cuda_time_ms(torch, lambda: gat_backward_plain(*args), reps=5),
+            "library_ms": None,
+        }
+        # x, g_agg, g_rowsum, al, ar and the transposed ELL in; dx_agg, d_al
+        # out; per cell a dot and an FMA over C
+        bb, bb_by = bound(3 * Rg * width * 4 + 4 * Rg * 4 + tell_bytes, 4 * nnz_gt * width,
+                          F32_FLOPS)
+        bwd_t[width] = dict(**tt, bound_ms=bb, bound_by=bb_by)
+        log(f"[6 gat_backward] C={width} R={Rg} St={Stg} nnz={nnz_gt}: {tt} bound {bb:.4f} ms "
+            f"({bb_by}); library_ms null: no single PyTorch call computes it | {gpu}")
+    kern["gat_backward"] = dict(
+        source="vq_gnn_tpu_torch/csrc/gat_backward.cu",
+        replaces="vq_gnn_tpu/ops/pallas_ell.py:342 and vq_gnn_tpu/ops/pallas_ell.py:273",
+        **bwd_t[C])
+
     # ---- 7. small graph: GPU kernels vs CPU plain versions from one state ----
-    for conv in ("GCN", "SAGE"):
+    for conv in ("GCN", "SAGE", "GAT"):
         t0 = time.time()
         small = dict(conv_type=conv, num_parts=8, batch_size=4, test_batch_size=4,
                      matmul_precision="highest", vq_backend="pallas")
-        runs = {}
+        res = {}
         for device in ("cuda", "cpu"):
             cfg_s = flagship_cfg(Config, **small)
             gs, cs = synthetic_sbm(num_nodes=3000, num_classes=N_CLASSES,
@@ -375,8 +530,8 @@ def main() -> int:
             ts = NodeTrainer(gs, cfg_s, cs, cis, device=device)
             ts.run_init_sweep()
             step_losses = [ts.train_epoch(ep)[0] for ep in (1, 2)]
-            runs[device] = (step_losses, ts.predict_all())
-        (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+            res[device] = (step_losses, ts.predict_all())
+        (lg, pg), (lc, pc) = res["cuda"], res["cpu"]
         agree = float((pg.argmax(1) == pc.argmax(1)).mean())
         dl = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
         log(f"[7 small graph {conv}] losses cuda {lg} cpu {lc} (max rel diff {dl:.2e}); "
@@ -387,7 +542,7 @@ def main() -> int:
         assert dl < 1e-3 and agree >= 0.99
 
     out = []
-    for name in ("ell_aggregate", "vq_assign", "vq_lookup"):
+    for name in ("ell_aggregate", "vq_assign", "vq_lookup", "gat_aggregate", "gat_backward"):
         k = kern[name]
         out.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],

@@ -12,6 +12,12 @@ import torch
 
 from vq_gnn_tpu_torch.ops import _build
 from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+from vq_gnn_tpu_torch.ops.gat_kernels import (
+    gat_aggregate,
+    gat_aggregate_plain,
+    gat_backward,
+    gat_backward_plain,
+)
 from vq_gnn_tpu_torch.ops.spmm import build_ell_host
 from vq_gnn_tpu_torch.ops.vq_kernels import (
     fused_assign_branches,
@@ -75,6 +81,72 @@ def test_ell_aggregate_truncated_rows(dev):
     ref = ell_aggregate_plain(*args, b_rows)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+def _close_to_ref(out, ref):
+    """f32 sums in another order: rtol 1e-5 and atol 1e-5 x the largest |ref|."""
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+
+# GAT aggregate: the plain version's einsum + index_add_ against the kernel's
+# per-lane sequential sums (exp of the same logits on both sides)
+@pytest.mark.parametrize("with_neg", [True, False])
+@pytest.mark.parametrize(
+    "num_rows,E,K,C",
+    [(3000, 40000, 8, 128), (300, 2000, 8, 256), (517, 3000, 4, 36), (129, 900, 8, 7),
+     (200, 0, 8, 128)],
+)
+def test_gat_aggregate_matches_plain(dev, num_rows, E, K, C, with_neg):
+    er, ec, ev, x = _ell_case(num_rows, E, K, C, 4)
+    rng = np.random.RandomState(5)
+    al = (rng.randn(x.shape[0]) * 0.7).astype(np.float32)
+    ar = (rng.randn(num_rows) * 0.7).astype(np.float32)
+    args = [torch.as_tensor(a).to(dev) for a in (x, er, ec, ev, al, ar)]
+    out = gat_aggregate(*args, num_rows, with_neg=with_neg)
+    ref = gat_aggregate_plain(*args, num_rows, with_neg=with_neg)
+    torch.cuda.synchronize()
+    assert out[0].shape == (num_rows, C) and out[1].shape == (num_rows,)
+    for o, r in zip(out, ref):
+        if r is None:
+            assert o is None
+        else:
+            _close_to_ref(o, r)
+
+
+# GAT backward over a transposed ELL; C = 2000 needs more than 48 KB of
+# shared memory per block, C = 7 and 36 take the scalar path
+@pytest.mark.parametrize(
+    "num_rows,E,K,C",
+    [(3000, 40000, 8, 128), (700, 6000, 8, 256), (517, 3000, 4, 36), (129, 900, 8, 7),
+     (300, 2000, 8, 2000)],
+)
+def test_gat_backward_matches_plain(dev, num_rows, E, K, C):
+    er, ec, ev, x = _ell_case(num_rows, E, K, C, 6)
+    rng = np.random.RandomState(7)
+    g = rng.randn(num_rows, C).astype(np.float32)
+    g_rs = rng.randn(num_rows).astype(np.float32)
+    al = (rng.randn(num_rows) * 0.7).astype(np.float32)
+    ar = (rng.randn(num_rows) * 0.7).astype(np.float32)
+    args = [torch.as_tensor(a).to(dev) for a in (x, er, ec, ev, g, g_rs, al, ar)]
+    dx, d_al = gat_backward(*args, num_rows)
+    dx_r, d_al_r = gat_backward_plain(*args, num_rows)
+    torch.cuda.synchronize()
+    assert gat_backward.by_width[C] > 0
+    _close_to_ref(dx, dx_r)
+    _close_to_ref(d_al, d_al_r)
+
+
+def test_gat_wrappers_refuse_bad_input(dev):
+    er, ec, ev, x = _ell_case(50, 300, 8, 16, 8)
+    x, er, ec, ev = [torch.as_tensor(a).to(dev) for a in (x, er, ec, ev)]
+    al = torch.zeros(50, device=dev)
+    with pytest.raises(ValueError):  # ar must have one entry per output row
+        gat_aggregate(x, er, ec, ev, al, al[:10], 50)
+    with pytest.raises(ValueError):  # float64 cotangent
+        gat_backward(x, er, ec, ev, x.double(), al, al, al, 50)
+    with pytest.raises(ValueError):  # wider than the shared-memory limit
+        wide = torch.zeros((50, 8000), device=dev)
+        gat_backward(wide, er, ec, ev, wide, al, al, al, 50)
 
 
 def _assign_case(nb, B, M, K, seed):

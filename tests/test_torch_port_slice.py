@@ -1,8 +1,11 @@
 """The port's training slice against the JAX package, end to end on the CPU:
 the JAX-initialised state carried over by ``convert.state_from_numpy``, one
 layerwise init sweep, three training steps on identical batches, then eval.
-GCN and SAGE with skip, 2 layers, hidden 16, num_D=4, num_M=8, cluster sampler on a
-600-node SBM, dropout and dropbranch 0.
+GCN, SAGE and GAT with skip, 2 layers, hidden 16, num_D=4, num_M=8, cluster
+sampler on a 600-node SBM, dropout and dropbranch 0.  GAT's parameters include
+the attention vectors and their RMSprop ``nu``; its backward's closed-form
+d_ar holds to rtol 2e-4 on random data (``vq_gnn_tpu/ops/gat.py:120-124``),
+well inside the tolerances below.
 
 With the inter-layer BatchNorm on, the bias of a linear that feeds it has an
 exact gradient of 0 (BN subtracts the batch mean), so what each package
@@ -60,7 +63,7 @@ def _vq_close(js, ts, N):
 @pytest.mark.parametrize(
     "conv,backend,bn",
     [("GCN", "xla", True), ("GCN", "xla", False), ("SAGE", "xla", False),
-     ("GCN", "pallas", True)],
+     ("GCN", "pallas", True), ("GAT", "xla", False), ("GAT", "pallas", False)],
 )
 def test_slice_matches_jax(conv, backend, bn):
     jc = jcfg.Config(**_cfg_kw(conv, backend, bn))
@@ -116,22 +119,29 @@ def test_slice_matches_jax(conv, backend, bn):
 
     params = list(tr.state.model.parameters())
     nus = rmsprop_nu(tr.state.optimizer, params)
-    names = ["gnn_transform", "linear_skip"] + (["fc_sage"] if conv == "SAGE" else [])
+    expected = {"gnn_transform", "linear_skip"} | (
+        {"fc_sage"} if conv == "SAGE" else {"att_l", "att_r"} if conv == "GAT" else set())
     i = 0
     for l, layer in enumerate(tr.state.model.layers):
-        for name in names:  # parameters() order: weight, bias per linear
-            lin = getattr(layer, name)
-            for key, p in (("w", lin.weight), ("b", lin.bias)):
-                ref = np.asarray(jstate.params[l][name][key])
-                ref_nu = np.asarray(jstate.opt_nu[l][name][key])
-                if key == "w":
-                    ref, ref_nu = ref.T, ref_nu.T
-                assert p is params[i]
-                feeds_bn = bn and key == "b" and l < ms.num_layers - 1
-                if not feeds_bn:
-                    np.testing.assert_allclose(p.detach().numpy(), ref, atol=ATOL_STATE)
-                np.testing.assert_allclose(nus[i].numpy(), ref_nu, atol=ATOL_STATE)
-                i += 1
+        seen = set()
+        for pname, p in layer.named_parameters():  # parameters() order
+            name, _, key = pname.partition(".")
+            seen.add(name)
+            key = {"weight": "w", "bias": "b"}.get(key)
+            ref, ref_nu = jstate.params[l][name], jstate.opt_nu[l][name]
+            if key is not None:  # a linear: JAX keeps w as [in, out]
+                ref, ref_nu = ref[key], ref_nu[key]
+            ref, ref_nu = np.asarray(ref), np.asarray(ref_nu)
+            if key == "w":
+                ref, ref_nu = ref.T, ref_nu.T
+            assert p is params[i]
+            feeds_bn = bn and key == "b" and l < ms.num_layers - 1
+            if not feeds_bn:
+                np.testing.assert_allclose(p.detach().numpy(), ref, atol=ATOL_STATE,
+                                           err_msg=pname)
+            np.testing.assert_allclose(nus[i].numpy(), ref_nu, atol=ATOL_STATE, err_msg=pname)
+            i += 1
+        assert seen == expected
     assert i == len(params)
     bn_pairs = list(zip(tr.state.bn_state.var, jstate.bn_state.var))
     if not bn:

@@ -138,7 +138,6 @@ def check_ported(cfg: Config) -> None:
     """Raise for any setting whose port has not landed, so that no option is
     silently ignored (ROADMAP.md lists what is still to come)."""
     for what, unported in (
-        ("conv_type='GAT'", cfg.conv_type == "GAT"),
         (f"formulation={cfg.formulation!r}", cfg.formulation != "bbprime"),
         ("transformer_flag", cfg.transformer_flag),
         ("dropbranch", cfg.dropbranch > 0),

@@ -2,8 +2,9 @@
 
 ``state_from_numpy`` takes the JAX package's ``TrainState`` with every leaf
 as a numpy array (``jax.tree.map(np.asarray, state)``; nested dicts with the
-same keys work too) and builds the port's :class:`TrainState`: parameters,
-``vq_states``, ``bn_state`` and the RMSprop square averages ``nu``.
+same keys work too) and builds the port's :class:`TrainState`: parameters
+(linears and the GAT attention vectors), ``vq_states``, ``bn_state`` and the
+RMSprop square averages ``nu``.
 
 The JAX package stores a Linear weight ``w`` as [fan_in, fan_out]
 (``vq_gnn_tpu/nn/model.py:154-160``); ``nn.Linear`` keeps [out, in].  The
@@ -24,6 +25,7 @@ from vq_gnn_tpu_torch.train.optim import make_rmsprop
 from vq_gnn_tpu_torch.train.state import TrainState
 
 _LINEARS = ("gnn_transform", "linear_skip", "fc_sage")
+_VECTORS = ("att_l", "att_r")  # GAT, [c_in + 1] in both packages
 
 
 def _get(obj, name):
@@ -49,6 +51,20 @@ def vq_state_from_numpy(s_np, device) -> VQState:
     })
 
 
+def _layer_tensors(layer, layer_np, device):
+    """(parameter, its value from ``layer_np``) for every parameter of one
+    port layer."""
+    out = []
+    for name in _LINEARS:
+        if hasattr(layer, name):
+            w, b = _linear_tensors(layer_np, name, device)
+            out += [(getattr(layer, name).weight, w), (getattr(layer, name).bias, b)]
+    for name in _VECTORS:
+        if hasattr(layer, name):
+            out.append((getattr(layer, name), _t(layer_np[name], device)))
+    return out
+
+
 def state_from_numpy(state_np, ms: ModelStatic, lr: float, device) -> TrainState:
     device = torch.device(device)
     params_np = _get(state_np, "params")
@@ -56,19 +72,12 @@ def state_from_numpy(state_np, ms: ModelStatic, lr: float, device) -> TrainState
     model = LowRankGNN(ms, device=device)
     with torch.no_grad():
         for l, layer in enumerate(model.layers):
-            for name in _LINEARS:
-                if hasattr(layer, name):
-                    w, b = _linear_tensors(params_np[l], name, device)
-                    getattr(layer, name).weight.copy_(w)
-                    getattr(layer, name).bias.copy_(b)
+            for p, v in _layer_tensors(layer, params_np[l], device):
+                p.copy_(v)
     opt = make_rmsprop(model.parameters(), lr)
     for l, layer in enumerate(model.layers):
-        for name in _LINEARS:
-            if hasattr(layer, name):
-                w_nu, b_nu = _linear_tensors(nu_np[l], name, device)
-                lin = getattr(layer, name)
-                opt.state[lin.weight] = {"step": torch.tensor(0.0), "square_avg": w_nu}
-                opt.state[lin.bias] = {"step": torch.tensor(0.0), "square_avg": b_nu}
+        for p, nu in _layer_tensors(layer, nu_np[l], device):
+            opt.state[p] = {"step": torch.tensor(0.0), "square_avg": nu}
 
     vq_states = [vq_state_from_numpy(s, device) for s in _get(state_np, "vq_states")]
     bn_np = _get(state_np, "bn_state")

@@ -29,48 +29,9 @@
 // - padding columns equal the row count of x, one past its end: they clamp
 //   to the last row like JAX's mode="clip", so nothing is read out of bounds.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ell_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-
-// ptr[r] = first slot whose (clamped) row is >= r, for r in [0, num_rows].
-__global__ void row_offsets_kernel(const int* __restrict__ row, int64_t S,
-                                   int64_t num_rows, int* __restrict__ ptr) {
-  int64_t s = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (s > S) return;
-  int64_t prev = (s == 0) ? -1 : min64(row[s - 1], num_rows);
-  int64_t cur = (s == S) ? num_rows : min64(row[s], num_rows);
-  for (int64_t r = prev + 1; r <= cur; ++r) ptr[r] = (int)s;
-}
-
-template <int VEC>
-struct Vec;
-
-template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static T load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
-  __device__ static void fma(T& acc, float v, const T& t) {
-    acc.x += v * t.x;
-    acc.y += v * t.y;
-    acc.z += v * t.z;
-    acc.w += v * t.w;
-  }
-  __device__ static void store(float* p, const T& t) { *reinterpret_cast<float4*>(p) = t; }
-};
-
-template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.f; }
-  __device__ static T load(const float* p) { return __ldg(p); }
-  __device__ static void fma(T& acc, float v, const T& t) { acc += v * t; }
-  __device__ static void store(float* p, const T& t) { *p = t; }
-};
 
 constexpr int kUnroll = 4;  // x rows in flight per lane
 
@@ -129,11 +90,10 @@ extern "C" int vq_ell_aggregate(const float* x, int64_t x_rows, int C, const int
                                 int64_t num_rows, int* ptr, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_rows <= 0 || C <= 0) return (int)cudaGetLastError();
-  row_offsets_kernel<<<(unsigned)((S + 1 + 255) / 256), 256, 0, st>>>(ell_row, S, num_rows, ptr);
+  launch_row_offsets(ell_row, S, num_rows, ptr, st);
   const int threads = 256;  // 8 rows per block
   const unsigned blocks = (unsigned)((num_rows * 32 + threads - 1) / threads);
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec4 = C % 4 == 0 && aligned16(x) && aligned16(out);
   if (vec4) {
     ell_aggregate_kernel<4><<<blocks, threads, 0, st>>>(x, x_rows, C, ptr, ell_col, ell_val,
                                                         K, num_rows, out);

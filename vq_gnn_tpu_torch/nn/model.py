@@ -1,8 +1,10 @@
 """LowRankGNN — the VQ-GNN model (port of ``vq_gnn_tpu/nn/model.py``, the
-B + B' formulation for GCN and SAGE).
+B + B' formulation for GCN, SAGE and GAT).
 
-- ``LowRankGNN``       an ``nn.Module`` holding the per-layer linears
-- ``init_params``      torch-default Linear init from a ``torch.Generator``
+- ``LowRankGNN``       an ``nn.Module`` holding the per-layer linears (and the
+                       GAT attention vectors)
+- ``init_params``      torch-default Linear init (PyG glorot for the attention
+                       vectors) from a ``torch.Generator``
 - ``layer_forward``    one LowRankGNNLayer (``models.py v2:144-231``)
 - ``model_forward``    the stack; returns per-layer inputs + info_backward
 
@@ -25,6 +27,7 @@ from torch import nn
 
 from vq_gnn_tpu_torch.config import Config, check_ported, resolve_vq_backend
 from vq_gnn_tpu_torch.nn.vq import VQParams, VQState, lookup
+from vq_gnn_tpu_torch.ops.gat import explosion_scale, gat_conv_ell
 from vq_gnn_tpu_torch.ops.spmm import spmm
 from vq_gnn_tpu_torch.ops.vq_ops import masked_mean_var
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
@@ -84,7 +87,8 @@ def model_static(
 # --------------------------------------------------------------------------
 class LowRankGNN(nn.Module):
     """Per layer: ``gnn_transform`` (+ ``fc_sage`` for SAGE, ``linear_skip``
-    with ``skip``).  Weights are [out, in] as in ``nn.Linear``."""
+    with ``skip``, the attention vectors ``att_l``/``att_r`` [c_in + 1] for
+    GAT).  Weights are [out, in] as in ``nn.Linear``."""
 
     def __init__(self, ms: ModelStatic, device=None):
         super().__init__()
@@ -97,20 +101,34 @@ class LowRankGNN(nn.Module):
                 layer.linear_skip = nn.Linear(c_in, c_out, device=device)
             if ms.conv_type == "SAGE":
                 layer.fc_sage = nn.Linear(c_in, c_out, device=device)
+            if ms.conv_type == "GAT":
+                layer.att_l = nn.Parameter(torch.empty(c_in + 1, device=device))
+                layer.att_r = nn.Parameter(torch.empty(c_in + 1, device=device))
             self.layers.append(layer)
 
 
 def init_params(model: LowRankGNN, generator: torch.Generator) -> LowRankGNN:
-    """torch.nn.Linear's default: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    drawn from ``generator`` (a CPU generator; values copied to the device)."""
+    """torch.nn.Linear's default: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in));
+    then PyG glorot on each GAT attention vector [c]: U(-a, a), a = sqrt(6 /
+    (1 + c)) (``vq_gnn_tpu/nn/model.py:163-193``).  Drawn from ``generator``
+    (a CPU generator; values copied to the device)."""
+
+    def draw(p, bound):
+        t = torch.empty(p.shape)
+        nn.init.uniform_(t, -bound, bound, generator=generator)
+        p.copy_(t)
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
                 bound = 1.0 / math.sqrt(mod.in_features)
                 for p in (mod.weight, mod.bias):
-                    t = torch.empty(p.shape)
-                    nn.init.uniform_(t, -bound, bound, generator=generator)
-                    p.copy_(t)
+                    draw(p, bound)
+        for layer in model.layers:
+            for name in ("att_l", "att_r"):
+                if hasattr(layer, name):
+                    p = getattr(layer, name)
+                    draw(p, math.sqrt(6.0 / (1.0 + p.shape[0])))
     return model
 
 
@@ -175,10 +193,12 @@ def layer_forward(
     ms: ModelStatic,
     x: torch.Tensor,  # [B_pad, C_in]
     batch: PaddedBatch,
-    probe: Optional[torch.Tensor],  # [B_pad, C_in] or None
+    probe: Optional[torch.Tensor],  # [B_pad, C_in (+1 for GAT)] or None
     warm_up_rate,
 ):
-    """One LowRankGNNLayer forward (``models.py v2:144-231``), GCN or SAGE.
+    """One LowRankGNNLayer forward (``models.py v2:144-231``), GCN, SAGE or
+    GAT.  A GAT probe is [B_pad, C_in + 1]: its last column lands on the
+    ones-column normaliser before the division.
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     B_pad = batch.B_pad
@@ -189,13 +209,29 @@ def layer_forward(
     grad_fo = (grad_fo * fo_mask).detach()
 
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, C_in]
-    x_out = spmm(batch.edges, x_input)
-
-    # the probe is the reference's per-branch grad hook point
-    x_out_B = x_out[:B_pad]
-    if probe is not None:
-        x_out_B = x_out_B + probe
-    x_out_fo = x_out[B_pad:]
+    if ms.conv_type == "GAT":
+        # logits of the (C+1)-wide reference input: the C-wide product plus
+        # the ones-column bias att[C]; they only set the Trick-1 scale here,
+        # the conv forms its own per-node logits from the same parameters
+        C = x_input.shape[1]
+        al = x_input @ layer.att_l[:C] + layer.att_l[C]
+        ar = x_input @ layer.att_r[:C] + layer.att_r[C]
+        valid_all = torch.cat([batch.valid_B, batch.valid_fo])
+        scale = explosion_scale(al, ar, valid_all)  # Trick 1 (convs.py v2:209)
+        x_out, norm_col = gat_conv_ell(batch.edges, x_input, layer.att_l, layer.att_r, scale)
+        x_out_B, norm_B = x_out[:B_pad], norm_col[:B_pad]
+        if probe is not None:  # the reference hook point, (C+1) wide
+            x_out_B = x_out_B + probe[:, :C]
+            norm_B = norm_B + probe[:, C:]
+        # ones-column normalisation of the batch rows (models.py v2:187-189)
+        x_out_B = x_out_B / (norm_B + 1e-16)
+    else:
+        x_out = spmm(batch.edges, x_input)
+        # the probe is the reference's per-branch grad hook point
+        x_out_B = x_out[:B_pad]
+        if probe is not None:
+            x_out_B = x_out_B + probe
+    x_out_fo = x_out[B_pad:]  # unnormalised, as in the reference
 
     # gradient recovery term (models.py v2:198-200)
     info_backward = (x_out_fo * grad_fo * warm_up_rate).sum()
@@ -249,8 +285,10 @@ def model_forward(
 
 
 def probe_shapes(ms: ModelStatic, B_pad: int) -> List[Tuple[int, ...]]:
-    """Conv-output shapes per layer: [B_pad, C_in] (no GAT ones column)."""
-    return [(B_pad, ms.channels[l]) for l in range(ms.num_layers)]
+    """Conv-output shapes per layer: [B_pad, C_in] (+1 for the GAT ones
+    column)."""
+    extra = 1 if ms.conv_type == "GAT" else 0
+    return [(B_pad, ms.channels[l] + extra) for l in range(ms.num_layers)]
 
 
 def zero_probes(ms: ModelStatic, B_pad: int, device) -> List[torch.Tensor]:

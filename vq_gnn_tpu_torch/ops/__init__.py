@@ -1,16 +1,20 @@
 """Device ops: the CUDA kernels and their plain PyTorch versions.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``;
-:func:`launch_counts` / :func:`reset_launch_counts` read and zero them all.
+:func:`launch_counts` / :func:`reset_launch_counts` read and zero them all
+(``gat_backward`` also counts them per width C, in ``by_width``).
 """
 
 from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
+from vq_gnn_tpu_torch.ops.gat_kernels import gat_aggregate, gat_backward
 from vq_gnn_tpu_torch.ops.vq_kernels import fused_assign_branches, lookup_codewords
 
 KERNELS = {
     "ell_aggregate": ell_aggregate,
     "vq_assign": fused_assign_branches,
     "vq_lookup": lookup_codewords,
+    "gat_aggregate": gat_aggregate,
+    "gat_backward": gat_backward,
 }
 
 
@@ -21,6 +25,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    gat_backward.by_width.clear()
 
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]

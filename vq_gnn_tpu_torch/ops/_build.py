@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``vq_gnn_tpu_torch/_build/lib<name>-<hash>.so`` (git-ignored), loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited kernel
-is rebuilt and a built one is reused.  All missing libraries build at once,
+``ctypes``.  The hash covers the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited kernel is rebuilt and a built one is reused.  All missing libraries build at once,
 one ``nvcc`` process per source, at the first call of any kernel wrapper.
 Nothing builds at import: the CPU tests import every module.
 """
@@ -22,7 +22,7 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ell_aggregate", "vq_assign", "vq_lookup")
+SOURCES = ("ell_aggregate", "vq_assign", "vq_lookup", "gat_aggregate", "gat_backward")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,9 +42,12 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{h}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all() -> Dict[str, str]:

@@ -1,0 +1,138 @@
+"""GAT edge attention over the slot-ELL (port of ``vq_gnn_tpu/ops/gat.py``,
+the single-K fused path of the B + B' formulation).
+
+Reference semantics (``vq_gnn_v2/convs.py:165-266`` + ``utils/vq_softmax.py``):
+
+- per-node logits ``alpha_l = x @ att_l``, ``alpha_r = x @ att_r`` over the
+  (C+1)-wide input that carries the appended ones column, here kept as the
+  bias ``att[C]`` so that the feature matrix stays C wide;
+- "Trick 1": both divided by the global explosion guard
+  ``scale = sqrt(max(alpha_l)^2 + 1) * sqrt(max(alpha_r)^2 + 1)``;
+- per-edge weight: the unnormalised ``exp(leaky_relu(al[src] + ar[dst]))``
+  times the row-normalised adjacency value ("Trick 2");
+- the ones column becomes ``rowsum``, the normaliser the model divides by.
+
+Convention: row = destination, col = source.  :func:`gat_conv_ell` is a
+``torch.autograd.Function`` whose forward is kernel 4 and whose backward is
+kernel 5 over the transposed ELL (``ops/gat_kernels.py``); ``d_ar`` and
+``d_scale`` have closed forms over the forward's aggregates.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vq_gnn_tpu_torch.config import not_ported
+from vq_gnn_tpu_torch.ops.gat_kernels import NEGATIVE_SLOPE, gat_aggregate, gat_backward
+from vq_gnn_tpu_torch.ops.spmm import Edges
+
+__all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_ell",
+           "gat_conv_ell_mh"]
+
+
+def attention_logits(x, att_l, att_r):
+    """Per-node logits for heads=1: x [n, C], att_* [C] -> ([n], [n])."""
+    return x @ att_l, x @ att_r
+
+
+def explosion_scale(alpha_l, alpha_r, valid=None):
+    """Trick 1 scale.  ``valid`` masks padded rows out of the global max."""
+    if valid is not None:
+        # masked_fill takes the -inf as a scalar: a tensor made from it on the
+        # card would be a host-to-device copy, which synchronises the stream
+        ml = alpha_l.masked_fill(~valid, float("-inf")).max()
+        mr = alpha_r.masked_fill(~valid, float("-inf")).max()
+    else:
+        ml, mr = alpha_l.max(), alpha_r.max()
+    return torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)
+
+
+def _gat_d_ar_closed_form(g_agg, g_rowsum, agg, rowsum, aggn, rsn):
+    """d_ar per node from row-local forward aggregates (no per-cell work):
+    sum over the cells of r of g_ev * ev * slope'(a) = <g_agg, agg> +
+    g_rs * rowsum - (1 - slope) * (<g_agg, aggn> + g_rs * rsn).
+
+    The two terms nearly cancel where almost all of a row's logits are <= 0,
+    so this is less accurate than a per-cell sum there; on random data it
+    holds to rtol 2e-4 (``vq_gnn_tpu/ops/gat.py:115-133``)."""
+    base = (g_agg * agg).sum(1) + g_rowsum * rowsum
+    negp = (g_agg * aggn).sum(1) + g_rowsum * rsn
+    return base - (1.0 - NEGATIVE_SLOPE) * negp
+
+
+def _node_logit(x, att, scale):
+    C = x.shape[1]
+    return (x @ att[:C] + att[C]) / scale
+
+
+def _gat_forward(edges: Edges, x, att_l, att_r, scale, with_neg: bool):
+    """(agg [R, C], rowsum [R], aggn, rsn, al_node [R], ar_node [R])."""
+    al_node = _node_logit(x, att_l, scale)
+    ar_node = _node_logit(x, att_r, scale)
+    agg, rowsum, aggn, rsn = gat_aggregate(
+        x, edges.ell_row, edges.ell_col, edges.ell_val, al_node, ar_node, edges.num_rows,
+        with_neg=with_neg,
+    )
+    return agg, rowsum, aggn, rsn, al_node, ar_node
+
+
+class _GATConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, att_l, att_r, scale, edges: Edges):
+        agg, rowsum, aggn, rsn, al_node, ar_node = _gat_forward(
+            edges, x, att_l, att_r, scale, with_neg=True
+        )
+        ctx.edges = edges
+        ctx.save_for_backward(x, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_node)
+        return agg, rowsum[:, None]
+
+    @staticmethod
+    def backward(ctx, g_agg, g_rowsum):
+        e: Edges = ctx.edges
+        x, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_node = ctx.saved_tensors
+        C = x.shape[1]
+        g_agg = g_agg.contiguous()
+        g_rs = g_rowsum[:, 0].contiguous()
+        # transposed layout: dx_agg and d_al for every row (B' rows carry logits)
+        dx_agg, d_al = gat_backward(
+            x, e.t_ell_row, e.t_ell_col, e.t_ell_val, g_agg, g_rs, al_node, ar_node, e.num_rows
+        )
+        d_ar = _gat_d_ar_closed_form(g_agg, g_rs, agg, rowsum, aggn, rsn)
+        # d_scale = -sum(d_a * a) / scale with a = al[col] + ar[row]: the cell
+        # sum separates into the per-node reductions
+        d_scale = -(al_node @ d_al + ar_node @ d_ar) / scale
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = dx_agg + d_al[:, None] * (att_l[None, :C] / scale) + d_ar[:, None] * (
+                att_r[None, :C] / scale
+            )
+        d_attl = torch.cat([(d_al @ x) / scale, (d_al.sum() / scale)[None]])
+        d_attr = torch.cat([(d_ar @ x) / scale, (d_ar.sum() / scale)[None]])
+        return dx, d_attl, d_attr, d_scale, None
+
+
+def gat_conv_ell(edges: Edges, x, att_l, att_r, scale):
+    """Attention-weighted slot-ELL aggregation -> (agg [R, C], rowsum [R, 1]).
+
+    Per edge ``exp(leaky_relu(al[col] + ar[row])) * val`` with the node logits
+    ``al = (x @ att_l[:C] + att_l[C]) / scale`` (and ``ar`` from ``att_r``),
+    summed over rows; ``rowsum`` is the ones-column normaliser.  x has one
+    row per ELL row (``edges.num_rows``); scale is a 0-dim tensor.
+    Differentiable in x, att_l, att_r and scale; without a gradient to take,
+    the forward skips the masked channels that only the backward reads."""
+    if edges.ell_row is None:  # mixed-K stops earlier, in config.check_ported
+        raise not_ported("GAT over a layout other than the single-K slot-ELL")
+    if x.shape[0] != edges.num_rows:
+        raise ValueError(f"x has {x.shape[0]} rows, the ELL {edges.num_rows}")
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, att_l, att_r, scale)
+    ):
+        return _GATConv.apply(x, att_l, att_r, scale, edges)
+    agg, rowsum, _, _, _, _ = _gat_forward(edges, x, att_l, att_r, scale, with_neg=False)
+    return agg, rowsum[:, None]
+
+
+def gat_conv_ell_mh(edges: Edges, x_g, al, ar):
+    """The per-branch GAT conv of the B + M formulation
+    (``vq_gnn_tpu/ops/gat.py:gat_conv_ell_mh``)."""
+    raise not_ported("the multi-head GAT conv of formulation='bm' (gat_conv_ell_mh)")

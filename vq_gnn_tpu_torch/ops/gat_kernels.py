@@ -1,0 +1,190 @@
+"""Kernels 4 and 5: the GAT attention aggregate and its transposed backward,
+each with its plain PyTorch version.
+
+Both take the per-node logits ``al = (x @ att_l[:C] + att_l[C]) / scale``
+and ``ar = (x @ att_r[:C] + att_r[C]) / scale``; a cell of row r and column
+c has ``a = al[c] + ar[r]`` and weight ``ev = exp(leaky_relu(a, 0.2)) * val``.
+
+- ``gat_aggregate(x [Rx,C], ell_row, ell_col, ell_val, al [Rx], ar [R], R,
+  with_neg)`` -> (agg [R,C], rowsum [R], aggn [R,C] | None, rsn [R] | None):
+  ``agg[r] = sum ev * x[col]``, ``rowsum[r] = sum ev``, and with ``with_neg``
+  the same sums over the cells with ``a <= 0`` (``csrc/gat_aggregate.cu``,
+  replacing ``vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel(gat=True)``).
+- ``gat_backward(x [R,C], t_ell_row, t_ell_col, t_ell_val, g_agg [Rg,C],
+  g_rowsum [Rg], al [R], ar [Rg], R)`` -> (dx_agg [R,C], d_al [R]) over the
+  transposed ELL (row = source s, column = destination d, ``a = al[s] +
+  ar[d]``): ``dx_agg[s] = sum ev * g_agg[d]`` and ``d_al[s] = sum (<g_agg[d],
+  x[s]> + g_rowsum[d]) * ev * slope'(a)`` (``csrc/gat_backward.cu``,
+  replacing ``pallas_ell.py:_make_bwd_kernel_merged`` and
+  ``_make_bwd_kernel``).
+
+Slots are sorted by row; rows >= R are dropped; columns clip to the rows of
+the gathered table (JAX's ``mode='clip'``).  On CPU tensors each wrapper runs
+its plain version; on CUDA tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from vq_gnn_tpu_torch.ops import _build
+
+NEGATIVE_SLOPE = 0.2  # PyG GATConv default (reference convs.py v2:131)
+MAX_BWD_C = 7264  # gat_backward keeps 2*C floats per warp in 227 KB of shared memory
+
+
+def _cells(ell_row, ell_col, ell_val, row_logit, col_logit, n_rows: int, n_cols: int):
+    """Per-cell (clamped cols, a, ev) of a slot-ELL, with a = row_logit at the
+    slot's row + col_logit at the cell's column."""
+    rows = ell_row.long().clamp(0, n_rows - 1)
+    cols = ell_col.long().clamp(0, n_cols - 1)
+    a = row_logit[rows][:, None] + col_logit[cols]
+    ev = torch.exp(F.leaky_relu(a, NEGATIVE_SLOPE)) * ell_val
+    return cols, a, ev
+
+
+def _segsum(part, ell_row, num_rows: int):
+    """Sorted-row segment sum; slots of rows >= num_rows are dropped."""
+    out = part.new_zeros((num_rows + 1,) + tuple(part.shape[1:]))
+    out.index_add_(0, ell_row.long().clamp(0, num_rows), part)
+    return out[:num_rows]
+
+
+def gat_aggregate_plain(x, ell_row, ell_col, ell_val, al, ar, num_rows: int,
+                        with_neg: bool = True):
+    """Plain version of kernel 4: the arithmetic of the XLA path of
+    ``vq_gnn_tpu/ops/gat.py:_gat_conv_fwd_impl`` (gather, ev-weighted
+    K-reduce, sorted segment sums)."""
+    S, K = ell_col.shape
+    C = x.shape[1]
+    # the row side is ar (per output row), the column side al
+    cols, a, ev = _cells(ell_row, ell_col, ell_val, ar, al, num_rows, x.shape[0])
+    nbrs = x.index_select(0, cols.reshape(-1)).reshape(S, K, C)
+    agg = _segsum((ev[:, :, None] * nbrs).sum(1), ell_row, num_rows)
+    rowsum = _segsum(ev.sum(1), ell_row, num_rows)
+    if not with_neg:
+        return agg, rowsum, None, None
+    evn = ev * (a <= 0)
+    aggn = _segsum((evn[:, :, None] * nbrs).sum(1), ell_row, num_rows)
+    rsn = _segsum(evn.sum(1), ell_row, num_rows)
+    return agg, rowsum, aggn, rsn
+
+
+def gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar,
+                       num_rows: int):
+    """Plain version of kernel 5: the arithmetic of the XLA transposed
+    recompute in ``vq_gnn_tpu/ops/gat.py:_gat_conv_vjp_bwd``."""
+    St, K = t_ell_col.shape
+    C = x.shape[1]
+    dst, a, ev = _cells(t_ell_row, t_ell_col, t_ell_val, al, ar, num_rows, g_agg.shape[0])
+    g3 = g_agg.index_select(0, dst.reshape(-1)).reshape(St, K, C)
+    x_rows = x.index_select(0, t_ell_row.long().clamp(0, num_rows - 1))
+    g_ev = (g3 * x_rows[:, None, :]).sum(-1) + g_rowsum[dst]
+    d_a = g_ev * ev * torch.where(a > 0, 1.0, NEGATIVE_SLOPE)
+    dx_agg = _segsum((ev[:, :, None] * g3).sum(1), t_ell_row, num_rows)
+    d_al = _segsum(d_a.sum(1), t_ell_row, num_rows)
+    return dx_agg, d_al
+
+
+_VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_FWD_ARGTYPES = [_VP, _I64, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _I64, _I32,
+                 _VP, _VP, _VP, _VP, _VP, _VP]
+_BWD_ARGTYPES = [_VP, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _I64, _VP, _I64,
+                 _VP, _VP, _VP, _VP]
+
+
+def _check(cond: bool, kernel: str, msg: str):
+    if not cond:
+        raise ValueError(f"{kernel}: {msg}")
+
+
+def _check_tensors(kernel: str, dev, specs):
+    """Each (name, tensor, dtype, shape) must be a contiguous tensor of that
+    type and shape on ``dev``."""
+    for name, t, dt, shape in specs:
+        _check(t.device == dev, kernel, f"{name} is on {t.device}, expected {dev}")
+        _check(t.dtype == dt and tuple(t.shape) == tuple(shape) and t.is_contiguous(), kernel,
+               f"{name} must be contiguous {dt} of shape {tuple(shape)}, got "
+               f"{t.dtype} {tuple(t.shape)}")
+
+
+def _ell_specs(prefix, row, col, val):
+    S, K = col.shape
+    return [(f"{prefix}row", row, torch.int32, (S,)), (f"{prefix}col", col, torch.int32, (S, K)),
+            (f"{prefix}val", val, torch.float32, (S, K))]
+
+
+def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg: bool = True):
+    """Kernel 4 for CUDA tensors, its plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gat_aggregate_plain(x, ell_row, ell_col, ell_val, al, ar, num_rows, with_neg)
+    k = "gat_aggregate"
+    dev = x.device
+    _check(dev.type == "cuda", k, f"unsupported device {dev}")
+    _check(x.dim() == 2 and x.shape[0] >= 1, k, "x must be [rows >= 1, C]")
+    Rx, C = x.shape
+    S, K = ell_col.shape
+    _check_tensors(k, dev, [("x", x, torch.float32, (Rx, C)),
+                            *_ell_specs("ell_", ell_row, ell_col, ell_val),
+                            ("al", al, torch.float32, (Rx,)),
+                            ("ar", ar, torch.float32, (num_rows,))])
+    agg = torch.empty((num_rows, C), dtype=torch.float32, device=dev)
+    rowsum = torch.empty((num_rows,), dtype=torch.float32, device=dev)
+    aggn = torch.empty_like(agg) if with_neg else None
+    rsn = torch.empty_like(rowsum) if with_neg else None
+    ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _build.function("gat_aggregate", "vq_gat_aggregate", _FWD_ARGTYPES)(
+        x.data_ptr(), Rx, C, ell_row.data_ptr(), ell_col.data_ptr(), ell_val.data_ptr(), S, K,
+        al.data_ptr(), ar.data_ptr(), num_rows, int(with_neg), ptr.data_ptr(), agg.data_ptr(),
+        rowsum.data_ptr(), aggn.data_ptr() if with_neg else None,
+        rsn.data_ptr() if with_neg else None, stream,
+    )
+    _build.check(rc, k)
+    gat_aggregate.launches += 1
+    return agg, rowsum, aggn, rsn
+
+
+def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, num_rows: int):
+    """Kernel 5 for CUDA tensors, its plain version for CPU tensors.  Counts
+    its launches per width C in ``gat_backward.by_width``."""
+    if x.device.type == "cpu":
+        return gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar,
+                                  num_rows)
+    k = "gat_backward"
+    dev = x.device
+    _check(dev.type == "cuda", k, f"unsupported device {dev}")
+    _check(x.dim() == 2 and g_agg.dim() == 2 and g_agg.shape[0] >= 1, k,
+           "x [R, C] and g_agg [rows >= 1, C] expected")
+    C = x.shape[1]
+    Rg = g_agg.shape[0]
+    _check(1 <= C <= MAX_BWD_C, k, f"C must be in [1, {MAX_BWD_C}], got {C}")
+    St, K = t_ell_col.shape
+    _check_tensors(k, dev, [("x", x, torch.float32, (num_rows, C)),
+                            *_ell_specs("t_ell_", t_ell_row, t_ell_col, t_ell_val),
+                            ("g_agg", g_agg, torch.float32, (Rg, C)),
+                            ("g_rowsum", g_rowsum, torch.float32, (Rg,)),
+                            ("al", al, torch.float32, (num_rows,)),
+                            ("ar", ar, torch.float32, (Rg,))])
+    dx = torch.empty((num_rows, C), dtype=torch.float32, device=dev)
+    d_al = torch.empty((num_rows,), dtype=torch.float32, device=dev)
+    ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _build.function("gat_backward", "vq_gat_backward", _BWD_ARGTYPES)(
+        x.data_ptr(), C, t_ell_row.data_ptr(), t_ell_col.data_ptr(), t_ell_val.data_ptr(), St, K,
+        g_agg.data_ptr(), g_rowsum.data_ptr(), ar.data_ptr(), Rg, al.data_ptr(), num_rows,
+        ptr.data_ptr(), dx.data_ptr(), d_al.data_ptr(), stream,
+    )
+    _build.check(rc, k)
+    gat_backward.launches += 1
+    gat_backward.by_width[C] += 1
+    return dx, d_al
+
+
+gat_aggregate.launches = 0
+gat_backward.launches = 0
+gat_backward.by_width = collections.Counter()
