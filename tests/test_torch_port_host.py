@@ -144,7 +144,7 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(conv_type="GAT", ell_Kt=4), dict(formulation="bm"), dict(ell_Kt=4),
+    [dict(conv_type="GAT", ell_Kt=4), dict(formulation="bm", exact_minibatch=True), dict(ell_Kt=4),
      dict(spmm_backend="coo"), dict(transformer_flag=True, formulation="bm"), dict(dropbranch=0.5),
      dict(kmeans_init=True), dict(compute_dtype="bfloat16"), dict(vq_backend="scan")],
 )

@@ -1,7 +1,10 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the plain versions of kernels 8-10 against the JAX package's Pallas
+kernels in interpret mode, on the CPU.
 
-Every test here needs an NVIDIA GPU and nvcc and skips without them.  On a
-machine with a GPU but without JAX, run them without the JAX conftest:
+The tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip without them;
+the JAX comparisons skip where JAX is not installed.  On a machine with a GPU
+but without JAX, run them without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_kernels.py -q
 """
@@ -18,6 +21,14 @@ from vq_gnn_tpu_torch.ops.gat_kernels import (
     gat_backward,
     gat_backward_plain,
 )
+from vq_gnn_tpu_torch.ops.rev_ell import build_rev_ell, pad_rev_ell
+from vq_gnn_tpu_torch.ops.rev_kernels import (
+    rev_backward,
+    rev_forward,
+    rev_recovery_info,
+    rev_recovery_info_plain,
+)
+from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain
 from vq_gnn_tpu_torch.ops.spmm import build_ell_host
 from vq_gnn_tpu_torch.ops.vq_kernels import (
     fused_assign_branches,
@@ -26,7 +37,7 @@ from vq_gnn_tpu_torch.ops.vq_kernels import (
     lookup_codewords_plain,
 )
 
-pytestmark = pytest.mark.cuda
+cuda = pytest.mark.cuda
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +66,7 @@ def _ell_case(num_rows, E, K, C, seed, x_rows=None, S_extra=37):
 
 # ELL aggregate: summation order differs (per-lane sequential vs einsum +
 # index_add_), so f32 round-off: rtol 1e-5 and atol 1e-5 x the row's scale.
+@cuda
 @pytest.mark.parametrize(
     "num_rows,E,K,C",
     [(3000, 40000, 8, 128), (517, 3000, 4, 36), (129, 900, 8, 7), (200, 0, 8, 128)],
@@ -69,6 +81,7 @@ def test_ell_aggregate_matches_plain(dev, num_rows, E, K, C):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * max(1.0, float(ref.abs().max())))
 
 
+@cuda
 def test_ell_aggregate_truncated_rows(dev):
     """The backward's form: a prefix of the transposed slots with rows
     clamped to b_rows (dropped), out rows = b_rows, x longer than out."""
@@ -90,6 +103,7 @@ def _close_to_ref(out, ref):
 
 # GAT aggregate: the plain version's einsum + index_add_ against the kernel's
 # per-lane sequential sums (exp of the same logits on both sides)
+@cuda
 @pytest.mark.parametrize("with_neg", [True, False])
 @pytest.mark.parametrize(
     "num_rows,E,K,C",
@@ -115,6 +129,7 @@ def test_gat_aggregate_matches_plain(dev, num_rows, E, K, C, with_neg):
 
 # GAT backward over a transposed ELL; C = 2000 needs more than 48 KB of
 # shared memory per block, C = 7 and 36 take the scalar path
+@cuda
 @pytest.mark.parametrize(
     "num_rows,E,K,C",
     [(3000, 40000, 8, 128), (700, 6000, 8, 256), (517, 3000, 4, 36), (129, 900, 8, 7),
@@ -136,6 +151,7 @@ def test_gat_backward_matches_plain(dev, num_rows, E, K, C):
     _close_to_ref(d_al, d_al_r)
 
 
+@cuda
 def test_gat_wrappers_refuse_bad_input(dev):
     er, ec, ev, x = _ell_case(50, 300, 8, 16, 8)
     x, er, ec, ev = [torch.as_tensor(a).to(dev) for a in (x, er, ec, ev)]
@@ -160,11 +176,12 @@ def _assign_case(nb, B, M, K, seed):
 # idx and counts must be equal: the kernel repeats the plain version's
 # arithmetic (separately rounded products and sums, same order).  Sums differ
 # only by summation order: each by at most 1e-5 of the sum of the |x| it adds.
+@cuda
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize(
     "nb,B,M,K",
     [(32, 5000, 256, 8), (32, 3000, 256, 4), (1, 4097, 64, 8), (3, 1500, 100, 9),
-     (2, 700, 8000, 8)],
+     (2, 700, 8000, 8), (32, 3000, 1024, 9)],
 )
 def test_assign_matches_plain(dev, nb, B, M, K, fast):
     xn, emb, valid = _assign_case(nb, B, M, K, 2)
@@ -178,6 +195,7 @@ def test_assign_matches_plain(dev, nb, B, M, K, fast):
     assert ((sums - sums_r).abs() <= 1e-5 * abs_sums).all()
 
 
+@cuda
 @pytest.mark.parametrize("fast", [False, True])
 def test_lookup_matches_plain(dev, fast):
     rng = np.random.RandomState(3)
@@ -192,6 +210,7 @@ def test_lookup_matches_plain(dev, fast):
     assert torch.equal(out, ref)  # a gather: bit-identical in both modes
 
 
+@cuda
 def test_wrappers_refuse_bad_input(dev):
     x = torch.zeros((10, 8), device=dev, dtype=torch.float64)
     er = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -204,3 +223,221 @@ def test_wrappers_refuse_bad_input(dev):
             torch.zeros((1, 4, 18), device=dev), torch.zeros((1, 4, 18), device=dev),
             torch.ones(4, dtype=torch.bool, device=dev),
         )
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: sorted segment sum
+# ---------------------------------------------------------------------------
+def _jax_package(module):
+    """A module of the JAX package's ops; skips where JAX or its
+    dependencies are not installed (the GPU machine)."""
+    return pytest.importorskip(f"vq_gnn_tpu.ops.{module}")
+
+
+def _segsum_case(num_rows, S, C, pad, seed, gaps=False):
+    """Ascending seg over [0, num_rows) (every row owns a slot unless
+    ``gaps``), ``pad`` padding slots of row num_rows with zero partials."""
+    rng = np.random.default_rng(seed)
+    dense = np.array([], np.int64) if gaps else np.arange(num_rows)
+    seg = np.sort(np.concatenate([dense, rng.integers(0, num_rows, S - len(dense))]))
+    if gaps:
+        seg = seg[(seg % 3) != 1]  # rows 1, 4, 7, ... own no slot
+    seg = np.concatenate([seg, np.full(pad, num_rows)]).astype(np.int32)
+    live = (seg < num_rows)
+    part = (rng.standard_normal((len(seg), C)) * live[:, None]).astype(np.float32)
+    scal = (rng.standard_normal(len(seg)) * live).astype(np.float32)
+    return part, scal, seg
+
+
+# (num_rows, S, C, pad): the bm GAT widths 128 and nb = 32, a narrow odd
+# width, a row spanning many slots
+SEGSUM_CASES = [(300, 1000, 128, 37), (300, 1000, 32, 21), (50, 2600, 128, 1),
+                (7, 1030, 256, 99), (1500, 1501, 128, 0)]
+
+
+@pytest.mark.parametrize("scalar", [False, True])
+@pytest.mark.parametrize("num_rows,S,C,pad", SEGSUM_CASES)
+def test_segment_sum_plain_matches_pallas(num_rows, S, C, pad, scalar):
+    """Plain version against ``segment_sum_sorted(..., interpret=True)``, as
+    tests/test_pallas_segsum.py runs it (f32 sums in another order)."""
+    j_segsum = _jax_package("pallas_segsum").segment_sum_sorted
+    import jax.numpy as jnp
+
+    part, scal, seg = _segsum_case(num_rows, S, C, pad, 0)
+    sp = scal if scalar else None
+    ref = j_segsum(jnp.asarray(part), jnp.asarray(seg), num_rows,
+                   scalar_partials=None if sp is None else jnp.asarray(sp), interpret=True)
+    out = segment_sum_sorted_plain(torch.as_tensor(part), torch.as_tensor(seg), num_rows,
+                                   scalar_partials=None if sp is None else torch.as_tensor(sp))
+    refs, outs = (ref, out) if scalar else ((ref,), (out,))
+    for o, r in zip(outs, refs):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-5, atol=1e-4)
+
+
+def test_segment_sum_plain_scalar_only_matches_pallas():
+    j_segsum = _jax_package("pallas_segsum").segment_sum_sorted
+    import jax.numpy as jnp
+
+    _, scal, seg = _segsum_case(300, 1000, 8, 3, 6)
+    ref = j_segsum(None, jnp.asarray(seg), 300, scalar_partials=jnp.asarray(scal),
+                   interpret=True)
+    out = segment_sum_sorted_plain(None, torch.as_tensor(seg), 300,
+                                   scalar_partials=torch.as_tensor(scal))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+@cuda
+@pytest.mark.parametrize("channels", ["matrix", "both", "scalar"])
+@pytest.mark.parametrize("num_rows,S,C,pad,gaps",
+                         [(n, s, c, p, False) for n, s, c, p in SEGSUM_CASES]
+                         + [(3000, 40000, 128, 500, True), (900, 5000, 7, 0, True)])
+def test_segment_sum_matches_plain(dev, num_rows, S, C, pad, gaps, channels):
+    part, scal, seg = _segsum_case(num_rows, S, C, pad, 1, gaps)
+    p = torch.as_tensor(part).to(dev) if channels != "scalar" else None
+    sp = torch.as_tensor(scal).to(dev) if channels != "matrix" else None
+    seg = torch.as_tensor(seg).to(dev)
+    out = segment_sum_sorted(p, seg, num_rows, scalar_partials=sp)
+    ref = segment_sum_sorted_plain(p, seg, num_rows, scalar_partials=sp)
+    torch.cuda.synchronize()
+    outs, refs = (out, ref) if channels == "both" else ((out,), (ref,))
+    for o, r in zip(outs, refs):
+        _close_to_ref(o, r)
+
+
+# ---------------------------------------------------------------------------
+# kernels 9 and 10: the rev-ELL recovery term
+# ---------------------------------------------------------------------------
+def _rev_case(B_pad, num_N, M, nb, Dg, R, seed, heavy_rows=0):
+    """A reverse list with duplicate (row, col) pairs of opposite sign, a
+    random codeword table and inputs; ``heavy_rows`` rows get 100 extra
+    cells each (more than one warp's worth)."""
+    rng = np.random.default_rng(seed)
+    rows = B_pad - B_pad // 4
+    rr = rng.integers(0, rows, R)
+    rc = rng.integers(0, num_N, R)
+    rv = rng.normal(size=R).astype(np.float32)
+    if heavy_rows:
+        rr = np.concatenate([rr, np.repeat(np.arange(heavy_rows), 100)])
+        rc = np.concatenate([rc, rng.integers(0, num_N, 100 * heavy_rows)])
+        rv = np.concatenate([rv, rng.normal(size=100 * heavy_rows).astype(np.float32)])
+    nd = len(rr) // 3
+    rr = np.concatenate([rr, rr[:nd]])
+    rc = np.concatenate([rc, rc[:nd]])
+    rv = np.concatenate([rv, -0.5 * rv[:nd]])
+    c_tab = rng.integers(0, M, (num_N + 1, nb)).astype(np.int16)
+    xb = rng.normal(size=(nb, B_pad, Dg)).astype(np.float32)
+    al = (0.5 * rng.normal(size=(nb, B_pad))).astype(np.float32)
+    arcb = (0.5 * rng.normal(size=(nb, M))).astype(np.float32)
+    gbar = rng.normal(size=(nb, M, Dg)).astype(np.float32)
+    return (rr, rc, rv), c_tab, xb, al, arcb, gbar
+
+
+def _rev_slots(rev, B_pad, num_N, extra=64):
+    slots = build_rev_ell(*rev, B_pad, num_N)
+    return pad_rev_ell(*slots, slots[0].shape[0] + extra, B_pad, num_N)
+
+
+def test_rev_recovery_plain_matches_pallas():
+    """Plain version (values and gradients of a weighted sum of the
+    per-branch infos) against ``rev_recovery_info(..., mode='highest',
+    interpret=True)`` on the same reverse list (f32 sums in another order)."""
+    jrev = _jax_package("pallas_rev")
+    j_build, j_pad, j_rev = jrev.build_rev_ell, jrev.pad_rev_ell, jrev.rev_recovery_info
+    import jax
+    import jax.numpy as jnp
+
+    B_pad, num_N, M, nb, Dg = 256, 3000, 32, 2, 5
+    rev, c_tab, xb, al, arcb, gbar = _rev_case(B_pad, num_N, M, nb, Dg, 900, 0)
+    T_s, TB, Dp = 128, jrev.rev_tb(B_pad), 8
+    d = j_build(*rev, B_pad, num_N, K=8, T_s=T_s, TB=TB)
+    S, P = d["slot_row"].shape[0], d["tile_of"].shape[0]
+    d = j_pad(d, -(-S // T_s) * T_s, -(-P // 128) * 128, B_pad, num_N, T_s=T_s, TB=TB)
+    w = jnp.arange(1.0, nb + 1)
+
+    def j_fn(x, a_l, a_r):
+        c_flat = jnp.take(jnp.asarray(c_tab), jnp.asarray(d["slot_col"].reshape(-1)), axis=0,
+                          mode="clip").astype(jnp.int32)
+        xp = jnp.pad(x, ((0, 0), (0, 0), (0, Dp - Dg)))
+        gT = jnp.pad(jnp.transpose(jnp.asarray(gbar), (0, 2, 1)), ((0, 0), (0, Dp - Dg), (0, 0)))
+        info = j_rev(c_flat, jnp.asarray(d["slot_val"]), jnp.asarray(d["slot_row"]),
+                     jnp.asarray(d["tile_of"]), jnp.asarray(d["blk_of"]),
+                     jnp.asarray(d["flags"]), xp, a_l[:, :, None], a_r, gT, T_s, TB,
+                     "highest", True)
+        return jnp.sum(info * w), info
+
+    args = [jnp.asarray(a) for a in (xb, al, arcb)]
+    (_, ref), ref_grads = jax.value_and_grad(j_fn, argnums=(0, 1, 2), has_aux=True)(*args)
+    col, val, row = (torch.as_tensor(a) for a in _rev_slots(rev, B_pad, num_N))
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in (xb, al, arcb)]
+    info = rev_recovery_info_plain(torch.as_tensor(c_tab), col, val, row, *leaves,
+                                   torch.as_tensor(gbar))
+    scale = max(1.0, float(np.abs(np.asarray(ref)).max()))
+    np.testing.assert_allclose(info.detach().numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5 * scale)
+    grads = torch.autograd.grad((info * torch.arange(1.0, nb + 1)).sum(), leaves)
+    for name, g, r in zip(("d_xb", "d_al", "d_arcb"), grads, ref_grads):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(np.abs(r).max())), err_msg=name)
+
+
+def _rev_bound(c_tab, col, val, row, xb, al, arcb, gbar, g):
+    """Sums of |terms| of info and of each gradient: the plain version on
+    |xb| and |gbar| (then |G| <= sum |x| |g|), the scale of the f32 round-off
+    of any summation order."""
+    leaves = [xb.abs().requires_grad_(True), al.clone().requires_grad_(True),
+              arcb.clone().requires_grad_(True)]
+    info = rev_recovery_info_plain(c_tab, col, val, row, *leaves, gbar.abs())
+    return (info.detach(), *torch.autograd.grad((info * g.abs()).sum(), leaves))
+
+
+@cuda
+@pytest.mark.parametrize(
+    "B_pad,num_N,M,nb,Dg,R,heavy",
+    [(2048, 20000, 1024, 32, 5, 30000, 0), (2048, 20000, 1024, 32, 4, 30000, 0),
+     (512, 3000, 4, 3, 5, 4000, 0), (512, 3000, 64, 32, 5, 2000, 7), (256, 100, 16, 1, 1, 0, 0)],
+)
+def test_rev_recovery_matches_plain(dev, B_pad, num_N, M, nb, Dg, R, heavy):
+    """Kernels 9 and 10 against the plain version and autograd through it.
+    M = 4 makes most cells of a row share a codeword, so opposite-sign
+    cells cancel before the relu; ``heavy`` rows have > 32 cells.  Each
+    value to 1e-5 of the sum of |terms| it adds up (f32 sums in another
+    order)."""
+    rev, c_tab, xb, al, arcb, gbar = _rev_case(B_pad, num_N, M, nb, Dg, R, 2, heavy)
+    col, val, row = (torch.as_tensor(a).to(dev) for a in _rev_slots(rev, B_pad, num_N))
+    c_tab, xb, al, arcb, gbar = (torch.as_tensor(a).to(dev) for a in (c_tab, xb, al, arcb, gbar))
+    g = torch.linspace(-1.0, 2.0, nb, device=dev)
+    info = rev_forward(c_tab, col, val, row, xb, al, arcb, gbar)
+    d_xb, d_al, d_arcb = rev_backward(c_tab, col, val, row, xb, al, arcb, gbar, g)
+    leaves = [t.clone().requires_grad_(True) for t in (xb, al, arcb)]
+    ref = rev_recovery_info_plain(c_tab, col, val, row, *leaves, gbar)
+    ref_grads = torch.autograd.grad((ref * g).sum(), leaves)
+    bounds = _rev_bound(c_tab, col, val, row, xb, al, arcb, gbar, g)
+    torch.cuda.synchronize()
+    for name, o, r, b in zip(("info", "d_xb", "d_al", "d_arcb"), (info, d_xb, d_al, d_arcb),
+                             (ref.detach(), *ref_grads), bounds):
+        assert o.shape == r.shape and torch.isfinite(o).all(), name
+        assert ((o - r).abs() <= 1e-5 * b + 1e-6).all(), (name, float((o - r).abs().max()))
+    # the autograd Function takes the kernels on both passes
+    leaves = [t.clone().requires_grad_(True) for t in (xb, al, arcb)]
+    before = (rev_forward.launches, rev_backward.launches)
+    out = rev_recovery_info(c_tab, col, val, row, *leaves, gbar)
+    torch.autograd.grad((out * g).sum(), leaves)
+    assert (rev_forward.launches, rev_backward.launches) == (before[0] + 1, before[1] + 1)
+
+
+@cuda
+def test_new_wrappers_refuse_bad_input(dev):
+    seg = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # float64 partials
+        segment_sum_sorted(torch.zeros((4, 8), dtype=torch.float64, device=dev), seg, 2)
+    with pytest.raises(ValueError):  # seg must be int32
+        segment_sum_sorted(torch.zeros((4, 8), device=dev), seg.long(), 2)
+    rev, c_tab, xb, al, arcb, gbar = _rev_case(128, 100, 8, 2, 5, 50, 3)
+    col, val, row = (torch.as_tensor(a).to(dev) for a in _rev_slots(rev, 128, 100))
+    c_tab, xb, al, arcb, gbar = (torch.as_tensor(a).to(dev) for a in (c_tab, xb, al, arcb, gbar))
+    with pytest.raises(ValueError):  # int32 codeword table
+        rev_forward(c_tab.int(), col, val, row, xb, al, arcb, gbar)
+    with pytest.raises(ValueError):  # Dg above the register budget
+        wide = torch.zeros((2, 128, 17), device=dev)
+        rev_forward(c_tab, col, val, row, wide, al, arcb, torch.zeros((2, 8, 17), device=dev))

@@ -108,3 +108,41 @@ def test_lookup_matches_jax(backend):
     tf, tg = tvq.lookup(ts, torch.as_tensor(ids), _params(tvq, backend))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_vq_update_add_flag_matches_jax(backend):
+    """The B + M GAT layers quantize the ones-column gradient too
+    (``add_flag``): K = 2D + 1, and index 2D takes grad_scale[1] in the init
+    scale, the normalised input and the de-normalisation."""
+    X, G, ids, valid = _inputs(4)
+    G1 = np.concatenate([G, np.random.RandomState(6).randn(NB, B, 1).astype(np.float32)], 2)
+    kw = dict(num_M=M, num_D=D, warm_up_flag=True, backend=backend, add_flag=True,
+              grad_scale=(0.7, 0.3))
+    jp, tp = jvq.VQParams(**kw), tvq.VQParams(**kw)
+    js = jvq.init_vq_state(jax.random.PRNGKey(0), NB, N, jp)
+    ts = vq_state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
+    assert ts.embedding.shape == (NB, M, 2 * D + 1) and tp.grad_dim == D + 1
+    for step in range(2):
+        js, jidx = jvq.vq_update(js, jnp.asarray(X), jnp.asarray(G1),
+                                 jnp.asarray(ids, jnp.int32), jp, valid=jnp.asarray(valid))
+        ts, tidx = tvq.vq_update(ts, torch.as_tensor(X), torch.as_tensor(G1),
+                                 torch.as_tensor(ids), tp, valid=torch.as_tensor(valid))
+        np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+        _assert_states_match(js, ts)
+    jf, jg = jvq.lookup(js, jnp.asarray(ids, jnp.int32), jp)
+    tf, tg = tvq.lookup(ts, torch.as_tensor(ids), tp)
+    assert tg.shape == (B, NB * (D + 1))
+    # the tables after two updates agree to the state tolerance, not bitwise
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5, atol=ATOL)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5, atol=ATOL)
+
+
+def test_init_add_flag_matches_jax():
+    """init_vq_state's grad-half scaling with the ones-column dim: the port
+    draws its own random numbers, so compare the scale it applies."""
+    p = tvq.VQParams(num_M=M, num_D=D, warm_up_flag=True, add_flag=True, grad_scale=(0.5, 0.0))
+    s = tvq.init_vq_state(torch.Generator().manual_seed(0), NB, N, p, torch.device("cpu"))
+    assert s.embedding.shape == (NB, M, 2 * D + 1)
+    assert (s.embedding[:, :, 2 * D] == 0).all() and (s.ema_w[:, :, 2 * D] == 0).all()
+    assert (s.embedding[:, :, :D] != 0).all() and s.bn_grad_mean.shape == (NB, D + 1)

@@ -138,8 +138,8 @@ def check_ported(cfg: Config) -> None:
     """Raise for any setting whose port has not landed, so that no option is
     silently ignored (ROADMAP.md lists what is still to come)."""
     for what, unported in (
-        (f"formulation={cfg.formulation!r}", cfg.formulation != "bbprime"),
         ("transformer_flag", cfg.transformer_flag),
+        ("exact_minibatch (B + M)", cfg.formulation == "bm" and cfg.exact_minibatch),
         ("dropbranch", cfg.dropbranch > 0),
         ("alpha_dropout_flag", cfg.alpha_dropout_flag and cfg.dropout > 0),
         ("kmeans_init", cfg.kmeans_init),

@@ -25,7 +25,7 @@ from vq_gnn_tpu_torch.train.optim import make_rmsprop
 from vq_gnn_tpu_torch.train.state import TrainState
 
 _LINEARS = ("gnn_transform", "linear_skip", "fc_sage")
-_VECTORS = ("att_l", "att_r")  # GAT, [c_in + 1] in both packages
+_VECTORS = ("att_l", "att_r")  # GAT: [c_in + 1], or [nb, D + 1] in B + M
 
 
 def _get(obj, name):

@@ -20,7 +20,13 @@ from vq_gnn_tpu_torch.graph.partition import (
     partition_graph,
     permute_graph,
 )
-from vq_gnn_tpu_torch.graph.store import HostGraph, norm_adj, pad_features, symmetrize
+from vq_gnn_tpu_torch.graph.store import (
+    HostGraph,
+    norm_adj,
+    norm_adj_v1,
+    pad_features,
+    symmetrize,
+)
 
 
 def load_npz(path: str) -> Tuple[HostGraph, int]:
@@ -120,7 +126,10 @@ def prepare(
         graph = permute_graph(graph, perm)
         cluster_indices = cluster_indices_from_ptr(ptr)
 
-    graph = norm_adj(graph, cfg.conv_type)
+    if cfg.formulation == "bm":
+        graph = norm_adj_v1(graph, cfg.conv_type)
+    else:
+        graph = norm_adj(graph, cfg.conv_type)
     if cfg.split:
         graph = pad_features(graph, cfg.num_D)
     return graph, num_classes, cluster_indices

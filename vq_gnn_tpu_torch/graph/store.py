@@ -91,6 +91,32 @@ def norm_adj(graph: HostGraph, conv_type: str) -> HostGraph:
     return graph
 
 
+def norm_adj_v1(graph: HostGraph, conv_type: str) -> HostGraph:
+    """B + M (v1) normalization (``vq_gnn_v1/main_node.py:323-349``): degrees
+    are rowsum + 1 (GCN/GAT; SAGE without the +1) and the adjacency gets NO
+    diagonal entries: the batch builder adds self-loops of value ``deg_inv``.
+    ``deg`` and ``deg_inv`` are kept for the builder's reverse values."""
+    adj = graph.adj.astype(np.float32)
+    deg = np.asarray(adj.sum(axis=1)).reshape(-1).astype(np.float32)
+    if conv_type in ("GCN", "GAT"):
+        deg = deg + 1.0
+    with np.errstate(divide="ignore"):
+        dinv = np.power(deg, -1.0)
+        dinv_sqrt = np.power(deg, -0.5)
+    dinv[~np.isfinite(dinv)] = 0.0
+    dinv_sqrt[~np.isfinite(dinv_sqrt)] = 0.0
+
+    coo = adj.tocoo()
+    if conv_type == "GCN":
+        data = dinv_sqrt[coo.row] * coo.data * dinv_sqrt[coo.col]
+    else:  # SAGE / GAT row normalization
+        data = dinv[coo.row] * coo.data
+    graph.adj = sp.csr_matrix((data.astype(np.float32), (coo.row, coo.col)), shape=adj.shape)
+    graph.deg = deg
+    graph.deg_inv = dinv
+    return graph
+
+
 def pad_features(graph: HostGraph, num_D: int) -> HostGraph:
     """Zero-pad the feature dim to a multiple of num_D (``misc.py:212-219``)."""
     F = graph.x.shape[1]

@@ -1,11 +1,13 @@
-"""LowRankGNN — the VQ-GNN model (port of ``vq_gnn_tpu/nn/model.py``, the
-B + B' formulation for GCN, SAGE and GAT).
+"""LowRankGNN — the VQ-GNN model (port of ``vq_gnn_tpu/nn/model.py``: the
+B + B' (v2) and B + M (v1) formulations for GCN, SAGE and GAT).
 
 - ``LowRankGNN``       an ``nn.Module`` holding the per-layer linears (and the
                        GAT attention vectors)
 - ``init_params``      torch-default Linear init (PyG glorot for the attention
                        vectors) from a ``torch.Generator``
-- ``layer_forward``    one LowRankGNNLayer (``models.py v2:144-231``)
+- ``layer_forward``    one LowRankGNNLayer (``models.py v2:144-231``), or with
+                       ``formulation='bm'`` one v1 layer (``layer_forward_bm``,
+                       ``vq_gnn_v1/models.py:143-233``)
 - ``model_forward``    the stack; returns per-layer inputs + info_backward
 
 The reference's backward hook (``models.py v2:181-185``) becomes *probes*:
@@ -27,7 +29,8 @@ from torch import nn
 
 from vq_gnn_tpu_torch.config import Config, check_ported, resolve_vq_backend
 from vq_gnn_tpu_torch.nn.vq import VQParams, VQState, lookup
-from vq_gnn_tpu_torch.ops.gat import explosion_scale, gat_conv_ell
+from vq_gnn_tpu_torch.ops.gat import explosion_scale, gat_conv_ell, gat_conv_ell_mh
+from vq_gnn_tpu_torch.ops.rev_kernels import rev_recovery_info
 from vq_gnn_tpu_torch.ops.spmm import spmm
 from vq_gnn_tpu_torch.ops.vq_ops import masked_mean_var
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
@@ -46,6 +49,10 @@ class ModelStatic:
     dropout: float
     num_D: int
     vq: VQParams
+    formulation: str = "bbprime"  # 'bbprime' (v2 B + B') or 'bm' (v1 B + M)
+    # ce_only runs never read info_backward; the B + M exact-reverse term is
+    # then skipped (0), as in the JAX package
+    ce_only: bool = False
 
     @property
     def num_branches(self) -> Tuple[int, ...]:
@@ -67,6 +74,9 @@ def model_static(
         grad_scale=tuple(cfg.grad_scale),
         warm_up_flag=cfg.warm_up_flag,
         momentum=cfg.momentum,
+        # v1 GNN blocks quantize the ones-column gradient only for GAT
+        # (vq_gnn_v1/models.py:53, 278); v2 never does
+        add_flag=cfg.formulation == "bm" and cfg.conv_type == "GAT",
         backend=resolve_vq_backend(cfg.vq_backend, device),
     )
     return ModelStatic(
@@ -79,6 +89,8 @@ def model_static(
         dropout=cfg.dropout,
         num_D=cfg.num_D,
         vq=vq,
+        formulation=cfg.formulation,
+        ce_only=cfg.ce_only,
     )
 
 
@@ -87,8 +99,9 @@ def model_static(
 # --------------------------------------------------------------------------
 class LowRankGNN(nn.Module):
     """Per layer: ``gnn_transform`` (+ ``fc_sage`` for SAGE, ``linear_skip``
-    with ``skip``, the attention vectors ``att_l``/``att_r`` [c_in + 1] for
-    GAT).  Weights are [out, in] as in ``nn.Linear``."""
+    with ``skip``, the attention vectors ``att_l``/``att_r`` for GAT: [c_in +
+    1], or in the B + M formulation one per branch, [nb, D + 1]).  Weights
+    are [out, in] as in ``nn.Linear``."""
 
     def __init__(self, ms: ModelStatic, device=None):
         super().__init__()
@@ -102,16 +115,19 @@ class LowRankGNN(nn.Module):
             if ms.conv_type == "SAGE":
                 layer.fc_sage = nn.Linear(c_in, c_out, device=device)
             if ms.conv_type == "GAT":
-                layer.att_l = nn.Parameter(torch.empty(c_in + 1, device=device))
-                layer.att_r = nn.Parameter(torch.empty(c_in + 1, device=device))
+                shape = ((c_in // ms.num_D, ms.num_D + 1) if ms.formulation == "bm"
+                         else (c_in + 1,))
+                layer.att_l = nn.Parameter(torch.empty(shape, device=device))
+                layer.att_r = nn.Parameter(torch.empty(shape, device=device))
             self.layers.append(layer)
 
 
 def init_params(model: LowRankGNN, generator: torch.Generator) -> LowRankGNN:
     """torch.nn.Linear's default: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in));
-    then PyG glorot on each GAT attention vector [c]: U(-a, a), a = sqrt(6 /
-    (1 + c)) (``vq_gnn_tpu/nn/model.py:163-193``).  Drawn from ``generator``
-    (a CPU generator; values copied to the device)."""
+    then PyG glorot on each GAT attention vector of length c (the last
+    dimension; one per branch in the B + M formulation): U(-a, a), a =
+    sqrt(6 / (1 + c)) (``vq_gnn_tpu/nn/model.py:163-193``).  Drawn from
+    ``generator`` (a CPU generator; values copied to the device)."""
 
     def draw(p, bound):
         t = torch.empty(p.shape)
@@ -128,7 +144,7 @@ def init_params(model: LowRankGNN, generator: torch.Generator) -> LowRankGNN:
             for name in ("att_l", "att_r"):
                 if hasattr(layer, name):
                     p = getattr(layer, name)
-                    draw(p, math.sqrt(6.0 / (1.0 + p.shape[0])))
+                    draw(p, math.sqrt(6.0 / (1.0 + p.shape[-1])))
     return model
 
 
@@ -198,9 +214,12 @@ def layer_forward(
 ):
     """One LowRankGNNLayer forward (``models.py v2:144-231``), GCN, SAGE or
     GAT.  A GAT probe is [B_pad, C_in + 1]: its last column lands on the
-    ones-column normaliser before the division.
+    ones-column normaliser before the division.  With ``formulation='bm'``
+    the v1 layer, :func:`layer_forward_bm`.
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
+    if ms.formulation == "bm":
+        return layer_forward_bm(layer, vq_state, ms, x, batch, probe, warm_up_rate)
     B_pad = batch.B_pad
     # out-of-batch features/grads from the codebook (models.py v2:165-173)
     x_fo, grad_fo = lookup(vq_state, batch.fo_ids, ms.vq)
@@ -235,13 +254,131 @@ def layer_forward(
 
     # gradient recovery term (models.py v2:198-200)
     info_backward = (x_out_fo * grad_fo * warm_up_rate).sum()
+    return _layer_output(layer, ms, x, x_out_B), info_backward
 
-    out = F.linear(x_out_B, layer.gnn_transform.weight, layer.gnn_transform.bias)
-    if ms.conv_type == "SAGE":  # root weight (models.py v2:203-204)
+
+def _layer_output(layer, ms: ModelStatic, x, conv_B):
+    """gnn_transform of the conv output, + the SAGE root weight (models.py
+    v2:203-204) and the skip linear of the layer input."""
+    out = F.linear(conv_B, layer.gnn_transform.weight, layer.gnn_transform.bias)
+    if ms.conv_type == "SAGE":
         out = out + F.linear(x, layer.fc_sage.weight, layer.fc_sage.bias)
     if ms.skip:
         out = out + F.linear(x, layer.linear_skip.weight, layer.linear_skip.bias)
-    return out, info_backward
+    return out
+
+
+# --------------------------------------------------------------------------
+# one layer, B+M (v1 mapper) formulation
+# --------------------------------------------------------------------------
+def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatch, x_cols,
+                           warm_up_rate, al=None, ar_cb=None):
+    """The v1 codeword-row recovery term for non-GCN convs
+    (``vq_gnn_tpu/nn/model.py:408-500``): per branch the [M, B] cell matrix
+    relu(sum of reverse values) the mapper produces after coalesce +
+    keep-positive, times the GAT attention when given, contracted with the
+    batch features and the codeword grad table.  Kernels 9-10 on CUDA
+    tensors, the plain grid on CPU tensors (``ops/rev_kernels.py``).
+
+    x_cols [nb, B_pad, Dg]; al [nb, B_pad] and ar_cb [nb, M] (zeros: no
+    attention, exp(leaky(0)) == 1)."""
+    if ms.ce_only:
+        return x_cols.new_zeros(())
+    D, M = ms.num_D, ms.vq.num_M
+    nb, B_pad, _ = x_cols.shape
+    grad_table = vq_state.embedding_output[:, :, D:].detach()
+    if al is None:
+        al = x_cols.new_zeros((nb, B_pad))
+        ar_cb = x_cols.new_zeros((nb, M))
+    infos = rev_recovery_info(vq_state.c_indices, batch.rev_slot_col, batch.rev_slot_val,
+                              batch.rev_slot_row, x_cols, al, ar_cb, grad_table)
+    return infos.sum() * warm_up_rate
+
+
+def _branch_logits(x, att, D: int):
+    """Per-branch logits [rows, nb] of [rows, nb*D] features and att [nb,
+    D + 1] (the last entry multiplies the ones column), elementwise."""
+    nb = att.shape[0]
+    return (x.reshape(x.shape[0], nb, D) * att[None, :, :D]).sum(-1) + att[None, :, D]
+
+
+def layer_forward_bm(
+    layer: nn.Module,
+    vq_state: VQState,
+    ms: ModelStatic,
+    x: torch.Tensor,  # [B_pad, C_in]
+    batch: PaddedBatch,
+    probe: Optional[torch.Tensor],  # [B_pad, C_in], or [nb, B_pad, D + 1] for GAT
+    warm_up_rate,
+):
+    """One v1 LowRankGNNLayer (``vq_gnn_v1/models.py:143-233, 307-367``;
+    ``vq_gnn_tpu/nn/model.py:576-800``).
+
+    The batch builder already lowered the mapper's (B+M)^2 matrix to per-edge
+    lists (``bm_subgraph``).  The codebook features are scaled by
+    warm_up_rate; GAT runs one attention head per branch with its own
+    parameters (``gat_conv_ell_mh``); info_backward uses the per-codeword
+    identity sum_m out_M[m] * g[m] == sum_j out_fo[j] * g[c[j]], or, for the
+    non-GCN convs in training, the exact reverse term over the rev-ELL.
+
+    Returns (x_out [B_pad, C_out], info_backward scalar)."""
+    B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
+    D = ms.num_D
+    nb = x.shape[1] // D
+    x_fo, grad_fo = lookup(vq_state, batch.fo_ids, ms.vq)
+    fo_mask = batch.valid_fo.to(x.dtype)[:, None]
+    x_fo = x_fo * fo_mask * warm_up_rate
+    grad_fo = (grad_fo * fo_mask).detach()  # [Bp_pad, nb * Dg]
+    x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, nb * D]
+    rev = batch.rev_slot_row is not None
+
+    if ms.conv_type != "GAT":
+        # rows >= B_pad are codebook lookups: the spmm backward stops at
+        # b_rows (the batch builder's truncation bound)
+        x_out = spmm(batch.edges, x_input)
+        out_B = x_out[:B_pad]
+        if probe is not None:
+            out_B = out_B + probe
+        if rev:
+            x_cols = x.reshape(B_pad, nb, D).permute(1, 0, 2)
+            info_backward = _bm_exact_reverse_info(vq_state, ms, batch, x_cols, warm_up_rate)
+        else:
+            info_backward = (x_out[B_pad:] * grad_fo * warm_up_rate).sum()
+        return _layer_output(layer, ms, x, out_B), info_backward
+
+    # Trick-1 logits per branch over the valid batch rows and the whole
+    # codebook (the v1 conv takes the max over its B + M input, convs.py:209)
+    M = ms.vq.num_M
+    cb = torch.cat([vq_state.embedding_output[:, :, :D] * warm_up_rate,
+                    x.new_ones((nb, M, 1))], dim=2)  # [nb, M, D + 1]
+    al_cb = (cb * layer.att_l[:, None, :]).sum(-1)  # [nb, M]
+    ar_cb = (cb * layer.att_r[:, None, :]).sum(-1)
+    al_n = _branch_logits(x_input, layer.att_l, D)  # [dim_pad, nb]
+    ar_n = _branch_logits(x_input, layer.att_r, D)
+    invalid = ~batch.valid_B[:, None]
+    ml = torch.maximum(al_n[:B_pad].masked_fill(invalid, float("-inf")).amax(0), al_cb.amax(1))
+    mr = torch.maximum(ar_n[:B_pad].masked_fill(invalid, float("-inf")).amax(0), ar_cb.amax(1))
+    scale_n = torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)  # [nb]
+    al_n, ar_n = al_n / scale_n, ar_n / scale_n
+    agg, rs = gat_conv_ell_mh(batch.edges, x_input, al_n, ar_n)
+    agg_B, rs_B = agg[:B_pad], rs[:B_pad]
+    if probe is not None:  # [nb, B_pad, D + 1], the ones column last
+        agg_B = agg_B + probe[:, :, :D].permute(1, 0, 2).reshape(B_pad, nb * D)
+        rs_B = rs_B + probe[:, :, D].t()
+    if rev:
+        x_br = torch.cat([x.reshape(B_pad, nb, D).permute(1, 0, 2),
+                          x.new_ones((nb, B_pad, 1))], dim=2)  # [nb, B_pad, D + 1]
+        info_backward = _bm_exact_reverse_info(
+            vq_state, ms, batch, x_br, warm_up_rate, al=al_n[:B_pad].t(),
+            ar_cb=ar_cb / scale_n[:, None],
+        )
+    else:
+        gfo = grad_fo.reshape(Bp_pad, nb, D + 1)
+        info_backward = ((agg[B_pad:].reshape(Bp_pad, nb, D) * gfo[:, :, :D]).sum()
+                         + (rs[B_pad:] * gfo[:, :, D]).sum()) * warm_up_rate
+    # ones-column normalisation of the batch rows (v1/models.py:209-210)
+    out_B = agg_B / (rs_B.repeat_interleave(D, dim=1) + 1e-16)
+    return _layer_output(layer, ms, x, out_B), info_backward
 
 
 def model_forward(
@@ -286,7 +423,9 @@ def model_forward(
 
 def probe_shapes(ms: ModelStatic, B_pad: int) -> List[Tuple[int, ...]]:
     """Conv-output shapes per layer: [B_pad, C_in] (+1 for the GAT ones
-    column)."""
+    column); the B + M GAT runs one conv per branch: [nb, B_pad, D + 1]."""
+    if ms.formulation == "bm" and ms.conv_type == "GAT":
+        return [(nb, B_pad, ms.num_D + 1) for nb in ms.num_branches]
     extra = 1 if ms.conv_type == "GAT" else 0
     return [(B_pad, ms.channels[l] + extra) for l in range(ms.num_layers)]
 

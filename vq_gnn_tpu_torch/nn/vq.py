@@ -6,8 +6,8 @@ Per GNN layer there are ``nb`` independent codebooks (one per ``num_D``-wide
 feature slice); every per-branch tensor carries a leading branch axis (the
 JAX package's ``vmap``, written out).
 
-State layout (K = 2*D; the v1 ones-column dimension, ``add_flag``, comes
-with the B + M formulation):
+State layout (K = 2*D, +1 with ``add_flag``: the B + M GAT layers also
+quantize the gradient of the ones column, ``vq_gnn_v1/models.py:53``):
 
 - ``embedding [nb, M, K]``        codebook in normalized space
 - ``embedding_output [nb, M, K]`` de-normalized copy used for lookups
@@ -50,17 +50,18 @@ class VQParams:
     grad_scale: Tuple[float, float] = (1.0, 1.0)
     warm_up_flag: bool = False  # Laplace smoothing of cluster sizes
     momentum: float = 0.1  # grad-BN running-stat momentum (vq.py:87-88)
+    add_flag: bool = False  # quantize one extra (ones-column) grad dim
     # 'pallas'/'pallas_fast': CUDA kernels (plain versions on CPU tensors);
     # 'xla'/'xla_fast': plain PyTorch (ops/vq_ops.py)
     backend: str = "xla"
 
     @property
     def grad_dim(self) -> int:
-        return self.num_D
+        return self.num_D + (1 if self.add_flag else 0)
 
     @property
     def total_dim(self) -> int:
-        return 2 * self.num_D
+        return 2 * self.num_D + (1 if self.add_flag else 0)
 
 
 @dataclasses.dataclass
@@ -92,8 +93,7 @@ def init_vq_state(
         if p.warm_up_flag
         else torch.zeros((num_branch, M, K))
     )
-    gscale = torch.ones(K)
-    gscale[D:] = p.grad_scale[0]
+    gscale = _grad_half(K, D, p.grad_scale[0], p.grad_scale[1], p.add_flag)
     c = torch.randint(0, M, (num_N + 1, num_branch), generator=generator)
     st = VQState(
         embedding=emb * gscale,
@@ -109,6 +109,17 @@ def init_vq_state(
         bad_init=torch.tensor(False),
     )
     return VQState(**{f.name: getattr(st, f.name).to(device) for f in dataclasses.fields(st)})
+
+
+def _grad_half(K: int, D: int, v0: float, v1: float, add_flag: bool, device=None):
+    """[K] ones with v0 on the gradient half [D, 2D) and, with add_flag, v1
+    on the ones-column gradient at index 2D.  Filled on ``device``: a copy
+    from the host would synchronise the stream."""
+    t = torch.ones(K, device=device)
+    t[D : 2 * D] = v0
+    if add_flag:
+        t[2 * D] = v1
+    return t
 
 
 def _bn_train(x, r_mean, r_var, eps, momentum, valid):
@@ -222,9 +233,9 @@ def vq_update(
     g_mean, g_var = seed(grad, state.bn_grad_mean, state.bn_grad_var)
     xn_f, f_mean, f_var = _bn_train(X_B, f_mean, f_var, BN_FEAT_EPS, BN_FEAT_MOMENTUM, valid)
     xn_g, g_mean, g_var = _bn_train(grad, g_mean, g_var, p.epsilon, p.momentum, valid)
-    scale = torch.ones(p.total_dim, device=X_B.device)
-    scale[D:] = gs0
-    xn = torch.cat([xn_f, xn_g], dim=2) * scale
+    gs1 = p.grad_scale[1]
+    xn = torch.cat([xn_f, xn_g], dim=2) * _grad_half(
+        p.total_dim, D, gs0, gs1, p.add_flag, X_B.device)
 
     idx, counts, sums = _assign_and_stats(xn, state.embedding, valid, p)
 
@@ -234,9 +245,8 @@ def vq_update(
     new_emb = new_ema_w / new_size[:, :, None]
     # de-normalize for the lookup table (vq.py:261-272): undo grad_scale on
     # the grad half, then BN with the (post-update) running stats
-    div = torch.ones(p.total_dim, device=X_B.device)
-    div[D:] = gs0 + p.epsilon
-    out = new_emb / div
+    out = new_emb / _grad_half(
+        p.total_dim, D, gs0 + p.epsilon, gs1 + p.epsilon, p.add_flag, X_B.device)
     run_var = torch.cat([f_var + BN_FEAT_EPS, g_var + p.epsilon], dim=1)
     run_mean = torch.cat([f_mean, g_mean], dim=1)
     out = out * torch.sqrt(run_var)[:, None, :] + run_mean[:, None, :]

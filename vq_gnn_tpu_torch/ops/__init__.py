@@ -7,6 +7,8 @@ Each kernel wrapper counts its launches in ``<wrapper>.launches``;
 
 from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
 from vq_gnn_tpu_torch.ops.gat_kernels import gat_aggregate, gat_backward
+from vq_gnn_tpu_torch.ops.rev_kernels import rev_backward, rev_forward
+from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 from vq_gnn_tpu_torch.ops.vq_kernels import fused_assign_branches, lookup_codewords
 
 KERNELS = {
@@ -15,6 +17,9 @@ KERNELS = {
     "vq_lookup": lookup_codewords,
     "gat_aggregate": gat_aggregate,
     "gat_backward": gat_backward,
+    "segment_sum": segment_sum_sorted,
+    "rev_forward": rev_forward,
+    "rev_backward": rev_backward,
 }
 
 

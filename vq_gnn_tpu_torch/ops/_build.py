@@ -22,7 +22,8 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ell_aggregate", "vq_assign", "vq_lookup", "gat_aggregate", "gat_backward")
+SOURCES = ("ell_aggregate", "vq_assign", "vq_lookup", "gat_aggregate", "gat_backward",
+           "segment_sum", "rev_recovery")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

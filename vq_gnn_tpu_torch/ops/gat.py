@@ -1,5 +1,7 @@
-"""GAT edge attention over the slot-ELL (port of ``vq_gnn_tpu/ops/gat.py``,
-the single-K fused path of the B + B' formulation).
+"""GAT edge attention over the slot-ELL (port of ``vq_gnn_tpu/ops/gat.py``:
+the single-K fused path of the B + B' formulation, and the per-branch conv
+``gat_conv_ell_mh`` of the B + M formulation, whose segment sums are
+kernel 8).
 
 Reference semantics (``vq_gnn_v2/convs.py:165-266`` + ``utils/vq_softmax.py``):
 
@@ -21,9 +23,11 @@ kernel 5 over the transposed ELL (``ops/gat_kernels.py``); ``d_ar`` and
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from vq_gnn_tpu_torch.config import not_ported
 from vq_gnn_tpu_torch.ops.gat_kernels import NEGATIVE_SLOPE, gat_aggregate, gat_backward
+from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 from vq_gnn_tpu_torch.ops.spmm import Edges
 
 __all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_ell",
@@ -132,7 +136,89 @@ def gat_conv_ell(edges: Edges, x, att_l, att_r, scale):
     return agg, rowsum[:, None]
 
 
+# ---------------------------------------------------------------------------
+# per-branch (multi-head) GAT conv of the B + M formulation
+# ---------------------------------------------------------------------------
+def _gat_mh_ev(ell_row, ell_col, ell_val, al, ar):
+    """Per-cell (a, ev) [S, K, nb] in a given layout: a = al at the cell's
+    column + ar at the slot's row, ev = exp(leaky_relu(a)) * val (indices
+    clip to the tables, as JAX's ``mode='clip'``)."""
+    S, K = ell_col.shape
+    cols = ell_col.reshape(-1).long().clamp(0, al.shape[0] - 1)
+    alc = al.index_select(0, cols).reshape(S, K, al.shape[1])
+    arr = ar.index_select(0, ell_row.long().clamp(0, ar.shape[0] - 1))  # [S, nb]
+    a = alc + arr[:, None, :]
+    ev = torch.exp(F.leaky_relu(a, NEGATIVE_SLOPE)) * ell_val[:, :, None]
+    return a, ev
+
+
+def _weighted_rows(ev, table, idx):
+    """sum over k of ev[s, k, n] * table[idx[s, k], n*D:(n+1)*D] -> [S, nb*D]
+    (the per-branch weight broadcast over its D channels)."""
+    S, K, nb = ev.shape
+    rows = table.index_select(0, idx.reshape(-1).long().clamp(0, table.shape[0] - 1))
+    return (ev[..., None] * rows.reshape(S, K, nb, -1)).sum(1).reshape(S, -1)
+
+
+def _gat_mh_forward(edges: Edges, x_g, al, ar):
+    """(agg [R, nb*D], rowsum [R, nb]) over the forward ELL."""
+    R = edges.num_rows
+    _, ev = _gat_mh_ev(edges.ell_row, edges.ell_col, edges.ell_val, al, ar)
+    agg = segment_sum_sorted(_weighted_rows(ev, x_g, edges.ell_col), edges.ell_row, R)
+    return agg, segment_sum_sorted(ev.sum(1), edges.ell_row, R)
+
+
+class _GATConvMH(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_g, al, ar, edges: Edges):
+        ctx.edges = edges
+        ctx.save_for_backward(x_g, al, ar)
+        return _gat_mh_forward(edges, x_g, al, ar)
+
+    @staticmethod
+    def backward(ctx, g_agg, g_rs):
+        e: Edges = ctx.edges
+        x_g, al, ar = ctx.saved_tensors
+        R = e.num_rows
+        St, Kt = e.t_ell_col.shape
+        nb = al.shape[1]
+        g_agg, g_rs = g_agg.contiguous(), g_rs.contiguous()
+        # transposed cells: row = source (sorted), column = destination, so
+        # the logit roles swap: a_t = al[source] + ar[destination]
+        a_t, ev_t = _gat_mh_ev(e.t_ell_row, e.t_ell_col, e.t_ell_val, ar, al)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = segment_sum_sorted(_weighted_rows(ev_t, g_agg, e.t_ell_col), e.t_ell_row, R)
+        idx_t = e.t_ell_col.reshape(-1).long().clamp(0, R - 1)
+        g3 = g_agg.index_select(0, idx_t).reshape(St, Kt, nb, -1)
+        x_rows = x_g.index_select(0, e.t_ell_row.long().clamp(0, R - 1)).reshape(St, 1, nb, -1)
+        d_ev_t = (g3 * x_rows).sum(-1) + g_rs.index_select(0, idx_t).reshape(St, Kt, nb)
+        d_a_t = d_ev_t * ev_t * torch.where(a_t > 0, 1.0, NEGATIVE_SLOPE)
+        d_al = segment_sum_sorted(d_a_t.sum(1), e.t_ell_row, R)
+        # forward layout: mirror the per-cell d_a through f_from_t (empty
+        # cells point one past the end, at a zero row), then reduce by row
+        S, K = e.ell_col.shape
+        d_a_flat = torch.cat([d_a_t.reshape(St * Kt, nb), d_a_t.new_zeros((1, nb))])
+        d_a_f = d_a_flat.index_select(0, e.f_from_t.reshape(-1)).reshape(S, K, nb)
+        d_ar = segment_sum_sorted(d_a_f.sum(1), e.ell_row, R)
+        return dx, d_al, d_ar, None
+
+
 def gat_conv_ell_mh(edges: Edges, x_g, al, ar):
-    """The per-branch GAT conv of the B + M formulation
-    (``vq_gnn_tpu/ops/gat.py:gat_conv_ell_mh``)."""
-    raise not_ported("the multi-head GAT conv of formulation='bm' (gat_conv_ell_mh)")
+    """Per-branch attention-weighted slot-ELL aggregation of the B + M layer
+    (``vq_gnn_tpu/ops/gat.py:gat_conv_ell_mh``; reference
+    ``vq_gnn_v1/models.py:186-233``: one attention head per branch over its
+    own D-wide slice).
+
+    ``x_g [R, nb*D]`` (channel n*D + d is branch n, feature d), ``al``/``ar``
+    [R, nb] per-node per-branch logits, already Trick-1 scaled.  Returns
+    ``(agg [R, nb*D], rowsum [R, nb])``: per branch the aggregate of
+    ``exp(leaky_relu(al[src] + ar[dst])) * val`` times x, and its ones-column
+    normaliser.  Every segment sum is kernel 8 on CUDA tensors; the backward
+    works in the transposed layout and mirrors the per-cell logit cotangent
+    back through ``edges.f_from_t`` for ``d_ar``."""
+    if edges.ell_row is None or edges.f_from_t is None:
+        raise not_ported("the B + M GAT conv over a layout other than the single-K slot-ELL")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_g, al, ar)):
+        return _GATConvMH.apply(x_g, al, ar, edges)
+    return _gat_mh_forward(edges, x_g, al, ar)

@@ -1,0 +1,90 @@
+"""Kernel 8: the sorted segment sum, and its plain PyTorch version.
+
+``segment_sum_sorted(partials [S, C] | None, seg [S], num_rows,
+scalar_partials [S] | None)`` -> ``out [num_rows, C]``, ``out_s
+[num_rows]``, or both as a pair: ``out[r] = sum of partials[s] over the
+slots with seg[s] == r``, the same over ``scalar_partials`` for ``out_s``.
+``seg`` is int32 and ascending; slots with ``seg >= num_rows`` (padding) are
+dropped; rows without a slot get 0.  Any C, the 32-wide per-branch scalars
+included.
+
+The CUDA kernel (``csrc/segment_sum.cu``) replaces
+``vq_gnn_tpu/ops/pallas_segsum.py:_make_kernel``; on CPU tensors the wrapper
+runs the plain version, on CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vq_gnn_tpu_torch.ops import _build
+
+
+def _plain(part, seg, num_rows: int):
+    out = part.new_zeros((num_rows + 1,) + tuple(part.shape[1:]))
+    out.index_add_(0, seg.long().clamp(0, num_rows), part)
+    return out[:num_rows]
+
+
+def segment_sum_sorted_plain(partials, seg, num_rows: int, scalar_partials=None):
+    """Plain version: ``index_add_`` into num_rows + 1 rows, the last one
+    collecting the padding slots."""
+    res = []
+    if partials is not None:
+        res.append(_plain(partials.float(), seg, num_rows))
+    if scalar_partials is not None:
+        res.append(_plain(scalar_partials.float(), seg, num_rows))
+    return res[0] if len(res) == 1 else tuple(res)
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"segment_sum_sorted: {msg}")
+
+
+_VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_ARGTYPES = [_VP, _I32, _VP, _VP, _I64, _I64, _VP, _VP, _VP]
+
+
+def segment_sum_sorted(partials, seg, num_rows: int, scalar_partials=None):
+    """Kernel 8 for CUDA tensors, its plain version for CPU tensors."""
+    _check(partials is not None or scalar_partials is not None, "no channel given")
+    if seg.device.type == "cpu":
+        return segment_sum_sorted_plain(partials, seg, num_rows, scalar_partials)
+    dev = seg.device
+    _check(dev.type == "cuda", f"unsupported device {dev}")
+    _check(seg.dtype == torch.int32 and seg.dim() == 1 and seg.is_contiguous(),
+           "seg must be a contiguous 1-D int32 tensor")
+    S = seg.shape[0]
+    C = 0
+    if partials is not None:
+        _check(partials.device == dev and partials.dtype == torch.float32
+               and partials.dim() == 2 and partials.shape[0] == S and partials.is_contiguous(),
+               f"partials must be contiguous float32 [{S}, C] on {dev}")
+        C = partials.shape[1]
+    if scalar_partials is not None:
+        _check(scalar_partials.device == dev and scalar_partials.dtype == torch.float32
+               and tuple(scalar_partials.shape) == (S,) and scalar_partials.is_contiguous(),
+               f"scalar_partials must be contiguous float32 [{S}] on {dev}")
+    out = out_s = None
+    if partials is not None:
+        out = torch.empty((num_rows, C), dtype=torch.float32, device=dev)
+    if scalar_partials is not None:
+        out_s = torch.empty((num_rows,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _build.function("segment_sum", "vq_segment_sum", _ARGTYPES)(
+        partials.data_ptr() if C else None, C,
+        scalar_partials.data_ptr() if scalar_partials is not None else None,
+        seg.data_ptr(), S, num_rows,
+        out.data_ptr() if C else None,
+        out_s.data_ptr() if out_s is not None else None, stream,
+    )
+    _build.check(rc, "segment_sum_sorted")
+    segment_sum_sorted.launches += 1
+    res = [t for t in (out, out_s) if t is not None]
+    return res[0] if len(res) == 1 else tuple(res)
+
+
+segment_sum_sorted.launches = 0

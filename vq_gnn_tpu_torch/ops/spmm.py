@@ -46,6 +46,10 @@ class Edges:
     # rows are < b_rows.  0/0 = exact full VJP.
     b_rows: int = 0
     t_b_slots: int = 0
+    # [S_pad, K]: the flat transposed-ELL cell (t_sid * K + k) of each
+    # forward cell; empty cells hold St_pad * K.  Only the B + M GAT conv's
+    # backward reads it (to mirror per-cell values between the layouts).
+    f_from_t: object = None
 
     def to(self, device) -> "Edges":
         def t(a, dtype):
@@ -61,6 +65,7 @@ class Edges:
             t_ell_row=t(self.t_ell_row, torch.int32),
             t_ell_col=t(self.t_ell_col, torch.int32),
             t_ell_val=t(self.t_ell_val, torch.float32),
+            f_from_t=t(self.f_from_t, torch.int64),
         )
 
 
@@ -167,3 +172,17 @@ def build_ell_host(row, col, val, num_rows: int, K: int, S_pad: int = 0):
     ell_col[sid, k] = col
     ell_val[sid, k] = val
     return ell_row, ell_col, ell_val
+
+
+def ell_positions(row_sorted, K: int, num_rows: int):
+    """Flat slot-ELL cell position (sid * K + k) of each edge, given the
+    row-sorted row array the ELL was built from (mirrors build_ell_host's
+    dense-rows slot layout)."""
+    row = np.asarray(row_sorted, np.int64)
+    deg = np.bincount(row, minlength=num_rows)
+    starts = np.concatenate([[0], np.cumsum(deg)])
+    pos = np.arange(len(row)) - starts[row]
+    nslot = np.maximum((deg + K - 1) // K, 1)
+    slot_base = np.concatenate([[0], np.cumsum(nslot)])
+    sid = slot_base[row] + pos // K
+    return (sid * K + pos % K).astype(np.int64)

@@ -14,7 +14,9 @@ Local numbering: batch nodes occupy [0, B_pad), boundary (B') nodes
 ``dataloader.py v2:119-128``).
 
 The host builder stays numpy; :meth:`PaddedBatch.to` moves a batch to a
-device as tensors.  Only the single-K slot-ELL layout is ported.
+device as tensors.  Only the single-K slot-ELL layout is ported.  B + M (v1)
+training batches of non-GCN convs also carry the recovery term's reverse
+list in the rev-ELL layout (``ops/rev_ell.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from vq_gnn_tpu_torch.config import not_ported
-from vq_gnn_tpu_torch.ops.spmm import Edges, build_ell_host
+from vq_gnn_tpu_torch.ops.rev_ell import REV_S_MULTIPLE, build_rev_ell, pad_rev_ell
+from vq_gnn_tpu_torch.ops.spmm import Edges, build_ell_host, ell_positions
 
 
 def _as_tensor(a, device, dtype=None):
@@ -46,6 +49,11 @@ class PaddedBatch:
     num_B: int  # actual batch size
     y: object = None  # [B_pad] int labels or [B_pad, C] float
     train_mask: object = None  # [B_pad] bool
+    # B + M non-GCN recovery: the reverse list as rev-ELL slots (pad slots:
+    # row B_pad, col N, value 0); None where the batch has no reverse list
+    rev_slot_col: object = None  # [S_rev, K] int32 global neighbour ids
+    rev_slot_val: object = None  # [S_rev, K] f32
+    rev_slot_row: object = None  # [S_rev] int32 ascending local batch rows
 
     @property
     def B_pad(self) -> int:
@@ -70,6 +78,9 @@ class PaddedBatch:
             num_B=int(self.num_B),
             y=y,
             train_mask=_as_tensor(self.train_mask, device, torch.bool),
+            rev_slot_col=_as_tensor(self.rev_slot_col, device, torch.int32),
+            rev_slot_val=_as_tensor(self.rev_slot_val, device, torch.float32),
+            rev_slot_row=_as_tensor(self.rev_slot_row, device, torch.int32),
         )
 
 
@@ -92,6 +103,9 @@ def build_padded_batch(
     y: Optional[np.ndarray] = None,
     train_mask: Optional[np.ndarray] = None,
     t_b_bucket: Optional[dict] = None,
+    with_f_from_t: bool = False,
+    bm_rev=None,
+    rev_bucket: Optional[dict] = None,
 ) -> PaddedBatch:
     """Pad a host-built subgraph batch to static shapes, in the single-K
     slot-ELL layout (``vq_gnn_tpu/sampler/batch.py:176-218``).
@@ -99,7 +113,10 @@ def build_padded_batch(
     Inputs use a compact local numbering where boundary node j is
     ``len(node_idx) + j``; boundary indices move to the static offset
     ``B_pad``.  ``t_b_bucket`` (a monotone dict) enables the backward
-    truncation bound ``b_rows``/``t_b_slots`` of :class:`Edges`.
+    truncation bound ``b_rows``/``t_b_slots`` of :class:`Edges`;
+    ``with_f_from_t`` adds the cross-layout map ``Edges.f_from_t``.  ``bm_rev``
+    (rows, global cols, values) is the B + M reverse list, laid out as
+    rev-ELL slots padded to the monotone ``rev_bucket["S"]``.
     """
     if ell_K <= 0:
         raise not_ported("the COO spmm layout (spmm_backend='coo')")
@@ -127,6 +144,14 @@ def build_padded_batch(
     tr_, tc_, tv_ = build_ell_host(
         cs[t_order], rs[t_order], vs[t_order], dim_pad, ell_K, St_pad
     )
+    f_from_t = None
+    if with_f_from_t:
+        # forward cell -> transposed cell of the same edge (empty -> St_pad*K)
+        f_pos = ell_positions(rs, ell_K, dim_pad)
+        t_pos = ell_positions(cs[t_order], ell_K, dim_pad)
+        f_from_t = np.full(S_pad * ell_K, St_pad * ell_K, np.int32)
+        f_from_t[f_pos[t_order]] = t_pos
+        f_from_t = f_from_t.reshape(S_pad, ell_K)
     b_rows = t_b_slots = 0
     if t_b_bucket is not None:
         # x rows >= B_pad are codebook lookups with dead cotangents (see
@@ -149,6 +174,7 @@ def build_padded_batch(
         dense_rows=True,  # build_ell_host gives every row >= 1 slot
         b_rows=b_rows,
         t_b_slots=t_b_slots,
+        f_from_t=f_from_t,
     )
 
     valid_B = np.zeros(B_pad, bool)
@@ -162,6 +188,14 @@ def build_padded_batch(
         out[:B] = a
         return out
 
+    rev = {}
+    if bm_rev is not None:
+        slots = build_rev_ell(*bm_rev, B_pad, num_N)
+        rev_bucket["S"] = max(rev_bucket.get("S", 0),
+                              round_up(slots[0].shape[0], REV_S_MULTIPLE))
+        rev = dict(zip(("rev_slot_col", "rev_slot_val", "rev_slot_row"),
+                       pad_rev_ell(*slots, rev_bucket["S"], B_pad, num_N)))
+
     return PaddedBatch(
         batch_idx=pad_ids(node_idx, B_pad),
         fo_ids=pad_ids(fo_ids, Bp_pad),
@@ -171,4 +205,5 @@ def build_padded_batch(
         num_B=B,
         y=None if y is None else pad_rows(y),
         train_mask=None if train_mask is None else pad_rows(train_mask, False),
+        **rev,
     )

@@ -2,7 +2,8 @@
 ``vq_gnn_tpu/sampler/samplers.py``).
 
 Reproduces the reference ``OurDataLoader`` semantics
-(``vq_gnn_v2/dataloader.py:11-148``) for the B + B' formulation:
+(``vq_gnn_v2/dataloader.py:11-148``) for the B + B' formulation, and the v1
+mapper's edge sets for the B + M formulation (:func:`bm_subgraph`):
 
 - samplers node / edge / rw / cont / cluster, with the per-sampler
   effective-batch-size rescaling (lines 40-47); multi-window ``cont`` batches
@@ -106,6 +107,104 @@ def k_hop_subgraph(rowptr, col, val, node_idx, num_N, train_flag: bool):
     return fo_ids, e_row, e_col, e_val
 
 
+def bm_subgraph(rowptr, col, val, deg, deg_inv, node_idx, num_N, conv_type: str,
+                recovery_flag: bool, train_flag: bool):
+    """B + M (v1) edge sets, the per-edge equivalent of the mapper
+    (``vq_gnn_v1/utils/dataloader.py:144-192``; copy of
+    ``vq_gnn_tpu/sampler/samplers.py:bm_subgraph``).
+
+    The mapper's (B+M)x(B+M) matrix sums A(i,j) over the out-of-batch
+    neighbours j of a codeword into one cell; the linear convs and the GAT
+    attention (whose logits depend only on the codeword row) are invariant
+    to splitting a cell into its edges, so per-edge lists in the [B || B']
+    local layout carry v1 values:
+
+    - B rows: in-batch edges exact (GCN doubled by the mapper's
+      to_symmetric), out-of-batch edges A(i,j) through the neighbour's
+      codeword row; self-loops of value deg_inv (GCN doubled; SAGE none).
+      Without recovery (and in eval batches) every neighbour routes through
+      its codeword.
+    - GCN training: B' rows (j <- i in B) of value A(i,j) feed the recovery
+      term directly.
+    - Non-GCN training with recovery: the mapper's reverse side adds
+      deg*A*deg_inv on all neighbour edges but subtracts the RAW A on the
+      in-batch ones, so the per-(row, codeword) positive clamp is live; the
+      raw per-edge inputs come back as ``rev`` = (local row, global col,
+      value) for the device to coalesce.
+
+    Returns (fo_ids, e_row, e_col, e_val, rev or None)."""
+    node_idx = np.asarray(node_idx, dtype=np.int64)
+    B = len(node_idx)
+    in_batch = np.zeros(num_N, dtype=bool)
+    in_batch[node_idx] = True
+
+    starts, ends = rowptr[node_idx], rowptr[node_idx + 1]
+    counts = ends - starts
+    gather = np.repeat(starts - np.cumsum(counts) + counts, counts) + np.arange(counts.sum())
+    rows_g = np.repeat(node_idx, counts)  # global batch row per edge
+    cols_g = col[gather]
+    vals_g = val[gather]
+    nbr_out = ~in_batch[cols_g]
+
+    if recovery_flag and train_flag:
+        fo_ids = np.unique(cols_g[nbr_out])
+    else:
+        fo_ids = np.unique(cols_g)  # every neighbour routes via its codeword
+
+    pos = np.full(num_N, -1, dtype=np.int64)
+    pos[node_idx] = np.arange(B)
+    fo_pos = np.full(num_N, -1, dtype=np.int64)
+    fo_pos[fo_ids] = B + np.arange(len(fo_ids))
+
+    er_list, ec_list, ev_list = [], [], []
+    rev = None
+    gcn_mult = 2.0 if conv_type == "GCN" else 1.0
+    if recovery_flag and train_flag:
+        sel = ~nbr_out  # exact in-batch edges
+        er_list.append(pos[rows_g[sel]])
+        ec_list.append(pos[cols_g[sel]])
+        ev_list.append(vals_g[sel] * gcn_mult)
+        er_list.append(pos[rows_g[nbr_out]])  # out-of-batch via codewords
+        ec_list.append(fo_pos[cols_g[nbr_out]])
+        ev_list.append(vals_g[nbr_out])
+        rev_sel = nbr_out
+    else:
+        er_list.append(pos[rows_g])
+        ec_list.append(fo_pos[cols_g])
+        ev_list.append(vals_g)
+        rev_sel = slice(None)
+
+    if conv_type != "SAGE":  # self-loops (mapper lines 182-185)
+        er_list.append(np.arange(B))
+        ec_list.append(np.arange(B))
+        ev_list.append(deg_inv[node_idx].astype(np.float32) * gcn_mult)
+
+    if train_flag:
+        if conv_type != "GCN" and recovery_flag:
+            rv_all = (vals_g * deg[rows_g] * deg_inv[cols_g]).astype(np.float32)
+            sel_in = ~nbr_out
+            rev = (
+                np.concatenate([pos[rows_g], pos[cols_g[sel_in]]]).astype(np.int64),
+                np.concatenate([cols_g, rows_g[sel_in]]).astype(np.int64),
+                np.concatenate([rv_all, -vals_g[sel_in]]).astype(np.float32),
+            )
+        else:
+            rj = cols_g[rev_sel]  # B'-row reverse edges, exactly per-edge
+            ri = rows_g[rev_sel]
+            if conv_type == "GCN":
+                rv = vals_g[rev_sel]
+            else:
+                rv = (vals_g[rev_sel] * deg[ri] * deg_inv[rj]).astype(np.float32)
+            er_list.append(fo_pos[rj])
+            ec_list.append(pos[ri])
+            ev_list.append(rv)
+
+    er = np.concatenate(er_list)
+    ec = np.concatenate(ec_list)
+    ev = np.concatenate(ev_list).astype(np.float32)
+    return fo_ids, er, ec, ev, rev
+
+
 class BatchLoader:
     """Epoch iterator yielding (list of PaddedBatch windows, raw node ids)."""
 
@@ -175,6 +274,7 @@ class BatchLoader:
         self._S_bucket = 0
         self._St_bucket = 0
         self._tb_bucket = {"multiple": max(cfg.pad_multiple_edges // cfg.ell_K, 64)}
+        self._rev_bucket = {}  # rev-ELL slot count high-water mark (B + M)
 
     # ---- batch index generation (one epoch) ----
     def _node_batches(self, rng) -> List[List[np.ndarray]]:
@@ -246,10 +346,17 @@ class BatchLoader:
         return bucket
 
     def _build(self, node_idx: np.ndarray) -> PaddedBatch:
-        g = self.graph
-        fo_ids, er, ec, ev = k_hop_subgraph(
-            self.rowptr, self.col, self.val, node_idx, self.N, self.train_flag
-        )
+        g, cfg = self.graph, self.cfg
+        rev = None
+        if cfg.formulation == "bm":
+            fo_ids, er, ec, ev, rev = bm_subgraph(
+                self.rowptr, self.col, self.val, g.deg, g.deg_inv, node_idx, self.N,
+                cfg.conv_type, cfg.recovery_flag, self.train_flag,
+            )
+        else:
+            fo_ids, er, ec, ev = k_hop_subgraph(
+                self.rowptr, self.col, self.val, node_idx, self.N, self.train_flag
+            )
         B_pad, Bp_pad = self._pad_sizes(len(node_idx), len(fo_ids))
         K = self.cfg.ell_K
         dim_pad = B_pad + Bp_pad
@@ -272,6 +379,10 @@ class BatchLoader:
             y=None if g.y is None else g.y[node_idx],
             train_mask=None if g.train_mask is None else g.train_mask[node_idx],
             t_b_bucket=self._tb_bucket if self.train_flag else None,
+            # the B + M GAT conv's backward mirrors per-cell values through it
+            with_f_from_t=cfg.formulation == "bm" and cfg.conv_type == "GAT",
+            bm_rev=rev,
+            rev_bucket=self._rev_bucket,
         )
 
     def _epoch_iter(self):

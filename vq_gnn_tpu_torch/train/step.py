@@ -1,5 +1,5 @@
 """Train / eval / init-sweep steps (port of ``vq_gnn_tpu/train/step.py``,
-the B + B' path).
+the B + B' and B + M paths).
 
 One training step reproduces the reference hot path (SURVEY §3.1):
 
@@ -107,7 +107,10 @@ def make_step_fns(ms: ModelStatic, cfg: Config) -> StepFns:
             for l in range(ms.num_layers):
                 nb = ms.num_branches[l]
                 Xb = _branch_view(layer_inputs[l].detach(), nb, D)
-                Gb = _branch_view(g_probes[l][:, : nb * D], nb, D)
+                gp = g_probes[l]
+                # the B + M GAT probe is [nb, B_pad, D + 1]: the ones-column
+                # gradient is quantized too (VQParams.add_flag)
+                Gb = gp if gp.dim() == 3 else _branch_view(gp[:, : nb * D], nb, D)
                 state.vq_states[l], _ = vq_update(
                     state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B
                 )
