@@ -28,12 +28,15 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 4. check that each path launched each of its kernels;
 5. hold each kernel against its plain PyTorch version on the card at the
    shapes of the real batch (kernel 2 also at nb = 1 and, with kernel 3, at
-   the B + M widths K = 9, M = 1,024; kernel 4 with and without the masked
+   the B + M widths K = 9, M = 1,024; kernel 2's exact mode bit-equal, its
+   fast mode, whose distances run on the tensor cores, by the near-tie rule
+   of ``assign_mismatch`` and run-to-run identical; kernel 4 with and without the masked
    channels; kernel 5 at C = 128 and 256; the segment sum at C = 128 and
    32, with and without its scalar channel; the recovery kernels at nb = 32,
    M = 1,024 over the batch's own reverse list);
 6. time each kernel, its plain version and a PyTorch library yardstick where
-   one call computes the same function;
+   one call computes the same function (kernel 2 also as the device time of
+   a CUDA-graph replay, free of the host's launch gaps);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT) on the GPU and on the CPU (plain versions) from one state,
    count the codeword assignments that come to differ, and compare each
@@ -115,6 +118,21 @@ def cuda_time_ms(torch, fn, reps=20, warmup=3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_time_ms(torch, fn, reps=20) -> float:
+    """Mean device time of ``fn()`` replayed from a CUDA graph: the kernels'
+    time without the host's launch gaps between back-to-back calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_time_ms(torch, graph.replay, reps=reps)
 
 
 def bound(bytes_moved: float, flops: float, flop_rate: float):
@@ -292,6 +310,7 @@ def main() -> int:
     )
     from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain
     from vq_gnn_tpu_torch.ops.vq_kernels import (
+        assign_mismatch,
         codeword_sqnorm,
         fused_assign_branches,
         fused_assign_branches_plain,
@@ -389,24 +408,43 @@ def main() -> int:
         ("feature_update", xn4, vq1.embedding[:, :, : Kq // 2].contiguous(), valid4),
         ("nb=1", xn[:1].contiguous(), vq1.embedding[:1].contiguous(), valid),
     ]
-    for label, xx, emb, vv in cases:
+    def hold_assign(label, xx, emb, vv):
+        """Kernel 2 against its plain version in both modes.  Exact: idx and
+        counts equal.  Fast (tensor cores, their own summation order): idx
+        may differ at near ties only (worst ratio <= 1 on < 1e-3 of the
+        rows), counts and sums held at the kernel's own idx.  Sums: summation
+        order only, each within 1e-5 of the sum of the |x| it adds up."""
         for fast in (False, True):
             idx, cnt, sums = fused_assign_branches(xx, emb, vv, fast=fast)
             idx_r, cnt_r, sums_r = fused_assign_branches_plain(xx, emb, vv, fast=fast)
-            # summation order only: each sum may differ by 1e-5 of the sum of
-            # the |x| it adds up (the scale of f32 round-off in a long sum)
-            _, _, abs_sums = fused_assign_branches_plain(xx.abs(), emb, vv, fast=fast,
-                                                         idx=idx_r)
             torch.cuda.synchronize()
+            if fast:
+                n_diff, worst = assign_mismatch(xx, emb, idx, idx_r, fast=True)
+                rule = (f"rows whose idx differs {n_diff} of {idx.numel()}, worst ratio "
+                        f"{worst:.4g} of the near-tie tolerance")
+                ok_idx = worst <= 1.0 and n_diff < 1e-3 * idx.numel()
+                _, cnt_r, sums_r = fused_assign_branches_plain(xx, emb, vv, fast=True, idx=idx)
+            else:
+                ok_idx = torch.equal(idx, idx_r)
+                rule = f"idx equal {ok_idx}"
+            _, _, abs_sums = fused_assign_branches_plain(xx.abs(), emb, vv, fast=fast, idx=idx)
             diff = (sums - sums_r).abs()
-            d = float(diff.max())
             ratio = float((diff / (1e-5 * abs_sums).clamp_min(1e-30)).max())
             log(f"[5 vq_assign {label} fast={fast}] xn {tuple(xx.shape)} M={emb.shape[1]} "
-                f"idx equal {torch.equal(idx, idx_r)} counts equal "
-                f"{torch.equal(cnt, cnt_r)} sums max|err| {d:.3g} "
+                f"{rule}; counts equal {torch.equal(cnt, cnt_r)} at "
+                f"{'its own' if fast else 'the same'} idx; sums max|err| {float(diff.max()):.3g} "
                 f"({ratio:.3f} of the 1e-5 * sum|x| tolerance)")
-            assert torch.equal(idx, idx_r) and torch.equal(cnt, cnt_r) and ratio <= 1.0
-            err["vq_assign"] = max(err.get("vq_assign", 0.0), d)
+            assert ok_idx and torch.equal(cnt, cnt_r) and ratio <= 1.0
+            err["vq_assign"] = max(err.get("vq_assign", 0.0), float(diff.max()))
+
+    for label, xx, emb, vv in cases:
+        hold_assign(label, xx, emb, vv)
+    # no float atomics: two calls give the same bits in fast mode too
+    first, second = (fused_assign_branches(xn, vq1.embedding.contiguous(), valid, fast=True)
+                     for _ in range(2))
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[5 vq_assign vq_update fast=True] two calls bit-identical (idx, counts, sums): {same}")
+    assert same
 
     vq0 = tr.state.vq_states[0]
     for fast in (False, True):
@@ -524,19 +562,8 @@ def main() -> int:
     Kb = emb_bm.shape[2]
     xn_bm = torch.randn((nb_bm, Bb, Kb), generator=gen, device=dev)
     valid_bm = bmb.valid_B.contiguous()
+    hold_assign("B + M", xn_bm, emb_bm, valid_bm)
     for fast in (False, True):
-        idx, cnt, sums = fused_assign_branches(xn_bm, emb_bm, valid_bm, fast=fast)
-        idx_r, cnt_r, sums_r = fused_assign_branches_plain(xn_bm, emb_bm, valid_bm, fast=fast)
-        _, _, abs_sums = fused_assign_branches_plain(xn_bm.abs(), emb_bm, valid_bm, fast=fast,
-                                                     idx=idx_r)
-        torch.cuda.synchronize()
-        diff = (sums - sums_r).abs()
-        ratio = float((diff / (1e-5 * abs_sums).clamp_min(1e-30)).max())
-        log(f"[5 vq_assign B + M fast={fast}] xn {tuple(xn_bm.shape)} M={M_bm} idx equal "
-            f"{torch.equal(idx, idx_r)} counts equal {torch.equal(cnt, cnt_r)} sums max|err| "
-            f"{float(diff.max()):.3g} ({ratio:.3f} of the 1e-5 * sum|x| tolerance)")
-        assert torch.equal(idx, idx_r) and torch.equal(cnt, cnt_r) and ratio <= 1.0
-        err["vq_assign"] = max(err["vq_assign"], float(diff.max()))
         out = lookup_codewords(vq_bm.c_indices, bmb.fo_ids, vq_bm.embedding_output, fast=fast)
         ref_l = lookup_codewords_plain(vq_bm.c_indices, bmb.fo_ids, vq_bm.embedding_output,
                                        fast=fast)
@@ -563,20 +590,39 @@ def main() -> int:
         "plain_ms": cuda_time_ms(torch, lambda: ell_aggregate_plain(*fwd_args), reps=5),
         "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr, x)),
     }
-    dx_ms = cuda_time_ms(torch, lambda: ell_aggregate(*dx_args))
     b_ms, b_by = bound(R * C * 4 + S * 4 + 2 * S * K * 4 + R * C * 4, 2 * nnz * C, F32_FLOPS)
     kern["ell_aggregate"] = dict(
         source="vq_gnn_tpu_torch/csrc/ell_aggregate.cu",
         replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms, bound_by=b_by)
-    log(f"[6 ell_aggregate] forward R={R} S={S} nnz={nnz}: {t} bound {b_ms:.4f} ms ({b_by}); "
-        f"dx rows={e0.b_rows} slots={tb}: {dx_ms:.4f} ms | {gpu}")
+    log(f"[6 ell_aggregate] forward R={R} S={S} nnz={nnz}: {t} bound {b_ms:.4f} ms ({b_by}) "
+        f"| {gpu}")
+    # the dx launch over the first tb transposed slots (rows clamped to
+    # b_rows, dropped there); bound over the slots it reads, as the
+    # forward's; library yardstick torch.sparse.mm on the transposed CSR
+    t_live = (t_val != 0) & (t_row[:, None] < e0.b_rows)
+    t_rows = torch.repeat_interleave(t_row.long(), K).reshape(tb, K)[t_live]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr_t = torch.sparse_coo_tensor(
+            torch.stack([t_rows, t_col[t_live].long()]), t_val[t_live], (e0.b_rows, R),
+        ).coalesce().to_sparse_csr()
+    nnz_t = int(t_live.sum())
+    t_dx = {
+        "ms": cuda_time_ms(torch, lambda: ell_aggregate(*dx_args)),
+        "plain_ms": cuda_time_ms(torch, lambda: ell_aggregate_plain(*dx_args), reps=5),
+        "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr_t, gx)),
+    }
+    bdx, bdx_by = bound(R * C * 4 + tb * 4 + 2 * tb * K * 4 + e0.b_rows * C * 4,
+                        2 * nnz_t * C, F32_FLOPS)
+    log(f"[6 ell_aggregate dx] rows={e0.b_rows} slots={tb} nnz={nnz_t}: {t_dx} bound "
+        f"{bdx:.4f} ms ({bdx_by}) | {gpu}")
 
     emb1 = vq1.embedding.contiguous()
 
-    def assign_times(xn_, emb_, valid=valid):
-        """(times, exact ms, bound, its kind, exact bound, its kind) of kernel
-        2 on these inputs, against its plain version and the library
-        sequence (TF32 baddbmm + argmin + 2 x index_add_)."""
+    def assign_times(label, xn_, emb_, valid=valid):
+        """Logs kernel 2's fast and exact times on these inputs, against its
+        plain version and the library sequence (TF32 baddbmm + argmin + 2 x
+        index_add_); returns (fast times, bound, its kind)."""
         nb_, B_, K_ = xn_.shape
         M = emb_.shape[1]
         e2 = codeword_sqnorm(emb_)
@@ -591,29 +637,32 @@ def main() -> int:
                 0, flat, (xn_ * valid.float()[None, :, None]).reshape(-1, K_))
             return idx, cnt, sums
 
+        def fast():
+            return fused_assign_branches(xn_, emb_, valid, fast=True)
+
         tt = {
-            "ms": cuda_time_ms(torch, lambda: fused_assign_branches(xn_, emb_, valid, fast=True)),
+            "ms": cuda_time_ms(torch, fast),
             "plain_ms": cuda_time_ms(
                 torch, lambda: fused_assign_branches_plain(xn_, emb_, valid, fast=True), reps=5),
             "library_ms": cuda_time_ms(torch, library, reps=5),
         }
         ex = cuda_time_ms(torch, lambda: fused_assign_branches(xn_, emb_, valid, fast=False))
+        graph_ms = graph_time_ms(torch, fast)
         byts = nb_ * B_ * K_ * 4 + nb_ * M * K_ * 4 + B_ + nb_ * B_ * 4 + nb_ * M * (K_ + 1) * 4
-        return (tt, ex, *bound(byts, 2 * nb_ * B_ * M * K_, BF16_FLOPS),
-                *bound(byts, 2 * nb_ * B_ * M * K_, F32_FLOPS))
+        b_f, by_f = bound(byts, 2 * nb_ * B_ * M * K_, BF16_FLOPS)
+        b_x, by_x = bound(byts, 2 * nb_ * B_ * M * K_, F32_FLOPS)
+        log(f"[6 vq_assign {label}] fast nb={nb_} B={B_} M={M} K={K_}: {tt}, device time in a "
+            f"CUDA-graph replay {graph_ms:.4f} ms; bound {b_f:.4f} ms ({by_f}, bf16); exact "
+            f"{ex:.4f} ms, bound {b_x:.4f} ms ({by_x}, f32) | {gpu}")
+        return tt, b_f, by_f
 
-    t, exact_ms, b_ms, b_by, b_ms_exact, b_by_exact = assign_times(xn, emb1)
+    t, b_ms, b_by = assign_times("B + B'", xn, emb1)
     kern["vq_assign"] = dict(
         source="vq_gnn_tpu_torch/csrc/vq_assign.cu",
         replaces="vq_gnn_tpu/ops/pallas_vq.py:140", **t, bound_ms=b_ms, bound_by=b_by)
-    log(f"[6 vq_assign] fast nb={nb} B={B_pad} M={M} K={Kq}: {t} bound {b_ms:.4f} ms "
-        f"({b_by}, bf16); exact {exact_ms:.4f} ms, bound {b_ms_exact:.4f} ms "
-        f"({b_by_exact}, f32) | {gpu}")
     # the single-branch TPU kernel (pallas_vq.py:33) is kernel 2 at nb = 1
-    t1, exact1, b1, by1, b1x, by1x = assign_times(xn[:1].contiguous(), emb1[:1].contiguous())
-    log(f"[6 vq_assign nb=1] (replaces vq_gnn_tpu/ops/pallas_vq.py:33) fast B={B_pad} M={M} "
-        f"K={Kq}: {t1} bound {b1:.4f} ms ({by1}, bf16); exact {exact1:.4f} ms, bound "
-        f"{b1x:.4f} ms ({by1x}, f32) | {gpu}")
+    assign_times("nb=1 (replaces vq_gnn_tpu/ops/pallas_vq.py:33)", xn[:1].contiguous(),
+                 emb1[:1].contiguous())
 
     c0, fo, emb_out = vq0.c_indices, b0.fo_ids, vq0.embedding_output
     n = fo.shape[0]
@@ -731,10 +780,7 @@ def main() -> int:
             f"null: no PyTorch call computes the coalesced relu-attention contraction | {gpu}")
 
     # kernels 2 and 3 at the B + M widths (PERF.md rows 6-7)
-    tb_, exact_bm, b_bm, by_bm, bx_bm, byx_bm = assign_times(xn_bm, emb_bm, valid_bm)
-    log(f"[6 vq_assign B + M] fast nb={nb_bm} B={Bb} M={M_bm} K={Kb}: {tb_} bound "
-        f"{b_bm:.4f} ms ({by_bm}, bf16); exact {exact_bm:.4f} ms, bound {bx_bm:.4f} ms "
-        f"({byx_bm}, f32) | {gpu}")
+    assign_times("B + M", xn_bm, emb_bm, valid_bm)
     c_bm, fo_bm, eo_bm = vq_bm.c_indices, bmb.fo_ids, vq_bm.embedding_output
     n_bm = fo_bm.shape[0]
     ar_bm = torch.arange(nb_bm, device=dev)[None, :]

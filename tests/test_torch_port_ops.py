@@ -23,6 +23,9 @@ from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
 from vq_gnn_tpu_torch.ops.spmm import build_ell_host, spmm
 from vq_gnn_tpu_torch.ops.vq_kernels import (
+    ASSIGN_FAST_STEP,
+    assign_mismatch,
+    fast_rows_per_block,
     fused_assign_branches,
     fused_assign_branches_plain,
     lookup_codewords,
@@ -153,6 +156,72 @@ def test_assign_plain_matches_pallas(nb, B, M, K, fast):
         assert np.all(np.abs(sums_t - sums_j) <= 1e-5 * abs_sums.numpy())
     else:
         assert np.abs(cnt_t - cnt_j).sum() <= 2 * (idx_j != idx_t).sum()
+
+
+def _mismatch_case(K, seed=7):
+    """Random rows and a codebook whose codeword 1 copies codeword 0 and
+    codeword 3 lies far from every row."""
+    rng = np.random.RandomState(seed)
+    xn = rng.randn(2, 300, K).astype(np.float32)
+    emb = rng.randn(2, 16, K).astype(np.float32)
+    emb[:, 1] = emb[:, 0]
+    emb[:, 3] = 50.0
+    return _t(xn), _t(emb)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("K", [4, 9, 17])
+def test_assign_mismatch_accepts_exact_tie(K, fast):
+    xn, emb = _mismatch_case(K)
+    idx_ref = torch.zeros((2, 300), dtype=torch.int64)
+    idx = idx_ref.clone()
+    idx[:, ::7] = 1  # the copy of codeword 0: the same distance
+    n_diff, worst = assign_mismatch(xn, emb, idx, idx_ref, fast=fast)
+    assert n_diff == int((idx != idx_ref).sum()) and worst == 0.0
+    assert assign_mismatch(xn, emb, idx_ref, idx_ref, fast=fast) == (0, 0.0)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("K", [4, 9, 17])
+def test_assign_mismatch_rejects_a_pick_beyond_tol(K, fast):
+    xn, emb = _mismatch_case(K)
+    idx_ref, _, _ = fused_assign_branches_plain(xn, emb, torch.ones(300, dtype=torch.bool),
+                                                fast=fast)
+    idx = idx_ref.clone()
+    idx[1, 5] = 3  # far from every row
+    n_diff, worst = assign_mismatch(xn, emb, idx, idx_ref, fast=fast)
+    assert n_diff == 1 and worst > 1.0
+    # the reverse pick is closer: negative ratio
+    assert assign_mismatch(xn, emb, idx_ref, idx, fast=fast)[1] < 0.0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_assign_mismatch_holds_plain_against_pallas(fast):
+    """The plain version's assignment against the Pallas kernel's (interpret
+    mode) passes the near-tie rule that holds the fast CUDA kernel."""
+    rng = np.random.RandomState(8)
+    nb, B, M, K = 4, 2048, 64, 9
+    xn = rng.randn(nb, B, K).astype(np.float32)
+    emb = rng.randn(nb, M, K).astype(np.float32)
+    valid = np.ones(B, bool)
+    idx_j = np.asarray(j_assign(jnp.asarray(xn), jnp.asarray(emb), jnp.asarray(valid),
+                                interpret=True, fast=fast)[0])
+    idx_t, _, _ = fused_assign_branches_plain(_t(xn), _t(emb), _t(valid), fast=fast)
+    n_diff, worst = assign_mismatch(_t(xn), _t(emb), idx_t, torch.from_numpy(np.array(idx_j)).long(),
+                                    fast=fast)
+    assert worst <= 1.0 and n_diff < 1e-3 * nb * B
+
+
+@pytest.mark.parametrize("nb,B", [(32, 90112), (32, 12288), (1, 90112), (2, 700), (3, 0)])
+def test_fast_rows_per_block_fills_the_card_in_one_wave(nb, B):
+    """The fast kernel's grid: whole 512-row steps per block, every row
+    covered, at most two blocks per SM of a 132-SM card (or one per branch)."""
+    rows = fast_rows_per_block(nb, B, 132)
+    nblk = -(-B // rows)
+    assert rows % ASSIGN_FAST_STEP == 0 and nblk * rows >= B
+    assert nb * nblk <= max(2 * 132, nb)
+    if B >= 2 * 132 * ASSIGN_FAST_STEP // nb:  # enough rows: the grid is nearly full
+        assert nb * nblk > 132
 
 
 @pytest.mark.parametrize("fast", [False, True])

@@ -7,7 +7,10 @@ each with its plain PyTorch version.
   codeword counts and sums (``csrc/vq_assign.cu``, replacing
   ``vq_gnn_tpu/ops/pallas_vq.py:_assign_kernel_allb`` and, at nb = 1,
   ``_assign_kernel``).  ``fast`` rounds x and the codebook to bf16 for the
-  dot product and x to bf16 in the sums; accumulation stays f32.
+  dot product and x to bf16 in the sums; accumulation stays f32.  The fast
+  mode runs the distances on the tensor cores, which sum in their own order,
+  so it is held to its plain version by ``assign_mismatch`` (near ties may
+  pick another codeword); the exact mode is bit-equal to its plain version.
 - ``lookup_codewords(c_indices [N+1,nb] int16, node_ids [n], emb_out
   [nb,M,K], fast)`` -> [n, nb, K]: ``emb_out[b, c_indices[node, b]]``
   (``csrc/vq_lookup.cu``, replacing ``pallas_vq.py:_lookup_kernel``).  Exact
@@ -20,12 +23,14 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from vq_gnn_tpu_torch.ops import _build
 
-ASSIGN_ROWS_PER_BLOCK = 1024  # batch rows per kernel-2 block (csrc/vq_assign.cu)
+ASSIGN_ROWS_PER_BLOCK = 1024  # batch rows per exact kernel-2 block (csrc/vq_assign.cu)
+ASSIGN_FAST_STEP = 512  # rows per step of a fast kernel-2 block (csrc/vq_assign.cu kTile)
 
 
 def codeword_sqnorm(emb: torch.Tensor) -> torch.Tensor:
@@ -40,8 +45,8 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 def fused_assign_branches_plain(xn, emb, valid, fast: bool = False, idx=None):
     """Plain version of kernel 2: the same separately rounded products and
-    sums in the same order (k = 0..K-1) as the kernel, then ``argmin`` (first
-    minimum) and index_add_ statistics.  A given ``idx`` skips the search and
+    sums in the same order (k = 0..K-1) as the exact kernel, then ``argmin``
+    (first minimum) and index_add_ statistics.  A given ``idx`` skips the search and
     only sums (checks use it to sum |x| over the same assignment)."""
     nb, B, K = xn.shape
     M = emb.shape[1]
@@ -61,6 +66,53 @@ def fused_assign_branches_plain(xn, emb, valid, fast: bool = False, idx=None):
     sums = torch.zeros((nb * M, K), dtype=torch.float32, device=xn.device)
     sums.index_add_(0, flat, (x * v[None, :, None]).reshape(-1, K))
     return idx, counts.reshape(nb, M), sums.reshape(nb, M, K)
+
+
+def assign_mismatch(xn, emb, idx, idx_ref, fast: bool):
+    """How far assignment ``idx`` is from ``idx_ref`` (both [nb, B]) on the
+    same inputs: (rows where they differ, worst ratio).  For each such row
+    both distances ``e2[m] - 2 sum_k x_k e_mk`` are recomputed in f64 from
+    the operands the mode uses (bf16-rounded when ``fast``), and the ratio is
+    ``(d(idx) - d(idx_ref)) / tol`` with
+
+        tol = 4e-6 * (|e2[idx]| + |e2[ref]| + 2 sum_k |x_k e_idx,k|
+                      + 2 sum_k |x_k e_ref,k|).
+
+    bf16 x bf16 products are exact in f32, and each side adds up to 17 of
+    them and e2 in f32, each addition rounded or truncated (2^-23 relative),
+    so a pick within round-off of the best has ratio <= 1; a ratio <= 0
+    means ``idx`` is at least as close.  A check passes with ratio <= 1 on
+    fewer than 1e-3 of the rows.  Used by the tests and ``chip_smoke.py``,
+    not by the training path."""
+    b, i = torch.nonzero(idx != idx_ref, as_tuple=True)
+    if b.numel() == 0:
+        return 0, 0.0
+    x = (_bf16(xn) if fast else xn)[b, i].double()
+    e = _bf16(emb) if fast else emb
+    e2 = codeword_sqnorm(emb).double()
+
+    def dist(m):
+        prod = x * e[b, m].double()
+        return e2[b, m] - 2.0 * prod.sum(-1), e2[b, m].abs() + 2.0 * prod.abs().sum(-1)
+
+    d_a, s_a = dist(idx[b, i])
+    d_r, s_r = dist(idx_ref[b, i])
+    tol = (4e-6 * (s_a + s_r)).clamp_min(torch.finfo(torch.float64).tiny)
+    return int(b.numel()), float(((d_a - d_r) / tol).max())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def fast_rows_per_block(nb: int, B: int, sms: int) -> int:
+    """Rows per block of the fast kernel: whole 512-row steps, with as many
+    blocks per branch as keep the grid within two blocks per SM (one wave
+    at nb = 32 and at nb = 1 alike)."""
+    steps = max(1, -(-B // ASSIGN_FAST_STEP))
+    per_branch = max(1, min(steps, 2 * sms // nb))
+    return -(-steps // per_branch) * ASSIGN_FAST_STEP
 
 
 def _check(cond: bool, kernel: str, msg: str):
@@ -91,7 +143,10 @@ def fused_assign_branches(xn, emb, valid, fast: bool = False):
                f"{name} must be contiguous {dt} on {xn.device}")
     _check(tuple(valid.shape) == (B,), k, f"valid must be [{B}]")
     e2 = codeword_sqnorm(emb).contiguous()
-    rows = ASSIGN_ROWS_PER_BLOCK
+    if fast:
+        rows = fast_rows_per_block(nb, B, _sm_count(xn.device.index))
+    else:
+        rows = ASSIGN_ROWS_PER_BLOCK
     nblk = (B + rows - 1) // rows
     part = torch.empty(nb * nblk * M * (K + 1), dtype=torch.float32, device=xn.device)
     idx = torch.empty((nb, B), dtype=torch.int32, device=xn.device)
