@@ -27,16 +27,22 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
      as GCN;
 4. check that each path launched each of its kernels;
 5. hold each kernel against its plain PyTorch version on the card at the
-   shapes of the real batch (kernel 2 also at nb = 1 and, with kernel 3, at
-   the B + M widths K = 9, M = 1,024; kernel 2's exact mode bit-equal, its
+   shapes of the real batch (kernel 1 with the batch's row offsets and long
+   rows, and bit-identical run to run, at 1, 2 and 4 channel panels, with a
+   long-row list of another threshold and without the host's lists; kernel
+   2 also at nb = 1 and, with kernel 3, at the B + M widths K = 9, M =
+   1,024; kernel 2's exact mode bit-equal, its
    fast mode, whose distances run on the tensor cores, by the near-tie rule
    of ``assign_mismatch`` and run-to-run identical; kernel 4 with and without the masked
    channels; kernel 5 at C = 128 and 256; the segment sum at C = 128 and
    32, with and without its scalar channel; the recovery kernels at nb = 32,
    M = 1,024 over the batch's own reverse list);
 6. time each kernel, its plain version and a PyTorch library yardstick where
-   one call computes the same function (kernel 2 also as the device time of
-   a CUDA-graph replay, free of the host's launch gaps);
+   one call computes the same function (kernel 1 also at 2 and 4 panels,
+   without the long-row list, on narrower copies of x and with x's rows
+   relabelled at random, beside the no-reuse line, and at C = 256 in one
+   panel and in panel_width's; kernel 2 also as the device time of a
+   CUDA-graph replay, free of the host's launch gaps);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT) on the GPU and on the CPU (plain versions) from one state,
    count the codeword assignments that come to differ, and compare each
@@ -133,6 +139,64 @@ def graph_time_ms(torch, fn, reps=20) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_time_ms(torch, graph.replay, reps=reps)
+
+
+def cold_time_ms(torch, fn, flush, reps=10) -> float:
+    """Mean device time of single calls of ``fn()``, each after ``flush()``
+    overwrote the L2 cache."""
+    fn()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for a, b in ev:
+        flush()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / reps
+
+
+def live_cells(row, val, num_rows) -> int:
+    """Non-zero ELL cells of the slots whose row is < num_rows."""
+    return int(((val != 0) & (row[:, None] < num_rows)).sum())
+
+
+def csr_of(torch, row, col, val, num_rows, x_rows):
+    """The slot-ELL's live cells as a [num_rows, x_rows] CSR matrix."""
+    K = col.shape[1]
+    live = (val != 0) & (row[:, None] < num_rows)
+    rows = torch.repeat_interleave(row.long(), K).reshape(-1, K)[live]
+    with warnings.catch_warnings():  # beta-state notices of the sparse API
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(torch.stack([rows, col[live].long()]), val[live],
+                                       (num_rows, x_rows)).coalesce().to_sparse_csr()
+
+
+def ell_l2_probes(torch, agg, x, row, col, val, num_rows, flush, gpu, label):
+    """Kernel 1 on contiguous copies x[:, :C] (C = 32, 64, 128; an x of 32
+    channels fits in L2), and at full width with x's rows relabelled at
+    random (col -> perm[col], padding columns kept: the same sums without
+    locality), each warm and cold, beside the gathered bytes' rate and the
+    line where every gathered row comes from device memory."""
+    live = live_cells(row, val, num_rows)
+    for C in (32, 64, 128):
+        xc = x[:, :C].contiguous()
+        run = lambda: agg(xc, row, col, val, num_rows)  # noqa: E731
+        w, c = cuda_time_ms(torch, run), cold_time_ms(torch, run, flush)
+        gathered = live * C * 4
+        log(f"[6 ell_aggregate {label} C={C}] x {xc.numel() * 4 / 1e6:.1f} MB, gathered "
+            f"{gathered / 1e6:.1f} MB: warm {w:.4f} ms ({gathered / w / 1e9:.3f} TB/s), cold "
+            f"{c:.4f} ms ({gathered / c / 1e9:.3f} TB/s); no-reuse line "
+            f"{gathered / HBM_BYTES_PER_S * 1e3:.4f} ms | {gpu}")
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    perm = torch.randperm(x.shape[0], generator=gen, device=x.device).int()
+    pcol = torch.where(col < x.shape[0], perm[col.clamp(max=x.shape[0] - 1).long()], col)
+    xp = torch.empty_like(x)
+    xp[perm.long()] = x
+    run = lambda: agg(xp, row, pcol.contiguous(), val, num_rows)  # noqa: E731
+    log(f"[6 ell_aggregate {label} C={x.shape[1]} rows relabelled at random] warm "
+        f"{cuda_time_ms(torch, run):.4f} ms, cold {cold_time_ms(torch, run, flush):.4f} ms "
+        f"| {gpu}")
 
 
 def bound(bytes_moved: float, flops: float, flop_rate: float):
@@ -296,7 +360,12 @@ def main() -> int:
     from vq_gnn_tpu_torch.config import Config
     from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm
     from vq_gnn_tpu_torch.ops import _build
-    from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+    from vq_gnn_tpu_torch.ops.ell_aggregate import (
+        ell_aggregate,
+        ell_aggregate_plain,
+        panel_width,
+    )
+    from vq_gnn_tpu_torch.ops.spmm import long_rows_host
     from vq_gnn_tpu_torch.ops.gat_kernels import (
         gat_aggregate,
         gat_aggregate_plain,
@@ -386,15 +455,33 @@ def main() -> int:
     t_col, t_val = e0.t_ell_col[:tb].contiguous(), e0.t_ell_val[:tb].contiguous()
     fwd_args = (x, e0.ell_row, e0.ell_col, e0.ell_val, R)
     dx_args = (gx, t_row, t_col, t_val, e0.b_rows)
+    # the batch's own row offsets and long rows, as spmm passes them
+    ell_kw = {"forward": dict(ptr=e0.ell_ptr, long_rows=e0.ell_long_rows),
+              "dx": dict(ptr=e0.t_ell_ptr, long_rows=e0.t_ell_long_rows)}
     err = {}
     for label, args in (("forward", fwd_args), ("dx", dx_args)):
-        out, ref = ell_aggregate(*args), ell_aggregate_plain(*args)
+        kw = ell_kw[label]
+        out, ref = ell_aggregate(*args, **kw), ell_aggregate_plain(*args)
         torch.cuda.synchronize()
         d = float((out - ref).abs().max())
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        log(f"[5 ell_aggregate {label}] out {tuple(out.shape)} max|err| {d:.3g} (tol {tol:.3g})")
+        log(f"[5 ell_aggregate {label}] out {tuple(out.shape)} max|err| {d:.3g} (tol {tol:.3g}); "
+            f"{kw['long_rows'].shape[0] - 1} long rows")
         assert torch.isfinite(out).all() and d <= tol
         err["ell_aggregate"] = max(err.get("ell_aggregate", 0.0), d)
+        # no atomics, one group per (row, panel) summing in slot order: the
+        # same bits run to run, at every panel count, with or without the
+        # host's offsets and long rows, whatever the list's threshold
+        lr4 = torch.as_tensor(long_rows_host(kw["ptr"].cpu().numpy(), 4)).to(dev)
+        same = {"again": ell_aggregate(*args, **kw),
+                **{f"P={P}": ell_aggregate(*args, panels=P, **kw) for P in (1, 2, 4)},
+                "rows of more than 4 slots first": ell_aggregate(*args, ptr=kw["ptr"],
+                                                                 long_rows=lr4),
+                "offsets built on the device, rows in index order": ell_aggregate(*args)}
+        torch.cuda.synchronize()
+        same = {k: torch.equal(v, out) for k, v in same.items()}
+        log(f"[5 ell_aggregate {label}] bit-identical to the first call: {same}")
+        assert all(same.values())
 
     vq1 = tr.state.vq_states[1]
     nb, M, Kq = vq1.embedding.shape
@@ -573,49 +660,48 @@ def main() -> int:
         assert torch.equal(out, ref_l)
 
     # ---- 6. times: kernel, plain version, library yardstick ----
-    S, K = e0.ell_col.shape
-    nnz_mask = e0.ell_val != 0
-    rows_rep = torch.repeat_interleave(e0.ell_row.long(), K).reshape(S, K)[nnz_mask]
-    keep = rows_rep < R
-    with warnings.catch_warnings():  # beta-state notices of the sparse API
-        warnings.simplefilter("ignore", UserWarning)
-        csr = torch.sparse_coo_tensor(
-            torch.stack([rows_rep[keep], e0.ell_col[nnz_mask].long()[keep]]),
-            e0.ell_val[nnz_mask][keep], (R, R),
-        ).coalesce().to_sparse_csr()
-    nnz = int(keep.sum())
+    scratch = torch.empty(64 << 20, device=dev)  # 256 MB, 5x the L2
+    flush = lambda: scratch.fill_(1.0)  # noqa: E731
     kern = {}
-    t = {
-        "ms": cuda_time_ms(torch, lambda: ell_aggregate(*fwd_args)),
-        "plain_ms": cuda_time_ms(torch, lambda: ell_aggregate_plain(*fwd_args), reps=5),
-        "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr, x)),
-    }
-    b_ms, b_by = bound(R * C * 4 + S * 4 + 2 * S * K * 4 + R * C * 4, 2 * nnz * C, F32_FLOPS)
-    kern["ell_aggregate"] = dict(
-        source="vq_gnn_tpu_torch/csrc/ell_aggregate.cu",
-        replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms, bound_by=b_by)
-    log(f"[6 ell_aggregate] forward R={R} S={S} nnz={nnz}: {t} bound {b_ms:.4f} ms ({b_by}) "
-        f"| {gpu}")
-    # the dx launch over the first tb transposed slots (rows clamped to
-    # b_rows, dropped there); bound over the slots it reads, as the
-    # forward's; library yardstick torch.sparse.mm on the transposed CSR
-    t_live = (t_val != 0) & (t_row[:, None] < e0.b_rows)
-    t_rows = torch.repeat_interleave(t_row.long(), K).reshape(tb, K)[t_live]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        csr_t = torch.sparse_coo_tensor(
-            torch.stack([t_rows, t_col[t_live].long()]), t_val[t_live], (e0.b_rows, R),
-        ).coalesce().to_sparse_csr()
-    nnz_t = int(t_live.sum())
-    t_dx = {
-        "ms": cuda_time_ms(torch, lambda: ell_aggregate(*dx_args)),
-        "plain_ms": cuda_time_ms(torch, lambda: ell_aggregate_plain(*dx_args), reps=5),
-        "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr_t, gx)),
-    }
-    bdx, bdx_by = bound(R * C * 4 + tb * 4 + 2 * tb * K * 4 + e0.b_rows * C * 4,
-                        2 * nnz_t * C, F32_FLOPS)
-    log(f"[6 ell_aggregate dx] rows={e0.b_rows} slots={tb} nnz={nnz_t}: {t_dx} bound "
-        f"{bdx:.4f} ms ({bdx_by}) | {gpu}")
+    for label, args, n_out in (("forward", fwd_args, R), ("dx", dx_args, e0.b_rows)):
+        xx, row, col, val, _ = args
+        kw = ell_kw[label]
+        S_, K = col.shape
+        nnz_ = live_cells(row, val, n_out)
+        csr_ = csr_of(torch, row, col, val, n_out, R)
+        t = {
+            "ms": cuda_time_ms(torch, lambda: ell_aggregate(*args, **kw)),
+            "plain_ms": cuda_time_ms(torch, lambda: ell_aggregate_plain(*args), reps=5),
+            "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr_, xx)),
+        }
+        # x, the slots it reads (rows, cols, values) and the output, once each
+        b_ms, b_by = bound(R * C * 4 + S_ * 4 + 2 * S_ * K * 4 + n_out * C * 4, 2 * nnz_ * C,
+                           F32_FLOPS)
+        no_reuse = nnz_ * C * 4 / HBM_BYTES_PER_S * 1e3  # every gathered row from memory
+        by_p = {P: cuda_time_ms(torch, lambda: ell_aggregate(*args, panels=P, **kw))
+                for P in (1, 2, 4)}
+        index_order = cuda_time_ms(torch, lambda: ell_aggregate(*args, ptr=kw["ptr"]))
+        log(f"[6 ell_aggregate {label}] rows={n_out} slots={S_} nnz={nnz_}: {t} bound "
+            f"{b_ms:.4f} ms ({b_by}); no-reuse line (live cells x C x 4 B at 3.35 TB/s) "
+            f"{no_reuse:.4f} ms; by panel count (P = 1 is the default) {by_p}; without the "
+            f"long-row list {index_order:.4f} ms | {gpu}")
+        ell_l2_probes(torch, lambda *a: ell_aggregate(*a, **kw), xx, row, col, val, n_out,
+                      flush, gpu, label)
+        if label == "forward":
+            kern["ell_aggregate"] = dict(
+                source="vq_gnn_tpu_torch/csrc/ell_aggregate.cu",
+                replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms, bound_by=b_by)
+    del scratch
+    # why panel_width splits x above 128 channels: the forward at C = 256 in
+    # one panel (each row group walks two 128-channel passes) and in two
+    x256 = torch.randn((R, 256), generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    by_p = {P: cuda_time_ms(torch, lambda: ell_aggregate(x256, *fwd_args[1:], panels=P,
+                                                         **ell_kw["forward"]))
+            for P in (1, 256 // panel_width(256))}
+    log(f"[6 ell_aggregate forward C=256] by panel count (panel_width gives "
+        f"{256 // panel_width(256)}) {by_p} | {gpu}")
+    del x256
 
     emb1 = vq1.embedding.contiguous()
 

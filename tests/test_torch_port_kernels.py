@@ -29,7 +29,7 @@ from vq_gnn_tpu_torch.ops.rev_kernels import (
     rev_recovery_info_plain,
 )
 from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain
-from vq_gnn_tpu_torch.ops.spmm import build_ell_host
+from vq_gnn_tpu_torch.ops.spmm import build_ell_host, long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.ops.vq_kernels import (
     assign_mismatch,
     fused_assign_branches,
@@ -70,7 +70,8 @@ def _ell_case(num_rows, E, K, C, seed, x_rows=None, S_extra=37):
 @cuda
 @pytest.mark.parametrize(
     "num_rows,E,K,C",
-    [(3000, 40000, 8, 128), (517, 3000, 4, 36), (129, 900, 8, 7), (200, 0, 8, 128)],
+    [(3000, 40000, 8, 128), (517, 3000, 4, 36), (129, 900, 8, 7), (200, 0, 8, 128),
+     (3000, 40000, 8, 32), (2000, 20000, 8, 64), (700, 6000, 8, 256)],
 )
 def test_ell_aggregate_matches_plain(dev, num_rows, E, K, C):
     er, ec, ev, x = _ell_case(num_rows, E, K, C, 0)
@@ -95,6 +96,120 @@ def test_ell_aggregate_truncated_rows(dev):
     ref = ell_aggregate_plain(*args, b_rows)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+def _ell_variants(x, er, ec, ev, num_rows):
+    """Kernel 1 on the same inputs: at panel counts 1, 2, 4 and the default,
+    with the host's row offsets and long rows, with long-row lists of other
+    thresholds than the default, or without either (offsets built on the
+    device, every row in index order), and a second call."""
+    ptr = row_offsets_host(er, num_rows)
+    host = dict(ptr=torch.as_tensor(ptr).to(x.device),
+                long_rows=torch.as_tensor(long_rows_host(ptr)).to(x.device))
+    args = [torch.as_tensor(a).to(x.device) for a in (er, ec, ev)]
+    outs = {f"P={P}": ell_aggregate(x, *args, num_rows, panels=P, **host) for P in (1, 2, 4)}
+    outs["default"] = ell_aggregate(x, *args, num_rows, **host)
+    for t in (0, 4):  # the kernel skips in index order by the list's own threshold
+        lr = torch.as_tensor(long_rows_host(ptr, t)).to(x.device)
+        outs[f"rows of more than {t} slots first"] = ell_aggregate(
+            x, *args, num_rows, ptr=host["ptr"], long_rows=lr)
+    outs["device offsets"] = ell_aggregate(x, *args, num_rows)
+    outs["device offsets, P=4"] = ell_aggregate(x, *args, num_rows, panels=4)
+    outs["default again"] = ell_aggregate(x, *args, num_rows, **host)
+    ref = ell_aggregate_plain(x, *args, num_rows)
+    torch.cuda.synchronize()
+    return outs, ref
+
+
+def _hold_ell_variants(outs, ref):
+    """Every variant the same bits (each (row, channel) sums its cells in slot
+    order whatever the panels, the long rows or the run), and all
+    within f32 round-off of the plain version."""
+    first = outs["P=1"]
+    assert torch.isfinite(first).all()
+    for name, o in outs.items():
+        assert torch.equal(o, first), name
+    torch.testing.assert_close(first, ref, rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+
+@cuda
+@pytest.mark.parametrize("C", [7, 32, 36, 64, 128, 256])
+def test_ell_aggregate_same_bits_across_panels(dev, C):
+    """C = 7, 32, 36, 64, 128, 256: one vector per lane at 8, 16 and 32
+    lanes, float4 and single-channel lanes, one and two panels."""
+    er, ec, ev, x = _ell_case(3000, 40000, 8, C, 9)
+    _hold_ell_variants(*_ell_variants(torch.as_tensor(x).to(dev), er, ec, ev, 3000))
+
+
+@cuda
+def test_ell_aggregate_ragged_rows(dev):
+    """One row with ~2,000 cells (250 slots), the rest with 0-2: the long
+    row takes a warp of its own (the host's list) or goes in index order;
+    its sum crosses many windows and many gather batches."""
+    rng = np.random.RandomState(10)
+    num_rows, C = 4000, 128
+    row = np.concatenate([np.full(2000, 1234), rng.randint(0, num_rows, 4000)])
+    row.sort(kind="stable")
+    col = rng.randint(0, num_rows, len(row))
+    val = rng.randn(len(row)).astype(np.float32)
+    er, ec, ev = build_ell_host(row, col, val, num_rows, 8)
+    x = torch.as_tensor(rng.randn(num_rows, C).astype(np.float32)).to(dev)
+    outs, ref = _ell_variants(x, er, ec, ev, num_rows)
+    _hold_ell_variants(outs, ref)
+    assert float(ref[1234].abs().max()) > 0
+
+
+@cuda
+@pytest.mark.parametrize("x_rows,layout", [(5000, "aligned"), (700, "aligned"),
+                                           (3000, "unaligned")])
+def test_ell_aggregate_x_rows_and_alignment(dev, x_rows, layout):
+    """x with more rows than the output (the dx's form) and with fewer
+    (columns past its end clamp to its last row), and an x whose start is
+    not 16-byte aligned (the kernel's one-channel lanes)."""
+    num_rows, C = 3000, 64
+    er, ec, ev, x = _ell_case(num_rows, 30000, 8, C, 11, x_rows=x_rows)
+    if x_rows < num_rows:  # a tenth of the live cells point past the end of x
+        rng = np.random.RandomState(12)
+        past = (ev != 0) & (rng.rand(*ec.shape) < 0.1)
+        ec[past] = rng.randint(x_rows, num_rows + 1, int(past.sum()))
+    xt = torch.as_tensor(x).to(dev)
+    if layout == "unaligned":
+        buf = torch.empty(xt.numel() + 1, device=dev)
+        xt = buf[1:].view(x_rows, C)
+        xt.copy_(torch.as_tensor(x).to(dev))
+        assert xt.data_ptr() % 16 != 0 and xt.is_contiguous()
+    _hold_ell_variants(*_ell_variants(xt, er, ec, ev, num_rows))
+
+
+@cuda
+def test_ell_aggregate_offsets_past_the_slots(dev):
+    """Row offsets built for more slots than the kernel is given: each row
+    sums only its slots among those given (the kernel clamps the offsets to
+    the slots), as the plain version of the shortened ELL does."""
+    num_rows = 3000
+    er, ec, ev, x = _ell_case(num_rows, 30000, 8, 128, 14)
+    ptr = torch.as_tensor(row_offsets_host(er, num_rows)).to(dev)
+    S = len(er) // 2
+    args = [torch.as_tensor(np.ascontiguousarray(a[:S])).to(dev) for a in (er, ec, ev)]
+    xt = torch.as_tensor(x).to(dev)
+    out = ell_aggregate(xt, *args, num_rows, ptr=ptr)
+    ref = ell_aggregate_plain(xt, *args, num_rows)
+    assert int(ptr[-1]) > S
+    _close_to_ref(out, ref)
+
+
+@cuda
+def test_ell_aggregate_rows_without_slots(dev):
+    """Rows that own no slot at all (every third row, and a run of 40 at the
+    end) come out 0; their neighbours' sums are unaffected."""
+    num_rows = 3000
+    er, ec, ev, x = _ell_case(num_rows, 30000, 8, 128, 13, S_extra=0)
+    keep = (er % 3 != 1) & (er < num_rows - 40)
+    er, ec, ev = er[keep], ec[keep], ev[keep]
+    outs, ref = _ell_variants(torch.as_tensor(x).to(dev), er, ec, ev, num_rows)
+    _hold_ell_variants(outs, ref)
+    assert not outs["default"][1::3].any() and not outs["default"][-40:].any()
 
 
 def _close_to_ref(out, ref):
@@ -271,6 +386,19 @@ def test_wrappers_refuse_bad_input(dev):
     ev = torch.zeros((2, 8), device=dev)
     with pytest.raises(ValueError):
         ell_aggregate(x, er, ec, ev, 10)
+    xf = x.float()
+    with pytest.raises(ValueError):  # row offsets for another row count
+        ell_aggregate(xf, er, ec, ev, 10, ptr=torch.zeros(10, dtype=torch.int32, device=dev))
+    ptr = torch.tensor([0, 1, 2] + [2] * 8, dtype=torch.int32, device=dev)
+    rows = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # int64 long rows
+        ell_aggregate(xf, er, ec, ev, 10, ptr=ptr, long_rows=rows.long())
+    with pytest.raises(ValueError):  # long rows without their row offsets
+        ell_aggregate(xf, er, ec, ev, 10, long_rows=rows)
+    with pytest.raises(ValueError):  # a long-row list without its threshold
+        ell_aggregate(xf, er, ec, ev, 10, ptr=ptr, long_rows=rows[:0])
+    with pytest.raises(ValueError):  # more panels than channels
+        ell_aggregate(xf, er, ec, ev, 10, panels=9)
     with pytest.raises(ValueError):
         fused_assign_branches(
             torch.zeros((1, 4, 18), device=dev), torch.zeros((1, 4, 18), device=dev),

@@ -20,8 +20,14 @@ from vq_gnn_tpu.ops.spmm import spmm as j_spmm
 from vq_gnn_tpu.sampler import samplers as jsamplers
 from vq_gnn_tpu_torch import config as tcfg
 from vq_gnn_tpu_torch.graph import datasets as tdata
-from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
-from vq_gnn_tpu_torch.ops.spmm import build_ell_host, spmm
+from vq_gnn_tpu_torch.ops.ell_aggregate import (
+    LONG_SLOTS,
+    PANEL_MAX,
+    ell_aggregate,
+    panel_width,
+    row_offsets_plain,
+)
+from vq_gnn_tpu_torch.ops.spmm import build_ell_host, long_rows_host, row_offsets_host, spmm
 from vq_gnn_tpu_torch.ops.vq_kernels import (
     ASSIGN_FAST_STEP,
     assign_mismatch,
@@ -100,6 +106,69 @@ def test_spmm_forward_and_dx_match_jax(truncated):
     np.testing.assert_allclose(dx_t.numpy(), np.asarray(dx_j), **TOL)
     if truncated:
         assert not dx_t[tb.B_pad :].any()
+
+
+@pytest.mark.parametrize("C", [128, 256, 40, 36, 7, 3, 200, 130, 1024])
+def test_panel_width(C):
+    """Kernel 1's channel panels: a multiple of 4 when C is (float4 lanes),
+    equal panels that cover C, none wider than PANEL_MAX channels, the
+    widest such, and one panel at the flagship width (C = 128)."""
+    Cp = panel_width(C)
+    unit = 4 if C % 4 == 0 else 1
+    assert Cp % unit == 0 and 0 < Cp <= min(C, PANEL_MAX) and C % Cp == 0
+    wider = [w for w in range(Cp + unit, min(C, PANEL_MAX) + 1, unit) if C % w == 0]
+    assert not wider
+    if C <= PANEL_MAX:
+        assert Cp == C
+
+
+def _row_offsets_cases():
+    """(slot rows, num_rows) of one training batch (forward ELL with its
+    dustbin padding; the truncated transposed prefix with its ride-over
+    slots clamped to b_rows) and of rows with gaps and rows past the end."""
+    _, tb = _batch_pair()
+    e = tb.edges
+    tp = np.minimum(e.t_ell_row[: e.t_b_slots], e.b_rows)
+    assert (e.ell_row == e.num_rows).any() and (tp == e.b_rows).any()
+    gaps = np.array([0, 0, 2, 2, 2, 5, 9, 9, 11, 12, 12], np.int32)
+    return {
+        "forward": (e.ell_row, e.num_rows, (e.ell_ptr, e.ell_long_rows)),
+        "dx prefix": (tp, e.b_rows, (e.t_ell_ptr, e.t_ell_long_rows)),
+        "gaps": (gaps, 10, None),
+    }
+
+
+@pytest.mark.parametrize("case", ["forward", "dx prefix", "gaps"])
+def test_long_rows_host(case):
+    """The rows kernel 1 starts first: the threshold, then exactly the rows
+    of more than that many slots, most slots first, ties in index order; and
+    what build_padded_batch stored."""
+    row, num_rows, built = _row_offsets_cases()[case]
+    ptr = row_offsets_host(row, num_rows)
+    slots = np.diff(ptr)
+    for t in (0, 1, 2, LONG_SLOTS):
+        listed = long_rows_host(ptr, t)
+        assert listed.dtype == np.int32 and listed[0] == t  # the list carries its threshold
+        rows = listed[1:]
+        assert sorted(rows.tolist()) == np.flatnonzero(slots > t).tolist()
+        key = [(-slots[r], r) for r in rows]
+        assert key == sorted(key)
+    if built is not None:
+        np.testing.assert_array_equal(built[1], long_rows_host(ptr))
+    with pytest.raises(ValueError):
+        long_rows_host(ptr, -1)
+
+
+@pytest.mark.parametrize("case", ["forward", "dx prefix", "gaps"])
+def test_row_offsets_host_match_the_kernel_rule(case):
+    """The batch's host-built row offsets against the device rule's plain
+    version (first slot whose clamped row is >= r)."""
+    row, num_rows, built = _row_offsets_cases()[case]
+    host = row_offsets_host(row, num_rows)
+    ref = row_offsets_plain(torch.as_tensor(np.asarray(row, np.int32)), num_rows)
+    np.testing.assert_array_equal(host, ref.numpy())
+    if built is not None:  # what build_padded_batch stored
+        np.testing.assert_array_equal(built[0], host)
 
 
 def test_spmm_dval_matches_jax():

@@ -8,98 +8,223 @@
 // with the neighbour gather XLA ran in front of it (vq_gnn_tpu/ops/spmm.py:186).
 // The same kernel runs over the transposed ELL for the backward dx.
 //
-// What bounds it on the H100: device-memory bytes.  Each cell does one
-// multiply-add per channel, so the work is far below the 67 TFLOP/s f32 rate;
-// the least traffic is x, the ELL arrays and out once each.  The gather reads
-// a 4*C-byte row of x per non-zero cell, which L2 (50 MB) catches only in
-// part, so the kernel moves more than that least traffic.
+// What bounds it on the H100: the latency of its dependent loads.  Each live
+// cell does one multiply-add per channel, far below the 67 TFLOP/s f32 rate,
+// and gathers a row of x that L2 mostly holds: at the flagship batch the time
+// does not move when x's rows are scattered in memory, and a narrow x that
+// fits in L2 is no faster per gathered byte than one that does not
+// (PERF.md §6).  What costs is each row's chain: its offsets, then its
+// cells, then the gathers; and the long rows (up to 688 cells in a batch
+// whose median is 7) that a warp walks one batch of gathers at a time.
 //
 // Design:
-// - the gather is fused: each warp reads x[col] rows straight into registers,
-//   so the [S*K, C] neighbour block the JAX path materialised (~1.1 GB at the
-//   arxiv-scale batch) never exists;
-// - one warp per output row, C/32 channels per lane (float4 loads when C is a
-//   multiple of 4 and the pointers are 16-byte aligned).  The warp walks its
-//   row's slot range and writes the row once: no atomics, so the result is
-//   deterministic.  Rows with no slot come out 0;
-// - slot ranges come from a first small kernel that turns the ascending
-//   ell_row into row offsets (rows >= num_rows, the padding dustbin, are
-//   dropped); cells with val == 0 (slot padding) are skipped, which differs
+// - a group of G lanes per row, one vector of VEC channels per lane (G = 32
+//   and float4 at C = 128; 8 or 16 lanes for a narrower x), rows in index
+//   order, so neighbouring rows, which share neighbours, gather together;
+// - each group loads a window of G cells, takes the live ones (val != 0)
+//   from a ballot and gathers kLoads of them per lane before the first FMA
+//   waits (predicated loads in volatile asm, so the compiler neither sinks
+//   them into a branch nor merges them with their use); slot padding and
+//   zero cells cost no load, and the row ends at its last live cell.  The
+//   next window's cells load while this window's gathers are in flight;
+// - the rows of more than t slots (a list built on the host, longest first,
+//   that carries its threshold t) take a warp each in the first blocks, so
+//   the longest chains start first instead of finishing last; the groups in
+//   index order skip them by the same t;
+// - the register budget allows 4 blocks of 256 threads per SM (64 registers):
+//   with it ptxas keeps the gathers in flight at twice the occupancy a free
+//   budget gives;
+// - each (row, channel) sums the row's live cells in slot order, one FMA
+//   each, in one thread: no atomics, the same bits in every run, at every
+//   panel count, with or without the long-row list.  Skipping a zero cell is exact
+//   (the sum never holds -0, so adding 0 * 0 changes no bit), which differs
 //   from multiplying by 0 only for non-finite x;
+// - channels wider than 32 vectors split into panels (blockIdx.y), each
+//   walked by its own groups; at C <= 128 there is one;
+// - row offsets (ptr[r] = first slot of row r) come with the batch, built on
+//   the host; a caller without them gets them from row_offsets_kernel first.
+//   They are clamped to [0, S], so no row reads past the ELL arrays.
+//   Slots with row >= num_rows (padding, the backward's ride-over dustbin)
+//   fall outside every range and are dropped; rows without a slot give 0;
 // - padding columns equal the row count of x, one past its end: they clamp
 //   to the last row like JAX's mode="clip", so nothing is read out of bounds.
+//   float4 lanes need C % 4 == 0 and 16-byte aligned x and out; otherwise a
+//   lane covers one channel (VEC = 1).
 
 #include "ell_common.cuh"
 
 namespace {
 
-constexpr int kUnroll = 4;  // x rows in flight per lane
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 4;  // blocks per SM the register budget allows
+constexpr int kLoads = 8;      // gathers in flight per lane
 
-template <int VEC>
-__global__ void ell_aggregate_kernel(const float* __restrict__ x, int64_t x_rows, int C,
-                                     const int* __restrict__ ptr,
-                                     const int* __restrict__ col,
-                                     const float* __restrict__ val, int K,
-                                     int64_t num_rows, float* __restrict__ out) {
+// A predicated load of x in volatile asm: issued where it stands.  When `on`
+// is false, t keeps its value.
+__device__ __forceinline__ void gather(float4& t, const float* p, bool on) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %5, 0;\n"
+      " @q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "+f"(t.x), "+f"(t.y), "+f"(t.z), "+f"(t.w)
+      : "l"(p), "r"((int)on));
+}
+__device__ __forceinline__ void gather(float& t, const float* p, bool on) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q ld.global.nc.f32 %0, [%1];\n}\n"
+      : "+f"(t)
+      : "l"(p), "r"((int)on));
+}
+
+// output stores that L2 evicts first
+__device__ __forceinline__ void store_streaming(float* p, float4 t) {
+  __stcs(reinterpret_cast<float4*>(p), t);
+}
+__device__ __forceinline__ void store_streaming(float* p, float t) { __stcs(p, t); }
+
+struct Args {
+  const float* x;
+  int64_t x_rows;
+  int C, Cp;  // channels, channels per panel
+  const int *ptr, *col;
+  const float* val;
+  int64_t S;
+  int K;
+  int64_t num_rows;
+  // [1 + n_long]: a threshold, then the rows of more than that many slots,
+  // longest first; null for none
+  const int* long_rows;
+  int64_t n_long;
+  unsigned long_blocks;
+  float* out;
+};
+
+// ptr[i] clamped to [0, S]
+__device__ __forceinline__ int64_t slot_at(const Args& a, int64_t i) {
+  const int64_t s = __ldg(a.ptr + i);
+  return s < 0 ? 0 : (s > a.S ? a.S : s);
+}
+
+// Row r over channels [p0, p1) by a group of G lanes (the group's first lane
+// is gbase in the warp), each lane VEC channels of every G * VEC.
+template <int VEC, int G>
+__device__ __forceinline__ void row_sum(const Args& a, int64_t r, int p0, int p1, int gl,
+                                        int gbase) {
   using V = Vec<VEC>;
-  const int64_t r = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (r >= num_rows) return;  // whole warp leaves together
-  const int64_t c0 = (int64_t)ptr[r] * K;  // cell range of this row
-  const int64_t c1 = (int64_t)ptr[r + 1] * K;
-  const int last = (int)(x_rows - 1);
-
-  for (int cb = 0; cb < C; cb += 32 * VEC) {
-    const int c = cb + lane * VEC;
-    const bool live = c < C;
+  constexpr unsigned gbits = 0xffffffffu >> (32 - G);
+  const unsigned gmask = gbits << gbase;
+  const int64_t c0 = slot_at(a, r) * a.K;  // cell range of this row
+  const int64_t c1 = slot_at(a, r + 1) * a.K;
+  const int last = (int)(a.x_rows - 1);
+  for (int cb = p0; cb < p1; cb += G * VEC) {
+    const int c = cb + gl * VEC;
+    const bool on = c < p1;
     typename V::T acc = V::zero();
-    for (int64_t base = c0; base < c1; base += 32) {
-      // the warp loads 32 cells at once, then broadcasts them one by one
-      const int64_t cell = base + lane;
-      int my_col = 0;
-      float my_val = 0.f;
-      if (cell < c1) {
-        my_col = col[cell];
-        my_val = val[cell];
+    int nxt_col = 0;
+    float nxt_val = 0.f;
+    if (c0 + gl < c1) {
+      nxt_col = __ldcs(a.col + c0 + gl);
+      nxt_val = __ldcs(a.val + c0 + gl);
+    }
+    for (int64_t base = c0; base < c1; base += G) {
+      const int my_col = nxt_col;
+      const float my_val = nxt_val;
+      const int64_t nxt = base + G + gl;  // the next window, in flight meanwhile
+      nxt_col = 0;
+      nxt_val = 0.f;
+      if (nxt < c1) {
+        nxt_col = __ldcs(a.col + nxt);
+        nxt_val = __ldcs(a.val + nxt);
       }
-      const int n = (int)min64(32, c1 - base);
-      for (int j = 0; j < n; j += kUnroll) {
-        float v[kUnroll];
-        typename V::T t[kUnroll];
+      // bit j: cell base + j is live; the same in every lane of the group
+      unsigned live = (__ballot_sync(gmask, my_val != 0.f) >> gbase) & gbits;
+      while (live) {
+        const int n = __popc(live);
+        float v[kLoads];
+        typename V::T t[kLoads];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int jj = j + u;
-          const float vv = __shfl_sync(0xffffffffu, my_val, jj & 31);
-          const int cc = __shfl_sync(0xffffffffu, my_col, jj & 31);
-          v[u] = jj < n ? vv : 0.f;
-          const int cl = min(max(cc, 0), last);
-          t[u] = (v[u] != 0.f && live) ? V::load(x + (int64_t)cl * C + c) : V::zero();
+        for (int u = 0; u < kLoads; ++u) {
+          const int j = (__ffs(live) - 1) & (G - 1);
+          live &= live - 1;
+          const float vu = __shfl_sync(gmask, my_val, j, G);
+          v[u] = u < n ? vu : 0.f;
+          const int cc = min(max(__shfl_sync(gmask, my_col, j, G), 0), last);
+          t[u] = V::zero();
+          gather(t[u], a.x + (int64_t)cc * a.C + c, u < n && on);
         }
+        // past the n live cells v = t = 0: adding 0 * 0 changes no bit
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) V::fma(acc, v[u], t[u]);
+        for (int u = 0; u < kLoads; ++u) V::fma(acc, v[u], t[u]);
       }
     }
-    if (live) V::store(out + r * (int64_t)C + c, acc);
+    if (on) store_streaming(a.out + r * (int64_t)a.C + c, acc);
+  }
+}
+
+// Blocks [0, long_blocks): a warp per long row, in the list's order.  The
+// rest: a group of G lanes per row, in index order, skipping the long rows.
+// blockIdx.y: the channel panel.
+template <int VEC, int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) ell_aggregate_kernel(const Args a) {
+  const int p0 = blockIdx.y * a.Cp;
+  const int p1 = min(a.C, p0 + a.Cp);
+  if (blockIdx.x < a.long_blocks) {
+    const int64_t h = blockIdx.x * (int64_t)(kThreads / 32) + threadIdx.x / 32;
+    if (h >= a.n_long) return;
+    const int r = __ldg(a.long_rows + 1 + h);
+    if (r >= 0 && r < a.num_rows) row_sum<VEC, 32>(a, r, p0, p1, threadIdx.x & 31, 0);
+    return;
+  }
+  const int64_t r = ((blockIdx.x - a.long_blocks) * (int64_t)kThreads + threadIdx.x) / G;
+  if (r >= a.num_rows) return;  // the row's whole group leaves together
+  // a long row: the list's warp sums it, by the list's own threshold
+  if (a.long_rows && __ldg(a.ptr + r + 1) - __ldg(a.ptr + r) > __ldg(a.long_rows)) return;
+  row_sum<VEC, G>(a, r, p0, p1, threadIdx.x & (G - 1), threadIdx.x & 31 & ~(G - 1));
+}
+
+template <int VEC, int G>
+void launch(Args a, cudaStream_t st) {
+  a.long_blocks = (unsigned)((a.n_long + kThreads / 32 - 1) / (kThreads / 32));
+  const dim3 grid(a.long_blocks + (unsigned)((a.num_rows * G + kThreads - 1) / kThreads),
+                  (unsigned)((a.C + a.Cp - 1) / a.Cp));
+  ell_aggregate_kernel<VEC, G><<<grid, kThreads, 0, st>>>(a);
+}
+
+// G: the lanes one vector per lane needs for a panel (8, 16 or 32).
+template <int VEC>
+void launch_lanes(const Args& a, cudaStream_t st) {
+  const int vecs = (a.Cp + VEC - 1) / VEC;
+  if (vecs <= 8) {
+    launch<VEC, 8>(a, st);
+  } else if (vecs <= 16) {
+    launch<VEC, 16>(a, st);
+  } else {
+    launch<VEC, 32>(a, st);
   }
 }
 
 }  // namespace
 
-extern "C" int vq_ell_aggregate(const float* x, int64_t x_rows, int C, const int* ell_row,
-                                const int* ell_col, const float* ell_val, int64_t S, int K,
-                                int64_t num_rows, int* ptr, float* out, void* stream) {
+// ptr: [num_rows + 1] row offsets; built here from ell_row when build_ptr is
+// set, else read as given (clamped to [0, S]).  long_rows: [1 + n_long], a
+// threshold t >= 0, then exactly the rows of more than t slots, in the order
+// their warps start; null for none.  Cp: channels per panel (> 0; a multiple
+// of 4 for the float4 lanes; a row group walks panels wider than 32 vectors
+// in chunks).
+extern "C" int vq_ell_aggregate(const float* x, int64_t x_rows, int C, int Cp,
+                                const int* ell_row, const int* ell_col, const float* ell_val,
+                                int64_t S, int K, int64_t num_rows, int* ptr, int build_ptr,
+                                const int* long_rows, int64_t n_long, float* out,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_rows <= 0 || C <= 0) return (int)cudaGetLastError();
-  launch_row_offsets(ell_row, S, num_rows, ptr, st);
-  const int threads = 256;  // 8 rows per block
-  const unsigned blocks = (unsigned)((num_rows * 32 + threads - 1) / threads);
-  const bool vec4 = C % 4 == 0 && aligned16(x) && aligned16(out);
-  if (vec4) {
-    ell_aggregate_kernel<4><<<blocks, threads, 0, st>>>(x, x_rows, C, ptr, ell_col, ell_val,
-                                                        K, num_rows, out);
+  if (Cp <= 0 || Cp > C || K <= 0 || n_long < 0) return (int)cudaErrorInvalidValue;
+  if (build_ptr) launch_row_offsets(ell_row, S, num_rows, ptr, st);
+  Args a{x, x_rows, C, Cp, ptr, ell_col, ell_val, S, K, num_rows, long_rows,
+         long_rows ? n_long : 0, 0u, out};
+  if (C % 4 == 0 && Cp % 4 == 0 && aligned16(x) && aligned16(out)) {
+    launch_lanes<4>(a, st);
   } else {
-    ell_aggregate_kernel<1><<<blocks, threads, 0, st>>>(x, x_rows, C, ptr, ell_col, ell_val,
-                                                        K, num_rows, out);
+    launch_lanes<1>(a, st);
   }
   return (int)cudaGetLastError();
 }

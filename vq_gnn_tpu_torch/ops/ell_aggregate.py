@@ -7,16 +7,45 @@ the rows of x (JAX's ``mode='clip'``).
 
 The CUDA kernel (``csrc/ell_aggregate.cu``) replaces
 ``vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel`` (gat=False) and the gather
-in front of it; see the source for what bounds it on the H100.
+in front of it; see the source for what bounds it on the H100.  It takes the
+row offsets and the long-row list built with the batch
+(``spmm.row_offsets_host``, ``spmm.long_rows_host``) and builds the offsets
+itself when not given.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from vq_gnn_tpu_torch.ops import _build
+
+# Channels a warp covers in one pass (32 lanes x float4): wider x is split
+# into equal panels of at most this many channels, walked side by side.
+PANEL_MAX = 128
+# The batch's long-row lists (spmm.long_rows_host) hold the rows of more than
+# LONG_SLOTS slots: they start first, a warp each, longest first; the others
+# go in index order.
+LONG_SLOTS = 16
+
+
+def panel_width(C: int) -> int:
+    """Channels per panel: the widest divisor of C that is at most
+    PANEL_MAX (a multiple of 4 when C is, so the kernel keeps its float4
+    lanes); C itself up to PANEL_MAX."""
+    unit = 4 if C % 4 == 0 else 1
+    return max(w for w in range(unit, min(C, PANEL_MAX) + 1, unit) if C % w == 0)
+
+
+def row_offsets_plain(ell_row, num_rows: int) -> torch.Tensor:
+    """``ptr[r]`` = the first slot whose row, clamped to num_rows, is >= r,
+    for r in [0, num_rows]: the kernel's row offsets (slots of rows >=
+    num_rows fall outside every row's range)."""
+    rows = torch.clamp(ell_row.long(), max=num_rows)
+    want = torch.arange(num_rows + 1, device=ell_row.device)
+    return torch.searchsorted(rows, want).to(torch.int32)
 
 
 def ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows: int) -> torch.Tensor:
@@ -32,7 +61,8 @@ def ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows: int) -> torch.Te
 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ARGTYPES = [_VP, _I64, _I32, _VP, _VP, _VP, _I64, _I32, _I64, _VP, _VP, _VP]
+_ARGTYPES = [_VP, _I64, _I32, _I32, _VP, _VP, _VP, _I64, _I32, _I64, _VP, _I32, _VP, _I64, _VP,
+             _VP]
 
 
 def _check(cond: bool, msg: str):
@@ -40,30 +70,61 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"ell_aggregate: {msg}")
 
 
-def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int) -> torch.Tensor:
-    """Kernel 1 for CUDA tensors, its plain version for CPU tensors."""
+def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
+                  ptr: Optional[torch.Tensor] = None,
+                  long_rows: Optional[torch.Tensor] = None,
+                  panels: Optional[int] = None) -> torch.Tensor:
+    """Kernel 1 for CUDA tensors, its plain version for CPU tensors.
+
+    ``ptr`` ([num_rows + 1] int32, :func:`row_offsets_plain` of ``ell_row``)
+    is built on the device when not given; the kernel clamps it to the S
+    slots.  ``long_rows`` (int32 ``spmm.long_rows_host(ptr, t)``: the
+    threshold t, then exactly the rows of more than t slots, longest first)
+    starts those rows first, a warp each; without it every row goes in index
+    order.  ``panels`` forces the number of channel panels (by default
+    :func:`panel_width`).  The result depends on none of these."""
     if x.device.type == "cpu":
         return ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
     _check(x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous(),
            "x must be a contiguous 2-D float32 tensor")
     _check(x.shape[0] >= 1, "x needs at least one row")
+    _check(ell_col.dim() == 2 and ell_col.shape[1] >= 1, "ell_col must be [S, K] with K >= 1")
     S, K = ell_col.shape
-    for name, t, dt, shape in (
+    checks = [
         ("ell_row", ell_row, torch.int32, (S,)),
         ("ell_col", ell_col, torch.int32, (S, K)),
         ("ell_val", ell_val, torch.float32, (S, K)),
-    ):
+    ]
+    if ptr is not None:
+        checks.append(("ptr", ptr, torch.int32, (num_rows + 1,)))
+    if long_rows is not None:
+        _check(ptr is not None, "long_rows need the row offsets they were taken from")
+        _check(long_rows.dim() == 1 and long_rows.shape[0] >= 1,
+               "long_rows must be [1 + n]: its threshold, then its rows")
+        checks.append(("long_rows", long_rows, torch.int32, (long_rows.shape[0],)))
+    for name, t, dt, shape in checks:
         _check(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _check(t.dtype == dt and tuple(t.shape) == shape and t.is_contiguous(),
                f"{name} must be contiguous {dt} of shape {shape}")
     C = x.shape[1]
+    if panels is None:
+        Cp = panel_width(C)
+    else:
+        _check(1 <= panels <= C, f"panels must be in [1, {C}], got {panels}")
+        unit = 4 if C % 4 == 0 else 1
+        Cp = -(-C // panels)  # ceil(C / panels) ...
+        Cp = -(-Cp // unit) * unit  # ... up to a multiple of the unit
     out = torch.empty((num_rows, C), dtype=torch.float32, device=x.device)
-    ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=x.device)
+    build_ptr = ptr is None
+    if build_ptr:
+        ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.function("ell_aggregate", "vq_ell_aggregate", _ARGTYPES)(
-        x.data_ptr(), x.shape[0], C, ell_row.data_ptr(), ell_col.data_ptr(),
-        ell_val.data_ptr(), S, K, num_rows, ptr.data_ptr(), out.data_ptr(), stream,
+        x.data_ptr(), x.shape[0], C, Cp, ell_row.data_ptr(), ell_col.data_ptr(),
+        ell_val.data_ptr(), S, K, num_rows, ptr.data_ptr(), int(build_ptr),
+        None if long_rows is None else long_rows.data_ptr(),
+        0 if long_rows is None else long_rows.shape[0] - 1, out.data_ptr(), stream,
     )
     _build.check(rc, "ell_aggregate")
     ell_aggregate.launches += 1

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
+from vq_gnn_tpu_torch.ops.ell_aggregate import LONG_SLOTS, ell_aggregate
 
 
 @dataclasses.dataclass
@@ -50,6 +50,17 @@ class Edges:
     # forward cell; empty cells hold St_pad * K.  Only the B + M GAT conv's
     # backward reads it (to mirror per-cell values between the layouts).
     f_from_t: object = None
+    # The ELL aggregate kernel's row offsets (row_offsets_host) and long rows
+    # (long_rows_host) for the forward ELL over num_rows, and for the
+    # transposed slots the backward dx walks: the t_b_slots prefix with rows
+    # clamped to b_rows when the truncation is on, else all of them over
+    # num_rows.  Built with the batch so the kernel need not build them on
+    # every call; None makes it build the offsets on the device and take
+    # every row in index order.
+    ell_ptr: object = None
+    ell_long_rows: object = None
+    t_ell_ptr: object = None
+    t_ell_long_rows: object = None
 
     def to(self, device) -> "Edges":
         def t(a, dtype):
@@ -66,13 +77,21 @@ class Edges:
             t_ell_col=t(self.t_ell_col, torch.int32),
             t_ell_val=t(self.t_ell_val, torch.float32),
             f_from_t=t(self.f_from_t, torch.int64),
+            ell_ptr=t(self.ell_ptr, torch.int32),
+            ell_long_rows=t(self.ell_long_rows, torch.int32),
+            t_ell_ptr=t(self.t_ell_ptr, torch.int32),
+            t_ell_long_rows=t(self.t_ell_long_rows, torch.int32),
         )
 
 
-def _ell_matvec(ell_row, ell_col, ell_val, x, num_rows):
+def _ell_matvec(ell_row, ell_col, ell_val, x, num_rows, ptr=None, long_rows=None):
     """Slot-ELL aggregate ``out[r] = sum_{slots s of r} sum_k val[s,k] *
-    x[col[s,k]]`` -> f32 [num_rows, C]."""
-    return ell_aggregate(x, ell_row, ell_col, ell_val, num_rows)
+    x[col[s,k]]`` -> f32 [num_rows, C].  ``ptr``, ``long_rows``: the batch's
+    row offsets and long rows; ones built for another row count (an Edges
+    whose truncation was switched off after the build) are not used."""
+    if ptr is None or ptr.shape[0] != num_rows + 1:
+        ptr = long_rows = None
+    return ell_aggregate(x, ell_row, ell_col, ell_val, num_rows, ptr=ptr, long_rows=long_rows)
 
 
 def _ell_sddmm(ell_row, ell_col, g, x):
@@ -93,7 +112,8 @@ class _SpMM(torch.autograd.Function):
         ctx.x_rows = x.shape[0]
         # x is only needed for d val; the GCN/SAGE path never asks for it
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
-        return _ell_matvec(edges.ell_row, edges.ell_col, ell_val, x, edges.num_rows)
+        return _ell_matvec(edges.ell_row, edges.ell_col, ell_val, x, edges.num_rows,
+                           edges.ell_ptr, edges.ell_long_rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -110,13 +130,15 @@ class _SpMM(torch.autograd.Function):
                 # dustbin, which the aggregate drops
                 t_row = torch.clamp(e.t_ell_row[:tb], max=e.b_rows)
                 dx_b = _ell_matvec(
-                    t_row, e.t_ell_col[:tb], e.t_ell_val[:tb], g, e.b_rows
+                    t_row, e.t_ell_col[:tb], e.t_ell_val[:tb], g, e.b_rows, e.t_ell_ptr,
+                    e.t_ell_long_rows,
                 )
                 dx = torch.cat(
                     [dx_b, dx_b.new_zeros((num_cols - e.b_rows, dx_b.shape[1]))]
                 )
             else:
-                dx = _ell_matvec(e.t_ell_row, e.t_ell_col, e.t_ell_val, g, num_cols)
+                dx = _ell_matvec(e.t_ell_row, e.t_ell_col, e.t_ell_val, g, num_cols,
+                                 e.t_ell_ptr, e.t_ell_long_rows)
         if ctx.needs_input_grad[1]:
             dval = _ell_sddmm(e.ell_row, e.ell_col, g, x)
         return dx, dval, None
@@ -172,6 +194,30 @@ def build_ell_host(row, col, val, num_rows: int, K: int, S_pad: int = 0):
     ell_col[sid, k] = col
     ell_val[sid, k] = val
     return ell_row, ell_col, ell_val
+
+
+def row_offsets_host(ell_row, num_rows: int) -> np.ndarray:
+    """[num_rows + 1] int32 row offsets of an ascending slot-row array: entry
+    r is the number of slots whose row, clamped to num_rows, is < r, so the
+    slots of row r are [ptr[r], ptr[r + 1]) and slots of rows >= num_rows
+    (padding, the dustbin) belong to none."""
+    rows = np.minimum(np.asarray(ell_row, np.int64), num_rows)
+    counts = np.bincount(rows, minlength=num_rows + 1)[:num_rows]
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def long_rows_host(ptr, min_slots: int = LONG_SLOTS) -> np.ndarray:
+    """int32 [1 + n]: ``min_slots``, then the n rows of more than
+    ``min_slots`` slots, most slots first (ties in index order).  The ELL
+    aggregate kernel starts those rows first, a warp each, so that a long row
+    does not finish last, and leaves them out of its index order by the
+    threshold the list carries."""
+    if min_slots < 0:
+        raise ValueError(f"long_rows_host: min_slots must be >= 0, got {min_slots}")
+    slots = np.diff(np.asarray(ptr, np.int64))
+    rows = np.flatnonzero(slots > min_slots)
+    rows = rows[np.argsort(-slots[rows], kind="stable")]
+    return np.concatenate([[min_slots], rows]).astype(np.int32)
 
 
 def ell_positions(row_sorted, K: int, num_rows: int):

@@ -29,7 +29,13 @@ import torch
 
 from vq_gnn_tpu_torch.config import not_ported
 from vq_gnn_tpu_torch.ops.rev_ell import REV_S_MULTIPLE, build_rev_ell, pad_rev_ell
-from vq_gnn_tpu_torch.ops.spmm import Edges, build_ell_host, ell_positions
+from vq_gnn_tpu_torch.ops.spmm import (
+    Edges,
+    build_ell_host,
+    ell_positions,
+    long_rows_host,
+    row_offsets_host,
+)
 
 
 def _as_tensor(a, device, dtype=None):
@@ -163,6 +169,11 @@ def build_padded_batch(
         tb = min(t_b_bucket["v"], St_pad)
         if tb < St_pad:
             b_rows, t_b_slots = B_pad, tb
+    # the rows the backward dx walks: the truncated prefix (ride-over slots
+    # clamp to the b_rows dustbin) or the whole transposed ELL
+    t_ptr = (row_offsets_host(tr_[:t_b_slots], b_rows) if b_rows
+             else row_offsets_host(tr_, dim_pad))
+    f_ptr = row_offsets_host(er_, dim_pad)
     edges = Edges(
         ell_row=er_,
         ell_col=ec_,
@@ -175,6 +186,10 @@ def build_padded_batch(
         b_rows=b_rows,
         t_b_slots=t_b_slots,
         f_from_t=f_from_t,
+        ell_ptr=f_ptr,
+        ell_long_rows=long_rows_host(f_ptr),
+        t_ell_ptr=t_ptr,
+        t_ell_long_rows=long_rows_host(t_ptr),
     )
 
     valid_B = np.zeros(B_pad, bool)
