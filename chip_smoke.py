@@ -36,13 +36,16 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    of ``assign_mismatch`` and run-to-run identical; kernel 4 with and without the masked
    channels; kernel 5 at C = 128 and 256; the segment sum at C = 128 and
    32, with and without its scalar channel; the recovery kernels at nb = 32,
-   M = 1,024 over the batch's own reverse list);
+   M = 1,024 over the batch's own reverse list, row offsets and long rows,
+   and bit-identical run to run);
 6. time each kernel, its plain version and a PyTorch library yardstick where
    one call computes the same function (kernel 1 also at 2 and 4 panels,
    without the long-row list, on narrower copies of x and with x's rows
    relabelled at random, beside the no-reuse line, and at C = 256 in one
    panel and in panel_width's; kernel 2 also as the device time of a
-   CUDA-graph replay, free of the host's launch gaps);
+   CUDA-graph replay, free of the host's launch gaps; the recovery kernels
+   also split by device kernel: table pack, row pass, codeword pass and
+   reductions, from ``torch.profiler``);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT) on the GPU and on the CPU (plain versions) from one state,
    count the codeword assignments that come to differ, and compare each
@@ -205,9 +208,25 @@ def bound(bytes_moved: float, flops: float, flop_rate: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def device_rows(prof):
+    """(device us, calls, name) of each kernel a profile saw on the card:
+    device-side events only, so each kernel is counted once."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    return rows
+
+
 def profile_steps(torch, tr, batches, lr, gpu, tag, steps=3):
     """Device busy share and device time by kernel over a few train steps."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -218,15 +237,7 @@ def profile_steps(torch, tr, batches, lr, gpu, tag, steps=3):
                 tr.state, tr.X_dev, batches[i % len(batches)], 1.0, lr, 1.0, tr.generator)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []  # device-side events only: each kernel counted once
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log(f"[{tag} profile] the profiler saw no device time: not measured")
@@ -237,6 +248,20 @@ def profile_steps(torch, tr, batches, lr, gpu, tag, steps=3):
     for us, count, key in sorted(rows, reverse=True)[:15]:
         log(f"[{tag} profile]   {us / steps / 1e3:8.3f} ms/step  {count // steps:4d} calls/step  "
             f"{key[:90]}")
+
+
+def kernel_split(torch, fn, calls=20):
+    """Device us per call of each kernel ``fn`` launches (torch.profiler);
+    empty where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {key: round(us / calls, 2) for us, _, key in device_rows(prof)}
 
 
 def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profile, evaluate,
@@ -619,6 +644,10 @@ def main() -> int:
         arcb=0.5 * torch.randn((nb_bm, M_bm), generator=gen, device=dev),
         gbar=torch.randn((nb_bm, M_bm, Dq + 1), generator=gen, device=dev),
     )
+    # the kernels' inputs: the batch's row offsets and long rows, as the model
+    # passes them, in place of slot_row (the plain version's)
+    rev_k = {k: v for k, v in rev_in.items() if k != "slot_row"}
+    rev_k.update(row_ptr=bmb.rev_row_ptr, long_rows=bmb.rev_long_rows)
     g_rev = torch.linspace(-1.0, 2.0, nb_bm, device=dev)
 
     def rev_plain(xb, al, arcb, gbar, g):
@@ -630,8 +659,14 @@ def main() -> int:
     ref = rev_plain(rev_in["xb"], rev_in["al"], rev_in["arcb"], rev_in["gbar"], g_rev)
     absb = rev_plain(rev_in["xb"].abs(), rev_in["al"], rev_in["arcb"], rev_in["gbar"].abs(),
                      g_rev.abs())
-    outs = (rev_forward(**rev_in), *rev_backward(**rev_in, g=g_rev))
+    outs = (rev_forward(**rev_k), *rev_backward(**rev_k, g=g_rev))
+    again = (rev_forward(**rev_k), *rev_backward(**rev_k, g=g_rev))
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(outs, again))
+    log(f"[5 rev] info, d_xb, d_al, d_arcb bit-identical over two calls: {same_bits}; "
+        f"{rev_k['long_rows'].shape[0] - 1} long rows (more than "
+        f"{int(rev_k['long_rows'][0])} slots)")
+    assert same_bits
     for i, (name, o, r, b) in enumerate(zip(("info", "d_xb", "d_al", "d_arcb"), outs, ref, absb)):
         d = (o - r).abs()
         tol = 1e-5 * b + 1e-6 * float(b.max())
@@ -834,23 +869,23 @@ def main() -> int:
 
     # the recovery kernels; no PyTorch call computes the per-(row, codeword)
     # coalesce + relu + attention contraction, so no library yardstick.  The
-    # least traffic: the slots, the c_indices rows of the distinct neighbours,
-    # xb, al, arcb, gbar (and g) read once, the outputs written once
+    # least traffic: the slots, the row offsets and long rows, the c_indices
+    # rows of the distinct neighbours, xb, al, arcb, gbar (and g) read once,
+    # the outputs written once
     val_nz = rev_in["slot_val"] != 0
     cells = int(val_nz.sum())
     nbrs = int(torch.unique(rev_in["slot_col"][val_nz]).numel())
     S_rev, K_rev = rev_in["slot_col"].shape
     Dg = Dq + 1
-    in_bytes = (S_rev * K_rev * 8 + S_rev * 4 + nbrs * nb_bm * 2 + nb_bm * Bb * (Dg + 1) * 4
-                + nb_bm * M_bm * (Dg + 1) * 4)
+    in_bytes = (S_rev * K_rev * 8 + (Bb + 1) * 4 + rev_k["long_rows"].numel() * 4
+                + nbrs * nb_bm * 2 + nb_bm * Bb * (Dg + 1) * 4 + nb_bm * M_bm * (Dg + 1) * 4)
     # per live cell and branch: a merge add, and per distinct (row, codeword)
     # at most the attention (~10 flops) and the Dg-wide dot
     fwd_ops = nb_bm * cells * (2 * Dg + 11)
-    rev_t = {}
     for name, fn, plain, out_bytes, ops_n in (
-        ("rev_forward", lambda: rev_forward(**rev_in),
+        ("rev_forward", lambda: rev_forward(**rev_k),
          lambda: rev_recovery_info_plain(**rev_in), nb_bm * 4, fwd_ops),
-        ("rev_backward", lambda: rev_backward(**rev_in, g=g_rev),
+        ("rev_backward", lambda: rev_backward(**rev_k, g=g_rev),
          lambda: rev_plain(rev_in["xb"], rev_in["al"], rev_in["arcb"], rev_in["gbar"], g_rev),
          nb_bm * 4 + nb_bm * Bb * (Dg + 1) * 4 + nb_bm * M_bm * 4, 2 * fwd_ops),
     ):
@@ -861,9 +896,14 @@ def main() -> int:
                           replaces=("vq_gnn_tpu/ops/pallas_rev.py:280" if name == "rev_forward"
                                     else "vq_gnn_tpu/ops/pallas_rev.py:311"),
                           **tt, bound_ms=bb_ms, bound_by=bb_by)
+        names = {"rev_rows": "row pass", "codeword_pass": "codeword pass",
+                 "pack_table": "table pack", "sum_rows": "row sums", "reduce_chunks": "chunk sums"}
+        split = {next((v for k_, v in names.items() if k_ in k), k): us
+                 for k, us in kernel_split(torch, fn).items()}
         log(f"[6 {name}] nb={nb_bm} B_pad={Bb} M={M_bm} Dg={Dg} S_rev={S_rev} cells={cells} "
-            f"distinct neighbours={nbrs}: {tt} bound {bb_ms:.4f} ms ({bb_by}); library_ms "
-            f"null: no PyTorch call computes the coalesced relu-attention contraction | {gpu}")
+            f"distinct neighbours={nbrs}: {tt} bound {bb_ms:.4f} ms ({bb_by}); device us per "
+            f"call {split}; library_ms null: no PyTorch call computes the coalesced "
+            f"relu-attention contraction | {gpu}")
 
     # kernels 2 and 3 at the B + M widths (PERF.md rows 6-7)
     assign_times("B + M", xn_bm, emb_bm, valid_bm)

@@ -43,7 +43,7 @@ from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.graph import store as tstore
 from vq_gnn_tpu_torch.nn.model import layer_forward, model_static
 from vq_gnn_tpu_torch.ops import gat as tgat
-from vq_gnn_tpu_torch.ops.rev_ell import REV_S_MULTIPLE, build_rev_ell, pad_rev_ell
+from vq_gnn_tpu_torch.ops.rev_ell import REV_LONG_SLOTS, REV_S_MULTIPLE, build_rev_ell, pad_rev_ell
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 
@@ -188,6 +188,12 @@ def test_bm_batches_match_jax(conv, train_flag):
                     np.testing.assert_array_equal(jb.rev_slot_col, tb.rev_slot_col)
                     np.testing.assert_array_equal(jb.rev_slot_val, tb.rev_slot_val)
                     np.testing.assert_array_equal(jb.rev_slot_row[:, 0], tb.rev_slot_row)
+                    # the CUDA kernels' lists, built with the batch
+                    np.testing.assert_array_equal(
+                        tb.rev_row_ptr, np.searchsorted(tb.rev_slot_row, np.arange(tb.B_pad + 1)))
+                    slots = np.diff(tb.rev_row_ptr)
+                    assert tb.rev_long_rows.tolist() == [REV_LONG_SLOTS] + np.flatnonzero(
+                        slots > REV_LONG_SLOTS).tolist()
                 else:
                     assert jb.rev_slot_row is None and tb.rev_slot_row is None
     assert n > 2

@@ -21,7 +21,12 @@ from vq_gnn_tpu_torch.ops.gat_kernels import (
     gat_backward,
     gat_backward_plain,
 )
-from vq_gnn_tpu_torch.ops.rev_ell import build_rev_ell, pad_rev_ell
+from vq_gnn_tpu_torch.ops.rev_ell import (
+    REV_LONG_SLOTS,
+    build_rev_ell,
+    pad_rev_ell,
+    rev_long_rows_host,
+)
 from vq_gnn_tpu_torch.ops.rev_kernels import (
     rev_backward,
     rev_forward,
@@ -518,6 +523,35 @@ def _rev_slots(rev, B_pad, num_N, extra=64):
     return pad_rev_ell(*slots, slots[0].shape[0] + extra, B_pad, num_N)
 
 
+@pytest.mark.parametrize("case", ["padded", "unpadded", "empty", "heavy"])
+def test_rev_row_offsets_and_long_rows(case):
+    """The recovery kernels' host lists: the row offsets are the slots' row
+    boundaries (pad slots, of row B_pad, in no row; rows without cells own
+    no slot), and the long-row list holds its threshold, then exactly the
+    rows of more slots, in index order."""
+    B_pad, num_N = 300, 500
+    R = 0 if case == "empty" else 2000
+    rev = _rev_case(B_pad, num_N, 8, 1, 1, R, 4, heavy_rows=9 if case == "heavy" else 0)[0]
+    if case == "unpadded":
+        col, val, row = build_rev_ell(*rev, B_pad, num_N)
+    else:
+        col, val, row = _rev_slots(rev, B_pad, num_N)
+    ptr = row_offsets_host(row, B_pad)
+    np.testing.assert_array_equal(ptr, np.searchsorted(row, np.arange(B_pad + 1)))
+    assert ptr.dtype == np.int32 and ptr[-1] == int((row < B_pad).sum())
+    live = np.bincount(np.minimum(row, B_pad), (val != 0).sum(1), B_pad + 1)[:B_pad]
+    assert (live[np.diff(ptr) == 0] == 0).all()  # rows without slots have no cells
+    if case == "empty":
+        assert (ptr == 0).all()
+    lr = rev_long_rows_host(ptr)
+    want = [b for b in range(B_pad) if ptr[b + 1] - ptr[b] > REV_LONG_SLOTS]
+    assert lr.dtype == np.int32 and lr[0] == REV_LONG_SLOTS
+    assert lr[1:].tolist() == want
+    assert REV_LONG_SLOTS * val.shape[1] <= 32  # a row left out holds at most a warp of cells
+    if case == "heavy":  # rows 0-8 have 100+ cells each
+        assert set(range(9)) <= set(lr[1:].tolist())
+
+
 def test_rev_recovery_plain_matches_pallas():
     """Plain version (values and gradients of a weighted sum of the
     per-branch infos) against ``rev_recovery_info(..., mode='highest',
@@ -572,37 +606,67 @@ def _rev_bound(c_tab, col, val, row, xb, al, arcb, gbar, g):
     return (info.detach(), *torch.autograd.grad((info * g.abs()).sum(), leaves))
 
 
+def _rev_lists(row, B_pad, dev, thr=REV_LONG_SLOTS):
+    """The batch's row offsets and long rows of the slots ``row``, on
+    ``dev``; a threshold other than the batch's gives a list built here."""
+    ptr = row_offsets_host(row.cpu().numpy(), B_pad)
+    if thr == REV_LONG_SLOTS:
+        lr = rev_long_rows_host(ptr)
+    else:
+        lr = np.concatenate([[thr], np.flatnonzero(np.diff(ptr) > thr)]).astype(np.int32)
+    return torch.as_tensor(ptr).to(dev), torch.as_tensor(lr).to(dev)
+
+
 @cuda
 @pytest.mark.parametrize(
-    "B_pad,num_N,M,nb,Dg,R,heavy",
-    [(2048, 20000, 1024, 32, 5, 30000, 0), (2048, 20000, 1024, 32, 4, 30000, 0),
-     (512, 3000, 4, 3, 5, 4000, 0), (512, 3000, 64, 32, 5, 2000, 7), (256, 100, 16, 1, 1, 0, 0)],
+    "B_pad,num_N,M,nb,Dg,R,heavy,thr",
+    [(2048, 20000, 1024, 32, 5, 30000, 0, REV_LONG_SLOTS),
+     (2048, 20000, 1024, 32, 4, 30000, 0, REV_LONG_SLOTS),
+     (512, 3000, 4, 3, 5, 4000, 0, REV_LONG_SLOTS),
+     (512, 3000, 64, 32, 5, 2000, 7, REV_LONG_SLOTS),
+     (256, 100, 16, 1, 1, 0, 0, REV_LONG_SLOTS),
+     (2048, 20000, 1024, 40, 5, 30000, 5, REV_LONG_SLOTS),
+     (1024, 20000, 256, 64, 5, 20000, 3, REV_LONG_SLOTS),
+     (256, 5000, 64, 8, 5, 1000, 256, REV_LONG_SLOTS),
+     (512, 3000, 20000, 32, 5, 6000, 7, REV_LONG_SLOTS),
+     (512, 3000, 16, 40, 2, 4000, 2, 0)],
 )
-def test_rev_recovery_matches_plain(dev, B_pad, num_N, M, nb, Dg, R, heavy):
+def test_rev_recovery_matches_plain(dev, B_pad, num_N, M, nb, Dg, R, heavy, thr):
     """Kernels 9 and 10 against the plain version and autograd through it.
     M = 4 makes most cells of a row share a codeword, so opposite-sign
-    cells cancel before the relu; ``heavy`` rows have > 32 cells.  Each
+    cells cancel before the relu; ``heavy`` rows have > 32 cells (all of
+    them at heavy = B_pad); nb = 40 and 64 take more than one warp of
+    branches; M = 20,000 leaves room for two [M] histograms a block; a
+    list of threshold ``thr`` = 0 makes every row with cells long.  Each
     value to 1e-5 of the sum of |terms| it adds up (f32 sums in another
-    order)."""
+    order), and every output bit-identical over two calls."""
     rev, c_tab, xb, al, arcb, gbar = _rev_case(B_pad, num_N, M, nb, Dg, R, 2, heavy)
     col, val, row = (torch.as_tensor(a).to(dev) for a in _rev_slots(rev, B_pad, num_N))
+    ptr, lr = _rev_lists(row, B_pad, dev, thr)
+    if heavy == B_pad:
+        assert lr.shape[0] == B_pad + 1  # every row is long
     c_tab, xb, al, arcb, gbar = (torch.as_tensor(a).to(dev) for a in (c_tab, xb, al, arcb, gbar))
     g = torch.linspace(-1.0, 2.0, nb, device=dev)
-    info = rev_forward(c_tab, col, val, row, xb, al, arcb, gbar)
-    d_xb, d_al, d_arcb = rev_backward(c_tab, col, val, row, xb, al, arcb, gbar, g)
+
+    def run():
+        return (rev_forward(c_tab, col, val, ptr, lr, xb, al, arcb, gbar),
+                *rev_backward(c_tab, col, val, ptr, lr, xb, al, arcb, gbar, g))
+
+    outs, again = run(), run()
     leaves = [t.clone().requires_grad_(True) for t in (xb, al, arcb)]
     ref = rev_recovery_info_plain(c_tab, col, val, row, *leaves, gbar)
     ref_grads = torch.autograd.grad((ref * g).sum(), leaves)
     bounds = _rev_bound(c_tab, col, val, row, xb, al, arcb, gbar, g)
     torch.cuda.synchronize()
-    for name, o, r, b in zip(("info", "d_xb", "d_al", "d_arcb"), (info, d_xb, d_al, d_arcb),
-                             (ref.detach(), *ref_grads), bounds):
+    for name, o, o2, r, b in zip(("info", "d_xb", "d_al", "d_arcb"), outs, again,
+                                 (ref.detach(), *ref_grads), bounds):
         assert o.shape == r.shape and torch.isfinite(o).all(), name
         assert ((o - r).abs() <= 1e-5 * b + 1e-6).all(), (name, float((o - r).abs().max()))
+        assert torch.equal(o, o2), f"{name} differs between two calls"
     # the autograd Function takes the kernels on both passes
     leaves = [t.clone().requires_grad_(True) for t in (xb, al, arcb)]
     before = (rev_forward.launches, rev_backward.launches)
-    out = rev_recovery_info(c_tab, col, val, row, *leaves, gbar)
+    out = rev_recovery_info(c_tab, col, val, row, *leaves, gbar, row_ptr=ptr, long_rows=lr)
     torch.autograd.grad((out * g).sum(), leaves)
     assert (rev_forward.launches, rev_backward.launches) == (before[0] + 1, before[1] + 1)
 
@@ -617,8 +681,19 @@ def test_new_wrappers_refuse_bad_input(dev):
     rev, c_tab, xb, al, arcb, gbar = _rev_case(128, 100, 8, 2, 5, 50, 3)
     col, val, row = (torch.as_tensor(a).to(dev) for a in _rev_slots(rev, 128, 100))
     c_tab, xb, al, arcb, gbar = (torch.as_tensor(a).to(dev) for a in (c_tab, xb, al, arcb, gbar))
+    ptr, lr = _rev_lists(row, 128, dev)
     with pytest.raises(ValueError):  # int32 codeword table
-        rev_forward(c_tab.int(), col, val, row, xb, al, arcb, gbar)
-    with pytest.raises(ValueError):  # Dg above the register budget
+        rev_forward(c_tab.int(), col, val, ptr, lr, xb, al, arcb, gbar)
+    with pytest.raises(ValueError):  # Dg above a table row
         wide = torch.zeros((2, 128, 17), device=dev)
-        rev_forward(c_tab, col, val, row, wide, al, arcb, torch.zeros((2, 8, 17), device=dev))
+        rev_forward(c_tab, col, val, ptr, lr, wide, al, arcb, torch.zeros((2, 8, 17), device=dev))
+    with pytest.raises(ValueError):  # M whose [M] histograms do not fit a block
+        rev_forward(c_tab, col, val, ptr, lr, xb, al, torch.zeros((2, 30000), device=dev),
+                    torch.zeros((2, 30000, 5), device=dev))
+    with pytest.raises(ValueError):  # K = 16: a row the list leaves out may pass a warp of cells
+        rev_forward(c_tab, torch.cat([col, col], 1), torch.cat([val, val], 1), ptr, lr, xb, al,
+                    arcb, gbar)
+    with pytest.raises(ValueError):  # no row offsets: the kernel does not build them
+        rev_forward(c_tab, col, val, None, None, xb, al, arcb, gbar)
+    with pytest.raises(ValueError):  # row offsets of another row count
+        rev_forward(c_tab, col, val, ptr[:-1], lr, xb, al, arcb, gbar)

@@ -1,8 +1,9 @@
 // Exact-reverse recovery term of the B + M (v1) formulation for Hopper
 // (sm_90a), forward and backward.  Per branch n:
 //
-//   S_n[b, m] = sum of slot_val[s, k] over the rev-ELL cells (s, k) with
-//               slot_row[s] = b and c_indices[slot_col[s, k], n] = m
+//   S_n[b, m] = sum of slot_val[s, k] over the rev-ELL cells (s, k) of row b
+//               (slots row_ptr[b] .. row_ptr[b + 1]) with
+//               c_indices[slot_col[s, k], n] = m
 //   a         = al[n, b] + arcb[n, m],  att = exp(a >= 0 ? a : 0.2 a)
 //   G         = <xb[n, b, :], gbar[n, m, :]>                    (Dg wide)
 //   info[n]   = sum over (b, m) of relu(S_n[b, m]) * att * G
@@ -20,35 +21,43 @@
 //
 // Replaces the TPU kernels vq_gnn_tpu/ops/pallas_rev.py:_fwd_kernel and
 // _bwd_kernel (rev_recovery_info).  The TPU kernels build dense [rows, M]
-// codeword histograms with one-hot selects, fold them with MXU matmuls and
-// stash the whole pre-relu accumulator ([nb, B_pad, M] f32, ~1.6 GB a layer
-// at B_pad = 12,288, M = 1,024) for the backward.  Here no dense grid exists:
-// a batch row has only its handful of cells per branch.
+// codeword histograms with one-hot selects and fold them with MXU matmuls;
+// here no dense grid exists: a batch row has a handful of cells per branch.
 //
-// What bounds it on the H100: device-memory bytes and latency, far below
-// any arithmetic limit (a few flops per cell and branch).  The least
-// traffic is the rev-ELL arrays, xb, al, arcb and gbar read once and the
-// outputs written once; the per-cell codeword and grad-table reads hit L2
-// (c_indices is 10.8 MB at N = 169k, nb = 32; gbar 0.65 MB at M = 1,024).
-//
-// Design:
-// - one warp per branch, walking a chunk of consecutive batch rows; the
-//   lanes take 32 of the row's cells at a time.  c_indices is read at each
-//   cell's neighbour id here (no [S*K, nb] codeword array is built);
-// - equal codewords are merged in a per-warp [M] histogram in shared
-//   memory, touched only at the row's own codewords: pass A zeroes them,
-//   pass B adds each group of equal codewords (found with __match_any_sync,
-//   summed by its lowest lane in lane order) chunk by chunk, pass C visits
-//   each distinct codeword once (a NaN marker flags the visited ones) and
-//   applies relu, the attention and the Dg-wide dot with gbar;
-// - the backward recomputes the merged cells instead of stashing them
-//   (three passes over a few cells per row cost less than writing and
-//   reading a stash); d_xb and d_al are summed over the warp and written
-//   once per (branch, row); d_arcb is summed per warp in a second [M]
-//   shared array (each branch owned by one warp, rows in order);
-// - info and d_arcb reduce across row chunks: per-chunk partials are added
-//   in chunk order by a second kernel.  No atomics: the same result on
-//   every run.
+// What bounds it on the H100: latency, far below the byte bound (the
+// rev-ELL arrays, xb, al, arcb and gbar read once, the outputs written
+// once) and any arithmetic limit (a few flops per cell and branch).  Each
+// row is a chain of dependent loads: offsets -> cells -> codewords -> the
+// (gbar, arcb) table rows.  The design walks that chain once per row, not
+// once per (row, branch), and keeps enough warps resident to overlap it:
+// - short rows (the rows of at most long_rows[0] slots, which the caller
+//   keeps to at most 32 cells), one warp a row, the branches across the lanes (groups of 32 for
+//   nb > 32).  The lanes load the row's cells together and list the live
+//   ones in shared memory; each lane reads its branch's codewords of them (a
+//   cell's c_indices row is one 64-byte line for the warp) and merges its
+//   equal codewords in cell order, O(cells^2) compares on a median of 6
+//   cells, in shared memory so that registers stay few;
+// - long rows (listed by the host, rows of more slots; ~320 a batch, a
+//   fifth of the cells) take one warp per (row, branch), the lanes over the
+//   cells: equal codewords are summed into a per-warp [M] shared histogram
+//   (found with __match_any_sync, summed by the lowest lane in lane order,
+//   chunks in order), then each distinct codeword is visited once and its
+//   entry reset to 0, so a later repeat adds nothing and the histogram is
+//   clean again.  Their blocks come first in the grid, so they start first;
+// - gbar and arcb are packed per call into one table row of 8 (or 16)
+//   floats per (branch, codeword): a group's gather is one 32-byte sector;
+// - the forward writes each (row, branch) share of info, summed per branch
+//   in a fixed order by two small kernels; the backward writes d_xb and d_al
+//   directly and each group's d_a into a [nb, cells] buffer at the group's
+//   first live cell (0 at the other cells, its codeword beside it; a short
+//   row writes them through a shared tile, a branch's cells contiguous).  A
+//   codeword pass folds the buffer into per-chunk [M] partials (cells in
+//   order within each warp, warps in order within a block) and a last
+//   kernel adds the chunks in order and scales by g[n].  No float atomics:
+//   the same bits on every run;
+// - the entry points own every size: vq_rev_scratch_bytes gives the scratch
+//   a call needs (the table, row shares, buffer and partials in one block),
+//   and each entry point checks the block it is given against it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,8 +65,26 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDg = 16;
-constexpr int kVisited = 0x7fc0beef;  // a NaN payload no finite sum produces
+// warps a block of the row pass: small blocks, so that a block's slow row
+// does not hold the resources of many finished ones
+constexpr int kRowWarps = 2;
+constexpr int kWarps = 8;   // warps a block of the other kernels (at most)
+constexpr int kSmemBytes = 227 * 1024;  // dynamic shared memory a block may take (sm_90)
+constexpr int kChunkCells = 8192;  // cells a codeword-pass block folds, at least
+constexpr int kMaxChunks = 64;     // cap on the codeword pass's [chunks, nb, M] partials
+constexpr int kTile = 33;   // row stride of a short row's [32 cells][32 lanes] tiles
+constexpr int kPrefetch = 4;  // 32-cell tiles the codeword pass loads ahead
+constexpr int kSumRows = 128;  // rows a block of the forward's first sum takes
+// a short-row warp's shared memory: the codeword tile, the live cells'
+// values and neighbours, and in the backward the d_a tile
+constexpr int short_bytes(bool bwd) {
+  return 32 * kTile * 2 + 32 * 8 + (bwd ? 32 * kTile * 4 : 0);
+}
+
+// A codeword-pass warp's shared memory: its [M] histogram and a tile's values.
+__host__ __device__ __forceinline__ int codeword_region(int M) {
+  return (M + 32) * 4;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -65,188 +92,392 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ int64_t lower_bound(const int* __restrict__ a, int64_t n,
-                                               int64_t x) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if ((int64_t)__ldg(a + mid) < x) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 struct RevArgs {
-  const short* c_indices;  // [N1, nb]
+  const short* c_indices;  // [n1, nb]
   int64_t n1;
   const int* slot_col;    // [S, K]
   const float* slot_val;  // [S, K]
-  const int* slot_row;    // [S] ascending
-  int64_t S;
   int K;
-  const float* xb;    // [nb, B_pad, Dg]
-  const float* al;    // [nb, B_pad]
-  const float* arcb;  // [nb, M]
-  const float* gbar;  // [nb, M, Dg]
+  const int* row_ptr;    // [B_pad + 1] slot offsets
+  const int* long_rows;  // [1 + n_long]: the threshold in slots, then the rows
+  int n_long;
+  const float* xb;   // [nb, B_pad, Dg]
+  const float* al;   // [nb, B_pad]
+  const float* tab;  // [nb, M, W]: gbar[n, m, :], arcb[n, m], zeros
   int nb;
   int64_t B_pad;
   int M;
   int Dg;
-  int rows_per_chunk;
+  int warp_bytes;  // shared memory per warp
+  const float* g;  // backward: [nb]
+  float* rowinfo;  // forward: [B_pad, nb] per-(row, branch) shares of info
+  float* d_xb;     // backward: [nb, B_pad, Dg]
+  float* d_al;     // backward: [nb, B_pad]
+  float* dbuf;     // backward: [nb, cap] d_a at each group's first cell, else 0
+  short* cbuf;     // backward: [nb, cap] the cell's codeword
+  int64_t cap;     // cells in the slots, S * K
 };
 
-// One lane's cell of chunk j0 of the row whose cells start at flat index c0:
-// live = a real cell (pad cells carry value 0); m = its codeword in branch n.
-__device__ __forceinline__ void load_cell(const RevArgs& p, int64_t c0, int ncell, int j,
-                                          int n, bool& live, int& m, float& v) {
-  live = false;
-  m = 0;
-  v = 0.f;
-  if (j < ncell) {
-    v = __ldg(p.slot_val + c0 + j);
-    if (v != 0.f) {
-      int64_t col = __ldg(p.slot_col + c0 + j);
-      col = col < 0 ? 0 : (col >= p.n1 ? p.n1 - 1 : col);
-      m = (int)__ldg(p.c_indices + col * p.nb + n);
-      m = m < 0 ? 0 : (m >= p.M ? p.M - 1 : m);
-      live = true;
-    }
+__device__ __forceinline__ int code_of(const RevArgs& p, int64_t col, int n) {
+  col = col < 0 ? 0 : (col >= p.n1 ? p.n1 - 1 : col);
+  const int m = (int)__ldg(p.c_indices + col * p.nb + n);
+  return m < 0 ? 0 : (m >= p.M ? p.M - 1 : m);
+}
+
+// xb[n, b, :] into xr (zeros past Dg); returns al[n, b].
+template <int W>
+__device__ __forceinline__ float load_row(const RevArgs& p, int n, int64_t b, float* xr) {
+  const float* x = p.xb + ((int64_t)n * p.B_pad + b) * p.Dg;
+#pragma unroll
+  for (int d = 0; d < W; ++d) xr[d] = d < p.Dg ? __ldg(x + d) : 0.f;
+  return __ldg(p.al + (int64_t)n * p.B_pad + b);
+}
+
+// The table row of (n, m): one or two 32-byte sectors.
+template <int W>
+__device__ __forceinline__ void load_tab(const RevArgs& p, int n, int m, float* t) {
+  const float4* r = reinterpret_cast<const float4*>(p.tab + ((int64_t)n * p.M + m) * W);
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    const float4 v = __ldg(r + q);
+    t[4 * q] = v.x;
+    t[4 * q + 1] = v.y;
+    t[4 * q + 2] = v.z;
+    t[4 * q + 3] = v.w;
   }
 }
 
-// Passes A and B over one row: h[m] = S_n[b, m] at the row's codewords.
-__device__ __forceinline__ void merge_row(const RevArgs& p, int64_t c0, int ncell, int n,
-                                          int lane, float* h) {
-  for (int j0 = 0; j0 < ncell; j0 += 32) {
-    bool live;
-    int m;
-    float v;
-    load_cell(p, c0, ncell, j0 + lane, n, live, m, v);
-    if (live) h[m] = 0.f;
+// One (row, codeword) group with merged value s > 0 and table row t: the
+// forward adds its term to acc; the backward adds to dx and dal and
+// returns d_a.
+template <bool BWD, int W>
+__device__ __forceinline__ float group_term(const RevArgs& p, const float* t, float s,
+                                            float al_b, const float* xr, float& acc, float* dx,
+                                            float& dal) {
+  float arc = 0.f, G = 0.f;
+#pragma unroll
+  for (int d = 0; d < W; ++d) {
+    if (d < p.Dg) G += xr[d] * t[d];
+    if (d == p.Dg) arc = t[d];
+  }
+  const float a = al_b + arc;
+  const float att = expf(a >= 0.f ? a : 0.2f * a);
+  const float satt = s * att;
+  if constexpr (BWD) {
+#pragma unroll
+    for (int d = 0; d < W; ++d)
+      if (d < p.Dg) dx[d] += satt * t[d];
+    const float da = satt * (a >= 0.f ? 1.f : 0.2f) * G;
+    dal += da;
+    return da;
+  } else {
+    acc += satt * G;
+    return 0.f;
+  }
+}
+
+// The row's outputs for branch n.
+template <bool BWD, int W>
+__device__ __forceinline__ void store_row(const RevArgs& p, int n, int64_t b, float acc,
+                                          const float* dx, float dal) {
+  if constexpr (BWD) {
+    const float gn = __ldg(p.g + n);
+    float* o = p.d_xb + ((int64_t)n * p.B_pad + b) * p.Dg;
+#pragma unroll
+    for (int d = 0; d < W; ++d)
+      if (d < p.Dg) o[d] = gn * dx[d];
+    p.d_al[(int64_t)n * p.B_pad + b] = gn * dal;
+  } else {
+    p.rowinfo[b * p.nb + n] = acc;
+  }
+}
+
+// A row of at most 32 cells: one warp, branch n0 + lane in each lane.
+template <bool BWD, int W>
+__device__ void short_row(const RevArgs& p, int64_t b, int s0, int L, int lane,
+                          unsigned char* sm) {
+  short* tc = reinterpret_cast<short*>(sm);                    // [32][kTile] codewords
+  float* tv = reinterpret_cast<float*>(sm + 32 * kTile * 2);  // [32] live values
+  int* tcol = reinterpret_cast<int*>(tv + 32);                 // [32] their neighbours
+  float* ts = reinterpret_cast<float*>(tcol + 32);             // backward: [32][kTile] d_a
+  const int64_t c0 = (int64_t)s0 * p.K;
+  float v = 0.f;
+  int col = 0;
+  if (lane < L) {
+    v = __ldg(p.slot_val + c0 + lane);
+    col = __ldg(p.slot_col + c0 + lane);
+  }
+  const unsigned live = __ballot_sync(kFull, v != 0.f);
+  const int nl = __popc(live);
+  const int rk = __popc(live & ((1u << lane) - 1u));  // this lane's cell among the live ones
+  if (v != 0.f) {
+    tv[rk] = v;
+    tcol[rk] = col;
   }
   __syncwarp();
-  for (int j0 = 0; j0 < ncell; j0 += 32) {
-    bool live;
-    int m;
-    float v;
-    load_cell(p, c0, ncell, j0 + lane, n, live, m, v);
-    const unsigned grp = __match_any_sync(kFull, live ? m : -1 - lane);
-    float sum = 0.f;
-    for (int src = 0; src < 32; ++src) {
-      const float vs = __shfl_sync(kFull, v, src);
-      if ((grp >> src) & 1u) sum += vs;
+  for (int n0 = 0; n0 < p.nb; n0 += 32) {
+    const int n = n0 + lane;
+    if (n < p.nb) {
+#pragma unroll 8
+      for (int j = 0; j < nl; ++j) tc[j * kTile + lane] = (short)code_of(p, tcol[j], n);
+      float xr[W];
+      const float al_b = load_row<W>(p, n, b, xr);
+      float acc = 0.f, dal = 0.f;
+      float dx[BWD ? W : 1];
+#pragma unroll
+      for (int d = 0; d < (BWD ? W : 1); ++d) dx[d] = 0.f;
+      // in cell order: a group's sum at its first live cell, its term if > 0
+      for (int i = 0; i < nl; ++i) {
+        const int m = tc[i * kTile + lane];
+        bool first = true;
+#pragma unroll 4
+        for (int j = 0; j < i; ++j) first &= tc[j * kTile + lane] != m;
+        float da = 0.f;
+        if (first) {
+          float s = tv[i];
+#pragma unroll 4
+          for (int j = i + 1; j < nl; ++j) s += tc[j * kTile + lane] == m ? tv[j] : 0.f;
+          if (s > 0.f) {
+            float t[W];
+            load_tab<W>(p, n, m, t);
+            da = group_term<BWD, W>(p, t, s, al_b, xr, acc, dx, dal);
+          }
+        }
+        if constexpr (BWD) ts[i * kTile + lane] = da;
+      }
+      store_row<BWD, W>(p, n, b, acc, dx, dal);
     }
-    if (live && (__ffs(grp) - 1) == lane) h[m] += sum;
+    if constexpr (BWD) {
+      // d_a and codewords, transposed: lane k writes cell k of each branch
+      __syncwarp();
+      const int nn = p.nb - n0 < 32 ? p.nb - n0 : 32;
+      if (lane < L) {
+        const bool lv = (live >> lane) & 1u;
+        for (int q = 0; q < nn; ++q) {
+          const int64_t o = (int64_t)(n0 + q) * p.cap + c0 + lane;
+          p.dbuf[o] = lv ? ts[rk * kTile + q] : 0.f;
+          p.cbuf[o] = lv ? tc[rk * kTile + q] : (short)0;
+        }
+      }
+    }
     __syncwarp();
   }
 }
 
-// BWD = false: part[chunk, n] = this warp's share of info[n].
-// BWD = true:  d_xb, d_al for the chunk's rows (times g[n]) and
-//              part[chunk, n, :] = this warp's share of d_arcb[n, :] / g[n].
-template <bool BWD>
-__global__ void rev_kernel(RevArgs p, const float* __restrict__ g, float* __restrict__ d_xb,
-                           float* __restrict__ d_al, float* __restrict__ part) {
-  extern __shared__ float smem[];
-  const int warps = blockDim.x >> 5;
+// One lane's cell j of a long row for branch n: its value (0: none) and
+// codeword.
+__device__ __forceinline__ float long_cell(const RevArgs& p, int64_t c0, int L, int j, int n,
+                                           int& m) {
+  const float v = j < L ? __ldg(p.slot_val + c0 + j) : 0.f;
+  m = v != 0.f ? code_of(p, __ldg(p.slot_col + c0 + j), n) : 0;
+  return v;
+}
+
+// Equal codewords of one 32-cell chunk summed into h (lane order).
+__device__ __forceinline__ void merge_chunk(float v, int m, int lane, float* h, float* tv) {
+  const bool on = v != 0.f;
+  const unsigned grp = __match_any_sync(kFull, on ? m : -1 - lane);
+  tv[lane] = v;
+  __syncwarp();
+  if (on && (__ffs(grp) - 1) == lane) {
+    float s = 0.f;
+    for (unsigned r = grp; r != 0u; r &= r - 1u) s += tv[__ffs(r) - 1];
+    h[m] += s;
+  }
+  __syncwarp();
+}
+
+// Each distinct codeword of one chunk at its first live cell j: its merged
+// sum taken from h (and h reset to 0, so a later repeat adds nothing) and
+// its term; the backward writes d_a and the codeword at cell j.
+template <bool BWD, int W>
+__device__ __forceinline__ void visit_chunk(const RevArgs& p, float v, int m, int j, int n,
+                                            int64_t c0, int L, int lane, float* h, float al_b,
+                                            const float* xr, float& acc, float* dx,
+                                            float& dal) {
+  const bool on = v != 0.f;
+  const unsigned grp = __match_any_sync(kFull, on ? m : -1 - lane);
+  float da = 0.f;
+  if (on && (__ffs(grp) - 1) == lane) {
+    const float s = h[m];
+    h[m] = 0.f;
+    if (s > 0.f) {
+      float t[W];
+      load_tab<W>(p, n, m, t);
+      da = group_term<BWD, W>(p, t, s, al_b, xr, acc, dx, dal);
+    }
+  }
+  if constexpr (BWD) {
+    if (j < L) {
+      p.dbuf[(int64_t)n * p.cap + c0 + j] = da;
+      p.cbuf[(int64_t)n * p.cap + c0 + j] = (short)m;
+    }
+  }
+  __syncwarp();
+}
+
+// A long row for branch n: one warp, the lanes over the cells, the merge in
+// the warp's [M] shared histogram h (all zero on entry and on exit).
+template <bool BWD, int W>
+__device__ void long_row(const RevArgs& p, int64_t b, int s0, int L, int n, int lane, float* h,
+                         float* tv) {
+  const int64_t c0 = (int64_t)s0 * p.K;
+  float xr[W];
+  const float al_b = load_row<W>(p, n, b, xr);
+  float acc = 0.f, dal = 0.f;
+  float dx[BWD ? W : 1];
+#pragma unroll
+  for (int d = 0; d < (BWD ? W : 1); ++d) dx[d] = 0.f;
+  {
+    for (int j0 = 0; j0 < L; j0 += 32) {
+      int m;
+      const float v = long_cell(p, c0, L, j0 + lane, n, m);
+      merge_chunk(v, m, lane, h, tv);
+    }
+    for (int j0 = 0; j0 < L; j0 += 32) {
+      int m;
+      const float v = long_cell(p, c0, L, j0 + lane, n, m);
+      visit_chunk<BWD, W>(p, v, m, j0 + lane, n, c0, L, lane, h, al_b, xr, acc, dx, dal);
+    }
+  }
+  acc = warp_sum(acc);
+  if constexpr (BWD) {
+#pragma unroll
+    for (int d = 0; d < W; ++d)
+      if (d < p.Dg) dx[d] = warp_sum(dx[d]);
+    dal = warp_sum(dal);
+  }
+  if (lane == 0) store_row<BWD, W>(p, n, b, acc, dx, dal);
+}
+
+// The row pass.  Blocks [0, long_blocks): the long rows' (row, branch) tasks;
+// the rest: every other row in index order, a warp each.  The forward fits
+// 40 warps an SM; the backward's dx and d_a tile need more registers.
+template <bool BWD, int W>
+__global__ void __launch_bounds__(kRowWarps * 32, BWD ? 10 : 20)
+    rev_rows_kernel(RevArgs p, int long_blocks) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n = blockIdx.y * warps + w;
-  if (n >= p.nb) return;  // whole warp; no block-wide barrier follows
-  const int M = p.M, Dg = p.Dg;
-  float* h = smem + (size_t)w * (BWD ? 2 : 1) * M;
-  float* dacc = h + M;  // BWD only
-  if (BWD) {
-    for (int m = lane; m < M; m += 32) dacc[m] = 0.f;
+  unsigned char* sm = smem + (size_t)w * p.warp_bytes;
+  float* h = reinterpret_cast<float*>(sm);  // the long path's histogram, then 32 values
+  const int thr = __ldg(p.long_rows);  // a short row: at most thr * K <= 32 cells
+  if ((int)blockIdx.x < long_blocks) {
+    for (int m = lane; m < p.M; m += 32) h[m] = 0.f;
     __syncwarp();
+    const int64_t t = (int64_t)blockIdx.x * kRowWarps + w;
+    if (t >= (int64_t)p.n_long * p.nb) return;  // whole warp; no block barrier follows
+    const int64_t b = __ldg(p.long_rows + 1 + t / p.nb);
+    const int s0 = __ldg(p.row_ptr + b), s1 = __ldg(p.row_ptr + b + 1);
+    if (s1 - s0 <= thr) return;  // not long: the short pass takes it
+    long_row<BWD, W>(p, b, s0, (s1 - s0) * p.K, (int)(t % p.nb), lane, h, h + p.M);
+    return;
   }
-  const int64_t chunk = blockIdx.x;
-  const int64_t b0 = chunk * p.rows_per_chunk;
-  const int64_t b1 = b0 + p.rows_per_chunk < p.B_pad ? b0 + p.rows_per_chunk : p.B_pad;
-  const float gn = BWD ? __ldg(g + n) : 0.f;
-  const float* gbar_n = p.gbar + (int64_t)n * M * Dg;
-  const float* arcb_n = p.arcb + (int64_t)n * M;
-  float info_acc = 0.f;
+  const int64_t b = (int64_t)(blockIdx.x - long_blocks) * kRowWarps + w;
+  if (b >= p.B_pad) return;
+  const int s0 = __ldg(p.row_ptr + b), s1 = __ldg(p.row_ptr + b + 1);
+  if (s1 - s0 > thr) return;  // a long row
+  short_row<BWD, W>(p, b, s0, (s1 - s0) * p.K, lane, sm);
+}
 
-  int64_t s0 = lower_bound(p.slot_row, p.S, b0);
-  for (int64_t b = b0; b < b1; ++b) {
-    int64_t s1 = s0;
-    while (s1 < p.S && __ldg(p.slot_row + s1) == b) ++s1;
-    const int64_t c0 = s0 * p.K;
-    const int ncell = (int)((s1 - s0) * p.K);
-    s0 = s1;
-    float xr[kMaxDg];
-    const float* xb_row = p.xb + ((int64_t)n * p.B_pad + b) * Dg;
-#pragma unroll
-    for (int d = 0; d < kMaxDg; ++d) xr[d] = d < Dg ? __ldg(xb_row + d) : 0.f;
-    const float al_b = __ldg(p.al + (int64_t)n * p.B_pad + b);
-    float dx[BWD ? kMaxDg : 1];
-#pragma unroll
-    for (int d = 0; d < (BWD ? kMaxDg : 1); ++d) dx[d] = 0.f;
-    float dal = 0.f;
+// tab[n, m, :] = gbar[n, m, :Dg], arcb[n, m], zeros to W.
+template <int W>
+__global__ void pack_table_kernel(const float* __restrict__ gbar, const float* __restrict__ arcb,
+                                  int64_t rows, int Dg, float* __restrict__ tab) {
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= rows * W) return;
+  const int64_t r = i / W;
+  const int d = (int)(i % W);
+  tab[i] = d < Dg ? gbar[r * Dg + d] : (d == Dg ? arcb[r] : 0.f);
+}
 
-    if (ncell > 0) {
-      merge_row(p, c0, ncell, n, lane, h);
+// part[blk, n] = sum over the block's kSumRows rows b of rowinfo[b, n]: each
+// warp its rows in order, the warps added in order.
+__global__ void sum_rows_kernel(const float* __restrict__ rowinfo, int64_t B_pad, int nb,
+                                float* __restrict__ part) {
+  __shared__ float red[kWarps][32];
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t b0 = (int64_t)blockIdx.x * kSumRows;
+  const int64_t b1 = b0 + kSumRows < B_pad ? b0 + kSumRows : B_pad;
+  for (int n0 = 0; n0 < nb; n0 += 32) {
+    const int n = n0 + lane;
+    float s = 0.f;
+    if (n < nb) {
+#pragma unroll 4
+      for (int64_t b = b0 + w; b < b1; b += kWarps) s += rowinfo[b * nb + n];
+    }
+    red[w][lane] = s;
+    __syncthreads();
+    if (w == 0 && n < nb) {
+      float t = 0.f;
+      for (int w2 = 0; w2 < kWarps; ++w2) t += red[w2][lane];
+      part[(int64_t)blockIdx.x * nb + n] = t;
+    }
+    __syncthreads();
+  }
+}
+
+// The codeword pass: block (chunk, n) folds its chunk of the live cell range
+// of dbuf[n] into part[chunk, n, :]: each warp its 32-cell tiles in order
+// into its own [M] histogram (a tile's equal codewords found with
+// __match_any_sync and summed by the lowest lane in lane order), the warps
+// added in order.  kW warps a block: as many histograms as fit (Layout).
+template <int kW>
+__global__ void __launch_bounds__(kW * 32)
+    codeword_pass_kernel(const float* __restrict__ dbuf, const short* __restrict__ cbuf,
+                         int64_t cap, const int* __restrict__ row_ptr, int64_t B_pad, int K,
+                         int M, int nb, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int region = codeword_region(M);
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* h = reinterpret_cast<float*>(smem + (size_t)w * region);
+  float* sd = h + M;  // [32] a tile's d_a
+  for (int m = lane; m < M; m += 32) h[m] = 0.f;
+  __syncwarp();
+  const int n = blockIdx.y;
+  const int64_t chunks = gridDim.x;
+  const int64_t used = (int64_t)__ldg(row_ptr + B_pad) * K;
+  const int64_t per = ((used + chunks - 1) / chunks + 31) / 32 * 32;
+  const int64_t c_beg = blockIdx.x * per;
+  const int64_t c_end = c_beg + per < used ? c_beg + per : used;
+  const float* dn = dbuf + (int64_t)n * cap;
+  const short* cn = cbuf + (int64_t)n * cap;
+  constexpr int kStep = kW * 32;
+  for (int64_t c = c_beg + w * 32; c < c_end; c += kStep * kPrefetch) {
+    float d[kPrefetch];
+    int mm[kPrefetch];
+#pragma unroll
+    for (int q = 0; q < kPrefetch; ++q) {
+      const int64_t j = c + q * kStep + lane;
+      d[q] = j < c_end ? dn[j] : 0.f;
+      mm[q] = j < c_end ? (int)cn[j] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kPrefetch; ++q) {
+      const bool on = d[q] != 0.f;
+      const unsigned act = __ballot_sync(kFull, on);
+      if (act == 0u) continue;
+      const int m = mm[q] < 0 ? 0 : (mm[q] >= M ? M - 1 : mm[q]);
+      const unsigned grp = __match_any_sync(kFull, on ? m : -1 - lane);
+      sd[lane] = d[q];
       __syncwarp();
-      // pass C: each distinct codeword of the row once
-      for (int j0 = 0; j0 < ncell; j0 += 32) {
-        bool live;
-        int m;
-        float v;
-        load_cell(p, c0, ncell, j0 + lane, n, live, m, v);
-        const unsigned grp = __match_any_sync(kFull, live ? m : -1 - lane);
-        if (live && (__ffs(grp) - 1) == lane && __float_as_int(h[m]) != kVisited) {
-          const float s = h[m];
-          h[m] = __int_as_float(kVisited);
-          if (s > 0.f) {
-            const float a = al_b + __ldg(arcb_n + m);
-            const float att = expf(a >= 0.f ? a : 0.2f * a);
-            const float satt = s * att;
-            const float* gb = gbar_n + (int64_t)m * Dg;
-            float G = 0.f;
-#pragma unroll
-            for (int d = 0; d < kMaxDg; ++d) {
-              if (d < Dg) {
-                const float gd = __ldg(gb + d);
-                G += xr[d] * gd;
-                if constexpr (BWD) dx[d] += satt * gd;
-              }
-            }
-            if (BWD) {
-              const float da = satt * (a >= 0.f ? 1.f : 0.2f) * G;
-              dal += da;
-              dacc[m] += da;
-            } else {
-              info_acc += satt * G;
-            }
-          }
-        }
-        __syncwarp();
+      if (on && (__ffs(grp) - 1) == lane) {
+        float s = 0.f;
+        for (unsigned r = grp; r != 0u; r &= r - 1u) s += sd[__ffs(r) - 1];
+        h[m] += s;
       }
-    }
-    if constexpr (BWD) {
-      float* dxo = d_xb + ((int64_t)n * p.B_pad + b) * Dg;
-#pragma unroll
-      for (int d = 0; d < kMaxDg; ++d) {
-        if (d < Dg) {
-          const float t = warp_sum(dx[d]);
-          if (lane == 0) dxo[d] = gn * t;
-        }
-      }
-      const float t = warp_sum(dal);
-      if (lane == 0) d_al[(int64_t)n * p.B_pad + b] = gn * t;
+      __syncwarp();
     }
   }
-  if (BWD) {
-    __syncwarp();
-    float* o = part + (chunk * p.nb + n) * (int64_t)M;
-    for (int m = lane; m < M; m += 32) o[m] = dacc[m];
-  } else {
-    const float t = warp_sum(info_acc);
-    if (lane == 0) part[chunk * p.nb + n] = t;
+  __syncthreads();
+  float* o = part + ((int64_t)blockIdx.x * nb + n) * M;
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    float s = 0.f;
+    for (int w2 = 0; w2 < kW; ++w2)
+      s += reinterpret_cast<const float*>(smem + (size_t)w2 * region)[m];
+    o[m] = s;
   }
 }
 
@@ -262,88 +493,198 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part, int64_t chu
   out[i] = scale != nullptr ? __ldg(scale + i / per) * acc : acc;
 }
 
-template <bool BWD>
-cudaError_t launch(const RevArgs& p, int warps, const float* g, float* d_xb, float* d_al,
-                   float* part, cudaStream_t st) {
-  const size_t smem = (size_t)warps * (BWD ? 2 : 1) * p.M * sizeof(float);
-  auto kern = rev_kernel<BWD>;
+// A call's launch sizes and scratch: the packed table, then the forward's
+// row shares and their block sums, or the backward's d_a buffer, its
+// codewords and the codeword pass's chunk partials, each region 256-byte
+// aligned.
+struct Layout {
+  int W;          // floats a table row: gbar[n, m, :Dg], arcb[n, m], zeros
+  int row_bytes;  // shared memory a row-pass warp
+  int cw_warps;   // warps a codeword-pass block: 8, 4, 2 or 1, as many [M] histograms as fit
+  int chunks;     // codeword-pass blocks a branch
+  size_t tab, rowinfo, dbuf, cbuf, part, bytes;  // byte offsets; the total
+};
+
+size_t aligned(size_t x) { return (x + 255) / 256 * 256; }
+
+// False for shapes the kernels do not take: Dg + 1 above a 16-float table
+// row, K above a warp, or M whose [M] histograms do not fit a block.
+bool make_layout(bool bwd, int nb, int64_t B_pad, int M, int Dg, int64_t S, int K, Layout& z) {
+  if (nb < 1 || B_pad < 1 || M < 1 || Dg < 1 || Dg + 1 > 16 || S < 1 || K < 1 || K > 32)
+    return false;
+  z = {};
+  z.W = Dg + 1 <= 8 ? 8 : 16;
+  const int long_b = codeword_region(M);  // the long path's histogram and values
+  const int short_b = short_bytes(bwd);
+  z.row_bytes = ((long_b > short_b ? long_b : short_b) + 15) / 16 * 16;
+  if ((int64_t)kRowWarps * z.row_bytes > kSmemBytes) return false;
+  z.cw_warps = kWarps;
+  while (z.cw_warps > 1 && z.cw_warps * codeword_region(M) > kSmemBytes) z.cw_warps /= 2;
+  const int64_t cells = S * K;
+  const int64_t chunks = (cells + kChunkCells - 1) / kChunkCells;
+  z.chunks = (int)(chunks < 1 ? 1 : (chunks > kMaxChunks ? kMaxChunks : chunks));
+  size_t o = aligned((size_t)nb * M * z.W * 4);  // tab at 0
+  if (bwd) {
+    z.dbuf = o;
+    o += aligned((size_t)nb * cells * 4);
+    z.cbuf = o;
+    o += aligned((size_t)nb * cells * 2);
+    z.part = o;
+    o += aligned((size_t)z.chunks * nb * M * 4);
+  } else {
+    z.rowinfo = o;
+    o += aligned((size_t)(B_pad + (B_pad + kSumRows - 1) / kSumRows) * nb * 4);
+  }
+  z.bytes = o;
+  return true;
+}
+
+// The codeword pass with kW warps a block, then the chunk sums into d_arcb.
+template <int kW>
+cudaError_t launch_codewords(const RevArgs& p, int chunks, const int* row_ptr, float* part,
+                             const float* g, float* d_arcb, cudaStream_t st) {
+  const size_t smem = (size_t)kW * codeword_region(p.M);
+  auto kern = codeword_pass_kernel<kW>;
   if (smem > 48 * 1024) {
-    cudaError_t e =
+    const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int64_t chunks = (p.B_pad + p.rows_per_chunk - 1) / p.rows_per_chunk;
-  const dim3 grid((unsigned)chunks, (unsigned)((p.nb + warps - 1) / warps));
-  kern<<<grid, warps * 32, smem, st>>>(p, g, d_xb, d_al, part);
+  kern<<<dim3((unsigned)chunks, (unsigned)p.nb), kW * 32, smem, st>>>(
+      p.dbuf, p.cbuf, p.cap, row_ptr, p.B_pad, p.K, p.M, p.nb, part);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int64_t total = (int64_t)p.nb * p.M;
+  reduce_chunks_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, chunks, total,
+                                                                        p.M, g, d_arcb);
   return cudaGetLastError();
 }
 
+template <bool BWD, int W>
+cudaError_t launch_rows(RevArgs p, const Layout& z, const float* gbar, const float* arcb,
+                        float* tab, cudaStream_t st) {
+  const int64_t rows = (int64_t)p.nb * p.M;
+  pack_table_kernel<W><<<(unsigned)((rows * W + 255) / 256), 256, 0, st>>>(gbar, arcb, rows,
+                                                                             p.Dg, tab);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  p.tab = tab;
+  p.warp_bytes = z.row_bytes;
+  const size_t smem = (size_t)kRowWarps * p.warp_bytes;
+  auto kern = rev_rows_kernel<BWD, W>;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int64_t long_blocks = ((int64_t)p.n_long * p.nb + kRowWarps - 1) / kRowWarps;
+  const int64_t short_blocks = (p.B_pad + kRowWarps - 1) / kRowWarps;
+  kern<<<(unsigned)(long_blocks + short_blocks), kRowWarps * 32, smem, st>>>(
+      p, (int)long_blocks);
+  return cudaGetLastError();
+}
+
+template <bool BWD>
+cudaError_t launch_rows(const RevArgs& p, const Layout& z, const float* gbar, const float* arcb,
+                        float* tab, cudaStream_t st) {
+  return z.W == 8 ? launch_rows<BWD, 8>(p, z, gbar, arcb, tab, st)
+                  : launch_rows<BWD, 16>(p, z, gbar, arcb, tab, st);
+}
+
 RevArgs make_args(const short* c_indices, int64_t n1, const int* slot_col,
-                  const float* slot_val, const int* slot_row, int64_t S, int K,
-                  const float* xb, const float* al, const float* arcb, const float* gbar,
-                  int nb, int64_t B_pad, int M, int Dg, int rows_per_chunk) {
-  RevArgs p;
+                  const float* slot_val, int64_t S, int K, const int* row_ptr,
+                  const int* long_rows, int n_long, const float* xb, const float* al, int nb,
+                  int64_t B_pad, int M, int Dg) {
+  RevArgs p = {};
   p.c_indices = c_indices;
   p.n1 = n1;
   p.slot_col = slot_col;
   p.slot_val = slot_val;
-  p.slot_row = slot_row;
-  p.S = S;
   p.K = K;
+  p.row_ptr = row_ptr;
+  p.long_rows = long_rows;
+  p.n_long = n_long;
   p.xb = xb;
   p.al = al;
-  p.arcb = arcb;
-  p.gbar = gbar;
   p.nb = nb;
   p.B_pad = B_pad;
   p.M = M;
   p.Dg = Dg;
-  p.rows_per_chunk = rows_per_chunk;
+  p.cap = S * K;
   return p;
-}
-
-bool bad_args(int nb, int64_t B_pad, int M, int Dg, int K, int rows_per_chunk, int warps) {
-  return nb < 1 || B_pad < 1 || M < 1 || Dg < 1 || Dg > kMaxDg || K < 1 ||
-         rows_per_chunk < 1 || warps < 1 || warps > 32;
 }
 
 }  // namespace
 
-// Forward.  part: scratch of ceil(B_pad / rows_per_chunk) * nb floats.
+// The bytes of scratch the forward (bwd = 0) or the backward (bwd = 1) needs
+// for these shapes, into *bytes; cudaErrorInvalidValue for shapes the
+// kernels do not take.
+extern "C" int vq_rev_scratch_bytes(int bwd, int nb, int64_t B_pad, int M, int Dg, int64_t S,
+                                    int K, int64_t* bytes) {
+  Layout z;
+  if (!make_layout(bwd != 0, nb, B_pad, M, Dg, S, K, z)) return (int)cudaErrorInvalidValue;
+  *bytes = (int64_t)z.bytes;
+  return 0;
+}
+
+// Forward.  scratch: scratch_bytes of device memory, at least what
+// vq_rev_scratch_bytes(0, ...) gives, 256-byte aligned.
 extern "C" int vq_rev_forward(const short* c_indices, int64_t n1, const int* slot_col,
-                              const float* slot_val, const int* slot_row, int64_t S, int K,
-                              const float* xb, const float* al, const float* arcb,
-                              const float* gbar, int nb, int64_t B_pad, int M, int Dg,
-                              int rows_per_chunk, int warps, float* part, float* info,
+                              const float* slot_val, int64_t S, int K, const int* row_ptr,
+                              const int* long_rows, int n_long, const float* xb, const float* al,
+                              const float* arcb, const float* gbar, int nb, int64_t B_pad, int M,
+                              int Dg, void* scratch, int64_t scratch_bytes, float* info,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_args(nb, B_pad, M, Dg, K, rows_per_chunk, warps)) return (int)cudaErrorInvalidValue;
-  const RevArgs p = make_args(c_indices, n1, slot_col, slot_val, slot_row, S, K, xb, al, arcb,
-                              gbar, nb, B_pad, M, Dg, rows_per_chunk);
-  cudaError_t e = launch<false>(p, warps, nullptr, nullptr, nullptr, part, st);
+  Layout z;
+  if (!make_layout(false, nb, B_pad, M, Dg, S, K, z) || n_long < 0 ||
+      scratch_bytes < (int64_t)z.bytes)
+    return (int)cudaErrorInvalidValue;
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  RevArgs p = make_args(c_indices, n1, slot_col, slot_val, S, K, row_ptr, long_rows, n_long, xb,
+                        al, nb, B_pad, M, Dg);
+  float* rowinfo = reinterpret_cast<float*>(sc + z.rowinfo);
+  p.rowinfo = rowinfo;
+  cudaError_t e = launch_rows<false>(p, z, gbar, arcb, reinterpret_cast<float*>(sc + z.tab), st);
   if (e != cudaSuccess) return (int)e;
-  const int64_t chunks = (B_pad + rows_per_chunk - 1) / rows_per_chunk;
-  reduce_chunks_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(part, chunks, nb, 1,
+  const int64_t blocks = (B_pad + kSumRows - 1) / kSumRows;
+  float* part = rowinfo + B_pad * nb;
+  sum_rows_kernel<<<(unsigned)blocks, kWarps * 32, 0, st>>>(rowinfo, B_pad, nb, part);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  reduce_chunks_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(part, blocks, nb, 1,
                                                                      nullptr, info);
   return (int)cudaGetLastError();
 }
 
-// Backward.  part: scratch of ceil(B_pad / rows_per_chunk) * nb * M floats.
+// Backward.  scratch as for the forward, from vq_rev_scratch_bytes(1, ...).
 extern "C" int vq_rev_backward(const short* c_indices, int64_t n1, const int* slot_col,
-                               const float* slot_val, const int* slot_row, int64_t S, int K,
-                               const float* xb, const float* al, const float* arcb,
-                               const float* gbar, int nb, int64_t B_pad, int M, int Dg,
-                               int rows_per_chunk, int warps, const float* g, float* part,
-                               float* d_xb, float* d_al, float* d_arcb, void* stream) {
+                               const float* slot_val, int64_t S, int K, const int* row_ptr,
+                               const int* long_rows, int n_long, const float* xb,
+                               const float* al, const float* arcb, const float* gbar, int nb,
+                               int64_t B_pad, int M, int Dg, void* scratch,
+                               int64_t scratch_bytes, const float* g, float* d_xb, float* d_al,
+                               float* d_arcb, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_args(nb, B_pad, M, Dg, K, rows_per_chunk, warps)) return (int)cudaErrorInvalidValue;
-  const RevArgs p = make_args(c_indices, n1, slot_col, slot_val, slot_row, S, K, xb, al, arcb,
-                              gbar, nb, B_pad, M, Dg, rows_per_chunk);
-  cudaError_t e = launch<true>(p, warps, g, d_xb, d_al, part, st);
+  Layout z;
+  if (!make_layout(true, nb, B_pad, M, Dg, S, K, z) || n_long < 0 ||
+      scratch_bytes < (int64_t)z.bytes)
+    return (int)cudaErrorInvalidValue;
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  RevArgs p = make_args(c_indices, n1, slot_col, slot_val, S, K, row_ptr, long_rows, n_long, xb,
+                        al, nb, B_pad, M, Dg);
+  p.g = g;
+  p.d_xb = d_xb;
+  p.d_al = d_al;
+  p.dbuf = reinterpret_cast<float*>(sc + z.dbuf);
+  p.cbuf = reinterpret_cast<short*>(sc + z.cbuf);
+  float* part = reinterpret_cast<float*>(sc + z.part);
+  const cudaError_t e =
+      launch_rows<true>(p, z, gbar, arcb, reinterpret_cast<float*>(sc + z.tab), st);
   if (e != cudaSuccess) return (int)e;
-  const int64_t chunks = (B_pad + rows_per_chunk - 1) / rows_per_chunk;
-  const int64_t total = (int64_t)nb * M;
-  reduce_chunks_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, chunks, total, M,
-                                                                        g, d_arcb);
-  return (int)cudaGetLastError();
+  switch (z.cw_warps) {
+    case 8: return (int)launch_codewords<8>(p, z.chunks, row_ptr, part, g, d_arcb, st);
+    case 4: return (int)launch_codewords<4>(p, z.chunks, row_ptr, part, g, d_arcb, st);
+    case 2: return (int)launch_codewords<2>(p, z.chunks, row_ptr, part, g, d_arcb, st);
+    default: return (int)launch_codewords<1>(p, z.chunks, row_ptr, part, g, d_arcb, st);
+  }
 }

@@ -291,7 +291,8 @@ def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatc
         al = x_cols.new_zeros((nb, B_pad))
         ar_cb = x_cols.new_zeros((nb, M))
     infos = rev_recovery_info(vq_state.c_indices, batch.rev_slot_col, batch.rev_slot_val,
-                              batch.rev_slot_row, x_cols, al, ar_cb, grad_table)
+                              batch.rev_slot_row, x_cols, al, ar_cb, grad_table,
+                              row_ptr=batch.rev_row_ptr, long_rows=batch.rev_long_rows)
     return infos.sum() * warm_up_rate
 
 

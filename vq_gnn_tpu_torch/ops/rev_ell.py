@@ -10,8 +10,10 @@ sorts it by batch row, coalesces duplicate (row, col) pairs (a subset of the
 on-device (row, codeword) coalesce, so the result is unchanged for any
 codeword table), drops exact zeros (relu(0) == 0) and packs the cells into
 K-wide slots.  The TPU kernel's packed (tile, chunk) schedule fed its
-sequential grid; the CUDA kernels (``csrc/rev_recovery.cu``) find each row's
-slots themselves and do not use it, so it is not built.
+sequential grid; the CUDA kernels (``csrc/rev_recovery.cu``) do not use it,
+so it is not built.  They take the slots' row offsets
+(``spmm.row_offsets_host``) and the list of long rows
+(:func:`rev_long_rows_host`) instead, both built with the batch.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 
 REV_K = 8  # cells per slot
 REV_S_MULTIPLE = 2048  # slot-count bucket multiple (the JAX package's 8 * T_s)
+REV_LONG_SLOTS = 32 // REV_K  # rows of more slots hold more cells than a warp has lanes
 
 
 def build_rev_ell(rr, rc, rv, B_pad: int, num_N: int):
@@ -74,3 +77,13 @@ def pad_rev_ell(slot_col, slot_val, slot_row, S_pad: int, B_pad: int, num_N: int
         np.concatenate([slot_val, np.zeros((S_pad - S, K), np.float32)]),
         np.concatenate([slot_row, np.full(S_pad - S, B_pad, np.int32)]),
     )
+
+
+def rev_long_rows_host(ptr) -> np.ndarray:
+    """int32 [1 + n]: REV_LONG_SLOTS, then the n rows of more slots (row
+    offsets ``ptr``), in index order.  The recovery kernels give each such
+    row a warp per branch, started first, and take every other row (at most
+    a warp of cells) a warp each, the branches across the lanes; the list
+    carries its threshold so the kernels skip exactly the rows it holds."""
+    rows = np.flatnonzero(np.diff(np.asarray(ptr, np.int64)) > REV_LONG_SLOTS)
+    return np.concatenate([[REV_LONG_SLOTS], rows]).astype(np.int32)

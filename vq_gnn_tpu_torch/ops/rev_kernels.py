@@ -17,6 +17,9 @@ reference's stop-gradient hook payload).  On CUDA tensors the forward is
 kernel 9 and the backward kernel 10 (``csrc/rev_recovery.cu``, replacing
 ``vq_gnn_tpu/ops/pallas_rev.py:_fwd_kernel`` and ``_bwd_kernel``); on CPU
 tensors both are the plain version, whose backward is autograd through it.
+The kernels read each row's slots through the batch's row offsets and its
+list of long rows (``PaddedBatch.rev_row_ptr``, ``rev_long_rows``), which
+they require; the plain version reads ``slot_row``.
 """
 
 from __future__ import annotations
@@ -27,11 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from vq_gnn_tpu_torch.ops import _build
-
-MAX_DG = 16  # csrc/rev_recovery.cu keeps Dg floats per lane in registers
-_SMEM_BYTES = 200 * 1024  # per-block budget for the per-warp [M] arrays
-_FWD_ROWS_PER_CHUNK = 16
-_BWD_PART_FLOATS = 8 << 20  # cap on the backward's per-chunk d_arcb partials
+from vq_gnn_tpu_torch.ops.rev_ell import REV_LONG_SLOTS
 
 
 def rev_recovery_info_plain(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar):
@@ -62,27 +61,36 @@ def _check(cond: bool, msg: str):
 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_COMMON = [_VP, _I64, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _VP, _I32, _I64, _I32, _I32,
-           _I32, _I32]
-_FWD_ARGTYPES = _COMMON + [_VP, _VP, _VP]
-_BWD_ARGTYPES = _COMMON + [_VP, _VP, _VP, _VP, _VP, _VP]
+_COMMON = [_VP, _I64, _VP, _VP, _I64, _I32, _VP, _VP, _I32, _VP, _VP, _VP, _VP, _I32, _I64, _I32,
+           _I32, _VP, _I64]
+_FWD_ARGTYPES = _COMMON + [_VP, _VP]
+_BWD_ARGTYPES = _COMMON + [_VP, _VP, _VP, _VP, _VP]
+_SCRATCH_ARGTYPES = [_I32, _I32, _I64, _I32, _I32, _I64, _I32, ctypes.POINTER(ctypes.c_int64)]
 
 
-def _checked(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar):
-    """Validate the CUDA inputs; returns (nb, B_pad, Dg, M, S, K, warps per
-    block)."""
+def _checked(bwd, c_indices, slot_col, slot_val, row_ptr, long_rows, xb, al, arcb, gbar):
+    """Validate the CUDA inputs; returns (nb, B_pad, Dg, M), the C entry
+    points' leading arguments and the call's scratch (sized by the C side,
+    ``vq_rev_scratch_bytes``)."""
     dev = xb.device
     _check(dev.type == "cuda", f"unsupported device {dev}")
+    _check(row_ptr is not None and long_rows is not None,
+           "the CUDA kernels need the batch's row offsets and long rows (PaddedBatch."
+           "rev_row_ptr, rev_long_rows)")
     _check(xb.dim() == 3 and arcb.dim() == 2, "xb [nb, B_pad, Dg] and arcb [nb, M] expected")
     nb, B_pad, Dg = xb.shape
     M = arcb.shape[1]
     S, K = slot_col.shape
-    _check(1 <= Dg <= MAX_DG, f"Dg must be in [1, {MAX_DG}], got {Dg}")
+    _check(REV_LONG_SLOTS * K <= 32,
+           f"K = {K}: a row of REV_LONG_SLOTS = {REV_LONG_SLOTS} slots exceeds a warp of cells")
+    _check(long_rows.dim() == 1 and long_rows.shape[0] >= 1,
+           "long_rows must be [1 + n]: the threshold, then the rows")
     for name, t, dt, shape in (
         ("c_indices", c_indices, torch.int16, (c_indices.shape[0], nb)),
         ("slot_col", slot_col, torch.int32, (S, K)),
         ("slot_val", slot_val, torch.float32, (S, K)),
-        ("slot_row", slot_row, torch.int32, (S,)),
+        ("row_ptr", row_ptr, torch.int32, (B_pad + 1,)),
+        ("long_rows", long_rows, torch.int32, (long_rows.shape[0],)),
         ("xb", xb, torch.float32, (nb, B_pad, Dg)),
         ("al", al, torch.float32, (nb, B_pad)),
         ("arcb", arcb, torch.float32, (nb, M)),
@@ -92,55 +100,48 @@ def _checked(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar):
                and t.is_contiguous(),
                f"{name} must be contiguous {dt} of shape {shape} on {dev}, got "
                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    per_warp = 2 * M * 4  # the backward's histogram and d_arcb sum
-    _check(per_warp <= _SMEM_BYTES, f"M = {M} needs more shared memory than a block has")
-    warps = max(1, min(8, nb, _SMEM_BYTES // per_warp))
-    return nb, B_pad, Dg, M, S, K, warps
+    nbytes = ctypes.c_int64()
+    rc = _build.function("rev_recovery", "vq_rev_scratch_bytes", _SCRATCH_ARGTYPES)(
+        int(bwd), nb, B_pad, M, Dg, S, K, ctypes.byref(nbytes))
+    _check(rc == 0, f"nb = {nb}, M = {M}, Dg = {Dg}, K = {K}: outside what the kernels take "
+           "(Dg at most 15, a table row; M at most 29,024, a block's shared memory)")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    args = (c_indices.data_ptr(), c_indices.shape[0], slot_col.data_ptr(), slot_val.data_ptr(),
+            S, K, row_ptr.data_ptr(), long_rows.data_ptr(), long_rows.shape[0] - 1,
+            xb.data_ptr(), al.data_ptr(), arcb.data_ptr(), gbar.data_ptr(), nb, B_pad, M, Dg,
+            scratch.data_ptr(), scratch.numel())
+    return (nb, B_pad, Dg, M), args, scratch
 
 
-def _common_args(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar, shape, rpc):
-    nb, B_pad, Dg, M, S, K, warps = shape
-    return (c_indices.data_ptr(), c_indices.shape[0], slot_col.data_ptr(), slot_val.data_ptr(),
-            slot_row.data_ptr(), S, K, xb.data_ptr(), al.data_ptr(), arcb.data_ptr(),
-            gbar.data_ptr(), nb, B_pad, M, Dg, rpc, warps)
-
-
-def rev_forward(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar):
-    """Kernel 9: info [nb] (CUDA tensors only)."""
-    shape = _checked(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar)
-    nb, B_pad = shape[0], shape[1]
-    rpc = _FWD_ROWS_PER_CHUNK
-    chunks = -(-B_pad // rpc)
-    part = torch.empty(chunks * nb, dtype=torch.float32, device=xb.device)
+def rev_forward(c_indices, slot_col, slot_val, row_ptr, long_rows, xb, al, arcb, gbar):
+    """Kernel 9: info [nb] (CUDA tensors only).  The kernel reads each row's
+    slots through ``row_ptr`` [B_pad + 1] and ``long_rows`` (the threshold,
+    then the rows of more slots), the batch's ``rev_row_ptr`` and
+    ``rev_long_rows``."""
+    (nb, *_), args, scratch = _checked(False, c_indices, slot_col, slot_val, row_ptr, long_rows,
+                                       xb, al, arcb, gbar)  # scratch: alive over the launch
     info = torch.empty(nb, dtype=torch.float32, device=xb.device)
     rc = _build.function("rev_recovery", "vq_rev_forward", _FWD_ARGTYPES)(
-        *_common_args(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar, shape, rpc),
-        part.data_ptr(), info.data_ptr(), torch.cuda.current_stream(xb.device).cuda_stream,
-    )
+        *args, info.data_ptr(), torch.cuda.current_stream(xb.device).cuda_stream)
     _build.check(rc, "rev_forward")
     rev_forward.launches += 1
     return info
 
 
-def rev_backward(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar, g):
+def rev_backward(c_indices, slot_col, slot_val, row_ptr, long_rows, xb, al, arcb, gbar, g):
     """Kernel 10: (d_xb, d_al, d_arcb) for the per-branch cotangent g [nb]
-    (CUDA tensors only)."""
-    shape = _checked(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar)
-    nb, B_pad, Dg, M = shape[:4]
+    (CUDA tensors only; the rows as for rev_forward)."""
+    (nb, B_pad, Dg, M), args, scratch = _checked(True, c_indices, slot_col, slot_val, row_ptr,
+                                                 long_rows, xb, al, arcb, gbar)
     _check(g.device == xb.device and g.dtype == torch.float32 and tuple(g.shape) == (nb,)
            and g.is_contiguous(), f"g must be contiguous float32 [{nb}]")
-    # rows per chunk: enough that the per-chunk d_arcb partials stay small
-    rpc = max(_FWD_ROWS_PER_CHUNK, -(-B_pad * nb * M // _BWD_PART_FLOATS))
-    chunks = -(-B_pad // rpc)
-    part = torch.empty(chunks * nb * M, dtype=torch.float32, device=xb.device)
-    d_xb = torch.empty((nb, B_pad, Dg), dtype=torch.float32, device=xb.device)
-    d_al = torch.empty((nb, B_pad), dtype=torch.float32, device=xb.device)
-    d_arcb = torch.empty((nb, M), dtype=torch.float32, device=xb.device)
+    dev = xb.device
+    d_xb = torch.empty((nb, B_pad, Dg), dtype=torch.float32, device=dev)
+    d_al = torch.empty((nb, B_pad), dtype=torch.float32, device=dev)
+    d_arcb = torch.empty((nb, M), dtype=torch.float32, device=dev)
     rc = _build.function("rev_recovery", "vq_rev_backward", _BWD_ARGTYPES)(
-        *_common_args(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar, shape, rpc),
-        g.data_ptr(), part.data_ptr(), d_xb.data_ptr(), d_al.data_ptr(), d_arcb.data_ptr(),
-        torch.cuda.current_stream(xb.device).cuda_stream,
-    )
+        *args, g.data_ptr(), d_xb.data_ptr(), d_al.data_ptr(), d_arcb.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rev_backward")
     rev_backward.launches += 1
     return d_xb, d_al, d_arcb
@@ -152,22 +153,26 @@ rev_backward.launches = 0
 
 class _RevInfo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xb, al, arcb, c_indices, slot_col, slot_val, slot_row, gbar):
-        ctx.save_for_backward(xb, al, arcb, c_indices, slot_col, slot_val, slot_row, gbar)
-        return rev_forward(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar)
+    def forward(ctx, xb, al, arcb, c_indices, slot_col, slot_val, gbar, row_ptr, long_rows):
+        ctx.save_for_backward(xb, al, arcb, c_indices, slot_col, slot_val, gbar, row_ptr,
+                              long_rows)
+        return rev_forward(c_indices, slot_col, slot_val, row_ptr, long_rows, xb, al, arcb, gbar)
 
     @staticmethod
     def backward(ctx, g):
-        xb, al, arcb, c_indices, slot_col, slot_val, slot_row, gbar = ctx.saved_tensors
-        d_xb, d_al, d_arcb = rev_backward(c_indices, slot_col, slot_val, slot_row, xb, al,
-                                          arcb, gbar, g.contiguous())
-        return d_xb, d_al, d_arcb, None, None, None, None, None
+        xb, al, arcb, c_indices, slot_col, slot_val, gbar, row_ptr, long_rows = \
+            ctx.saved_tensors
+        d_xb, d_al, d_arcb = rev_backward(c_indices, slot_col, slot_val, row_ptr, long_rows, xb,
+                                          al, arcb, gbar, g.contiguous())
+        return d_xb, d_al, d_arcb, None, None, None, None, None, None
 
 
-def rev_recovery_info(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar):
-    """Kernels 9 and 10 for CUDA tensors, the plain version for CPU tensors."""
+def rev_recovery_info(c_indices, slot_col, slot_val, slot_row, xb, al, arcb, gbar,
+                      row_ptr=None, long_rows=None):
+    """Kernels 9 and 10 for CUDA tensors (which need the batch's ``row_ptr``
+    and ``long_rows``), the plain version for CPU tensors."""
     if xb.device.type == "cpu":
         return rev_recovery_info_plain(c_indices, slot_col, slot_val, slot_row, xb, al, arcb,
                                        gbar)
     return _RevInfo.apply(xb.contiguous(), al.contiguous(), arcb.contiguous(), c_indices,
-                          slot_col, slot_val, slot_row, gbar.contiguous())
+                          slot_col, slot_val, gbar.contiguous(), row_ptr, long_rows)

@@ -28,7 +28,12 @@ import numpy as np
 import torch
 
 from vq_gnn_tpu_torch.config import not_ported
-from vq_gnn_tpu_torch.ops.rev_ell import REV_S_MULTIPLE, build_rev_ell, pad_rev_ell
+from vq_gnn_tpu_torch.ops.rev_ell import (
+    REV_S_MULTIPLE,
+    build_rev_ell,
+    pad_rev_ell,
+    rev_long_rows_host,
+)
 from vq_gnn_tpu_torch.ops.spmm import (
     Edges,
     build_ell_host,
@@ -60,6 +65,10 @@ class PaddedBatch:
     rev_slot_col: object = None  # [S_rev, K] int32 global neighbour ids
     rev_slot_val: object = None  # [S_rev, K] f32
     rev_slot_row: object = None  # [S_rev] int32 ascending local batch rows
+    # the recovery kernels' row offsets into the slots ([B_pad + 1], pad
+    # slots in no row) and long rows (rev_ell.rev_long_rows_host)
+    rev_row_ptr: object = None
+    rev_long_rows: object = None
 
     @property
     def B_pad(self) -> int:
@@ -87,6 +96,8 @@ class PaddedBatch:
             rev_slot_col=_as_tensor(self.rev_slot_col, device, torch.int32),
             rev_slot_val=_as_tensor(self.rev_slot_val, device, torch.float32),
             rev_slot_row=_as_tensor(self.rev_slot_row, device, torch.int32),
+            rev_row_ptr=_as_tensor(self.rev_row_ptr, device, torch.int32),
+            rev_long_rows=_as_tensor(self.rev_long_rows, device, torch.int32),
         )
 
 
@@ -210,6 +221,8 @@ def build_padded_batch(
                               round_up(slots[0].shape[0], REV_S_MULTIPLE))
         rev = dict(zip(("rev_slot_col", "rev_slot_val", "rev_slot_row"),
                        pad_rev_ell(*slots, rev_bucket["S"], B_pad, num_N)))
+        rev["rev_row_ptr"] = row_offsets_host(rev["rev_slot_row"], B_pad)
+        rev["rev_long_rows"] = rev_long_rows_host(rev["rev_row_ptr"])
 
     return PaddedBatch(
         batch_idx=pad_ids(node_idx, B_pad),
