@@ -34,7 +34,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    1,024; kernel 2's exact mode bit-equal, its
    fast mode, whose distances run on the tensor cores, by the near-tie rule
    of ``assign_mismatch`` and run-to-run identical; kernel 4 with and without the masked
-   channels; kernel 5 at C = 128 and 256; the segment sum at C = 128 and
+   channels; kernel 5 at C = 128 and 256, each at dx_rows = 0, b_rows and R
+   with the batch's row lists, and bit-identical run to run; the segment sum at C = 128 and
    32, with and without its scalar channel; the recovery kernels at nb = 32,
    M = 1,024 over the batch's own reverse list, row offsets and long rows,
    and bit-identical run to run);
@@ -45,7 +46,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    panel and in panel_width's; kernel 2 also as the device time of a
    CUDA-graph replay, free of the host's launch gaps; the recovery kernels
    also split by device kernel: table pack, row pass, codeword pass and
-   reductions, from ``torch.profiler``);
+   reductions, from ``torch.profiler``; kernel 5 at each call shape of the
+   GAT step, with its device time);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT) on the GPU and on the CPU (plain versions) from one state,
    count the codeword assignments that come to differ, and compare each
@@ -595,14 +597,30 @@ def main() -> int:
     for with_neg in (True, False):
         hold(f"with_neg={with_neg}", "gat_aggregate", gat_aggregate(*gat_fwd, with_neg=with_neg),
              gat_aggregate_plain(*gat_fwd, with_neg=with_neg))
+    # kernel 5 at each call shape of the GAT step: dx_rows = 0 (layer 0),
+    # b_rows (the later layers) and R (every row), with the batch's row
+    # offsets and long rows over the whole transposed ELL, as the conv
+    # passes them; the same bits in two calls
+    assert 0 < ge.b_rows < Rg and ge.t_all_ptr is not None
+    gat_dx_rows = (0, ge.b_rows, Rg)
+    gat_lists = dict(ptr=ge.t_all_ptr, long_rows=ge.t_all_long_rows)
     gat_bwd = {}
     for width in (C, 256):
         xw, alw, arw = gat_inputs(width)
         g_agg = torch.randn((Rg, width), generator=gen, device=dev)
         g_rs = torch.randn(Rg, generator=gen, device=dev)
         gat_bwd[width] = (xw, ge.t_ell_row, ge.t_ell_col, ge.t_ell_val, g_agg, g_rs, alw, arw, Rg)
-        hold(f"C={width}", "gat_backward", gat_backward(*gat_bwd[width]),
-             gat_backward_plain(*gat_bwd[width]))
+        for dxr in gat_dx_rows:
+            out = gat_backward(*gat_bwd[width], dx_rows=dxr, **gat_lists)
+            hold(f"C={width} dx_rows={dxr}", "gat_backward", out,
+                 gat_backward_plain(*gat_bwd[width], dx_rows=dxr))
+            again = gat_backward(*gat_bwd[width], dx_rows=dxr, **gat_lists)
+            torch.cuda.synchronize()
+            same = all(a is b or torch.equal(a, b) for a, b in zip(out, again))
+            zero = out[0] is None or not out[0][dxr:].any()
+            log(f"[5 gat_backward C={width} dx_rows={dxr}] bit-identical over two calls: {same}; "
+                f"zeros above dx_rows: {zero}; {ge.t_all_long_rows.shape[0] - 1} long rows")
+            assert same and zero
 
     # B + M GAT: the segment sum at the conv's widths over the batch's forward
     # ELL rows (C = nb * D = 128 for the aggregate, nb = 32 for the
@@ -825,25 +843,37 @@ def main() -> int:
     log(f"[6 gat_aggregate] with_neg R={Rg} C={C} S={Sg} nnz={nnz_g}: {t} bound {b_ms:.4f} ms "
         f"({b_by}); without the masked channels {noneg_ms:.4f} ms, bound {b_nn:.4f} ms "
         f"({b_nn_by}); library_ms null: no single PyTorch call computes it | {gpu}")
-    tell_bytes = Stg * 4 + 2 * Stg * Kg * 4
+    # the transposed ELL's columns and values, and the row offsets and long
+    # rows the kernel reads in place of its rows
+    tell_bytes = 2 * Stg * Kg * 4 + (Rg + 1) * 4 + ge.t_all_long_rows.numel() * 4
+    t_live = (ge.t_ell_val != 0) & (ge.t_ell_row[:, None] < Rg)
     bwd_t = {}
     for width, args in gat_bwd.items():
-        tt = {
-            "ms": cuda_time_ms(torch, lambda: gat_backward(*args)),
-            "plain_ms": cuda_time_ms(torch, lambda: gat_backward_plain(*args), reps=5),
-            "library_ms": None,
-        }
-        # x, g_agg, g_rowsum, al, ar and the transposed ELL in; dx_agg, d_al
-        # out; per cell a dot and an FMA over C
-        bb, bb_by = bound(3 * Rg * width * 4 + 4 * Rg * 4 + tell_bytes, 4 * nnz_gt * width,
-                          F32_FLOPS)
-        bwd_t[width] = dict(**tt, bound_ms=bb, bound_by=bb_by)
-        log(f"[6 gat_backward] C={width} R={Rg} St={Stg} nnz={nnz_gt}: {tt} bound {bb:.4f} ms "
-            f"({bb_by}); library_ms null: no single PyTorch call computes it | {gpu}")
-    kern["gat_backward"] = dict(
+        for dxr in gat_dx_rows:
+            def run():
+                return gat_backward(*args, dx_rows=dxr, **gat_lists)
+
+            tt = {
+                "ms": cuda_time_ms(torch, run),
+                "plain_ms": cuda_time_ms(
+                    torch, lambda: gat_backward_plain(*args, dx_rows=dxr), reps=5),
+                "library_ms": None,
+            }
+            # x, g_agg, g_rowsum, al, ar and the ELL in, d_al and (with
+            # dx_rows > 0) dx_agg out; per live cell a dot over C, and an FMA
+            # over C where its row is < dx_rows
+            nnz_dx = int((t_live & (ge.t_ell_row[:, None] < dxr)).sum())
+            bb, bb_by = bound((2 + (dxr > 0)) * Rg * width * 4 + 4 * Rg * 4 + tell_bytes,
+                              2 * (nnz_gt + nnz_dx) * width, F32_FLOPS)
+            dev_us = kernel_split(torch, run)
+            bwd_t[width, dxr] = dict(**tt, bound_ms=bb, bound_by=bb_by)
+            log(f"[6 gat_backward] C={width} dx_rows={dxr} R={Rg} St={Stg} nnz={nnz_gt} "
+                f"(rows < dx_rows: {nnz_dx}): {tt} bound {bb:.4f} ms ({bb_by}); device us per "
+                f"call {dev_us}; library_ms null: no single PyTorch call computes it | {gpu}")
+    kern["gat_backward"] = dict(  # every row, the call PERF.md row 3 has always timed
         source="vq_gnn_tpu_torch/csrc/gat_backward.cu",
         replaces="vq_gnn_tpu/ops/pallas_ell.py:342 and vq_gnn_tpu/ops/pallas_ell.py:273",
-        **bwd_t[C])
+        **bwd_t[C, Rg])
 
     # B + M: the segment sum at each of its widths; library yardstick one
     # index_add_ into a kept [R + 1, C] buffer (int64 rows made beforehand)

@@ -57,6 +57,14 @@ CFG = dict(formulation="bm", num_layers=2, hidden_channels=16, num_D=4, num_M=8,
            lr=LR, seed=0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _vml_first_call():
+    """A throwaway first torch.exp of the process: the first call of MKL's
+    vector exp can return a chunk at a lower accuracy
+    (tests/test_torch_port_kernels.py:_vml_first_call says more)."""
+    torch.exp(torch.zeros(1 << 16))
+
+
 def _t(a):
     return torch.as_tensor(np.asarray(a))
 

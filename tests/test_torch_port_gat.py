@@ -9,6 +9,8 @@ instead of once per cell), so 1e-5 relative to the largest |ref|.  The
 conv's gradients go through the closed-form d_ar, which JAX bounds at rtol
 2e-4 on random data (``vq_gnn_tpu/ops/gat.py:120-124``)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +30,9 @@ from vq_gnn_tpu_torch.convert import state_from_numpy
 from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.nn.model import layer_forward, model_static
 from vq_gnn_tpu_torch.ops import gat as tgat
-from vq_gnn_tpu_torch.ops.gat_kernels import gat_aggregate, gat_backward
-from vq_gnn_tpu_torch.ops.spmm import build_ell_host
+from vq_gnn_tpu_torch.ops import gat_kernels
+from vq_gnn_tpu_torch.ops.gat_kernels import gat_aggregate, gat_backward, gat_backward_plain
+from vq_gnn_tpu_torch.ops.spmm import build_ell_host, long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 
 RTOL_SUM = 1e-5  # x the largest |ref|: f32 sums in another order
@@ -38,6 +41,14 @@ RTOL_GRAD = 2e-4  # the closed-form d_ar's bound on random data
 CFG = dict(conv_type="GAT", num_layers=2, hidden_channels=16, num_D=4, num_M=8,
            sampler_type="cluster", num_parts=8, batch_size=3, pad_multiple_nodes=64,
            pad_multiple_edges=512, skip=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _vml_first_call():
+    """A throwaway first torch.exp of the process: the first call of MKL's
+    vector exp can return a chunk at a lower accuracy
+    (tests/test_torch_port_kernels.py:_vml_first_call says more)."""
+    torch.exp(torch.zeros(1 << 16))
 
 
 def _t(a):
@@ -171,7 +182,8 @@ def test_backward_matches_jax_vjp(scale_from_x):
     """Gradients of the port's autograd Function against ``jax.vjp`` of the
     JAX ``gat_conv_ell`` under random cotangents: x, att_l, att_r and the
     scale, or, with the scale taken from x (``explosion_scale``), x through
-    the scale as well."""
+    the scale as well.  The training batch sets ``b_rows``: x's gradient is
+    the JAX one below it and zero above (``Edges.b_rows``)."""
     (_, _, _, jb), (_, _, _, tb) = _batch_pair()
     je = jax.tree.map(jnp.asarray, jb.edges)
     te = tb.edges.to("cpu")
@@ -201,11 +213,123 @@ def test_backward_matches_jax_vjp(scale_from_x):
     _close(out[0].detach(), ref_out[0], RTOL_SUM, "agg")
     _close(out[1].detach(), ref_out[1], RTOL_SUM, "rowsum")
     grads = torch.autograd.grad(out, leaves, (_t(g_agg), _t(g_rs)), allow_unused=True)
+    b = te.b_rows
+    assert 0 < b < R
     for name, g, r in zip(("dx", "d_att_l", "d_att_r", "d_scale"), grads, ref_grads):
         if scale_from_x and name == "d_scale":
             assert g is None and float(r) == 0.0  # the given scale is unused
             continue
+        if name == "dx":
+            # above b_rows only the scale's max rows get a gradient, through
+            # explosion_scale, not through the conv
+            rest = torch.ones(R, dtype=torch.bool)
+            if scale_from_x:
+                for att in (att_l, att_r):
+                    rest[int(np.argmax(np.where(valid, x @ att[:C] + att[C], -np.inf)))] = False
+            assert not g[b:][rest[b:]].any()
+            g, r = g[:b], np.asarray(r)[:b]
         _close(g, r, RTOL_GRAD, name)
+
+
+def _spy_dx_rows(monkeypatch):
+    """Records the dx_rows of each kernel-5 call the conv makes."""
+    seen = []
+
+    def spy(*args, dx_rows=None, **kw):
+        seen.append(dx_rows)
+        return gat_backward(*args, dx_rows=dx_rows, **kw)
+
+    monkeypatch.setattr(tgat, "gat_backward", spy)
+    return seen
+
+
+@pytest.mark.parametrize("cut", ["layer 0", "b_rows", "R"])
+def test_backward_dx_rows_matches_jax_vjp(cut, monkeypatch):
+    """The conv's backward passes kernel 5 only the dx work that has a
+    consumer: none where x needs no gradient (layer 0), the rows < b_rows
+    where the batch sets the truncation, every row without it.  x's
+    gradient matches ``jax.vjp`` below that bound and is zero above it;
+    d_att_l, d_att_r and d_scale match JAX and are the same bits at every
+    cut."""
+    (_, _, _, jb), (_, _, _, tb) = _batch_pair()
+    je = jax.tree.map(jnp.asarray, jb.edges)
+    te = tb.edges.to("cpu")
+    R, C = je.num_rows, 16
+    full = dataclasses.replace(te, b_rows=0, t_b_slots=0)
+    x, att_l, att_r = _conv_inputs(R, C, 6)
+    rng = np.random.RandomState(7)
+    g_agg = rng.randn(R, C).astype(np.float32)
+    g_rs = rng.randn(R, 1).astype(np.float32)
+    scale0 = np.float32(1.7)
+    prim = [jnp.asarray(a) for a in (x, att_l, att_r, scale0)]
+    _, vjp = jax.vjp(lambda *a: jgat.gat_conv_ell(je, *a), *prim)
+    ref = vjp((jnp.asarray(g_agg), jnp.asarray(g_rs)))
+
+    seen = _spy_dx_rows(monkeypatch)
+
+    def port_grads(edges, with_x):
+        leaves = [_t(x).requires_grad_(with_x)] + [
+            _t(a).requires_grad_(True) for a in (att_l, att_r, scale0)]
+        out = tgat.gat_conv_ell(edges, *leaves)
+        want = leaves if with_x else leaves[1:]
+        grads = torch.autograd.grad(out, want, (_t(g_agg), _t(g_rs)))
+        return grads if with_x else (None, *grads)
+
+    base = port_grads(full, True)  # the uncut call
+    edges, want_b = {"layer 0": (te, 0), "b_rows": (te, te.b_rows), "R": (full, R)}[cut]
+    grads = port_grads(edges, cut != "layer 0")
+    assert seen == [R, want_b] and 0 < te.b_rows < R
+    dx = grads[0]
+    if cut == "layer 0":
+        assert dx is None
+    else:
+        assert not dx[want_b:].any()
+        _close(dx[:want_b], np.asarray(ref[0])[:want_b], RTOL_GRAD, "dx")
+        np.testing.assert_array_equal(dx[:want_b].numpy(), base[0][:want_b].numpy())
+    for name, g, g0, r in zip(("d_att_l", "d_att_r", "d_scale"), grads[1:], base[1:], ref[1:]):
+        _close(g, r, RTOL_GRAD, name)
+        np.testing.assert_array_equal(g.numpy(), g0.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("dx_rows", [0, 1, 97, 130, 260])
+def test_backward_plain_dx_rows(dx_rows):
+    """Kernel 5's plain version at a dx_rows cut: dx_agg below the cut is
+    the uncut call's (the same sums), zero above, None at 0; d_al is the
+    uncut call's at every cut."""
+    R, C, K = 260, 16, 8
+    t_row, t_col, t_val = (_t(a) for a in _ell_case(R, 2000, K, 4))
+    rng = np.random.RandomState(9)
+    x, g_agg = (_t(rng.randn(R, C).astype(np.float32)) for _ in range(2))
+    g_rs, al, ar = (_t(rng.randn(R).astype(np.float32)) for _ in range(3))
+    args = (x, t_row, t_col, t_val, g_agg, g_rs, al, ar, R)
+    dx0, d_al0 = gat_backward_plain(*args)
+    dx, d_al = gat_backward_plain(*args, dx_rows=dx_rows)
+    assert torch.equal(d_al, d_al0)
+    if dx_rows == 0:
+        assert dx is None
+        return
+    assert dx.shape == (R, C) and not dx[dx_rows:].any()
+    assert torch.equal(dx[:dx_rows], dx0[:dx_rows])
+
+
+def test_gat_batches_carry_the_whole_transposed_lists():
+    """A B + B' GAT batch carries the row offsets and long rows of its whole
+    transposed ELL (kernel 5 walks every row) beside the truncated ones of
+    the SpMM dx; the GCN batch of the same loader configuration does not."""
+    (_, _, _, _), (_, _, _, tb) = _batch_pair()
+    e = tb.edges
+    assert 0 < e.b_rows < e.num_rows and e.t_ell_ptr.shape[0] == e.b_rows + 1
+    ptr = row_offsets_host(e.t_ell_row, e.num_rows)
+    np.testing.assert_array_equal(e.t_all_ptr, ptr)
+    np.testing.assert_array_equal(e.t_all_long_rows, long_rows_host(ptr))
+    te = e.to("cpu")
+    assert te.t_all_ptr.dtype == torch.int32 and te.t_all_long_rows.dtype == torch.int32
+    cfg = tcfg.Config(**{**CFG, "conv_type": "GCN"})
+    g, c = tdata.synthetic_sbm(num_nodes=600, num_classes=5, num_features=12, seed=0)
+    g, c, ci = tdata.prepare(g, cfg, c)
+    ld = tsamplers.BatchLoader(g, cfg, train_flag=True, cluster_indices=ci, device="cpu")
+    (w, _), = [next(ld._epoch_iter())]
+    assert w[0].edges.t_all_ptr is None and w[0].edges.t_all_long_rows is None
 
 
 def test_layer_forward_matches_jax():
@@ -254,3 +378,43 @@ def test_layer_forward_matches_jax():
     _close(gx, j_gx, RTOL_GRAD, "dx")
     _close(g_att_l, j_glp["att_l"], RTOL_GRAD, "d_att_l")
     _close(g_att_r, j_glp["att_r"], RTOL_GRAD, "d_att_r")
+
+
+def test_layer_forward_b_rows_cut_changes_no_gradient():
+    """The GAT layer on a batch whose edges set ``b_rows`` (kernel 5 then
+    computes dx_agg for the batch rows only): x_out, info_backward, every
+    parameter gradient, x's gradient and the probe gradients that
+    ``vq_update`` reads are the bits of the uncut call."""
+    (_, _, _, _), (tc, tg, c, tb) = _batch_pair()
+    ms_t = model_static(tc, tg.num_features, c, torch.device("cpu"))
+    jstate = j_init_train_state(jax.random.PRNGKey(0), j_model_static(
+        jcfg.Config(**CFG), tg.num_features, c), tg.num_nodes)
+    rng = np.random.RandomState(10)
+    vq = jstate.vq_states[0]
+    M = vq.embedding_output.shape[1]
+    vq = vq.replace(
+        embedding_output=jnp.asarray(rng.randn(*vq.embedding_output.shape).astype(np.float32)),
+        c_indices=jnp.asarray(rng.randint(0, M, vq.c_indices.shape).astype(np.int16)),
+    )
+    jstate = jstate.replace(vq_states=[vq] + list(jstate.vq_states[1:]))
+    state = state_from_numpy(jax.tree.map(np.asarray, jstate), ms_t, 0.01, "cpu")
+    cut = tb.to("cpu")
+    assert 0 < cut.edges.b_rows < cut.edges.num_rows
+    uncut = dataclasses.replace(cut, edges=dataclasses.replace(cut.edges, b_rows=0,
+                                                               t_b_slots=0))
+    B_pad, C = cut.B_pad, tg.num_features
+    x = rng.randn(B_pad, C).astype(np.float32)
+    w_out = _t(rng.randn(B_pad, ms_t.channels[1]).astype(np.float32))
+    layer = state.model.layers[0]
+    params = [p for p in layer.parameters() if p.requires_grad]
+    res = []
+    for batch in (cut, uncut):
+        xx = _t(x).requires_grad_(True)
+        probe = torch.zeros((B_pad, C + 1), requires_grad=True)
+        out, info = layer_forward(layer, state.vq_states[0], ms_t, xx, batch, probe, 0.7)
+        loss = (out * w_out).sum() + info
+        res.append([out.detach(), info.detach(),
+                    *torch.autograd.grad(loss, [*params, xx, probe])])
+    assert len(params) >= 3
+    for i, (a, b) in enumerate(zip(*res)):
+        assert torch.equal(a, b), i

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from vq_gnn_tpu import config as jcfg
 from vq_gnn_tpu.graph import datasets as jdata
@@ -37,6 +38,14 @@ LR = 0.005
 RTOL_STEP = 1e-4  # per-step scalars: f32 sums in another order, over 3 steps
 ATOL_STATE = 1e-4  # params, nu, BN state and eval logits after 3 steps
 ATOL_VQ = 1e-5  # VQState fields, as in test_torch_port_vq
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _vml_first_call():
+    """A throwaway first torch.exp of the process: the first call of MKL's
+    vector exp can return a chunk at a lower accuracy
+    (tests/test_torch_port_kernels.py:_vml_first_call says more)."""
+    torch.exp(torch.zeros(1 << 16))
 
 
 def _cfg_kw(conv, backend, bn):

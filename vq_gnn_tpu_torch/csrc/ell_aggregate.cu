@@ -59,28 +59,6 @@ constexpr int kThreads = 256;
 constexpr int kMinBlocks = 4;  // blocks per SM the register budget allows
 constexpr int kLoads = 8;      // gathers in flight per lane
 
-// A predicated load of x in volatile asm: issued where it stands.  When `on`
-// is false, t keeps its value.
-__device__ __forceinline__ void gather(float4& t, const float* p, bool on) {
-  asm volatile(
-      "{\n .reg .pred q;\n setp.ne.b32 q, %5, 0;\n"
-      " @q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
-      : "+f"(t.x), "+f"(t.y), "+f"(t.z), "+f"(t.w)
-      : "l"(p), "r"((int)on));
-}
-__device__ __forceinline__ void gather(float& t, const float* p, bool on) {
-  asm volatile(
-      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q ld.global.nc.f32 %0, [%1];\n}\n"
-      : "+f"(t)
-      : "l"(p), "r"((int)on));
-}
-
-// output stores that L2 evicts first
-__device__ __forceinline__ void store_streaming(float* p, float4 t) {
-  __stcs(reinterpret_cast<float4*>(p), t);
-}
-__device__ __forceinline__ void store_streaming(float* p, float t) { __stcs(p, t); }
-
 struct Args {
   const float* x;
   int64_t x_rows;
@@ -98,12 +76,6 @@ struct Args {
   float* out;
 };
 
-// ptr[i] clamped to [0, S]
-__device__ __forceinline__ int64_t slot_at(const Args& a, int64_t i) {
-  const int64_t s = __ldg(a.ptr + i);
-  return s < 0 ? 0 : (s > a.S ? a.S : s);
-}
-
 // Row r over channels [p0, p1) by a group of G lanes (the group's first lane
 // is gbase in the warp), each lane VEC channels of every G * VEC.
 template <int VEC, int G>
@@ -112,8 +84,8 @@ __device__ __forceinline__ void row_sum(const Args& a, int64_t r, int p0, int p1
   using V = Vec<VEC>;
   constexpr unsigned gbits = 0xffffffffu >> (32 - G);
   const unsigned gmask = gbits << gbase;
-  const int64_t c0 = slot_at(a, r) * a.K;  // cell range of this row
-  const int64_t c1 = slot_at(a, r + 1) * a.K;
+  const int64_t c0 = slot_at(a.ptr, r, a.S) * a.K;  // cell range of this row
+  const int64_t c1 = slot_at(a.ptr, r + 1, a.S) * a.K;
   const int last = (int)(a.x_rows - 1);
   for (int cb = p0; cb < p1; cb += G * VEC) {
     const int c = cb + gl * VEC;

@@ -94,22 +94,27 @@ class _GATConv(torch.autograd.Function):
     def backward(ctx, g_agg, g_rowsum):
         e: Edges = ctx.edges
         x, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_node = ctx.saved_tensors
-        C = x.shape[1]
+        R, C = x.shape
         g_agg = g_agg.contiguous()
         g_rs = g_rowsum[:, 0].contiguous()
-        # transposed layout: dx_agg and d_al for every row (B' rows carry logits)
+        # transposed layout: d_al for every row (B' rows carry logits), dx_agg
+        # only for the rows whose cotangent has a consumer: none at layer 0
+        # (x is the input features), the rows < b_rows where the batch sets
+        # the truncation (Edges.b_rows)
+        b = (e.b_rows or R) if ctx.needs_input_grad[0] else 0
         dx_agg, d_al = gat_backward(
-            x, e.t_ell_row, e.t_ell_col, e.t_ell_val, g_agg, g_rs, al_node, ar_node, e.num_rows
+            x, e.t_ell_row, e.t_ell_col, e.t_ell_val, g_agg, g_rs, al_node, ar_node, R,
+            dx_rows=b, ptr=e.t_all_ptr, long_rows=e.t_all_long_rows,
         )
         d_ar = _gat_d_ar_closed_form(g_agg, g_rs, agg, rowsum, aggn, rsn)
         # d_scale = -sum(d_a * a) / scale with a = al[col] + ar[row]: the cell
         # sum separates into the per-node reductions
         d_scale = -(al_node @ d_al + ar_node @ d_ar) / scale
         dx = None
-        if ctx.needs_input_grad[0]:
-            dx = dx_agg + d_al[:, None] * (att_l[None, :C] / scale) + d_ar[:, None] * (
-                att_r[None, :C] / scale
-            )
+        if b:  # dx_agg is zero in the rows >= b, and so is dx
+            dx = dx_agg
+            dx[:b].addcmul_(d_al[:b, None], (att_l[:C] / scale)[None, :]).addcmul_(
+                d_ar[:b, None], (att_r[:C] / scale)[None, :])
         d_attl = torch.cat([(d_al @ x) / scale, (d_al.sum() / scale)[None]])
         d_attr = torch.cat([(d_ar @ x) / scale, (d_ar.sum() / scale)[None]])
         return dx, d_attl, d_attr, d_scale, None

@@ -11,12 +11,13 @@ c has ``a = al[c] + ar[r]`` and weight ``ev = exp(leaky_relu(a, 0.2)) * val``.
   the same sums over the cells with ``a <= 0`` (``csrc/gat_aggregate.cu``,
   replacing ``vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel(gat=True)``).
 - ``gat_backward(x [R,C], t_ell_row, t_ell_col, t_ell_val, g_agg [Rg,C],
-  g_rowsum [Rg], al [R], ar [Rg], R)`` -> (dx_agg [R,C], d_al [R]) over the
-  transposed ELL (row = source s, column = destination d, ``a = al[s] +
-  ar[d]``): ``dx_agg[s] = sum ev * g_agg[d]`` and ``d_al[s] = sum (<g_agg[d],
-  x[s]> + g_rowsum[d]) * ev * slope'(a)`` (``csrc/gat_backward.cu``,
-  replacing ``pallas_ell.py:_make_bwd_kernel_merged`` and
-  ``_make_bwd_kernel``).
+  g_rowsum [Rg], al [R], ar [Rg], R, dx_rows)`` -> (dx_agg [R,C] | None,
+  d_al [R]) over the transposed ELL (row = source s, column = destination d,
+  ``a = al[s] + ar[d]``): ``dx_agg[s] = sum ev * g_agg[d]`` for the rows s <
+  dx_rows (zeros above; None with dx_rows = 0) and ``d_al[s] = sum
+  (<g_agg[d], x[s]> + g_rowsum[d]) * ev * slope'(a)`` for every row
+  (``csrc/gat_backward.cu``, replacing ``pallas_ell.py:_make_bwd_kernel_merged``
+  and ``_make_bwd_kernel``).
 
 Slots are sorted by row; rows >= R are dropped; columns clip to the rows of
 the gathered table (JAX's ``mode='clip'``).  On CPU tensors each wrapper runs
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +36,6 @@ import torch.nn.functional as F
 from vq_gnn_tpu_torch.ops import _build
 
 NEGATIVE_SLOPE = 0.2  # PyG GATConv default (reference convs.py v2:131)
-MAX_BWD_C = 7264  # gat_backward keeps 2*C floats per warp in 227 KB of shared memory
 
 
 def _cells(ell_row, ell_col, ell_val, row_logit, col_logit, n_rows: int, n_cols: int):
@@ -75,9 +76,12 @@ def gat_aggregate_plain(x, ell_row, ell_col, ell_val, al, ar, num_rows: int,
 
 
 def gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar,
-                       num_rows: int):
+                       num_rows: int, dx_rows: Optional[int] = None):
     """Plain version of kernel 5: the arithmetic of the XLA transposed
-    recompute in ``vq_gnn_tpu/ops/gat.py:_gat_conv_vjp_bwd``."""
+    recompute in ``vq_gnn_tpu/ops/gat.py:_gat_conv_vjp_bwd``.  ``dx_rows``
+    (default num_rows): dx_agg only for the rows below it, from the slots of
+    those rows (a prefix, the rows being sorted), zeros above; None with 0."""
+    dx_rows = num_rows if dx_rows is None else dx_rows
     St, K = t_ell_col.shape
     C = x.shape[1]
     dst, a, ev = _cells(t_ell_row, t_ell_col, t_ell_val, al, ar, num_rows, g_agg.shape[0])
@@ -85,16 +89,21 @@ def gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, 
     x_rows = x.index_select(0, t_ell_row.long().clamp(0, num_rows - 1))
     g_ev = (g3 * x_rows[:, None, :]).sum(-1) + g_rowsum[dst]
     d_a = g_ev * ev * torch.where(a > 0, 1.0, NEGATIVE_SLOPE)
-    dx_agg = _segsum((ev[:, :, None] * g3).sum(1), t_ell_row, num_rows)
     d_al = _segsum(d_a.sum(1), t_ell_row, num_rows)
+    if dx_rows == 0:
+        return None, d_al
+    n = int(torch.searchsorted(t_ell_row, torch.tensor([dx_rows], dtype=t_ell_row.dtype,
+                                                       device=t_ell_row.device)))
+    dx_agg = x.new_zeros((num_rows, C))
+    dx_agg[:dx_rows] = _segsum((ev[:n, :, None] * g3[:n]).sum(1), t_ell_row[:n], dx_rows)
     return dx_agg, d_al
 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _FWD_ARGTYPES = [_VP, _I64, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _I64, _I32,
                  _VP, _VP, _VP, _VP, _VP, _VP]
-_BWD_ARGTYPES = [_VP, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _I64, _VP, _I64,
-                 _VP, _VP, _VP, _VP]
+_BWD_ARGTYPES = [_VP, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _I64, _VP, _I64, _I64,
+                 _VP, _I32, _VP, _I64, _VP, _VP, _VP]
 
 
 def _check(cond: bool, kernel: str, msg: str):
@@ -149,12 +158,23 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
     return agg, rowsum, aggn, rsn
 
 
-def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, num_rows: int):
+def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, num_rows: int,
+                 dx_rows: Optional[int] = None, ptr: Optional[torch.Tensor] = None,
+                 long_rows: Optional[torch.Tensor] = None):
     """Kernel 5 for CUDA tensors, its plain version for CPU tensors.  Counts
-    its launches per width C in ``gat_backward.by_width``."""
+    its launches per width C in ``gat_backward.by_width``.
+
+    ``dx_rows`` (default num_rows): dx_agg for the rows below it, zeros
+    above, None with 0; d_al for every row.  ``ptr`` ([num_rows + 1] int32
+    row offsets of ``t_ell_row`` over every row, ``spmm.row_offsets_host``)
+    is built on the device when not given; ``long_rows`` (int32
+    ``spmm.long_rows_host(ptr, t)``) starts the rows of more than t slots
+    first, a warp each.  The result depends on none of these three but
+    dx_rows."""
+    dx_rows = num_rows if dx_rows is None else dx_rows
     if x.device.type == "cpu":
         return gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar,
-                                  num_rows)
+                                  num_rows, dx_rows)
     k = "gat_backward"
     dev = x.device
     _check(dev.type == "cuda", k, f"unsupported device {dev}")
@@ -162,22 +182,38 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
            "x [R, C] and g_agg [rows >= 1, C] expected")
     C = x.shape[1]
     Rg = g_agg.shape[0]
-    _check(1 <= C <= MAX_BWD_C, k, f"C must be in [1, {MAX_BWD_C}], got {C}")
+    _check(C >= 1, k, f"C must be >= 1, got {C}")
+    _check(0 <= dx_rows <= num_rows, k, f"dx_rows must be in [0, {num_rows}], got {dx_rows}")
+    _check(t_ell_col.dim() == 2 and t_ell_col.shape[1] >= 1, k,
+           "t_ell_col must be [St, K] with K >= 1")
     St, K = t_ell_col.shape
-    _check_tensors(k, dev, [("x", x, torch.float32, (num_rows, C)),
-                            *_ell_specs("t_ell_", t_ell_row, t_ell_col, t_ell_val),
-                            ("g_agg", g_agg, torch.float32, (Rg, C)),
-                            ("g_rowsum", g_rowsum, torch.float32, (Rg,)),
-                            ("al", al, torch.float32, (num_rows,)),
-                            ("ar", ar, torch.float32, (Rg,))])
-    dx = torch.empty((num_rows, C), dtype=torch.float32, device=dev)
+    specs = [("x", x, torch.float32, (num_rows, C)),
+             *_ell_specs("t_ell_", t_ell_row, t_ell_col, t_ell_val),
+             ("g_agg", g_agg, torch.float32, (Rg, C)),
+             ("g_rowsum", g_rowsum, torch.float32, (Rg,)),
+             ("al", al, torch.float32, (num_rows,)),
+             ("ar", ar, torch.float32, (Rg,))]
+    if ptr is not None:
+        specs.append(("ptr", ptr, torch.int32, (num_rows + 1,)))
+    if long_rows is not None:
+        _check(ptr is not None, k, "long_rows need the row offsets they were taken from")
+        _check(long_rows.dim() == 1 and long_rows.shape[0] >= 1, k,
+               "long_rows must be [1 + n]: its threshold, then its rows")
+        specs.append(("long_rows", long_rows, torch.int32, (long_rows.shape[0],)))
+    _check_tensors(k, dev, specs)
+    dx = torch.empty((num_rows, C), dtype=torch.float32, device=dev) if dx_rows else None
     d_al = torch.empty((num_rows,), dtype=torch.float32, device=dev)
-    ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
+    build_ptr = ptr is None
+    if build_ptr:
+        ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _build.function("gat_backward", "vq_gat_backward", _BWD_ARGTYPES)(
         x.data_ptr(), C, t_ell_row.data_ptr(), t_ell_col.data_ptr(), t_ell_val.data_ptr(), St, K,
         g_agg.data_ptr(), g_rowsum.data_ptr(), ar.data_ptr(), Rg, al.data_ptr(), num_rows,
-        ptr.data_ptr(), dx.data_ptr(), d_al.data_ptr(), stream,
+        dx_rows, ptr.data_ptr(), int(build_ptr),
+        None if long_rows is None else long_rows.data_ptr(),
+        0 if long_rows is None else long_rows.shape[0] - 1,
+        None if dx is None else dx.data_ptr(), d_al.data_ptr(), stream,
     )
     _build.check(rc, k)
     gat_backward.launches += 1

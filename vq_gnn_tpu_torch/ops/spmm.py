@@ -61,6 +61,11 @@ class Edges:
     ell_long_rows: object = None
     t_ell_ptr: object = None
     t_ell_long_rows: object = None
+    # The same two for the whole transposed ELL over num_rows, whatever the
+    # truncation: the GAT backward walks every row (its d_al needs them
+    # all).  Built with GAT batches; None makes the kernel build the offsets.
+    t_all_ptr: object = None
+    t_all_long_rows: object = None
 
     def to(self, device) -> "Edges":
         def t(a, dtype):
@@ -81,6 +86,8 @@ class Edges:
             ell_long_rows=t(self.ell_long_rows, torch.int32),
             t_ell_ptr=t(self.t_ell_ptr, torch.int32),
             t_ell_long_rows=t(self.t_ell_long_rows, torch.int32),
+            t_all_ptr=t(self.t_all_ptr, torch.int32),
+            t_all_long_rows=t(self.t_all_long_rows, torch.int32),
         )
 
 

@@ -123,6 +123,7 @@ def build_padded_batch(
     with_f_from_t: bool = False,
     bm_rev=None,
     rev_bucket: Optional[dict] = None,
+    with_t_all_lists: bool = False,
 ) -> PaddedBatch:
     """Pad a host-built subgraph batch to static shapes, in the single-K
     slot-ELL layout (``vq_gnn_tpu/sampler/batch.py:176-218``).
@@ -131,7 +132,9 @@ def build_padded_batch(
     ``len(node_idx) + j``; boundary indices move to the static offset
     ``B_pad``.  ``t_b_bucket`` (a monotone dict) enables the backward
     truncation bound ``b_rows``/``t_b_slots`` of :class:`Edges`;
-    ``with_f_from_t`` adds the cross-layout map ``Edges.f_from_t``.  ``bm_rev``
+    ``with_f_from_t`` adds the cross-layout map ``Edges.f_from_t``;
+    ``with_t_all_lists`` the row offsets and long rows of the whole
+    transposed ELL (``Edges.t_all_ptr``, for the GAT backward).  ``bm_rev``
     (rows, global cols, values) is the B + M reverse list, laid out as
     rev-ELL slots padded to the monotone ``rev_bucket["S"]``.
     """
@@ -185,6 +188,10 @@ def build_padded_batch(
     t_ptr = (row_offsets_host(tr_[:t_b_slots], b_rows) if b_rows
              else row_offsets_host(tr_, dim_pad))
     f_ptr = row_offsets_host(er_, dim_pad)
+    t_all_ptr = t_all_long = None
+    if with_t_all_lists:
+        t_all_ptr = row_offsets_host(tr_, dim_pad) if b_rows else t_ptr
+        t_all_long = long_rows_host(t_all_ptr)
     edges = Edges(
         ell_row=er_,
         ell_col=ec_,
@@ -201,6 +208,8 @@ def build_padded_batch(
         ell_long_rows=long_rows_host(f_ptr),
         t_ell_ptr=t_ptr,
         t_ell_long_rows=long_rows_host(t_ptr),
+        t_all_ptr=t_all_ptr,
+        t_all_long_rows=t_all_long,
     )
 
     valid_B = np.zeros(B_pad, bool)
