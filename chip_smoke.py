@@ -33,12 +33,14 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    2 also at nb = 1 and, with kernel 3, at the B + M widths K = 9, M =
    1,024; kernel 2's exact mode bit-equal, its
    fast mode, whose distances run on the tensor cores, by the near-tie rule
-   of ``assign_mismatch`` and run-to-run identical; kernel 4 with and without the masked
-   channels; kernel 5 at C = 128 and 256, each at dx_rows = 0, b_rows and R
-   with the batch's row lists, and bit-identical run to run; the segment sum at C = 128 and
-   32, with and without its scalar channel; the recovery kernels at nb = 32,
-   M = 1,024 over the batch's own reverse list, row offsets and long rows,
-   and bit-identical run to run);
+   of ``assign_mismatch`` and run-to-run identical; kernel 4 at C = 128 and
+   256, with and without the masked channels, with the batch's row offsets
+   and long rows and without them, and bit-identical run to run and across
+   them; kernel 5 at C = 128 and 256, each at dx_rows = 0, b_rows and R
+   with the batch's row lists, and bit-identical run to run; the segment sum
+   at C = 128 and 32, with and without its scalar channel; the recovery
+   kernels at nb = 32, M = 1,024 over the batch's own reverse list, row
+   offsets and long rows, and bit-identical run to run);
 6. time each kernel, its plain version and a PyTorch library yardstick where
    one call computes the same function (kernel 1 also at 2 and 4 panels,
    without the long-row list, on narrower copies of x and with x's rows
@@ -46,8 +48,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    panel and in panel_width's; kernel 2 also as the device time of a
    CUDA-graph replay, free of the host's launch gaps; the recovery kernels
    also split by device kernel: table pack, row pass, codeword pass and
-   reductions, from ``torch.profiler``; kernel 5 at each call shape of the
-   GAT step, with its device time);
+   reductions, from ``torch.profiler``; kernel 4 at C = 128 with and without
+   the masked channels and at C = 256, with its device time and the rate of
+   its gathered bytes; kernel 5 at each call shape of the GAT step, with its
+   device time);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT) on the GPU and on the CPU (plain versions) from one state,
    count the codeword assignments that come to differ, and compare each
@@ -592,11 +596,27 @@ def main() -> int:
             assert torch.isfinite(o).all() and d <= tol
             err[name] = max(err.get(name, 0.0), d)
 
-    xg, al, ar = gat_inputs(C)
-    gat_fwd = (xg, ge.ell_row, ge.ell_col, ge.ell_val, al, ar, Rg)
-    for with_neg in (True, False):
-        hold(f"with_neg={with_neg}", "gat_aggregate", gat_aggregate(*gat_fwd, with_neg=with_neg),
-             gat_aggregate_plain(*gat_fwd, with_neg=with_neg))
+    # kernel 4 at C = 128 and 256 (layer 1 of GAT hidden 256), with and
+    # without the masked channels, with the batch's row offsets and long rows
+    # (as the conv passes them) and without them; the same bits in two calls
+    # and across the lists
+    fwd_lists = dict(ptr=ge.ell_ptr, long_rows=ge.ell_long_rows)
+    gat_fwd = {}
+    for width in (C, 256):
+        xw, alw, arw = gat_inputs(width)
+        gat_fwd[width] = (xw, ge.ell_row, ge.ell_col, ge.ell_val, alw, arw, Rg)
+        for with_neg in (True, False):
+            ref = gat_aggregate_plain(*gat_fwd[width], with_neg=with_neg)
+            outs = {lbl: gat_aggregate(*gat_fwd[width], with_neg=with_neg, **kw)
+                    for lbl, kw in (("lists", fwd_lists), ("again", fwd_lists),
+                                    ("offsets built on the device", {}))}
+            for lbl in ("lists", "offsets built on the device"):
+                hold(f"C={width} with_neg={with_neg} {lbl}", "gat_aggregate", outs[lbl], ref)
+            same = {lbl: all(a is b or torch.equal(a, b) for a, b in zip(o, outs["lists"]))
+                    for lbl, o in outs.items() if lbl != "lists"}
+            log(f"[5 gat_aggregate C={width} with_neg={with_neg}] bit-identical to the first "
+                f"call: {same}; {ge.ell_long_rows.shape[0] - 1} long rows")
+            assert all(same.values())
     # kernel 5 at each call shape of the GAT step: dx_rows = 0 (layer 0),
     # b_rows (the later layers) and R (every row), with the batch's row
     # offsets and long rows over the whole transposed ELL, as the conv
@@ -824,27 +844,36 @@ def main() -> int:
     Stg = ge.t_ell_col.shape[0]
     nnz_g = int((ge.ell_val != 0).sum())
     nnz_gt = int((ge.t_ell_val != 0).sum())
-    ell_bytes = Sg * 4 + 2 * Sg * Kg * 4
-    t = {
-        "ms": cuda_time_ms(torch, lambda: gat_aggregate(*gat_fwd, with_neg=True)),
-        "plain_ms": cuda_time_ms(torch, lambda: gat_aggregate_plain(*gat_fwd, with_neg=True),
-                                 reps=5),
-        "library_ms": None,
-    }
-    noneg_ms = cuda_time_ms(torch, lambda: gat_aggregate(*gat_fwd, with_neg=False))
-    # x, al, ar and the ELL in; agg, rowsum, aggn, rsn out; 2 accumulators x FMA
-    b_ms, b_by = bound(Rg * C * 4 + 2 * Rg * 4 + ell_bytes + 2 * (Rg * C * 4 + Rg * 4),
-                       4 * nnz_g * C, F32_FLOPS)
-    b_nn, b_nn_by = bound(Rg * C * 4 + 2 * Rg * 4 + ell_bytes + Rg * C * 4 + Rg * 4,
-                          2 * nnz_g * C, F32_FLOPS)
-    kern["gat_aggregate"] = dict(
+    # the ELL's columns and values, and the row offsets and long rows the
+    # kernel reads in place of its rows
+    fell_bytes = 2 * Sg * Kg * 4 + (Rg + 1) * 4 + ge.ell_long_rows.numel() * 4
+    fwd_t = {}
+    for width, with_neg in ((C, True), (C, False), (256, True)):
+        def run():
+            return gat_aggregate(*gat_fwd[width], with_neg=with_neg, **fwd_lists)
+
+        tt = {"ms": cuda_time_ms(torch, run), "plain_ms": None, "library_ms": None}
+        if width == C and with_neg:
+            tt["plain_ms"] = cuda_time_ms(
+                torch, lambda: gat_aggregate_plain(*gat_fwd[width], with_neg=True), reps=5)
+        # x, al, ar and the ELL in; agg, rowsum (and aggn, rsn) out; per live
+        # cell one FMA over C for agg (and one for aggn)
+        outs_n = 2 if with_neg else 1
+        bb, bb_by = bound(Rg * width * 4 + 2 * Rg * 4 + fell_bytes
+                          + outs_n * (Rg * width * 4 + Rg * 4), 2 * outs_n * nnz_g * width,
+                          F32_FLOPS)
+        fwd_t[width, with_neg] = dict(**tt, bound_ms=bb, bound_by=bb_by)
+        log(f"[6 gat_aggregate] C={width} with_neg={with_neg} R={Rg} S={Sg} nnz={nnz_g}: {tt} "
+            f"bound {bb:.4f} ms ({bb_by}); device us per call {kernel_split(torch, run)}; "
+            f"gathered {nnz_g * width * 4 / 1e6:.1f} MB at "
+            f"{nnz_g * width * 4 / tt['ms'] / 1e9:.3f} TB/s | {gpu}")
+    no_lists = cuda_time_ms(torch, lambda: gat_aggregate(*gat_fwd[C], with_neg=True))
+    log(f"[6 gat_aggregate] C={C} with_neg=True with the offsets built on the device and no "
+        f"long-row list {no_lists:.4f} ms; library_ms null: no single PyTorch call computes "
+        f"it | {gpu}")
+    kern["gat_aggregate"] = dict(  # the conv's training call
         source="vq_gnn_tpu_torch/csrc/gat_aggregate.cu",
-        replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms, bound_by=b_by)
-    log(f"[6 gat_aggregate] with_neg R={Rg} C={C} S={Sg} nnz={nnz_g}: {t} bound {b_ms:.4f} ms "
-        f"({b_by}); without the masked channels {noneg_ms:.4f} ms, bound {b_nn:.4f} ms "
-        f"({b_nn_by}); library_ms null: no single PyTorch call computes it | {gpu}")
-    # the transposed ELL's columns and values, and the row offsets and long
-    # rows the kernel reads in place of its rows
+        replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **fwd_t[C, True])
     tell_bytes = 2 * Stg * Kg * 4 + (Rg + 1) * 4 + ge.t_all_long_rows.numel() * 4
     t_live = (ge.t_ell_val != 0) & (ge.t_ell_row[:, None] < Rg)
     bwd_t = {}

@@ -128,10 +128,46 @@ def _node_logit(x, att, scale):
     return ((x @ att[:C] + att[C]) / scale).astype(np.float32)
 
 
-@pytest.mark.parametrize("with_neg", [True, False])
-def test_forward_matches_pallas_kernel(with_neg):
+def _ragged_ell_case(num_rows, K, seed, tile=128):
+    """A slot-ELL with one row of 320 cells (40 slots, more than
+    LONG_SLOTS), two rows without a slot, zero cells among the live ones,
+    and padding slots (row = col = num_rows, val = 0) up to a multiple of
+    the Pallas tile."""
+    rng = np.random.RandomState(seed)
+    row = np.sort(np.concatenate([rng.randint(0, num_rows, 8 * num_rows),
+                                  np.full(320, num_rows // 3)]))
+    col = rng.randint(0, num_rows, len(row))
+    val = rng.rand(len(row)).astype(np.float32)
+    val[rng.rand(len(row)) < 0.15] = 0.0
+    er, ec, ev = build_ell_host(row, col, val, num_rows, K)
+    keep = ~np.isin(er, [num_rows // 5, 2 * num_rows // 3])
+    er, ec, ev = er[keep], ec[keep], ev[keep]
+    pad = -len(er) % tile or tile
+    er = np.concatenate([er, np.full(pad, num_rows, np.int32)])
+    ec = np.concatenate([ec, np.full((pad, K), num_rows, np.int32)])
+    ev = np.concatenate([ev, np.zeros((pad, K), np.float32)])
+    return er, ec, ev
+
+
+@pytest.mark.parametrize("with_neg,ell", [(True, "random"), (False, "random"),
+                                          (True, "ragged"), (False, "ragged")],
+                         ids=["True", "False", "ragged-True", "ragged-False"])
+def test_forward_matches_pallas_kernel(with_neg, ell):
+    """Kernel 4's wrapper against the Pallas kernel (interpret mode), on a
+    random ELL and on a ragged one, where it takes the row offsets and the
+    long-row list that build_padded_batch makes (row_offsets_host,
+    long_rows_host).  Tolerance RTOL_SUM."""
     R, C, K = 300, 128, 8
-    er, ec, ev = _ell_case(R, 2300, K, 2)
+    kw = {}
+    if ell == "random":
+        er, ec, ev = _ell_case(R, 2300, K, 2)
+    else:
+        er, ec, ev = _ragged_ell_case(R, K, 2)
+        ptr = row_offsets_host(er, R)
+        long_rows = long_rows_host(ptr)
+        assert (np.diff(ptr) == 0).sum() == 2 and len(long_rows) >= 2
+        assert long_rows[1] == R // 3 and (ev == 0).any() and (er == R).any()
+        kw = dict(ptr=_t(ptr), long_rows=_t(long_rows))
     x, att_l, att_r = _conv_inputs(R, C, 3)
     scale = np.float32(1.7)
     al, ar = _node_logit(x, att_l, scale), _node_logit(x, att_r, scale)
@@ -139,10 +175,14 @@ def test_forward_matches_pallas_kernel(with_neg):
     ref = gat_aggregate_fused(nbrs, jnp.asarray(er), jnp.asarray(ev), jnp.asarray(ar),
                               jnp.asarray(att_l[:C]), att_l[C], scale, R,
                               with_neg=with_neg, interpret=True)
-    out = gat_aggregate(_t(x), _t(er), _t(ec), _t(ev), _t(al), _t(ar), R, with_neg=with_neg)
+    out = gat_aggregate(_t(x), _t(er), _t(ec), _t(ev), _t(al), _t(ar), R, with_neg=with_neg,
+                        **kw)
     names = ("agg", "rowsum", "aggn", "rsn") if with_neg else ("agg", "rowsum")
     for name, o, r in zip(names, out, ref):
         _close(o, r, RTOL_SUM, name)
+    if ell == "ragged":  # the rows without a slot sum nothing
+        empty = np.flatnonzero(np.diff(row_offsets_host(er, R)) == 0)
+        assert not out[0][empty].any() and not out[1][empty].any()
 
 
 @pytest.mark.parametrize("C", [128, 256])
@@ -330,6 +370,36 @@ def test_gat_batches_carry_the_whole_transposed_lists():
     ld = tsamplers.BatchLoader(g, cfg, train_flag=True, cluster_indices=ci, device="cpu")
     (w, _), = [next(ld._epoch_iter())]
     assert w[0].edges.t_all_ptr is None and w[0].edges.t_all_long_rows is None
+
+
+def test_gat_batches_carry_the_forward_lists():
+    """A B + B' GAT batch carries the row offsets of its forward ELL and the
+    long rows taken from them, the lists kernel 4 reads."""
+    (_, _, _, _), (_, _, _, tb) = _batch_pair()
+    e = tb.edges
+    np.testing.assert_array_equal(e.ell_ptr, row_offsets_host(e.ell_row, e.num_rows))
+    np.testing.assert_array_equal(e.ell_long_rows, long_rows_host(e.ell_ptr))
+    te = e.to("cpu")
+    assert te.ell_ptr.dtype == torch.int32 and te.ell_long_rows.dtype == torch.int32
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_conv_forward_passes_the_batch_lists(grad, monkeypatch):
+    """The conv's forward hands kernel 4 the batch's own row offsets and
+    long rows, with and without a gradient to take."""
+    (_, _, _, _), (_, _, _, tb) = _batch_pair()
+    te = tb.edges.to("cpu")
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append((kw["ptr"], kw["long_rows"], kw["with_neg"]))
+        return gat_aggregate(*args, **kw)
+
+    monkeypatch.setattr(tgat, "gat_aggregate", spy)
+    x, att_l, att_r = (_t(a).requires_grad_(grad) for a in _conv_inputs(te.num_rows, 16, 8))
+    tgat.gat_conv_ell(te, x, att_l, att_r, torch.tensor(1.3))
+    (ptr, long_rows, with_neg), = seen
+    assert ptr is te.ell_ptr and long_rows is te.ell_long_rows and with_neg == grad
 
 
 def test_layer_forward_matches_jax():

@@ -235,21 +235,29 @@ def _close_to_ref(out, ref):
 
 
 # GAT aggregate: the plain version's einsum + index_add_ against the kernel's
-# per-lane sequential sums (exp of the same logits on both sides)
+# per-lane sequential sums (exp of the same logits on both sides).  C = 256
+# takes two float4 a lane, 1000 the chunked walk, 36 and 7 narrow lane
+# groups; with the host's row offsets and long rows, and without them
 @cuda
+@pytest.mark.parametrize("lists", [False, True])
 @pytest.mark.parametrize("with_neg", [True, False])
 @pytest.mark.parametrize(
     "num_rows,E,K,C",
-    [(3000, 40000, 8, 128), (300, 2000, 8, 256), (517, 3000, 4, 36), (129, 900, 8, 7),
-     (200, 0, 8, 128)],
+    [(3000, 40000, 8, 128), (300, 2000, 8, 256), (300, 2000, 8, 1000), (517, 3000, 4, 36),
+     (129, 900, 8, 7), (200, 0, 8, 128)],
 )
-def test_gat_aggregate_matches_plain(dev, num_rows, E, K, C, with_neg):
+def test_gat_aggregate_matches_plain(dev, num_rows, E, K, C, with_neg, lists):
     er, ec, ev, x = _ell_case(num_rows, E, K, C, 4)
     rng = np.random.RandomState(5)
     al = (rng.randn(x.shape[0]) * 0.7).astype(np.float32)
     ar = (rng.randn(num_rows) * 0.7).astype(np.float32)
     args = [torch.as_tensor(a).to(dev) for a in (x, er, ec, ev, al, ar)]
-    out = gat_aggregate(*args, num_rows, with_neg=with_neg)
+    kw = {}
+    if lists:
+        ptr = row_offsets_host(er, num_rows)
+        kw = dict(ptr=torch.as_tensor(ptr).to(dev),
+                  long_rows=torch.as_tensor(long_rows_host(ptr, 2)).to(dev))
+    out = gat_aggregate(*args, num_rows, with_neg=with_neg, **kw)
     ref = gat_aggregate_plain(*args, num_rows, with_neg=with_neg)
     torch.cuda.synchronize()
     assert out[0].shape == (num_rows, C) and out[1].shape == (num_rows,)
@@ -258,6 +266,70 @@ def test_gat_aggregate_matches_plain(dev, num_rows, E, K, C, with_neg):
             assert o is None
         else:
             _close_to_ref(o, r)
+
+
+# Kernel 4 with the row offsets and long-row lists a batch carries, on a
+# ragged ELL (a 700-cell row, rows without a slot, zero cells, padding
+# columns one past x): the plain version (tolerance as above), and the same
+# bits in two calls and across the lists.  C = 7 and 36 take 8 and 16 lanes a
+# row, 128 and 256 a warp with one and two float4 a lane, 1000 the chunked
+# walk.
+@cuda
+@pytest.mark.parametrize("C", [7, 36, 128, 256, 1000])
+def test_gat_aggregate_row_lists_and_same_bits(dev, C):
+    R = 900
+    er, ec, ev, x, _, _, al, ar = _gat_bwd_cut_case(R, C, 12, long_cells=(150, 700))
+    live = np.bincount(np.minimum(er, R), (ev != 0).sum(1), R + 1)[:R]
+    assert live.max() >= 600
+    ptr_h = row_offsets_host(er, R)
+    assert (np.diff(ptr_h) == 0).sum() >= R // 5  # rows without a slot
+    args = [torch.as_tensor(a).to(dev) for a in (x, er, ec, ev, al, ar)]
+    ptr = torch.as_tensor(ptr_h).to(dev)
+    lists = {
+        "offsets built on the device": {},
+        "offsets, rows in index order": dict(ptr=ptr),
+        f"rows of more than {LONG_SLOTS} slots first": dict(
+            ptr=ptr, long_rows=torch.as_tensor(long_rows_host(ptr_h)).to(dev)),
+        "every row with a slot first": dict(
+            ptr=ptr, long_rows=torch.as_tensor(long_rows_host(ptr_h, 0)).to(dev)),
+    }
+    for with_neg in (True, False):
+        ref = gat_aggregate_plain(*args, R, with_neg=with_neg)
+        first = None
+        for label, kw in lists.items():
+            out = gat_aggregate(*args, R, with_neg=with_neg, **kw)
+            again = gat_aggregate(*args, R, with_neg=with_neg, **kw)
+            torch.cuda.synchronize()
+            for o, r in zip(out, ref):
+                if r is None:
+                    assert o is None
+                else:
+                    _close_to_ref(o, r)
+            first = out if first is None else first
+            for o, a, f in zip(out, again, first):
+                assert o is a is f is None or (torch.equal(a, o) and torch.equal(f, o)), label
+        empty = torch.as_tensor(np.flatnonzero(np.diff(ptr_h) == 0)).to(dev)
+        assert not first[0][empty].any() and not first[1][empty].any()
+
+
+@cuda
+def test_gat_aggregate_offsets_past_the_slots(dev):
+    """Row offsets built for more slots than the kernel is given: each row
+    sums only its slots among those given (the kernel clamps the offsets to
+    the slots), as the plain version of the shortened ELL does."""
+    num_rows = 3000
+    er, ec, ev, x = _ell_case(num_rows, 30000, 8, 128, 15)
+    rng = np.random.RandomState(16)
+    al, ar = ((rng.randn(num_rows) * 0.7).astype(np.float32) for _ in range(2))
+    ptr = torch.as_tensor(row_offsets_host(er, num_rows)).to(dev)
+    S = len(er) // 2
+    ell = [torch.as_tensor(np.ascontiguousarray(a[:S])).to(dev) for a in (er, ec, ev)]
+    xt, alt, art = (torch.as_tensor(a).to(dev) for a in (x, al, ar))
+    out = gat_aggregate(xt, *ell, alt, art, num_rows, ptr=ptr)
+    ref = gat_aggregate_plain(xt, *ell, alt, art, num_rows)
+    assert int(ptr[-1]) > S
+    for o, r in zip(out, ref):
+        _close_to_ref(o, r)
 
 
 # GAT backward over a transposed ELL; C = 2000 takes the chunked walk of
@@ -284,14 +356,16 @@ def test_gat_backward_matches_plain(dev, num_rows, E, K, C):
     _close_to_ref(d_al, d_al_r)
 
 
-def _gat_bwd_cut_case(num_rows, C, seed):
-    """A transposed ELL with two long rows (150 and 400 cells), rows that own
-    no slot (every fifth, and the last 20), zero cells among the live ones
-    (so live counts are rarely multiples of 8) and padding slots whose
-    columns point one past g_agg's end; random x, g_agg, g_rowsum, al, ar."""
+def _gat_bwd_cut_case(num_rows, C, seed, long_cells=(150, 400)):
+    """A transposed ELL with two long rows (by default 150 and 400 cells),
+    rows that own no slot (every fifth, and the last 20), zero cells among
+    the live ones (so live counts are rarely multiples of 8) and padding
+    slots whose columns point one past g_agg's end; random x, g_agg,
+    g_rowsum, al, ar."""
     rng = np.random.RandomState(seed)
     R = num_rows
-    row = np.concatenate([rng.randint(0, R, 10 * R), np.full(150, 3), np.full(400, R // 2)])
+    row = np.concatenate([rng.randint(0, R, 10 * R), np.full(long_cells[0], 3),
+                          np.full(long_cells[1], R // 2)])
     row = np.sort(row)
     col = rng.randint(0, R, row.shape[0])
     val = rng.randn(row.shape[0]).astype(np.float32)
@@ -359,6 +433,12 @@ def test_gat_wrappers_refuse_bad_input(dev):
     al = torch.zeros(50, device=dev)
     with pytest.raises(ValueError):  # ar must have one entry per output row
         gat_aggregate(x, er, ec, ev, al, al[:10], 50)
+    ptr = torch.as_tensor(row_offsets_host(er.cpu().numpy(), 50)).to(dev)
+    with pytest.raises(ValueError):  # row offsets for another row count
+        gat_aggregate(x, er, ec, ev, al, al, 50, ptr=ptr[:-1].contiguous())
+    with pytest.raises(ValueError):  # long rows without the offsets they were taken from
+        gat_aggregate(x, er, ec, ev, al, al, 50,
+                      long_rows=torch.as_tensor(long_rows_host(ptr.cpu().numpy(), 2)).to(dev))
     with pytest.raises(ValueError):  # float64 cotangent
         gat_backward(x, er, ec, ev, x.double(), al, al, al, 50)
     with pytest.raises(ValueError):  # dx_rows past the rows

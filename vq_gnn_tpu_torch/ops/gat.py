@@ -75,7 +75,7 @@ def _gat_forward(edges: Edges, x, att_l, att_r, scale, with_neg: bool):
     ar_node = _node_logit(x, att_r, scale)
     agg, rowsum, aggn, rsn = gat_aggregate(
         x, edges.ell_row, edges.ell_col, edges.ell_val, al_node, ar_node, edges.num_rows,
-        with_neg=with_neg,
+        with_neg=with_neg, ptr=edges.ell_ptr, long_rows=edges.ell_long_rows,
     )
     return agg, rowsum, aggn, rsn, al_node, ar_node
 

@@ -6,7 +6,8 @@ and ``ar = (x @ att_r[:C] + att_r[C]) / scale``; a cell of row r and column
 c has ``a = al[c] + ar[r]`` and weight ``ev = exp(leaky_relu(a, 0.2)) * val``.
 
 - ``gat_aggregate(x [Rx,C], ell_row, ell_col, ell_val, al [Rx], ar [R], R,
-  with_neg)`` -> (agg [R,C], rowsum [R], aggn [R,C] | None, rsn [R] | None):
+  with_neg, ptr, long_rows)`` -> (agg [R,C], rowsum [R], aggn [R,C] | None,
+  rsn [R] | None):
   ``agg[r] = sum ev * x[col]``, ``rowsum[r] = sum ev``, and with ``with_neg``
   the same sums over the cells with ``a <= 0`` (``csrc/gat_aggregate.cu``,
   replacing ``vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel(gat=True)``).
@@ -101,7 +102,7 @@ def gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _FWD_ARGTYPES = [_VP, _I64, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _I64, _I32,
-                 _VP, _VP, _VP, _VP, _VP, _VP]
+                 _VP, _I32, _VP, _I64, _VP, _VP, _VP, _VP, _VP]
 _BWD_ARGTYPES = [_VP, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _I64, _VP, _I64, _I64,
                  _VP, _I32, _VP, _I64, _VP, _VP, _VP]
 
@@ -127,29 +128,56 @@ def _ell_specs(prefix, row, col, val):
             (f"{prefix}val", val, torch.float32, (S, K))]
 
 
-def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg: bool = True):
-    """Kernel 4 for CUDA tensors, its plain version for CPU tensors."""
+def _row_list_specs(k: str, ptr, long_rows, num_rows: int):
+    """Checks of the optional row offsets and long-row list a kernel takes."""
+    specs = []
+    if ptr is not None:
+        specs.append(("ptr", ptr, torch.int32, (num_rows + 1,)))
+    if long_rows is not None:
+        _check(ptr is not None, k, "long_rows need the row offsets they were taken from")
+        _check(long_rows.dim() == 1 and long_rows.shape[0] >= 1, k,
+               "long_rows must be [1 + n]: its threshold, then its rows")
+        specs.append(("long_rows", long_rows, torch.int32, (long_rows.shape[0],)))
+    return specs
+
+
+def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg: bool = True,
+                  ptr: Optional[torch.Tensor] = None,
+                  long_rows: Optional[torch.Tensor] = None):
+    """Kernel 4 for CUDA tensors, its plain version for CPU tensors.
+
+    ``ptr`` ([num_rows + 1] int32 row offsets of ``ell_row``,
+    ``spmm.row_offsets_host``) is built on the device when not given;
+    ``long_rows`` (int32 ``spmm.long_rows_host(ptr, t)``) starts the rows of
+    more than t slots first, a warp each.  The result depends on neither."""
     if x.device.type == "cpu":
         return gat_aggregate_plain(x, ell_row, ell_col, ell_val, al, ar, num_rows, with_neg)
     k = "gat_aggregate"
     dev = x.device
     _check(dev.type == "cuda", k, f"unsupported device {dev}")
     _check(x.dim() == 2 and x.shape[0] >= 1, k, "x must be [rows >= 1, C]")
+    _check(ell_col.dim() == 2 and ell_col.shape[1] >= 1, k,
+           "ell_col must be [S, K] with K >= 1")
     Rx, C = x.shape
     S, K = ell_col.shape
     _check_tensors(k, dev, [("x", x, torch.float32, (Rx, C)),
                             *_ell_specs("ell_", ell_row, ell_col, ell_val),
                             ("al", al, torch.float32, (Rx,)),
-                            ("ar", ar, torch.float32, (num_rows,))])
+                            ("ar", ar, torch.float32, (num_rows,)),
+                            *_row_list_specs(k, ptr, long_rows, num_rows)])
     agg = torch.empty((num_rows, C), dtype=torch.float32, device=dev)
     rowsum = torch.empty((num_rows,), dtype=torch.float32, device=dev)
     aggn = torch.empty_like(agg) if with_neg else None
     rsn = torch.empty_like(rowsum) if with_neg else None
-    ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
+    build_ptr = ptr is None
+    if build_ptr:
+        ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _build.function("gat_aggregate", "vq_gat_aggregate", _FWD_ARGTYPES)(
         x.data_ptr(), Rx, C, ell_row.data_ptr(), ell_col.data_ptr(), ell_val.data_ptr(), S, K,
-        al.data_ptr(), ar.data_ptr(), num_rows, int(with_neg), ptr.data_ptr(), agg.data_ptr(),
+        al.data_ptr(), ar.data_ptr(), num_rows, int(with_neg), ptr.data_ptr(), int(build_ptr),
+        None if long_rows is None else long_rows.data_ptr(),
+        0 if long_rows is None else long_rows.shape[0] - 1, agg.data_ptr(),
         rowsum.data_ptr(), aggn.data_ptr() if with_neg else None,
         rsn.data_ptr() if with_neg else None, stream,
     )
@@ -187,20 +215,13 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
     _check(t_ell_col.dim() == 2 and t_ell_col.shape[1] >= 1, k,
            "t_ell_col must be [St, K] with K >= 1")
     St, K = t_ell_col.shape
-    specs = [("x", x, torch.float32, (num_rows, C)),
-             *_ell_specs("t_ell_", t_ell_row, t_ell_col, t_ell_val),
-             ("g_agg", g_agg, torch.float32, (Rg, C)),
-             ("g_rowsum", g_rowsum, torch.float32, (Rg,)),
-             ("al", al, torch.float32, (num_rows,)),
-             ("ar", ar, torch.float32, (Rg,))]
-    if ptr is not None:
-        specs.append(("ptr", ptr, torch.int32, (num_rows + 1,)))
-    if long_rows is not None:
-        _check(ptr is not None, k, "long_rows need the row offsets they were taken from")
-        _check(long_rows.dim() == 1 and long_rows.shape[0] >= 1, k,
-               "long_rows must be [1 + n]: its threshold, then its rows")
-        specs.append(("long_rows", long_rows, torch.int32, (long_rows.shape[0],)))
-    _check_tensors(k, dev, specs)
+    _check_tensors(k, dev, [("x", x, torch.float32, (num_rows, C)),
+                            *_ell_specs("t_ell_", t_ell_row, t_ell_col, t_ell_val),
+                            ("g_agg", g_agg, torch.float32, (Rg, C)),
+                            ("g_rowsum", g_rowsum, torch.float32, (Rg,)),
+                            ("al", al, torch.float32, (num_rows,)),
+                            ("ar", ar, torch.float32, (Rg,)),
+                            *_row_list_specs(k, ptr, long_rows, num_rows)])
     dx = torch.empty((num_rows, C), dtype=torch.float32, device=dev) if dx_rows else None
     d_al = torch.empty((num_rows,), dtype=torch.float32, device=dev)
     build_ptr = ptr is None
