@@ -25,6 +25,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    - GAT B + M (``bench.py`` with VQ_GNN_BENCH_FORM=bm, K = 2, f32: M =
      1,024, cont sampler of 10,000 nodes, walk length 3, recovery on):
      as GCN;
+   each profile also counts the copy kernels and checks, on the B + M
+   path, that no row offsets were built on the device;
 4. check that each path launched each of its kernels;
 5. hold each kernel against its plain PyTorch version on the card at the
    shapes of the real batch (kernel 1 with the batch's row offsets and long
@@ -37,8 +39,12 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    256, with and without the masked channels, with the batch's row offsets
    and long rows and without them, and bit-identical run to run and across
    them; kernel 5 at C = 128 and 256, each at dx_rows = 0, b_rows and R
-   with the batch's row lists, and bit-identical run to run; the segment sum
-   at C = 128 and 32, with and without its scalar channel; the recovery
+   with the batch's row lists, and bit-identical run to run; kernel 3
+   bit-equal in both modes, as the [n, nb, K] table and split at num_D as
+   the step calls it; the segment sum at C = 128 and 32 over the B + M
+   batch's forward and transposed ELL with the batch's row offsets and long
+   rows, with and without its scalar channel, and bit-identical run to run
+   and with the offsets alone or built on the device; the recovery
    kernels at nb = 32, M = 1,024 over the batch's own reverse list, row
    offsets and long rows, and bit-identical run to run);
 6. time each kernel, its plain version and a PyTorch library yardstick where
@@ -51,7 +57,11 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    reductions, from ``torch.profiler``; kernel 4 at C = 128 with and without
    the masked channels and at C = 256, with its device time and the rate of
    its gathered bytes; kernel 5 at each call shape of the GAT step, with its
-   device time);
+   device time; kernel 3 split as the step calls it, against advanced
+   indexing and the two slices the step ran before, and whole, with device
+   times; the segment sum at each width and layout of the B + M conv, with
+   device time and its bound over the live slots beside the one over every
+   slot);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT) on the GPU and on the CPU (plain versions) from one state,
    count the codeword assignments that come to differ, and compare each
@@ -247,13 +257,18 @@ def profile_steps(torch, tr, batches, lr, gpu, tag, steps=3):
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log(f"[{tag} profile] the profiler saw no device time: not measured")
-        return
+        return None
     log(f"[{tag} profile] {steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step, device busy "
         f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
         f"idle {100 * (1 - busy / wall_us):.1f}% | {gpu}")
     for us, count, key in sorted(rows, reverse=True)[:15]:
         log(f"[{tag} profile]   {us / steps / 1e3:8.3f} ms/step  {count // steps:4d} calls/step  "
             f"{key[:90]}")
+    copies = [(us, count) for us, count, key in rows if "direct_copy_kernel" in key]
+    log(f"[{tag} profile] copy kernels (direct_copy_kernel_cuda): "
+        f"{sum(c for _, c in copies) // steps} calls/step, "
+        f"{sum(u for u, _ in copies) / steps / 1e3:.3f} ms/step")
+    return rows
 
 
 def kernel_split(torch, fn, calls=20):
@@ -316,7 +331,12 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
         assert not bool(m["bad_init"]), "Bad Init!"
     per_step = {k: (v - before[k]) / timed_steps for k, v in ops.launch_counts().items()}
     if profile:
-        profile_steps(torch, tr, batches, cfg.lr, gpu, tag)
+        rows = profile_steps(torch, tr, batches, cfg.lr, gpu, tag)
+        if rows is not None:
+            # every kernel that takes row offsets got the batch's own
+            built = sorted({k for _, _, k in rows if "row_offsets_kernel" in k})
+            log(f"[{tag} profile] row offsets built on the device: {built or 'none'}")
+            assert not (built and tag.endswith("GAT-bm")), "the B + M step built row offsets"
     mean = sum(times) / len(times)
     std = (sum((t - mean) ** 2 for t in times) / max(len(times) - 1, 1)) ** 0.5
     median = sorted(times)[len(times) // 2]
@@ -564,13 +584,22 @@ def main() -> int:
     log(f"[5 vq_assign vq_update fast=True] two calls bit-identical (idx, counts, sums): {same}")
     assert same
 
+    def hold_lookup(label, vq, ids, D):
+        """Kernel 3 bit-equal to its plain version (a gather), in both
+        modes, as the [n, nb, K] table and split at D as the step calls it."""
+        for fast in (False, True):
+            for split in (None, D):
+                out, ref = (fn(vq.c_indices, ids, vq.embedding_output, fast=fast, split=split)
+                            for fn in (lookup_codewords, lookup_codewords_plain))
+                outs, refs = ((out,), (ref,)) if split is None else (out, ref)
+                torch.cuda.synchronize()
+                same = all(torch.equal(o, r) for o, r in zip(outs, refs, strict=True))
+                log(f"[5 vq_lookup {label} fast={fast} split={split}] out "
+                    f"{[tuple(o.shape) for o in outs]} bit-equal {same}")
+                assert same
+
     vq0 = tr.state.vq_states[0]
-    for fast in (False, True):
-        out = lookup_codewords(vq0.c_indices, b0.fo_ids, vq0.embedding_output, fast=fast)
-        ref = lookup_codewords_plain(vq0.c_indices, b0.fo_ids, vq0.embedding_output, fast=fast)
-        torch.cuda.synchronize()
-        log(f"[5 vq_lookup fast={fast}] out {tuple(out.shape)} bit-equal {torch.equal(out, ref)}")
-        assert torch.equal(out, ref)
+    hold_lookup("B + B'", vq0, b0.fo_ids, cfg.num_D)
     err["vq_lookup"] = 0.0
 
     # GAT kernels on the GAT batch's edges, random inputs at the real widths.
@@ -642,27 +671,43 @@ def main() -> int:
                 f"zeros above dx_rows: {zero}; {ge.t_all_long_rows.shape[0] - 1} long rows")
             assert same and zero
 
-    # B + M GAT: the segment sum at the conv's widths over the batch's forward
-    # ELL rows (C = nb * D = 128 for the aggregate, nb = 32 for the
-    # normaliser and the logit cotangents), with and without the scalar
-    # channel; tolerance as above (f32 sums in another order)
+    # B + M GAT: the segment sum at the conv's widths (C = nb * D = 128 for
+    # the aggregate and dx, nb = 32 for the normaliser and the logit
+    # cotangents) over the batch's forward ELL and its transposed ELL, with
+    # the batch's row offsets and long rows as the conv passes them, with and
+    # without the scalar channel; tolerance as above (f32 sums in another
+    # order).  The same bits over two calls, with the offsets alone and with
+    # them built on the device
     bm = runs["3 GAT-bm"]
     tr_bm, bmb = bm["tr"], bm["batch0"]
     be = bmb.edges
-    Rb, seg = be.num_rows, be.ell_row
-    Sb = seg.shape[0]
-    live = (seg < Rb).float()
+    Rb = be.num_rows
     nb_bm = tr_bm.ms.num_branches[1]
+    seg_layouts = {
+        "forward": (be.ell_row, dict(ptr=be.ell_ptr, long_rows=be.ell_long_rows)),
+        "transposed": (be.t_ell_row, dict(ptr=be.t_all_ptr, long_rows=be.t_all_long_rows)),
+    }
     seg_args = {}
-    for width in (C, nb_bm):
-        part = torch.randn((Sb, width), generator=gen, device=dev) * live[:, None]
-        scal = torch.randn(Sb, generator=gen, device=dev) * live
-        seg_args[width] = (part, seg, Rb)
-        hold(f"C={width}", "segment_sum", (segment_sum_sorted(*seg_args[width]),),
-             (segment_sum_sorted_plain(*seg_args[width]),))
-        hold(f"C={width} with the scalar channel", "segment_sum",
-             segment_sum_sorted(*seg_args[width], scalar_partials=scal),
-             segment_sum_sorted_plain(*seg_args[width], scalar_partials=scal))
+    for lay, (sg, lists) in seg_layouts.items():
+        live = (sg < Rb).float()
+        for width in (C, nb_bm):
+            part = torch.randn((sg.shape[0], width), generator=gen, device=dev) * live[:, None]
+            scal = torch.randn(sg.shape[0], generator=gen, device=dev) * live
+            args = seg_args[lay, width] = (part, sg, Rb)
+            out = segment_sum_sorted(*args, **lists)
+            hold(f"{lay} C={width}", "segment_sum", (out,), (segment_sum_sorted_plain(*args),))
+            hold(f"{lay} C={width} with the scalar channel", "segment_sum",
+                 segment_sum_sorted(*args, scalar_partials=scal, **lists),
+                 segment_sum_sorted_plain(*args, scalar_partials=scal))
+            same = {"again": segment_sum_sorted(*args, **lists),
+                    "offsets alone": segment_sum_sorted(*args, ptr=lists["ptr"]),
+                    "offsets built on the device": segment_sum_sorted(*args)}
+            torch.cuda.synchronize()
+            same = {k: torch.equal(v, out) for k, v in same.items()}
+            log(f"[5 segment_sum {lay} C={width}] bit-identical to the first call: {same}; "
+                f"{lists['long_rows'].shape[0] - 1} long rows (more than "
+                f"{int(lists['long_rows'][0])} slots)")
+            assert all(same.values())
 
     # the recovery kernels at nb = 32, M = 1,024 over the batch's own reverse
     # list and layer 1's codes, with random O(1) xb, al, arcb and gbar (the
@@ -723,14 +768,7 @@ def main() -> int:
     xn_bm = torch.randn((nb_bm, Bb, Kb), generator=gen, device=dev)
     valid_bm = bmb.valid_B.contiguous()
     hold_assign("B + M", xn_bm, emb_bm, valid_bm)
-    for fast in (False, True):
-        out = lookup_codewords(vq_bm.c_indices, bmb.fo_ids, vq_bm.embedding_output, fast=fast)
-        ref_l = lookup_codewords_plain(vq_bm.c_indices, bmb.fo_ids, vq_bm.embedding_output,
-                                       fast=fast)
-        torch.cuda.synchronize()
-        log(f"[5 vq_lookup B + M fast={fast}] out {tuple(out.shape)} bit-equal "
-            f"{torch.equal(out, ref_l)}")
-        assert torch.equal(out, ref_l)
+    hold_lookup("B + M", vq_bm, bmb.fo_ids, Dq)
 
     # ---- 6. times: kernel, plain version, library yardstick ----
     scratch = torch.empty(64 << 20, device=dev)  # 256 MB, 5x the L2
@@ -823,20 +861,43 @@ def main() -> int:
     assign_times("nb=1 (replaces vq_gnn_tpu/ops/pallas_vq.py:33)", xn[:1].contiguous(),
                  emb1[:1].contiguous())
 
-    c0, fo, emb_out = vq0.c_indices, b0.fo_ids, vq0.embedding_output
-    n = fo.shape[0]
-    ar_idx = torch.arange(emb_out.shape[0], device=dev)[None, :]
-    t = {
-        "ms": cuda_time_ms(torch, lambda: lookup_codewords(c0, fo, emb_out, fast=True)),
-        "plain_ms": cuda_time_ms(
-            torch, lambda: lookup_codewords_plain(c0, fo, emb_out, fast=True)),
-        "library_ms": cuda_time_ms(torch, lambda: emb_out[ar_idx, c0[fo].long()]),
-    }
-    b_ms, b_by = bound(n * 8 + n * nb * 2 + emb_out.numel() * 4 + n * nb * Kq * 4, 0, F32_FLOPS)
+    def lookup_times(label, vq, ids, D):
+        """Kernel 3 in fast mode as the step calls it (split at D), its plain
+        version and the library yardstick the step ran before (advanced
+        indexing and the two slices); the whole [n, nb, K] table beside it.
+        Returns the split call's times and bound."""
+        c_idx, eo = vq.c_indices, vq.embedding_output
+        nb_, M_, K_ = eo.shape
+        n_ = ids.shape[0]
+        ar = torch.arange(nb_, device=dev)[None, :]
+
+        def run(split=D):
+            return lookup_codewords(c_idx, ids, eo, fast=True, split=split)
+
+        def library(split=True):
+            t = eo[ar, c_idx[ids].long()]
+            return (t[:, :, :D].reshape(n_, -1), t[:, :, D:].reshape(n_, -1)) if split else t
+
+        tt = {"ms": cuda_time_ms(torch, run),
+              "plain_ms": cuda_time_ms(
+                  torch, lambda: lookup_codewords_plain(c_idx, ids, eo, fast=True, split=D)),
+              "library_ms": cuda_time_ms(torch, library)}
+        whole = {"ms": cuda_time_ms(torch, lambda: run(None)),
+                 "library_ms": cuda_time_ms(torch, lambda: library(False))}
+        # node ids, one c_indices row per node and the table read once, the
+        # n * nb * K output floats written once
+        bb, bb_by = bound(n_ * 8 + n_ * nb_ * 2 + eo.numel() * 4 + n_ * nb_ * K_ * 4, 0,
+                          F32_FLOPS)
+        log(f"[6 vq_lookup {label}] fast n={n_} nb={nb_} M={M_} K={K_} split at D={D}: {tt} "
+            f"bound {bb:.4f} ms ({bb_by}); device us per call {kernel_split(torch, run)}; the "
+            f"whole [n, nb, K] table {whole}, device us per call "
+            f"{kernel_split(torch, lambda: run(None))}; library_ms: advanced indexing (and the "
+            f"two slices, split) | {gpu}")
+        return dict(**tt, bound_ms=bb, bound_by=bb_by)
+
     kern["vq_lookup"] = dict(
-        source="vq_gnn_tpu_torch/csrc/vq_lookup.cu",
-        replaces="vq_gnn_tpu/ops/pallas_vq.py:276", **t, bound_ms=b_ms, bound_by=b_by)
-    log(f"[6 vq_lookup] fast n={n} nb={nb}: {t} bound {b_ms:.4f} ms ({b_by}) | {gpu}")
+        source="vq_gnn_tpu_torch/csrc/vq_lookup.cu", replaces="vq_gnn_tpu/ops/pallas_vq.py:276",
+        **lookup_times("B + B'", vq0, b0.fo_ids, cfg.num_D))
 
     # GAT: no single PyTorch call computes an attention-weighted aggregate or
     # its transposed backward, so there is no library yardstick
@@ -904,27 +965,45 @@ def main() -> int:
         replaces="vq_gnn_tpu/ops/pallas_ell.py:342 and vq_gnn_tpu/ops/pallas_ell.py:273",
         **bwd_t[C, Rg])
 
-    # B + M: the segment sum at each of its widths; library yardstick one
+    # B + M: the segment sum at each of its widths and layouts, as the conv
+    # calls it (the batch's row offsets and long rows); library yardstick one
     # index_add_ into a kept [R + 1, C] buffer (int64 rows made beforehand)
-    seg64 = seg.long()
     seg_t = {}
-    for width, (part, _, _) in seg_args.items():
+    for (lay, width), (part, sg, _) in seg_args.items():
+        lists = seg_layouts[lay][1]
+        Ss = sg.shape[0]
         buf = torch.zeros((Rb + 1, width), device=dev)
-        scal = torch.randn(Sb, generator=gen, device=dev) * live
+        sg64 = sg.long()
+        scal = torch.randn(Ss, generator=gen, device=dev) * (sg < Rb).float()
+
+        def run():
+            return segment_sum_sorted(part, sg, Rb, **lists)
+
         tt = {
-            "ms": cuda_time_ms(torch, lambda: segment_sum_sorted(part, seg, Rb)),
-            "plain_ms": cuda_time_ms(torch, lambda: segment_sum_sorted_plain(part, seg, Rb)),
-            "library_ms": cuda_time_ms(torch, lambda: buf.index_add_(0, seg64, part)),
+            "ms": cuda_time_ms(torch, run),
+            "plain_ms": cuda_time_ms(torch, lambda: segment_sum_sorted_plain(part, sg, Rb)),
+            "library_ms": cuda_time_ms(torch, lambda: buf.index_add_(0, sg64, part)),
         }
-        with_s = cuda_time_ms(torch, lambda: segment_sum_sorted(part, seg, Rb,
-                                                                 scalar_partials=scal))
-        # part and seg in, out written; one add per value
-        bb_ms, bb_by = bound(Sb * width * 4 + Sb * 4 + Rb * width * 4, Sb * width, F32_FLOPS)
-        seg_t[width] = dict(**tt, bound_ms=bb_ms, bound_by=bb_by)
-        log(f"[6 segment_sum] C={width} S={Sb} R={Rb}: {tt} bound {bb_ms:.4f} ms ({bb_by}); "
-            f"with the scalar channel {with_s:.4f} ms | {gpu}")
+        built = cuda_time_ms(torch, lambda: segment_sum_sorted(part, sg, Rb))
+        with_s = cuda_time_ms(torch, lambda: segment_sum_sorted(part, sg, Rb,
+                                                                 scalar_partials=scal, **lists))
+        # the live slots' rows (slots past ptr[R] are padding, never read),
+        # the row offsets and long rows read once, out written once; one add
+        # per value.  Beside it the bound over every slot and seg, as the
+        # kernel that searched seg had it
+        n_live = int(lists["ptr"][-1])
+        bb_ms, bb_by = bound(n_live * width * 4 + (Rb + 1) * 4 + lists["long_rows"].numel() * 4
+                             + Rb * width * 4, n_live * width, F32_FLOPS)
+        b_all, _ = bound(Ss * width * 4 + Ss * 4 + Rb * width * 4, Ss * width, F32_FLOPS)
+        seg_t[lay, width] = dict(**tt, bound_ms=bb_ms, bound_by=bb_by)
+        log(f"[6 segment_sum {lay}] C={width} S={Ss} live slots ptr[R]={n_live} R={Rb}: {tt} "
+            f"bound {bb_ms:.4f} ms ({bb_by}, live slots; over all S slots and seg "
+            f"{b_all:.4f}); device us per call {kernel_split(torch, run)}; with the offsets "
+            f"built on the device {built:.4f} ms; with the scalar channel {with_s:.4f} ms "
+            f"| {gpu}")
     kern["segment_sum"] = dict(source="vq_gnn_tpu_torch/csrc/segment_sum.cu",
-                               replaces="vq_gnn_tpu/ops/pallas_segsum.py:107", **seg_t[C])
+                               replaces="vq_gnn_tpu/ops/pallas_segsum.py:107",
+                               **seg_t["forward", C])
 
     # the recovery kernels; no PyTorch call computes the per-(row, codeword)
     # coalesce + relu + attention contraction, so no library yardstick.  The
@@ -966,19 +1045,7 @@ def main() -> int:
 
     # kernels 2 and 3 at the B + M widths (PERF.md rows 6-7)
     assign_times("B + M", xn_bm, emb_bm, valid_bm)
-    c_bm, fo_bm, eo_bm = vq_bm.c_indices, bmb.fo_ids, vq_bm.embedding_output
-    n_bm = fo_bm.shape[0]
-    ar_bm = torch.arange(nb_bm, device=dev)[None, :]
-    tl_ = {
-        "ms": cuda_time_ms(torch, lambda: lookup_codewords(c_bm, fo_bm, eo_bm, fast=True)),
-        "plain_ms": cuda_time_ms(
-            torch, lambda: lookup_codewords_plain(c_bm, fo_bm, eo_bm, fast=True)),
-        "library_ms": cuda_time_ms(torch, lambda: eo_bm[ar_bm, c_bm[fo_bm].long()]),
-    }
-    bl, bl_by = bound(n_bm * 8 + n_bm * nb_bm * 2 + eo_bm.numel() * 4 + n_bm * nb_bm * Kb * 4,
-                      0, F32_FLOPS)
-    log(f"[6 vq_lookup B + M] fast n={n_bm} nb={nb_bm} M={M_bm} K={Kb}: {tl_} bound {bl:.4f} "
-        f"ms ({bl_by}) | {gpu}")
+    lookup_times("B + M", vq_bm, bmb.fo_ids, Dq)
 
     # ---- 7. small graph: GPU kernels vs CPU plain versions from one state ----
     for conv, form in (("GCN", "bbprime"), ("SAGE", "bbprime"), ("GAT", "bbprime"),

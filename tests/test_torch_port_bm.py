@@ -44,6 +44,8 @@ from vq_gnn_tpu_torch.graph import store as tstore
 from vq_gnn_tpu_torch.nn.model import layer_forward, model_static
 from vq_gnn_tpu_torch.ops import gat as tgat
 from vq_gnn_tpu_torch.ops.rev_ell import REV_LONG_SLOTS, REV_S_MULTIPLE, build_rev_ell, pad_rev_ell
+from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
+from vq_gnn_tpu_torch.ops.spmm import long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 
@@ -207,6 +209,26 @@ def test_bm_batches_match_jax(conv, train_flag):
     assert n > 2
 
 
+@pytest.mark.parametrize("train_flag", [True, False])
+def test_bm_gat_batches_carry_the_row_lists(train_flag):
+    """B + M GAT batches carry the row offsets and long rows of the forward
+    ELL and of the whole transposed ELL, whatever the backward truncation:
+    the per-branch conv's segment sums read them."""
+    _, (tc, tg, _) = _graphs("GAT")
+    tl = tsamplers.BatchLoader(tg, tc, device="cpu", train_flag=train_flag, seed=3)
+    n = 0
+    for tw, _ in tl._epoch_iter():
+        for tb in tw:
+            e = tb.edges
+            np.testing.assert_array_equal(e.ell_ptr, row_offsets_host(e.ell_row, e.num_rows))
+            np.testing.assert_array_equal(e.ell_long_rows, long_rows_host(e.ell_ptr))
+            np.testing.assert_array_equal(e.t_all_ptr,
+                                          row_offsets_host(e.t_ell_row, e.num_rows))
+            np.testing.assert_array_equal(e.t_all_long_rows, long_rows_host(e.t_all_ptr))
+            n += 1
+    assert n > 0
+
+
 # ---------------------------------------------------------------------------
 # device side, on the same inputs
 # ---------------------------------------------------------------------------
@@ -237,6 +259,39 @@ def test_gat_conv_mh_matches_jax_vjp():
     grads = torch.autograd.grad(out, leaves, (_t(g_agg), _t(g_rs)))
     for name, g, r in zip(("dx", "d_al", "d_ar"), grads, ref_grads):
         _close(g, r, RTOL_SUM, name)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_conv_mh_passes_the_batch_lists(grad, monkeypatch):
+    """The per-branch conv hands each of its segment sums (kernel 8) the
+    batch's own row offsets and long rows: the forward ELL's for the
+    aggregate, the normaliser and d_ar, the whole transposed ELL's for dx
+    and d_al."""
+    _, (_, _, tb) = _batch_pair("GAT")
+    e = tb.edges
+    seen = []
+
+    def spy(part, seg, num_rows, **kw):
+        seen.append((seg, kw["ptr"], kw["long_rows"]))
+        return segment_sum_sorted(part, seg, num_rows, **kw)
+
+    monkeypatch.setattr(tgat, "segment_sum_sorted", spy)
+    R, nb, D = e.num_rows, 4, 4
+    rng = np.random.RandomState(3)
+    leaves = [_t(a).requires_grad_(grad) for a in (
+        rng.randn(R, nb * D).astype(np.float32), (0.5 * rng.randn(R, nb)).astype(np.float32),
+        (0.5 * rng.randn(R, nb)).astype(np.float32))]
+    out = tgat.gat_conv_ell_mh(e, *leaves)
+    fwd = (e.ell_row, e.ell_ptr, e.ell_long_rows)
+    t_all = (e.t_ell_row, e.t_all_ptr, e.t_all_long_rows)
+    expected = [fwd, fwd]
+    if grad:
+        torch.autograd.grad(out, leaves, [torch.ones_like(o) for o in out])
+        expected += [t_all, t_all, fwd]
+    assert e.ell_ptr is not None and e.t_all_ptr is not None
+    assert len(seen) == len(expected)
+    for got, want in zip(seen, expected):
+        assert all(a is b for a, b in zip(got, want, strict=True))
 
 
 @pytest.mark.parametrize("conv", ["GCN", "SAGE", "GAT"])

@@ -14,7 +14,12 @@ import pytest
 import torch
 
 from vq_gnn_tpu_torch.ops import _build
-from vq_gnn_tpu_torch.ops.ell_aggregate import LONG_SLOTS, ell_aggregate, ell_aggregate_plain
+from vq_gnn_tpu_torch.ops.ell_aggregate import (
+    LONG_SLOTS,
+    ell_aggregate,
+    ell_aggregate_plain,
+    row_offsets_plain,
+)
 from vq_gnn_tpu_torch.ops.gat_kernels import (
     gat_aggregate,
     gat_aggregate_plain,
@@ -543,6 +548,46 @@ def test_lookup_matches_plain(dev, fast):
 
 
 @cuda
+@pytest.mark.parametrize("split", [None, "half"])
+@pytest.mark.parametrize("K", [3, 8, 9, 16])
+@pytest.mark.parametrize("nb", [1, 7, 32, 33, 64])
+def test_lookup_shapes_match_plain(dev, nb, K, split):
+    """Branches in one round of the warp's lanes and in two (33, 64), rows
+    of float4 pieces (K = 8, 16) and of single floats (3, 9), whole and split
+    at D = K // 2 (halves of 1 to 8 floats, float4 or not); node ids past
+    both ends of the table and codeword ids past both ends of [0, M) clip.
+    Bit-equal to the plain version in both modes."""
+    rng = np.random.RandomState(nb * 100 + K)
+    N, M, n = 600, 50, 1001
+    c = rng.randint(-5, M + 5, (N + 1, nb)).astype(np.int16)
+    ids = rng.randint(-3, N + 4, n).astype(np.int64)
+    emb_out = rng.randn(nb, M, K).astype(np.float32)
+    args = [torch.as_tensor(a).to(dev) for a in (c, ids, emb_out)]
+    D = None if split is None else K // 2
+    for fast in (False, True):
+        out = lookup_codewords(*args, fast=fast, split=D)
+        ref = lookup_codewords_plain(*args, fast=fast, split=D)
+        torch.cuda.synchronize()
+        outs, refs = ((out,), (ref,)) if D is None else (out, ref)
+        for o, r in zip(outs, refs, strict=True):
+            assert o.is_contiguous() and torch.equal(o, r)
+
+
+@cuda
+@pytest.mark.parametrize("split", [None, 4])
+def test_lookup_no_nodes(dev, split):
+    """n = 0: empty outputs of the right shapes, and no launch."""
+    c = torch.zeros((10, 32), dtype=torch.int16, device=dev)
+    emb_out = torch.zeros((32, 8, 9), device=dev)
+    before = lookup_codewords.launches
+    out = lookup_codewords(c, torch.zeros(0, dtype=torch.int64, device=dev), emb_out,
+                           split=split)
+    shapes = [tuple(t.shape) for t in ((out,) if split is None else out)]
+    assert shapes == ([(0, 32, 9)] if split is None else [(0, 128), (0, 160)])
+    assert lookup_codewords.launches == before
+
+
+@cuda
 def test_wrappers_refuse_bad_input(dev):
     x = torch.zeros((10, 8), device=dev, dtype=torch.float64)
     er = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -631,6 +676,41 @@ def test_segment_sum_plain_scalar_only_matches_pallas():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("num_rows,S,C,pad", SEGSUM_CASES)
+def test_segment_sum_plain_with_offsets_matches_pallas(num_rows, S, C, pad):
+    """The plain version given the row offsets (and the long-row list) the
+    kernel takes, against the JAX kernel in interpret mode: the lists are
+    checked and change nothing."""
+    j_segsum = _jax_package("pallas_segsum").segment_sum_sorted
+    import jax.numpy as jnp
+
+    part, scal, seg = _segsum_case(num_rows, S, C, pad, 2)
+    ref, ref_s = j_segsum(jnp.asarray(part), jnp.asarray(seg), num_rows,
+                          scalar_partials=jnp.asarray(scal), interpret=True)
+    seg_t = torch.as_tensor(seg)
+    ptr = row_offsets_plain(seg_t, num_rows)
+    lists = torch.as_tensor(long_rows_host(ptr.numpy(), 4))
+    out, out_s = segment_sum_sorted_plain(torch.as_tensor(part), seg_t, num_rows,
+                                          scalar_partials=torch.as_tensor(scal), ptr=ptr,
+                                          long_rows=lists)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(out_s.numpy(), np.asarray(ref_s), rtol=1e-5, atol=1e-4)
+
+
+def test_segment_sum_refuses_bad_row_lists():
+    """Row offsets of another row count or type, and a long-row list
+    without its offsets, are refused (the plain version checks them too)."""
+    part, _, seg = _segsum_case(300, 1000, 8, 3, 7)
+    part, seg = torch.as_tensor(part), torch.as_tensor(seg)
+    ptr = row_offsets_plain(seg, 300)
+    with pytest.raises(ValueError):  # offsets for 299 rows
+        segment_sum_sorted(part, seg, 300, ptr=ptr[:-1])
+    with pytest.raises(ValueError):  # int64 offsets
+        segment_sum_sorted(part, seg, 300, ptr=ptr.long())
+    with pytest.raises(ValueError):  # long rows without their offsets
+        segment_sum_sorted(part, seg, 300, long_rows=torch.tensor([4], dtype=torch.int32))
+
+
 @cuda
 @pytest.mark.parametrize("channels", ["matrix", "both", "scalar"])
 @pytest.mark.parametrize("num_rows,S,C,pad,gaps",
@@ -647,6 +727,59 @@ def test_segment_sum_matches_plain(dev, num_rows, S, C, pad, gaps, channels):
     outs, refs = (out, ref) if channels == "both" else ((out,), (ref,))
     for o, r in zip(outs, refs):
         _close_to_ref(o, r)
+
+
+@cuda
+@pytest.mark.parametrize("C", [7, 32, 128, 256])
+def test_segment_sum_row_lists_same_bits(dev, C):
+    """Rows of 0 to ~2,600 slots: one very long row, every fifth row and a
+    run of 40 at the end without a slot, padding slots past the last row.
+    With the host's row offsets and long-row lists of three thresholds (0:
+    every row with a slot is long), with the offsets alone and with them
+    built on the device: within the tolerance of the plain version, and the
+    same bits in every form and over two calls."""
+    rng = np.random.default_rng(C)
+    num_rows = 3000
+    seg = np.sort(np.concatenate([np.full(2600, 1234), rng.integers(0, num_rows, 9000)]))
+    seg = seg[(seg % 5 != 2) & (seg < num_rows - 40)]
+    seg = np.concatenate([seg, np.full(77, num_rows)]).astype(np.int32)
+    live = seg < num_rows
+    part = torch.as_tensor((rng.standard_normal((len(seg), C)) * live[:, None])
+                           .astype(np.float32)).to(dev)
+    scal = torch.as_tensor((rng.standard_normal(len(seg)) * live).astype(np.float32)).to(dev)
+    ptr_h = row_offsets_host(seg, num_rows)
+    ptr = torch.as_tensor(ptr_h).to(dev)
+    seg = torch.as_tensor(seg).to(dev)
+    forms = {f"lists t={t}": dict(ptr=ptr, long_rows=torch.as_tensor(
+        long_rows_host(ptr_h, t)).to(dev)) for t in (16, 4, 0)}
+    forms.update({"again": forms["lists t=16"], "offsets only": dict(ptr=ptr),
+                  "offsets built": {}})
+    outs = {k: segment_sum_sorted(part, seg, num_rows, scalar_partials=scal, **kw)
+            for k, kw in forms.items()}
+    ref = segment_sum_sorted_plain(part, seg, num_rows, scalar_partials=scal)
+    torch.cuda.synchronize()
+    first = outs["lists t=16"]
+    for o, r in zip(first, ref, strict=True):
+        _close_to_ref(o, r)
+    for k, o in outs.items():
+        assert all(torch.equal(a, b) for a, b in zip(o, first, strict=True)), k
+    assert not first[0][2::5].any() and not first[0][-40:].any()
+    assert float(first[0][1234].abs().max()) > 0
+
+
+@cuda
+def test_segment_sum_offsets_past_the_slots(dev):
+    """Row offsets built for more slots than the kernel is given: each row
+    sums only its slots among those given (the kernel clamps the offsets to
+    the slots), as the plain version of the shortened input does."""
+    part, _, seg = _segsum_case(3000, 40000, 128, 500, 8)
+    ptr = torch.as_tensor(row_offsets_host(seg, 3000)).to(dev)
+    S = len(seg) // 2
+    part, seg = (torch.as_tensor(np.ascontiguousarray(a[:S])).to(dev) for a in (part, seg))
+    out = segment_sum_sorted(part, seg, 3000, ptr=ptr)
+    ref = segment_sum_sorted_plain(part, seg, 3000)
+    assert int(ptr[-1]) > S
+    _close_to_ref(out, ref)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import torch
 from vq_gnn_tpu.nn import vq as jvq
 from vq_gnn_tpu_torch.convert import vq_state_from_numpy
 from vq_gnn_tpu_torch.nn import vq as tvq
+from vq_gnn_tpu_torch.ops.vq_kernels import lookup_codewords, lookup_codewords_plain
 
 NB, N, B, M, D = 4, 500, 300, 16, 4
 B_REAL = 260  # rows [B_REAL, B) are padding (dustbin id N, invalid)
@@ -106,6 +107,53 @@ def test_lookup_matches_jax(backend):
     ids = np.random.RandomState(5).randint(0, N + 1, 333)
     jf, jg = jvq.lookup(js, jnp.asarray(ids, jnp.int32), _params(jvq, backend))
     tf, tg = tvq.lookup(ts, torch.as_tensor(ids), _params(tvq, backend))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("K,D", [(8, 4), (9, 4)])
+def test_lookup_plain_split_equals_slices(K, D, fast):
+    """``split=D`` gives the [n, nb, K] table's two halves, each contiguous,
+    from the plain version and from the wrapper (which runs it on the CPU);
+    a split outside (0, K) is refused."""
+    rng = np.random.RandomState(11)
+    c_idx = torch.as_tensor(rng.randint(0, M, (N + 1, NB)).astype(np.int16))
+    ids = torch.as_tensor(rng.randint(0, N + 1, 333))
+    emb = torch.as_tensor(rng.randn(NB, M, K).astype(np.float32))
+    table = lookup_codewords_plain(c_idx, ids, emb, fast)
+    n = ids.shape[0]
+    halves = (table[:, :, :D].reshape(n, NB * D), table[:, :, D:].reshape(n, NB * (K - D)))
+    for fn in (lookup_codewords_plain, lookup_codewords):
+        out = fn(c_idx, ids, emb, fast, split=D)
+        for o, r in zip(out, halves, strict=True):
+            assert o.is_contiguous() and torch.equal(o, r)
+    for bad in (0, K):
+        with pytest.raises(ValueError):
+            lookup_codewords(c_idx, ids, emb, fast, split=bad)
+
+
+@pytest.mark.parametrize("add_flag", [False, True])
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fast"])
+def test_lookup_kernel_backends_match_jax(backend, add_flag):
+    """``lookup`` on the kernel backends (the kernel writes the two halves
+    apart) against the JAX ``lookup`` (``lookup_branches`` in interpret
+    mode): bit-equal at K = 2D = 8 and, with ``add_flag``, K = 2D + 1 = 9."""
+    kw = dict(num_M=M, num_D=D, warm_up_flag=True, backend=backend, add_flag=add_flag)
+    jp, tp = jvq.VQParams(**kw), tvq.VQParams(**kw)
+    js = jvq.init_vq_state(jax.random.PRNGKey(0), NB, N, jp)
+    rng = np.random.RandomState(12)
+    K = js.embedding_output.shape[2]
+    assert K == 2 * D + add_flag
+    js = js.replace(
+        embedding_output=jnp.asarray(rng.randn(NB, M, K).astype(np.float32)),
+        c_indices=jnp.asarray(rng.randint(0, M, js.c_indices.shape).astype(np.int16)),
+    )
+    ts = vq_state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
+    ids = rng.randint(0, N + 1, 333)
+    jf, jg = jvq.lookup(js, jnp.asarray(ids, jnp.int32), jp)
+    tf, tg = tvq.lookup(ts, torch.as_tensor(ids), tp)
+    assert tg.shape == (len(ids), NB * (K - D))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
 

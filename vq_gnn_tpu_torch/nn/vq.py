@@ -277,16 +277,17 @@ def lookup(state: VQState, node_ids: torch.Tensor, p: VQParams):
     node_ids [n] -> (features [n, nb*D], grads [n, nb*Dg]) in branch-slice
     order (branch i covers columns i*D:(i+1)*D)."""
     if p.backend in ("pallas", "pallas_fast"):
-        table = lookup_codewords(
+        # the kernel writes both halves where the step reads them
+        return lookup_codewords(
             state.c_indices, node_ids, state.embedding_output,
-            fast=p.backend == "pallas_fast",
+            fast=p.backend == "pallas_fast", split=p.num_D,
         )
-    else:  # exact row gather == the JAX one-hot einsum at 'highest'
-        ids = node_ids.clamp(0, state.c_indices.shape[0] - 1)
-        c = state.c_indices.index_select(0, ids).long()
-        nb = c.shape[1]
-        table = state.embedding_output[torch.arange(nb, device=c.device)[None, :], c]
-    n, nb, _ = table.shape
+    # exact row gather == the JAX one-hot einsum at 'highest'
+    ids = node_ids.clamp(0, state.c_indices.shape[0] - 1)
+    c = state.c_indices.index_select(0, ids).long()
+    nb = c.shape[1]
+    table = state.embedding_output[torch.arange(nb, device=c.device)[None, :], c]
+    n = table.shape[0]
     feats = table[:, :, : p.num_D].reshape(n, nb * p.num_D)
     grads = table[:, :, p.num_D :].reshape(n, nb * p.grad_dim)
     return feats, grads

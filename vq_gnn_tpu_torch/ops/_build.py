@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -30,6 +30,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -96,10 +97,14 @@ def library(name: str) -> ctypes.CDLL:
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """C entry point ``symbol`` of library ``name``, returning an int status
-    (``cudaGetLastError()`` after the launch)."""
-    f = getattr(library(name), symbol)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    (``cudaGetLastError()`` after the launch); set up once, then cached (a
+    wrapper asks for it on every launch)."""
+    f = _functions.get((name, symbol))
+    if f is None:
+        f = getattr(library(name), symbol)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _functions[name, symbol] = f
     return f
 
 

@@ -169,8 +169,9 @@ def _gat_mh_forward(edges: Edges, x_g, al, ar):
     """(agg [R, nb*D], rowsum [R, nb]) over the forward ELL."""
     R = edges.num_rows
     _, ev = _gat_mh_ev(edges.ell_row, edges.ell_col, edges.ell_val, al, ar)
-    agg = segment_sum_sorted(_weighted_rows(ev, x_g, edges.ell_col), edges.ell_row, R)
-    return agg, segment_sum_sorted(ev.sum(1), edges.ell_row, R)
+    lists = dict(ptr=edges.ell_ptr, long_rows=edges.ell_long_rows)
+    agg = segment_sum_sorted(_weighted_rows(ev, x_g, edges.ell_col), edges.ell_row, R, **lists)
+    return agg, segment_sum_sorted(ev.sum(1), edges.ell_row, R, **lists)
 
 
 class _GATConvMH(torch.autograd.Function):
@@ -191,21 +192,25 @@ class _GATConvMH(torch.autograd.Function):
         # transposed cells: row = source (sorted), column = destination, so
         # the logit roles swap: a_t = al[source] + ar[destination]
         a_t, ev_t = _gat_mh_ev(e.t_ell_row, e.t_ell_col, e.t_ell_val, ar, al)
+        # the row lists of the whole transposed ELL and of the forward one
+        t_lists = dict(ptr=e.t_all_ptr, long_rows=e.t_all_long_rows)
+        f_lists = dict(ptr=e.ell_ptr, long_rows=e.ell_long_rows)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = segment_sum_sorted(_weighted_rows(ev_t, g_agg, e.t_ell_col), e.t_ell_row, R)
+            dx = segment_sum_sorted(_weighted_rows(ev_t, g_agg, e.t_ell_col), e.t_ell_row, R,
+                                    **t_lists)
         idx_t = e.t_ell_col.reshape(-1).long().clamp(0, R - 1)
         g3 = g_agg.index_select(0, idx_t).reshape(St, Kt, nb, -1)
         x_rows = x_g.index_select(0, e.t_ell_row.long().clamp(0, R - 1)).reshape(St, 1, nb, -1)
         d_ev_t = (g3 * x_rows).sum(-1) + g_rs.index_select(0, idx_t).reshape(St, Kt, nb)
         d_a_t = d_ev_t * ev_t * torch.where(a_t > 0, 1.0, NEGATIVE_SLOPE)
-        d_al = segment_sum_sorted(d_a_t.sum(1), e.t_ell_row, R)
+        d_al = segment_sum_sorted(d_a_t.sum(1), e.t_ell_row, R, **t_lists)
         # forward layout: mirror the per-cell d_a through f_from_t (empty
         # cells point one past the end, at a zero row), then reduce by row
         S, K = e.ell_col.shape
         d_a_flat = torch.cat([d_a_t.reshape(St * Kt, nb), d_a_t.new_zeros((1, nb))])
         d_a_f = d_a_flat.index_select(0, e.f_from_t.reshape(-1)).reshape(S, K, nb)
-        d_ar = segment_sum_sorted(d_a_f.sum(1), e.ell_row, R)
+        d_ar = segment_sum_sorted(d_a_f.sum(1), e.ell_row, R, **f_lists)
         return dx, d_al, d_ar, None
 
 
@@ -219,9 +224,10 @@ def gat_conv_ell_mh(edges: Edges, x_g, al, ar):
     [R, nb] per-node per-branch logits, already Trick-1 scaled.  Returns
     ``(agg [R, nb*D], rowsum [R, nb])``: per branch the aggregate of
     ``exp(leaky_relu(al[src] + ar[dst])) * val`` times x, and its ones-column
-    normaliser.  Every segment sum is kernel 8 on CUDA tensors; the backward
-    works in the transposed layout and mirrors the per-cell logit cotangent
-    back through ``edges.f_from_t`` for ``d_ar``."""
+    normaliser.  Every segment sum is kernel 8 on CUDA tensors, with the
+    batch's row offsets and long rows (``Edges.ell_ptr``, ``t_all_ptr``);
+    the backward works in the transposed layout and mirrors the per-cell
+    logit cotangent back through ``edges.f_from_t`` for ``d_ar``."""
     if edges.ell_row is None or edges.f_from_t is None:
         raise not_ported("the B + M GAT conv over a layout other than the single-K slot-ELL")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_g, al, ar)):

@@ -12,9 +12,11 @@ each with its plain PyTorch version.
   so it is held to its plain version by ``assign_mismatch`` (near ties may
   pick another codeword); the exact mode is bit-equal to its plain version.
 - ``lookup_codewords(c_indices [N+1,nb] int16, node_ids [n], emb_out
-  [nb,M,K], fast)`` -> [n, nb, K]: ``emb_out[b, c_indices[node, b]]``
-  (``csrc/vq_lookup.cu``, replacing ``pallas_vq.py:_lookup_kernel``).  Exact
-  mode copies bits; fast mode rounds the codewords to bf16.
+  [nb,M,K], fast, split)`` -> [n, nb, K]: ``emb_out[b, c_indices[node, b]]``
+  (``csrc/vq_lookup.cu``, replacing ``pallas_vq.py:_lookup_kernel``); with
+  ``split=D`` the two halves apart, ``(feats [n, nb*D], grads [n,
+  nb*(K-D)])``, each contiguous and written by the kernel.  Exact mode
+  copies bits; fast mode rounds the codewords to bf16.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -123,7 +126,7 @@ def _check(cond: bool, kernel: str, msg: str):
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ASSIGN_ARGTYPES = [_VP, _VP, _VP, _VP, _I32, _I64, _I32, _I32, _I32, _I32,
                     _VP, _VP, _VP, _VP, _VP]
-_LOOKUP_ARGTYPES = [_VP, _I64, _I32, _VP, _I64, _VP, _I32, _I32, _I32, _VP, _VP]
+_LOOKUP_ARGTYPES = [_VP, _I64, _I32, _VP, _I64, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP]
 
 
 def fused_assign_branches(xn, emb, valid, fast: bool = False):
@@ -166,42 +169,67 @@ def fused_assign_branches(xn, emb, valid, fast: bool = False):
 fused_assign_branches.launches = 0
 
 
-def lookup_codewords_plain(c_indices, node_ids, emb_out, fast: bool = False):
-    """Plain version of kernel 3: two gathers (advanced indexing)."""
-    nb = emb_out.shape[0]
+def lookup_codewords_plain(c_indices, node_ids, emb_out, fast: bool = False,
+                           split: Optional[int] = None):
+    """Plain version of kernel 3: two gathers (advanced indexing), node ids
+    clipped to the table and codeword ids to [0, M) as the kernel clips
+    them; with ``split`` the table's two halves, each made contiguous."""
+    nb, M, K = emb_out.shape
+    _check_split(split, K)
     ids = node_ids.long().clamp(0, c_indices.shape[0] - 1)
-    c = c_indices.index_select(0, ids).long()  # [n, nb]
+    c = c_indices.index_select(0, ids).long().clamp(0, M - 1)  # [n, nb]
     table = emb_out[torch.arange(nb, device=emb_out.device)[None, :], c]
-    return _bf16(table) if fast else table
+    if fast:
+        table = _bf16(table)
+    if split is None:
+        return table
+    n = table.shape[0]
+    return (table[:, :, :split].contiguous().reshape(n, nb * split),
+            table[:, :, split:].contiguous().reshape(n, nb * (K - split)))
 
 
-def lookup_codewords(c_indices, node_ids, emb_out, fast: bool = False):
-    """Kernel 3 for CUDA tensors, its plain version for CPU tensors."""
+def _check_split(split, K: int):
+    if not (split is None or 0 < split < K):
+        _check(False, "lookup_codewords", f"split must be in (0, {K}), got {split}")
+
+
+def lookup_codewords(c_indices, node_ids, emb_out, fast: bool = False,
+                     split: Optional[int] = None):
+    """Kernel 3 for CUDA tensors, its plain version for CPU tensors.
+    ``split=D`` returns ``(feats [n, nb*D], grads [n, nb*(K-D)])`` in place
+    of the [n, nb, K] table."""
     if emb_out.device.type == "cpu":
-        return lookup_codewords_plain(c_indices, node_ids, emb_out, fast)
+        return lookup_codewords_plain(c_indices, node_ids, emb_out, fast, split)
     k = "lookup_codewords"
     dev = emb_out.device
     _check(dev.type == "cuda", k, f"unsupported device {dev}")
     _check(emb_out.dim() == 3, k, "emb_out [nb,M,K] expected")
     nb, M, K = emb_out.shape
+    _check_split(split, K)
+    # messages formatted only on failure: this runs on every launch
     for name, t, dt in (("c_indices", c_indices, torch.int16),
                         ("node_ids", node_ids, torch.int64),
                         ("emb_out", emb_out, torch.float32)):
-        _check(t.device == dev and t.dtype == dt and t.is_contiguous(), k,
-               f"{name} must be contiguous {dt} on {dev}")
-    _check(c_indices.dim() == 2 and c_indices.shape[1] == nb, k,
-           f"c_indices must be [N+1, {nb}]")
+        if not (t.device == dev and t.dtype == dt and t.is_contiguous()):
+            _check(False, k, f"{name} must be contiguous {dt} on {dev}")
+    if not (c_indices.dim() == 2 and c_indices.shape[1] == nb):
+        _check(False, k, f"c_indices must be [N+1, {nb}]")
     _check(node_ids.dim() == 1, k, "node_ids must be 1-D")
     n = node_ids.shape[0]
-    out = torch.empty((n, nb, K), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.function("vq_lookup", "vq_lookup", _LOOKUP_ARGTYPES)(
-        c_indices.data_ptr(), c_indices.shape[0], nb, node_ids.data_ptr(), n,
-        emb_out.data_ptr(), M, K, int(fast), out.data_ptr(), stream,
-    )
-    _build.check(rc, k)
-    lookup_codewords.launches += 1
-    return out
+    if split is None:
+        outs = (torch.empty((n, nb, K), dtype=torch.float32, device=dev),)
+    else:
+        outs = tuple(torch.empty((n, nb * w), dtype=torch.float32, device=dev)
+                     for w in (split, K - split))
+    if n:  # nothing to launch for no nodes
+        rc = _build.function("vq_lookup", "vq_lookup", _LOOKUP_ARGTYPES)(
+            c_indices.data_ptr(), c_indices.shape[0], nb, node_ids.data_ptr(), n,
+            emb_out.data_ptr(), M, K, int(fast), split or 0, outs[0].data_ptr(),
+            outs[-1].data_ptr() if split else None, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(rc, k)
+        lookup_codewords.launches += 1
+    return outs[0] if split is None else outs
 
 
 lookup_codewords.launches = 0

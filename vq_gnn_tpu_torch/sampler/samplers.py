@@ -383,8 +383,9 @@ class BatchLoader:
             with_f_from_t=cfg.formulation == "bm" and cfg.conv_type == "GAT",
             bm_rev=rev,
             rev_bucket=self._rev_bucket,
-            # the B + B' GAT backward (kernel 5) walks every transposed row
-            with_t_all_lists=cfg.formulation != "bm" and cfg.conv_type == "GAT",
+            # the GAT backward walks every transposed row: kernel 5 on B + B',
+            # the per-branch conv's segment sums (kernel 8) on B + M
+            with_t_all_lists=cfg.conv_type == "GAT",
         )
 
     def _epoch_iter(self):
