@@ -65,7 +65,14 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT) on the GPU and on the CPU (plain versions) from one state,
    count the codeword assignments that come to differ, and compare each
-   step's loss terms up to the first such difference, and the predictions.
+   step's loss terms up to the first such difference, and the predictions;
+8. run the bench's timing function (``bench_torch.run_bench``) on phase 2's
+   GCN graph with the bench's default configuration: its batch must be the
+   first batch phase 3's GCN epoch trains on, and its record (edges/s,
+   loss, peak memory, device busy, eval forward) finite and printed;
+9. run the CLI (``main_node_torch.main``) in-process on the card with its
+   verification command (``main_node.py``'s quick check, ``CLI_ARGS``): 3
+   epochs on a 500-node SBM must reach test accuracy 0.9.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -76,10 +83,11 @@ without the package beside it, it exits non-zero at once.
 import copy
 import json
 import math
-import subprocess
 import sys
 import time
 import warnings
+
+from vq_gnn_tpu_torch.utils.profiling import device_rows, gpu_line, profile_steps
 
 # ---- flagship configuration (bench.py:62-90) ----
 N_NODES, AVG_DEG, N_FEAT, N_CLASSES = 169_343, 13.7, 128, 40
@@ -88,6 +96,10 @@ TIMED_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+# the CLI's verification run: 2 layers x 16 on a 500-node SBM, 3 epochs
+CLI_ARGS = ["--dataset", "synthetic:500", "--num-layers", "2", "--hidden-channels", "16",
+            "--num-D", "4", "--num-M", "8", "--batch-size", "128", "--test-batch-size", "256",
+            "--epochs", "3", "--skip", "--lr", "0.05"]
 PATH_KERNELS = {  # kernels each training path must launch
     "GCN": ("ell_aggregate", "vq_assign", "vq_lookup"),
     "SAGE": ("ell_aggregate", "vq_assign", "vq_lookup"),
@@ -99,14 +111,6 @@ PATH_KERNELS = {  # kernels each training path must launch
 
 def log(*a):
     print(*a, flush=True)
-
-
-def gpu_line() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return r.stdout.strip().splitlines()[0]
 
 
 def bm_cfg(Config, **kw):
@@ -224,53 +228,6 @@ def bound(bytes_moved: float, flops: float, flop_rate: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def device_rows(prof):
-    """(device us, calls, name) of each kernel a profile saw on the card:
-    device-side events only, so each kernel is counted once."""
-    from torch.autograd import DeviceType
-
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    return rows
-
-
-def profile_steps(torch, tr, batches, lr, gpu, tag, steps=3):
-    """Device busy share and device time by kernel over a few train steps."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            tr.state, _ = tr.fns.train_step(
-                tr.state, tr.X_dev, batches[i % len(batches)], 1.0, lr, 1.0, tr.generator)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows)
-    if busy == 0:
-        log(f"[{tag} profile] the profiler saw no device time: not measured")
-        return None
-    log(f"[{tag} profile] {steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step, device busy "
-        f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
-        f"idle {100 * (1 - busy / wall_us):.1f}% | {gpu}")
-    for us, count, key in sorted(rows, reverse=True)[:15]:
-        log(f"[{tag} profile]   {us / steps / 1e3:8.3f} ms/step  {count // steps:4d} calls/step  "
-            f"{key[:90]}")
-    copies = [(us, count) for us, count, key in rows if "direct_copy_kernel" in key]
-    log(f"[{tag} profile] copy kernels (direct_copy_kernel_cuda): "
-        f"{sum(c for _, c in copies) // steps} calls/step, "
-        f"{sum(u for u, _ in copies) / steps / 1e3:.3f} ms/step")
-    return rows
-
-
 def kernel_split(torch, fn, calls=20):
     """Device us per call of each kernel ``fn`` launches (torch.profiler);
     empty where the profiler saw no device time."""
@@ -305,10 +262,22 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
     bad = [bool(s.bad_init) for s in tr.state.vq_states]
     assert not any(bad), f"bad_init after the init sweep: {bad}"
 
+    # the epoch's first batch is the bench's batch (phase 8): keep its edges
+    first_E = []
+    train_step = tr.fns.train_step
+
+    def first_batch_step(state, X, batch, *a):
+        if not first_E:
+            first_E.append(int((batch.edges.ell_val != 0).sum()))
+        return train_step(state, X, batch, *a)
+
+    tr.fns.train_step = first_batch_step
     t0 = time.time()
     loss, loss_cls = tr.train_epoch(1)
     torch.cuda.synchronize()
-    log(f"[{tag} epoch 1] loss={loss:.4f} loss_cls={loss_cls:.4f} in {time.time() - t0:.2f}s")
+    tr.fns.train_step = train_step
+    log(f"[{tag} epoch 1] loss={loss:.4f} loss_cls={loss_cls:.4f} in {time.time() - t0:.2f}s; "
+        f"its first batch E={first_E[0]}")
     assert math.isfinite(loss) and math.isfinite(loss_cls)
 
     batches = [w[0] for w, _ in tr.train_loader]  # one epoch of batches
@@ -331,8 +300,13 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
         assert not bool(m["bad_init"]), "Bad Init!"
     per_step = {k: (v - before[k]) / timed_steps for k, v in ops.launch_counts().items()}
     if profile:
-        rows = profile_steps(torch, tr, batches, cfg.lr, gpu, tag)
-        if rows is not None:
+        def step(i):
+            tr.state, _ = tr.fns.train_step(tr.state, tr.X_dev, batches[i % len(batches)], 1.0,
+                                            cfg.lr, 1.0, tr.generator)
+
+        prof = profile_steps(step, log=log, tag=tag, gpu=gpu)
+        if prof is not None:
+            rows = prof["rows"]
             # every kernel that takes row offsets got the batch's own
             built = sorted({k for _, _, k in rows if "row_offsets_kernel" in k})
             log(f"[{tag} profile] row offsets built on the device: {built or 'none'}")
@@ -363,7 +337,7 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
     for name in kernels:
         assert launches[name] > 0, f"kernel {name} was not launched on the {tag} path"
     return dict(tr=tr, batch0=b0, test_batches=test_batches, launches=launches,
-                by_width=by_width, ms=mean, std=std)
+                by_width=by_width, ms=mean, std=std, E_first=first_E[0])
 
 
 def small_graph_run(Config, NodeTrainer, prepare, synthetic_sbm, conv, form, device):
@@ -438,6 +412,9 @@ def main() -> int:
         lookup_codewords_plain,
     )
     from vq_gnn_tpu_torch.train.loop import NodeTrainer
+
+    import bench_torch
+    import main_node_torch
 
     gpu = gpu_line()
     dev = torch.device("cuda")
@@ -1084,6 +1061,34 @@ def main() -> int:
         assert same >= 3 and max(dq.values()) < 1e-4 and agree >= 0.99
         if form == "bbprime":  # four steps: they end before flips spread
             assert dl < 1e-3
+
+    # ---- 8. the bench (bench_torch.py) on phase 2's GCN graph ----
+    cfg_b = bench_torch.bench_config({})
+    # the bench sets walk_length 3, which the cluster sampler does not read
+    assert cfg_b == flagship_cfg(Config, walk_length=3), "the bench's cell is not phase 3's GCN"
+    bench_lines = []
+
+    def bench_log(*a):
+        bench_lines.append(" ".join(str(v) for v in a))
+        log(f"[8 bench] {bench_lines[-1]}")
+
+    t0 = time.time()
+    rec = bench_torch.run_bench(cfg_b, *graphs["GCN"], device="cuda", gpu=gpu, log=bench_log)
+    log(f"[8 bench] {bench_torch.record_line(rec['eps'])} in {time.time() - t0:.1f}s")
+    assert all(math.isfinite(rec[k]) for k in ("eps", "loss", "eval_fwd_ms")) and rec["eps"] > 0
+    E3 = runs["3 GCN"]["E_first"]
+    assert rec["E_batch"] == E3, f"bench batch E={rec['E_batch']}, phase 3's first batch E={E3}"
+    assert any(ln.startswith("peak device memory: allocated") for ln in bench_lines)
+
+    # ---- 9. the CLI (main_node_torch.py), in-process on the card ----
+    t0 = time.time()
+    cli = main_node_torch.main(CLI_ARGS + ["--device", "0"])
+    final_test = cli.logger.results[0][-1][2]
+    stats = cli.logger.statistics()
+    log(f"[9 cli] {' '.join(CLI_ARGS)}: test acc by epoch "
+        f"{[round(r[2], 4) for r in cli.logger.results[0]]}; statistics {stats} in "
+        f"{time.time() - t0:.1f}s")
+    assert stats and final_test >= 0.9, (final_test, stats)
 
     out = []
     for name in ops.KERNELS:

@@ -431,6 +431,57 @@ def test_gat_backward_dx_rows_and_row_lists(dev, C):
             assert torch.equal(dx[:dx_rows], full[0][:dx_rows]), (label, dx_rows)
 
 
+# A cell of value 0 is padding to the kernels of rows 1-4: they skip it, where
+# the plain versions (and the JAX package) multiply it.  The two differ only
+# where a non-finite row of the gathered table (x; g_agg in the backward) is
+# read through zero cells alone: the kernel then gives what the plain version
+# gives on the ELL without those cells, the plain version NaN.  No sampler
+# emits a real edge of value 0 (ROADMAP.md queue 3), so this is the accepted
+# reading.
+@cuda
+@pytest.mark.parametrize("kernel", ["ell_aggregate", "gat_aggregate", "gat_backward"])
+def test_zero_cells_are_padding(dev, kernel):
+    R, C, nan_row = 900, 128, 7
+    rng = np.random.RandomState(21)
+    row = np.sort(rng.randint(0, R, 10 * R))
+    col = rng.randint(0, R, row.shape[0])
+    col[col == nan_row] = nan_row + 1  # no real cell reads nan_row
+    val = rng.randn(row.shape[0]).astype(np.float32)
+    zero = rng.choice(row.shape[0], 40, replace=False)
+    col[zero], val[zero] = nan_row, 0.0  # zero cells do
+    keep = val != 0
+    table = rng.randn(R, C).astype(np.float32)
+    table[nan_row] = np.nan
+    x, g = (rng.randn(R, C).astype(np.float32) for _ in range(2))
+    g_rs, al, ar = ((rng.randn(R) * 0.7).astype(np.float32) for _ in range(3))
+
+    def args(sel):
+        ell = build_ell_host(row[sel], col[sel], val[sel], R, 8)
+        if kernel == "gat_backward":
+            ins = (x, *ell, table, g_rs, al, ar)
+        elif kernel == "gat_aggregate":
+            ins = (table, *ell, al, ar)
+        else:
+            ins = (table, *ell)
+        return [torch.as_tensor(a).to(dev) for a in ins] + [R]
+
+    fn, plain = {"ell_aggregate": (ell_aggregate, ell_aggregate_plain),
+                 "gat_aggregate": (gat_aggregate, gat_aggregate_plain),
+                 "gat_backward": (gat_backward, gat_backward_plain)}[kernel]
+    with_zeros = args(slice(None))
+    out, ref_nan, ref = fn(*with_zeros), plain(*with_zeros), plain(*args(keep))
+    torch.cuda.synchronize()
+    if kernel == "ell_aggregate":
+        out, ref_nan, ref = (out,), (ref_nan,), (ref,)
+    for o, rn, r in zip(out, ref_nan, ref):
+        if r is None:
+            assert o is None and rn is None
+            continue
+        assert torch.isfinite(o).all()
+        _close_to_ref(o, r)
+    assert any(rn is not None and not torch.isfinite(rn).all() for rn in ref_nan)
+
+
 @cuda
 def test_gat_wrappers_refuse_bad_input(dev):
     er, ec, ev, x = _ell_case(50, 300, 8, 16, 8)

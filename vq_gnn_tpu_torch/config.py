@@ -127,30 +127,34 @@ def num_branches(channels: int, num_D: int) -> int:
     return channels // num_D
 
 
-def not_ported(what: str) -> NotImplementedError:
-    """The error every unported option raises (see ROADMAP.md, queue 1)."""
+def not_ported(what: str, where: str = "") -> NotImplementedError:
+    """The error every unported option raises; ``where`` names its item in
+    ROADMAP.md's queues (e.g. 'queue 1 item 8')."""
     return NotImplementedError(
         f"{what} is not ported to vq_gnn_tpu_torch yet; see ROADMAP.md"
+        + (f" {where}" if where else "")
     )
 
 
 def check_ported(cfg: Config) -> None:
     """Raise for any setting whose port has not landed, so that no option is
     silently ignored (ROADMAP.md lists what is still to come)."""
-    for what, unported in (
-        ("transformer_flag", cfg.transformer_flag),
-        ("exact_minibatch (B + M)", cfg.formulation == "bm" and cfg.exact_minibatch),
-        ("dropbranch", cfg.dropbranch > 0),
-        ("alpha_dropout_flag", cfg.alpha_dropout_flag and cfg.dropout > 0),
-        ("kmeans_init", cfg.kmeans_init),
-        (f"spmm_backend={cfg.spmm_backend!r}", cfg.spmm_backend != "ell"),
-        ("mixed-K ELL (ell_Kt > 0)", cfg.ell_Kt > 0),
-        (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype != "float32"),
-        ("vq_backend='scan'", cfg.vq_backend == "scan"),
-        ("multi-GPU (mesh_data, fixed pad sizes)", cfg.mesh_data > 1 or cfg.fixed_B_pad > 0),
+    for what, unported, where in (
+        ("transformer_flag", cfg.transformer_flag, "queue 1 item 4"),
+        ("exact_minibatch (B + M)", cfg.formulation == "bm" and cfg.exact_minibatch,
+         "queue 1 item 3"),
+        ("dropbranch", cfg.dropbranch > 0, "queue 1 item 4"),
+        ("alpha_dropout_flag", cfg.alpha_dropout_flag and cfg.dropout > 0, "queue 1 item 4"),
+        ("kmeans_init", cfg.kmeans_init, "queue 1 item 6"),
+        (f"spmm_backend={cfg.spmm_backend!r}", cfg.spmm_backend != "ell", "queue 1 item 4"),
+        ("mixed-K ELL (ell_Kt > 0)", cfg.ell_Kt > 0, "queue 1 item 5"),
+        (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype != "float32", "queue 2a"),
+        ("vq_backend='scan'", cfg.vq_backend == "scan", "(the step's glue)"),
+        ("multi-GPU (mesh_data, fixed pad sizes)", cfg.mesh_data > 1 or cfg.fixed_B_pad > 0,
+         "queue 1 item 7"),
     ):
         if unported:
-            raise not_ported(what)
+            raise not_ported(what, where)
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:

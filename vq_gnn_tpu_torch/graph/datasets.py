@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 
-from vq_gnn_tpu_torch.config import Config, check_ported
+from vq_gnn_tpu_torch.config import Config, check_ported, not_ported
 from vq_gnn_tpu_torch.graph.partition import (
     cluster_indices_from_ptr,
     partition_graph,
@@ -135,8 +135,20 @@ def prepare(
     return graph, num_classes, cluster_indices
 
 
+INDUCTIVE_DATASETS = {"ppi", "cluster"}
+
+
+def is_inductive(cfg: Config) -> bool:
+    return cfg.dataset in INDUCTIVE_DATASETS or cfg.dataset.startswith(
+        "synthetic_inductive"
+    )
+
+
 def get_data(cfg: Config) -> Tuple[HostGraph, int, Optional[list]]:
-    """Dataset dispatch: npz archives under data_root, else synthetic."""
+    """Dataset dispatch: npz archives under data_root, else synthetic.
+    Inductive datasets (train, val and test graphs apart) raise."""
+    if is_inductive(cfg):
+        raise not_ported(f"inductive dataset {cfg.dataset!r}", "queue 1 item 6")
     if cfg.dataset.startswith("synthetic"):
         parts = cfg.dataset.split(":")
         n = int(parts[1]) if len(parts) > 1 else 2000

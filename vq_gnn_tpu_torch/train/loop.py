@@ -2,12 +2,14 @@
 ``vq_gnn_tpu/train/loop.py``, transductive path).
 
 Layerwise codebook init sweep over the test loader, per-epoch training with
-the warm-up rate and the linear lr ramp, stochastic batched evaluation.
+the warm-up rate and the linear lr ramp, stochastic batched evaluation, and
+``fit``: the whole run, logged per epoch.
 """
 
 from __future__ import annotations
 
-from typing import Union
+import time
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -23,6 +25,7 @@ from vq_gnn_tpu_torch.nn.model import ModelStatic, model_static
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
 from vq_gnn_tpu_torch.train.step import make_step_fns
+from vq_gnn_tpu_torch.utils.logger import Logger
 
 
 def accuracy(logits: np.ndarray, y: np.ndarray, mask=None) -> float:
@@ -89,6 +92,7 @@ class NodeTrainer:
         )
         # dropout masks are drawn on the device, from their own stream
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
+        self.logger = Logger(cfg.runs, cfg)
         self._test_batches = None  # the eval loader is deterministic: built once
 
     def test_batches(self):
@@ -162,3 +166,41 @@ class NodeTrainer:
             accuracy(outs, g.y, g.val_mask),
             accuracy(outs, g.y, g.test_mask),
         )
+
+    # ---- full run (main_node.py v2:233-308) ----
+    def fit(
+        self,
+        run: int = 0,
+        verbose: bool = True,
+        ckpt_dir: Optional[str] = None,
+        ckpt_every: int = 50,
+        resume: bool = False,
+        vq_diagnostics: bool = False,
+    ):
+        """The init sweep, then per epoch ``train_epoch``, ``evaluate`` and
+        ``logger.add_result``; returns ``logger.statistics(run)``.
+        Checkpoints and the per-epoch VQ health lines are not ported and
+        raise (``kmeans_init`` is refused when the trainer is built)."""
+        if ckpt_dir or resume:
+            raise not_ported("checkpoints (ckpt_dir, resume)", "queue 1 item 8")
+        if vq_diagnostics:
+            raise not_ported("vq_diagnostics (utils/diagnostics.codebook_stats)",
+                             "queue 1 items 3 and 8")
+        cfg = self.cfg
+        self.run_init_sweep(verbose=verbose)
+        if verbose:
+            print("init done")
+        for epoch in range(1, cfg.epochs + 1):
+            t0 = time.time()
+            loss, loss_cls = self.train_epoch(epoch)
+            result = self.evaluate()
+            self.logger.add_result(run, result)
+            if verbose and epoch % cfg.log_steps == 0:
+                tr, va, te = result
+                print(
+                    f"Run: {run + 1}, Epoch: {epoch}, Loss: {loss:.4f}, "
+                    f"Loss Cls: {loss_cls:.4f}, Train: {100 * tr:.2f}%, "
+                    f"Valid: {100 * va:.2f}%, Test: {100 * te:.2f}% "
+                    f"[{time.time() - t0:.1f}s]"
+                )
+        return self.logger.statistics(run)
