@@ -17,6 +17,7 @@ over 3 steps taken after the timed ones, and the forward-only eval time.
 There is no ``vs_baseline``: ``bench_anchor.json`` holds a TPU figure.
 
     python3 bench_torch.py
+    VQ_GNN_BENCH_CONV=GAT python3 bench_torch.py  # bf16 compute, as bench.py
     VQ_GNN_BENCH_FORM=bm VQ_GNN_BENCH_CONV=GAT VQ_GNN_BENCH_K=2 \\
         VQ_GNN_BENCH_DTYPE=float32 python3 bench_torch.py
     python3 bench_torch.py --sweep [--reps 2] [--out bench_sweep_torch.json]
@@ -126,8 +127,7 @@ def bench_config(env):
         matmul_precision="default",
         vq_backend=env.get("VQ_GNN_BENCH_VQ_BACKEND", "pallas_fast"),
         spmm_backend=env.get("VQ_GNN_BENCH_SPMM", "ell"),
-        # GAT streams bf16 by default, as bench.py:68 has it; the port refuses
-        # bf16 compute until its kernels' bf16 modes land (ROADMAP.md queue 2a)
+        # GAT streams bf16 by default, as bench.py:68 has it
         compute_dtype=env.get("VQ_GNN_BENCH_DTYPE", "bfloat16" if conv == "GAT" else "float32"),
         ell_K=int(env.get("VQ_GNN_BENCH_K", "8")),
         ell_Kt=int(env.get("VQ_GNN_BENCH_KT", "0")),

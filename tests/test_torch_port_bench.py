@@ -217,13 +217,35 @@ def test_bench_refuses_to_run_without_a_gpu(bench_env, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("form", ["bbprime", "bm"])
 def test_gat_default_dtype_raises(bench_env, monkeypatch, tmp_path, form):
-    """bench.py runs GAT in bf16 by default; the port refuses bf16 compute by
-    name and does not fall back to f32."""
+    """bench.py runs GAT in bf16 by default, and so does the port's bench: its
+    config says bfloat16 and it gets past the dtype to the device, where it
+    raises without a GPU as every cell does.  A dtype the port lacks
+    (float16) raises by name; nothing falls back to f32."""
     _small_profile(monkeypatch, tmp_path)
     monkeypatch.setenv("VQ_GNN_BENCH_CONV", "GAT")
     monkeypatch.setenv("VQ_GNN_BENCH_FORM", form)
-    with pytest.raises(NotImplementedError, match="compute_dtype='bfloat16'"):
+    assert bench_torch.bench_config(os.environ).compute_dtype == "bfloat16"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_torch.main([])
+    monkeypatch.setenv("VQ_GNN_BENCH_DTYPE", "float16")
+    with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
         bench_torch.main([])
+
+
+def test_bench_runs_the_gat_bf16_cell(bench_env, monkeypatch, tmp_path, capsys):
+    """The sweep's "GAT bbprime cluster bf16 (default dtype)" cell on a small
+    graph, with the CPU standing in for the card: bf16 compute, finite steps
+    and one record."""
+    _small_profile(monkeypatch, tmp_path)
+    monkeypatch.setattr(bench_torch, "resolve_device", lambda _: torch.device("cpu"))
+    monkeypatch.setattr(bench_torch, "gpu_line", lambda: "no card: the CPU stands in")
+    monkeypatch.setenv("VQ_GNN_BENCH_CONV", "GAT")
+    assert bench_torch.main([]) == 0
+    out, err = capsys.readouterr()
+    rec = json.loads(out.splitlines()[-1])
+    assert np.isfinite(rec["value"]) and rec["value"] > 0
+    assert "compute_dtype='bfloat16'" in err
 
 
 def _write_real(path, num_nodes, seed):
@@ -275,12 +297,13 @@ def test_real_data_wins_over_the_caches(monkeypatch, tmp_path):
 
 def test_sweep_records_a_failing_cell(monkeypatch, tmp_path):
     """A sweep cell runs as its own process; one that raises is recorded with
-    its error line, not dropped (the bf16 GAT cell fails before it needs a
-    GPU or a graph)."""
+    its error line, not dropped (a GAT cell at float16, which the port lacks,
+    fails before it needs a GPU or a graph)."""
     monkeypatch.setenv("VQ_GNN_BENCH_CACHE", str(tmp_path / "sbm.npz"))
-    rec = bench_torch.run_cell({"VQ_GNN_BENCH_CONV": "GAT"}, timeout=300)
+    rec = bench_torch.run_cell({"VQ_GNN_BENCH_CONV": "GAT", "VQ_GNN_BENCH_DTYPE": "float16"},
+                               timeout=300)
     assert rec["returncode"] != 0
-    assert rec["error"].startswith("NotImplementedError: compute_dtype='bfloat16'"), rec
+    assert rec["error"].startswith("NotImplementedError: compute_dtype='float16'"), rec
     tb = "Traceback (most recent call last):\n  File \"x\", line 1\nValueError: bad\n  note\n"
     assert bench_torch.error_line(tb) == "ValueError: bad"
     assert bench_torch.error_line("killed\n") == "killed"

@@ -146,7 +146,7 @@ def test_entry_points_default_to_cuda():
     "kw",
     [dict(conv_type="GAT", ell_Kt=4), dict(formulation="bm", exact_minibatch=True), dict(ell_Kt=4),
      dict(spmm_backend="coo"), dict(transformer_flag=True, formulation="bm"), dict(dropbranch=0.5),
-     dict(kmeans_init=True), dict(compute_dtype="bfloat16"), dict(vq_backend="scan")],
+     dict(kmeans_init=True), dict(compute_dtype="float16"), dict(vq_backend="scan")],
 )
 def test_unported_options_raise(kw):
     from vq_gnn_tpu_torch.train.loop import NodeTrainer

@@ -23,6 +23,7 @@ from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.ops.ell_aggregate import (
     LONG_SLOTS,
     PANEL_MAX,
+    PANEL_MAX_BF16,
     ell_aggregate,
     panel_width,
     row_offsets_plain,
@@ -120,6 +121,20 @@ def test_panel_width(C):
     assert not wider
     if C <= PANEL_MAX:
         assert Cp == C
+
+
+@pytest.mark.parametrize("C", [128, 256, 40, 36, 7, 200, 520, 1000])
+def test_panel_width_bf16(C):
+    """The bf16-row mode's panels: a multiple of 8 when C is (8 bf16 values
+    a 16-byte lane load), none wider than PANEL_MAX_BF16, the widest such,
+    and one panel up to 256 channels (C = 128 and the GAT hidden 256)."""
+    Cp = panel_width(C, torch.bfloat16)
+    unit = 8 if C % 8 == 0 else 1
+    assert Cp % unit == 0 and 0 < Cp <= min(C, PANEL_MAX_BF16) and C % Cp == 0
+    assert not [w for w in range(Cp + unit, min(C, PANEL_MAX_BF16) + 1, unit) if C % w == 0]
+    if C <= PANEL_MAX_BF16:
+        assert Cp == C
+    assert panel_width(C) == panel_width(C, torch.float32)  # f32 keeps its panels
 
 
 def _row_offsets_cases():

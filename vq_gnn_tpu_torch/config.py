@@ -8,6 +8,8 @@ additions are the port's own:
   for the CPU; with no GPU and no explicit CPU request they raise.
 - ``apply_matmul_precision``: ``matmul_precision`` maps onto PyTorch's TF32
   switches ('highest' = exact f32, 'default' = TF32 allowed).
+- ``torch_dtype``: the ``torch.dtype`` of ``compute_dtype`` ('float32' or
+  'bfloat16', the two the port computes in).
 
 ``vq_backend`` keeps the JAX package's values: 'pallas'/'pallas_fast' select
 the hand-written CUDA kernels (exact / bf16-operand mode), 'xla'/'xla_fast'
@@ -18,11 +20,13 @@ the plain PyTorch path, and 'auto' resolves to 'pallas_fast' on CUDA and
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 VQ_BACKENDS = ("auto", "xla", "xla_fast", "scan", "pallas", "pallas_fast")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,13 +152,26 @@ def check_ported(cfg: Config) -> None:
         ("kmeans_init", cfg.kmeans_init, "queue 1 item 6"),
         (f"spmm_backend={cfg.spmm_backend!r}", cfg.spmm_backend != "ell", "queue 1 item 4"),
         ("mixed-K ELL (ell_Kt > 0)", cfg.ell_Kt > 0, "queue 1 item 5"),
-        (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype != "float32", "queue 2a"),
+        (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype not in COMPUTE_DTYPES,
+         "queue 2a"),
+        # the B + M recovery kernels (non-GCN) fold in f32; the JAX package's
+        # bf16 fold (vq_gnn_tpu/ops/pallas_rev.py:56-58) is still to port
+        ("VQ_GNN_REV_FOLD=fast", cfg.formulation == "bm" and cfg.conv_type != "GCN"
+         and os.environ.get("VQ_GNN_REV_FOLD", "x2") == "fast", "queue 2a"),
         ("vq_backend='scan'", cfg.vq_backend == "scan", "(the step's glue)"),
         ("multi-GPU (mesh_data, fixed pad sizes)", cfg.mesh_data > 1 or cfg.fixed_B_pad > 0,
          "queue 1 item 7"),
     ):
         if unported:
             raise not_ported(what, where)
+
+
+def torch_dtype(compute_dtype: str) -> torch.dtype:
+    """The ``torch.dtype`` of a ``Config.compute_dtype``; any other than
+    'float32' and 'bfloat16' raises by name."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise not_ported(f"compute_dtype={compute_dtype!r}", "queue 2a")
+    return COMPUTE_DTYPES[compute_dtype]
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:

@@ -3,6 +3,10 @@
 //   out[r, :] = sum over slots s of row r, sum over k < K of
 //               val[s, k] * x[clip(col[s, k]), :]            (f32 accumulation)
 //
+// x is f32, or bf16 under compute_dtype='bfloat16' (the TPU kernel's bf16
+// nbrs_flat): its values are widened to f32 in registers, so the sums and
+// out stay f32 in both modes.
+//
 // Replaces the TPU kernel vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel
 // (gat=False), reached through _ell_fused_impl / ell_aggregate_fused, together
 // with the neighbour gather XLA ran in front of it (vq_gnn_tpu/ops/spmm.py:186).
@@ -19,10 +23,12 @@
 //
 // Design:
 // - a group of G lanes per row, one vector of VEC channels per lane (G = 32
-//   and float4 at C = 128; 8 or 16 lanes for a narrower x), rows in index
+//   and float4 at C = 128; 8 or 16 lanes for a narrower x; bf16 rows take 8
+//   channels, 16 bytes, a lane: 16 lanes at C = 128), rows in index
 //   order, so neighbouring rows, which share neighbours, gather together;
 // - each group loads a window of G cells, takes the live ones (val != 0)
-//   from a ballot and gathers kLoads of them per lane before the first FMA
+//   from a ballot and gathers kLoads of them per lane (kLoadsBf16 of bf16
+//   rows) before the first FMA
 //   waits (predicated loads in volatile asm, so the compiler neither sinks
 //   them into a branch nor merges them with their use); slot padding and
 //   zero cells cost no load, and the row ends at its last live cell.  The
@@ -48,8 +54,8 @@
 //   fall outside every range and are dropped; rows without a slot give 0;
 // - padding columns equal the row count of x, one past its end: they clamp
 //   to the last row like JAX's mode="clip", so nothing is read out of bounds.
-//   float4 lanes need C % 4 == 0 and 16-byte aligned x and out; otherwise a
-//   lane covers one channel (VEC = 1).
+//   float4 lanes need C % 4 == 0 and 16-byte aligned x and out, bf16 lanes of
+//   8 C % 8 == 0; otherwise a lane covers one channel (VEC = 1).
 
 #include "ell_common.cuh"
 
@@ -58,9 +64,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 4;  // blocks per SM the register budget allows
 constexpr int kLoads = 8;      // gathers in flight per lane
+// with bf16 rows: a 16-byte gather holds 8 values, and 8 in flight spilled
+// at the 64-register budget; 4 were faster than 8 and 6 at C = 128
+constexpr int kLoadsBf16 = 4;
 
 struct Args {
-  const float* x;
+  const void* x;  // float or bf16_t
   int64_t x_rows;
   int C, Cp;  // channels, channels per panel
   const int *ptr, *col;
@@ -77,11 +86,13 @@ struct Args {
 };
 
 // Row r over channels [p0, p1) by a group of G lanes (the group's first lane
-// is gbase in the warp), each lane VEC channels of every G * VEC.
-template <int VEC, int G>
+// is gbase in the warp), each lane VEC channels of every G * VEC; x holds E.
+template <typename E, int VEC, int G>
 __device__ __forceinline__ void row_sum(const Args& a, int64_t r, int p0, int p1, int gl,
                                         int gbase) {
-  using V = Vec<VEC>;
+  using V = Row<E, VEC>;
+  constexpr int L = sizeof(E) == 2 ? kLoadsBf16 : kLoads;  // gathers in flight per lane
+  const E* x = static_cast<const E*>(a.x);
   constexpr unsigned gbits = 0xffffffffu >> (32 - G);
   const unsigned gmask = gbits << gbase;
   const int64_t c0 = slot_at(a.ptr, r, a.S) * a.K;  // cell range of this row
@@ -111,21 +122,21 @@ __device__ __forceinline__ void row_sum(const Args& a, int64_t r, int p0, int p1
       unsigned live = (__ballot_sync(gmask, my_val != 0.f) >> gbase) & gbits;
       while (live) {
         const int n = __popc(live);
-        float v[kLoads];
-        typename V::T t[kLoads];
+        float v[L];
+        typename V::R t[L];
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
+        for (int u = 0; u < L; ++u) {
           const int j = (__ffs(live) - 1) & (G - 1);
           live &= live - 1;
           const float vu = __shfl_sync(gmask, my_val, j, G);
           v[u] = u < n ? vu : 0.f;
           const int cc = min(max(__shfl_sync(gmask, my_col, j, G), 0), last);
-          t[u] = V::zero();
-          gather(t[u], a.x + (int64_t)cc * a.C + c, u < n && on);
+          t[u] = V::rzero();
+          gather(t[u], x + (int64_t)cc * a.C + c, u < n && on);
         }
         // past the n live cells v = t = 0: adding 0 * 0 changes no bit
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) V::fma(acc, v[u], t[u]);
+        for (int u = 0; u < L; ++u) V::fma(acc, v[u], t[u]);
       }
     }
     if (on) store_streaming(a.out + r * (int64_t)a.C + c, acc);
@@ -135,7 +146,7 @@ __device__ __forceinline__ void row_sum(const Args& a, int64_t r, int p0, int p1
 // Blocks [0, long_blocks): a warp per long row, in the list's order.  The
 // rest: a group of G lanes per row, in index order, skipping the long rows.
 // blockIdx.y: the channel panel.
-template <int VEC, int G>
+template <typename E, int VEC, int G>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) ell_aggregate_kernel(const Args a) {
   const int p0 = blockIdx.y * a.Cp;
   const int p1 = min(a.C, p0 + a.Cp);
@@ -143,34 +154,34 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ell_aggregate_kernel(con
     const int64_t h = blockIdx.x * (int64_t)(kThreads / 32) + threadIdx.x / 32;
     if (h >= a.n_long) return;
     const int r = __ldg(a.long_rows + 1 + h);
-    if (r >= 0 && r < a.num_rows) row_sum<VEC, 32>(a, r, p0, p1, threadIdx.x & 31, 0);
+    if (r >= 0 && r < a.num_rows) row_sum<E, VEC, 32>(a, r, p0, p1, threadIdx.x & 31, 0);
     return;
   }
   const int64_t r = ((blockIdx.x - a.long_blocks) * (int64_t)kThreads + threadIdx.x) / G;
   if (r >= a.num_rows) return;  // the row's whole group leaves together
   // a long row: the list's warp sums it, by the list's own threshold
   if (a.long_rows && __ldg(a.ptr + r + 1) - __ldg(a.ptr + r) > __ldg(a.long_rows)) return;
-  row_sum<VEC, G>(a, r, p0, p1, threadIdx.x & (G - 1), threadIdx.x & 31 & ~(G - 1));
+  row_sum<E, VEC, G>(a, r, p0, p1, threadIdx.x & (G - 1), threadIdx.x & 31 & ~(G - 1));
 }
 
-template <int VEC, int G>
+template <typename E, int VEC, int G>
 void launch(Args a, cudaStream_t st) {
   a.long_blocks = (unsigned)((a.n_long + kThreads / 32 - 1) / (kThreads / 32));
   const dim3 grid(a.long_blocks + (unsigned)((a.num_rows * G + kThreads - 1) / kThreads),
                   (unsigned)((a.C + a.Cp - 1) / a.Cp));
-  ell_aggregate_kernel<VEC, G><<<grid, kThreads, 0, st>>>(a);
+  ell_aggregate_kernel<E, VEC, G><<<grid, kThreads, 0, st>>>(a);
 }
 
 // G: the lanes one vector per lane needs for a panel (8, 16 or 32).
-template <int VEC>
+template <typename E, int VEC>
 void launch_lanes(const Args& a, cudaStream_t st) {
   const int vecs = (a.Cp + VEC - 1) / VEC;
   if (vecs <= 8) {
-    launch<VEC, 8>(a, st);
+    launch<E, VEC, 8>(a, st);
   } else if (vecs <= 16) {
-    launch<VEC, 16>(a, st);
+    launch<E, VEC, 16>(a, st);
   } else {
-    launch<VEC, 32>(a, st);
+    launch<E, VEC, 32>(a, st);
   }
 }
 
@@ -180,9 +191,9 @@ void launch_lanes(const Args& a, cudaStream_t st) {
 // set, else read as given (clamped to [0, S]).  long_rows: [1 + n_long], a
 // threshold t >= 0, then exactly the rows of more than t slots, in the order
 // their warps start; null for none.  Cp: channels per panel (> 0; a multiple
-// of 4 for the float4 lanes; a row group walks panels wider than 32 vectors
-// in chunks).
-extern "C" int vq_ell_aggregate(const float* x, int64_t x_rows, int C, int Cp,
+// of 4 for the float4 lanes, of 8 for the bf16 lanes; a row group walks
+// panels wider than 32 vectors in chunks).  x_bf16: x holds bfloat16 values.
+extern "C" int vq_ell_aggregate(const void* x, int x_bf16, int64_t x_rows, int C, int Cp,
                                 const int* ell_row, const int* ell_col, const float* ell_val,
                                 int64_t S, int K, int64_t num_rows, int* ptr, int build_ptr,
                                 const int* long_rows, int64_t n_long, float* out,
@@ -193,10 +204,16 @@ extern "C" int vq_ell_aggregate(const float* x, int64_t x_rows, int C, int Cp,
   if (build_ptr) launch_row_offsets(ell_row, S, num_rows, ptr, st);
   Args a{x, x_rows, C, Cp, ptr, ell_col, ell_val, S, K, num_rows, long_rows,
          long_rows ? n_long : 0, 0u, out};
-  if (C % 4 == 0 && Cp % 4 == 0 && aligned16(x) && aligned16(out)) {
-    launch_lanes<4>(a, st);
+  if (x_bf16) {
+    if (C % 8 == 0 && Cp % 8 == 0 && aligned16(x) && aligned16(out)) {
+      launch_lanes<bf16_t, 8>(a, st);
+    } else {
+      launch_lanes<bf16_t, 1>(a, st);
+    }
+  } else if (C % 4 == 0 && Cp % 4 == 0 && aligned16(x) && aligned16(out)) {
+    launch_lanes<float, 4>(a, st);
   } else {
-    launch_lanes<1>(a, st);
+    launch_lanes<float, 1>(a, st);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Pieces shared by the slot-ELL kernels (ell_aggregate.cu, gat_aggregate.cu,
 // gat_backward.cu): row offsets from the sorted slot rows, per-lane vectors
-// of 1 or 4 floats, and the predicated gathers and streaming stores of the
+// of 1 or 4 floats (or 1 or 8 bfloat16 values, widened to f32), and the
+// predicated gathers and streaming stores of the
 // kernels that keep several row gathers in flight per lane.  Each kernel source compiles on its own into its
 // own library; this header is part of every one of them.
 #pragma once
@@ -102,6 +103,101 @@ __device__ __forceinline__ void store_streaming(float* p, float4 t) {
   __stcs(reinterpret_cast<float4*>(p), t);
 }
 __device__ __forceinline__ void store_streaming(float* p, float t) { __stcs(p, t); }
+
+// ---- bf16 rows (compute_dtype='bfloat16'): kernels 1, 4 and 5 gather rows
+// of bfloat16 values and sum them in f32.  A value travels as its 16 bits
+// and becomes an f32 in registers by a shift, which is exact; accumulators
+// and outputs stay f32.
+
+typedef unsigned short bf16_t;  // the bits of one bfloat16 value
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_t v) { return __uint_as_float((unsigned)v << 16); }
+// the two bfloat16 values of a 32-bit word: the lower address in the low half
+__device__ __forceinline__ float widen_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float widen_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// eight f32 values: a lane's share of a bf16 row taken 16 bytes at a time
+struct float8 {
+  float4 lo, hi;
+};
+
+// Row<E, VEC>: a lane's VEC values of a row of E, as gathered (R) and as the
+// f32 values they stand for (T, also the type of their accumulators).  For
+// f32 rows both are Vec<VEC>'s; for bf16 rows R is the raw bits: 8 values in
+// one 16-byte load, or 1 where C is not a multiple of 8.
+template <typename E, int VEC>
+struct Row;
+
+template <int VEC>
+struct Row<float, VEC> : Vec<VEC> {
+  using R = typename Vec<VEC>::T;
+  __device__ static R rzero() { return Vec<VEC>::zero(); }
+};
+
+template <>
+struct Row<bf16_t, 8> {
+  using T = float8;
+  using R = uint4;
+  __device__ static T zero() { return {Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ static R rzero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ static T wide(const R& t) {
+    return {make_float4(widen_lo(t.x), widen_hi(t.x), widen_lo(t.y), widen_hi(t.y)),
+            make_float4(widen_lo(t.z), widen_hi(t.z), widen_lo(t.w), widen_hi(t.w))};
+  }
+  // read-only global memory read once: L2 evicts it first
+  __device__ static T load_once(const bf16_t* p) {
+    return wide(__ldcs(reinterpret_cast<const uint4*>(p)));
+  }
+  // f32 memory the kernel also writes (its own output row)
+  __device__ static T ld(const float* p) { return {Vec<4>::ld(p), Vec<4>::ld(p + 4)}; }
+  __device__ static void fma(T& acc, float v, const R& t) {
+    const T w = wide(t);
+    Vec<4>::fma(acc.lo, v, w.lo);
+    Vec<4>::fma(acc.hi, v, w.hi);
+  }
+  __device__ static float dot(const R& t, const T& x) {
+    const T w = wide(t);
+    return Vec<4>::dot(w.lo, x.lo) + Vec<4>::dot(w.hi, x.hi);
+  }
+  __device__ static void store(float* p, const T& t) {
+    Vec<4>::store(p, t.lo);
+    Vec<4>::store(p + 4, t.hi);
+  }
+};
+
+template <>
+struct Row<bf16_t, 1> {
+  using T = float;
+  using R = bf16_t;
+  __device__ static T zero() { return 0.f; }
+  __device__ static R rzero() { return 0; }
+  __device__ static T load_once(const bf16_t* p) { return widen(__ldcs(p)); }
+  __device__ static T ld(const float* p) { return *p; }
+  __device__ static void fma(T& acc, float v, R t) { acc += v * widen(t); }
+  __device__ static float dot(R t, T x) { return widen(t) * x; }
+  __device__ static void store(float* p, T t) { *p = t; }
+};
+
+// predicated gathers of bf16 rows, as gather() above: 8 values, or 1
+__device__ __forceinline__ void gather(uint4& t, const bf16_t* p, bool on) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %5, 0;\n"
+      " @q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "+r"(t.x), "+r"(t.y), "+r"(t.z), "+r"(t.w)
+      : "l"(p), "r"((int)on));
+}
+__device__ __forceinline__ void gather(bf16_t& t, const bf16_t* p, bool on) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q ld.global.nc.u16 %0, [%1];\n}\n"
+      : "+h"(t)
+      : "l"(p), "r"((int)on));
+}
+
+__device__ __forceinline__ void store_streaming(float* p, const float8& t) {
+  store_streaming(p, t.lo);
+  store_streaming(p + 4, t.hi);
+}
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

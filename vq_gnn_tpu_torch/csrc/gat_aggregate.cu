@@ -7,6 +7,10 @@
 //   aggn[r,:], rsn[r] = the same two sums over the cells with a <= 0
 //                       (WITH_NEG: the backward's closed form for d_ar needs them)
 //
+// x is f32, or bf16 under compute_dtype='bfloat16' (the TPU kernel's bf16
+// nbrs_flat): its values are widened to f32 in registers; al, ar, the sums
+// and the outputs are f32 in both modes.
+//
 // Replaces the TPU kernel vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel
 // (gat=True), reached through gat_aggregate_fused, together with the
 // neighbour gather XLA ran in front of it (vq_gnn_tpu/ops/gat.py:377-383).
@@ -37,7 +41,8 @@
 //   barrier);
 // - each group loads a window of G cells, takes the live ones (val != 0)
 //   from a ballot and gathers their x rows in batches, kLoads cells a batch
-//   (kLoads2 at C = 256, where a lane gathers two vectors a cell), with the
+//   (kLoads2 at C = 256, where a lane gathers two vectors a cell; kLoadsBf16
+//   with one vector of bf16 values), with the
 //   predicated loads of ell_common.cuh.  The predicate is the cell's value,
 //   never its weight: each lane loads al[col] of its own cell of the window
 //   beside the first batch's gathers and forms ev, and its a <= 0 bit, while
@@ -64,7 +69,9 @@
 //   to [0, S].  Slots of rows >= num_rows (padding) fall outside every range;
 //   rows without a slot give 0; padding columns clamp to the last row of x
 //   like JAX's mode="clip".  float4 lanes need C % 4 == 0 and 16-byte
-//   aligned x, agg and aggn; otherwise a lane covers one channel.
+//   aligned x, agg and aggn (bf16 lanes of 8 channels, 16 bytes, C % 8 ==
+//   0: 16 lanes a row at C = 128, a warp at 256); otherwise a lane covers
+//   one channel.
 
 #include "ell_common.cuh"
 
@@ -74,9 +81,12 @@ constexpr float kNegSlope = 0.2f;  // PyG GATConv default
 constexpr int kThreads = 64;  // two warps a block
 constexpr int kLoads = 4;  // cells a batch with one vector a lane
 constexpr int kLoads2 = 2;  // cells a batch with two vectors a lane
+// bf16 rows, one vector (8 values) a lane: 2 cells a batch were faster than
+// 4 and 8 at C = 128, where 16 lanes take a row and 80 registers hold it
+constexpr int kLoadsBf16 = 2;
 
 struct Args {
-  const float* x;
+  const void* x;  // float or bf16_t
   int64_t x_rows;
   int C;
   const int *ptr, *col;
@@ -94,12 +104,14 @@ struct Args {
 
 // Row r by a group of G lanes (the group's first lane is gbase in the warp).
 // NV: the vectors of VEC channels a lane holds, every G * VEC channels;
-// WIDE: C is wider than that, walked in chunks.
-template <int VEC, int G, int NV, bool WIDE, bool WITH_NEG>
+// WIDE: C is wider than that, walked in chunks; x holds E.
+template <typename E, int VEC, int G, int NV, bool WIDE, bool WITH_NEG>
 __device__ __forceinline__ void row_aggregate(const Args& a, int64_t r, int gl, int gbase) {
-  using V = Vec<VEC>;
+  using V = Row<E, VEC>;
   using T = typename V::T;
-  constexpr int L = NV == 1 ? kLoads : kLoads2;  // cells a batch
+  using R = typename V::R;
+  const E* x = static_cast<const E*>(a.x);
+  constexpr int L = NV == 1 ? (sizeof(E) == 2 ? kLoadsBf16 : kLoads) : kLoads2;  // cells a batch
   constexpr unsigned gbits = 0xffffffffu >> (32 - G);
   constexpr int kStride = G * VEC;  // channels from one of a lane's vectors to the next
   const unsigned gmask = gbits << gbase;
@@ -157,16 +169,16 @@ __device__ __forceinline__ void row_aggregate(const Args& a, int64_t r, int gl, 
         src[u] = (__ffs(live) - 1) & (G - 1);
         live &= live - 1;
       }
-      T t[L][NV];
-      const float* xd[L];
+      R t[L][NV];
+      const E* xd[L];
 #pragma unroll
       for (int u = 0; u < L; ++u) {
-        xd[u] = a.x + (int64_t)__shfl_sync(gmask, my_c, src[u], G) * C;
+        xd[u] = x + (int64_t)__shfl_sync(gmask, my_c, src[u], G) * C;
         if constexpr (!WIDE) {
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             const int c = v * kStride + gl * VEC;
-            t[u][v] = V::zero();
+            t[u][v] = V::rzero();
             gather(t[u][v], xd[u] + c, u < n && c < C);
           }
         }
@@ -203,7 +215,7 @@ __device__ __forceinline__ void row_aggregate(const Args& a, int64_t r, int gl, 
             const int c = cb + v * kStride;
 #pragma unroll
             for (int u = 0; u < L; ++u) {
-              t[u][v] = V::zero();
+              t[u][v] = V::rzero();
               gather(t[u][v], xd[u] + c, u < n && c < C);
             }
           }
@@ -247,7 +259,7 @@ __device__ __forceinline__ void row_aggregate(const Args& a, int64_t r, int gl, 
 // The register budget: 16 blocks an SM (64 registers) with a warp a row and
 // the accumulators in registers, the shapes of C = 128 and 256; 12 (80) for
 // the narrow groups and the chunked walk, which spill at 64.
-template <int VEC, int G, int NV, bool WIDE, bool WITH_NEG>
+template <typename E, int VEC, int G, int NV, bool WIDE, bool WITH_NEG>
 __global__ void __launch_bounds__(kThreads, G == 32 && !WIDE ? 16 : 12)
     gat_aggregate_kernel(const Args a, unsigned long_blocks) {
   if (blockIdx.x < long_blocks) {
@@ -255,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, G == 32 && !WIDE ? 16 : 12)
     if (h >= a.n_long) return;
     const int r = __ldg(a.long_rows + 1 + h);
     if (r >= 0 && r < a.num_rows) {
-      row_aggregate<VEC, 32, NV, WIDE, WITH_NEG>(a, r, threadIdx.x & 31, 0);
+      row_aggregate<E, VEC, 32, NV, WIDE, WITH_NEG>(a, r, threadIdx.x & 31, 0);
     }
     return;
   }
@@ -263,37 +275,38 @@ __global__ void __launch_bounds__(kThreads, G == 32 && !WIDE ? 16 : 12)
   if (r >= a.num_rows) return;  // the row's whole group leaves together
   // a long row: the list's warp takes it, by the list's own threshold
   if (a.long_rows && __ldg(a.ptr + r + 1) - __ldg(a.ptr + r) > __ldg(a.long_rows)) return;
-  row_aggregate<VEC, G, NV, WIDE, WITH_NEG>(a, r, threadIdx.x & (G - 1),
-                                            threadIdx.x & 31 & ~(G - 1));
+  row_aggregate<E, VEC, G, NV, WIDE, WITH_NEG>(a, r, threadIdx.x & (G - 1),
+                                               threadIdx.x & 31 & ~(G - 1));
 }
 
-template <int VEC, int G, int NV, bool WIDE>
+template <typename E, int VEC, int G, int NV, bool WIDE>
 void launch(const Args& a, bool with_neg, cudaStream_t st) {
   const unsigned long_blocks = (unsigned)((a.n_long + kThreads / 32 - 1) / (kThreads / 32));
   const unsigned blocks = long_blocks + (unsigned)((a.num_rows * G + kThreads - 1) / kThreads);
   if (with_neg) {
-    gat_aggregate_kernel<VEC, G, NV, WIDE, true><<<blocks, kThreads, 0, st>>>(a, long_blocks);
+    gat_aggregate_kernel<E, VEC, G, NV, WIDE, true><<<blocks, kThreads, 0, st>>>(a, long_blocks);
   } else {
-    gat_aggregate_kernel<VEC, G, NV, WIDE, false><<<blocks, kThreads, 0, st>>>(a, long_blocks);
+    gat_aggregate_kernel<E, VEC, G, NV, WIDE, false><<<blocks, kThreads, 0, st>>>(a,
+                                                                                 long_blocks);
   }
 }
 
 // G and NV from the vectors of VEC channels a row has: 8 or 16 lanes for a
 // narrow x, a warp with one or two vectors a lane up to 64 vectors, and the
 // chunked walk of one vector a lane beyond.
-template <int VEC>
+template <typename E, int VEC>
 void launch_shape(const Args& a, bool with_neg, cudaStream_t st) {
   const int vecs = (a.C + VEC - 1) / VEC;
   if (vecs <= 8) {
-    launch<VEC, 8, 1, false>(a, with_neg, st);
+    launch<E, VEC, 8, 1, false>(a, with_neg, st);
   } else if (vecs <= 16) {
-    launch<VEC, 16, 1, false>(a, with_neg, st);
+    launch<E, VEC, 16, 1, false>(a, with_neg, st);
   } else if (vecs <= 32) {
-    launch<VEC, 32, 1, false>(a, with_neg, st);
+    launch<E, VEC, 32, 1, false>(a, with_neg, st);
   } else if (vecs <= 64) {
-    launch<VEC, 32, 2, false>(a, with_neg, st);
+    launch<E, VEC, 32, 2, false>(a, with_neg, st);
   } else {
-    launch<VEC, 32, 1, true>(a, with_neg, st);
+    launch<E, VEC, 32, 1, true>(a, with_neg, st);
   }
 }
 
@@ -303,8 +316,9 @@ void launch_shape(const Args& a, bool with_neg, cudaStream_t st) {
 // is set, else read as given (clamped to [0, S]).  long_rows: [1 + n_long],
 // a threshold t >= 0, then exactly the rows of more than t slots, in the
 // order their warps start; null for none.  aggn and rsn are written only
-// when with_neg != 0.
-extern "C" int vq_gat_aggregate(const float* x, int64_t x_rows, int C, const int* ell_row,
+// when with_neg != 0.  x_bf16: x holds bfloat16 values.
+extern "C" int vq_gat_aggregate(const void* x, int x_bf16, int64_t x_rows, int C,
+                                const int* ell_row,
                                 const int* ell_col, const float* ell_val, int64_t S, int K,
                                 const float* al, const float* ar, int64_t num_rows,
                                 int with_neg, int* ptr, int build_ptr, const int* long_rows,
@@ -316,10 +330,17 @@ extern "C" int vq_gat_aggregate(const float* x, int64_t x_rows, int C, const int
   if (build_ptr) launch_row_offsets(ell_row, S, num_rows, ptr, st);
   Args a{x, x_rows, C, ptr, ell_col, ell_val, S, K, al, ar, num_rows,
          long_rows, long_rows ? n_long : 0, agg, rowsum, aggn, rsn};
-  if (C % 4 == 0 && aligned16(x) && aligned16(agg) && (!with_neg || aligned16(aggn))) {
-    launch_shape<4>(a, with_neg != 0, st);
+  const bool out16 = aligned16(agg) && (!with_neg || aligned16(aggn));
+  if (x_bf16) {
+    if (C % 8 == 0 && aligned16(x) && out16) {
+      launch_shape<bf16_t, 8>(a, with_neg != 0, st);
+    } else {
+      launch_shape<bf16_t, 1>(a, with_neg != 0, st);
+    }
+  } else if (C % 4 == 0 && aligned16(x) && out16) {
+    launch_shape<float, 4>(a, with_neg != 0, st);
   } else {
-    launch_shape<1>(a, with_neg != 0, st);
+    launch_shape<float, 1>(a, with_neg != 0, st);
   }
   return (int)cudaGetLastError();
 }

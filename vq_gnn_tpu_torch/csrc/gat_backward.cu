@@ -8,6 +8,11 @@
 //   dx_agg[s, :] = sum over the cells of row s of ev * g_agg[d, :]
 //   d_al[s]      = sum over the cells of row s of g_ev * ev * (a > 0 ? 1 : 0.2)
 //
+// x, g_agg, g_rowsum and ar are f32, or all four bf16 under
+// compute_dtype='bfloat16' (the TPU kernels' bf16 gathered block of g_agg,
+// g_rowsum and ar, and bf16 x): their values are widened to f32 in
+// registers; al, the sums, dx_agg and d_al are f32 in both modes.
+//
 // d_al for every row s < num_rows (the B' rows carry logits too); dx_agg
 // only for the rows s < dx_rows, the rows whose cotangent has a consumer:
 // the rows above get zeros, and with dx_rows = 0 there is no dx_agg at all.
@@ -72,7 +77,9 @@
 //   They are clamped to [0, St].  Rows >= num_rows (padding) are dropped;
 //   rows without a slot give d_al = 0 and dx_agg = 0; padding columns clamp
 //   to the last row of g_agg.  float4 lanes need C % 4 == 0 and 16-byte
-//   aligned x, g_agg and dx_agg; otherwise a lane covers one channel.
+//   aligned x, g_agg and dx_agg (bf16 lanes of 8 channels, 16 bytes, C % 8
+//   == 0: 16 lanes a row at C = 128, a warp at 256); otherwise a lane covers
+//   one channel.
 
 #include "ell_common.cuh"
 
@@ -83,13 +90,13 @@ constexpr int kThreads = 32;  // one warp a block
 constexpr int kLoads = 4;  // cells a batch with one vector a lane
 
 struct Args {
-  const float* x;
+  const void* x;  // x, g, g_rs, ar: float, or all bf16_t
   int C;
   const int *ptr, *col;
   const float* val;
   int64_t St;
   int K;
-  const float *g, *g_rs, *ar;
+  const void *g, *g_rs, *ar;
   int64_t g_rows;
   const float* al;
   int64_t num_rows, dx_rows;
@@ -113,11 +120,13 @@ __device__ __forceinline__ Cell cell_weights(float a, float val, bool live) {
 
 // Row r by a group of G lanes (the group's first lane is gbase in the warp).
 // NV: the vectors of VEC channels a lane holds, every G * VEC channels;
-// WIDE: C is wider than that, walked in chunks.
-template <int VEC, int G, int NV, bool WIDE>
+// WIDE: C is wider than that, walked in chunks; x, g, g_rs and ar hold E.
+template <typename E, int VEC, int G, int NV, bool WIDE>
 __device__ __forceinline__ void row_backward(const Args& a, int64_t r, int gl, int gbase) {
-  using V = Vec<VEC>;
+  using V = Row<E, VEC>;
   using T = typename V::T;
+  using R = typename V::R;
+  const E* g = static_cast<const E*>(a.g);
   constexpr int L = NV == 1 ? kLoads : 1;  // cells a batch
   constexpr unsigned gbits = 0xffffffffu >> (32 - G);
   constexpr int kStride = G * VEC;  // channels from one of a lane's vectors to the next
@@ -128,7 +137,7 @@ __device__ __forceinline__ void row_backward(const Args& a, int64_t r, int gl, i
   const int last = (int)(a.g_rows - 1);
   const bool want_dx = r < a.dx_rows;  // the same in every lane of the group
   const float al_r = __ldg(a.al + r);
-  const float* xr = a.x + r * (int64_t)C;
+  const E* xr = static_cast<const E*>(a.x) + r * (int64_t)C;
   float* dxr = a.dx ? a.dx + r * (int64_t)C : nullptr;
 
   T xv[NV], acc[NV];
@@ -163,9 +172,9 @@ __device__ __forceinline__ void row_backward(const Args& a, int64_t r, int gl, i
     // the first batch's gathers (not before them) and used after them
     const bool mine = my_val != 0.f;
     const int my_d = min(max(my_col, 0), last);
-    float my_ar = 0.f, my_grs = 0.f;
-    gather(my_ar, a.ar + my_d, mine);
-    gather(my_grs, a.g_rs + my_d, mine);
+    E ar_e = 0, grs_e = 0;  // widened where they are used, after the gathers
+    gather(ar_e, static_cast<const E*>(a.ar) + my_d, mine);
+    gather(grs_e, static_cast<const E*>(a.g_rs) + my_d, mine);
     // bit j: cell base + j is live; the same in every lane of the group
     unsigned live = (__ballot_sync(gmask, mine) >> gbase) & gbits;
     bool first = true;  // the window's first batch
@@ -178,20 +187,20 @@ __device__ __forceinline__ void row_backward(const Args& a, int64_t r, int gl, i
         live &= live - 1;
       }
       if constexpr (!WIDE) {
-        T t[L][NV];
+        R t[L][NV];
 #pragma unroll
         for (int u = 0; u < L; ++u) {
           const int d = __shfl_sync(gmask, my_d, src[u], G);
-          const float* gd = a.g + (int64_t)d * C;
+          const E* gd = g + (int64_t)d * C;
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             const int c = v * kStride + gl * VEC;
-            t[u][v] = V::zero();
+            t[u][v] = V::rzero();
             gather(t[u][v], gd + c, u < n && c < C);
           }
         }
-        const Cell my = cell_weights(al_r + my_ar, my_val, mine);
-        if (first) dal += my_grs * my.coef;  // the g_rowsum part of its term
+        const Cell my = cell_weights(al_r + widen(ar_e), my_val, mine);
+        if (first) dal += widen(grs_e) * my.coef;  // the g_rowsum part of its term
         first = false;
         // past the n live cells t = 0 and the weights are 0
 #pragma unroll
@@ -211,27 +220,28 @@ __device__ __forceinline__ void row_backward(const Args& a, int64_t r, int gl, i
           }
         }
       } else {
-        const Cell my = cell_weights(al_r + my_ar, my_val, mine);
-        if (first) dal += my_grs * my.coef;  // the g_rowsum part of its term
+        const Cell my = cell_weights(al_r + widen(ar_e), my_val, mine);
+        if (first) dal += widen(grs_e) * my.coef;  // the g_rowsum part of its term
         first = false;
-        const float* gd[L];
+        const E* gd[L];
         float e[L], p[L];
 #pragma unroll
         for (int u = 0; u < L; ++u) {
-          gd[u] = a.g + (int64_t)__shfl_sync(gmask, my_d, src[u], G) * C;
+          gd[u] = g + (int64_t)__shfl_sync(gmask, my_d, src[u], G) * C;
           const float eu = want_dx ? __shfl_sync(gmask, my.ev, src[u], G) : 0.f;
           e[u] = u < n ? eu : 0.f;
           p[u] = 0.f;
         }
         for (int cb = gl * VEC; cb < C; cb += NV * kStride) {
-          T t[L][NV], xc[NV];
+          R t[L][NV];
+          T xc[NV];
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             const int c = cb + v * kStride;
             xc[v] = c < C ? V::load_once(xr + c) : V::zero();
 #pragma unroll
             for (int u = 0; u < L; ++u) {
-              t[u][v] = V::zero();
+              t[u][v] = V::rzero();
               gather(t[u][v], gd[u] + c, u < n && c < C);
             }
           }
@@ -272,42 +282,42 @@ __device__ __forceinline__ void row_backward(const Args& a, int64_t r, int gl, i
 // group of G lanes per row, in index order, skipping the long rows.  The
 // register budget: 24 blocks an SM (72 registers), 32 (64) with two vectors
 // a lane, where a batch is one cell.
-template <int VEC, int G, int NV, bool WIDE>
+template <typename E, int VEC, int G, int NV, bool WIDE>
 __global__ void __launch_bounds__(kThreads, NV == 1 ? 24 : 32) gat_backward_kernel(const Args a) {
   if (blockIdx.x < a.n_long) {
     const int r = __ldg(a.long_rows + 1 + blockIdx.x);
-    if (r >= 0 && r < a.num_rows) row_backward<VEC, 32, NV, WIDE>(a, r, threadIdx.x, 0);
+    if (r >= 0 && r < a.num_rows) row_backward<E, VEC, 32, NV, WIDE>(a, r, threadIdx.x, 0);
     return;
   }
   const int64_t r = ((blockIdx.x - a.n_long) * (int64_t)kThreads + threadIdx.x) / G;
   if (r >= a.num_rows) return;  // the row's whole group leaves together
   // a long row: the list's warp takes it, by the list's own threshold
   if (a.long_rows && __ldg(a.ptr + r + 1) - __ldg(a.ptr + r) > __ldg(a.long_rows)) return;
-  row_backward<VEC, G, NV, WIDE>(a, r, threadIdx.x & (G - 1), threadIdx.x & 31 & ~(G - 1));
+  row_backward<E, VEC, G, NV, WIDE>(a, r, threadIdx.x & (G - 1), threadIdx.x & 31 & ~(G - 1));
 }
 
-template <int VEC, int G, int NV, bool WIDE>
+template <typename E, int VEC, int G, int NV, bool WIDE>
 void launch(const Args& a, cudaStream_t st) {
   const unsigned blocks = (unsigned)(a.n_long + (a.num_rows * G + kThreads - 1) / kThreads);
-  gat_backward_kernel<VEC, G, NV, WIDE><<<blocks, kThreads, 0, st>>>(a);
+  gat_backward_kernel<E, VEC, G, NV, WIDE><<<blocks, kThreads, 0, st>>>(a);
 }
 
 // G and NV from the vectors of VEC channels a row has: 8 or 16 lanes for a
 // narrow x, a warp with one or two vectors a lane up to 64 vectors, and the
 // chunked walk of one vector a lane beyond.
-template <int VEC>
+template <typename E, int VEC>
 void launch_shape(const Args& a, cudaStream_t st) {
   const int vecs = (a.C + VEC - 1) / VEC;
   if (vecs <= 8) {
-    launch<VEC, 8, 1, false>(a, st);
+    launch<E, VEC, 8, 1, false>(a, st);
   } else if (vecs <= 16) {
-    launch<VEC, 16, 1, false>(a, st);
+    launch<E, VEC, 16, 1, false>(a, st);
   } else if (vecs <= 32) {
-    launch<VEC, 32, 1, false>(a, st);
+    launch<E, VEC, 32, 1, false>(a, st);
   } else if (vecs <= 64) {
-    launch<VEC, 32, 2, false>(a, st);
+    launch<E, VEC, 32, 2, false>(a, st);
   } else {
-    launch<VEC, 32, 1, true>(a, st);
+    launch<E, VEC, 32, 1, true>(a, st);
   }
 }
 
@@ -318,10 +328,11 @@ void launch_shape(const Args& a, cudaStream_t st) {
 // [1 + n_long], a threshold t >= 0, then exactly the rows of more than t
 // slots, in the order their warps start; null for none.  dx_rows in
 // [0, num_rows]: dx_agg for the rows below it and zeros above; with 0, dx
-// may be null and nothing is written to it.
-extern "C" int vq_gat_backward(const float* x, int C, const int* t_row, const int* t_col,
-                               const float* t_val, int64_t St, int K, const float* g,
-                               const float* g_rs, const float* ar, int64_t g_rows,
+// may be null and nothing is written to it.  bf16: x, g, g_rs and ar hold
+// bfloat16 values (else all four f32).
+extern "C" int vq_gat_backward(const void* x, int bf16, int C, const int* t_row,
+                               const int* t_col, const float* t_val, int64_t St, int K,
+                               const void* g, const void* g_rs, const void* ar, int64_t g_rows,
                                const float* al, int64_t num_rows, int64_t dx_rows, int* ptr,
                                int build_ptr, const int* long_rows, int64_t n_long, float* dx,
                                float* dal, void* stream) {
@@ -332,10 +343,17 @@ extern "C" int vq_gat_backward(const float* x, int C, const int* t_row, const in
   if (build_ptr) launch_row_offsets(t_row, St, num_rows, ptr, st);
   Args a{x, C, ptr, t_col, t_val, St, K, g, g_rs, ar, g_rows, al, num_rows, dx_rows,
          long_rows, long_rows ? n_long : 0, dx_rows > 0 ? dx : nullptr, dal};
-  if (C % 4 == 0 && aligned16(x) && aligned16(g) && (!a.dx || aligned16(a.dx))) {
-    launch_shape<4>(a, st);
+  const bool x16 = aligned16(x) && aligned16(g) && (!a.dx || aligned16(a.dx));
+  if (bf16) {
+    if (C % 8 == 0 && x16) {
+      launch_shape<bf16_t, 8>(a, st);
+    } else {
+      launch_shape<bf16_t, 1>(a, st);
+    }
+  } else if (C % 4 == 0 && x16) {
+    launch_shape<float, 4>(a, st);
   } else {
-    launch_shape<1>(a, st);
+    launch_shape<float, 1>(a, st);
   }
   return (int)cudaGetLastError();
 }

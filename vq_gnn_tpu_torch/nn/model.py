@@ -27,9 +27,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vq_gnn_tpu_torch.config import Config, check_ported, resolve_vq_backend
+from vq_gnn_tpu_torch.config import Config, check_ported, resolve_vq_backend, torch_dtype
 from vq_gnn_tpu_torch.nn.vq import VQParams, VQState, lookup
-from vq_gnn_tpu_torch.ops.gat import explosion_scale, gat_conv_ell, gat_conv_ell_mh
+from vq_gnn_tpu_torch.ops.gat import (
+    explosion_scale,
+    gat_conv_ell,
+    gat_conv_ell_mh,
+    node_logits,
+)
 from vq_gnn_tpu_torch.ops.rev_kernels import rev_recovery_info
 from vq_gnn_tpu_torch.ops.spmm import spmm
 from vq_gnn_tpu_torch.ops.vq_ops import masked_mean_var
@@ -53,6 +58,9 @@ class ModelStatic:
     # ce_only runs never read info_backward; the B + M exact-reverse term is
     # then skipped (0), as in the JAX package
     ce_only: bool = False
+    # the dtype the convs stream x_input at ('float32' or 'bfloat16'); sums,
+    # outputs, parameters and probes stay f32
+    compute_dtype: str = "float32"
 
     @property
     def num_branches(self) -> Tuple[int, ...]:
@@ -91,6 +99,7 @@ def model_static(
         vq=vq,
         formulation=cfg.formulation,
         ce_only=cfg.ce_only,
+        compute_dtype=cfg.compute_dtype,
     )
 
 
@@ -217,27 +226,38 @@ def layer_forward(
     ones-column normaliser before the division.  With ``formulation='bm'``
     the v1 layer, :func:`layer_forward_bm`.
 
+    Under bf16 compute (``ms.compute_dtype``) the lookup rounds its codewords
+    to bf16 and x_input is cast to bf16 after the concatenation
+    (``vq_gnn_tpu/nn/model.py:294-321``); the conv's output is f32.
+
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     if ms.formulation == "bm":
         return layer_forward_bm(layer, vq_state, ms, x, batch, probe, warm_up_rate)
     B_pad = batch.B_pad
-    # out-of-batch features/grads from the codebook (models.py v2:165-173)
-    x_fo, grad_fo = lookup(vq_state, batch.fo_ids, ms.vq)
+    cd = torch_dtype(ms.compute_dtype)
+    # out-of-batch features/grads from the codebook (models.py v2:165-173);
+    # the lookup streams bf16 when the whole compute path does
+    x_fo, grad_fo = lookup(vq_state, batch.fo_ids, ms.vq,
+                           stream=cd if cd == torch.bfloat16 else None)
     fo_mask = batch.valid_fo.to(x.dtype)[:, None]
     x_fo = x_fo * fo_mask
     grad_fo = (grad_fo * fo_mask).detach()
 
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, C_in]
+    if x_input.dtype != cd:
+        x_input = x_input.to(cd)
     if ms.conv_type == "GAT":
         # logits of the (C+1)-wide reference input: the C-wide product plus
-        # the ones-column bias att[C]; they only set the Trick-1 scale here,
-        # the conv forms its own per-node logits from the same parameters
+        # the ones-column bias att[C] (a bf16 dot under bf16 compute, then
+        # f32 with the bias), for the Trick-1 scale; the conv reuses x
+        # widened once and ar, and forms its own al (f32 att, unrounded)
         C = x_input.shape[1]
-        al = x_input @ layer.att_l[:C] + layer.att_l[C]
-        ar = x_input @ layer.att_r[:C] + layer.att_r[C]
+        xf = x_input.float() if cd == torch.bfloat16 else x_input
+        al, ar = node_logits(x_input, xf, layer.att_l, layer.att_r)
         valid_all = torch.cat([batch.valid_B, batch.valid_fo])
         scale = explosion_scale(al, ar, valid_all)  # Trick 1 (convs.py v2:209)
-        x_out, norm_col = gat_conv_ell(batch.edges, x_input, layer.att_l, layer.att_r, scale)
+        x_out, norm_col = gat_conv_ell(batch.edges, x_input, layer.att_l, layer.att_r, scale,
+                                       xf=xf.detach(), ar=ar.detach())
         x_out_B, norm_B = x_out[:B_pad], norm_col[:B_pad]
         if probe is not None:  # the reference hook point, (C+1) wide
             x_out_B = x_out_B + probe[:, :C]
@@ -321,6 +341,9 @@ def layer_forward_bm(
     parameters (``gat_conv_ell_mh``); info_backward uses the per-codeword
     identity sum_m out_M[m] * g[m] == sum_j out_fo[j] * g[c[j]], or, for the
     non-GCN convs in training, the exact reverse term over the rev-ELL.
+    Under bf16 compute only the GAT conv streams bf16: its x_input is cast
+    after the branch logits (``vq_gnn_tpu/nn/model.py:682-684``); the lookup
+    and the GCN and SAGE convs stay f32.
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
@@ -361,6 +384,9 @@ def layer_forward_bm(
     mr = torch.maximum(ar_n[:B_pad].masked_fill(invalid, float("-inf")).amax(0), ar_cb.amax(1))
     scale_n = torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)  # [nb]
     al_n, ar_n = al_n / scale_n, ar_n / scale_n
+    cd = torch_dtype(ms.compute_dtype)
+    if x_input.dtype != cd:  # bf16 streaming halves the gathered bytes
+        x_input = x_input.to(cd)
     agg, rs = gat_conv_ell_mh(batch.edges, x_input, al_n, ar_n)
     agg_B, rs_B = agg[:B_pad], rs[:B_pad]
     if probe is not None:  # [nb, B_pad, D + 1], the ones column last

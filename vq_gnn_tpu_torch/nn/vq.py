@@ -271,22 +271,29 @@ def vq_update(
     )
 
 
-def lookup(state: VQState, node_ids: torch.Tensor, p: VQParams):
+def lookup(state: VQState, node_ids: torch.Tensor, p: VQParams, stream=None):
     """Codebook lookup for out-of-batch nodes (``models.py v2:168-173``).
 
     node_ids [n] -> (features [n, nb*D], grads [n, nb*Dg]) in branch-slice
-    order (branch i covers columns i*D:(i+1)*D)."""
+    order (branch i covers columns i*D:(i+1)*D), f32.
+
+    ``stream`` (a dtype, bf16 under bf16 compute) rounds the selected
+    codewords to it, as the JAX package's one-hot einsum at that dtype does
+    (``vq_gnn_tpu/nn/vq.py:433-484``); on the 'pallas' backends it forces
+    the kernel's fast mode even on the exact 'pallas', as there."""
     if p.backend in ("pallas", "pallas_fast"):
         # the kernel writes both halves where the step reads them
         return lookup_codewords(
             state.c_indices, node_ids, state.embedding_output,
-            fast=p.backend == "pallas_fast", split=p.num_D,
+            fast=p.backend == "pallas_fast" or stream is not None, split=p.num_D,
         )
     # exact row gather == the JAX one-hot einsum at 'highest'
     ids = node_ids.clamp(0, state.c_indices.shape[0] - 1)
     c = state.c_indices.index_select(0, ids).long()
     nb = c.shape[1]
     table = state.embedding_output[torch.arange(nb, device=c.device)[None, :], c]
+    if stream is not None:
+        table = table.to(stream).float()
     n = table.shape[0]
     feats = table[:, :, : p.num_D].reshape(n, nb * p.num_D)
     grads = table[:, :, p.num_D :].reshape(n, nb * p.grad_dim)

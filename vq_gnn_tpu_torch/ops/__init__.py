@@ -1,8 +1,11 @@
 """Device ops: the CUDA kernels and their plain PyTorch versions.
 
-Each kernel wrapper counts its launches in ``<wrapper>.launches``;
+Each kernel wrapper counts its launches in ``<wrapper>.launches``; the
+wrappers of kernels 1, 4 and 5 count their bf16-row mode apart, in
+``launches_bf16`` (``BF16_MODES`` names each such mode).
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero them all
-(``gat_backward`` also counts them per width C, in ``by_width``).
+(``gat_backward`` also counts them per width C and row dtype, in
+``by_width``).
 """
 
 from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
@@ -21,16 +24,26 @@ KERNELS = {
     "rev_forward": rev_forward,
     "rev_backward": rev_backward,
 }
+# the bf16-row modes (compute_dtype='bfloat16') of three of those wrappers
+BF16_MODES = {
+    "ell_aggregate_bf16": ell_aggregate,
+    "gat_aggregate_bf16": gat_aggregate,
+    "gat_backward_bf16": gat_backward,
+}
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts.update({name: fn.launches_bf16 for name, fn in BF16_MODES.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in BF16_MODES.values():
+        fn.launches_bf16 = 0
     gat_backward.by_width.clear()
 
 
-__all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["BF16_MODES", "KERNELS", "launch_counts", "reset_launch_counts"]

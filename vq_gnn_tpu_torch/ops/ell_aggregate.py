@@ -3,7 +3,9 @@
 ``out[r] = sum over slots s of row r, sum over k of val[s,k] * x[col[s,k]]``,
 f32 [num_rows, C].  Slots are sorted by row; slots whose row is >= num_rows
 (padding, or the backward's ride-over dustbin) are dropped; columns clip to
-the rows of x (JAX's ``mode='clip'``).
+the rows of x (JAX's ``mode='clip'``).  x is f32, or bf16 under
+``compute_dtype='bfloat16'``: its values are summed in f32 either way (the
+bf16 mode counts its launches in ``ell_aggregate.launches_bf16``).
 
 The CUDA kernel (``csrc/ell_aggregate.cu``) replaces
 ``vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel`` (gat=False) and the gather
@@ -22,21 +24,34 @@ import torch
 
 from vq_gnn_tpu_torch.ops import _build
 
-# Channels a warp covers in one pass (32 lanes x float4): wider x is split
-# into equal panels of at most this many channels, walked side by side.
+# Channels a warp covers in one pass (32 lanes x 16 bytes: float4, or 8 bf16
+# values): wider x is split into equal panels of at most this many channels,
+# walked side by side.
 PANEL_MAX = 128
+PANEL_MAX_BF16 = 256
+# the dtypes of x the kernel takes: f32, and bf16 rows under bf16 compute
+X_DTYPES = (torch.float32, torch.bfloat16)
 # The batch's long-row lists (spmm.long_rows_host) hold the rows of more than
 # LONG_SLOTS slots: they start first, a warp each, longest first; the others
 # go in index order.
 LONG_SLOTS = 16
 
 
-def panel_width(C: int) -> int:
+def _lane_unit(C: int, dtype) -> int:
+    """Channels a lane takes in one load: 8 bf16 values or 4 floats where C
+    is a multiple of that, else 1."""
+    unit = 8 if dtype == torch.bfloat16 else 4
+    return unit if C % unit == 0 else 1
+
+
+def panel_width(C: int, dtype=torch.float32) -> int:
     """Channels per panel: the widest divisor of C that is at most
-    PANEL_MAX (a multiple of 4 when C is, so the kernel keeps its float4
-    lanes); C itself up to PANEL_MAX."""
-    unit = 4 if C % 4 == 0 else 1
-    return max(w for w in range(unit, min(C, PANEL_MAX) + 1, unit) if C % w == 0)
+    PANEL_MAX (PANEL_MAX_BF16 for bf16 x; a multiple of the lane's load, 4
+    floats or 8 bf16 values, when C is, so the kernel keeps its vector
+    lanes); C itself up to that."""
+    unit = _lane_unit(C, dtype)
+    top = PANEL_MAX_BF16 if dtype == torch.bfloat16 else PANEL_MAX
+    return max(w for w in range(unit, min(C, top) + 1, unit) if C % w == 0)
 
 
 def row_offsets_plain(ell_row, num_rows: int) -> torch.Tensor:
@@ -50,7 +65,8 @@ def row_offsets_plain(ell_row, num_rows: int) -> torch.Tensor:
 
 def ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows: int) -> torch.Tensor:
     """Gather, weight, K-reduce, then a sorted segment sum — in plain
-    PyTorch.  Elementwise products (no matmul), so TF32 never enters."""
+    PyTorch.  Elementwise products (no matmul), so TF32 never enters; bf16
+    x is widened to f32 first, which is exact."""
     S, K = ell_col.shape
     C = x.shape[1]
     nbrs = x.index_select(0, ell_col.reshape(-1).long().clamp(0, x.shape[0] - 1))
@@ -61,13 +77,20 @@ def ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows: int) -> torch.Te
 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ARGTYPES = [_VP, _I64, _I32, _I32, _VP, _VP, _VP, _I64, _I32, _I64, _VP, _I32, _VP, _I64, _VP,
-             _VP]
+_ARGTYPES = [_VP, _I32, _I64, _I32, _I32, _VP, _VP, _VP, _I64, _I32, _I64, _VP, _I32, _VP, _I64,
+             _VP, _VP]
 
 
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"ell_aggregate: {msg}")
+
+
+def check_dtype(kernel: str, name: str, t: torch.Tensor) -> None:
+    """The kernels of rows 1-4 take f32 rows, or bf16 rows under bf16
+    compute; any other dtype is refused by name, on every device."""
+    if t.dtype not in X_DTYPES:
+        raise ValueError(f"{kernel}: {name} must be float32 or bfloat16, got {t.dtype}")
 
 
 def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
@@ -82,12 +105,13 @@ def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
     threshold t, then exactly the rows of more than t slots, longest first)
     starts those rows first, a warp each; without it every row goes in index
     order.  ``panels`` forces the number of channel panels (by default
-    :func:`panel_width`).  The result depends on none of these."""
+    :func:`panel_width`).  The result depends on none of these.  x is f32 or
+    bf16 (the bf16-row mode); out is f32."""
+    check_dtype("ell_aggregate", "x", x)
     if x.device.type == "cpu":
         return ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
-    _check(x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous(),
-           "x must be a contiguous 2-D float32 tensor")
+    _check(x.dim() == 2 and x.is_contiguous(), "x must be a contiguous 2-D tensor")
     _check(x.shape[0] >= 1, "x needs at least one row")
     _check(ell_col.dim() == 2 and ell_col.shape[1] >= 1, "ell_col must be [S, K] with K >= 1")
     S, K = ell_col.shape
@@ -108,11 +132,12 @@ def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
         _check(t.dtype == dt and tuple(t.shape) == shape and t.is_contiguous(),
                f"{name} must be contiguous {dt} of shape {shape}")
     C = x.shape[1]
+    bf16 = x.dtype == torch.bfloat16
     if panels is None:
-        Cp = panel_width(C)
+        Cp = panel_width(C, x.dtype)
     else:
         _check(1 <= panels <= C, f"panels must be in [1, {C}], got {panels}")
-        unit = 4 if C % 4 == 0 else 1
+        unit = _lane_unit(C, x.dtype)
         Cp = -(-C // panels)  # ceil(C / panels) ...
         Cp = -(-Cp // unit) * unit  # ... up to a multiple of the unit
     out = torch.empty((num_rows, C), dtype=torch.float32, device=x.device)
@@ -121,14 +146,18 @@ def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
         ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.function("ell_aggregate", "vq_ell_aggregate", _ARGTYPES)(
-        x.data_ptr(), x.shape[0], C, Cp, ell_row.data_ptr(), ell_col.data_ptr(),
+        x.data_ptr(), int(bf16), x.shape[0], C, Cp, ell_row.data_ptr(), ell_col.data_ptr(),
         ell_val.data_ptr(), S, K, num_rows, ptr.data_ptr(), int(build_ptr),
         None if long_rows is None else long_rows.data_ptr(),
         0 if long_rows is None else long_rows.shape[0] - 1, out.data_ptr(), stream,
     )
     _build.check(rc, "ell_aggregate")
-    ell_aggregate.launches += 1
+    if bf16:
+        ell_aggregate.launches_bf16 += 1
+    else:
+        ell_aggregate.launches += 1
     return out
 
 
 ell_aggregate.launches = 0
+ell_aggregate.launches_bf16 = 0

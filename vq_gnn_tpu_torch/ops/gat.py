@@ -18,6 +18,11 @@ Convention: row = destination, col = source.  :func:`gat_conv_ell` is a
 ``torch.autograd.Function`` whose forward is kernel 4 and whose backward is
 kernel 5 over the transposed ELL (``ops/gat_kernels.py``); ``d_ar`` and
 ``d_scale`` have closed forms over the forward's aggregates.
+
+Under ``compute_dtype='bfloat16'`` both convs take bf16 x and round where
+the JAX package rounds (``vq_gnn_tpu/ops/gat.py``): the conv's outputs and
+logit cotangents stay f32, the cotangents it gathers are bf16, and dx
+comes back in bf16.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 from vq_gnn_tpu_torch.ops.spmm import Edges
 
 __all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_ell",
-           "gat_conv_ell_mh"]
+           "gat_conv_ell_mh", "node_logits"]
 
 
 def attention_logits(x, att_l, att_r):
@@ -64,15 +69,40 @@ def _gat_d_ar_closed_form(g_agg, g_rowsum, agg, rowsum, aggn, rsn):
     return base - (1.0 - NEGATIVE_SLOPE) * negp
 
 
-def _node_logit(x, att, scale):
+def bf16_dot(xf, w):
+    """``x @ w`` of bf16 x as the JAX package's ``x @ w.astype(bfloat16)``,
+    given x widened to f32 (``xf``, exact): w rounded to bf16, the exact
+    products summed in f32, the result rounded to bf16 (here, not wherever a
+    backend's bf16 matmul would) and handed on as f32."""
+    return (xf @ w.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+
+
+def node_logits(x, xf, att_l, att_r):
+    """The Trick-1 logits (x @ att[:C] + att[C]) of both sides, ([R], [R]);
+    ``xf`` is x widened to f32 (x itself when f32).  Under bf16 x both are
+    bf16 dots (:func:`bf16_dot`) from one [C, 2] product, as the JAX
+    package's ``x @ att[:C].astype(bfloat16)``."""
     C = x.shape[1]
-    return (x @ att[:C] + att[C]) / scale
+    if x.dtype != torch.bfloat16:  # two f32 matvecs (no TF32, whatever it allows)
+        return x @ att_l[:C] + att_l[C], x @ att_r[:C] + att_r[C]
+    # bf16 values are exact in TF32, so one [C, 2] product rounds nothing
+    dots = bf16_dot(xf, torch.stack([att_l[:C], att_r[:C]], 1))
+    return dots[:, 0] + att_l[C], dots[:, 1] + att_r[C]
 
 
-def _gat_forward(edges: Edges, x, att_l, att_r, scale, with_neg: bool):
-    """(agg [R, C], rowsum [R], aggn, rsn, al_node [R], ar_node [R])."""
-    al_node = _node_logit(x, att_l, scale)
-    ar_node = _node_logit(x, att_r, scale)
+def _gat_forward(edges: Edges, x, att_l, att_r, scale, with_neg: bool, xf=None, ar=None):
+    """(agg [R, C], rowsum [R], aggn, rsn, al_node [R], ar_node [R]), all
+    f32, for f32 or bf16 x (``vq_gnn_tpu/ops/gat.py:365-385``).  al is the
+    f32 att on the widened rows (the TPU kernel forms it from the gathered
+    rows and never rounds it); ar is :func:`node_logits`' (a bf16 dot under
+    bf16 x), or the caller's ``ar`` when given."""
+    if xf is None:
+        xf = x.float()
+    if ar is None:
+        _, ar = node_logits(x, xf, att_l, att_r)
+    C = x.shape[1]
+    al_node = (xf @ att_l[:C] + att_l[C]) / scale
+    ar_node = ar / scale
     agg, rowsum, aggn, rsn = gat_aggregate(
         x, edges.ell_row, edges.ell_col, edges.ell_val, al_node, ar_node, edges.num_rows,
         with_neg=with_neg, ptr=edges.ell_ptr, long_rows=edges.ell_long_rows,
@@ -82,19 +112,24 @@ def _gat_forward(edges: Edges, x, att_l, att_r, scale, with_neg: bool):
 
 class _GATConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, att_l, att_r, scale, edges: Edges):
+    def forward(ctx, x, att_l, att_r, scale, edges: Edges, xf, ar):
+        xf = x.float() if xf is None else xf
         agg, rowsum, aggn, rsn, al_node, ar_node = _gat_forward(
-            edges, x, att_l, att_r, scale, with_neg=True
+            edges, x, att_l, att_r, scale, with_neg=True, xf=xf, ar=ar
         )
         ctx.edges = edges
-        ctx.save_for_backward(x, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_node)
+        # xf (x itself when f32) for d_attl and d_attr: the caller's widened
+        # copy, which its own logit product holds for its backward anyway
+        ctx.save_for_backward(x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node,
+                              ar_node)
         return agg, rowsum[:, None]
 
     @staticmethod
     def backward(ctx, g_agg, g_rowsum):
         e: Edges = ctx.edges
-        x, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_node = ctx.saved_tensors
+        x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_node = ctx.saved_tensors
         R, C = x.shape
+        gs = x.dtype  # the kernel gathers g_agg, g_rowsum and ar at x's dtype
         g_agg = g_agg.contiguous()
         g_rs = g_rowsum[:, 0].contiguous()
         # transposed layout: d_al for every row (B' rows carry logits), dx_agg
@@ -103,8 +138,8 @@ class _GATConv(torch.autograd.Function):
         # the truncation (Edges.b_rows)
         b = (e.b_rows or R) if ctx.needs_input_grad[0] else 0
         dx_agg, d_al = gat_backward(
-            x, e.t_ell_row, e.t_ell_col, e.t_ell_val, g_agg, g_rs, al_node, ar_node, R,
-            dx_rows=b, ptr=e.t_all_ptr, long_rows=e.t_all_long_rows,
+            x, e.t_ell_row, e.t_ell_col, e.t_ell_val, g_agg.to(gs), g_rs.to(gs), al_node,
+            ar_node.to(gs), R, dx_rows=b, ptr=e.t_all_ptr, long_rows=e.t_all_long_rows,
         )
         d_ar = _gat_d_ar_closed_form(g_agg, g_rs, agg, rowsum, aggn, rsn)
         # d_scale = -sum(d_a * a) / scale with a = al[col] + ar[row]: the cell
@@ -115,12 +150,13 @@ class _GATConv(torch.autograd.Function):
             dx = dx_agg
             dx[:b].addcmul_(d_al[:b, None], (att_l[:C] / scale)[None, :]).addcmul_(
                 d_ar[:b, None], (att_r[:C] / scale)[None, :])
-        d_attl = torch.cat([(d_al @ x) / scale, (d_al.sum() / scale)[None]])
-        d_attr = torch.cat([(d_ar @ x) / scale, (d_ar.sum() / scale)[None]])
-        return dx, d_attl, d_attr, d_scale, None
+            dx = dx.to(gs)
+        d_attl = torch.cat([(d_al @ xf) / scale, (d_al.sum() / scale)[None]])
+        d_attr = torch.cat([(d_ar @ xf) / scale, (d_ar.sum() / scale)[None]])
+        return dx, d_attl, d_attr, d_scale, None, None, None
 
 
-def gat_conv_ell(edges: Edges, x, att_l, att_r, scale):
+def gat_conv_ell(edges: Edges, x, att_l, att_r, scale, xf=None, ar=None):
     """Attention-weighted slot-ELL aggregation -> (agg [R, C], rowsum [R, 1]).
 
     Per edge ``exp(leaky_relu(al[col] + ar[row])) * val`` with the node logits
@@ -128,7 +164,12 @@ def gat_conv_ell(edges: Edges, x, att_l, att_r, scale):
     summed over rows; ``rowsum`` is the ones-column normaliser.  x has one
     row per ELL row (``edges.num_rows``); scale is a 0-dim tensor.
     Differentiable in x, att_l, att_r and scale; without a gradient to take,
-    the forward skips the masked channels that only the backward reads."""
+    the forward skips the masked channels that only the backward reads.
+
+    A caller that formed them already (the layer, for the Trick-1 scale)
+    passes ``xf``, x widened to f32, and ``ar``, :func:`node_logits`' second
+    logit before the division by scale, so that neither is formed twice.
+    Both are values only: the gradients come from the closed forms."""
     if edges.ell_row is None:  # mixed-K stops earlier, in config.check_ported
         raise not_ported("GAT over a layout other than the single-K slot-ELL")
     if x.shape[0] != edges.num_rows:
@@ -136,8 +177,9 @@ def gat_conv_ell(edges: Edges, x, att_l, att_r, scale):
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, att_l, att_r, scale)
     ):
-        return _GATConv.apply(x, att_l, att_r, scale, edges)
-    agg, rowsum, _, _, _, _ = _gat_forward(edges, x, att_l, att_r, scale, with_neg=False)
+        return _GATConv.apply(x, att_l, att_r, scale, edges, xf, ar)
+    agg, rowsum, _, _, _, _ = _gat_forward(edges, x, att_l, att_r, scale, with_neg=False,
+                                           xf=xf, ar=ar)
     return agg, rowsum[:, None]
 
 
@@ -159,9 +201,14 @@ def _gat_mh_ev(ell_row, ell_col, ell_val, al, ar):
 
 def _weighted_rows(ev, table, idx):
     """sum over k of ev[s, k, n] * table[idx[s, k], n*D:(n+1)*D] -> [S, nb*D]
-    (the per-branch weight broadcast over its D channels)."""
+    (the per-branch weight broadcast over its D channels), f32.  A bf16 table
+    meets weights rounded to bf16, as in JAX's einsum of the bf16-cast
+    repeated weights (``vq_gnn_tpu/ops/gat.py:746, 786``); the exact
+    products are summed in f32."""
     S, K, nb = ev.shape
     rows = table.index_select(0, idx.reshape(-1).long().clamp(0, table.shape[0] - 1))
+    if table.dtype != torch.float32:
+        ev, rows = ev.to(table.dtype).float(), rows.float()
     return (ev[..., None] * rows.reshape(S, K, nb, -1)).sum(1).reshape(S, -1)
 
 
@@ -188,7 +235,9 @@ class _GATConvMH(torch.autograd.Function):
         R = e.num_rows
         St, Kt = e.t_ell_col.shape
         nb = al.shape[1]
-        g_agg, g_rs = g_agg.contiguous(), g_rs.contiguous()
+        # the cotangents are gathered at x_g's dtype, as JAX streams them
+        gs = x_g.dtype
+        g_agg, g_rs = g_agg.to(gs).contiguous(), g_rs.to(gs).contiguous()
         # transposed cells: row = source (sorted), column = destination, so
         # the logit roles swap: a_t = al[source] + ar[destination]
         a_t, ev_t = _gat_mh_ev(e.t_ell_row, e.t_ell_col, e.t_ell_val, ar, al)
@@ -198,11 +247,12 @@ class _GATConvMH(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             dx = segment_sum_sorted(_weighted_rows(ev_t, g_agg, e.t_ell_col), e.t_ell_row, R,
-                                    **t_lists)
+                                    **t_lists).to(gs)
         idx_t = e.t_ell_col.reshape(-1).long().clamp(0, R - 1)
-        g3 = g_agg.index_select(0, idx_t).reshape(St, Kt, nb, -1)
-        x_rows = x_g.index_select(0, e.t_ell_row.long().clamp(0, R - 1)).reshape(St, 1, nb, -1)
-        d_ev_t = (g3 * x_rows).sum(-1) + g_rs.index_select(0, idx_t).reshape(St, Kt, nb)
+        g3 = g_agg.index_select(0, idx_t).float().reshape(St, Kt, nb, -1)
+        x_rows = x_g.index_select(0, e.t_ell_row.long().clamp(0, R - 1)).float().reshape(
+            St, 1, nb, -1)
+        d_ev_t = (g3 * x_rows).sum(-1) + g_rs.index_select(0, idx_t).float().reshape(St, Kt, nb)
         d_a_t = d_ev_t * ev_t * torch.where(a_t > 0, 1.0, NEGATIVE_SLOPE)
         d_al = segment_sum_sorted(d_a_t.sum(1), e.t_ell_row, R, **t_lists)
         # forward layout: mirror the per-cell d_a through f_from_t (empty

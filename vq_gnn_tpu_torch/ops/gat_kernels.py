@@ -23,6 +23,12 @@ c has ``a = al[c] + ar[r]`` and weight ``ev = exp(leaky_relu(a, 0.2)) * val``.
 Slots are sorted by row; rows >= R are dropped; columns clip to the rows of
 the gathered table (JAX's ``mode='clip'``).  On CPU tensors each wrapper runs
 its plain version; on CUDA tensors it launches its kernel or raises.
+
+Each has a bf16-row mode (``compute_dtype='bfloat16'``), as the TPU kernels
+take bf16 operands: ``gat_aggregate``'s x, and ``gat_backward``'s x, g_agg,
+g_rowsum and ar, in bf16; al (and the aggregate's ar) and every output stay
+f32, and the values are summed in f32.  Each wrapper counts the launches of
+that mode in ``launches_bf16``, the f32 mode's in ``launches``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from vq_gnn_tpu_torch.ops import _build
+from vq_gnn_tpu_torch.ops.ell_aggregate import check_dtype
 
 NEGATIVE_SLOPE = 0.2  # PyG GATConv default (reference convs.py v2:131)
 
@@ -60,7 +67,8 @@ def gat_aggregate_plain(x, ell_row, ell_col, ell_val, al, ar, num_rows: int,
                         with_neg: bool = True):
     """Plain version of kernel 4: the arithmetic of the XLA path of
     ``vq_gnn_tpu/ops/gat.py:_gat_conv_fwd_impl`` (gather, ev-weighted
-    K-reduce, sorted segment sums)."""
+    K-reduce, sorted segment sums).  bf16 x is widened to f32 first."""
+    x = x.float()
     S, K = ell_col.shape
     C = x.shape[1]
     # the row side is ar (per output row), the column side al
@@ -81,7 +89,9 @@ def gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, 
     """Plain version of kernel 5: the arithmetic of the XLA transposed
     recompute in ``vq_gnn_tpu/ops/gat.py:_gat_conv_vjp_bwd``.  ``dx_rows``
     (default num_rows): dx_agg only for the rows below it, from the slots of
-    those rows (a prefix, the rows being sorted), zeros above; None with 0."""
+    those rows (a prefix, the rows being sorted), zeros above; None with 0.
+    bf16 x, g_agg, g_rowsum and ar are widened to f32 first."""
+    x, g_agg, g_rowsum, ar = (t.float() for t in (x, g_agg, g_rowsum, ar))
     dx_rows = num_rows if dx_rows is None else dx_rows
     St, K = t_ell_col.shape
     C = x.shape[1]
@@ -101,10 +111,10 @@ def gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, 
 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_FWD_ARGTYPES = [_VP, _I64, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _I64, _I32,
+_FWD_ARGTYPES = [_VP, _I32, _I64, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _I64, _I32,
                  _VP, _I32, _VP, _I64, _VP, _VP, _VP, _VP, _VP]
-_BWD_ARGTYPES = [_VP, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _I64, _VP, _I64, _I64,
-                 _VP, _I32, _VP, _I64, _VP, _VP, _VP]
+_BWD_ARGTYPES = [_VP, _I32, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _I64, _VP, _I64,
+                 _I64, _VP, _I32, _VP, _I64, _VP, _VP, _VP]
 
 
 def _check(cond: bool, kernel: str, msg: str):
@@ -149,10 +159,12 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
     ``ptr`` ([num_rows + 1] int32 row offsets of ``ell_row``,
     ``spmm.row_offsets_host``) is built on the device when not given;
     ``long_rows`` (int32 ``spmm.long_rows_host(ptr, t)``) starts the rows of
-    more than t slots first, a warp each.  The result depends on neither."""
+    more than t slots first, a warp each.  The result depends on neither.
+    x is f32 or bf16 (the bf16-row mode); al, ar and the outputs are f32."""
+    k = "gat_aggregate"
+    check_dtype(k, "x", x)
     if x.device.type == "cpu":
         return gat_aggregate_plain(x, ell_row, ell_col, ell_val, al, ar, num_rows, with_neg)
-    k = "gat_aggregate"
     dev = x.device
     _check(dev.type == "cuda", k, f"unsupported device {dev}")
     _check(x.dim() == 2 and x.shape[0] >= 1, k, "x must be [rows >= 1, C]")
@@ -160,7 +172,7 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
            "ell_col must be [S, K] with K >= 1")
     Rx, C = x.shape
     S, K = ell_col.shape
-    _check_tensors(k, dev, [("x", x, torch.float32, (Rx, C)),
+    _check_tensors(k, dev, [("x", x, x.dtype, (Rx, C)),
                             *_ell_specs("ell_", ell_row, ell_col, ell_val),
                             ("al", al, torch.float32, (Rx,)),
                             ("ar", ar, torch.float32, (num_rows,)),
@@ -173,8 +185,10 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
     if build_ptr:
         ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = x.dtype == torch.bfloat16
     rc = _build.function("gat_aggregate", "vq_gat_aggregate", _FWD_ARGTYPES)(
-        x.data_ptr(), Rx, C, ell_row.data_ptr(), ell_col.data_ptr(), ell_val.data_ptr(), S, K,
+        x.data_ptr(), int(bf16), Rx, C, ell_row.data_ptr(), ell_col.data_ptr(),
+        ell_val.data_ptr(), S, K,
         al.data_ptr(), ar.data_ptr(), num_rows, int(with_neg), ptr.data_ptr(), int(build_ptr),
         None if long_rows is None else long_rows.data_ptr(),
         0 if long_rows is None else long_rows.shape[0] - 1, agg.data_ptr(),
@@ -182,7 +196,10 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
         rsn.data_ptr() if with_neg else None, stream,
     )
     _build.check(rc, k)
-    gat_aggregate.launches += 1
+    if bf16:
+        gat_aggregate.launches_bf16 += 1
+    else:
+        gat_aggregate.launches += 1
     return agg, rowsum, aggn, rsn
 
 
@@ -190,7 +207,8 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
                  dx_rows: Optional[int] = None, ptr: Optional[torch.Tensor] = None,
                  long_rows: Optional[torch.Tensor] = None):
     """Kernel 5 for CUDA tensors, its plain version for CPU tensors.  Counts
-    its launches per width C in ``gat_backward.by_width``.
+    its launches per width C and row dtype, ``(C, 'float32' or 'bfloat16')``,
+    in ``gat_backward.by_width``.
 
     ``dx_rows`` (default num_rows): dx_agg for the rows below it, zeros
     above, None with 0; d_al for every row.  ``ptr`` ([num_rows + 1] int32
@@ -198,12 +216,14 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
     is built on the device when not given; ``long_rows`` (int32
     ``spmm.long_rows_host(ptr, t)``) starts the rows of more than t slots
     first, a warp each.  The result depends on none of these three but
-    dx_rows."""
+    dx_rows.  x, g_agg, g_rowsum and ar are all f32, or all bf16 (the
+    bf16-row mode); al and the outputs are f32."""
+    k = "gat_backward"
+    check_dtype(k, "x", x)
     dx_rows = num_rows if dx_rows is None else dx_rows
     if x.device.type == "cpu":
         return gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar,
                                   num_rows, dx_rows)
-    k = "gat_backward"
     dev = x.device
     _check(dev.type == "cuda", k, f"unsupported device {dev}")
     _check(x.dim() == 2 and g_agg.dim() == 2 and g_agg.shape[0] >= 1, k,
@@ -215,12 +235,13 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
     _check(t_ell_col.dim() == 2 and t_ell_col.shape[1] >= 1, k,
            "t_ell_col must be [St, K] with K >= 1")
     St, K = t_ell_col.shape
-    _check_tensors(k, dev, [("x", x, torch.float32, (num_rows, C)),
+    xt = x.dtype  # the rows' dtype: g_agg, g_rowsum and ar come in it too
+    _check_tensors(k, dev, [("x", x, xt, (num_rows, C)),
                             *_ell_specs("t_ell_", t_ell_row, t_ell_col, t_ell_val),
-                            ("g_agg", g_agg, torch.float32, (Rg, C)),
-                            ("g_rowsum", g_rowsum, torch.float32, (Rg,)),
+                            ("g_agg", g_agg, xt, (Rg, C)),
+                            ("g_rowsum", g_rowsum, xt, (Rg,)),
                             ("al", al, torch.float32, (num_rows,)),
-                            ("ar", ar, torch.float32, (Rg,)),
+                            ("ar", ar, xt, (Rg,)),
                             *_row_list_specs(k, ptr, long_rows, num_rows)])
     dx = torch.empty((num_rows, C), dtype=torch.float32, device=dev) if dx_rows else None
     d_al = torch.empty((num_rows,), dtype=torch.float32, device=dev)
@@ -228,8 +249,10 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
     if build_ptr:
         ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = xt == torch.bfloat16
     rc = _build.function("gat_backward", "vq_gat_backward", _BWD_ARGTYPES)(
-        x.data_ptr(), C, t_ell_row.data_ptr(), t_ell_col.data_ptr(), t_ell_val.data_ptr(), St, K,
+        x.data_ptr(), int(bf16), C, t_ell_row.data_ptr(), t_ell_col.data_ptr(),
+        t_ell_val.data_ptr(), St, K,
         g_agg.data_ptr(), g_rowsum.data_ptr(), ar.data_ptr(), Rg, al.data_ptr(), num_rows,
         dx_rows, ptr.data_ptr(), int(build_ptr),
         None if long_rows is None else long_rows.data_ptr(),
@@ -237,11 +260,16 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
         None if dx is None else dx.data_ptr(), d_al.data_ptr(), stream,
     )
     _build.check(rc, k)
-    gat_backward.launches += 1
-    gat_backward.by_width[C] += 1
+    if bf16:
+        gat_backward.launches_bf16 += 1
+    else:
+        gat_backward.launches += 1
+    gat_backward.by_width[(C, str(xt).removeprefix("torch."))] += 1
     return dx, d_al
 
 
 gat_aggregate.launches = 0
+gat_aggregate.launches_bf16 = 0
 gat_backward.launches = 0
+gat_backward.launches_bf16 = 0
 gat_backward.by_width = collections.Counter()

@@ -13,6 +13,10 @@ the backward dx is another ELL aggregate instead of a scatter.
 - ``spmm`` is a ``torch.autograd.Function`` whose backward is the transposed
   aggregate with the ``b_rows``/``t_b_slots`` truncation, and d``val`` (an
   SDDMM) only when the caller differentiates the edge values.
+
+x may be bf16 (``compute_dtype='bfloat16'``): the output is f32 all the
+same, the backward streams the cotangent at x's dtype and returns dx in it
+(``vq_gnn_tpu/ops/spmm.py:_spmm_bwd``).
 """
 
 from __future__ import annotations
@@ -103,12 +107,12 @@ def _ell_matvec(ell_row, ell_col, ell_val, x, num_rows, ptr=None, long_rows=None
 
 def _ell_sddmm(ell_row, ell_col, g, x):
     """d val[s,k] = g[row_s] . x[col_sk] (padding rows/cols clamp, as JAX's
-    ``mode='clip'``)."""
+    ``mode='clip'``), summed in f32 from bf16 g and x too."""
     S, K = ell_col.shape
-    g_rows = g.index_select(0, ell_row.long().clamp(max=g.shape[0] - 1))
+    g_rows = g.index_select(0, ell_row.long().clamp(max=g.shape[0] - 1)).float()
     x_cols = x.index_select(
         0, ell_col.reshape(-1).long().clamp(max=x.shape[0] - 1)
-    ).reshape(S, K, x.shape[1])
+    ).float().reshape(S, K, x.shape[1])
     return (g_rows[:, None, :] * x_cols).sum(-1)
 
 
@@ -117,6 +121,7 @@ class _SpMM(torch.autograd.Function):
     def forward(ctx, x, ell_val, edges: Edges):
         ctx.edges = edges
         ctx.x_rows = x.shape[0]
+        ctx.x_dtype = x.dtype
         # x is only needed for d val; the GCN/SAGE path never asks for it
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
         return _ell_matvec(edges.ell_row, edges.ell_col, ell_val, x, edges.num_rows,
@@ -126,7 +131,9 @@ class _SpMM(torch.autograd.Function):
     def backward(ctx, g):
         e: Edges = ctx.edges
         (x,) = ctx.saved_tensors
-        g = g.contiguous()
+        # stream the cotangent at the forward's dtype (bf16 halves the
+        # gathered bytes); the sums stay f32, dx comes back in x's dtype
+        g = g.to(ctx.x_dtype).contiguous()
         num_cols = ctx.x_rows
         dx = dval = None
         if ctx.needs_input_grad[0]:
@@ -146,6 +153,7 @@ class _SpMM(torch.autograd.Function):
             else:
                 dx = _ell_matvec(e.t_ell_row, e.t_ell_col, e.t_ell_val, g, num_cols,
                                  e.t_ell_ptr, e.t_ell_long_rows)
+            dx = dx.to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             dval = _ell_sddmm(e.ell_row, e.ell_col, g, x)
         return dx, dval, None
