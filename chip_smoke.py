@@ -35,7 +35,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 4. check that each path launched each of its kernels, that the bf16
    paths launched the bf16-row modes of kernels 1, 4 and 5 and never their
    f32 modes, and that both GAT hidden-256 paths ran kernel 5 at C = 256 in
-   their own dtype;
+   their own dtype (phase 10's runs are checked the same way, each B + M
+   GAT run launching the recovery kernels in its own fold only);
 5. hold each kernel against its plain PyTorch version on the card at the
    shapes of the real batch (kernel 1 with the batch's row offsets and long
    rows, and bit-identical run to run, at 1, 2 and 4 channel panels, with a
@@ -54,7 +55,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    rows, with and without its scalar channel, and bit-identical run to run
    and with the offsets alone or built on the device; the recovery
    kernels at nb = 32, M = 1,024 over the batch's own reverse list, row
-   offsets and long rows, and bit-identical run to run; the bf16-row modes
+   offsets and long rows, in both folds (f32, and bf16 against the plain
+   'fast' fold), and bit-identical run to run; the bf16-row modes
    of kernels 1, 4 and 5 on the same batches with bf16 x, cotangents, ar
    and g_rowsum, against their plain versions on the same bf16 values, and
    bit-identical run to run);
@@ -65,7 +67,7 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    panel and in panel_width's; kernel 2 also as the device time of a
    CUDA-graph replay, free of the host's launch gaps; the recovery kernels
    also split by device kernel: table pack, row pass, codeword pass and
-   reductions, from ``torch.profiler``; kernel 4 at C = 128 with and without
+   reductions, from ``torch.profiler``, the bf16 fold beside the f32 one; kernel 4 at C = 128 with and without
    the masked channels and at C = 256, with its device time and the rate of
    its gathered bytes; kernel 5 at each call shape of the GAT step, with its
    device time; kernel 3 split as the step calls it, against advanced
@@ -86,9 +88,27 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    loss, peak memory, device busy, eval forward) finite and printed;
 9. run the CLI (``main_node_torch.main``) in-process on the card with its
    verification command (``main_node.py``'s quick check, ``CLI_ARGS``): 3
-   epochs on a 500-node SBM must reach test accuracy 0.9.
+   epochs on a 500-node SBM must reach test accuracy 0.9;
+10. accuracy, through the parity harness (``train/parity.py``), each run
+   with the launch counters zeroed just before it and read just after:
+   a. the suite of ``tests/test_parity_convergence.py`` (GCN and GAT on the
+      cluster sampler and SAGE on cont against the exact full-graph control,
+      B + M GCN against the exact mini-batch control), held to that test's
+      bounds;
+   b. ``parity_gap`` of the flagship GCN B + B' (3 x 128, M = 256, cluster
+      sampler) as ``tools/parity_experiment_torch.py`` runs it by default,
+      uncut: the arxiv generator's SBM (169,343 nodes, 128 features, 48 of
+      them informative, noise 4.0, 40 classes, degree 13.7, seed 7), 60
+      epochs, evaluated every 5; then the exact arm's full-graph forward (the
+      COO layout through kernel 8) against its batched prediction, and
+      kernel 8 at that shape (one layer's messages over the whole graph)
+      against its plain sum in float64, bit-identical run to run;
+   c. the B + M GAT VQ arm at the reference widths (M = 1,024, batch 10,000,
+      K = 2) on 10a's graph, with the recovery term folded in f32 (x2) and in
+      bf16 (``VQ_GNN_REV_FOLD=fast``), each fold launching its own mode.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and, as
+Logs the seconds each phase took.  Prints the card's name and power limit, a
+``{"kernels": [...]}`` line and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises
 and the script exits non-zero without that line.  Without a CUDA device, or
 without the package beside it, it exits non-zero at once.
@@ -129,6 +149,15 @@ PATH_KERNELS = {  # kernels each training path must launch
 # kernels a bf16 path must not launch: the f32 modes of rows 1-4 (no cast of
 # the bf16 rows to f32 ahead of an f32 kernel)
 BF16_PATH_NOT = ("ell_aggregate", "gat_aggregate", "gat_backward")
+# phase 10: the convergence suite's kernels by case, the recovery kernels' by fold
+SUITE_KERNELS = {
+    "GCN-cluster": PATH_KERNELS["GCN"], "SAGE-cont": PATH_KERNELS["SAGE"],
+    "GAT-cluster": PATH_KERNELS["GAT"], "GCN-bm": PATH_KERNELS["GCN"],
+}
+FOLD_KERNELS = {"x2": ("rev_forward", "rev_backward"),
+                "fast": ("rev_forward_fold_bf16", "rev_backward_fold_bf16")}
+# 10c: the B + M GAT VQ arm (the suite's B + M epochs and evaluation period)
+EPOCHS_BM, EVAL_EVERY_BM = 40, 5
 
 
 
@@ -415,6 +444,122 @@ def small_graph_run(Config, NodeTrainer, prepare, synthetic_sbm, conv, form, dev
     return rec
 
 
+def accuracy_phase(torch, ops, gpu, launches, err, device="cuda"):
+    """Phase 10 (the module docstring says what it runs) on ``device``.  Adds
+    10c's launches of the bf16 fold to ``launches`` and kernel 8's error at
+    the full-graph shape to ``err``."""
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import parity_experiment_torch as tool
+    from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
+    from vq_gnn_tpu_torch.ops.spmm import make_edges
+    from vq_gnn_tpu_torch.train import parity
+
+    def counted(tag, fn, kernels, not_kernels=()):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        log(f"[4 launches] {tag}: {counts} ({time.time() - t0:.1f}s)")
+        for name in kernels:
+            assert counts[name] > 0, f"kernel {name} was not launched in {tag}"
+        for name in not_kernels:
+            assert counts[name] == 0, f"{name} was launched in {tag}"
+        return res, counts
+
+    # 10a: the suite of tests/test_parity_convergence.py, its bounds
+    for name in tool.CONVERGENCE:
+        (_, ctrl, vq, ok), _ = counted(
+            f"10a {name}", lambda: tool.run_convergence_case(name, device),
+            SUITE_KERNELS[name])
+        arm = "exact" if tool.CONVERGENCE[name][3] == "both" else "exact_mb"
+        log(f"[10a {name}] {arm} {ctrl:.4f} vq {vq:.4f} gap {ctrl - vq:+.4f}: the bounds of "
+            f"tests/test_parity_convergence.py {'hold' if ok else 'MISSED'} | {gpu}")
+        assert ok, (name, ctrl, vq)
+
+    # 10b: the flagship GCN B + B' as the tool runs it by default, both arms;
+    # the trainers are kept for the full-graph forward
+    args = tool.parse_args([])
+    graph_fn, src = tool.graph_source(args)
+    cfg = tool.vq_config(args, args.nodes)
+    trainers = {}
+    res, _ = counted("10b GCN B + B' parity", lambda: parity.parity_gap(
+        graph_fn, cfg, epochs=args.epochs, eval_every=args.eval_every, device=device,
+        trainers=trainers), PATH_KERNELS["GCN"])
+    for arm in ("exact", "vq"):
+        r = res[arm]
+        log(f"[10b {arm}] best valid {r['best_valid']:.4f} test at best valid "
+            f"{r['test_at_best_valid']:.4f} final test {r['final_test']:.4f}; history "
+            f"{[tuple(round(v, 4) for v in h) for h in r['history']]}")
+        assert 0.0 < r["test_at_best_valid"] <= 1.0
+    log(f"[10b] {src}, {args.epochs} epochs: gap (exact - vq) {res['gap']:+.4f} | {gpu}")
+    # the exact arm's full-graph forward: COO edges, kernel 8, the same model
+    # function as its full-graph batch (GCN with skip, BN in eval mode)
+    ex = trainers["exact"]
+    full, counts = counted("10b full-graph forward", ex.full_graph_predict, ("segment_sum",),
+                           ("ell_aggregate",))
+    batched = ex.predict_all()
+    agree = float((full.argmax(1) == batched.argmax(1)).mean())
+    d = float(abs(full - batched).max())
+    scale = float(abs(batched).max())
+    acc_full = float((full.argmax(1) == ex.graph.y)[ex.graph.test_mask].mean())
+    log(f"[10b full-graph forward] {full.shape}: max|full - batched| {d:.3g} (max|batched| "
+        f"{scale:.3g}), argmax agreement {agree:.5f}; test accuracy {acc_full:.4f}; kernel 8 "
+        f"launches {counts['segment_sum']}")
+    assert math.isfinite(d) and d <= 1e-3 * max(1.0, scale) and agree >= 0.999
+    # kernel 8 at that shape: one layer's messages val * x[col] over the
+    # whole graph, held against the plain sum in float64 (index_add_'s float
+    # atomics sum in another order each run), then cast; the same bits twice
+    g = ex.graph
+    edges = make_edges(*g.coo(), g.num_nodes).to(device)
+    x = torch.as_tensor(g.x).to(device)
+    msgs = x.index_select(0, edges.col.long()) * edges.val[:, None]
+    lists = dict(ptr=edges.row_ptr, long_rows=edges.row_long_rows)
+    out = segment_sum_sorted(msgs, edges.row, g.num_nodes, **lists)
+    again = segment_sum_sorted(msgs, edges.row, g.num_nodes, **lists)
+    ref = (msgs.new_zeros((g.num_nodes, msgs.shape[1]), dtype=torch.float64)
+           .index_add_(0, edges.row.long(), msgs.double()).float())
+    d = float((out - ref).abs().max())
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    same = torch.equal(out, again)
+    log(f"[10b segment_sum full graph] R={g.num_nodes} E={edges.row.shape[0]} "
+        f"C={msgs.shape[1]} long rows {edges.row_long_rows.shape[0] - 1}: max|err| {d:.3g} "
+        f"(tol {tol:.3g}); two calls bit-identical: {same}")
+    assert torch.isfinite(out).all() and d <= tol and same
+    err["segment_sum"] = max(err.get("segment_sum", 0.0), d)
+    del trainers, ex, edges, x, msgs, out, again, ref
+
+    # 10c: the B + M GAT VQ arm under each fold of the recovery term
+    cfg_c = tool.vq_config(tool.parse_args(["--formulation", "bm", "--conv", "GAT"]),
+                           tool.CONVERGENCE_N)
+    prev = os.environ.get("VQ_GNN_REV_FOLD")
+    accs = {}
+    try:
+        for fold in ("x2", "fast"):
+            os.environ["VQ_GNN_REV_FOLD"] = fold
+            other = FOLD_KERNELS["fast" if fold == "x2" else "x2"]
+            r, counts = counted(f"10c GAT B + M fold={fold}", lambda: parity.train_to_acc(
+                tool.convergence_graph, cfg_c, EPOCHS_BM, EVAL_EVERY_BM, device=device),
+                ("segment_sum", "vq_assign", "vq_lookup") + FOLD_KERNELS[fold], other)
+            accs[fold] = r["test_at_best_valid"]
+            log(f"[10c fold={fold}] best valid {r['best_valid']:.4f} test at best valid "
+                f"{r['test_at_best_valid']:.4f} final test {r['final_test']:.4f} | {gpu}")
+            if fold == "fast":
+                for name in FOLD_KERNELS["fast"]:
+                    launches[name] = counts[name]
+    finally:
+        if prev is None:
+            os.environ.pop("VQ_GNN_REV_FOLD", None)
+        else:
+            os.environ["VQ_GNN_REV_FOLD"] = prev
+    log(f"[10c] test accuracy x2 {accs['x2']:.4f} fast {accs['fast']:.4f} (fast - x2 "
+        f"{accs['fast'] - accs['x2']:+.4f}) | {gpu}")
+    assert all(0.0 < a <= 1.0 for a in accs.values())
+
+
 def main() -> int:
     import torch
 
@@ -461,8 +606,13 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | {gpu} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t_all = time.time()
+    starts = []  # (phase, its start): the breakdown logged at the end
+
+    def phase(name):
+        starts.append((name, time.time()))
 
     # ---- 1. build the kernels ----
+    phase("1 build")
     t0 = time.time()
     reports = _build.build_all()
     for name in _build.SOURCES:
@@ -475,6 +625,7 @@ def main() -> int:
         f"spilling entries: {len(spills)}")
 
     # ---- 2. graph, normalised per conv ----
+    phase("2 graph")
     t0 = time.time()
     raw = synthetic_sbm(num_nodes=N_NODES, num_classes=N_CLASSES, num_features=N_FEAT,
                         avg_degree=AVG_DEG, seed=0)
@@ -490,6 +641,7 @@ def main() -> int:
         f"parts={len(graphs['GCN'][2])} in {time.time() - t0:.1f}s")
 
     # ---- 3-4. the training paths, through the trainer ----
+    phase("3-4 paths")
     runs = {}
     for tag, kind, cfg_p, steps, full in (
         ("3 GCN", "GCN", flagship_cfg(Config), TIMED_STEPS, True),
@@ -524,6 +676,7 @@ def main() -> int:
     e0 = b0.edges
 
     # ---- 5. kernels against their plain versions at the real shapes ----
+    phase("5 kernels vs plain")
     gen = torch.Generator(device=dev).manual_seed(0)
     R, C = e0.num_rows, cfg.hidden_channels
     x = torch.randn((R, C), generator=gen, device=dev)
@@ -817,10 +970,11 @@ def main() -> int:
     rev_k.update(row_ptr=bmb.rev_row_ptr, long_rows=bmb.rev_long_rows)
     g_rev = torch.linspace(-1.0, 2.0, nb_bm, device=dev)
 
-    def rev_plain(xb, al, arcb, gbar, g):
+    def rev_plain(xb, al, arcb, gbar, g, fold="x2"):
         leaves = [t.clone().requires_grad_(True) for t in (xb, al, arcb)]
         info = rev_recovery_info_plain(rev_in["c_indices"], rev_in["slot_col"],
-                                       rev_in["slot_val"], rev_in["slot_row"], *leaves, gbar)
+                                       rev_in["slot_val"], rev_in["slot_row"], *leaves, gbar,
+                                       fold=fold)
         return (info.detach(), *torch.autograd.grad((info * g).sum(), leaves))
 
     ref = rev_plain(rev_in["xb"], rev_in["al"], rev_in["arcb"], rev_in["gbar"], g_rev)
@@ -846,6 +1000,30 @@ def main() -> int:
         key = "rev_forward" if i == 0 else "rev_backward"
         err[key] = max(err.get(key, 0.0), float(d.max()))
 
+    # the bf16 fold (VQ_GNN_REV_FOLD=fast) on the same batch and inputs,
+    # against the plain 'fast' version: both round each value to bf16 and
+    # each add of a codeword's cells within a slot, so what differs is the
+    # f32 sums of the slot parts and of the contraction: the tolerance above
+    ref16 = rev_plain(rev_in["xb"], rev_in["al"], rev_in["arcb"], rev_in["gbar"], g_rev, "fast")
+    outs16 = (rev_forward(**rev_k, fold="fast"), *rev_backward(**rev_k, g=g_rev, fold="fast"))
+    again16 = (rev_forward(**rev_k, fold="fast"), *rev_backward(**rev_k, g=g_rev, fold="fast"))
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(outs16, again16))
+    log(f"[5 rev fold=fast] info, d_xb, d_al, d_arcb bit-identical over two calls: {same_bits}; "
+        f"info apart from the f32 fold's: {not torch.equal(outs16[0], outs[0])}")
+    assert same_bits and not torch.equal(outs16[0], outs[0])
+    for i, (name, o, r, b) in enumerate(zip(("info", "d_xb", "d_al", "d_arcb"), outs16, ref16,
+                                            absb)):
+        d = (o - r).abs()
+        tol = 1e-5 * b + 1e-6 * float(b.max())
+        ratio = float((d / tol).max())
+        log(f"[5 rev fold=fast {name}] {tuple(o.shape)} max|err| {float(d.max()):.3g} max|ref| "
+            f"{float(r.abs().max()):.3g} ({ratio:.4g} of the tolerance); max|fast - f32 fold| "
+            f"{float((r - ref[i]).abs().max()):.3g}")
+        assert torch.isfinite(o).all() and ratio <= 1.0
+        key = "rev_forward_fold_bf16" if i == 0 else "rev_backward_fold_bf16"
+        err[key] = max(err.get(key, 0.0), float(d.max()))
+
     # kernels 2 and 3 at the B + M widths: K = 2 * D + 1 = 9, M = 1,024
     emb_bm = vq_bm.embedding.contiguous()
     Kb = emb_bm.shape[2]
@@ -855,6 +1033,7 @@ def main() -> int:
     hold_lookup("B + M", vq_bm, bmb.fo_ids, Dq)
 
     # ---- 6. times: kernel, plain version, library yardstick ----
+    phase("6 times")
     scratch = torch.empty(64 << 20, device=dev)  # 256 MB, 5x the L2
     flush = lambda: scratch.fill_(1.0)  # noqa: E731
     kern = {}
@@ -1157,18 +1336,28 @@ def main() -> int:
     # per live cell and branch: a merge add, and per distinct (row, codeword)
     # at most the attention (~10 flops) and the Dg-wide dot
     fwd_ops = nb_bm * cells * (2 * Dg + 11)
+    # each mode beside the other (the bf16 fold, VQ_GNN_REV_FOLD=fast, after
+    # the f32 one), the same bound: the fold changes no byte read or written
+    bwd_bytes = nb_bm * 4 + nb_bm * Bb * (Dg + 1) * 4 + nb_bm * M_bm * 4
     for name, fn, plain, out_bytes, ops_n in (
         ("rev_forward", lambda: rev_forward(**rev_k),
          lambda: rev_recovery_info_plain(**rev_in), nb_bm * 4, fwd_ops),
         ("rev_backward", lambda: rev_backward(**rev_k, g=g_rev),
          lambda: rev_plain(rev_in["xb"], rev_in["al"], rev_in["arcb"], rev_in["gbar"], g_rev),
-         nb_bm * 4 + nb_bm * Bb * (Dg + 1) * 4 + nb_bm * M_bm * 4, 2 * fwd_ops),
+         bwd_bytes, 2 * fwd_ops),
+        ("rev_forward_fold_bf16", lambda: rev_forward(**rev_k, fold="fast"),
+         lambda: rev_recovery_info_plain(**rev_in, fold="fast"), nb_bm * 4, fwd_ops),
+        ("rev_backward_fold_bf16", lambda: rev_backward(**rev_k, g=g_rev, fold="fast"),
+         lambda: rev_plain(rev_in["xb"], rev_in["al"], rev_in["arcb"], rev_in["gbar"], g_rev,
+                           "fast"),
+         bwd_bytes, 2 * fwd_ops),
     ):
         tt = {"ms": cuda_time_ms(torch, fn), "plain_ms": cuda_time_ms(torch, plain, reps=3),
               "library_ms": None}
         bb_ms, bb_by = bound(in_bytes + out_bytes, ops_n, F32_FLOPS)
         kern[name] = dict(source="vq_gnn_tpu_torch/csrc/rev_recovery.cu",
-                          replaces=("vq_gnn_tpu/ops/pallas_rev.py:280" if name == "rev_forward"
+                          replaces=("vq_gnn_tpu/ops/pallas_rev.py:280"
+                                    if name.startswith("rev_forward")
                                     else "vq_gnn_tpu/ops/pallas_rev.py:311"),
                           **tt, bound_ms=bb_ms, bound_by=bb_by)
         names = {"rev_rows": "row pass", "codeword_pass": "codeword pass",
@@ -1185,6 +1374,7 @@ def main() -> int:
     lookup_times("B + M", vq_bm, bmb.fo_ids, Dq)
 
     # ---- 7. small graph: GPU kernels vs CPU plain versions from one state ----
+    phase("7 small graph")
     for conv, form, dtype in (("GCN", "bbprime", "float32"), ("SAGE", "bbprime", "float32"),
                               ("GAT", "bbprime", "float32"), ("GCN", "bm", "float32"),
                               ("SAGE", "bm", "float32"), ("GAT", "bm", "float32"),
@@ -1250,6 +1440,7 @@ def main() -> int:
             assert dl < 1e-3
 
     # ---- 8. the bench (bench_torch.py) on phase 2's GCN graph ----
+    phase("8 bench")
     cfg_b = bench_torch.bench_config({})
     # the bench sets walk_length 3, which the cluster sampler does not read
     assert cfg_b == flagship_cfg(Config, walk_length=3), "the bench's cell is not phase 3's GCN"
@@ -1268,6 +1459,7 @@ def main() -> int:
     assert any(ln.startswith("peak device memory: allocated") for ln in bench_lines)
 
     # ---- 9. the CLI (main_node_torch.py), in-process on the card ----
+    phase("9 cli")
     t0 = time.time()
     cli = main_node_torch.main(CLI_ARGS + ["--device", "0"])
     final_test = cli.logger.results[0][-1][2]
@@ -1276,6 +1468,10 @@ def main() -> int:
         f"{[round(r[2], 4) for r in cli.logger.results[0]]}; statistics {stats} in "
         f"{time.time() - t0:.1f}s")
     assert stats and final_test >= 0.9, (final_test, stats)
+
+    # ---- 10. accuracy through the parity harness ----
+    phase("10 accuracy")
+    accuracy_phase(torch, ops, gpu, launches, err)
 
     out = []
     for name in launches:  # the kernels, then the bf16-row modes
@@ -1286,6 +1482,9 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+    phase("end")
+    log("seconds by phase: " + json.dumps(
+        {a[0]: round(b[1] - a[1], 1) for a, b in zip(starts, starts[1:])}))
     log(f"total {time.time() - t_all:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": out}))

@@ -340,15 +340,37 @@ def test_other_compute_dtypes_raise():
 
 
 def test_rev_fold_fast_raises(monkeypatch):
-    """The B + M recovery fold in bf16 (``VQ_GNN_REV_FOLD=fast``) is still to
-    port and raises by name where it would apply; 'x2' and 'highest' are
-    the f32 the port computes."""
+    """The B + M recovery fold in bf16 (``VQ_GNN_REV_FOLD=fast``) no longer
+    raises: it runs where it applies, B + M GAT at bf16 compute (the model
+    hands fold='fast' to the recovery term each training step, and the
+    epoch's losses are finite), and an unknown mode means 'x2', as in the
+    JAX package (``vq_gnn_tpu/ops/pallas_rev.py:56-58``)."""
+    from vq_gnn_tpu_torch.ops.rev_kernels import rev_fold_mode
+
     bm = tcfg.Config(formulation="bm", conv_type="GAT")
-    for mode in ("x2", "highest"):
+    for mode, want in (("x2", "x2"), ("highest", "highest"), ("fast", "fast"), ("bf16", "x2")):
         monkeypatch.setenv("VQ_GNN_REV_FOLD", mode)
         tcfg.check_ported(bm)
-    monkeypatch.setenv("VQ_GNN_REV_FOLD", "fast")
-    with pytest.raises(NotImplementedError, match="VQ_GNN_REV_FOLD=fast.*queue 2a"):
-        tcfg.check_ported(bm)
-    tcfg.check_ported(dataclasses.replace(bm, conv_type="GCN"))  # no recovery kernels there
-    tcfg.check_ported(tcfg.Config())
+        assert rev_fold_mode() == want
+    monkeypatch.delenv("VQ_GNN_REV_FOLD")
+    assert rev_fold_mode() == "x2"
+    cfg = tcfg.Config(**{**SEAM, "formulation": "bm", "hidden_channels": 16, "num_M": 8,
+                         "test_batch_size": 160})
+    g, c = tdata.synthetic_sbm(num_nodes=320, num_features=16, num_classes=6, seed=3)
+    g, c, ci = tdata.prepare(g, cfg, c)
+    tr = NodeTrainer(g, cfg, c, ci, device="cpu")
+    tr.run_init_sweep()
+    folds = []
+    real = tmodel.rev_recovery_info
+
+    def spy(*a, fold, **kw):
+        folds.append(fold)
+        return real(*a, fold=fold, **kw)
+
+    monkeypatch.setattr(tmodel, "rev_recovery_info", spy)
+    for mode in ("fast", "unknown"):
+        monkeypatch.setenv("VQ_GNN_REV_FOLD", mode)
+        folds.clear()
+        loss, loss_cls = tr.train_epoch(1)
+        assert np.isfinite(loss) and np.isfinite(loss_cls)
+        assert folds and set(folds) == {"fast" if mode == "fast" else "x2"}

@@ -193,36 +193,51 @@ def test_cli_refuses_to_run_without_a_gpu():
         main_node_torch.main(SMALL_ARGS[:-2])
 
 
-# each option with the ROADMAP.md item that ports it; "bf16" is the bf16 mode
-# still to port, the B + M recovery fold of VQ_GNN_REV_FOLD=fast (the GAT
-# B + M path under bf16 compute, with that fold asked for)
+# each option with the ROADMAP.md item that ports it
 @pytest.mark.parametrize("extra,where", [
     (["--ckpt-dir", "CKPT"], "queue 1 item 8"),
     (["--resume"], "queue 1 item 8"),
-    (["--vq-diagnostics"], "queue 1 items 3 and 8"),
     (["--kmeans-init"], "queue 1 item 6"),
     (["--dataset", "synthetic_inductive:300"], "queue 1 item 6"),
     (["--dataset", "ppi"], "queue 1 item 6"),
     (["--transformer-flag"], "queue 1 item 4"),
-    (["--compute-dtype", "bfloat16", "--formulation", "bm", "--conv-type", "GAT",
-      "VQ_GNN_REV_FOLD=fast"], "queue 2a"),
-], ids=["ckpt-dir", "resume", "vq-diagnostics", "kmeans-init", "synthetic-inductive", "ppi",
-        "transformer", "bf16"])
-def test_cli_unported_options_raise(extra, where, tmp_path, capsys, monkeypatch):
-    for a in extra:
-        if "=" in a:  # an environment setting, not a flag
-            monkeypatch.setenv(*a.split("="))
-    extra = [a for a in extra if "=" not in a]
+], ids=["ckpt-dir", "resume", "kmeans-init", "synthetic-inductive", "ppi", "transformer"])
+def test_cli_unported_options_raise(extra, where, tmp_path, capsys):
     argv = [str(tmp_path / a) if a == "CKPT" else a for a in SMALL_ARGS + extra]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {where}"):
         main_node_torch.main(argv)
     assert not os.path.exists(tmp_path / "CKPT")
 
 
+def test_cli_prints_vq_diagnostics(capsys):
+    """``--vq-diagnostics`` prints each logged epoch's per-layer VQ health
+    line, as ``main_node.py`` does (``print_vq_diagnostics``)."""
+    tr = main_node_torch.main(SMALL_ARGS + ["--vq-diagnostics", "--epochs", "2"])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("  [vq L")]
+    assert len(lines) == 2 * tr.ms.num_layers
+    assert lines[0].startswith("  [vq L0] eff_codewords=") and f"/{tr.cfg.num_M} " in lines[0]
+    assert all(k in lines[-1] for k in ("size_min=", "feat_std=", "grad_std="))
+
+
+def test_cli_trains_bm_gat_bf16_fold_fast(capsys, monkeypatch):
+    """B + M GAT at bf16 compute with ``VQ_GNN_REV_FOLD=fast`` (the recovery
+    term's bf16 fold) trains on the CPU: finite epoch results."""
+    monkeypatch.setenv("VQ_GNN_REV_FOLD", "fast")
+    tr = main_node_torch.main(SMALL_ARGS + ["--compute-dtype", "bfloat16", "--formulation", "bm",
+                                            "--conv-type", "GAT", "--sampler-type", "cont",
+                                            "--walk-length", "2"])
+    out = capsys.readouterr().out
+    assert tr.ms.formulation == "bm" and tr.ms.compute_dtype == "bfloat16"
+    assert len(tr.logger.results[0]) == 1 and "Run 01:" in out
+    assert all(math.isfinite(v) for r in tr.logger.results[0] for v in r)
+
+
 def test_entry_points_import_no_jax():
-    """bench_torch.py, main_node_torch.py, chip_smoke.py and every module of
-    the port import in a process where jax and vq_gnn_tpu cannot be
-    imported."""
+    """bench_torch.py, main_node_torch.py, chip_smoke.py,
+    tools/parity_experiment_torch.py and every module of the port (the
+    parity harness and the diagnostics among them) import in a process where
+    jax and vq_gnn_tpu cannot be imported."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "BLOCKED = ('jax', 'jaxlib', 'flax', 'vq_gnn_tpu')\n"
@@ -233,12 +248,16 @@ def test_entry_points_import_no_jax():
         "for m in [m for m in sys.modules if m.split('.')[0] in BLOCKED]:\n"
         "    del sys.modules[m]\n"
         "sys.meta_path.insert(0, Block())\n"
-        "import bench_torch, chip_smoke, main_node_torch, vq_gnn_tpu_torch\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import bench_torch, chip_smoke, main_node_torch, parity_experiment_torch\n"
+        "import vq_gnn_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(vq_gnn_tpu_torch.__path__, "
         "'vq_gnn_tpu_torch.')]\n"
         "mods = [m for m in mods if importlib.util.find_spec(m).origin.endswith('.py')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "assert 'vq_gnn_tpu_torch.utils.logger' in mods, mods\n"
+        "want = {'vq_gnn_tpu_torch.utils.logger', 'vq_gnn_tpu_torch.utils.diagnostics',\n"
+        "        'vq_gnn_tpu_torch.train.parity'}\n"
+        "assert want <= set(mods), mods\n"
         "print('clean', len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -144,7 +144,7 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(conv_type="GAT", ell_Kt=4), dict(formulation="bm", exact_minibatch=True), dict(ell_Kt=4),
+    [dict(conv_type="GAT", ell_Kt=4), dict(ell_Kt=4),
      dict(spmm_backend="coo"), dict(transformer_flag=True, formulation="bm"), dict(dropbranch=0.5),
      dict(kmeans_init=True), dict(compute_dtype="float16"), dict(vq_backend="scan")],
 )
@@ -158,3 +158,24 @@ def test_unported_options_raise(kw):
     g, c, ci = tdata.prepare(g, tcfg.Config(sampler_type="node", **CFG), c)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NodeTrainer(g, cfg, c, ci, device="cpu")
+
+
+@pytest.mark.parametrize("conv", ["GCN", "GAT"])
+def test_bm_exact_minibatch_trains_on_the_cpu(conv):
+    """``exact_minibatch`` under B + M (the convergence-matched control) runs:
+    batches of the exact in-batch edges alone (no boundary rows, no reverse
+    list), an init sweep, one epoch with finite losses and an evaluation."""
+    from vq_gnn_tpu_torch.train.loop import NodeTrainer
+
+    cfg = tcfg.Config(**{**CFG, "sampler_type": "cont", "batch_size": 64, "conv_type": conv,
+                         "formulation": "bm", "exact_minibatch": True})
+    g, c = tdata.synthetic_sbm(num_nodes=200, num_classes=3, num_features=8, seed=0)
+    g, c, ci = tdata.prepare(g, cfg, c)
+    tr = NodeTrainer(g, cfg, c, ci, device="cpu")
+    for windows, _ in tr.train_loader:
+        for b in windows:
+            assert not b.valid_fo.any() and b.rev_slot_row is None
+    tr.run_init_sweep()
+    loss, loss_cls = tr.train_epoch(1)
+    assert np.isfinite(loss) and np.isfinite(loss_cls)
+    assert all(0.0 <= a <= 1.0 for a in tr.evaluate())

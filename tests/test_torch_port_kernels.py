@@ -923,6 +923,15 @@ def test_segment_sum_matches_plain(dev, num_rows, S, C, pad, gaps, channels):
         _close_to_ref(o, r)
 
 
+def _segsum_plain64(part, seg, num_rows, scal):
+    """The plain segment sum of ``part`` [S, C] and ``scal`` [S] in float64
+    (``index_add_`` into num_rows + 1 rows, the last collecting the
+    padding)."""
+    idx = seg.long().clamp(0, num_rows)
+    return tuple(p.new_zeros((num_rows + 1,) + tuple(p.shape[1:]), dtype=torch.float64)
+                 .index_add_(0, idx, p.double())[:num_rows] for p in (part, scal))
+
+
 @cuda
 @pytest.mark.parametrize("C", [7, 32, 128, 256])
 def test_segment_sum_row_lists_same_bits(dev, C):
@@ -950,7 +959,10 @@ def test_segment_sum_row_lists_same_bits(dev, C):
                   "offsets built": {}})
     outs = {k: segment_sum_sorted(part, seg, num_rows, scalar_partials=scal, **kw)
             for k, kw in forms.items()}
-    ref = segment_sum_sorted_plain(part, seg, num_rows, scalar_partials=scal)
+    # the reference in float64, then cast: index_add_'s float atomics sum in
+    # another order each run, and in f32 that order moved the long row's
+    # sums by up to 9.3e-5 against the 8.0e-5 tolerance
+    ref = tuple(r.float() for r in _segsum_plain64(part, seg, num_rows, scal))
     torch.cuda.synchronize()
     first = outs["lists t=16"]
     for o, r in zip(first, ref, strict=True):
@@ -1158,6 +1170,61 @@ def test_rev_recovery_matches_plain(dev, B_pad, num_N, M, nb, Dg, R, heavy, thr)
 
 
 @cuda
+@pytest.mark.parametrize(
+    "B_pad,num_N,M,nb,Dg,R,heavy,long_cells",
+    [(2048, 20000, 1024, 32, 5, 30000, 5, 2600),
+     (512, 3000, 4, 3, 5, 4000, 7, 0),
+     (256, 6000, 16, 2, 5, 1500, 0, 2600),
+     (512, 3000, 64, 40, 2, 4000, 2, 300)],
+)
+def test_rev_recovery_fold_bf16_matches_plain(dev, B_pad, num_N, M, nb, Dg, R, heavy,
+                                              long_cells):
+    """Kernels 9 and 10 under the bf16 fold (``fold='fast'``) against the
+    plain 'fast' version: the same bf16 roundings (each value, then each add
+    of a codeword's cells within a K-cell slot), so each value to 1e-5 of
+    the sum of |terms| it adds up (the f32 sums of the slot parts and of the
+    contraction in another order); every output bit-identical over two
+    calls; and apart from the f32 fold's outputs.  ``long_cells`` adds a row
+    of that many cells (2,600: 325 slots), walked by the long-row warps in
+    32-cell chunks, each holding four whole slots; M = 4 and 16 put several
+    cells of one codeword in a slot.  The 'fast' launches count apart."""
+    rev, c_tab, xb, al, arcb, gbar = _rev_case(B_pad, num_N, M, nb, Dg, R, 5, heavy)
+    if long_cells:
+        rng = np.random.default_rng(6)
+        rr, rc, rv = rev
+        rev = (np.concatenate([rr, np.full(long_cells, 3)]),
+               np.concatenate([rc, rng.choice(num_N, long_cells, replace=False)]),
+               np.concatenate([rv, rng.normal(size=long_cells).astype(np.float32)]))
+    col, val, row = (torch.as_tensor(a).to(dev) for a in _rev_slots(rev, B_pad, num_N))
+    ptr, lr = _rev_lists(row, B_pad, dev)
+    if long_cells:
+        assert int(ptr[4] - ptr[3]) >= long_cells // 8 and 3 in lr[1:].tolist()
+    c_tab, xb, al, arcb, gbar = (torch.as_tensor(a).to(dev) for a in (c_tab, xb, al, arcb, gbar))
+    g = torch.linspace(-1.0, 2.0, nb, device=dev)
+
+    def run(fold):
+        return (rev_forward(c_tab, col, val, ptr, lr, xb, al, arcb, gbar, fold=fold),
+                *rev_backward(c_tab, col, val, ptr, lr, xb, al, arcb, gbar, g, fold=fold))
+
+    before = (rev_forward.launches_bf16, rev_backward.launches_bf16)
+    outs, again = run("fast"), run("fast")
+    assert (rev_forward.launches_bf16, rev_backward.launches_bf16) == (before[0] + 2,
+                                                                       before[1] + 2)
+    f32 = run("x2")
+    leaves = [t.clone().requires_grad_(True) for t in (xb, al, arcb)]
+    ref = rev_recovery_info_plain(c_tab, col, val, row, *leaves, gbar, fold="fast")
+    ref_grads = torch.autograd.grad((ref * g).sum(), leaves)
+    bounds = _rev_bound(c_tab, col, val, row, xb, al, arcb, gbar, g)
+    torch.cuda.synchronize()
+    for name, o, o2, r, b in zip(("info", "d_xb", "d_al", "d_arcb"), outs, again,
+                                 (ref.detach(), *ref_grads), bounds):
+        assert o.shape == r.shape and torch.isfinite(o).all(), name
+        assert ((o - r).abs() <= 1e-5 * b + 1e-6).all(), (name, float((o - r).abs().max()))
+        assert torch.equal(o, o2), f"{name} differs between two calls"
+    assert not torch.equal(outs[0], f32[0]), "the bf16 fold gave the f32 fold's info"
+
+
+@cuda
 def test_new_wrappers_refuse_bad_input(dev):
     seg = torch.zeros(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # float64 partials
@@ -1183,3 +1250,9 @@ def test_new_wrappers_refuse_bad_input(dev):
         rev_forward(c_tab, col, val, None, None, xb, al, arcb, gbar)
     with pytest.raises(ValueError):  # row offsets of another row count
         rev_forward(c_tab, col, val, ptr[:-1], lr, xb, al, arcb, gbar)
+    with pytest.raises(ValueError):  # a fold mode the JAX package does not have
+        rev_forward(c_tab, col, val, ptr, lr, xb, al, arcb, gbar, fold="bf16")
+    col6, val6 = col[:, :6].contiguous(), val[:, :6].contiguous()
+    rev_forward(c_tab, col6, val6, ptr, lr, xb, al, arcb, gbar)  # K = 6: the f32 fold takes it
+    with pytest.raises(ValueError):  # the bf16 fold needs K dividing 32
+        rev_forward(c_tab, col6, val6, ptr, lr, xb, al, arcb, gbar, fold="fast")

@@ -20,7 +20,6 @@ the plain PyTorch path, and 'auto' resolves to 'pallas_fast' on CUDA and
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -145,8 +144,6 @@ def check_ported(cfg: Config) -> None:
     silently ignored (ROADMAP.md lists what is still to come)."""
     for what, unported, where in (
         ("transformer_flag", cfg.transformer_flag, "queue 1 item 4"),
-        ("exact_minibatch (B + M)", cfg.formulation == "bm" and cfg.exact_minibatch,
-         "queue 1 item 3"),
         ("dropbranch", cfg.dropbranch > 0, "queue 1 item 4"),
         ("alpha_dropout_flag", cfg.alpha_dropout_flag and cfg.dropout > 0, "queue 1 item 4"),
         ("kmeans_init", cfg.kmeans_init, "queue 1 item 6"),
@@ -154,10 +151,6 @@ def check_ported(cfg: Config) -> None:
         ("mixed-K ELL (ell_Kt > 0)", cfg.ell_Kt > 0, "queue 1 item 5"),
         (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype not in COMPUTE_DTYPES,
          "queue 2a"),
-        # the B + M recovery kernels (non-GCN) fold in f32; the JAX package's
-        # bf16 fold (vq_gnn_tpu/ops/pallas_rev.py:56-58) is still to port
-        ("VQ_GNN_REV_FOLD=fast", cfg.formulation == "bm" and cfg.conv_type != "GCN"
-         and os.environ.get("VQ_GNN_REV_FOLD", "x2") == "fast", "queue 2a"),
         ("vq_backend='scan'", cfg.vq_backend == "scan", "(the step's glue)"),
         ("multi-GPU (mesh_data, fixed pad sizes)", cfg.mesh_data > 1 or cfg.fixed_B_pad > 0,
          "queue 1 item 7"),

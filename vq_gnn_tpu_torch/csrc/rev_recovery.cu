@@ -19,6 +19,14 @@
 // opposite sign that meet in one codeword cancel before the clamp (the v1
 // mapper's coalesce + keep-positive, vq_gnn_v1/utils/dataloader.py:153-180).
 //
+// Two folds of S, as the TPU kernel's VQ_GNN_REV_FOLD modes
+// (vq_gnn_tpu/ops/pallas_rev.py:194-270):
+// - f32 (x2, highest; fold_bf16 = 0): the cells' values summed in f32;
+// - bf16 (fast; fold_bf16 = 1): each value rounded to bf16, a codeword's
+//   cells of one K-cell slot summed in k order with a bf16 rounding after
+//   every add, and those slot parts widened and summed in f32.  Both the
+//   forward and the backward form S so (the backward recomputes it).
+//
 // Replaces the TPU kernels vq_gnn_tpu/ops/pallas_rev.py:_fwd_kernel and
 // _bwd_kernel (rev_recovery_info).  The TPU kernels build dense [rows, M]
 // codeword histograms with one-hot selects and fold them with MXU matmuls;
@@ -76,14 +84,20 @@ constexpr int kTile = 33;   // row stride of a short row's [32 cells][32 lanes] 
 constexpr int kPrefetch = 4;  // 32-cell tiles the codeword pass loads ahead
 constexpr int kSumRows = 128;  // rows a block of the forward's first sum takes
 // a short-row warp's shared memory: the codeword tile, the live cells'
-// values and neighbours, and in the backward the d_a tile
+// values, neighbours and slots, and in the backward the d_a tile
 constexpr int short_bytes(bool bwd) {
-  return 32 * kTile * 2 + 32 * 8 + (bwd ? 32 * kTile * 4 : 0);
+  return 32 * kTile * 2 + 32 * 8 + 32 + (bwd ? 32 * kTile * 4 : 0);
 }
 
 // A codeword-pass warp's shared memory: its [M] histogram and a tile's values.
 __host__ __device__ __forceinline__ int codeword_region(int M) {
   return (M + 32) * 4;
+}
+
+// x rounded to the nearest bfloat16, ties to even (finite x), kept as f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  const unsigned u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -98,6 +112,7 @@ struct RevArgs {
   const int* slot_col;    // [S, K]
   const float* slot_val;  // [S, K]
   int K;
+  int fold_bf16;         // 1: the bf16 fold of S (fast), 0: f32
   const int* row_ptr;    // [B_pad + 1] slot offsets
   const int* long_rows;  // [1 + n_long]: the threshold in slots, then the rows
   int n_long;
@@ -199,7 +214,8 @@ __device__ void short_row(const RevArgs& p, int64_t b, int s0, int L, int lane,
   short* tc = reinterpret_cast<short*>(sm);                    // [32][kTile] codewords
   float* tv = reinterpret_cast<float*>(sm + 32 * kTile * 2);  // [32] live values
   int* tcol = reinterpret_cast<int*>(tv + 32);                 // [32] their neighbours
-  float* ts = reinterpret_cast<float*>(tcol + 32);             // backward: [32][kTile] d_a
+  unsigned char* tk = reinterpret_cast<unsigned char*>(tcol + 32);  // [32] their slots
+  float* ts = reinterpret_cast<float*>(tk + 32);               // backward: [32][kTile] d_a
   const int64_t c0 = (int64_t)s0 * p.K;
   float v = 0.f;
   int col = 0;
@@ -211,8 +227,9 @@ __device__ void short_row(const RevArgs& p, int64_t b, int s0, int L, int lane,
   const int nl = __popc(live);
   const int rk = __popc(live & ((1u << lane) - 1u));  // this lane's cell among the live ones
   if (v != 0.f) {
-    tv[rk] = v;
+    tv[rk] = p.fold_bf16 ? round_bf16(v) : v;
     tcol[rk] = col;
+    tk[rk] = (unsigned char)(lane / p.K);
   }
   __syncwarp();
   for (int n0 = 0; n0 < p.nb; n0 += 32) {
@@ -235,8 +252,24 @@ __device__ void short_row(const RevArgs& p, int64_t b, int s0, int L, int lane,
         float da = 0.f;
         if (first) {
           float s = tv[i];
+          if (p.fold_bf16) {  // bf16 sums within a slot, f32 across slots
+            float part = s;
+            int slot = tk[i];
+            s = 0.f;
+            for (int j = i + 1; j < nl; ++j) {
+              if (tc[j * kTile + lane] != m) continue;
+              if (tk[j] != slot) {
+                s += part;
+                part = 0.f;
+                slot = tk[j];
+              }
+              part = round_bf16(part + tv[j]);
+            }
+            s += part;
+          } else {
 #pragma unroll 4
-          for (int j = i + 1; j < nl; ++j) s += tc[j * kTile + lane] == m ? tv[j] : 0.f;
+            for (int j = i + 1; j < nl; ++j) s += tc[j * kTile + lane] == m ? tv[j] : 0.f;
+          }
           if (s > 0.f) {
             float t[W];
             load_tab<W>(p, n, m, t);
@@ -273,15 +306,34 @@ __device__ __forceinline__ float long_cell(const RevArgs& p, int64_t c0, int L, 
   return v;
 }
 
-// Equal codewords of one 32-cell chunk summed into h (lane order).
-__device__ __forceinline__ void merge_chunk(float v, int m, int lane, float* h, float* tv) {
+// Equal codewords of one 32-cell chunk summed into h (lane order).  Under
+// the bf16 fold the values are rounded to bf16 and each slot's part (lanes
+// lane / K alike; a chunk starts on a slot edge, as K divides 32) is summed
+// in bf16, the parts in f32.
+__device__ __forceinline__ void merge_chunk(const RevArgs& p, float v, int m, int lane,
+                                            float* h, float* tv) {
   const bool on = v != 0.f;
   const unsigned grp = __match_any_sync(kFull, on ? m : -1 - lane);
-  tv[lane] = v;
+  tv[lane] = p.fold_bf16 ? round_bf16(v) : v;
   __syncwarp();
   if (on && (__ffs(grp) - 1) == lane) {
     float s = 0.f;
-    for (unsigned r = grp; r != 0u; r &= r - 1u) s += tv[__ffs(r) - 1];
+    if (p.fold_bf16) {
+      float part = 0.f;
+      int slot = lane / p.K;
+      for (unsigned r = grp; r != 0u; r &= r - 1u) {
+        const int q = __ffs(r) - 1;
+        if (q / p.K != slot) {
+          s += part;
+          part = 0.f;
+          slot = q / p.K;
+        }
+        part = round_bf16(part + tv[q]);
+      }
+      s += part;
+    } else {
+      for (unsigned r = grp; r != 0u; r &= r - 1u) s += tv[__ffs(r) - 1];
+    }
     h[m] += s;
   }
   __syncwarp();
@@ -332,7 +384,7 @@ __device__ void long_row(const RevArgs& p, int64_t b, int s0, int L, int n, int 
     for (int j0 = 0; j0 < L; j0 += 32) {
       int m;
       const float v = long_cell(p, c0, L, j0 + lane, n, m);
-      merge_chunk(v, m, lane, h, tv);
+      merge_chunk(p, v, m, lane, h, tv);
     }
     for (int j0 = 0; j0 < L; j0 += 32) {
       int m;
@@ -508,9 +560,13 @@ struct Layout {
 size_t aligned(size_t x) { return (x + 255) / 256 * 256; }
 
 // False for shapes the kernels do not take: Dg + 1 above a 16-float table
-// row, K above a warp, or M whose [M] histograms do not fit a block.
-bool make_layout(bool bwd, int nb, int64_t B_pad, int M, int Dg, int64_t S, int K, Layout& z) {
-  if (nb < 1 || B_pad < 1 || M < 1 || Dg < 1 || Dg + 1 > 16 || S < 1 || K < 1 || K > 32)
+// row, K above a warp (or, under the bf16 fold, not dividing 32: a long
+// row's 32-cell chunks must start on slot edges), or M whose [M]
+// histograms do not fit a block.
+bool make_layout(bool bwd, int nb, int64_t B_pad, int M, int Dg, int64_t S, int K,
+                 int fold_bf16, Layout& z) {
+  if (nb < 1 || B_pad < 1 || M < 1 || Dg < 1 || Dg + 1 > 16 || S < 1 || K < 1 || K > 32 ||
+      (fold_bf16 && 32 % K != 0))
     return false;
   z = {};
   z.W = Dg + 1 <= 8 ? 8 : 16;
@@ -591,7 +647,7 @@ cudaError_t launch_rows(const RevArgs& p, const Layout& z, const float* gbar, co
 }
 
 RevArgs make_args(const short* c_indices, int64_t n1, const int* slot_col,
-                  const float* slot_val, int64_t S, int K, const int* row_ptr,
+                  const float* slot_val, int64_t S, int K, int fold_bf16, const int* row_ptr,
                   const int* long_rows, int n_long, const float* xb, const float* al, int nb,
                   int64_t B_pad, int M, int Dg) {
   RevArgs p = {};
@@ -600,6 +656,7 @@ RevArgs make_args(const short* c_indices, int64_t n1, const int* slot_col,
   p.slot_col = slot_col;
   p.slot_val = slot_val;
   p.K = K;
+  p.fold_bf16 = fold_bf16;
   p.row_ptr = row_ptr;
   p.long_rows = long_rows;
   p.n_long = n_long;
@@ -616,12 +673,13 @@ RevArgs make_args(const short* c_indices, int64_t n1, const int* slot_col,
 }  // namespace
 
 // The bytes of scratch the forward (bwd = 0) or the backward (bwd = 1) needs
-// for these shapes, into *bytes; cudaErrorInvalidValue for shapes the
-// kernels do not take.
+// for these shapes and fold, into *bytes; cudaErrorInvalidValue for shapes
+// the kernels do not take.
 extern "C" int vq_rev_scratch_bytes(int bwd, int nb, int64_t B_pad, int M, int Dg, int64_t S,
-                                    int K, int64_t* bytes) {
+                                    int K, int fold_bf16, int64_t* bytes) {
   Layout z;
-  if (!make_layout(bwd != 0, nb, B_pad, M, Dg, S, K, z)) return (int)cudaErrorInvalidValue;
+  if (!make_layout(bwd != 0, nb, B_pad, M, Dg, S, K, fold_bf16, z))
+    return (int)cudaErrorInvalidValue;
   *bytes = (int64_t)z.bytes;
   return 0;
 }
@@ -629,19 +687,20 @@ extern "C" int vq_rev_scratch_bytes(int bwd, int nb, int64_t B_pad, int M, int D
 // Forward.  scratch: scratch_bytes of device memory, at least what
 // vq_rev_scratch_bytes(0, ...) gives, 256-byte aligned.
 extern "C" int vq_rev_forward(const short* c_indices, int64_t n1, const int* slot_col,
-                              const float* slot_val, int64_t S, int K, const int* row_ptr,
+                              const float* slot_val, int64_t S, int K, int fold_bf16,
+                              const int* row_ptr,
                               const int* long_rows, int n_long, const float* xb, const float* al,
                               const float* arcb, const float* gbar, int nb, int64_t B_pad, int M,
                               int Dg, void* scratch, int64_t scratch_bytes, float* info,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Layout z;
-  if (!make_layout(false, nb, B_pad, M, Dg, S, K, z) || n_long < 0 ||
+  if (!make_layout(false, nb, B_pad, M, Dg, S, K, fold_bf16, z) || n_long < 0 ||
       scratch_bytes < (int64_t)z.bytes)
     return (int)cudaErrorInvalidValue;
   unsigned char* sc = static_cast<unsigned char*>(scratch);
-  RevArgs p = make_args(c_indices, n1, slot_col, slot_val, S, K, row_ptr, long_rows, n_long, xb,
-                        al, nb, B_pad, M, Dg);
+  RevArgs p = make_args(c_indices, n1, slot_col, slot_val, S, K, fold_bf16, row_ptr, long_rows,
+                        n_long, xb, al, nb, B_pad, M, Dg);
   float* rowinfo = reinterpret_cast<float*>(sc + z.rowinfo);
   p.rowinfo = rowinfo;
   cudaError_t e = launch_rows<false>(p, z, gbar, arcb, reinterpret_cast<float*>(sc + z.tab), st);
@@ -658,7 +717,8 @@ extern "C" int vq_rev_forward(const short* c_indices, int64_t n1, const int* slo
 
 // Backward.  scratch as for the forward, from vq_rev_scratch_bytes(1, ...).
 extern "C" int vq_rev_backward(const short* c_indices, int64_t n1, const int* slot_col,
-                               const float* slot_val, int64_t S, int K, const int* row_ptr,
+                               const float* slot_val, int64_t S, int K, int fold_bf16,
+                               const int* row_ptr,
                                const int* long_rows, int n_long, const float* xb,
                                const float* al, const float* arcb, const float* gbar, int nb,
                                int64_t B_pad, int M, int Dg, void* scratch,
@@ -666,12 +726,12 @@ extern "C" int vq_rev_backward(const short* c_indices, int64_t n1, const int* sl
                                float* d_arcb, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Layout z;
-  if (!make_layout(true, nb, B_pad, M, Dg, S, K, z) || n_long < 0 ||
+  if (!make_layout(true, nb, B_pad, M, Dg, S, K, fold_bf16, z) || n_long < 0 ||
       scratch_bytes < (int64_t)z.bytes)
     return (int)cudaErrorInvalidValue;
   unsigned char* sc = static_cast<unsigned char*>(scratch);
-  RevArgs p = make_args(c_indices, n1, slot_col, slot_val, S, K, row_ptr, long_rows, n_long, xb,
-                        al, nb, B_pad, M, Dg);
+  RevArgs p = make_args(c_indices, n1, slot_col, slot_val, S, K, fold_bf16, row_ptr, long_rows,
+                        n_long, xb, al, nb, B_pad, M, Dg);
   p.g = g;
   p.d_xb = d_xb;
   p.d_al = d_al;

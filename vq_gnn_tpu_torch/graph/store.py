@@ -43,6 +43,16 @@ class HostGraph:
     def num_features(self) -> int:
         return self.x.shape[1]
 
+    def coo(self):
+        """(row, col, val) int32/int32/float32, sorted by (row, col)."""
+        coo = self.adj.tocoo()
+        order = np.lexsort((coo.col, coo.row))
+        return (
+            coo.row[order].astype(np.int32),
+            coo.col[order].astype(np.int32),
+            coo.data[order].astype(np.float32),
+        )
+
 
 def symmetrize(adj: sp.spmatrix) -> sp.csr_matrix:
     """A := union of A and A^T with unit values (``adj_t.to_symmetric()``)."""

@@ -9,6 +9,8 @@ B + B' (v2) and B + M (v1) formulations for GCN, SAGE and GAT).
                        ``formulation='bm'`` one v1 layer (``layer_forward_bm``,
                        ``vq_gnn_v1/models.py:143-233``)
 - ``model_forward``    the stack; returns per-layer inputs + info_backward
+- ``full_graph_inference``  the plain conv stack over the whole graph with
+                       the learned weights, codebooks bypassed
 
 The reference's backward hook (``models.py v2:181-185``) becomes *probes*:
 zero tensors with ``requires_grad=True`` added to each conv output's batch
@@ -35,7 +37,7 @@ from vq_gnn_tpu_torch.ops.gat import (
     gat_conv_ell_mh,
     node_logits,
 )
-from vq_gnn_tpu_torch.ops.rev_kernels import rev_recovery_info
+from vq_gnn_tpu_torch.ops.rev_kernels import rev_fold_mode, rev_recovery_info
 from vq_gnn_tpu_torch.ops.spmm import spmm
 from vq_gnn_tpu_torch.ops.vq_ops import masked_mean_var
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
@@ -298,7 +300,8 @@ def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatc
     relu(sum of reverse values) the mapper produces after coalesce +
     keep-positive, times the GAT attention when given, contracted with the
     batch features and the codeword grad table.  Kernels 9-10 on CUDA
-    tensors, the plain grid on CPU tensors (``ops/rev_kernels.py``).
+    tensors, the plain grid on CPU tensors (``ops/rev_kernels.py``), folding
+    the cells as ``VQ_GNN_REV_FOLD`` says (``rev_fold_mode``).
 
     x_cols [nb, B_pad, Dg]; al [nb, B_pad] and ar_cb [nb, M] (zeros: no
     attention, exp(leaky(0)) == 1)."""
@@ -312,7 +315,8 @@ def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatc
         ar_cb = x_cols.new_zeros((nb, M))
     infos = rev_recovery_info(vq_state.c_indices, batch.rev_slot_col, batch.rev_slot_val,
                               batch.rev_slot_row, x_cols, al, ar_cb, grad_table,
-                              row_ptr=batch.rev_row_ptr, long_rows=batch.rev_long_rows)
+                              row_ptr=batch.rev_row_ptr, long_rows=batch.rev_long_rows,
+                              fold=rev_fold_mode())
     return infos.sum() * warm_up_rate
 
 
@@ -461,3 +465,27 @@ def zero_probes(ms: ModelStatic, B_pad: int, device) -> List[torch.Tensor]:
     return [
         torch.zeros(s, device=device, requires_grad=True) for s in probe_shapes(ms, B_pad)
     ]
+
+
+# --------------------------------------------------------------------------
+# exact full-graph inference (no VQ), v1 semantics (v1/models.py:486-504)
+# --------------------------------------------------------------------------
+@torch.no_grad()
+def full_graph_inference(model: LowRankGNN, bn_state: BNState, ms: ModelStatic, x, edges):
+    """Plain conv stack with the learned weights, codebooks bypassed
+    (``vq_gnn_tpu/nn/model.py:909-926``).  As there: ``fc_sage`` is not
+    applied, BN runs in eval mode, and GAT is the plain SpMM (the reference's
+    inference() ignores attention).  ``edges``: the whole graph's COO edges
+    (``ops/spmm.make_edges``), forward only."""
+    for l in range(ms.num_layers):
+        layer = model.layers[l]
+        h = spmm(edges, x)
+        h = F.linear(h, layer.gnn_transform.weight, layer.gnn_transform.bias)
+        if ms.skip:
+            h = h + F.linear(x, layer.linear_skip.weight, layer.linear_skip.bias)
+        x = h
+        if l < ms.num_layers - 1:
+            if ms.bn_flag:
+                x = batchnorm_infer(x, bn_state.mean[l], bn_state.var[l])
+            x = activation(x, ms.act)
+    return x

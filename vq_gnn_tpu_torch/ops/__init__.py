@@ -2,7 +2,8 @@
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``; the
 wrappers of kernels 1, 4 and 5 count their bf16-row mode apart, in
-``launches_bf16`` (``BF16_MODES`` names each such mode).
+``launches_bf16``, and those of kernels 9 and 10 their bf16 fold
+(``VQ_GNN_REV_FOLD=fast``) there too (``BF16_MODES`` names each such mode).
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero them all
 (``gat_backward`` also counts them per width C and row dtype, in
 ``by_width``).
@@ -24,11 +25,14 @@ KERNELS = {
     "rev_forward": rev_forward,
     "rev_backward": rev_backward,
 }
-# the bf16-row modes (compute_dtype='bfloat16') of three of those wrappers
+# the bf16-row modes (compute_dtype='bfloat16') of three of those wrappers,
+# and the bf16 fold of the recovery kernels (VQ_GNN_REV_FOLD=fast)
 BF16_MODES = {
     "ell_aggregate_bf16": ell_aggregate,
     "gat_aggregate_bf16": gat_aggregate,
     "gat_backward_bf16": gat_backward,
+    "rev_forward_fold_bf16": rev_forward,
+    "rev_backward_fold_bf16": rev_backward,
 }
 
 

@@ -1,5 +1,6 @@
 """Sparse matrix-times-dense-matrix (SpMM) for graph aggregation (port of
-``vq_gnn_tpu/ops/spmm.py``, single-K slot-ELL layout).
+``vq_gnn_tpu/ops/spmm.py``: the single-K slot-ELL layout, and the COO layout's
+forward).
 
 The hot op of every conv forward and backward (the reference bottoms out in
 ``torch_sparse::spmm``, ``convs.py v2:95``).  Layout, as in the JAX package:
@@ -17,6 +18,13 @@ the backward dx is another ELL aggregate instead of a scatter.
 x may be bf16 (``compute_dtype='bfloat16'``): the output is f32 all the
 same, the backward streams the cotangent at x's dtype and returns dx in it
 (``vq_gnn_tpu/ops/spmm.py:_spmm_bwd``).
+
+The COO layout (``make_edges``: row-sorted row, col, val) serves full-graph
+inference, forward only (``_segment_matvec``): each edge's message
+``val * x[col]``, then the sorted segment sum of kernel 8 over the rows
+(``ops/segsum.py``) with the row offsets and long rows ``make_edges`` built
+on the host, the same bits on every run; the plain version on CPU tensors.
+Its backward (training on ``spmm_backend='coo'``) is not ported.
 """
 
 from __future__ import annotations
@@ -27,13 +35,23 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vq_gnn_tpu_torch.config import not_ported
 from vq_gnn_tpu_torch.ops.ell_aggregate import LONG_SLOTS, ell_aggregate
+from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 
 
 @dataclasses.dataclass
 class Edges:
-    """A padded slot-ELL edge list over a local node numbering."""
+    """A padded slot-ELL edge list over a local node numbering, or a COO one
+    (``make_edges``)."""
 
+    # COO: int32 [E] rows, ascending; cols; f32 values; kernel 8's row
+    # offsets [num_rows + 1] and long rows of the rows
+    row: object = None
+    col: object = None
+    val: object = None
+    row_ptr: object = None
+    row_long_rows: object = None
     ell_row: object = None  # [S_pad] int32 ascending; pad = num_rows
     ell_col: object = None  # [S_pad, K] int32; pad = num_rows
     ell_val: object = None  # [S_pad, K] f32; pad = 0
@@ -79,6 +97,11 @@ class Edges:
 
         return dataclasses.replace(
             self,
+            row=t(self.row, torch.int32),
+            col=t(self.col, torch.int32),
+            val=t(self.val, torch.float32),
+            row_ptr=t(self.row_ptr, torch.int32),
+            row_long_rows=t(self.row_long_rows, torch.int32),
             ell_row=t(self.ell_row, torch.int32),
             ell_col=t(self.ell_col, torch.int32),
             ell_val=t(self.ell_val, torch.float32),
@@ -159,19 +182,45 @@ class _SpMM(torch.autograd.Function):
         return dx, dval, None
 
 
+def _segment_matvec(edges: Edges, x):
+    """The COO forward (``vq_gnn_tpu/ops/spmm.py:_segment_matvec``): the
+    messages ``val * x[col]`` (in f32 for bf16 x), summed per row by kernel 8
+    on CUDA tensors."""
+    msgs = x.index_select(0, edges.col.long()).float() * edges.val[:, None]
+    return segment_sum_sorted(msgs, edges.row, edges.num_rows, ptr=edges.row_ptr,
+                              long_rows=edges.row_long_rows)
+
+
 def spmm(edges: Edges, x: torch.Tensor, ell_val: Optional[torch.Tensor] = None):
     """out[r] = sum_e 1[row_e == r] * val_e * x[col_e] -> [num_rows, D].
 
     ``ell_val`` overrides ``edges.ell_val`` (e.g. attention-weighted values
-    that need a gradient)."""
+    that need a gradient).  COO edges (no ``ell_row``) run the forward only."""
     if edges.ell_row is None:
-        raise NotImplementedError(
-            "only the slot-ELL layout is ported to vq_gnn_tpu_torch; see ROADMAP.md"
-        )
+        if edges.row is None:
+            raise ValueError("spmm: the edges hold neither the slot-ELL nor the COO layout")
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise not_ported("the COO layout's backward (spmm_backend='coo')", "queue 1 item 4")
+        return _segment_matvec(edges, x)
     if edges.t_ell_row is None:
         raise ValueError("ELL edges need t_ell_* for the backward pass")
     val = edges.ell_val if ell_val is None else ell_val
     return _SpMM.apply(x, val, edges)
+
+
+def make_edges(row, col, val, num_rows) -> Edges:
+    """Host-side COO edges (``vq_gnn_tpu/ops/spmm.py:make_edges``), sorted by
+    row (stable), with kernel 8's row offsets and long rows.  The JAX
+    package's col-sorting permutation serves the COO backward only, which is
+    not ported.  numpy arrays: ``Edges.to`` moves them."""
+    row = np.asarray(row, dtype=np.int32)
+    col = np.asarray(col, dtype=np.int32)
+    val = np.asarray(val, dtype=np.float32)
+    order = np.argsort(row, kind="stable")
+    row, col, val = row[order], col[order], val[order]
+    ptr = row_offsets_host(row, int(num_rows))
+    return Edges(row=row, col=col, val=val, row_ptr=ptr, row_long_rows=long_rows_host(ptr),
+                 num_rows=int(num_rows))
 
 
 def build_ell_host(row, col, val, num_rows: int, K: int, S_pad: int = 0):

@@ -108,7 +108,7 @@ def k_hop_subgraph(rowptr, col, val, node_idx, num_N, train_flag: bool):
 
 
 def bm_subgraph(rowptr, col, val, deg, deg_inv, node_idx, num_N, conv_type: str,
-                recovery_flag: bool, train_flag: bool):
+                recovery_flag: bool, train_flag: bool, exact_minibatch: bool = False):
     """B + M (v1) edge sets, the per-edge equivalent of the mapper
     (``vq_gnn_v1/utils/dataloader.py:144-192``; copy of
     ``vq_gnn_tpu/sampler/samplers.py:bm_subgraph``).
@@ -131,6 +131,10 @@ def bm_subgraph(rowptr, col, val, deg, deg_inv, node_idx, num_N, conv_type: str,
       in-batch ones, so the per-(row, codeword) positive clamp is live; the
       raw per-edge inputs come back as ``rev`` = (local row, global col,
       value) for the device to coalesce.
+    - ``exact_minibatch`` (the convergence-matched control,
+      ``Config.exact_minibatch``): the exact in-batch edges (GCN doubled)
+      and the self-loops alone; no codeword columns, no reverse rows, no
+      recovery.
 
     Returns (fo_ids, e_row, e_col, e_val, rev or None)."""
     node_idx = np.asarray(node_idx, dtype=np.int64)
@@ -145,6 +149,19 @@ def bm_subgraph(rowptr, col, val, deg, deg_inv, node_idx, num_N, conv_type: str,
     cols_g = col[gather]
     vals_g = val[gather]
     nbr_out = ~in_batch[cols_g]
+    gcn_mult = 2.0 if conv_type == "GCN" else 1.0
+
+    if exact_minibatch:
+        pos = np.full(num_N, -1, dtype=np.int64)
+        pos[node_idx] = np.arange(B)
+        sel = ~nbr_out
+        er_l, ec_l, ev_l = [pos[rows_g[sel]]], [pos[cols_g[sel]]], [vals_g[sel] * gcn_mult]
+        if conv_type != "SAGE":
+            er_l.append(np.arange(B))
+            ec_l.append(np.arange(B))
+            ev_l.append(deg_inv[node_idx].astype(np.float32) * gcn_mult)
+        return (np.zeros(0, np.int64), np.concatenate(er_l), np.concatenate(ec_l),
+                np.concatenate(ev_l).astype(np.float32), None)
 
     if recovery_flag and train_flag:
         fo_ids = np.unique(cols_g[nbr_out])
@@ -158,7 +175,6 @@ def bm_subgraph(rowptr, col, val, deg, deg_inv, node_idx, num_N, conv_type: str,
 
     er_list, ec_list, ev_list = [], [], []
     rev = None
-    gcn_mult = 2.0 if conv_type == "GCN" else 1.0
     if recovery_flag and train_flag:
         sel = ~nbr_out  # exact in-batch edges
         er_list.append(pos[rows_g[sel]])
@@ -352,6 +368,7 @@ class BatchLoader:
             fo_ids, er, ec, ev, rev = bm_subgraph(
                 self.rowptr, self.col, self.val, g.deg, g.deg_inv, node_idx, self.N,
                 cfg.conv_type, cfg.recovery_flag, self.train_flag,
+                exact_minibatch=cfg.exact_minibatch,
             )
         else:
             fo_ids, er, ec, ev = k_hop_subgraph(

@@ -2,8 +2,9 @@
 ``vq_gnn_tpu/train/loop.py``, transductive path).
 
 Layerwise codebook init sweep over the test loader, per-epoch training with
-the warm-up rate and the linear lr ramp, stochastic batched evaluation, and
-``fit``: the whole run, logged per epoch.
+the warm-up rate and the linear lr ramp, stochastic batched evaluation,
+exact full-graph inference (``full_graph_predict``), and ``fit``: the whole
+run, logged per epoch (with the per-layer VQ health lines on request).
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ from vq_gnn_tpu_torch.config import (
     resolve_device,
 )
 from vq_gnn_tpu_torch.graph.store import HostGraph
-from vq_gnn_tpu_torch.nn.model import ModelStatic, model_static
+from vq_gnn_tpu_torch.nn.model import ModelStatic, full_graph_inference, model_static
+from vq_gnn_tpu_torch.ops.spmm import make_edges
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
 from vq_gnn_tpu_torch.train.step import make_step_fns
+from vq_gnn_tpu_torch.utils.diagnostics import codebook_stats
 from vq_gnn_tpu_torch.utils.logger import Logger
 
 
@@ -167,6 +170,17 @@ class NodeTrainer:
             accuracy(outs, g.y, g.test_mask),
         )
 
+    # ---- exact full-graph inference (codebooks bypassed) ----
+    def full_graph_predict(self) -> np.ndarray:
+        """v1 ``LowRankGNN.inference`` (v1/models.py:486-504): one plain conv
+        stack over the whole normalized adjacency with the learned weights."""
+        g = self.graph
+        row, col, val = g.coo()
+        edges = make_edges(row, col, val, g.num_nodes).to(self.device)
+        x = torch.as_tensor(g.x).to(self.device)
+        out = full_graph_inference(self.state.model, self.state.bn_state, self.ms, x, edges)
+        return out.cpu().numpy()
+
     # ---- full run (main_node.py v2:233-308) ----
     def fit(
         self,
@@ -178,14 +192,12 @@ class NodeTrainer:
         vq_diagnostics: bool = False,
     ):
         """The init sweep, then per epoch ``train_epoch``, ``evaluate`` and
-        ``logger.add_result``; returns ``logger.statistics(run)``.
-        Checkpoints and the per-epoch VQ health lines are not ported and
-        raise (``kmeans_init`` is refused when the trainer is built)."""
+        ``logger.add_result``, with ``vq_diagnostics`` each logged epoch's
+        per-layer VQ health lines (``print_vq_diagnostics``); returns
+        ``logger.statistics(run)``.  Checkpoints are not ported and raise
+        (``kmeans_init`` is refused when the trainer is built)."""
         if ckpt_dir or resume:
             raise not_ported("checkpoints (ckpt_dir, resume)", "queue 1 item 8")
-        if vq_diagnostics:
-            raise not_ported("vq_diagnostics (utils/diagnostics.codebook_stats)",
-                             "queue 1 items 3 and 8")
         cfg = self.cfg
         self.run_init_sweep(verbose=verbose)
         if verbose:
@@ -203,4 +215,19 @@ class NodeTrainer:
                     f"Valid: {100 * va:.2f}%, Test: {100 * te:.2f}% "
                     f"[{time.time() - t0:.1f}s]"
                 )
+                if vq_diagnostics:
+                    self.print_vq_diagnostics(epoch)
         return self.logger.statistics(run)
+
+    def print_vq_diagnostics(self, epoch: int):
+        """Per-layer VQ health (the reference's exp_log catalogue,
+        utils/logger.py:89-232)."""
+        for l, s in enumerate(self.state.vq_states):
+            st = codebook_stats(s, self.ms.vq)
+            print(
+                f"  [vq L{l}] eff_codewords="
+                f"{np.mean(st['effective_codewords']):.1f}/{self.ms.vq.num_M} "
+                f"size_min={st['cluster_size_min'].min():.3g} "
+                f"feat_std={np.mean(st['feat_std_per_dim']):.3f} "
+                f"grad_std={np.mean(st['grad_std_per_dim']):.3f}"
+            )

@@ -1,1 +1,2 @@
-"""Host-side utilities: run logging and the step profile."""
+"""Host-side utilities: run logging, the step profile and the VQ-health
+diagnostics."""
