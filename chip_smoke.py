@@ -105,10 +105,39 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       against its plain sum in float64, bit-identical run to run;
    c. the B + M GAT VQ arm at the reference widths (M = 1,024, batch 10,000,
       K = 2) on 10a's graph, with the recovery term folded in f32 (x2) and in
-      bf16 (``VQ_GNN_REV_FOLD=fast``), each fold launching its own mode.
+      bf16 (``VQ_GNN_REV_FOLD=fast``), each fold launching its own mode;
+11. link prediction at the collab widths (``tools/link_experiment_torch.py``,
+   uncut): the latent dot-product graph of N = 235,868, 128 features,
+   degree 10.9, with its OGB-style split (valid and test positives held out
+   of the training adjacency, 100,000 random negatives per evaluation
+   split), through ``LinkTrainer``: GCN B + B', 3 x 128, num_D = 4, M =
+   1,024, cont sampler (batch 50,000, walk length 15), test batch 80,000,
+   'auto' VQ (the fast CUDA kernels), TF32; the init sweep, one epoch, five
+   timed steps on the epoch's first windows, ``evaluate_hits(50)``; then
+   kernels 1 (forward and dx at C = 128), 2 (the step's nb = 32, M = 1,024,
+   and the init sweep's feature half, K = 4) and 3 (M = 1,024) against
+   their plain versions at the path's shapes, and timed;
+12. inductive multilabel training at the ppi widths
+   (``tools/inductive_experiment_torch.py``, uncut): three SBM graphs of
+   44,906 / 6,514 / 5,524 nodes, 50 features, 121 labels, degree 28, one
+   feature-to-label map, through ``NodeTrainer(val_graph=, test_graph=)``:
+   GCN B + B', 3 x 256 (nb = 64 branches a hidden layer), M = 4,096, node
+   sampler of 30,000, BCE; the init sweep, one epoch, five timed steps,
+   ``evaluate()`` (micro-F1 on each split graph as one full batch), then
+   ``evaluate_split_stochastic`` on the validation graph at batch 3,000
+   (``eval_assign_step``: kernel 2 on the feature half, K = 4, kernel 3
+   over the split's own table); then kernels 1 (forward at C = 52 and 256,
+   dx at 256), 2 (nb = 13 and 64, M = 4,096, at K = 8 on the training batch
+   and K = 4 on the evaluation batch; the plain version a few branches at a
+   time, as its distances would take 34 GB whole) and 3 (M = 4,096) against
+   their plain versions at the path's shapes, and timed.
+   Each of phases 11-12 zeroes the launch counters just before its path and
+   reads them after, checks that kernels 1, 2 and 3 ran, and logs the batch
+   shapes, ms/step, edges/s, the path's peak device memory and its seconds.
 
 Logs the seconds each phase took.  Prints the card's name and power limit, a
-``{"kernels": [...]}`` line and, as
+``{"kernels": [...]}`` line (with rows for kernel 2 at nb = 64, M = 4,096
+and at K = 4, M = 4,096, and kernel 3 at M = 4,096, from phase 12) and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises
 and the script exits non-zero without that line.  Without a CUDA device, or
 without the package beside it, it exits non-zero at once.
@@ -118,6 +147,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import sys
 import time
 import warnings
@@ -158,6 +188,11 @@ FOLD_KERNELS = {"x2": ("rev_forward", "rev_backward"),
                 "fast": ("rev_forward_fold_bf16", "rev_backward_fold_bf16")}
 # 10c: the B + M GAT VQ arm (the suite's B + M epochs and evaluation period)
 EPOCHS_BM, EVAL_EVERY_BM = 40, 5
+# phases 11-12: the kernels of the link and inductive paths (rows 1, 6, 7)
+NEW_PATH_KERNELS = ("ell_aggregate", "vq_assign", "vq_lookup")
+NEW_TIMED_STEPS = 5
+IND_EVAL_BATCH = 3000  # evaluate_split_stochastic's batch on the ppi validation graph
+PLAIN_CHUNK_BYTES = 2.5e9  # the plain assign's distances per piece of branches
 
 
 
@@ -294,6 +329,163 @@ def kernel_split(torch, fn, calls=20):
     return {key: round(us / calls, 2) for us, _, key in device_rows(prof)}
 
 
+def branch_chunk(B: int, M: int) -> int:
+    """Branches per piece of the plain assign whose [piece, B, M] f32
+    distances take at most PLAIN_CHUNK_BYTES (at nb = 64, B = 32,768, M =
+    4,096 the whole tensor would take 34 GB, and the plain loop holds three)."""
+    return max(1, int(PLAIN_CHUNK_BYTES // (B * M * 4)))
+
+
+def assign_plain(torch, xx, emb, vv, fast, idx=None, chunk=None):
+    """Kernel 2's plain version, ``chunk`` branches at a time (branches are
+    independent, so the pieces concatenate to the whole)."""
+    from vq_gnn_tpu_torch.ops.vq_kernels import fused_assign_branches_plain
+
+    c = chunk or xx.shape[0]
+    parts = [fused_assign_branches_plain(xx[i : i + c], emb[i : i + c], vv, fast=fast,
+                                         idx=None if idx is None else idx[i : i + c])
+             for i in range(0, xx.shape[0], c)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def hold_assign(torch, tag, label, xx, emb, vv, err, key="vq_assign", chunk=None):
+    """Kernel 2 against its plain version in both modes (the plain version
+    ``chunk`` branches at a time).  Exact: idx and counts equal.  Fast
+    (tensor cores, their own summation order): idx may differ at near ties
+    only (worst ratio <= 1 on < 1e-3 of the rows), counts and sums held at
+    the kernel's own idx.  Sums: summation order only, each within 1e-5 of
+    the sum of the |x| it adds up."""
+    from vq_gnn_tpu_torch.ops.vq_kernels import assign_mismatch, fused_assign_branches
+
+    for fast in (False, True):
+        idx, cnt, sums = fused_assign_branches(xx, emb, vv, fast=fast)
+        idx_r, cnt_r, sums_r = assign_plain(torch, xx, emb, vv, fast, chunk=chunk)
+        torch.cuda.synchronize()
+        if fast:
+            n_diff, worst = assign_mismatch(xx, emb, idx, idx_r, fast=True)
+            rule = (f"rows whose idx differs {n_diff} of {idx.numel()}, worst ratio "
+                    f"{worst:.4g} of the near-tie tolerance")
+            ok_idx = worst <= 1.0 and n_diff < 1e-3 * idx.numel()
+            _, cnt_r, sums_r = assign_plain(torch, xx, emb, vv, True, idx=idx)
+        else:
+            ok_idx = torch.equal(idx, idx_r)
+            rule = f"idx equal {ok_idx}"
+        _, _, abs_sums = assign_plain(torch, xx.abs(), emb, vv, fast, idx=idx)
+        diff = (sums - sums_r).abs()
+        ratio = float((diff / (1e-5 * abs_sums).clamp_min(1e-30)).max())
+        log(f"[{tag} vq_assign {label} fast={fast}] xn {tuple(xx.shape)} M={emb.shape[1]} "
+            f"{rule}; counts equal {torch.equal(cnt, cnt_r)} at "
+            f"{'its own' if fast else 'the same'} idx; sums max|err| {float(diff.max()):.3g} "
+            f"({ratio:.3f} of the 1e-5 * sum|x| tolerance)"
+            + (f"; plain version {chunk} branches at a time" if chunk else ""))
+        assert ok_idx and torch.equal(cnt, cnt_r) and ratio <= 1.0
+        err[key] = max(err.get(key, 0.0), float(diff.max()))
+
+
+def hold_lookup(torch, tag, label, vq, ids, D):
+    """Kernel 3 bit-equal to its plain version (a gather), in both modes, as
+    the [n, nb, K] table and split at D as the step calls it."""
+    from vq_gnn_tpu_torch.ops.vq_kernels import lookup_codewords, lookup_codewords_plain
+
+    for fast in (False, True):
+        for split in (None, D):
+            out, ref = (fn(vq.c_indices, ids, vq.embedding_output, fast=fast, split=split)
+                        for fn in (lookup_codewords, lookup_codewords_plain))
+            outs, refs = ((out,), (ref,)) if split is None else (out, ref)
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, r) for o, r in zip(outs, refs, strict=True))
+            log(f"[{tag} vq_lookup {label} fast={fast} split={split}] out "
+                f"{[tuple(o.shape) for o in outs]} bit-equal {same}")
+            assert same
+
+
+def assign_times(torch, tag, label, xn_, emb_, valid, gpu, chunk=None):
+    """Logs kernel 2's fast and exact times on these inputs, against its
+    plain version and the library sequence (TF32 baddbmm + argmin + 2 x
+    index_add_), each of those two ``chunk`` branches at a time and summed
+    where the whole would not fit; returns (fast times, bound, its kind,
+    device time of a CUDA-graph replay)."""
+    from vq_gnn_tpu_torch.ops.vq_kernels import codeword_sqnorm, fused_assign_branches
+
+    nb_, B_, K_ = xn_.shape
+    M = emb_.shape[1]
+    dev = xn_.device
+    e2 = codeword_sqnorm(emb_)
+    c = chunk or nb_
+
+    def library(s):
+        nbs = xn_[s].shape[0]
+        d = torch.baddbmm(e2[s, None, :], xn_[s], emb_[s].transpose(1, 2), alpha=-2.0)
+        idx = d.argmin(2)
+        flat = (idx + torch.arange(nbs, device=dev)[:, None] * M).reshape(-1)
+        v = valid.float().expand(nbs, B_).reshape(-1)
+        cnt = torch.zeros(nbs * M, device=dev).index_add_(0, flat, v)
+        sums = torch.zeros((nbs * M, K_), device=dev).index_add_(
+            0, flat, (xn_[s] * valid.float()[None, :, None]).reshape(-1, K_))
+        return idx, cnt, sums
+
+    def by_piece(fn):
+        return sum(cuda_time_ms(torch, lambda i=i: fn(slice(i, i + c)), reps=5)
+                   for i in range(0, nb_, c))
+
+    def fast():
+        return fused_assign_branches(xn_, emb_, valid, fast=True)
+
+    tt = {
+        "ms": cuda_time_ms(torch, fast),
+        "plain_ms": by_piece(lambda s: assign_plain(torch, xn_[s], emb_[s], valid, True)),
+        "library_ms": by_piece(library),
+    }
+    ex = cuda_time_ms(torch, lambda: fused_assign_branches(xn_, emb_, valid, fast=False))
+    graph_ms = graph_time_ms(torch, fast)
+    byts = nb_ * B_ * K_ * 4 + nb_ * M * K_ * 4 + B_ + nb_ * B_ * 4 + nb_ * M * (K_ + 1) * 4
+    b_f, by_f = bound(byts, 2 * nb_ * B_ * M * K_, BF16_FLOPS)
+    b_x, by_x = bound(byts, 2 * nb_ * B_ * M * K_, F32_FLOPS)
+    log(f"[{tag} vq_assign {label}] fast nb={nb_} B={B_} M={M} K={K_}: {tt}, device time in a "
+        f"CUDA-graph replay {graph_ms:.4f} ms; bound {b_f:.4f} ms ({by_f}, bf16); exact "
+        f"{ex:.4f} ms, bound {b_x:.4f} ms ({by_x}, f32)"
+        + (f"; plain and library {c} branches at a time, summed" if c < nb_ else "")
+        + f" | {gpu}")
+    return tt, b_f, by_f, graph_ms
+
+
+def lookup_times(torch, tag, label, vq, ids, D, gpu):
+    """Kernel 3 in fast mode as the step calls it (split at D), its plain
+    version and the library yardstick the step ran before (advanced
+    indexing and the two slices); the whole [n, nb, K] table beside it.
+    Returns the split call's times and bound, and its device us per call."""
+    from vq_gnn_tpu_torch.ops.vq_kernels import lookup_codewords, lookup_codewords_plain
+
+    c_idx, eo = vq.c_indices, vq.embedding_output
+    nb_, M_, K_ = eo.shape
+    n_ = ids.shape[0]
+    ar = torch.arange(nb_, device=eo.device)[None, :]
+
+    def run(split=D):
+        return lookup_codewords(c_idx, ids, eo, fast=True, split=split)
+
+    def library(split=True):
+        t = eo[ar, c_idx[ids].long()]
+        return (t[:, :, :D].reshape(n_, -1), t[:, :, D:].reshape(n_, -1)) if split else t
+
+    tt = {"ms": cuda_time_ms(torch, run),
+          "plain_ms": cuda_time_ms(
+              torch, lambda: lookup_codewords_plain(c_idx, ids, eo, fast=True, split=D)),
+          "library_ms": cuda_time_ms(torch, library)}
+    whole = {"ms": cuda_time_ms(torch, lambda: run(None)),
+             "library_ms": cuda_time_ms(torch, lambda: library(False))}
+    # node ids, one c_indices row per node and the table read once, the
+    # n * nb * K output floats written once
+    bb, bb_by = bound(n_ * 8 + n_ * nb_ * 2 + eo.numel() * 4 + n_ * nb_ * K_ * 4, 0, F32_FLOPS)
+    split_us = kernel_split(torch, run)
+    log(f"[{tag} vq_lookup {label}] fast n={n_} nb={nb_} M={M_} K={K_} split at D={D}: {tt} "
+        f"bound {bb:.4f} ms ({bb_by}); device us per call {split_us}; the "
+        f"whole [n, nb, K] table {whole}, device us per call "
+        f"{kernel_split(torch, lambda: run(None))}; library_ms: advanced indexing (and the "
+        f"two slices, split) | {gpu}")
+    return dict(**tt, bound_ms=bb, bound_by=bb_by), split_us
+
+
 def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profile, evaluate,
                kernels):
     """One training path through the trainer, launch counters zeroed just
@@ -395,6 +587,313 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
                 by_width=by_width, ms=mean, std=std, E_first=first_E[0])
 
 
+def hold_ell(torch, tag, label, edges, calls, gen, err):
+    """Kernel 1 against its plain version on a batch's ELL, with the
+    batch's row offsets and long rows as spmm passes them, at each (width C,
+    'forward' or 'dx') of ``calls``: dx over the transposed ELL's slots of
+    the rows < b_rows (the step's truncated backward).  Tolerance: f32 sums
+    in another order, 1e-5 of the largest |ref|; the same bits twice."""
+    from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+
+    R = edges.num_rows
+    tb = edges.t_b_slots
+    for C, which in calls:
+        x = torch.randn((R, C), generator=gen, device=edges.ell_col.device)
+        if which == "forward":
+            args = (x, edges.ell_row, edges.ell_col, edges.ell_val, R)
+            kw = dict(ptr=edges.ell_ptr, long_rows=edges.ell_long_rows)
+        else:
+            assert edges.b_rows and tb, "the training batch has no truncated backward"
+            args = (x, torch.clamp(edges.t_ell_row[:tb], max=edges.b_rows),
+                    edges.t_ell_col[:tb].contiguous(), edges.t_ell_val[:tb].contiguous(),
+                    edges.b_rows)
+            kw = dict(ptr=edges.t_ell_ptr, long_rows=edges.t_ell_long_rows)
+        out, again, ref = ell_aggregate(*args, **kw), ell_aggregate(*args, **kw), \
+            ell_aggregate_plain(*args)
+        torch.cuda.synchronize()
+        d = float((out - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        same = torch.equal(out, again)
+        log(f"[{tag} ell_aggregate {label} {which} C={C}] out {tuple(out.shape)} max|err| "
+            f"{d:.3g} (tol {tol:.3g}); {kw['long_rows'].shape[0] - 1} long rows; two calls "
+            f"bit-identical: {same}")
+        assert torch.isfinite(out).all() and d <= tol and same
+        err["ell_aggregate"] = max(err.get("ell_aggregate", 0.0), d)
+
+
+def keep_batches(obj, name, pos, kept, n=3):
+    """Wrap ``obj.<name>``, a step taking the batch as its argument ``pos``,
+    to keep the first ``n`` batches it is given; returns the original to put
+    back."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        if len(kept) < n:
+            kept.append(args[pos])
+        return fn(*args, **kw)
+
+    setattr(obj, name, wrapped)
+    return fn
+
+
+def timed_steps(torch, step, batches, steps):
+    """ms of ``steps`` synchronised calls ``step(batch)``, cycling through
+    ``batches``; returns (times, losses)."""
+    times, losses = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        assert not bool(m["bad_init"]), "Bad Init!"
+    return times, losses
+
+
+def new_path_start(torch, ops):
+    """Zero the launch counters and the peak-memory mark; returns the bytes
+    the earlier phases still hold (the path's peak is read above them)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def batch_line(b, E):
+    e = b.edges
+    return (f"B={b.num_B} B_pad={b.B_pad} B'={int(b.valid_fo.sum())} Bp_pad={b.Bp_pad} E={E} "
+            f"S_pad={e.ell_row.shape[0]} St_pad={e.t_ell_row.shape[0]} t_b_slots={e.t_b_slots} "
+            f"b_rows={e.b_rows}")
+
+
+def link_phase(torch, ops, gpu, err):
+    """Phase 11: link prediction at the collab widths through LinkTrainer
+    (the module docstring says what it runs).  Returns its launch counts."""
+    import link_experiment_torch as tool
+    from vq_gnn_tpu_torch.graph.datasets import prepare
+    from vq_gnn_tpu_torch.train.link import LinkTrainer
+
+    t0 = time.time()
+    g, split = tool.build_graph_and_split()
+    t_graph = time.time() - t0
+    cfg = tool.vq_config("GCN", 1)
+    g, _, _ = prepare(g, cfg, 0, symmetrize_adj=False)
+    log(f"[11 graph] collab-scale dot-product graph N={g.num_nodes} (uncut), {g.num_features} "
+        f"features, training adjacency E={g.num_edges} (normalised, with self-loops); "
+        f"positives train/valid/test {len(split.train_pos)}/{len(split.valid_pos)}/"
+        f"{len(split.test_pos)}, negatives {len(split.valid_neg)}/{len(split.test_neg)}; "
+        f"synthetic_dot_product and the split in {t_graph:.1f}s, prepared in "
+        f"{time.time() - t0 - t_graph:.1f}s")
+    t0 = time.time()
+    tr = LinkTrainer(g, cfg, split, device="cuda")
+    test_batches = tr.test_batches()
+    log(f"[11 setup] trainer + {len(test_batches)} eval batches in {time.time() - t0:.1f}s; "
+        f"channels {tr.ms.channels}, M={cfg.num_M}, vq backend {tr.ms.vq.backend}, batch "
+        f"{cfg.batch_size}, walk length {cfg.walk_length}, test batch {cfg.test_batch_size}")
+    base = new_path_start(torch, ops)
+    t0 = time.time()
+    tr.run_init_sweep()
+    torch.cuda.synchronize()
+    log(f"[11 init sweep] {time.time() - t0:.2f}s over {len(test_batches)} eval batches "
+        f"B_pad={test_batches[0][0][0].B_pad}; launches {ops.launch_counts()}")
+    kept = []
+    step = keep_batches(tr, "step_fn", 4, kept)
+    t0 = time.time()
+    loss = tr.train_epoch(1)
+    torch.cuda.synchronize()
+    tr.step_fn = step
+    log(f"[11 epoch 1] loss_pre={loss:.4f}, {tr.state.step} steps in {time.time() - t0:.2f}s")
+    assert math.isfinite(loss)
+    b0 = kept[0]
+    Es = [int((b.edges.ell_val != 0).sum()) for b in kept]
+    log(f"[11 batch] {batch_line(b0, Es[0])} link edges {int(b0.link_mask.sum())} "
+        f"L_pad={b0.link_src.shape[0]}")
+    before = ops.launch_counts()
+    times, losses = timed_steps(torch, lambda b: tr.step_fn(
+        tr.state, tr.predictor, tr.pred_opt, tr.X_dev, b, 1.0, cfg.lr, 1.0, tr.generator),
+        kept, NEW_TIMED_STEPS)
+    per_step = {k: (v - before[k]) / NEW_TIMED_STEPS for k, v in ops.launch_counts().items()}
+    mean = sum(times) / len(times)
+    E_mean = sum(Es[i % len(kept)] for i in range(NEW_TIMED_STEPS)) / NEW_TIMED_STEPS
+    log(f"[11 train] {NEW_TIMED_STEPS} steps on the epoch's first {len(kept)} windows: "
+        f"{mean:.2f} ms/step (median {sorted(times)[len(times) // 2]:.2f}, min "
+        f"{min(times):.2f}, max {max(times):.2f}); edges/s {E_mean / (mean / 1e3):.4g}; "
+        f"launches per step {per_step}; losses {[round(x, 4) for x in losses]} | {gpu}")
+    assert all(math.isfinite(x) for x in losses)
+    t0 = time.time()
+    hits = tr.evaluate_hits(50)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = ops.launch_counts()
+    log(f"[11 eval] Hits@50 train/valid/test {tuple(round(h, 4) for h in hits)} in "
+        f"{time.time() - t0:.2f}s | {gpu}")
+    log(f"[11 memory] the path's peak device memory above the earlier phases' "
+        f"{peak / 1e9:.3f} GB (held before it {base / 1e9:.3f} GB) | {gpu}")
+    assert all(0.0 <= h <= 1.0 for h in hits)
+    log(f"[4 launches] 11 link path: {counts}")
+    for name in NEW_PATH_KERNELS:
+        assert counts[name] > 0, f"kernel {name} was not launched on the link path"
+
+    # the kernels at this path's shapes, from its trained state
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hold_ell(torch, 11, "link", b0.edges, ((cfg.hidden_channels, "forward"),
+                                          (cfg.hidden_channels, "dx")), gen, err)
+    vq1 = tr.state.vq_states[1]
+    nb, M, K = vq1.embedding.shape
+    emb = vq1.embedding.contiguous()
+    xn = torch.randn((nb, b0.B_pad, K), generator=gen, device="cuda")
+    hold_assign(torch, 11, "link vq_update", xn, emb, b0.valid_B.contiguous(), err,
+                chunk=branch_chunk(b0.B_pad, M))
+    tb0 = test_batches[0][0][0]
+    xn4 = torch.randn((nb, tb0.B_pad, K // 2), generator=gen, device="cuda")
+    hold_assign(torch, 11, "link feature_update (init sweep)", xn4,
+                emb[:, :, : K // 2].contiguous(), tb0.valid_B.contiguous(), err,
+                chunk=branch_chunk(tb0.B_pad, M))
+    hold_lookup(torch, 11, "link", vq1, b0.fo_ids, cfg.num_D)
+    assign_times(torch, 11, "link vq_update", xn, emb, b0.valid_B.contiguous(), gpu,
+                 chunk=branch_chunk(b0.B_pad, M))
+    lookup_times(torch, 11, "link", vq1, b0.fo_ids, cfg.num_D, gpu)
+    return counts
+
+
+def inductive_phase(torch, ops, gpu, err, kern):
+    """Phase 12: inductive multilabel training at the ppi widths through
+    NodeTrainer(val_graph=, test_graph=), then evaluate_split_stochastic
+    (the module docstring says what it runs).  Adds the timed rows of the
+    new shapes to ``kern``; returns its launch counts: the path's with
+    evaluate_split_stochastic's, and under the new rows' names the path's
+    (row 6 at nb = 64 and row 7) and evaluate_split_stochastic's (row 6 at K
+    = 4)."""
+    import inductive_experiment_torch as tool
+    from vq_gnn_tpu_torch.utils.metrics import micro_f1
+
+    t0 = time.time()
+    graphs = tool.build_graphs(7, 1.0)
+    t_graph = time.time() - t0
+    cfg = tool.vq_cfg("GCN", 1)
+    tr = tool.make_trainer(cfg, graphs, "cuda")
+    splits = {name: tr.split_batches(name) for name in ("train", "val", "test")}
+    test_batches = tr.test_batches()
+    log(f"[12 graph] ppi-scale SBM splits (uncut) "
+        f"{[g.num_nodes for g in (tr.graph, tr.val_graph, tr.test_graph)]} nodes, "
+        f"{[g.num_edges for g in (tr.graph, tr.val_graph, tr.test_graph)]} edges (normalised, "
+        f"with self-loops), {tr.graph.num_features} features (padded), {tr.graph.y.shape[1]} "
+        f"labels; graphs in {t_graph:.1f}s, trainer + eval batches in "
+        f"{time.time() - t0 - t_graph:.1f}s; channels {tr.ms.channels}, M={cfg.num_M}, vq "
+        f"backend {tr.ms.vq.backend}, batch {cfg.batch_size}")
+    base = new_path_start(torch, ops)
+    t0 = time.time()
+    tr.run_init_sweep()
+    torch.cuda.synchronize()
+    log(f"[12 init sweep] {time.time() - t0:.2f}s over the train graph's full batch "
+        f"B_pad={test_batches[0][0][0].B_pad}; launches {ops.launch_counts()}")
+    kept = []
+    step = keep_batches(tr.fns, "train_step", 2, kept)
+    t0 = time.time()
+    loss, loss_cls = tr.train_epoch(1)
+    torch.cuda.synchronize()
+    tr.fns.train_step = step
+    log(f"[12 epoch 1] loss={loss:.4f} loss_cls (BCE)={loss_cls:.4f}, {tr.state.step} steps in "
+        f"{time.time() - t0:.2f}s")
+    assert math.isfinite(loss) and math.isfinite(loss_cls)
+    b0 = kept[0]
+    assert b0.y.dtype == torch.float32 and tuple(b0.y.shape) == (b0.B_pad, tr.graph.y.shape[1])
+    assert not b0.y[b0.num_B :].any()
+    Es = [int((b.edges.ell_val != 0).sum()) for b in kept]
+    log(f"[12 batch] {batch_line(b0, Es[0])}; y {tuple(b0.y.shape)} {b0.y.dtype}, padded rows "
+        f"zero")
+    before = ops.launch_counts()
+    times, losses = timed_steps(torch, lambda b: tr.fns.train_step(
+        tr.state, tr.X_dev, b, 1.0, cfg.lr, 1.0, tr.generator)[1], kept, NEW_TIMED_STEPS)
+    per_step = {k: (v - before[k]) / NEW_TIMED_STEPS for k, v in ops.launch_counts().items()}
+    mean = sum(times) / len(times)
+    E_mean = sum(Es[i % len(kept)] for i in range(NEW_TIMED_STEPS)) / NEW_TIMED_STEPS
+    log(f"[12 train] {NEW_TIMED_STEPS} steps on the epoch's {len(kept)} batches: {mean:.2f} "
+        f"ms/step (median {sorted(times)[len(times) // 2]:.2f}, min {min(times):.2f}, max "
+        f"{max(times):.2f}); edges/s {E_mean / (mean / 1e3):.4g}; launches per step "
+        f"{per_step}; losses {[round(x, 4) for x in losses]} | {gpu}")
+    assert all(math.isfinite(x) for x in losses)
+    t0 = time.time()
+    f1 = tr.evaluate()
+    torch.cuda.synchronize()
+    log(f"[12 eval] micro-F1 train/valid/test graphs {tuple(round(v, 4) for v in f1)} (each "
+        f"one full batch, B_pad {[splits[n][0][0][0].B_pad for n in splits]}) in "
+        f"{time.time() - t0:.2f}s | {gpu}")
+    assert len(f1) == 3 and all(0.0 <= v <= 1.0 for v in f1)
+    counts = ops.launch_counts()
+    log(f"[4 launches] 12 inductive path: {counts}")
+    for name in NEW_PATH_KERNELS:
+        assert counts[name] > 0, f"kernel {name} was not launched on the inductive path"
+    # the stochastic eval into the validation graph's own table: row 6 on
+    # the feature half (K = 4), row 7 over that table
+    eval_kept = []
+    fn = keep_batches(tr.fns, "eval_assign_step", 3, eval_kept, n=1)
+    before = ops.launch_counts()
+    t0 = time.time()
+    outs = tr.evaluate_split_stochastic(tr.val_graph, IND_EVAL_BATCH)
+    torch.cuda.synchronize()
+    tr.fns.eval_assign_step = fn
+    peak = torch.cuda.max_memory_allocated() - base
+    d = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    log(f"[12 evaluate_split_stochastic] validation graph at batch {IND_EVAL_BATCH} "
+        f"(B_pad {eval_kept[0].B_pad}): out {outs.shape}, micro-F1 "
+        f"{micro_f1(outs, tr.val_graph.y):.4f} in {time.time() - t0:.2f}s; launches {d} | {gpu}")
+    log(f"[12 memory] the path's peak device memory above the earlier phases' "
+        f"{peak / 1e9:.3f} GB (held before it {base / 1e9:.3f} GB) | {gpu}")
+    assert outs.shape == (tr.val_graph.num_nodes, tr.graph.y.shape[1]) and math.isfinite(
+        float(abs(outs).max()))
+    assert d["vq_assign"] > 0 and d["vq_lookup"] > 0, d
+    path_counts = dict(counts)
+    for k, v in d.items():
+        counts[k] += v
+
+    # the kernels at this path's shapes, from its trained state: kernel 1 at
+    # layer 0's width and the hidden width, kernel 2 per layer's nb in both
+    # halves (K = 8 in the step, K = 4 in eval_assign_step), kernel 3 at M =
+    # 4,096
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    C0, C1 = tr.ms.channels[0], tr.ms.channels[1]
+    hold_ell(torch, 12, "ppi", b0.edges, ((C0, "forward"), (C1, "forward"), (C1, "dx")), gen,
+             err)
+    eb = eval_kept[0]
+    rows = {}
+    for l in (0, 1):
+        vq = tr.state.vq_states[l]
+        nb, M, K = vq.embedding.shape
+        emb = vq.embedding.contiguous()
+        emb4 = vq.embedding[:, :, : K // 2].contiguous()
+        xn = torch.randn((nb, b0.B_pad, K), generator=gen, device="cuda")
+        xn4 = torch.randn((nb, eb.B_pad, K // 2), generator=gen, device="cuda")
+        key = f"vq_assign (nb={nb}, M={M})" if l else "vq_assign"
+        key4 = f"vq_assign (K=4, M={M}, eval_assign_step)" if l else "vq_assign"
+        hold_assign(torch, 12, f"ppi vq_update layer {l}", xn, emb, b0.valid_B.contiguous(),
+                    err, key=key, chunk=branch_chunk(b0.B_pad, M))
+        hold_assign(torch, 12, f"ppi eval_assign_step layer {l}", xn4, emb4,
+                    eb.valid_B.contiguous(), err, key=key4, chunk=branch_chunk(eb.B_pad, M))
+        hold_lookup(torch, 12, f"ppi layer {l}", vq, b0.fo_ids, cfg.num_D)
+        if l:
+            rows[key] = (xn, emb, b0.valid_B.contiguous(), b0.B_pad)
+            rows[key4] = (xn4, emb4, eb.valid_B.contiguous(), eb.B_pad)
+    vq1 = tr.state.vq_states[1]
+    lkey = f"vq_lookup (nb={vq1.embedding.shape[0]}, M={vq1.embedding.shape[1]})"
+    err[lkey] = 0.0  # bit-equal above
+    # times at the new shapes (PERF.md section 6 sub-rows)
+    for key, (xn, emb, vv, B) in rows.items():
+        t, b_ms, b_by, graph_ms = assign_times(torch, 12, key, xn, emb, vv, gpu,
+                                               chunk=branch_chunk(B, emb.shape[1]))
+        kern[key] = dict(source="vq_gnn_tpu_torch/csrc/vq_assign.cu",
+                         replaces="vq_gnn_tpu/ops/pallas_vq.py:140", **t, bound_ms=b_ms,
+                         bound_by=b_by)
+    t, _ = lookup_times(torch, 12, lkey, vq1, b0.fo_ids, cfg.num_D, gpu)
+    kern[lkey] = dict(source="vq_gnn_tpu_torch/csrc/vq_lookup.cu",
+                      replaces="vq_gnn_tpu/ops/pallas_vq.py:276", **t)
+    key, key4 = rows
+    counts.update({key: path_counts["vq_assign"], key4: d["vq_assign"],
+                   lkey: path_counts["vq_lookup"]})
+    return counts
+
+
 def small_graph_run(Config, NodeTrainer, prepare, synthetic_sbm, conv, form, device,
                     dtype="float32", vq_states=None, epochs=(1, 2)):
     """The init sweep and the ``epochs`` (two by default) of a 3,000-node
@@ -448,8 +947,6 @@ def accuracy_phase(torch, ops, gpu, launches, err, device="cuda"):
     """Phase 10 (the module docstring says what it runs) on ``device``.  Adds
     10c's launches of the bf16 fold to ``launches`` and kernel 8's error at
     the full-graph shape to ``err``."""
-    import os
-
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
     import parity_experiment_torch as tool
     from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
@@ -588,14 +1085,7 @@ def main() -> int:
         rev_recovery_info_plain,
     )
     from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain
-    from vq_gnn_tpu_torch.ops.vq_kernels import (
-        assign_mismatch,
-        codeword_sqnorm,
-        fused_assign_branches,
-        fused_assign_branches_plain,
-        lookup_codewords,
-        lookup_codewords_plain,
-    )
+    from vq_gnn_tpu_torch.ops.vq_kernels import fused_assign_branches
     from vq_gnn_tpu_torch.train.loop import NodeTrainer
 
     import bench_torch
@@ -750,37 +1240,8 @@ def main() -> int:
         ("feature_update", xn4, vq1.embedding[:, :, : Kq // 2].contiguous(), valid4),
         ("nb=1", xn[:1].contiguous(), vq1.embedding[:1].contiguous(), valid),
     ]
-    def hold_assign(label, xx, emb, vv):
-        """Kernel 2 against its plain version in both modes.  Exact: idx and
-        counts equal.  Fast (tensor cores, their own summation order): idx
-        may differ at near ties only (worst ratio <= 1 on < 1e-3 of the
-        rows), counts and sums held at the kernel's own idx.  Sums: summation
-        order only, each within 1e-5 of the sum of the |x| it adds up."""
-        for fast in (False, True):
-            idx, cnt, sums = fused_assign_branches(xx, emb, vv, fast=fast)
-            idx_r, cnt_r, sums_r = fused_assign_branches_plain(xx, emb, vv, fast=fast)
-            torch.cuda.synchronize()
-            if fast:
-                n_diff, worst = assign_mismatch(xx, emb, idx, idx_r, fast=True)
-                rule = (f"rows whose idx differs {n_diff} of {idx.numel()}, worst ratio "
-                        f"{worst:.4g} of the near-tie tolerance")
-                ok_idx = worst <= 1.0 and n_diff < 1e-3 * idx.numel()
-                _, cnt_r, sums_r = fused_assign_branches_plain(xx, emb, vv, fast=True, idx=idx)
-            else:
-                ok_idx = torch.equal(idx, idx_r)
-                rule = f"idx equal {ok_idx}"
-            _, _, abs_sums = fused_assign_branches_plain(xx.abs(), emb, vv, fast=fast, idx=idx)
-            diff = (sums - sums_r).abs()
-            ratio = float((diff / (1e-5 * abs_sums).clamp_min(1e-30)).max())
-            log(f"[5 vq_assign {label} fast={fast}] xn {tuple(xx.shape)} M={emb.shape[1]} "
-                f"{rule}; counts equal {torch.equal(cnt, cnt_r)} at "
-                f"{'its own' if fast else 'the same'} idx; sums max|err| {float(diff.max()):.3g} "
-                f"({ratio:.3f} of the 1e-5 * sum|x| tolerance)")
-            assert ok_idx and torch.equal(cnt, cnt_r) and ratio <= 1.0
-            err["vq_assign"] = max(err.get("vq_assign", 0.0), float(diff.max()))
-
     for label, xx, emb, vv in cases:
-        hold_assign(label, xx, emb, vv)
+        hold_assign(torch, 5, label, xx, emb, vv, err)
     # no float atomics: two calls give the same bits in fast mode too
     first, second = (fused_assign_branches(xn, vq1.embedding.contiguous(), valid, fast=True)
                      for _ in range(2))
@@ -788,22 +1249,8 @@ def main() -> int:
     log(f"[5 vq_assign vq_update fast=True] two calls bit-identical (idx, counts, sums): {same}")
     assert same
 
-    def hold_lookup(label, vq, ids, D):
-        """Kernel 3 bit-equal to its plain version (a gather), in both
-        modes, as the [n, nb, K] table and split at D as the step calls it."""
-        for fast in (False, True):
-            for split in (None, D):
-                out, ref = (fn(vq.c_indices, ids, vq.embedding_output, fast=fast, split=split)
-                            for fn in (lookup_codewords, lookup_codewords_plain))
-                outs, refs = ((out,), (ref,)) if split is None else (out, ref)
-                torch.cuda.synchronize()
-                same = all(torch.equal(o, r) for o, r in zip(outs, refs, strict=True))
-                log(f"[5 vq_lookup {label} fast={fast} split={split}] out "
-                    f"{[tuple(o.shape) for o in outs]} bit-equal {same}")
-                assert same
-
     vq0 = tr.state.vq_states[0]
-    hold_lookup("B + B'", vq0, b0.fo_ids, cfg.num_D)
+    hold_lookup(torch, 5, "B + B'", vq0, b0.fo_ids, cfg.num_D)
     err["vq_lookup"] = 0.0
 
     # GAT kernels on the GAT batch's edges, random inputs at the real widths.
@@ -1029,8 +1476,8 @@ def main() -> int:
     Kb = emb_bm.shape[2]
     xn_bm = torch.randn((nb_bm, Bb, Kb), generator=gen, device=dev)
     valid_bm = bmb.valid_B.contiguous()
-    hold_assign("B + M", xn_bm, emb_bm, valid_bm)
-    hold_lookup("B + M", vq_bm, bmb.fo_ids, Dq)
+    hold_assign(torch, 5, "B + M", xn_bm, emb_bm, valid_bm, err)
+    hold_lookup(torch, 5, "B + M", vq_bm, bmb.fo_ids, Dq)
 
     # ---- 6. times: kernel, plain version, library yardstick ----
     phase("6 times")
@@ -1115,88 +1562,17 @@ def main() -> int:
 
     emb1 = vq1.embedding.contiguous()
 
-    def assign_times(label, xn_, emb_, valid=valid):
-        """Logs kernel 2's fast and exact times on these inputs, against its
-        plain version and the library sequence (TF32 baddbmm + argmin + 2 x
-        index_add_); returns (fast times, bound, its kind)."""
-        nb_, B_, K_ = xn_.shape
-        M = emb_.shape[1]
-        e2 = codeword_sqnorm(emb_)
-
-        def library():
-            d = torch.baddbmm(e2[:, None, :], xn_, emb_.transpose(1, 2), alpha=-2.0)
-            idx = d.argmin(2)
-            flat = (idx + torch.arange(nb_, device=dev)[:, None] * M).reshape(-1)
-            v = valid.float().expand(nb_, B_).reshape(-1)
-            cnt = torch.zeros(nb_ * M, device=dev).index_add_(0, flat, v)
-            sums = torch.zeros((nb_ * M, K_), device=dev).index_add_(
-                0, flat, (xn_ * valid.float()[None, :, None]).reshape(-1, K_))
-            return idx, cnt, sums
-
-        def fast():
-            return fused_assign_branches(xn_, emb_, valid, fast=True)
-
-        tt = {
-            "ms": cuda_time_ms(torch, fast),
-            "plain_ms": cuda_time_ms(
-                torch, lambda: fused_assign_branches_plain(xn_, emb_, valid, fast=True), reps=5),
-            "library_ms": cuda_time_ms(torch, library, reps=5),
-        }
-        ex = cuda_time_ms(torch, lambda: fused_assign_branches(xn_, emb_, valid, fast=False))
-        graph_ms = graph_time_ms(torch, fast)
-        byts = nb_ * B_ * K_ * 4 + nb_ * M * K_ * 4 + B_ + nb_ * B_ * 4 + nb_ * M * (K_ + 1) * 4
-        b_f, by_f = bound(byts, 2 * nb_ * B_ * M * K_, BF16_FLOPS)
-        b_x, by_x = bound(byts, 2 * nb_ * B_ * M * K_, F32_FLOPS)
-        log(f"[6 vq_assign {label}] fast nb={nb_} B={B_} M={M} K={K_}: {tt}, device time in a "
-            f"CUDA-graph replay {graph_ms:.4f} ms; bound {b_f:.4f} ms ({by_f}, bf16); exact "
-            f"{ex:.4f} ms, bound {b_x:.4f} ms ({by_x}, f32) | {gpu}")
-        return tt, b_f, by_f
-
-    t, b_ms, b_by = assign_times("B + B'", xn, emb1)
+    t, b_ms, b_by, _ = assign_times(torch, 6, "B + B'", xn, emb1, valid, gpu)
     kern["vq_assign"] = dict(
         source="vq_gnn_tpu_torch/csrc/vq_assign.cu",
         replaces="vq_gnn_tpu/ops/pallas_vq.py:140", **t, bound_ms=b_ms, bound_by=b_by)
     # the single-branch TPU kernel (pallas_vq.py:33) is kernel 2 at nb = 1
-    assign_times("nb=1 (replaces vq_gnn_tpu/ops/pallas_vq.py:33)", xn[:1].contiguous(),
-                 emb1[:1].contiguous())
-
-    def lookup_times(label, vq, ids, D):
-        """Kernel 3 in fast mode as the step calls it (split at D), its plain
-        version and the library yardstick the step ran before (advanced
-        indexing and the two slices); the whole [n, nb, K] table beside it.
-        Returns the split call's times and bound."""
-        c_idx, eo = vq.c_indices, vq.embedding_output
-        nb_, M_, K_ = eo.shape
-        n_ = ids.shape[0]
-        ar = torch.arange(nb_, device=dev)[None, :]
-
-        def run(split=D):
-            return lookup_codewords(c_idx, ids, eo, fast=True, split=split)
-
-        def library(split=True):
-            t = eo[ar, c_idx[ids].long()]
-            return (t[:, :, :D].reshape(n_, -1), t[:, :, D:].reshape(n_, -1)) if split else t
-
-        tt = {"ms": cuda_time_ms(torch, run),
-              "plain_ms": cuda_time_ms(
-                  torch, lambda: lookup_codewords_plain(c_idx, ids, eo, fast=True, split=D)),
-              "library_ms": cuda_time_ms(torch, library)}
-        whole = {"ms": cuda_time_ms(torch, lambda: run(None)),
-                 "library_ms": cuda_time_ms(torch, lambda: library(False))}
-        # node ids, one c_indices row per node and the table read once, the
-        # n * nb * K output floats written once
-        bb, bb_by = bound(n_ * 8 + n_ * nb_ * 2 + eo.numel() * 4 + n_ * nb_ * K_ * 4, 0,
-                          F32_FLOPS)
-        log(f"[6 vq_lookup {label}] fast n={n_} nb={nb_} M={M_} K={K_} split at D={D}: {tt} "
-            f"bound {bb:.4f} ms ({bb_by}); device us per call {kernel_split(torch, run)}; the "
-            f"whole [n, nb, K] table {whole}, device us per call "
-            f"{kernel_split(torch, lambda: run(None))}; library_ms: advanced indexing (and the "
-            f"two slices, split) | {gpu}")
-        return dict(**tt, bound_ms=bb, bound_by=bb_by)
+    assign_times(torch, 6, "nb=1 (replaces vq_gnn_tpu/ops/pallas_vq.py:33)",
+                 xn[:1].contiguous(), emb1[:1].contiguous(), valid, gpu)
 
     kern["vq_lookup"] = dict(
         source="vq_gnn_tpu_torch/csrc/vq_lookup.cu", replaces="vq_gnn_tpu/ops/pallas_vq.py:276",
-        **lookup_times("B + B'", vq0, b0.fo_ids, cfg.num_D))
+        **lookup_times(torch, 6, "B + B'", vq0, b0.fo_ids, cfg.num_D, gpu)[0])
 
     # GAT: no single PyTorch call computes an attention-weighted aggregate or
     # its transposed backward, so there is no library yardstick
@@ -1370,8 +1746,8 @@ def main() -> int:
             f"relu-attention contraction | {gpu}")
 
     # kernels 2 and 3 at the B + M widths (PERF.md rows 6-7)
-    assign_times("B + M", xn_bm, emb_bm, valid_bm)
-    lookup_times("B + M", vq_bm, bmb.fo_ids, Dq)
+    assign_times(torch, 6, "B + M", xn_bm, emb_bm, valid_bm, gpu)
+    lookup_times(torch, 6, "B + M", vq_bm, bmb.fo_ids, Dq, gpu)
 
     # ---- 7. small graph: GPU kernels vs CPU plain versions from one state ----
     phase("7 small graph")
@@ -1472,6 +1848,19 @@ def main() -> int:
     # ---- 10. accuracy through the parity harness ----
     phase("10 accuracy")
     accuracy_phase(torch, ops, gpu, launches, err)
+
+    # ---- 11-12. link prediction at the collab widths, inductive at ppi ----
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    counts = []
+    for name, run in (("11 link", lambda: link_phase(torch, ops, gpu, err)),
+                      ("12 inductive", lambda: inductive_phase(torch, ops, gpu, err, kern))):
+        phase(name)
+        t0 = time.time()
+        counts.append(run())
+        log(f"[{name}] the phase took {time.time() - t0:.1f}s")
+    for c in counts:
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
 
     out = []
     for name in launches:  # the kernels, then the bf16-row modes

@@ -3,7 +3,9 @@
 default and choices, mapped onto the port's ``Config`` as ``main_node.py``
 maps them.  Runs on the GPU (``--device n`` for ``cuda:n``) unless
 ``--device cpu`` asks for the plain PyTorch path; settings the port lacks
-raise ``NotImplementedError``.
+raise ``NotImplementedError``.  Inductive datasets (``ppi``, ``cluster``,
+``synthetic_inductive[:N]``) train on their train graph and are scored by
+micro-F1 on each split graph.
 
     python3 main_node_torch.py --dataset synthetic:500 --num-layers 2 \
         --hidden-channels 16 --num-D 4 --num-M 8 --batch-size 128 \
@@ -15,7 +17,7 @@ import argparse
 import torch
 
 from vq_gnn_tpu_torch.config import Config, check_ported, resolve_device
-from vq_gnn_tpu_torch.graph.datasets import get_data
+from vq_gnn_tpu_torch.graph.datasets import get_data, get_inductive_data, is_inductive
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 
 
@@ -177,9 +179,14 @@ def main(argv=None):
     device = resolve_device(a.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    graph, num_classes, cluster_indices = get_data(cfg)
-    trainer = NodeTrainer(graph, cfg, num_classes, cluster_indices=cluster_indices,
-                          device=device)
+    if is_inductive(cfg):
+        train_g, val_g, test_g, num_classes = get_inductive_data(cfg)
+        trainer = NodeTrainer(train_g, cfg, num_classes, device=device, val_graph=val_g,
+                              test_graph=test_g)
+    else:
+        graph, num_classes, cluster_indices = get_data(cfg)
+        trainer = NodeTrainer(graph, cfg, num_classes, cluster_indices=cluster_indices,
+                              device=device)
     for run in range(cfg.runs):
         trainer.fit(run=run, ckpt_dir=a.ckpt_dir, ckpt_every=a.ckpt_every, resume=a.resume,
                     vq_diagnostics=a.vq_diagnostics)

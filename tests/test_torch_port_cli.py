@@ -193,20 +193,39 @@ def test_cli_refuses_to_run_without_a_gpu():
         main_node_torch.main(SMALL_ARGS[:-2])
 
 
-# each option with the ROADMAP.md item that ports it
-@pytest.mark.parametrize("extra,where", [
-    (["--ckpt-dir", "CKPT"], "queue 1 item 8"),
-    (["--resume"], "queue 1 item 8"),
-    (["--kmeans-init"], "queue 1 item 6"),
-    (["--dataset", "synthetic_inductive:300"], "queue 1 item 6"),
-    (["--dataset", "ppi"], "queue 1 item 6"),
-    (["--transformer-flag"], "queue 1 item 4"),
+# each option the port refuses, with the ROADMAP.md item that ports it; the
+# inductive datasets' own refusals: the cluster sampler (refused by the JAX
+# package too) and ppi without its archive (FileNotFoundError naming the
+# converter, as main_node.py)
+@pytest.mark.parametrize("extra,error,match", [
+    (["--ckpt-dir", "CKPT"], NotImplementedError, "ROADMAP.md queue 1 item 8"),
+    (["--resume"], NotImplementedError, "ROADMAP.md queue 1 item 8"),
+    (["--kmeans-init"], NotImplementedError, "ROADMAP.md queue 8"),
+    (["--dataset", "synthetic_inductive:300", "--sampler-type", "cluster"],
+     NotImplementedError, "cluster sampler on inductive datasets"),
+    (["--dataset", "ppi", "--data-root", "CKPT"], FileNotFoundError,
+     "ppi.npz not found; run tools/convert_dataset.py --dataset ppi"),
+    (["--transformer-flag"], NotImplementedError, "ROADMAP.md queue 1 item 4"),
 ], ids=["ckpt-dir", "resume", "kmeans-init", "synthetic-inductive", "ppi", "transformer"])
-def test_cli_unported_options_raise(extra, where, tmp_path, capsys):
+def test_cli_unported_options_raise(extra, error, match, tmp_path, capsys):
     argv = [str(tmp_path / a) if a == "CKPT" else a for a in SMALL_ARGS + extra]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {where}"):
+    with pytest.raises(error, match=match):
         main_node_torch.main(argv)
     assert not os.path.exists(tmp_path / "CKPT")
+
+
+def test_cli_trains_synthetic_inductive(capsys):
+    """``--dataset synthetic_inductive:300`` trains on the train graph and
+    prints the three micro-F1 values (train, valid and test graphs) each
+    epoch, as main_node.py's inductive dispatch does."""
+    tr = main_node_torch.main(SMALL_ARGS + ["--dataset", "synthetic_inductive:300"])
+    out = capsys.readouterr().out
+    assert tr.inductive and tr.multilabel and not tr.use_ogb_acc
+    assert tr.val_graph.num_nodes == tr.test_graph.num_nodes == 150
+    lines = [ln for ln in out.splitlines() if ln.startswith("Run: 1, Epoch: ")]
+    assert len(lines) == 1 and all(k in lines[0] for k in ("Train: ", "Valid: ", "Test: "))
+    assert len(tr.logger.results[0]) == 1 and all(
+        0.0 <= v <= 1.0 for r in tr.logger.results[0] for v in r)
 
 
 def test_cli_prints_vq_diagnostics(capsys):
@@ -234,10 +253,11 @@ def test_cli_trains_bm_gat_bf16_fold_fast(capsys, monkeypatch):
 
 
 def test_entry_points_import_no_jax():
-    """bench_torch.py, main_node_torch.py, chip_smoke.py,
-    tools/parity_experiment_torch.py and every module of the port (the
-    parity harness and the diagnostics among them) import in a process where
-    jax and vq_gnn_tpu cannot be imported."""
+    """bench_torch.py, main_node_torch.py, main_link_torch.py, chip_smoke.py,
+    tools/parity_experiment_torch.py, tools/link_experiment_torch.py,
+    tools/inductive_experiment_torch.py and every module of the port (the
+    parity harness, the diagnostics, the metrics and the link trainer among
+    them) import in a process where jax and vq_gnn_tpu cannot be imported."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "BLOCKED = ('jax', 'jaxlib', 'flax', 'vq_gnn_tpu')\n"
@@ -249,14 +269,20 @@ def test_entry_points_import_no_jax():
         "    del sys.modules[m]\n"
         "sys.meta_path.insert(0, Block())\n"
         "sys.path.insert(0, 'tools')\n"
-        "import bench_torch, chip_smoke, main_node_torch, parity_experiment_torch\n"
+        "import bench_torch, chip_smoke, main_link_torch, main_node_torch\n"
+        "import inductive_experiment_torch, link_experiment_torch, parity_experiment_torch\n"
         "import vq_gnn_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(vq_gnn_tpu_torch.__path__, "
         "'vq_gnn_tpu_torch.')]\n"
         "mods = [m for m in mods if importlib.util.find_spec(m).origin.endswith('.py')]\n"
         "[importlib.import_module(m) for m in mods]\n"
+        "link_experiment_torch.vq_config('GCN', 1)\n"
+        "link_experiment_torch.build_graph_and_split(nodes=400)\n"
+        "inductive_experiment_torch.make_trainer(inductive_experiment_torch.vq_cfg("
+        "'GCN', 1, 0.001), inductive_experiment_torch.build_graphs(7, 0.001), 'cpu')\n"
         "want = {'vq_gnn_tpu_torch.utils.logger', 'vq_gnn_tpu_torch.utils.diagnostics',\n"
-        "        'vq_gnn_tpu_torch.train.parity'}\n"
+        "        'vq_gnn_tpu_torch.train.parity', 'vq_gnn_tpu_torch.utils.metrics',\n"
+        "        'vq_gnn_tpu_torch.train.link'}\n"
         "assert want <= set(mods), mods\n"
         "print('clean', len(mods))\n"
     )

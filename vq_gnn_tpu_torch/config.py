@@ -146,7 +146,7 @@ def check_ported(cfg: Config) -> None:
         ("transformer_flag", cfg.transformer_flag, "queue 1 item 4"),
         ("dropbranch", cfg.dropbranch > 0, "queue 1 item 4"),
         ("alpha_dropout_flag", cfg.alpha_dropout_flag and cfg.dropout > 0, "queue 1 item 4"),
-        ("kmeans_init", cfg.kmeans_init, "queue 1 item 6"),
+        ("kmeans_init", cfg.kmeans_init, "queue 8"),
         (f"spmm_backend={cfg.spmm_backend!r}", cfg.spmm_backend != "ell", "queue 1 item 4"),
         ("mixed-K ELL (ell_Kt > 0)", cfg.ell_Kt > 0, "queue 1 item 5"),
         (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype not in COMPUTE_DTYPES,

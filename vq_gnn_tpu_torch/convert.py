@@ -4,7 +4,8 @@
 as a numpy array (``jax.tree.map(np.asarray, state)``; nested dicts with the
 same keys work too) and builds the port's :class:`TrainState`: parameters
 (linears and the GAT attention vectors), ``vq_states``, ``bn_state`` and the
-RMSprop square averages ``nu``.
+RMSprop square averages ``nu``.  ``predictor_from_numpy`` does the same for
+the link trainer's predictor (the JAX list of ``{w, b}`` and its ``nu``).
 
 The JAX package stores a Linear weight ``w`` as [fan_in, fan_out]
 (``vq_gnn_tpu/nn/model.py:154-160``); ``nn.Linear`` keeps [out, in].  The
@@ -21,6 +22,7 @@ import torch
 
 from vq_gnn_tpu_torch.nn.model import BNState, LowRankGNN, ModelStatic
 from vq_gnn_tpu_torch.nn.vq import VQState
+from vq_gnn_tpu_torch.train.link import LinkPredictor
 from vq_gnn_tpu_torch.train.optim import make_rmsprop
 from vq_gnn_tpu_torch.train.state import TrainState
 
@@ -36,9 +38,8 @@ def _t(a, device, dtype=None):
     return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
 
 
-def _linear_tensors(layer_np, name, device):
+def _linear_tensors(lin, device):
     """(weight [out, in], bias [out]) of one JAX ``{"w", "b"}`` linear."""
-    lin = layer_np[name]
     return _t(np.asarray(lin["w"]).T, device), _t(lin["b"], device)
 
 
@@ -57,7 +58,7 @@ def _layer_tensors(layer, layer_np, device):
     out = []
     for name in _LINEARS:
         if hasattr(layer, name):
-            w, b = _linear_tensors(layer_np, name, device)
+            w, b = _linear_tensors(layer_np[name], device)
             out += [(getattr(layer, name).weight, w), (getattr(layer, name).bias, b)]
     for name in _VECTORS:
         if hasattr(layer, name):
@@ -92,3 +93,22 @@ def state_from_numpy(state_np, ms: ModelStatic, lr: float, device) -> TrainState
         optimizer=opt,
         step=int(np.asarray(_get(state_np, "step"))),
     )
+
+
+def predictor_from_numpy(pred_np, nu_np, lr: float, device):
+    """The JAX link predictor (a list of ``{"w", "b"}``, numpy leaves) and its
+    RMSprop ``nu`` as the port's ``(LinkPredictor, RMSprop)``."""
+    device = torch.device(device)
+    dims = [np.asarray(lin["w"]).shape for lin in pred_np]
+    pred = LinkPredictor(dims[0][0], dims[0][1], dims[-1][1], len(dims), device=device)
+    pairs = []
+    with torch.no_grad():
+        for lin, lin_np, lin_nu in zip(pred.lins, pred_np, nu_np):
+            w, b = _linear_tensors(lin_np, device)
+            lin.weight.copy_(w)
+            lin.bias.copy_(b)
+            pairs += list(zip((lin.weight, lin.bias), _linear_tensors(lin_nu, device)))
+    opt = make_rmsprop(pred.parameters(), lr)
+    for p, nu in pairs:
+        opt.state[p] = {"step": torch.tensor(0.0), "square_avg": nu}
+    return pred, opt

@@ -172,16 +172,21 @@ def feature_update(
     batch_idx: torch.Tensor,  # [B] global node ids (padding slots -> N)
     p: VQParams,
     valid: Optional[torch.Tensor] = None,  # [B] bool
+    training: bool = True,
 ) -> Tuple[VQState, torch.Tensor]:
     """Feature-half codebook update (``vq.py:160-202``): BN-normalize the
     input slice, assign to the nearest feature-half codeword, EMA the feature
     half only, and refresh the de-normalized feature half of the output
-    table.  Used by the layerwise init bootstrap."""
+    table.  Used by the layerwise init bootstrap.  With ``training=False``
+    only the assignment: the state (``c_indices`` too) is returned as it
+    came, with ``idx [nb, B]`` (the inductive eval, ``eval_assign_step``)."""
     D = p.num_D
     xn, new_mean, new_var = _bn_train(
         X_B, state.bn_feat_mean, state.bn_feat_var, BN_FEAT_EPS, BN_FEAT_MOMENTUM, valid
     )
     idx, counts, sums = _assign_and_stats(xn, state.embedding[:, :, :D], valid, p)
+    if not training:
+        return state, idx
     new_size = _ema_counts(state.ema_cluster_size, counts, p)
     bad = (new_size == 0).any()
     new_ema_feat = state.ema_w[:, :, :D] * p.decay + (1.0 - p.decay) * sums

@@ -16,7 +16,8 @@ Local numbering: batch nodes occupy [0, B_pad), boundary (B') nodes
 The host builder stays numpy; :meth:`PaddedBatch.to` moves a batch to a
 device as tensors.  Only the single-K slot-ELL layout is ported.  B + M (v1)
 training batches of non-GCN convs also carry the recovery term's reverse
-list in the rev-ELL layout (``ops/rev_ell.py``).
+list in the rev-ELL layout (``ops/rev_ell.py``); link-prediction batches
+carry their in-batch positive edges (``link_src``/``link_dst``/``link_mask``).
 """
 
 from __future__ import annotations
@@ -69,6 +70,11 @@ class PaddedBatch:
     # slots in no row) and long rows (rev_ell.rev_long_rows_host)
     rev_row_ptr: object = None
     rev_long_rows: object = None
+    # link prediction: the in-batch positive edges, both local endpoints < B
+    # (reference prepare_batch_input_link, misc.py:88-91), padded to L_pad
+    link_src: object = None  # [L_pad] local batch rows (pad -> 0)
+    link_dst: object = None  # [L_pad]
+    link_mask: object = None  # [L_pad] bool
 
     @property
     def B_pad(self) -> int:
@@ -98,6 +104,9 @@ class PaddedBatch:
             rev_slot_row=_as_tensor(self.rev_slot_row, device, torch.int32),
             rev_row_ptr=_as_tensor(self.rev_row_ptr, device, torch.int32),
             rev_long_rows=_as_tensor(self.rev_long_rows, device, torch.int32),
+            link_src=_as_tensor(self.link_src, device, torch.int64),
+            link_dst=_as_tensor(self.link_dst, device, torch.int64),
+            link_mask=_as_tensor(self.link_mask, device, torch.bool),
         )
 
 
@@ -124,6 +133,8 @@ def build_padded_batch(
     bm_rev=None,
     rev_bucket: Optional[dict] = None,
     with_t_all_lists: bool = False,
+    with_link_edges: bool = False,
+    L_pad: int = 0,
 ) -> PaddedBatch:
     """Pad a host-built subgraph batch to static shapes, in the single-K
     slot-ELL layout (``vq_gnn_tpu/sampler/batch.py:176-218``).
@@ -137,6 +148,8 @@ def build_padded_batch(
     transposed ELL (``Edges.t_all_ptr``, for the GAT backward).  ``bm_rev``
     (rows, global cols, values) is the B + M reverse list, laid out as
     rev-ELL slots padded to the monotone ``rev_bucket["S"]``.
+    ``with_link_edges`` adds the in-batch positive edges (both endpoints
+    among the batch rows) padded to ``L_pad`` (0: the next multiple of 1,024).
     """
     if ell_K <= 0:
         raise not_ported("the COO spmm layout (spmm_backend='coo')")
@@ -233,6 +246,23 @@ def build_padded_batch(
         rev["rev_row_ptr"] = row_offsets_host(rev["rev_slot_row"], B_pad)
         rev["rev_long_rows"] = rev_long_rows_host(rev["rev_row_ptr"])
 
+    link = {}
+    if with_link_edges:
+        # in-batch positive edges: both local endpoints < B (misc.py:88-91)
+        e_row = np.asarray(edge_row, np.int64)
+        e_col = np.asarray(edge_col, np.int64)
+        sel = (e_row < B) & (e_col < B)
+        ls, ld = e_row[sel], e_col[sel]
+        if L_pad <= 0:
+            L_pad = round_up(max(len(ls), 1), 1024)
+        if len(ls) > L_pad:
+            raise ValueError(f"link edges {len(ls)} exceed L_pad={L_pad}")
+        link = dict(link_src=np.zeros(L_pad, np.int32), link_dst=np.zeros(L_pad, np.int32),
+                    link_mask=np.zeros(L_pad, bool))
+        link["link_src"][: len(ls)] = ls
+        link["link_dst"][: len(ld)] = ld
+        link["link_mask"][: len(ls)] = True
+
     return PaddedBatch(
         batch_idx=pad_ids(node_idx, B_pad),
         fo_ids=pad_ids(fo_ids, Bp_pad),
@@ -243,4 +273,5 @@ def build_padded_batch(
         y=None if y is None else pad_rows(y),
         train_mask=None if train_mask is None else pad_rows(train_mask, False),
         **rev,
+        **link,
     )

@@ -235,8 +235,10 @@ class BatchLoader:
         shuffle: Optional[bool] = None,
         seed: int = 0,
         device: Union[str, torch.device, None] = None,
+        with_link_edges: bool = False,
     ):
         check_ported(cfg)
+        self.with_link_edges = with_link_edges
         self.device = resolve_device(device)
         self.graph = graph
         self.cfg = cfg
@@ -291,6 +293,7 @@ class BatchLoader:
         self._St_bucket = 0
         self._tb_bucket = {"multiple": max(cfg.pad_multiple_edges // cfg.ell_K, 64)}
         self._rev_bucket = {}  # rev-ELL slot count high-water mark (B + M)
+        self._L_bucket = 0  # in-batch link edges (with_link_edges)
 
     # ---- batch index generation (one epoch) ----
     def _node_batches(self, rng) -> List[List[np.ndarray]]:
@@ -379,6 +382,11 @@ class BatchLoader:
         dim_pad = B_pad + Bp_pad
         S_pad = self._slot_pad(er, K, dim_pad, "_S_bucket")
         St_pad = self._slot_pad(ec, K, dim_pad, "_St_bucket")
+        L_pad = 0
+        if self.with_link_edges:
+            n_link = int(((er < len(node_idx)) & (ec < len(node_idx))).sum())
+            self._L_bucket = max(self._L_bucket, round_up(max(n_link, 1), 1024))
+            L_pad = self._L_bucket
         # backward truncation: x rows >= B_pad are codebook lookups whose
         # cotangent flows only into the non-differentiated VQ state
         return build_padded_batch(
@@ -403,6 +411,8 @@ class BatchLoader:
             # the GAT backward walks every transposed row: kernel 5 on B + B',
             # the per-branch conv's segment sums (kernel 8) on B + M
             with_t_all_lists=cfg.conv_type == "GAT",
+            with_link_edges=self.with_link_edges,
+            L_pad=L_pad,
         )
 
     def _epoch_iter(self):

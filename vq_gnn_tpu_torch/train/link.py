@@ -1,0 +1,341 @@
+"""Link prediction — the reference ``main_link.py`` subsystem (port of
+``vq_gnn_tpu/train/link.py``).
+
+- :class:`LinkPredictor` / :func:`predictor_forward`: the LinkPredictor MLP
+  head on ``x_i * x_j`` -> sigmoid (``main_link.py v2:18-41``);
+- :func:`make_link_step`: one training step with the batch's in-batch
+  positive edges, uniform in-batch negative destinations and the logistic
+  loss (``main_link.py v2:43-99``), the per-layer gradient clip (84-88), the
+  predictor's own RMSprop state, and the live VQ update;
+- :class:`LinkTrainer`: the init sweep, epochs, Hits@K / MRR evaluation over
+  the stochastic embeddings of the whole graph (126-244), and ``fit``.
+
+The reference's quirks are kept: the negatives are uniform over the batch's
+``num_B`` rows; the positive and the negative predictor calls share their
+dropout masks (one key in the JAX package); the log is clamped at 1e-15 with
+``max``; train Hits are counted against the *valid* negatives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vq_gnn_tpu_torch.config import (
+    Config,
+    apply_matmul_precision,
+    not_ported,
+    resolve_device,
+)
+from vq_gnn_tpu_torch.graph.store import HostGraph
+from vq_gnn_tpu_torch.nn.model import ModelStatic, model_forward, model_static, zero_probes
+from vq_gnn_tpu_torch.nn.vq import vq_update
+from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
+from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+from vq_gnn_tpu_torch.train.loop import device_features
+from vq_gnn_tpu_torch.train.optim import clip_grads_by_norm, make_rmsprop, rmsprop_update
+from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
+from vq_gnn_tpu_torch.train.step import _branch_view, make_step_fns
+from vq_gnn_tpu_torch.utils.logger import Logger
+from vq_gnn_tpu_torch.utils.metrics import hits_at_k, mrr
+
+
+# ---------------- LinkPredictor MLP ----------------
+class LinkPredictor(nn.Module):
+    """in -> hidden, (num_layers - 2) x hidden -> hidden, hidden -> out
+    (``main_link.py v2:18-28``); ``lins`` holds the ``nn.Linear``s."""
+
+    def __init__(self, in_channels, hidden_channels, out_channels, num_layers, device=None):
+        super().__init__()
+        dims = [in_channels] + [hidden_channels] * (num_layers - 1) + [out_channels]
+        self.lins = nn.ModuleList(
+            nn.Linear(dims[i], dims[i + 1], device=device) for i in range(num_layers))
+
+
+def init_predictor(generator: torch.Generator, in_channels, hidden_channels, out_channels,
+                   num_layers, device=None) -> LinkPredictor:
+    """torch.nn.Linear's default, W and b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    drawn from ``generator`` (a CPU generator; copied to ``device``)."""
+    pred = LinkPredictor(in_channels, hidden_channels, out_channels, num_layers, device)
+    with torch.no_grad():
+        for lin in pred.lins:
+            bound = 1.0 / math.sqrt(lin.in_features)
+            for p in (lin.weight, lin.bias):
+                t = torch.empty(p.shape)
+                nn.init.uniform_(t, -bound, bound, generator=generator)
+                p.copy_(t)
+    return pred
+
+
+def dropout_masks(pred: LinkPredictor, n: int, p: float, generator, device) -> Optional[list]:
+    """Keep masks [n, hidden] of the predictor's hidden layers for dropout
+    ``p`` (None at p = 0); one set serves both predictor calls of a step."""
+    if p <= 0:
+        return None
+    return [torch.rand((n, lin.out_features), generator=generator, device=device) < 1.0 - p
+            for lin in pred.lins[:-1]]
+
+
+def predictor_forward(pred: LinkPredictor, x_i, x_j, keep: Optional[Sequence] = None,
+                      dropout_p: float = 0.0):
+    """sigmoid(MLP(x_i * x_j)), [n, out]; ``keep`` (from :func:`dropout_masks`)
+    drops the hidden units where it is False and scales the rest by
+    1 / (1 - dropout_p)."""
+    x = x_i * x_j
+    for i, lin in enumerate(pred.lins[:-1]):
+        x = F.relu(F.linear(x, lin.weight, lin.bias))
+        if keep is not None:
+            x = torch.where(keep[i], x / (1.0 - dropout_p), torch.zeros_like(x))
+    last = pred.lins[-1]
+    return torch.sigmoid(F.linear(x, last.weight, last.bias))
+
+
+def _clip_groups(model: nn.Module, params: List[torch.Tensor], ms: ModelStatic, clip):
+    """Per layer, the indices into ``params`` of each group the link step
+    clips: ``gnn_transform`` (``clip[0]``) and, for GAT with a second value,
+    ``att_l`` with ``att_r`` (``clip[1]``)."""
+    pos = {id(p): i for i, p in enumerate(params)}
+    groups = []
+    for layer in model.layers:
+        t = layer.gnn_transform
+        groups.append(([pos[id(t.weight)], pos[id(t.bias)]], clip[0]))
+        if ms.conv_type == "GAT" and len(clip) > 1:
+            groups.append(([pos[id(layer.att_l)], pos[id(layer.att_r)]], clip[1]))
+    return groups
+
+
+def make_link_step(ms: ModelStatic, cfg: Config):
+    """(link_train_step, score_pairs) (``vq_gnn_tpu/train/link.py:58-161``)."""
+    live = cfg.vq_update_mode == "live"
+    D = ms.num_D
+    clip = cfg.clip
+
+    def link_train_step(state: TrainState, pred: LinkPredictor, pred_opt, X_dev: torch.Tensor,
+                        batch: PaddedBatch, warm_up_rate: float, lr: float, do_opt_step: float,
+                        generator=None, dst_neg: Optional[torch.Tensor] = None):
+        """One step; updates ``state``, ``pred`` and ``pred_opt`` in place and
+        returns the metrics (device tensors).  ``dst_neg`` [L_pad] overrides
+        the negative destinations drawn from ``generator``."""
+        dev = X_dev.device
+        if dst_neg is None:
+            # uniform in-batch negative destinations (main_link.py v2:66-69)
+            dst_neg = torch.randint(0, max(batch.num_B, 1), batch.link_src.shape,
+                                    generator=generator, device=dev)
+        keep = dropout_masks(pred, batch.link_src.shape[0], cfg.dropout, generator, dev)
+        probes = zero_probes(ms, batch.B_pad, dev)
+        params = list(state.model.parameters())
+        pparams = list(pred.parameters())
+        x_B = X_dev.index_select(0, batch.batch_idx)
+        out, info_b, layer_inputs, new_bn = model_forward(
+            state.model, state.vq_states, state.bn_state, ms, x_B, batch, probes=probes,
+            warm_up_rate=warm_up_rate, training=True, generator=generator,
+        )
+        src = out.index_select(0, batch.link_src)
+        dst = out.index_select(0, batch.link_dst)
+        neg = out.index_select(0, dst_neg)
+        m = batch.link_mask.to(out.dtype)
+        n = torch.clamp(m.sum(), min=1.0)
+        pos_out = predictor_forward(pred, src, dst, keep, cfg.dropout)[:, 0]
+        neg_out = predictor_forward(pred, src, neg, keep, cfg.dropout)[:, 0]
+        # clamp, not "+ 1e-15" (reference main_link.py v2:64,69): the same
+        # value in f32, and no log(0) at sigmoid saturation
+        pos_loss = -(torch.log(torch.clamp(pos_out, min=1e-15)) * m).sum() / n
+        neg_loss = -(torch.log(torch.clamp(1.0 - neg_out, min=1e-15)) * m).sum() / n
+        loss_pre = pos_loss + neg_loss
+        loss = loss_pre if cfg.ce_only else loss_pre + info_b
+        grads = torch.autograd.grad(loss, params + pparams + probes)
+        g_params = list(grads[: len(params)])
+        g_pred = grads[len(params) : len(params) + len(pparams)]
+        g_probes = grads[len(params) + len(pparams) :]
+
+        if clip is not None:
+            # per-layer clip of the gnn_transform (+ GAT attention) grads
+            # (main_link.py v2:84-88)
+            for idx, max_norm in _clip_groups(state.model, params, ms, clip):
+                for i, g in zip(idx, clip_grads_by_norm([g_params[i] for i in idx], max_norm)):
+                    g_params[i] = g
+
+        rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
+        rmsprop_update(pred_opt, pparams, g_pred, lr, do_opt_step > 0)
+
+        if live:
+            for l in range(ms.num_layers):
+                nb = ms.num_branches[l]
+                Xb = _branch_view(layer_inputs[l].detach(), nb, D)
+                gp = g_probes[l]
+                Gb = gp if gp.dim() == 3 else _branch_view(gp[:, : nb * D], nb, D)
+                state.vq_states[l], _ = vq_update(
+                    state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B
+                )
+        state.bn_state = new_bn
+        state.step += 1
+        return {
+            "loss": loss.detach(),
+            "loss_pre": loss_pre.detach(),
+            "bad_init": torch.stack([s.bad_init for s in state.vq_states]).any(),
+        }
+
+    @torch.no_grad()
+    def score_pairs(pred: LinkPredictor, h, src, dst):
+        return predictor_forward(pred, h.index_select(0, src), h.index_select(0, dst))[:, 0]
+
+    return link_train_step, score_pairs
+
+
+@dataclasses.dataclass
+class SplitEdges:
+    """OGB link split: arrays of [n, 2] positive edges and negatives."""
+
+    train_pos: np.ndarray
+    valid_pos: np.ndarray
+    valid_neg: np.ndarray
+    test_pos: np.ndarray
+    test_neg: np.ndarray
+    # citation2-style: per-source negative lists [n, k] (None for collab)
+    neg_per_source: bool = False
+
+
+class LinkTrainer:
+    """collab/citation2-style trainer (``main_link.py v2:248-415``)."""
+
+    def __init__(self, graph: HostGraph, cfg: Config, split: SplitEdges,
+                 device: Union[str, torch.device, None] = None):
+        self.device = resolve_device(device)
+        apply_matmul_precision(cfg)
+        self.graph, self.cfg, self.split = graph, cfg, split
+        self.ms = model_static(cfg, graph.num_features, cfg.hidden_channels, self.device)
+        self.X_dev = device_features(graph.x, self.device)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        self.state = init_train_state(gen, self.ms, graph.num_nodes, cfg.lr, self.device)
+        self.predictor = init_predictor(gen, cfg.hidden_channels, cfg.hidden_channels, 1,
+                                        cfg.num_layers, self.device)
+        self.pred_opt = make_rmsprop(self.predictor.parameters(), cfg.lr)
+        if cfg.exact_eval_train_edges and 0 < cfg.test_batch_size < graph.num_nodes:
+            raise ValueError(
+                "exact_eval_train_edges requires full-graph eval batches "
+                f"(test_batch_size {cfg.test_batch_size} < num_nodes {graph.num_nodes})"
+            )
+        self.train_loader = BatchLoader(graph, cfg, train_flag=True, seed=cfg.seed,
+                                        with_link_edges=True, device=self.device)
+        self.test_loader = BatchLoader(
+            graph, cfg,
+            # the exact control evaluates through the train-time edge
+            # construction (Config.exact_eval_train_edges)
+            train_flag=cfg.exact_eval_train_edges,
+            sampler_type="node", batch_size=cfg.test_batch_size, shuffle=False,
+            seed=cfg.seed + 1, with_link_edges=True, device=self.device,
+        )
+        self.step_fn, self.score_fn = make_link_step(self.ms, cfg)
+        self.fns = make_step_fns(self.ms, cfg)
+        # negatives and dropout masks are drawn on the device, from their own stream
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 29)
+        self.logger = Logger(cfg.runs, cfg)
+        self._test_batches = None  # the eval loader is deterministic: built once
+
+    def test_batches(self):
+        if self._test_batches is None:
+            self._test_batches = list(self.test_loader)
+        return self._test_batches
+
+    def run_init_sweep(self):
+        for layer_idx in range(1, self.ms.num_layers + 1):
+            step = self.fns.init_step_for(layer_idx)
+            for windows, _ in self.test_batches():
+                self.state.vq_states = step(
+                    self.state.vq_states, self.state.model, self.X_dev, windows[0])
+
+    def train_epoch(self, epoch: int) -> float:
+        cfg = self.cfg
+        wur = (epoch / cfg.warm_up_epochs
+               if cfg.warm_up and epoch <= cfg.warm_up_epochs else 1.0)
+        lr = cfg.lr * epoch / 200 if (cfg.sche and epoch < 200) else cfg.lr
+        losses = []
+        for windows, _ in self.train_loader:
+            for j, batch in enumerate(windows):
+                do_opt = 0.0 if (len(windows) > 1 and j == 0) else 1.0
+                metrics = self.step_fn(self.state, self.predictor, self.pred_opt, self.X_dev,
+                                       batch, wur, lr, do_opt, self.generator)
+                if bool(metrics["bad_init"]):
+                    raise ValueError("Bad Init!")
+                losses.append(float(metrics["loss_pre"]))
+        return float(np.mean(losses)) if losses else float("nan")
+
+    def embeddings(self) -> torch.Tensor:
+        """[N, hidden] stochastic embeddings of every node, on the device."""
+        return torch.cat([self.fns.eval_step(self.state, self.X_dev, windows[0])[: len(raw[0])]
+                          for windows, raw in self.test_batches()])
+
+    def _scores(self, h, edges: np.ndarray, chunk=65536) -> np.ndarray:
+        out = []
+        for i in range(0, len(edges), chunk):
+            e = torch.as_tensor(np.asarray(edges[i : i + chunk], np.int64)).to(self.device)
+            out.append(self.score_fn(self.predictor, h, e[:, 0], e[:, 1]).cpu().numpy())
+        return np.concatenate(out) if out else np.empty(0, np.float32)
+
+    def evaluate_hits(self, k: int = 50):
+        """ogbl-collab protocol (``main_link.py v2:171-244``): train hits are
+        computed against the VALID negatives (reference line 230-233)."""
+        h = self.embeddings()
+        s = self.split
+        pos_train = self._scores(h, s.train_pos)
+        pos_valid = self._scores(h, s.valid_pos)
+        neg_valid = self._scores(h, s.valid_neg)
+        pos_test = self._scores(h, s.test_pos)
+        neg_test = self._scores(h, s.test_neg)
+        return (
+            hits_at_k(pos_train, neg_valid, k),
+            hits_at_k(pos_valid, neg_valid, k),
+            hits_at_k(pos_test, neg_test, k),
+        )
+
+    def evaluate_mrr(self):
+        """ogbl-citation2 protocol: per-source negatives (``v2:126-169``)."""
+        h = self.embeddings()
+        s = self.split
+
+        def split_mrr(pos, negs):
+            p = self._scores(h, pos)
+            n = self._scores(
+                h, np.stack([np.repeat(pos[:, 0], negs.shape[1]), negs.reshape(-1)], axis=1)
+            ).reshape(len(pos), -1)
+            return mrr(p, n)
+
+        return (
+            split_mrr(s.train_pos, s.valid_neg),
+            split_mrr(s.valid_pos, s.valid_neg),
+            split_mrr(s.test_pos, s.test_neg),
+        )
+
+    def fit(self, run: int = 0, verbose: bool = True, ckpt_dir: Optional[str] = None,
+            ckpt_every: int = 50, resume: bool = False, eval_every: int = 1):
+        """The init sweep, then per epoch ``train_epoch`` and, every
+        ``eval_every`` epochs and at the last, Hits@50 (MRR for per-source
+        negatives) into the logger; returns ``logger.statistics(run)``.
+        Checkpoints are not ported and raise."""
+        if ckpt_dir or resume:
+            raise not_ported("checkpoints (ckpt_dir, resume)", "queue 1 item 8")
+        cfg = self.cfg
+        self.run_init_sweep()
+        t0 = time.time()
+        for epoch in range(1, cfg.epochs + 1):
+            loss = self.train_epoch(epoch)
+            if epoch % eval_every == 0 or epoch == cfg.epochs:
+                result = (self.evaluate_mrr() if self.split.neg_per_source
+                          else self.evaluate_hits())
+                self.logger.add_result(run, result)
+                if verbose and epoch % cfg.log_steps == 0:
+                    tr, va, te = result
+                    print(
+                        f"Run: {run + 1}, Epoch: {epoch}, Loss: {loss:.4f}, "
+                        f"Train: {100 * tr:.2f}%, Valid: {100 * va:.2f}%, "
+                        f"Test: {100 * te:.2f}% [{time.time() - t0:.1f}s]",
+                        flush=True,
+                    )
+        return self.logger.statistics(run)

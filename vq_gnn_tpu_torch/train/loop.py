@@ -1,10 +1,14 @@
 """Node-classification trainer — the reference ``main_node.py`` loop (port of
-``vq_gnn_tpu/train/loop.py``, transductive path).
+``vq_gnn_tpu/train/loop.py``).
 
 Layerwise codebook init sweep over the test loader, per-epoch training with
 the warm-up rate and the linear lr ramp, stochastic batched evaluation,
 exact full-graph inference (``full_graph_predict``), and ``fit``: the whole
 run, logged per epoch (with the per-layer VQ health lines on request).
+Multilabel graphs train with BCE and are scored by micro-F1; inductive
+datasets (``val_graph``/``test_graph``) evaluate each split graph as one
+full batch, or stochastically into a per-split codeword table
+(``evaluate_split_stochastic``).
 """
 
 from __future__ import annotations
@@ -29,16 +33,7 @@ from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
 from vq_gnn_tpu_torch.train.step import make_step_fns
 from vq_gnn_tpu_torch.utils.diagnostics import codebook_stats
 from vq_gnn_tpu_torch.utils.logger import Logger
-
-
-def accuracy(logits: np.ndarray, y: np.ndarray, mask=None) -> float:
-    """OGB node-property accuracy: argmax match rate (copy of
-    ``vq_gnn_tpu/utils/metrics.py:accuracy``)."""
-    if mask is not None:
-        logits, y = logits[mask], y[mask]
-    if len(y) == 0:
-        return 0.0
-    return float((logits.argmax(axis=-1) == y).mean())
+from vq_gnn_tpu_torch.utils.metrics import accuracy, micro_f1
 
 
 def device_features(x: np.ndarray, device) -> torch.Tensor:
@@ -54,15 +49,23 @@ class NodeTrainer:
         num_classes: int,
         cluster_indices=None,
         device: Union[str, torch.device, None] = None,
+        use_ogb_acc: Optional[bool] = None,
+        val_graph: Optional[HostGraph] = None,
+        test_graph: Optional[HostGraph] = None,
     ):
         self.device = resolve_device(device)
         apply_matmul_precision(cfg)
+        # inductive datasets (ppi/cluster): separate val/test graphs, each
+        # evaluated as ONE full batch, so B' is empty and the codebooks are
+        # bypassed (reference main_node.py v2:158-171, 191-200, 276-281)
+        self.val_graph, self.test_graph = val_graph, test_graph
+        self.inductive = val_graph is not None
         self.graph = graph
         self.cfg = cfg
-        if graph.y is not None and graph.y.ndim > 1 and graph.y.shape[1] > 1:
-            raise not_ported("multilabel training (BCE loss, micro-F1)")
+        self.multilabel = graph.y is not None and graph.y.ndim > 1 and graph.y.shape[1] > 1
         self.ms: ModelStatic = model_static(cfg, graph.num_features, num_classes, self.device)
         self.X_dev = device_features(graph.x, self.device)
+        self.use_ogb_acc = use_ogb_acc if use_ogb_acc is not None else not self.multilabel
         if cfg.exact_eval_train_edges and 0 < cfg.test_batch_size < graph.num_nodes:
             # only valid when eval batches cover the whole graph: partial
             # batches would route out-of-batch messages through frozen codebooks
@@ -88,7 +91,7 @@ class NodeTrainer:
             seed=cfg.seed + 1,
             device=self.device,
         )
-        self.fns = make_step_fns(self.ms, cfg)
+        self.fns = make_step_fns(self.ms, cfg, self.multilabel)
         self.state: TrainState = init_train_state(
             torch.Generator().manual_seed(cfg.seed), self.ms, graph.num_nodes, cfg.lr,
             self.device,
@@ -97,11 +100,26 @@ class NodeTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
         self.logger = Logger(cfg.runs, cfg)
         self._test_batches = None  # the eval loader is deterministic: built once
+        self._split_batches = {}  # the inductive splits' full batches, built once
+        if self.inductive:
+            self._split_loaders = {
+                name: (BatchLoader(gr, cfg, train_flag=False, sampler_type="node",
+                                   batch_size=gr.num_nodes, shuffle=False, seed=cfg.seed + 3,
+                                   device=self.device),
+                       device_features(gr.x, self.device), gr)
+                for name, gr in (("train", graph), ("val", val_graph), ("test", test_graph))
+            }
 
     def test_batches(self):
         if self._test_batches is None:
             self._test_batches = list(self.test_loader)
         return self._test_batches
+
+    def split_batches(self, name: str):
+        """The inductive split's one full batch (a list of (windows, raw))."""
+        if name not in self._split_batches:
+            self._split_batches[name] = list(self._split_loaders[name][0])
+        return self._split_batches[name]
 
     # ---- layerwise codebook bootstrap (main_node.py v2:17-37) ----
     def run_init_sweep(self, verbose: bool = False):
@@ -162,13 +180,42 @@ class NodeTrainer:
         return np.concatenate(outs, axis=0)
 
     def evaluate(self):
+        """(train, valid, test): accuracy, or micro-F1 where ``use_ogb_acc``
+        is off; inductive runs score each split graph's full batch."""
+        if self.inductive:
+            results = []
+            for name in ("train", "val", "test"):
+                _, X_dev, gr = self._split_loaders[name]
+                outs = [self.fns.eval_step(self.state, X_dev, windows[0])[: len(raw[0])]
+                        .cpu().numpy() for windows, raw in self.split_batches(name)]
+                results.append(micro_f1(np.concatenate(outs, axis=0), gr.y))
+            return tuple(results)
         outs = self.predict_all()
         g = self.graph
+        metric = accuracy if self.use_ogb_acc else micro_f1
+        y = g.y.reshape(-1) if self.use_ogb_acc and g.y.ndim > 1 else g.y
         return (
-            accuracy(outs, g.y, g.train_mask),
-            accuracy(outs, g.y, g.val_mask),
-            accuracy(outs, g.y, g.test_mask),
+            metric(outs, y, g.train_mask),
+            metric(outs, y, g.val_mask),
+            metric(outs, y, g.test_mask),
         )
+
+    # ---- inductive stochastic eval with per-split c tables ----
+    def evaluate_split_stochastic(self, graph: HostGraph, batch_size: int) -> np.ndarray:
+        """v1-inductive-style eval on another graph: assignments recomputed
+        per batch into a fresh per-split codeword table (SURVEY §3.3);
+        returns the logits of its nodes."""
+        loader = BatchLoader(graph, self.cfg, train_flag=False, sampler_type="node",
+                             batch_size=batch_size, shuffle=False, seed=self.cfg.seed + 7,
+                             device=self.device)
+        X_dev = device_features(graph.x, self.device)
+        c_tables = [torch.zeros((graph.num_nodes + 1, nb), dtype=torch.int16, device=self.device)
+                    for nb in self.ms.num_branches]
+        outs = []
+        for windows, raw in loader:
+            out, c_tables = self.fns.eval_assign_step(self.state, c_tables, X_dev, windows[0])
+            outs.append(out[: len(raw[0])].cpu().numpy())
+        return np.concatenate(outs, axis=0)
 
     # ---- exact full-graph inference (codebooks bypassed) ----
     def full_graph_predict(self) -> np.ndarray:

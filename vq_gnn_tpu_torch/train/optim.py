@@ -6,6 +6,10 @@ The reference trains with ``torch.optim.RMSprop(lr, alpha=0.99)``
 that optimizer itself.  ``do_step`` gates the whole update: on skipped
 windows neither the parameters nor ``nu`` move (``main_node.py
 v2:113-116``), which is what not calling ``step()`` does.
+
+``clip_grads_by_norm`` is ``torch.nn.utils.clip_grad_norm_`` as the link
+trainer applies it per layer (``main_link.py v2:84-88``), on a list of
+gradients rather than on ``.grad``.
 """
 
 from __future__ import annotations
@@ -46,3 +50,11 @@ def rmsprop_nu(opt: torch.optim.RMSprop, params: Sequence[torch.nn.Parameter]):
         opt.state[p]["square_avg"] if "square_avg" in opt.state[p] else torch.zeros_like(p)
         for p in params
     ]
+
+
+def clip_grads_by_norm(grads: Sequence[torch.Tensor], max_norm: float) -> list:
+    """The gradients scaled by ``min(1, max_norm / (total + 1e-6))``, where
+    ``total`` is their joint 2-norm (``vq_gnn_tpu/train/optim.py:37-42``)."""
+    total = torch.sqrt(sum((g * g).sum() for g in grads))
+    scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    return [g * scale for g in grads]

@@ -5,13 +5,17 @@ One training step reproduces the reference hot path (SURVEY §3.1):
 
 1. gather the batch features from the device-resident feature table,
 2. forward through the LowRankGNN stack (probes added at each conv output),
-3. loss = masked CE + info_backward,
+3. loss = masked CE (BCE for multilabel targets) + info_backward,
 4. one ``torch.autograd.grad`` over (params, probes) — the probe gradients
    are what the reference's backward hooks receive,
 5. RMSprop, gated by ``do_opt_step`` for multi-window batches
    (``main_node.py v2:113-116``),
 6. in 'live' mode the VQ codebook update per layer (the hook body), visible
    to the *next* batch — matching the reference's hook timing.
+
+``eval_assign_step`` is the inductive stochastic eval on another graph: each
+layer assigns the batch's features to their feature-half codewords into
+that graph's own ``c_indices`` table and runs the forward against it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from vq_gnn_tpu_torch.config import Config
 from vq_gnn_tpu_torch.nn.model import (
     ModelStatic,
     activation,
+    batchnorm_infer,
     layer_forward,
     model_forward,
     zero_probes,
@@ -47,6 +52,14 @@ def masked_ce(logits, y, mask):
     return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
+def masked_bce(logits, y, mask):
+    """Mean over the masked rows and every label of BCE-with-logits, in the
+    JAX package's stable form (``vq_gnn_tpu/train/step.py:55-58``)."""
+    per = torch.clamp(logits, min=0) - logits * y + torch.log1p(torch.exp(-logits.abs()))
+    m = mask.to(logits.dtype)[:, None]
+    return (per * m).sum() / torch.clamp(m.sum() * logits.shape[1], min=1.0)
+
+
 def masked_accuracy(logits, y, mask):
     hit = (logits.argmax(-1) == y).to(torch.float32)
     m = mask.to(torch.float32)
@@ -58,10 +71,12 @@ class StepFns:
     train_step: Callable
     eval_step: Callable
     init_step_for: Callable  # layer_idx -> init-sweep step
+    eval_assign_step: Callable = None  # inductive per-split c-table eval
 
 
-def make_step_fns(ms: ModelStatic, cfg: Config) -> StepFns:
-    """Single-label node classification (multilabel BCE is not ported yet)."""
+def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> StepFns:
+    """Node classification: CE, or with ``multilabel`` BCE over [B, C] float
+    targets (no train accuracy then, 0)."""
     live = cfg.vq_update_mode == "live"
     D = ms.num_D
 
@@ -92,8 +107,12 @@ def make_step_fns(ms: ModelStatic, cfg: Config) -> StepFns:
             generator=generator,
         )
         mask = batch.train_mask & batch.valid_B
-        loss_cls = masked_ce(out, batch.y, mask)
-        acc = masked_accuracy(out.detach(), batch.y, mask)
+        if multilabel:
+            loss_cls = masked_bce(out, batch.y, mask)
+            acc = torch.zeros((), device=out.device)
+        else:
+            loss_cls = masked_ce(out, batch.y, mask)
+            acc = masked_accuracy(out.detach(), batch.y, mask)
         loss = loss_cls if cfg.ce_only else loss_cls + info_b
         grads = torch.autograd.grad(loss, params + probes)
         g_params, g_probes = grads[: len(params)], grads[len(params) :]
@@ -136,6 +155,30 @@ def make_step_fns(ms: ModelStatic, cfg: Config) -> StepFns:
         )
         return out
 
+    @torch.no_grad()
+    def eval_assign_step(state: TrainState, c_tables, X_dev: torch.Tensor, batch: PaddedBatch):
+        """Stochastic eval on a *different* graph with per-split codeword
+        tables (v1 ``models_inductive.py:242-292``): each layer assigns the
+        batch's features to their nearest feature-half codeword, writes them
+        into the split's own table ([N_split + 1, nb] int16, the padded slots
+        into its dustbin row N_split) and runs the forward against it; the
+        codebooks stay as they are.  Returns (out, c_tables), the tables
+        updated in place."""
+        x = X_dev.index_select(0, batch.batch_idx)
+        for l in range(ms.num_layers):
+            nb = ms.num_branches[l]
+            st = state.vq_states[l]
+            _, idx = feature_update(st, _branch_view(x, nb, D), batch.batch_idx, ms.vq,
+                                    valid=batch.valid_B, training=False)
+            c_tables[l].index_copy_(0, batch.batch_idx, idx.t().to(torch.int16))
+            st = dataclasses.replace(st, c_indices=c_tables[l])
+            x, _ = layer_forward(state.model.layers[l], st, ms, x, batch, None, 1.0)
+            if l < ms.num_layers - 1:
+                if ms.bn_flag:
+                    x = batchnorm_infer(x, state.bn_state.mean[l], state.bn_state.var[l])
+                x = activation(x, ms.act)
+        return x, c_tables
+
     def init_step_for(layer_idx: int) -> Callable:
         @torch.no_grad()
         def init_step(vq_states, model, X_dev, batch: PaddedBatch):
@@ -157,4 +200,5 @@ def make_step_fns(ms: ModelStatic, cfg: Config) -> StepFns:
 
         return init_step
 
-    return StepFns(train_step=train_step, eval_step=eval_step, init_step_for=init_step_for)
+    return StepFns(train_step=train_step, eval_step=eval_step, init_step_for=init_step_for,
+                   eval_assign_step=eval_assign_step)
