@@ -10,7 +10,7 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 2. build the bench's arxiv-scale synthetic graph (N = 169,343, degree 13.7,
    128 features, 40 classes) and its 80-part partition, normalised once per
    conv (GCN, SAGE and GAT normalise differently) and once with the v1
-   normalisation for the B + M GAT path;
+   normalisation for the B + M GAT path and for phase 13's B + M GCN path;
 3. drive the training paths through the trainer, one after the other, each
    with the launch counters zeroed just before it and read just after —
    3 layers x 128, num_D = 4, live VQ updates, f32, vq_backend =
@@ -133,11 +133,37 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    their plain versions at the path's shapes, and timed.
    Each of phases 11-12 zeroes the launch counters just before its path and
    reads them after, checks that kernels 1, 2 and 3 ran, and logs the batch
-   shapes, ms/step, edges/s, the path's peak device memory and its seconds.
+   shapes, ms/step, edges/s, the path's peak device memory and its seconds;
+13. the model options through the trainer on phase 2's graphs, each path
+   with the launch counters zeroed just before it and read just after, its
+   ms/step, edges/s, row 6's device time per step and its peak device
+   memory logged:
+   a. GCN B + M at the bench's cell (M = 1,024, cont 10,000, walk 3, ELL K
+      = 8) without and with ``transformer_flag`` (a second codebook per
+      layer, K = 9): init sweep, one epoch, five timed steps, a profile (and
+      ``evaluate`` with the transformer); row 6 runs 3 and 6 times a step,
+      rows 1 and 7 run, and every transformer codebook moves; then row 6 at
+      the transformer codebook's shape on its batch against its plain
+      version, and timed;
+   b. GAT B + M (K = 2) at bf16 compute with the transformer and
+      ``dropbranch=0.5``, as 13a (rows 6-10; row 6 six times a step),
+      beside phase 3's GAT B + M bf16;
+   c. the flagship GCN B + B' with ``dropbranch=0.5`` and alpha dropout
+      0.5: init sweep, one epoch, five timed steps, beside phase 3's GCN;
+      then one step with masks drawn on the card: each layer keeps exactly
+      nb / 2 branches, a dropped branch's codebook, EMA accumulators, BN
+      statistics and ``c_indices`` column stay bit-identical, every kept
+      branch's codebook moves;
+   d. a 3,000-node graph through the B + M GAT path with all three options
+      on the card and on the CPU (plain versions) from one state and one
+      set of masks: one forward + loss and its gradients, then one
+      ``train_step``; each to 1e-4 of max(1, max|cpu|), the assignments
+      after the step to >= 99 %, the dropped branches unchanged on both.
 
 Logs the seconds each phase took.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line (with rows for kernel 2 at nb = 64, M = 4,096
-and at K = 4, M = 4,096, and kernel 3 at M = 4,096, from phase 12) and, as
+and at K = 4, M = 4,096, and kernel 3 at M = 4,096, from phase 12, and
+kernel 2 at the transformer codebook's shape, K = 9, from phase 13) and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises
 and the script exits non-zero without that line.  Without a CUDA device, or
 without the package beside it, it exits non-zero at once.
@@ -487,10 +513,14 @@ def lookup_times(torch, tag, label, vq, ids, D, gpu):
 
 
 def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profile, evaluate,
-               kernels):
+               kernels, on_init=None):
     """One training path through the trainer, launch counters zeroed just
-    before it and read just after.  Returns what the later phases need."""
+    before it and read just after; ``on_init(tr)`` is called after its init
+    sweep.  Returns what the later phases need, with the path's launches per
+    timed step, its profile and its peak device memory above what the
+    earlier phases hold."""
     g, c, ci = graph
+    base = new_path_start(torch, ops)
     t0 = time.time()
     tr = NodeTrainer(g, cfg, c, ci, device="cuda")
     test_batches = tr.test_batches()  # host build of the eval batches (set-up)
@@ -503,8 +533,10 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
     torch.cuda.synchronize()
     log(f"[{tag} init sweep] {time.time() - t0:.2f}s over {len(test_batches)} eval batch(es) "
         f"B_pad={test_batches[0][0][0].B_pad}; launches {ops.launch_counts()}")
-    bad = [bool(s.bad_init) for s in tr.state.vq_states]
+    bad = [bool(s.bad_init) for s in tr.state.vq_states + (tr.state.vq_states_tr or [])]
     assert not any(bad), f"bad_init after the init sweep: {bad}"
+    if on_init is not None:
+        on_init(tr)
 
     # the epoch's first batch is the bench's batch (phase 8): keep its edges
     first_E = []
@@ -543,6 +575,7 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
         losses.append(float(m["loss"]))
         assert not bool(m["bad_init"]), "Bad Init!"
     per_step = {k: (v - before[k]) / timed_steps for k, v in ops.launch_counts().items()}
+    prof = None
     if profile:
         def step(i):
             tr.state, _ = tr.fns.train_step(tr.state, tr.X_dev, batches[i % len(batches)], 1.0,
@@ -575,6 +608,10 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
         assert all(0.0 <= a <= 1.0 for a in acc)
     launches = ops.launch_counts()
     by_width = dict(ops.KERNELS["gat_backward"].by_width)
+    assign_by_k = dict(ops.KERNELS["vq_assign"].by_width)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[{tag} memory] the path's peak device memory above the earlier phases' "
+        f"{peak / 1e9:.3f} GB (held before it {base / 1e9:.3f} GB) | {gpu}")
 
     # ---- 4. the path went through every one of its kernels ----
     log(f"[4 launches] {tag} path: {launches}; gat_backward by width {by_width}")
@@ -584,7 +621,8 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
         for name in BF16_PATH_NOT:
             assert launches[name] == 0, f"the f32 mode of {name} ran on the {tag} path"
     return dict(tr=tr, batch0=b0, test_batches=test_batches, launches=launches,
-                by_width=by_width, ms=mean, std=std, E_first=first_E[0])
+                by_width=by_width, ms=mean, std=std, E_first=first_E[0], per_step=per_step,
+                prof=prof, peak=peak, E_batch=E_batch, assign_by_k=assign_by_k)
 
 
 def hold_ell(torch, tag, label, edges, calls, gen, err):
@@ -1057,6 +1095,228 @@ def accuracy_phase(torch, ops, gpu, launches, err, device="cuda"):
     assert all(0.0 < a <= 1.0 for a in accs.values())
 
 
+def row6_device_ms(prof, steps=3):
+    """Row 6's device ms per step in a profile (its two device kernels:
+    the assign pass and the reduction of its partials), or None."""
+    if prof is None:
+        return None
+    return sum(us for us, _, k in prof["rows"]
+               if "assign_fast_kernel" in k or "assign_kernel" in k
+               or "reduce_partials_kernel" in k) / steps / 1e3
+
+
+def snapshot_vq(torch, states):
+    """Copies of every tensor of each VQState (for a before/after check)."""
+    return [{f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)} for s in states]
+
+
+def small_options_compare(Config, NodeTrainer, prepare, synthetic_sbm, gpu, device="cuda"):
+    """13d: the B + M GAT path with the transformer, dropbranch 0.5 and alpha
+    dropout 0.5 on a 3,000-node graph, on the card and on the CPU (plain
+    versions) from one state (the CPU's init sweep carried to the card) and
+    with one set of masks: one forward + loss with its gradients, then one
+    train_step.  Exact f32 (no TF32, the exact VQ distances).  ``device`` is
+    the card's side."""
+    import torch
+    from vq_gnn_tpu_torch.nn.model import model_forward, zero_probes, zero_probes_tr
+    from vq_gnn_tpu_torch.train.step import draw_branch_masks, masked_ce
+
+    cfg = bm_cfg(Config, num_M=64, batch_size=1000, test_batch_size=1500, walk_length=2,
+                 matmul_precision="highest", vq_backend="pallas", transformer_flag=True,
+                 dropbranch=0.5, alpha_dropout_flag=True, dropout=0.5)
+    gs, cs = synthetic_sbm(num_nodes=3000, num_classes=N_CLASSES, num_features=N_FEAT,
+                           avg_degree=AVG_DEG, seed=1)
+    gs, cs, cis = prepare(gs, cfg, cs)
+    trs = {"cuda": NodeTrainer(gs, cfg, cs, cis, device=device),
+           "cpu": NodeTrainer(gs, cfg, cs, cis, device="cpu")}
+    trs["cpu"].run_init_sweep()
+    cpu_state, gpu_state = trs["cpu"].state, trs["cuda"].state
+    for name in ("vq_states", "vq_states_tr"):
+        setattr(gpu_state, name, [dataclasses.replace(s, **{
+            f.name: getattr(s, f.name).to(device) for f in dataclasses.fields(s)})
+            for s in getattr(cpu_state, name)])
+    batches = {key: next(iter(tr.train_loader))[0][0] for key, tr in trs.items()}
+    bc = batches["cpu"]
+    gen = torch.Generator().manual_seed(13)
+    masks = draw_branch_masks(trs["cpu"].ms, gen)
+    keeps = [torch.rand((bc.B_pad, c), generator=gen) < 1.0 - cfg.dropout
+             for c in trs["cpu"].ms.channels[1:-1]]
+
+    def on(dev, ts):
+        return [t.to(dev) for t in ts]
+
+    res = {}
+    for key, tr in trs.items():
+        b, ms, dev = batches[key], tr.ms, tr.device
+        probes = zero_probes(ms, b.B_pad, dev)
+        probes_tr = zero_probes_tr(ms, b.B_pad, dev)
+        params = list(tr.state.model.parameters())
+        out, info, _, _ = model_forward(
+            tr.state.model, tr.state.vq_states, tr.state.bn_state, ms,
+            tr.X_dev.index_select(0, b.batch_idx), b, probes=probes, warm_up_rate=1.0,
+            training=True, vq_states_tr=tr.state.vq_states_tr, probes_tr=probes_tr,
+            branch_masks=on(dev, masks), dropout_keeps=on(dev, keeps))
+        loss = masked_ce(out, b.y, b.train_mask & b.valid_B) + info
+        grads = torch.autograd.grad(loss, params + probes + probes_tr)
+        before = snapshot_vq(torch, tr.state.vq_states + tr.state.vq_states_tr)
+        _, m = tr.fns.train_step(tr.state, tr.X_dev, b, 1.0, cfg.lr, 1.0,
+                                 branch_masks=on(dev, masks), dropout_keeps=on(dev, keeps))
+        res[key] = dict(loss=float(loss.detach()), grads=[g.cpu() for g in grads], m=m,
+                        before=before,
+                        after=snapshot_vq(torch, tr.state.vq_states + tr.state.vq_states_tr))
+    rg, rc = res["cuda"], res["cpu"]
+    d_loss = abs(rg["loss"] - rc["loss"]) / max(1.0, abs(rc["loss"]))
+    d_grad = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                 for a, b in zip(rg["grads"], rc["grads"], strict=True))
+    d_m = {k: abs(float(rg["m"][k]) - float(rc["m"][k])) / max(1.0, abs(float(rc["m"][k])))
+           for k in ("loss", "loss_cls", "info_backward", "grad_norm")}
+    n_lists = cfg.num_layers
+    agree, untouched = [], True
+    for i, (ag, ac) in enumerate(zip(rg["after"], rc["after"], strict=True)):
+        agree.append(float((ag["c_indices"].cpu() == ac["c_indices"]).float().mean()))
+        keep = masks[i % n_lists]
+        for key in ("cuda", "cpu"):
+            b4, af = res[key]["before"][i], res[key]["after"][i]
+            for f, v in af.items():
+                if v.dim() >= 1 and f != "c_indices":
+                    untouched &= all(torch.equal(v[k], b4[f][k])
+                                     for k in torch.nonzero(~keep).flatten().tolist())
+            untouched &= all(torch.equal(af["c_indices"][:, k], b4["c_indices"][:, k])
+                             for k in torch.nonzero(~keep).flatten().tolist())
+    log(f"[13d small graph] B + M GAT, transformer, dropbranch 0.5, alpha dropout 0.5, B_pad "
+        f"{bc.B_pad}, masks kept per layer {[int(k.sum()) for k in masks]} of "
+        f"{[k.numel() for k in masks]}: forward + loss cuda {rg['loss']:.6f} cpu "
+        f"{rc['loss']:.6f} (rel diff {d_loss:.2e}); every gradient (parameters, probes, the "
+        f"transformer's probes) max|diff| / max(1, max|cpu|) {d_grad:.2e}; train_step metrics "
+        f"rel diff {({k: f'{v:.2e}' for k, v in d_m.items()})}; codeword assignments that agree "
+        f"after the step, per codebook list {[round(a, 4) for a in agree]}; dropped branches "
+        f"bit-identical on both devices {untouched}; tolerance 1e-4 | {gpu}")
+    assert d_loss < 1e-4 and d_grad < 1e-4 and max(d_m.values()) < 1e-4
+    assert min(agree) >= 0.99 and untouched
+
+
+def options_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs, prepare,
+                  synthetic_sbm):
+    """Phase 13: the model options through the trainer on phase 2's graphs
+    (the module docstring says what it runs).  Adds the row of kernel 2 at
+    the transformer codebook's shape to ``kern`` and ``err``; returns the
+    launch counts of its paths, with that row's under its name."""
+    from vq_gnn_tpu_torch.train.step import draw_branch_masks
+
+    out = {}
+    # 13a: GCN B + M at the bench's cell, without and with the transformer
+    tr_emb = {}
+
+    def keep_tr_init(tr):
+        tr_emb["init"] = [s.embedding_output.clone() for s in tr.state.vq_states_tr]
+
+    cfg_a = bm_cfg(Config, conv_type="GCN", ell_K=8)
+    r0 = drive_path(torch, ops, NodeTrainer, "13a GCN-bm", graphs["GCN-bm"], cfg_a, gpu,
+                    NEW_TIMED_STEPS, profile=True, evaluate=False, kernels=PATH_KERNELS["GCN"])
+    ra = drive_path(torch, ops, NodeTrainer, "13a GCN-bm transformer", graphs["GCN-bm"],
+                    dataclasses.replace(cfg_a, transformer_flag=True), gpu, NEW_TIMED_STEPS,
+                    profile=True, evaluate=True, kernels=PATH_KERNELS["GCN"],
+                    on_init=keep_tr_init)
+    tr = ra["tr"]
+    moved = [not torch.equal(s.embedding_output, e0)
+             for s, e0 in zip(tr.state.vq_states_tr, tr_emb["init"], strict=True)]
+    assign_steps = (r0["per_step"]["vq_assign"], ra["per_step"]["vq_assign"])
+    log(f"[13a] row 6 launches per step without / with the transformer {assign_steps}, by width "
+        f"K on the transformer path {ra['assign_by_k']}; transformer codebooks moved in the "
+        f"epoch and the timed steps: {moved}")
+    assert assign_steps == (3, 6) and all(moved)
+    for tag, r in (("without", r0), ("with", ra)):
+        log(f"[13a summary] GCN B + M {tag} the transformer: {r['ms']:.2f} ms/step (std "
+            f"{r['std']:.2f}), edges/s {r['E_batch'] / (r['ms'] / 1e3):.4g}, row 6 device "
+            f"{row6_device_ms(r['prof'])} ms/step, device busy "
+            f"{None if r['prof'] is None else round(r['prof']['busy_ms'], 3)} ms/step, peak "
+            f"{r['peak'] / 1e9:.3f} GB | {gpu}")
+    # row 6 at the transformer codebook's shape on this batch
+    vq = tr.state.vq_states_tr[1]
+    nb, M, K = vq.embedding.shape
+    key = f"vq_assign (transformer, nb={nb}, M={M}, K={K})"
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b0 = ra["batch0"]
+    xn = torch.randn((nb, b0.B_pad, K), generator=gen, device="cuda")
+    emb = vq.embedding.contiguous()
+    hold_assign(torch, 13, "transformer vq_update", xn, emb, b0.valid_B.contiguous(), err,
+                key=key, chunk=branch_chunk(b0.B_pad, M))
+    t, b_ms, b_by, _ = assign_times(torch, 13, key, xn, emb, b0.valid_B.contiguous(), gpu,
+                                    chunk=branch_chunk(b0.B_pad, M))
+    kern[key] = dict(source="vq_gnn_tpu_torch/csrc/vq_assign.cu",
+                     replaces="vq_gnn_tpu/ops/pallas_vq.py:140", **t, bound_ms=b_ms,
+                     bound_by=b_by)
+    for r in (r0, ra):
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    out[key] = ra["assign_by_k"].get(K, 0)
+    del r0, ra, tr
+
+    # 13b: GAT B + M, K = 2, bf16, with the transformer and dropbranch 0.5
+    rb = drive_path(torch, ops, NodeTrainer, "13b GAT-bm-bf16 transformer dropbranch",
+                    graphs["GAT-bm"], bm_cfg(Config, compute_dtype="bfloat16",
+                                             transformer_flag=True, dropbranch=0.5), gpu,
+                    NEW_TIMED_STEPS, profile=True, evaluate=True,
+                    kernels=PATH_KERNELS["GAT-bm-bf16"])
+    r3 = runs["3 GAT-bm-bf16"]
+    log(f"[13b summary] GAT B + M bf16: phase 3 (no options) {r3['ms']:.2f} ms/step, peak "
+        f"{r3['peak'] / 1e9:.3f} GB; with the transformer and dropbranch 0.5 {rb['ms']:.2f} "
+        f"ms/step, edges/s {rb['E_batch'] / (rb['ms'] / 1e3):.4g}, row 6 device "
+        f"{row6_device_ms(rb['prof'])} ms/step at {rb['per_step']['vq_assign']} launches, peak "
+        f"{rb['peak'] / 1e9:.3f} GB | {gpu}")
+    assert rb["per_step"]["vq_assign"] == 6
+    for k, v in rb["launches"].items():
+        out[k] = out.get(k, 0) + v
+    del rb
+
+    # 13c: the flagship GCN B + B' with dropbranch 0.5 and alpha dropout 0.5
+    rc = drive_path(torch, ops, NodeTrainer, "13c GCN dropbranch alpha-dropout", graphs["GCN"],
+                    flagship_cfg(Config, dropbranch=0.5, alpha_dropout_flag=True, dropout=0.5),
+                    gpu, NEW_TIMED_STEPS, profile=False, evaluate=False,
+                    kernels=PATH_KERNELS["GCN"])
+    tr, b0 = rc["tr"], rc["batch0"]
+    r3 = runs["3 GCN"]
+    log(f"[13c summary] GCN B + B': phase 3 (no options) {r3['ms']:.2f} ms/step, peak "
+        f"{r3['peak'] / 1e9:.3f} GB; with dropbranch 0.5 and alpha dropout 0.5 {rc['ms']:.2f} "
+        f"ms/step, edges/s {rc['E_batch'] / (rc['ms'] / 1e3):.4g}, peak "
+        f"{rc['peak'] / 1e9:.3f} GB | {gpu}")
+    masks = draw_branch_masks(tr.ms, tr.generator, torch.device("cuda"))
+    kept = [int(m.sum()) for m in masks]
+    before = snapshot_vq(torch, tr.state.vq_states)
+    ops.reset_launch_counts()
+    tr.state, m = tr.fns.train_step(tr.state, tr.X_dev, b0, 1.0, tr.cfg.lr, 1.0, tr.generator,
+                                    branch_masks=masks)
+    torch.cuda.synchronize()
+    after = snapshot_vq(torch, tr.state.vq_states)
+    same, moved = [], []
+    for keep, b4, af in zip(masks, before, after, strict=True):
+        drop = torch.nonzero(~keep).flatten().tolist()
+        kept_b = torch.nonzero(keep).flatten().tolist()
+        same.append(all(torch.equal(af[f][k], b4[f][k]) for f in af if af[f].dim() >= 1
+                        and f != "c_indices" for k in drop)
+                    and all(torch.equal(af["c_indices"][:, k], b4["c_indices"][:, k])
+                            for k in drop))
+        moved.append(all(not torch.equal(af["embedding"][k], b4["embedding"][k])
+                         for k in kept_b))
+    log(f"[13c dropbranch] one step on the card, branches kept per layer {kept} of "
+        f"{list(tr.ms.num_branches)}: dropped branches' codebook, EMA accumulators, BN "
+        f"statistics and c_indices column bit-identical {same}; every kept branch's codebook "
+        f"moved {moved}; loss {float(m['loss']):.4f}")
+    assert kept == [nb // 2 for nb in tr.ms.num_branches] and all(same) and all(moved)
+    for k, v in rc["launches"].items():
+        out[k] = out.get(k, 0) + v
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        out[k] = out.get(k, 0) + v
+    del rc, tr
+
+    # 13d: the card against the CPU on a small graph, masks fixed
+    t0 = time.time()
+    small_options_compare(Config, NodeTrainer, prepare, synthetic_sbm, gpu)
+    log(f"[13d] {time.time() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1123,6 +1383,8 @@ def main() -> int:
     for conv in ("GCN", "SAGE", "GAT"):
         g, c = copy.deepcopy(raw)
         graphs[conv] = prepare(g, flagship_cfg(Config, conv_type=conv), c)
+    g, c = copy.deepcopy(raw)
+    graphs["GCN-bm"] = prepare(g, bm_cfg(Config, conv_type="GCN"), c)  # for phase 13a
     g, c = raw
     graphs["GAT-bm"] = prepare(g, bm_cfg(Config), c)  # v1 normalisation, no partition
     del raw
@@ -1858,6 +2120,13 @@ def main() -> int:
         t0 = time.time()
         counts.append(run())
         log(f"[{name}] the phase took {time.time() - t0:.1f}s")
+
+    # ---- 13. the model options: transformer, dropbranch, alpha dropout ----
+    phase("13 options")
+    t0 = time.time()
+    counts.append(options_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs,
+                                prepare, synthetic_sbm))
+    log(f"[13 options] the phase took {time.time() - t0:.1f}s")
     for c in counts:
         for k, v in c.items():
             launches[k] = launches.get(k, 0) + v

@@ -205,13 +205,29 @@ def test_cli_refuses_to_run_without_a_gpu():
      NotImplementedError, "cluster sampler on inductive datasets"),
     (["--dataset", "ppi", "--data-root", "CKPT"], FileNotFoundError,
      "ppi.npz not found; run tools/convert_dataset.py --dataset ppi"),
-    (["--transformer-flag"], NotImplementedError, "ROADMAP.md queue 1 item 4"),
-], ids=["ckpt-dir", "resume", "kmeans-init", "synthetic-inductive", "ppi", "transformer"])
+], ids=["ckpt-dir", "resume", "kmeans-init", "synthetic-inductive", "ppi"])
 def test_cli_unported_options_raise(extra, error, match, tmp_path, capsys):
     argv = [str(tmp_path / a) if a == "CKPT" else a for a in SMALL_ARGS + extra]
     with pytest.raises(error, match=match):
         main_node_torch.main(argv)
     assert not os.path.exists(tmp_path / "CKPT")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--formulation", "bm", "--transformer-flag", "--sampler-type", "cont", "--walk-length", "2"],
+    ["--dropbranch", "0.5", "--alpha-dropout-flag", "--dropout", "0.5"],
+], ids=["transformer", "dropbranch-alpha-dropout"])
+def test_cli_trains_model_options(extra, capsys):
+    """``main_node.py``'s model options run on the CPU: the transformer branch
+    (B + M) and dropbranch with alpha dropout, one epoch with finite
+    results."""
+    tr = main_node_torch.main(SMALL_ARGS + extra)
+    out = capsys.readouterr().out
+    assert tr.ms.transformer_flag == ("--transformer-flag" in extra)
+    assert tr.ms.dropbranch == (0.5 if "--dropbranch" in extra else 0.0)
+    assert tr.ms.alpha_dropout_flag == ("--alpha-dropout-flag" in extra)
+    assert len(tr.logger.results[0]) == 1 and "Run 01:" in out
+    assert all(math.isfinite(v) for r in tr.logger.results[0] for v in r)
 
 
 def test_cli_trains_synthetic_inductive(capsys):

@@ -145,8 +145,8 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize(
     "kw",
     [dict(conv_type="GAT", ell_Kt=4), dict(ell_Kt=4),
-     dict(spmm_backend="coo"), dict(transformer_flag=True, formulation="bm"), dict(dropbranch=0.5),
-     dict(kmeans_init=True), dict(compute_dtype="float16"), dict(vq_backend="scan")],
+     dict(spmm_backend="coo"), dict(kmeans_init=True), dict(compute_dtype="float16"),
+     dict(vq_backend="scan")],
 )
 def test_unported_options_raise(kw):
     from vq_gnn_tpu_torch.train.loop import NodeTrainer
@@ -158,6 +158,35 @@ def test_unported_options_raise(kw):
     g, c, ci = tdata.prepare(g, tcfg.Config(sampler_type="node", **CFG), c)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NodeTrainer(g, cfg, c, ci, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(formulation="bm", transformer_flag=True),
+    dict(dropbranch=0.5),
+    dict(alpha_dropout_flag=True, dropout=0.5),
+    dict(formulation="bm", conv_type="GAT", transformer_flag=True, dropbranch=0.5,
+         compute_dtype="bfloat16"),
+    dict(conv_type="GAT", dropbranch=0.5, alpha_dropout_flag=True, dropout=0.5,
+         compute_dtype="bfloat16"),
+], ids=["transformer", "dropbranch", "alpha-dropout", "bm-GAT-bf16-transformer-dropbranch",
+        "GAT-bf16-dropbranch-alpha-dropout"])
+def test_model_options_train_on_the_cpu(kw):
+    """Each model option the port runs: the trainer's init sweep, one epoch
+    with finite losses and an evaluation, on the cont sampler (the
+    transformer at B + M, its only formulation), in f32 and at bf16
+    compute."""
+    from vq_gnn_tpu_torch.train.loop import NodeTrainer
+
+    cfg = tcfg.Config(**{**CFG, "sampler_type": "cont", "batch_size": 64,
+                         "vq_update_mode": "live", **kw})
+    g, c = tdata.synthetic_sbm(num_nodes=200, num_classes=3, num_features=8, seed=0)
+    g, c, ci = tdata.prepare(g, cfg, c)
+    tr = NodeTrainer(g, cfg, c, ci, device="cpu")
+    assert (tr.state.vq_states_tr is not None) == cfg.transformer_flag
+    tr.run_init_sweep()
+    loss, loss_cls = tr.train_epoch(1)
+    assert np.isfinite(loss) and np.isfinite(loss_cls)
+    assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
 
 
 @pytest.mark.parametrize("conv", ["GCN", "GAT"])

@@ -187,7 +187,7 @@ def test_full_graph_inference_matches_jax(conv, skip):
     out = tmodel.full_graph_inference(tstate.model, tstate.bn_state, tms, torch.as_tensor(tg.x),
                                       te)
     _close(out, ref, RTOL_SUM, "full_graph_inference")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         tspmm.spmm(te, torch.as_tensor(x).requires_grad_(True))
 
 

@@ -139,15 +139,18 @@ def not_ported(what: str, where: str = "") -> NotImplementedError:
     )
 
 
+def no_reference_path(what: str) -> NotImplementedError:
+    """The error of a combination the JAX package cannot run either: the
+    port has no path of its own for it."""
+    return NotImplementedError(f"{what}: the JAX package has no such path, nor has the port")
+
+
 def check_ported(cfg: Config) -> None:
     """Raise for any setting whose port has not landed, so that no option is
     silently ignored (ROADMAP.md lists what is still to come)."""
     for what, unported, where in (
-        ("transformer_flag", cfg.transformer_flag, "queue 1 item 4"),
-        ("dropbranch", cfg.dropbranch > 0, "queue 1 item 4"),
-        ("alpha_dropout_flag", cfg.alpha_dropout_flag and cfg.dropout > 0, "queue 1 item 4"),
         ("kmeans_init", cfg.kmeans_init, "queue 8"),
-        (f"spmm_backend={cfg.spmm_backend!r}", cfg.spmm_backend != "ell", "queue 1 item 4"),
+        (f"spmm_backend={cfg.spmm_backend!r}", cfg.spmm_backend != "ell", "queue 1 item 5"),
         ("mixed-K ELL (ell_Kt > 0)", cfg.ell_Kt > 0, "queue 1 item 5"),
         (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype not in COMPUTE_DTYPES,
          "queue 2a"),

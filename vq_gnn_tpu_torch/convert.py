@@ -3,8 +3,9 @@
 ``state_from_numpy`` takes the JAX package's ``TrainState`` with every leaf
 as a numpy array (``jax.tree.map(np.asarray, state)``; nested dicts with the
 same keys work too) and builds the port's :class:`TrainState`: parameters
-(linears and the GAT attention vectors), ``vq_states``, ``bn_state`` and the
-RMSprop square averages ``nu``.  ``predictor_from_numpy`` does the same for
+(linears, the GAT attention vectors and the transformer's per-branch
+``transformer_k``), ``vq_states`` (and ``vq_states_tr``), ``bn_state`` and
+the RMSprop square averages ``nu``.  ``predictor_from_numpy`` does the same for
 the link trainer's predictor (the JAX list of ``{w, b}`` and its ``nu``).
 
 The JAX package stores a Linear weight ``w`` as [fan_in, fan_out]
@@ -26,12 +27,14 @@ from vq_gnn_tpu_torch.train.link import LinkPredictor
 from vq_gnn_tpu_torch.train.optim import make_rmsprop
 from vq_gnn_tpu_torch.train.state import TrainState
 
-_LINEARS = ("gnn_transform", "linear_skip", "fc_sage")
+_LINEARS = ("gnn_transform", "linear_skip", "fc_sage", "transformer_v", "transformer_res")
 _VECTORS = ("att_l", "att_r")  # GAT: [c_in + 1], or [nb, D + 1] in B + M
 
 
-def _get(obj, name):
-    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+def _get(obj, name, *default):
+    if isinstance(obj, Mapping):
+        return obj.get(name, *default) if default else obj[name]
+    return getattr(obj, name, *default)
 
 
 def _t(a, device, dtype=None):
@@ -63,6 +66,10 @@ def _layer_tensors(layer, layer_np, device):
     for name in _VECTORS:
         if hasattr(layer, name):
             out.append((getattr(layer, name), _t(layer_np[name], device)))
+    if hasattr(layer, "transformer_k"):  # JAX's own layout, [nb, D_in, D_out]
+        tk = layer.transformer_k
+        out += [(tk.w, _t(layer_np["transformer_k"]["w"], device)),
+                (tk.b, _t(layer_np["transformer_k"]["b"], device))]
     return out
 
 
@@ -81,6 +88,7 @@ def state_from_numpy(state_np, ms: ModelStatic, lr: float, device) -> TrainState
             opt.state[p] = {"step": torch.tensor(0.0), "square_avg": nu}
 
     vq_states = [vq_state_from_numpy(s, device) for s in _get(state_np, "vq_states")]
+    tr_np = _get(state_np, "vq_states_tr", None)
     bn_np = _get(state_np, "bn_state")
     bn = BNState(
         mean=[_t(m, device) for m in _get(bn_np, "mean")],
@@ -92,6 +100,7 @@ def state_from_numpy(state_np, ms: ModelStatic, lr: float, device) -> TrainState
         bn_state=bn,
         optimizer=opt,
         step=int(np.asarray(_get(state_np, "step"))),
+        vq_states_tr=None if tr_np is None else [vq_state_from_numpy(s, device) for s in tr_np],
     )
 
 

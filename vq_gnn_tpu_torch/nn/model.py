@@ -1,5 +1,6 @@
 """LowRankGNN — the VQ-GNN model (port of ``vq_gnn_tpu/nn/model.py``: the
-B + B' (v2) and B + M (v1) formulations for GCN, SAGE and GAT).
+B + B' (v2) and B + M (v1) formulations for GCN, SAGE and GAT, with the v1
+transformer branch, dropbranch and alpha dropout).
 
 - ``LowRankGNN``       an ``nn.Module`` holding the per-layer linears (and the
                        GAT attention vectors)
@@ -8,6 +9,8 @@ B + B' (v2) and B + M (v1) formulations for GCN, SAGE and GAT).
 - ``layer_forward``    one LowRankGNNLayer (``models.py v2:144-231``), or with
                        ``formulation='bm'`` one v1 layer (``layer_forward_bm``,
                        ``vq_gnn_v1/models.py:143-233``)
+- ``transformer_branch``  the v1 low-rank global attention between the batch
+                       and a second codebook (B + M, ``transformer_flag``)
 - ``model_forward``    the stack; returns per-layer inputs + info_backward
 - ``full_graph_inference``  the plain conv stack over the whole graph with
                        the learned weights, codebooks bypassed
@@ -17,6 +20,11 @@ zero tensors with ``requires_grad=True`` added to each conv output's batch
 rows.  The gradient of the loss with respect to a probe is exactly
 ``dL/d(x_output_B)``, what the reference hook receives; it feeds the VQ
 update after the step (visible to the next batch, matching hook timing).
+
+Every function that draws (dropout, alpha dropout) also takes its mask, and
+the dropbranch keep masks ``branch_keep`` always come from the caller
+(``train/step.py`` draws them), so that a test can feed the JAX package's
+own draws.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from vq_gnn_tpu_torch.ops.spmm import spmm
 from vq_gnn_tpu_torch.ops.vq_ops import masked_mean_var
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 
+ALPHA_DROPOUT_ALPHA = -1.7580993408473766  # SELU alpha' (torch AlphaDropout)
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelStatic:
@@ -63,6 +73,20 @@ class ModelStatic:
     # the dtype the convs stream x_input at ('float32' or 'bfloat16'); sums,
     # outputs, parameters and probes stay f32
     compute_dtype: str = "float32"
+    alpha_dropout_flag: bool = False  # torch AlphaDropout in place of dropout
+    # stochastic branch dropping: each training step keeps exactly
+    # int(nb * (1 - p)) branches a layer; a dropped branch contributes no
+    # codebook features, no recovery term, no VQ / c_indices update and (B +
+    # M) a zeroed hidden slice (vq_gnn_tpu/nn/model.py:62-69)
+    dropbranch: float = 0.0
+    # v1 parallel low-rank global-attention branch (B + M only)
+    transformer_flag: bool = False
+
+    @property
+    def vq_tr(self) -> VQParams:
+        """The transformer's codebooks always quantize the ones-column
+        gradient (v1/models.py:272: add_flag=True)."""
+        return dataclasses.replace(self.vq, add_flag=True)
 
     @property
     def num_branches(self) -> Tuple[int, ...]:
@@ -89,6 +113,16 @@ def model_static(
         add_flag=cfg.formulation == "bm" and cfg.conv_type == "GAT",
         backend=resolve_vq_backend(cfg.vq_backend, device),
     )
+    # the JAX package's checks and messages (vq_gnn_tpu/nn/model.py:121-131)
+    if cfg.dropbranch > 0:
+        if not 0.0 < cfg.dropbranch < 1.0:
+            raise ValueError("dropbranch must be in [0, 1)")
+        for c in chans[:-1]:
+            if int((c // cfg.num_D) * (1.0 - cfg.dropbranch)) < 1:
+                raise ValueError("dropbranch too large: a layer would keep zero branches")
+    if cfg.transformer_flag and cfg.formulation != "bm":
+        # the v2 transformer path is commented out (models.py v2:206-226)
+        raise NotImplementedError("transformer_flag requires formulation='bm'")
     return ModelStatic(
         num_layers=cfg.num_layers,
         channels=chans,
@@ -102,6 +136,9 @@ def model_static(
         formulation=cfg.formulation,
         ce_only=cfg.ce_only,
         compute_dtype=cfg.compute_dtype,
+        alpha_dropout_flag=cfg.alpha_dropout_flag,
+        dropbranch=cfg.dropbranch,
+        transformer_flag=cfg.transformer_flag,
     )
 
 
@@ -112,7 +149,10 @@ class LowRankGNN(nn.Module):
     """Per layer: ``gnn_transform`` (+ ``fc_sage`` for SAGE, ``linear_skip``
     with ``skip``, the attention vectors ``att_l``/``att_r`` for GAT: [c_in +
     1], or in the B + M formulation one per branch, [nb, D + 1]).  Weights
-    are [out, in] as in ``nn.Linear``."""
+    are [out, in] as in ``nn.Linear``.  With ``transformer_flag``:
+    ``transformer_v`` and ``transformer_res`` (linears) and ``transformer_k``,
+    the per-branch [D, D] linears as JAX keeps them, ``w`` [nb, D_in,
+    D_out] and ``b`` [nb, D]."""
 
     def __init__(self, ms: ModelStatic, device=None):
         super().__init__()
@@ -130,15 +170,23 @@ class LowRankGNN(nn.Module):
                          else (c_in + 1,))
                 layer.att_l = nn.Parameter(torch.empty(shape, device=device))
                 layer.att_r = nn.Parameter(torch.empty(shape, device=device))
+            if ms.transformer_flag:
+                nb, D = c_in // ms.num_D, ms.num_D
+                layer.transformer_k = nn.Module()
+                layer.transformer_k.w = nn.Parameter(torch.empty((nb, D, D), device=device))
+                layer.transformer_k.b = nn.Parameter(torch.empty((nb, D), device=device))
+                layer.transformer_v = nn.Linear(c_in, c_out, device=device)
+                layer.transformer_res = nn.Linear(c_in, c_out, device=device)
             self.layers.append(layer)
 
 
 def init_params(model: LowRankGNN, generator: torch.Generator) -> LowRankGNN:
-    """torch.nn.Linear's default: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in));
-    then PyG glorot on each GAT attention vector of length c (the last
-    dimension; one per branch in the B + M formulation): U(-a, a), a =
-    sqrt(6 / (1 + c)) (``vq_gnn_tpu/nn/model.py:163-193``).  Drawn from
-    ``generator`` (a CPU generator; values copied to the device)."""
+    """torch.nn.Linear's default: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    (the transformer's per-branch ``transformer_k`` with fan_in D); then PyG
+    glorot on each GAT attention vector of length c (the last dimension; one
+    per branch in the B + M formulation): U(-a, a), a = sqrt(6 / (1 + c))
+    (``vq_gnn_tpu/nn/model.py:163-206``).  Drawn from ``generator`` (a CPU
+    generator; values copied to the device)."""
 
     def draw(p, bound):
         t = torch.empty(p.shape)
@@ -156,6 +204,10 @@ def init_params(model: LowRankGNN, generator: torch.Generator) -> LowRankGNN:
                 if hasattr(layer, name):
                     p = getattr(layer, name)
                     draw(p, math.sqrt(6.0 / (1.0 + p.shape[-1])))
+            if hasattr(layer, "transformer_k"):
+                tk = layer.transformer_k
+                for p in (tk.w, tk.b):
+                    draw(p, 1.0 / math.sqrt(tk.w.shape[1]))
     return model
 
 
@@ -188,11 +240,39 @@ def activation(x, act: str):
     raise ValueError("Activation not supported!")
 
 
-def dropout(x, p: float, training: bool, generator: Optional[torch.Generator] = None):
+def dropout_keep(x, p: float, generator: Optional[torch.Generator] = None):
+    """A keep mask of x's shape, True with probability 1 - p."""
+    return torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+
+
+def dropout(x, p: float, training: bool, generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None):
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    if keep is None:
+        keep = dropout_keep(x, p, generator)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def alpha_dropout(x, p: float, training: bool, generator: Optional[torch.Generator] = None,
+                  keep: Optional[torch.Tensor] = None):
+    """torch.nn.AlphaDropout's semantics (SELU self-normalising dropout) in
+    the JAX package's form (``vq_gnn_tpu/nn/model.py:244-253``): a dropped
+    unit takes alpha', then the affine a * x + b keeps mean and variance."""
+    if not training or p == 0.0:
+        return x
+    alpha = ALPHA_DROPOUT_ALPHA
+    q = 1.0 - p
+    a = (q * (1.0 + p * alpha**2)) ** -0.5
+    b = -a * alpha * p
+    if keep is None:
+        keep = dropout_keep(x, p, generator)
+    return a * torch.where(keep, x, torch.full_like(x, alpha)) + b
+
+
+def _keep_cols(keep: torch.Tensor, width: int):
+    """A [nb] branch keep mask as a [1, nb * width] float column mask."""
+    return keep.float().repeat_interleave(width)[None, :]
 
 
 def batchnorm_infer(x, mean, var, eps=1e-5):
@@ -222,11 +302,18 @@ def layer_forward(
     batch: PaddedBatch,
     probe: Optional[torch.Tensor],  # [B_pad, C_in (+1 for GAT)] or None
     warm_up_rate,
+    branch_keep: Optional[torch.Tensor] = None,  # [nb] bool, the dropbranch mask
+    vq_tr: Optional[VQState] = None,
+    probe_tr: Optional[torch.Tensor] = None,
 ):
     """One LowRankGNNLayer forward (``models.py v2:144-231``), GCN, SAGE or
     GAT.  A GAT probe is [B_pad, C_in + 1]: its last column lands on the
     ones-column normaliser before the division.  With ``formulation='bm'``
-    the v1 layer, :func:`layer_forward_bm`.
+    the v1 layer, :func:`layer_forward_bm` (which alone reads ``vq_tr`` and
+    ``probe_tr``, the transformer branch's).  A dropped branch
+    (``branch_keep`` False) contributes no codebook features and no
+    recovery term; its batch-row columns stay, like the reference's
+    full-width x into the conv (``vq_gnn_tpu/nn/model.py:303-311``).
 
     Under bf16 compute (``ms.compute_dtype``) the lookup rounds its codewords
     to bf16 and x_input is cast to bf16 after the concatenation
@@ -234,7 +321,8 @@ def layer_forward(
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     if ms.formulation == "bm":
-        return layer_forward_bm(layer, vq_state, ms, x, batch, probe, warm_up_rate)
+        return layer_forward_bm(layer, vq_state, ms, x, batch, probe, warm_up_rate,
+                                branch_keep=branch_keep, vq_tr=vq_tr, probe_tr=probe_tr)
     B_pad = batch.B_pad
     cd = torch_dtype(ms.compute_dtype)
     # out-of-batch features/grads from the codebook (models.py v2:165-173);
@@ -244,6 +332,9 @@ def layer_forward(
     fo_mask = batch.valid_fo.to(x.dtype)[:, None]
     x_fo = x_fo * fo_mask
     grad_fo = (grad_fo * fo_mask).detach()
+    if branch_keep is not None:
+        x_fo = x_fo * _keep_cols(branch_keep, ms.num_D)
+        grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim)
 
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, C_in]
     if x_input.dtype != cd:
@@ -279,12 +370,17 @@ def layer_forward(
     return _layer_output(layer, ms, x, x_out_B), info_backward
 
 
-def _layer_output(layer, ms: ModelStatic, x, conv_B):
+def _layer_output(layer, ms: ModelStatic, x, conv_B, x_tr=None):
     """gnn_transform of the conv output, + the SAGE root weight (models.py
-    v2:203-204) and the skip linear of the layer input."""
+    v2:203-204), the transformer branch's ``transformer_v`` of its output
+    ``x_tr`` and ``transformer_res`` of the layer input (v1/models.py:
+    342-362), and the skip linear of the layer input."""
     out = F.linear(conv_B, layer.gnn_transform.weight, layer.gnn_transform.bias)
     if ms.conv_type == "SAGE":
         out = out + F.linear(x, layer.fc_sage.weight, layer.fc_sage.bias)
+    if x_tr is not None:
+        out = (out + F.linear(x_tr, layer.transformer_v.weight, layer.transformer_v.bias)
+               + F.linear(x, layer.transformer_res.weight, layer.transformer_res.bias))
     if ms.skip:
         out = out + F.linear(x, layer.linear_skip.weight, layer.linear_skip.bias)
     return out
@@ -294,7 +390,7 @@ def _layer_output(layer, ms: ModelStatic, x, conv_B):
 # one layer, B+M (v1 mapper) formulation
 # --------------------------------------------------------------------------
 def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatch, x_cols,
-                           warm_up_rate, al=None, ar_cb=None):
+                           warm_up_rate, al=None, ar_cb=None, branch_keep=None):
     """The v1 codeword-row recovery term for non-GCN convs
     (``vq_gnn_tpu/nn/model.py:408-500``): per branch the [M, B] cell matrix
     relu(sum of reverse values) the mapper produces after coalesce +
@@ -304,7 +400,7 @@ def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatc
     the cells as ``VQ_GNN_REV_FOLD`` says (``rev_fold_mode``).
 
     x_cols [nb, B_pad, Dg]; al [nb, B_pad] and ar_cb [nb, M] (zeros: no
-    attention, exp(leaky(0)) == 1)."""
+    attention, exp(leaky(0)) == 1); a dropped branch's term is zeroed."""
     if ms.ce_only:
         return x_cols.new_zeros(())
     D, M = ms.num_D, ms.vq.num_M
@@ -317,6 +413,8 @@ def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatc
                               batch.rev_slot_row, x_cols, al, ar_cb, grad_table,
                               row_ptr=batch.rev_row_ptr, long_rows=batch.rev_long_rows,
                               fold=rev_fold_mode())
+    if branch_keep is not None:
+        infos = infos * branch_keep.to(infos.dtype)
     return infos.sum() * warm_up_rate
 
 
@@ -327,6 +425,67 @@ def _branch_logits(x, att, D: int):
     return (x.reshape(x.shape[0], nb, D) * att[None, :, :D]).sum(-1) + att[None, :, D]
 
 
+def transformer_branch(
+    layer: nn.Module,
+    vq_tr: VQState,
+    ms: ModelStatic,
+    x: torch.Tensor,  # [B_pad, C_in]
+    batch: PaddedBatch,
+    probe_tr: Optional[torch.Tensor],  # [nb, B_pad, D + 1]
+    warm_up_rate,
+    branch_keep: Optional[torch.Tensor] = None,  # [nb] bool, the dropbranch mask
+):
+    """The v1 parallel low-rank global-attention branch (v1/models.py:143-233
+    with transformer_flag, convs.py:269-287; ``vq_gnn_tpu/nn/model.py:
+    503-573``), plain PyTorch as the JAX package computes it outside any
+    kernel.  Per branch: an affine-free LayerNorm (eps 1e-5) of the batch
+    rows and the warm-up-scaled codewords, the branch's ``transformer_k``,
+    a ones column appended; logits C = <x_B, x_M> / sqrt(D + 1), then
+    exp(C / c_max) with c_max the largest squared row norm over the valid
+    batch rows and the branch's codewords (a guard, not a softmax's max
+    subtraction); the batch rows attend to the codewords (out_B, the hook
+    point ``probe_tr`` added before the ones-column division) and the
+    codewords to the valid batch rows (out_M, for the recovery term
+    sum(out_M * gbar) * warm_up_rate).  A dropped branch has no output and
+    no recovery.
+
+    Returns (x_out_tr [B_pad, nb * D], info_backward)."""
+    B_pad, D = batch.B_pad, ms.num_D
+    nb = x.shape[1] // D
+    xb = x.reshape(B_pad, nb, D).permute(1, 0, 2)  # [nb, B_pad, D]
+    xbar = vq_tr.embedding_output[:, :, :D].detach() * warm_up_rate
+    gbar = vq_tr.embedding_output[:, :, D:].detach()  # [nb, M, D + 1]
+    x_in = torch.cat([xb, xbar], dim=1)  # [nb, B_pad + M, D]
+    mu = x_in.mean(2, keepdim=True)
+    var = ((x_in - mu) ** 2).mean(2, keepdim=True)
+    x_in = (x_in - mu) * torch.rsqrt(var + 1e-5)
+    tk = layer.transformer_k
+    x_in = torch.bmm(x_in, tk.w) + tk.b[:, None, :]
+    # [nb, B_pad + M, D + 1]: the ones column after transformer_k
+    x_in = torch.cat([x_in, x_in.new_ones(x_in.shape[:2] + (1,))], dim=2)
+    xB, xM = x_in[:, :B_pad], x_in[:, B_pad:]
+    C = torch.bmm(xB, xM.transpose(1, 2)) / math.sqrt(D + 1)  # [nb, B_pad, M]
+    valid = batch.valid_B
+    c_max = torch.maximum(
+        (xB * xB).sum(2).masked_fill(~valid[None, :], float("-inf")).amax(1),
+        (xM * xM).sum(2).amax(1),
+    )[:, None, None]
+    C = torch.exp(C / c_max)
+    out_B = torch.bmm(C / C.sum(2, keepdim=True), xM)  # [nb, B_pad, D + 1]
+    Cm = C * valid.to(C.dtype)[None, :, None]
+    out_M = torch.bmm((Cm / Cm.sum(1, keepdim=True).clamp_min(1e-30)).transpose(1, 2), xB)
+    if probe_tr is not None:
+        out_B = out_B + probe_tr
+    if branch_keep is not None:
+        out_M = out_M * branch_keep.to(out_M.dtype)[:, None, None]
+    info_backward = (out_M * gbar * warm_up_rate).sum()
+    # ones-column normalisation (v1/models.py:209-210)
+    out_B_n = out_B[:, :, :D] / (out_B[:, :, D:] + 1e-16)
+    if branch_keep is not None:
+        out_B_n = out_B_n * branch_keep.to(out_B_n.dtype)[:, None, None]
+    return out_B_n.permute(1, 0, 2).reshape(B_pad, nb * D), info_backward
+
+
 def layer_forward_bm(
     layer: nn.Module,
     vq_state: VQState,
@@ -335,6 +494,9 @@ def layer_forward_bm(
     batch: PaddedBatch,
     probe: Optional[torch.Tensor],  # [B_pad, C_in], or [nb, B_pad, D + 1] for GAT
     warm_up_rate,
+    branch_keep: Optional[torch.Tensor] = None,  # [nb] bool, the dropbranch mask
+    vq_tr: Optional[VQState] = None,
+    probe_tr: Optional[torch.Tensor] = None,
 ):
     """One v1 LowRankGNNLayer (``vq_gnn_v1/models.py:143-233, 307-367``;
     ``vq_gnn_tpu/nn/model.py:576-800``).
@@ -346,8 +508,12 @@ def layer_forward_bm(
     identity sum_m out_M[m] * g[m] == sum_j out_fo[j] * g[c[j]], or, for the
     non-GCN convs in training, the exact reverse term over the rev-ELL.
     Under bf16 compute only the GAT conv streams bf16: its x_input is cast
-    after the branch logits (``vq_gnn_tpu/nn/model.py:682-684``); the lookup
-    and the GCN and SAGE convs stay f32.
+    after the branch logits (``vq_gnn_tpu/nn/model.py:682-684``); the lookup,
+    the GCN and SAGE convs and the transformer branch stay f32.  A dropped
+    branch (``branch_keep`` False) contributes no codebook features, no
+    recovery term and a zeroed slice of the conv output.  With
+    ``transformer_flag`` the transformer branch (over ``vq_tr``, its hook
+    point ``probe_tr``) adds to the output and to info_backward.
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
@@ -357,8 +523,16 @@ def layer_forward_bm(
     fo_mask = batch.valid_fo.to(x.dtype)[:, None]
     x_fo = x_fo * fo_mask * warm_up_rate
     grad_fo = (grad_fo * fo_mask).detach()  # [Bp_pad, nb * Dg]
+    if branch_keep is not None:
+        x_fo = x_fo * _keep_cols(branch_keep, D)
+        grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim)
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, nb * D]
     rev = batch.rev_slot_row is not None
+    x_tr = None
+    info_tr = 0.0
+    if ms.transformer_flag:
+        x_tr, info_tr = transformer_branch(layer, vq_tr, ms, x, batch, probe_tr, warm_up_rate,
+                                           branch_keep=branch_keep)
 
     if ms.conv_type != "GAT":
         # rows >= B_pad are codebook lookups: the spmm backward stops at
@@ -369,10 +543,13 @@ def layer_forward_bm(
             out_B = out_B + probe
         if rev:
             x_cols = x.reshape(B_pad, nb, D).permute(1, 0, 2)
-            info_backward = _bm_exact_reverse_info(vq_state, ms, batch, x_cols, warm_up_rate)
+            info_backward = _bm_exact_reverse_info(vq_state, ms, batch, x_cols, warm_up_rate,
+                                                   branch_keep=branch_keep)
         else:
             info_backward = (x_out[B_pad:] * grad_fo * warm_up_rate).sum()
-        return _layer_output(layer, ms, x, out_B), info_backward
+        if branch_keep is not None:
+            out_B = out_B * _keep_cols(branch_keep, D)
+        return _layer_output(layer, ms, x, out_B, x_tr), info_backward + info_tr
 
     # Trick-1 logits per branch over the valid batch rows and the whole
     # codebook (the v1 conv takes the max over its B + M input, convs.py:209)
@@ -401,7 +578,7 @@ def layer_forward_bm(
                           x.new_ones((nb, B_pad, 1))], dim=2)  # [nb, B_pad, D + 1]
         info_backward = _bm_exact_reverse_info(
             vq_state, ms, batch, x_br, warm_up_rate, al=al_n[:B_pad].t(),
-            ar_cb=ar_cb / scale_n[:, None],
+            ar_cb=ar_cb / scale_n[:, None], branch_keep=branch_keep,
         )
     else:
         gfo = grad_fo.reshape(Bp_pad, nb, D + 1)
@@ -409,7 +586,9 @@ def layer_forward_bm(
                          + (rs[B_pad:] * gfo[:, :, D]).sum()) * warm_up_rate
     # ones-column normalisation of the batch rows (v1/models.py:209-210)
     out_B = agg_B / (rs_B.repeat_interleave(D, dim=1) + 1e-16)
-    return _layer_output(layer, ms, x, out_B), info_backward
+    if branch_keep is not None:
+        out_B = out_B * _keep_cols(branch_keep, D)
+    return _layer_output(layer, ms, x, out_B, x_tr), info_backward + info_tr
 
 
 def model_forward(
@@ -423,19 +602,32 @@ def model_forward(
     warm_up_rate=1.0,
     training: bool = False,
     generator: Optional[torch.Generator] = None,
+    vq_states_tr: Optional[List[VQState]] = None,
+    probes_tr: Optional[List[torch.Tensor]] = None,
+    branch_masks: Optional[List[torch.Tensor]] = None,
+    dropout_keeps: Optional[List[torch.Tensor]] = None,
 ):
     """Full LowRankGNN forward (``models.py v2:308-348``).
+
+    ``vq_states_tr`` and ``probes_tr``: the transformer branch's codebooks and
+    hook points per layer; ``branch_masks``: the dropbranch keep mask [nb]
+    per layer; ``dropout_keeps``: the (alpha) dropout keep mask per hidden
+    layer, drawn from ``generator`` where not given.
 
     Returns (out [B_pad, C_out], info_backward, layer_inputs, new_bn_state)."""
     x = x_B
     layer_inputs = []
     info_total = 0.0
     new_means, new_vars = list(bn_state.mean), list(bn_state.var)
+    drop = alpha_dropout if ms.alpha_dropout_flag else dropout
     for l in range(ms.num_layers):
         layer_inputs.append(x)
         probe = probes[l] if probes is not None else None
         x, info_b = layer_forward(
-            model.layers[l], vq_states[l], ms, x, batch, probe, warm_up_rate
+            model.layers[l], vq_states[l], ms, x, batch, probe, warm_up_rate,
+            branch_keep=None if branch_masks is None else branch_masks[l],
+            vq_tr=None if vq_states_tr is None else vq_states_tr[l],
+            probe_tr=probes_tr[l] if probes_tr else None,
         )
         info_total = info_total + info_b
         if l < ms.num_layers - 1:
@@ -448,7 +640,8 @@ def model_forward(
                     x = batchnorm_infer(x, bn_state.mean[l], bn_state.var[l])
             x = activation(x, ms.act)
             if ms.dropout > 0 and training:
-                x = dropout(x, ms.dropout, training, generator)
+                x = drop(x, ms.dropout, training, generator,
+                         keep=None if dropout_keeps is None else dropout_keeps[l])
     return x, info_total, layer_inputs, BNState(mean=new_means, var=new_vars)
 
 
@@ -465,6 +658,12 @@ def zero_probes(ms: ModelStatic, B_pad: int, device) -> List[torch.Tensor]:
     return [
         torch.zeros(s, device=device, requires_grad=True) for s in probe_shapes(ms, B_pad)
     ]
+
+
+def zero_probes_tr(ms: ModelStatic, B_pad: int, device) -> List[torch.Tensor]:
+    """The transformer branch's hook points: [nb, B_pad, D + 1] per layer."""
+    return [torch.zeros((nb, B_pad, ms.num_D + 1), device=device, requires_grad=True)
+            for nb in ms.num_branches]
 
 
 # --------------------------------------------------------------------------

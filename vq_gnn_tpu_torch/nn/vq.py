@@ -219,11 +219,18 @@ def vq_update(
     batch_idx: torch.Tensor,  # [B]
     p: VQParams,
     valid: Optional[torch.Tensor] = None,
+    branch_keep: Optional[torch.Tensor] = None,  # [nb] bool, the dropbranch mask
 ) -> Tuple[VQState, torch.Tensor]:
     """Joint feature+gradient codebook update (``vq.py:204-279``) — the body
     of the reference's backward hook: BN-normalize [X_B || grad] (seeding the
     running stats from the first batch, vq.py:216-221), scale the grad half,
-    assign, EMA k-means, then store a de-normalized copy for lookups."""
+    assign, EMA k-means, then store a de-normalized copy for lookups.
+
+    ``branch_keep`` is dropbranch (``vq_gnn_tpu/nn/vq.py:322-340``): a
+    dropped branch's hook never fires, so every per-branch tensor and its
+    ``c_indices`` column keep their values, and its ``bad_init`` does not
+    count.  The shared ``bn_inited`` still flips, as in the JAX package (a
+    documented deviation there)."""
     D = p.num_D
     gs0 = p.grad_scale[0]
 
@@ -257,18 +264,23 @@ def vq_update(
     out = out * torch.sqrt(run_var)[:, None, :] + run_mean[:, None, :]
     if gs0 == 0:  # vq.py:274-275
         out[:, :, D:] = 0.0
-    _write_rows(state.c_indices, batch_idx, idx)
+    new = dict(embedding=new_emb, embedding_output=out, ema_cluster_size=new_size,
+               ema_w=new_ema_w, bn_feat_mean=f_mean, bn_feat_var=f_var, bn_grad_mean=g_mean,
+               bn_grad_var=g_var)
+    idx_w = idx
+    if branch_keep is not None:
+        for k, v in new.items():
+            old = getattr(state, k)
+            new[k] = torch.where(branch_keep.reshape((-1,) + (1,) * (v.dim() - 1)), v, old)
+        bad = ((new_size == 0).any(-1) & branch_keep).any()
+        ids = batch_idx.clamp(0, state.c_indices.shape[0] - 1)
+        idx_w = torch.where(branch_keep[:, None], idx,
+                            state.c_indices.index_select(0, ids).t().to(idx.dtype))
+    _write_rows(state.c_indices, batch_idx, idx_w)
     return (
         dataclasses.replace(
             state,
-            embedding=new_emb,
-            embedding_output=out,
-            ema_cluster_size=new_size,
-            ema_w=new_ema_w,
-            bn_feat_mean=f_mean,
-            bn_feat_var=f_var,
-            bn_grad_mean=g_mean,
-            bn_grad_var=g_var,
+            **new,
             bn_inited=torch.ones_like(state.bn_inited),
             bad_init=state.bad_init | bad,
         ),

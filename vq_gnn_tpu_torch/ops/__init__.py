@@ -6,7 +6,7 @@ wrappers of kernels 1, 4 and 5 count their bf16-row mode apart, in
 (``VQ_GNN_REV_FOLD=fast``) there too (``BF16_MODES`` names each such mode).
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero them all
 (``gat_backward`` also counts them per width C and row dtype, in
-``by_width``).
+``by_width``, and ``fused_assign_branches`` per width K).
 """
 
 from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
@@ -48,6 +48,7 @@ def reset_launch_counts() -> None:
     for fn in BF16_MODES.values():
         fn.launches_bf16 = 0
     gat_backward.by_width.clear()
+    fused_assign_branches.by_width.clear()
 
 
 __all__ = ["BF16_MODES", "KERNELS", "launch_counts", "reset_launch_counts"]

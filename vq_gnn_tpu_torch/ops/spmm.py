@@ -200,7 +200,7 @@ def spmm(edges: Edges, x: torch.Tensor, ell_val: Optional[torch.Tensor] = None):
         if edges.row is None:
             raise ValueError("spmm: the edges hold neither the slot-ELL nor the COO layout")
         if torch.is_grad_enabled() and x.requires_grad:
-            raise not_ported("the COO layout's backward (spmm_backend='coo')", "queue 1 item 4")
+            raise not_ported("the COO layout's backward (spmm_backend='coo')", "queue 1 item 5")
         return _segment_matvec(edges, x)
     if edges.t_ell_row is None:
         raise ValueError("ELL edges need t_ell_* for the backward pass")

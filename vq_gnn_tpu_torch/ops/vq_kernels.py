@@ -24,6 +24,7 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -130,7 +131,8 @@ _LOOKUP_ARGTYPES = [_VP, _I64, _I32, _VP, _I64, _VP, _I32, _I32, _I32, _I32, _VP
 
 
 def fused_assign_branches(xn, emb, valid, fast: bool = False):
-    """Kernel 2 for CUDA tensors, its plain version for CPU tensors."""
+    """Kernel 2 for CUDA tensors, its plain version for CPU tensors.  Counts
+    its launches, and per width K in ``fused_assign_branches.by_width``."""
     if xn.device.type == "cpu":
         return fused_assign_branches_plain(xn, emb, valid, fast)
     k = "fused_assign_branches"
@@ -163,10 +165,12 @@ def fused_assign_branches(xn, emb, valid, fast: bool = False):
     )
     _build.check(rc, k)
     fused_assign_branches.launches += 1
+    fused_assign_branches.by_width[K] += 1
     return idx.long(), counts, sums
 
 
 fused_assign_branches.launches = 0
+fused_assign_branches.by_width = collections.Counter()
 
 
 def lookup_codewords_plain(c_indices, node_ids, emb_out, fast: bool = False,

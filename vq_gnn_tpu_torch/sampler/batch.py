@@ -152,7 +152,7 @@ def build_padded_batch(
     among the batch rows) padded to ``L_pad`` (0: the next multiple of 1,024).
     """
     if ell_K <= 0:
-        raise not_ported("the COO spmm layout (spmm_backend='coo')")
+        raise not_ported("the COO spmm layout (spmm_backend='coo')", "queue 1 item 5")
     B, Bp = len(node_idx), len(fo_ids)
     if B > B_pad or Bp > Bp_pad:
         raise ValueError(f"batch exceeds pad sizes: B={B}/{B_pad} Bp={Bp}/{Bp_pad}")

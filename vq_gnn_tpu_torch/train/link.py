@@ -14,6 +14,13 @@ The reference's quirks are kept: the negatives are uniform over the batch's
 ``num_B`` rows; the positive and the negative predictor calls share their
 dropout masks (one key in the JAX package); the log is clamped at 1e-15 with
 ``max``; train Hits are counted against the *valid* negatives.
+
+The model options run as the JAX package runs them here: dropbranch and
+alpha dropout as in the node step; with ``transformer_flag`` the forward
+reads the transformer's codebooks, but the step takes no gradient of its
+hook points, so those codebooks keep their init-sweep values
+(``vq_gnn_tpu/train/link.py:88,151``).  A B + M GAT step with live VQ, which
+the JAX package cannot run (its 3-D probe against a 2-D slice), raises.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from torch import nn
 from vq_gnn_tpu_torch.config import (
     Config,
     apply_matmul_precision,
+    no_reference_path,
     not_ported,
     resolve_device,
 )
@@ -42,7 +50,7 @@ from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 from vq_gnn_tpu_torch.train.loop import device_features
 from vq_gnn_tpu_torch.train.optim import clip_grads_by_norm, make_rmsprop, rmsprop_update
 from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
-from vq_gnn_tpu_torch.train.step import _branch_view, make_step_fns
+from vq_gnn_tpu_torch.train.step import _branch_view, draw_branch_masks, make_step_fns
 from vq_gnn_tpu_torch.utils.logger import Logger
 from vq_gnn_tpu_torch.utils.metrics import hits_at_k, mrr
 
@@ -116,19 +124,30 @@ def make_link_step(ms: ModelStatic, cfg: Config):
     live = cfg.vq_update_mode == "live"
     D = ms.num_D
     clip = cfg.clip
+    if live and ms.formulation == "bm" and ms.conv_type == "GAT":
+        raise no_reference_path("the link step's live VQ update of a B + M GAT model")
 
     def link_train_step(state: TrainState, pred: LinkPredictor, pred_opt, X_dev: torch.Tensor,
                         batch: PaddedBatch, warm_up_rate: float, lr: float, do_opt_step: float,
-                        generator=None, dst_neg: Optional[torch.Tensor] = None):
+                        generator=None, dst_neg: Optional[torch.Tensor] = None,
+                        pred_keep: Optional[list] = None,
+                        branch_masks: Optional[List[torch.Tensor]] = None,
+                        dropout_keeps: Optional[List[torch.Tensor]] = None):
         """One step; updates ``state``, ``pred`` and ``pred_opt`` in place and
-        returns the metrics (device tensors).  ``dst_neg`` [L_pad] overrides
-        the negative destinations drawn from ``generator``."""
+        returns the metrics (device tensors).  ``dst_neg`` [L_pad], the
+        predictor's dropout masks ``pred_keep``, the dropbranch masks
+        ``branch_masks`` and the model's (alpha) dropout masks
+        ``dropout_keeps`` override the draws from ``generator``."""
         dev = X_dev.device
         if dst_neg is None:
             # uniform in-batch negative destinations (main_link.py v2:66-69)
             dst_neg = torch.randint(0, max(batch.num_B, 1), batch.link_src.shape,
                                     generator=generator, device=dev)
-        keep = dropout_masks(pred, batch.link_src.shape[0], cfg.dropout, generator, dev)
+        keep = pred_keep
+        if keep is None:
+            keep = dropout_masks(pred, batch.link_src.shape[0], cfg.dropout, generator, dev)
+        if branch_masks is None and ms.dropbranch > 0:
+            branch_masks = draw_branch_masks(ms, generator, dev)
         probes = zero_probes(ms, batch.B_pad, dev)
         params = list(state.model.parameters())
         pparams = list(pred.parameters())
@@ -136,6 +155,8 @@ def make_link_step(ms: ModelStatic, cfg: Config):
         out, info_b, layer_inputs, new_bn = model_forward(
             state.model, state.vq_states, state.bn_state, ms, x_B, batch, probes=probes,
             warm_up_rate=warm_up_rate, training=True, generator=generator,
+            vq_states_tr=state.vq_states_tr, branch_masks=branch_masks,
+            dropout_keeps=dropout_keeps,
         )
         src = out.index_select(0, batch.link_src)
         dst = out.index_select(0, batch.link_dst)
@@ -169,10 +190,10 @@ def make_link_step(ms: ModelStatic, cfg: Config):
             for l in range(ms.num_layers):
                 nb = ms.num_branches[l]
                 Xb = _branch_view(layer_inputs[l].detach(), nb, D)
-                gp = g_probes[l]
-                Gb = gp if gp.dim() == 3 else _branch_view(gp[:, : nb * D], nb, D)
+                Gb = _branch_view(g_probes[l][:, : nb * D], nb, D)
                 state.vq_states[l], _ = vq_update(
-                    state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B
+                    state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B,
+                    branch_keep=None if branch_masks is None else branch_masks[l],
                 )
         state.bn_state = new_bn
         state.step += 1
@@ -248,8 +269,9 @@ class LinkTrainer:
         for layer_idx in range(1, self.ms.num_layers + 1):
             step = self.fns.init_step_for(layer_idx)
             for windows, _ in self.test_batches():
-                self.state.vq_states = step(
-                    self.state.vq_states, self.state.model, self.X_dev, windows[0])
+                self.state.vq_states, self.state.vq_states_tr = step(
+                    self.state.vq_states, self.state.vq_states_tr, self.state.model,
+                    self.X_dev, windows[0])
 
     def train_epoch(self, epoch: int) -> float:
         cfg = self.cfg

@@ -128,9 +128,9 @@ class NodeTrainer:
                 print(f"init sweep layer {layer_idx}")
             step = self.fns.init_step_for(layer_idx)
             for windows, _ in self.test_batches():
-                self.state.vq_states = step(
-                    self.state.vq_states, self.state.model, self.X_dev, windows[0]
-                )
+                self.state.vq_states, self.state.vq_states_tr = step(
+                    self.state.vq_states, self.state.vq_states_tr, self.state.model,
+                    self.X_dev, windows[0])
 
     def warm_up_rate(self, epoch: int) -> float:
         cfg = self.cfg

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -25,21 +25,29 @@ class TrainState:
     bn_state: BNState
     optimizer: torch.optim.RMSprop  # holds nu (square_avg) per parameter
     step: int = 0
+    # the v1 transformer branch's codebooks, one per layer (None when off)
+    vq_states_tr: Optional[List[VQState]] = None
 
 
 def init_train_state(
     generator: torch.Generator, ms: ModelStatic, num_N: int, lr: float, device
 ) -> TrainState:
-    """Parameters, then one VQ state per layer, all drawn from ``generator``
-    (a CPU generator; the values are copied to ``device``)."""
+    """Parameters, then one VQ state per layer (and with ``transformer_flag``
+    one transformer codebook per layer, ``ms.vq_tr``), all drawn from
+    ``generator`` (a CPU generator; the values are copied to ``device``)."""
     model = init_params(LowRankGNN(ms, device=device), generator)
     vq_states = [
         init_vq_state(generator, ms.num_branches[l], num_N, ms.vq, device)
         for l in range(ms.num_layers)
     ]
+    vq_states_tr = None
+    if ms.transformer_flag:
+        vq_states_tr = [init_vq_state(generator, nb, num_N, ms.vq_tr, device)
+                        for nb in ms.num_branches]
     return TrainState(
         model=model,
         vq_states=vq_states,
         bn_state=init_bn_state(ms, device),
         optimizer=make_rmsprop(model.parameters(), lr),
+        vq_states_tr=vq_states_tr,
     )

@@ -6,12 +6,19 @@ One training step reproduces the reference hot path (SURVEY §3.1):
 1. gather the batch features from the device-resident feature table,
 2. forward through the LowRankGNN stack (probes added at each conv output),
 3. loss = masked CE (BCE for multilabel targets) + info_backward,
-4. one ``torch.autograd.grad`` over (params, probes) — the probe gradients
-   are what the reference's backward hooks receive,
+4. one ``torch.autograd.grad`` over (params, probes, and the transformer
+   branch's probes) — the probe gradients are what the reference's backward
+   hooks receive,
 5. RMSprop, gated by ``do_opt_step`` for multi-window batches
    (``main_node.py v2:113-116``),
-6. in 'live' mode the VQ codebook update per layer (the hook body), visible
-   to the *next* batch — matching the reference's hook timing.
+6. in 'live' mode the VQ codebook update per layer (the hook body; with
+   ``transformer_flag`` also of the transformer's codebooks), visible to the
+   *next* batch — matching the reference's hook timing.
+
+With ``dropbranch`` each step keeps exactly int(nb * (1 - p)) branches a
+layer, chosen by a permutation (``draw_branch_masks``); the masks, and the
+(alpha) dropout masks, come from the trainer's ``torch.Generator``, or from
+the caller (``train_step(branch_masks=, dropout_keeps=)``).
 
 ``eval_assign_step`` is the inductive stochastic eval on another graph: each
 layer assigns the batch's features to their feature-half codewords into
@@ -21,12 +28,12 @@ that graph's own ``c_indices`` table and runs the forward against it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
 
-from vq_gnn_tpu_torch.config import Config
+from vq_gnn_tpu_torch.config import Config, no_reference_path
 from vq_gnn_tpu_torch.nn.model import (
     ModelStatic,
     activation,
@@ -34,6 +41,7 @@ from vq_gnn_tpu_torch.nn.model import (
     layer_forward,
     model_forward,
     zero_probes,
+    zero_probes_tr,
 )
 from vq_gnn_tpu_torch.nn.vq import feature_update, vq_update
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
@@ -44,6 +52,19 @@ from vq_gnn_tpu_torch.train.state import TrainState
 def _branch_view(x: torch.Tensor, nb: int, d: int) -> torch.Tensor:
     """[B, nb*d] -> [nb, B, d] per-branch slices (branch i = cols i*d:(i+1)*d)."""
     return x.reshape(x.shape[0], nb, d).permute(1, 0, 2)
+
+
+def draw_branch_masks(ms: ModelStatic, generator=None, device=None) -> List[torch.Tensor]:
+    """Per layer a [nb] bool mask keeping exactly int(nb * (1 - dropbranch))
+    branches: the first of a random permutation (the reference's randperm
+    subset with static shapes, ``vq_gnn_tpu/train/step.py:94-107``)."""
+    masks = []
+    for nb in ms.num_branches:
+        perm = torch.randperm(nb, generator=generator, device=device)
+        keep = torch.zeros(nb, dtype=torch.bool, device=device)
+        keep[perm[: int(nb * (1.0 - ms.dropbranch))]] = True
+        masks.append(keep)
+    return masks
 
 
 def masked_ce(logits, y, mask):
@@ -88,10 +109,18 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
         lr: float,
         do_opt_step: float,
         generator=None,
+        branch_masks: Optional[List[torch.Tensor]] = None,
+        dropout_keeps: Optional[List[torch.Tensor]] = None,
     ):
         """One step; updates ``state`` in place and returns (state, metrics).
-        Metrics are device tensors (no host sync)."""
-        probes = zero_probes(ms, batch.B_pad, X_dev.device)
+        Metrics are device tensors (no host sync).  ``branch_masks`` (a [nb]
+        bool per layer) and ``dropout_keeps`` (a keep mask per hidden layer)
+        override the draws from ``generator``."""
+        dev = X_dev.device
+        probes = zero_probes(ms, batch.B_pad, dev)
+        probes_tr = zero_probes_tr(ms, batch.B_pad, dev) if ms.transformer_flag else []
+        if branch_masks is None and ms.dropbranch > 0:
+            branch_masks = draw_branch_masks(ms, generator, dev)
         params = list(state.model.parameters())
         x_B = X_dev.index_select(0, batch.batch_idx)
         out, info_b, layer_inputs, new_bn = model_forward(
@@ -105,6 +134,10 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
             warm_up_rate=warm_up_rate,
             training=True,
             generator=generator,
+            vq_states_tr=state.vq_states_tr,
+            probes_tr=probes_tr,
+            branch_masks=branch_masks,
+            dropout_keeps=dropout_keeps,
         )
         mask = batch.train_mask & batch.valid_B
         if multilabel:
@@ -114,8 +147,10 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
             loss_cls = masked_ce(out, batch.y, mask)
             acc = masked_accuracy(out.detach(), batch.y, mask)
         loss = loss_cls if cfg.ce_only else loss_cls + info_b
-        grads = torch.autograd.grad(loss, params + probes)
-        g_params, g_probes = grads[: len(params)], grads[len(params) :]
+        grads = torch.autograd.grad(loss, params + probes + probes_tr)
+        n_p, n_pr = len(params), len(probes)
+        g_params, g_probes = grads[:n_p], grads[n_p : n_p + n_pr]
+        g_probes_tr = grads[n_p + n_pr :]
 
         rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
 
@@ -130,10 +165,18 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
                 # the B + M GAT probe is [nb, B_pad, D + 1]: the ones-column
                 # gradient is quantized too (VQParams.add_flag)
                 Gb = gp if gp.dim() == 3 else _branch_view(gp[:, : nb * D], nb, D)
+                keep = None if branch_masks is None else branch_masks[l]
                 state.vq_states[l], _ = vq_update(
-                    state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B
+                    state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B,
+                    branch_keep=keep,
                 )
+                if ms.transformer_flag:  # its hook point is [nb, B_pad, D + 1]
+                    state.vq_states_tr[l], _ = vq_update(
+                        state.vq_states_tr[l], Xb, g_probes_tr[l], batch.batch_idx, ms.vq_tr,
+                        valid=batch.valid_B, branch_keep=keep,
+                    )
 
+        bad = [s.bad_init for s in state.vq_states + (state.vq_states_tr or [])]
         grad_norm = torch.sqrt(sum((g * g).sum() for g in g_params))
         metrics = {
             "loss": loss.detach(),
@@ -141,7 +184,7 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
             "train_acc": acc,
             "info_backward": torch.as_tensor(info_b).detach(),
             "grad_norm": grad_norm,
-            "bad_init": torch.stack([s.bad_init for s in state.vq_states]).any(),
+            "bad_init": torch.stack(bad).any(),
         }
         state.bn_state = new_bn
         state.step += 1
@@ -151,7 +194,8 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
     def eval_step(state: TrainState, X_dev: torch.Tensor, batch: PaddedBatch):
         x_B = X_dev.index_select(0, batch.batch_idx)
         out, _, _, _ = model_forward(
-            state.model, state.vq_states, state.bn_state, ms, x_B, batch, training=False
+            state.model, state.vq_states, state.bn_state, ms, x_B, batch, training=False,
+            vq_states_tr=state.vq_states_tr,
         )
         return out
 
@@ -163,7 +207,10 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
         into the split's own table ([N_split + 1, nb] int16, the padded slots
         into its dustbin row N_split) and runs the forward against it; the
         codebooks stay as they are.  Returns (out, c_tables), the tables
-        updated in place."""
+        updated in place.  The JAX package runs no transformer branch here
+        (it passes no transformer codebook), so neither does the port."""
+        if ms.transformer_flag:
+            raise no_reference_path("eval_assign_step with transformer_flag")
         x = X_dev.index_select(0, batch.batch_idx)
         for l in range(ms.num_layers):
             nb = ms.num_branches[l]
@@ -181,22 +228,30 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
 
     def init_step_for(layer_idx: int) -> Callable:
         @torch.no_grad()
-        def init_step(vq_states, model, X_dev, batch: PaddedBatch):
+        def init_step(vq_states, vq_states_tr, model, X_dev, batch: PaddedBatch):
             """model.init partial forward (``models.py v2:370-374`` +
             ``main_node.py v2:17-37``): every still-uninited block runs
-            feature_update on the current activations, then the layer
-            forward uses the freshly updated codebook."""
+            feature_update on the current activations (the transformer's
+            codebooks too, ``vq_states_tr``, None when off), then the layer
+            forward uses the freshly updated codebooks.  Returns
+            (vq_states, vq_states_tr)."""
             x = X_dev.index_select(0, batch.batch_idx)
             new_states = list(vq_states)
+            new_tr = None if vq_states_tr is None else list(vq_states_tr)
             for l in range(layer_idx):
                 nb = ms.num_branches[l]
+                Xb = _branch_view(x, nb, D)
                 new_states[l], _ = feature_update(
-                    new_states[l], _branch_view(x, nb, D), batch.batch_idx, ms.vq,
-                    valid=batch.valid_B,
+                    new_states[l], Xb, batch.batch_idx, ms.vq, valid=batch.valid_B,
                 )
-                x, _ = layer_forward(model.layers[l], new_states[l], ms, x, batch, None, 1.0)
+                if new_tr is not None:
+                    new_tr[l], _ = feature_update(
+                        new_tr[l], Xb, batch.batch_idx, ms.vq_tr, valid=batch.valid_B,
+                    )
+                x, _ = layer_forward(model.layers[l], new_states[l], ms, x, batch, None, 1.0,
+                                     vq_tr=None if new_tr is None else new_tr[l])
                 x = activation(x, ms.act)
-            return new_states
+            return new_states, new_tr
 
         return init_step
 
