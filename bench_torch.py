@@ -250,11 +250,26 @@ def first_batch(graph, cfg, cluster_indices, device):
     # one epoch's first batch, without the loader's prefetch thread
     windows, _ = next(loader._epoch_iter())
     host = windows[0]
-    e = host.edges
-    E_batch = int(np.count_nonzero(e.ell_val))
+    E_batch, layout = batch_layout(host.edges, cfg)
     line = (f"batch: B={int(host.num_B)} B_pad={host.B_pad} Bp_pad={host.Bp_pad} E={E_batch} "
-            f"ELL K={cfg.ell_K} S_pad={e.ell_row.shape[0]} St_pad={e.t_ell_row.shape[0]}")
+            + layout)
     return host.to(loader.device), E_batch, line
+
+
+def batch_layout(e, cfg):
+    """(real edges, the layout's words) of a host batch's adjacency, as
+    bench.py:217-233 prints them for each layout: the non-zero values, and
+    the mixed-K families' slot counts and padding share, the single-K slot
+    counts, or the COO pad size."""
+    if e.mixed:
+        E_batch = int(np.count_nonzero(e.head_val)) + int(np.count_nonzero(e.tail_val))
+        cells = e.head_col.size + e.tail_col.size
+        return E_batch, (f"mixed-ELL K={cfg.ell_K}+{cfg.ell_Kt} Sh={e.head_rowc.shape[0]} "
+                         f"St2={e.tail_row.shape[0]} pad={1 - E_batch / cells:.1%}")
+    if e.ell_val is not None:
+        return int(np.count_nonzero(e.ell_val)), (
+            f"ELL K={cfg.ell_K} S_pad={e.ell_row.shape[0]} St_pad={e.t_ell_row.shape[0]}")
+    return int(np.count_nonzero(e.val)), f"E_pad={e.row.shape[0]}"
 
 
 def run_bench(cfg, graph, num_classes, cluster_indices, device=None, steps=STEPS, gpu="",

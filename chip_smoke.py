@@ -160,10 +160,36 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       ``train_step``; each to 1e-4 of max(1, max|cpu|), the assignments
       after the step to >= 99 %, the dropped branches unchanged on both.
 
+14. the adjacency layouts through the trainer on phase 2's graphs, each
+   path with the launch counters zeroed just before it and read just after,
+   an init sweep, one epoch and five timed steps, its ms/step, edges/s,
+   device busy ms per step, idle share and peak device memory logged:
+   a. the flagship GCN B + B' on the mixed-K slot-ELL (``ell_Kt=2``: K = 8
+      + 2), row 1 once per family forward and dx; from the state after the
+      init sweep, the first step's loss within 1e-5 relative of the same
+      step on the single-K layout; then row 1 on each family (head and tail,
+      forward and the truncated dx) against its plain version at the
+      batch's shapes, and the mixed forward timed;
+   b. GAT B + B' at bf16 on the mixed-K layout: row 8 with its scalar
+      channel per family (no GAT kernel), the first step against single-K
+      as 14a; then row 8's scalar channel against its plain version on each
+      forward and transposed family, and the forward pair timed;
+   c. the flagship GCN B + B' on COO: row 8 forward and transposed, the
+      first step against single-K as 14a;
+   d. GAT B + M f32 at the bench's cell (M = 1,024, cont 10,000, walk 3)
+      on COO: the per-branch fallback (row 8 over all branches at once) and
+      the recovery term's grid path (plain PyTorch, as XLA's in JAX);
+   e. a 3,000-node graph through GCN and GAT on the mixed layout, GCN on
+      COO and GAT B + M on COO, on the card and on the CPU from one state:
+      the loss and every gradient within 1e-6 of max(1, max|cpu|), the
+      assignments after one step >= 99 % equal.
+
 Logs the seconds each phase took.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line (with rows for kernel 2 at nb = 64, M = 4,096
 and at K = 4, M = 4,096, and kernel 3 at M = 4,096, from phase 12, and
-kernel 2 at the transformer codebook's shape, K = 9, from phase 13) and, as
+kernel 2 at the transformer codebook's shape, K = 9, from phase 13, and
+kernel 1 on 14a's mixed families and kernel 8's scalar channel on 14b's,
+from phase 14) and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises
 and the script exits non-zero without that line.  Without a CUDA device, or
 without the package beside it, it exits non-zero at once.
@@ -219,6 +245,15 @@ NEW_PATH_KERNELS = ("ell_aggregate", "vq_assign", "vq_lookup")
 NEW_TIMED_STEPS = 5
 IND_EVAL_BATCH = 3000  # evaluate_split_stochastic's batch on the ppi validation graph
 PLAIN_CHUNK_BYTES = 2.5e9  # the plain assign's distances per piece of branches
+# phase 14: the kernels each layout path must launch (kernel 8 alone carries
+# the COO paths and the mixed GAT conv, the latter with its scalar channel)
+LAYOUT_KERNELS = {
+    "14a": ("ell_aggregate", "vq_assign", "vq_lookup"),
+    "14b": ("segment_sum_scalar", "vq_assign", "vq_lookup"),
+    "14c": ("segment_sum", "vq_assign", "vq_lookup"),
+    "14d": ("segment_sum", "vq_assign", "vq_lookup"),
+}
+MIXED_ROW = "ell_aggregate (mixed K = 8 + 2, 14a)"  # kernel 1's sub-row on the mixed families
 
 
 
@@ -341,18 +376,29 @@ def bound(bytes_moved: float, flops: float, flop_rate: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def kernel_split(torch, fn, calls=20):
+def kernel_split(torch, fn, calls=20, sessions=3):
     """Device us per call of each kernel ``fn`` launches (torch.profiler);
-    empty where the profiler saw no device time."""
+    empty where the profiler saw no device time.  On the H100 a profiler
+    session late in the script has come back without a device row (the
+    first split of phases 11, 12, 14a and 14b in one run), and the next
+    session had them: up to ``sessions`` sessions, until one sees the
+    device."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {key: round(us / calls, 2) for us, _, key in device_rows(prof)}
+    for i in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows:
+            if i:
+                log(f"[kernel_split] device rows in profiler session {i + 1} of {sessions}")
+            return {key: round(us / calls, 2) for us, _, key in rows}
+    log(f"[kernel_split] no device rows in {sessions} profiler sessions")
+    return {}
 
 
 def branch_chunk(B: int, M: int) -> int:
@@ -544,7 +590,7 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
 
     def first_batch_step(state, X, batch, *a):
         if not first_E:
-            first_E.append(int((batch.edges.ell_val != 0).sum()))
+            first_E.append(edge_count(batch.edges))
         return train_step(state, X, batch, *a)
 
     tr.fns.train_step = first_batch_step
@@ -559,10 +605,9 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
     batches = [w[0] for w, _ in tr.train_loader]  # one epoch of batches
     b0 = batches[0]
     e0 = b0.edges
-    E_batch = int((e0.ell_val != 0).sum())
+    E_batch = edge_count(e0)
     log(f"[{tag} batch] B={b0.num_B} B_pad={b0.B_pad} B'={int(b0.valid_fo.sum())} "
-        f"Bp_pad={b0.Bp_pad} E={E_batch} S_pad={e0.ell_row.shape[0]} "
-        f"St_pad={e0.t_ell_row.shape[0]} t_b_slots={e0.t_b_slots} b_rows={e0.b_rows}")
+        f"Bp_pad={b0.Bp_pad} E={E_batch} {layout_line(e0)}")
     before = ops.launch_counts()
     times, losses = [], []
     for i in range(timed_steps):
@@ -623,6 +668,26 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
     return dict(tr=tr, batch0=b0, test_batches=test_batches, launches=launches,
                 by_width=by_width, ms=mean, std=std, E_first=first_E[0], per_step=per_step,
                 prof=prof, peak=peak, E_batch=E_batch, assign_by_k=assign_by_k)
+
+
+def edge_count(e) -> int:
+    """A batch's real edges: the non-zero values of its layout."""
+    if e.mixed:
+        return int((e.head_val != 0).sum()) + int((e.tail_val != 0).sum())
+    return int(((e.val if e.ell_val is None else e.ell_val) != 0).sum())
+
+
+def layout_line(e) -> str:
+    """The shapes of a batch's adjacency in its layout."""
+    if e.mixed:
+        return (f"mixed-K head S={e.head_col.shape[0]} K={e.head_col.shape[1]} tail "
+                f"S={e.tail_col.shape[0]} Kt={e.tail_col.shape[1]}; transposed head "
+                f"{e.t_head_col.shape[0]} tail {e.t_tail_col.shape[0]}; t_head_b_slots="
+                f"{e.t_head_b_slots} t_tail_b_slots={e.t_tail_b_slots} b_rows={e.b_rows}")
+    if e.ell_row is not None:
+        return (f"S_pad={e.ell_row.shape[0]} St_pad={e.t_ell_row.shape[0]} "
+                f"t_b_slots={e.t_b_slots} b_rows={e.b_rows}")
+    return f"COO E_pad={e.row.shape[0]}"
 
 
 def hold_ell(torch, tag, label, edges, calls, gen, err):
@@ -1314,6 +1379,358 @@ def options_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs,
     t0 = time.time()
     small_options_compare(Config, NodeTrainer, prepare, synthetic_sbm, gpu)
     log(f"[13d] {time.time() - t0:.1f}s")
+    return out
+
+
+def first_step_vs_single_k(torch, ops, tag, tr, graph, gpu):
+    """From the trainer's state after its init sweep, one train_step on the
+    first batch of a fresh loader of its layout and one on the same nodes in
+    the single-K layout, each from a copy of that state: the losses within
+    1e-5 relative (only the order of the f32 sums differs)."""
+    from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+
+    g, _, ci = graph
+    cfg_single = dataclasses.replace(tr.cfg, spmm_backend="ell", ell_Kt=0)
+    losses = {}
+    with ops.uncounted():
+        for name, cfg_l in (("layout", tr.cfg), ("single-K", cfg_single)):
+            loader = BatchLoader(g, cfg_l, train_flag=True, cluster_indices=ci, seed=cfg_l.seed,
+                                 device="cuda")
+            b = loader._to_device(next(loader._epoch_iter()))[0][0]
+            state = copy.deepcopy(tr.state)
+            _, m = tr.fns.train_step(state, tr.X_dev, b, 1.0, cfg_l.lr, 1.0,
+                                     torch.Generator(device="cuda").manual_seed(5))
+            losses[name] = (float(m["loss"]), int(b.num_B))
+            del state, b
+    (la, na), (ls, ns) = losses["layout"], losses["single-K"]
+    rel = abs(la - ls) / abs(ls)
+    log(f"[{tag} vs single-K] first step from one state on the same {na} nodes: loss {la:.7f}, "
+        f"single-K {ls:.7f}, rel diff {rel:.2e} (tolerance 1e-5) | {gpu}")
+    assert na == ns and rel <= 1e-5, (la, ls)
+
+
+def path_summary(tag, r, gpu):
+    prof = r["prof"]
+    busy = "not measured" if prof is None else f"{prof['busy_ms']:.3f}"
+    idle = ("not measured" if prof is None
+            else f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} %")
+    log(f"[{tag} summary] {r['ms']:.2f} ms/step (std {r['std']:.2f}), edges/s "
+        f"{r['E_batch'] / (r['ms'] / 1e3):.4g} at E={r['E_batch']}, device busy {busy} ms/step, "
+        f"idle {idle}, peak {r['peak'] / 1e9:.3f} GB above the earlier phases' | {gpu}")
+
+
+def mixed_family_calls(torch, e, C, gen):
+    """Kernel 1's calls on a mixed batch, as ``spmm`` makes them: (label,
+    args, kwargs) of the head and tail forward and, under the batch's
+    truncation, the head and tail dx prefixes (the tail's rows clamped to
+    b_rows)."""
+    from vq_gnn_tpu_torch.ops.spmm import mixed_truncated
+
+    R = e.num_rows
+    x = torch.randn((R, C), generator=gen, device="cuda")
+    g = torch.randn((R, C), generator=gen, device="cuda")
+    calls = [("head forward", (x, e.head_rowc, e.head_col, e.head_val, R),
+              dict(ptr=e.head_ptr, long_rows=e.head_long_rows)),
+             ("tail forward", (x, e.tail_row, e.tail_col, e.tail_val, R),
+              dict(ptr=e.tail_ptr, long_rows=e.tail_long_rows))]
+    assert mixed_truncated(e), "the training batch has no truncated backward"
+    tbh, tbt, b = e.t_head_b_slots, e.t_tail_b_slots, e.b_rows
+    calls += [("head dx", (g, e.t_head_rowc[:tbh], e.t_head_col[:tbh], e.t_head_val[:tbh], R),
+               dict(ptr=e.t_head_ptr, long_rows=e.t_head_long_rows)),
+              ("tail dx", (g, torch.clamp(e.t_tail_row[:tbt], max=b), e.t_tail_col[:tbt],
+                           e.t_tail_val[:tbt], b),
+               dict(ptr=e.t_tail_ptr, long_rows=e.t_tail_long_rows))]
+    return calls
+
+
+def scalar_family_calls(torch, e, C, gen):
+    """Kernel 8's calls with the scalar channel on a mixed batch, as the
+    mixed GAT conv makes them: (label, (partials, seg, R), scalar partials,
+    lists) of each forward family and each whole transposed family.  The
+    padding slots' partials are 0, as the conv's are (their values are 0):
+    the head's carry a real compact row, which its lists leave out."""
+    R = e.num_rows
+    out = []
+    for label, rows, ptr, lr in (
+            ("head forward", e.head_rowc, e.head_ptr, e.head_long_rows),
+            ("tail forward", e.tail_row, e.tail_ptr, e.tail_long_rows),
+            ("head transposed", e.t_head_rowc, e.t_head_all_ptr, e.t_head_all_long_rows),
+            ("tail transposed", e.t_tail_row, e.t_tail_all_ptr, e.t_tail_all_long_rows)):
+        S = rows.shape[0]
+        live = (torch.arange(S, device="cuda") < ptr[-1]).float()
+        out.append((label, (torch.randn((S, C), generator=gen, device="cuda") * live[:, None],
+                            rows, R),
+                    torch.randn((S,), generator=gen, device="cuda") * live,
+                    dict(ptr=ptr, long_rows=lr)))
+    return out
+
+
+def coo_sum_calls(torch, e, C, gen):
+    """Kernel 8's calls on a COO batch, as ``spmm`` makes them: (label,
+    (messages, rows, R), None, lists) of the forward over the row-sorted
+    edges and of the dx over the tperm-sorted ones (rows ``col[tperm]``),
+    with random messages C wide (nb * (D + 1) for the B + M branch sum),
+    zero on the padding edges (row = col = num_rows, val = 0) as the path's
+    are."""
+    R = e.num_rows
+    out = []
+    for label, rows, ptr, lr in (
+            ("forward", e.row, e.row_ptr, e.row_long_rows),
+            ("transposed", e.col.index_select(0, e.tperm.long()), e.t_row_ptr,
+             e.t_row_long_rows)):
+        live = (rows < R).float()
+        msgs = torch.randn((rows.shape[0], C), generator=gen, device="cuda") * live[:, None]
+        out.append((label, (msgs, rows.contiguous(), R), None, dict(ptr=ptr, long_rows=lr)))
+    return out
+
+
+def hold_segment_sums(torch, tag, calls, err, key):
+    """Kernel 8 against its plain version on each (label, args, scalar
+    partials or None, lists) call: every output within 1e-5 of max(1,
+    max|ref|) (f32 sums in another order), two calls bit-identical; the
+    largest error into ``err[key]``."""
+    from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain
+
+    def outs(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    for label, args, scal, kw in calls:
+        sc = {} if scal is None else dict(scalar_partials=scal)
+        o, again = (outs(segment_sum_sorted(*args, **sc, **kw)) for _ in range(2))
+        ref = outs(segment_sum_sorted_plain(*args, **sc))
+        torch.cuda.synchronize()
+        d = max(float((a - b).abs().max()) for a, b in zip(o, ref, strict=True))
+        tol = 1e-5 * max(1.0, *(float(b.abs().max()) for b in ref))
+        same = all(torch.equal(a, b) for a, b in zip(o, again, strict=True))
+        log(f"[{tag} {label}] S={args[1].shape[0]} rows {args[2]} C={args[0].shape[1]}"
+            f"{' + the scalar' if sc else ''}: live slots ptr[R]={int(kw['ptr'][-1])}, "
+            f"{kw['long_rows'].shape[0] - 1} long rows; max|err| {d:.3g} (tol {tol:.3g}); two "
+            f"calls bit-identical: {same}")
+        assert all(bool(torch.isfinite(a).all()) for a in o) and d <= tol and same
+        err[key] = max(err.get(key, 0.0), d)
+
+
+def small_layout_compare(Config, NodeTrainer, prepare, synthetic_sbm, gpu, tag, cfg):
+    """14e: a 3,000-node graph through one layout's path on the card and on
+    the CPU (plain versions) from one state (the CPU's init sweep carried to
+    the card): one forward + loss with its gradients, then one train_step.
+    Exact f32 (no TF32, the exact VQ distances).  The loss and every
+    gradient within 1e-6 of max(1, max|cpu|), the assignments after the
+    step >= 99 % equal."""
+    import torch
+    from vq_gnn_tpu_torch.nn.model import model_forward, zero_probes
+    from vq_gnn_tpu_torch.train.step import masked_ce
+
+    gs, cs = synthetic_sbm(num_nodes=3000, num_classes=N_CLASSES, num_features=N_FEAT,
+                           avg_degree=AVG_DEG, seed=1)
+    gs, cs, cis = prepare(gs, cfg, cs)
+    trs = {"cuda": NodeTrainer(gs, cfg, cs, cis, device="cuda"),
+           "cpu": NodeTrainer(gs, cfg, cs, cis, device="cpu")}
+    trs["cpu"].run_init_sweep()
+    trs["cuda"].state.vq_states = [dataclasses.replace(s, **{
+        f.name: getattr(s, f.name).to("cuda") for f in dataclasses.fields(s)})
+        for s in trs["cpu"].state.vq_states]
+    res = {}
+    for key, tr in trs.items():
+        b = next(iter(tr.train_loader))[0][0]
+        probes = zero_probes(tr.ms, b.B_pad, tr.device)
+        params = list(tr.state.model.parameters())
+        out, info, _, _ = model_forward(
+            tr.state.model, tr.state.vq_states, tr.state.bn_state, tr.ms,
+            tr.X_dev.index_select(0, b.batch_idx), b, probes=probes, warm_up_rate=1.0,
+            training=True)
+        loss = masked_ce(out, b.y, b.train_mask & b.valid_B) + info
+        grads = torch.autograd.grad(loss, params + probes)
+        _, m = tr.fns.train_step(tr.state, tr.X_dev, b, 1.0, cfg.lr, 1.0)
+        res[key] = dict(loss=float(loss.detach()), grads=[g.cpu() for g in grads], m=m,
+                        codes=[s.c_indices.cpu() for s in tr.state.vq_states], B_pad=b.B_pad)
+    rg, rc = res["cuda"], res["cpu"]
+    d_loss = abs(rg["loss"] - rc["loss"]) / max(1.0, abs(rc["loss"]))
+    d_grad = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                 for a, b in zip(rg["grads"], rc["grads"], strict=True))
+    d_m = {k: abs(float(rg["m"][k]) - float(rc["m"][k])) / max(1.0, abs(float(rc["m"][k])))
+           for k in ("loss", "loss_cls", "info_backward")}
+    agree = [float((a == b).float().mean()) for a, b in zip(rg["codes"], rc["codes"])]
+    log(f"[14e small graph {tag}] B_pad {rc['B_pad']}: forward + loss cuda {rg['loss']:.7f} cpu "
+        f"{rc['loss']:.7f} (rel diff {d_loss:.2e}); every gradient (parameters, probes) "
+        f"max|diff| / max(1, max|cpu|) {d_grad:.2e}; train_step metrics rel diff "
+        f"{({k: f'{v:.2e}' for k, v in d_m.items()})}; codeword assignments that agree after "
+        f"the step {[round(a, 4) for a in agree]}; tolerance 1e-6 | {gpu}")
+    assert d_loss < 1e-6 and d_grad < 1e-6 and max(d_m.values()) < 1e-6 and min(agree) >= 0.99
+
+
+def layouts_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs, prepare,
+                  synthetic_sbm):
+    """Phase 14: the two other adjacency layouts through the trainer on
+    phase 2's graphs (the module docstring says what it runs).  Adds the
+    sub-rows of kernel 1 on the mixed families and kernel 8's scalar channel
+    to ``kern`` and ``err``; returns the launch counts of its paths, with the
+    mixed sub-row's under its name."""
+    from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+    from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def add(launches):
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+
+    def check_first_step(tag, graph):
+        return lambda tr: first_step_vs_single_k(torch, ops, tag, tr, graph, gpu)
+
+    # 14a: the flagship GCN B + B' on the mixed-K layout, K = 8 + 2
+    ra = drive_path(torch, ops, NodeTrainer, "14a GCN mixed", graphs["GCN"],
+                    flagship_cfg(Config, ell_Kt=2), gpu, NEW_TIMED_STEPS, profile=True,
+                    evaluate=False, kernels=LAYOUT_KERNELS["14a"],
+                    on_init=check_first_step("14a", graphs["GCN"]))
+    path_summary("14a GCN mixed", ra, gpu)
+    e = ra["batch0"].edges
+    C = ra["tr"].cfg.hidden_channels
+    calls = mixed_family_calls(torch, e, C, gen)
+    for label, args, kw in calls:
+        o, again, ref = ell_aggregate(*args, **kw), ell_aggregate(*args, **kw), \
+            ell_aggregate_plain(*args)
+        torch.cuda.synchronize()
+        d = float((o - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        same = torch.equal(o, again)
+        log(f"[14a ell_aggregate {label}] S={args[2].shape[0]} K={args[2].shape[1]} rows "
+            f"{args[4]} C={C}: max|err| {d:.3g} (tol {tol:.3g}); {kw['long_rows'].shape[0] - 1} "
+            f"long rows; two calls bit-identical: {same}")
+        assert torch.isfinite(o).all() and d <= tol and same
+        err[MIXED_ROW] = max(err.get(MIXED_ROW, 0.0), d)
+    # the row: the forward's two family calls; the library the same product
+    # as one CSR torch.sparse.mm
+    (_, fh, kh), (_, ft, kt) = calls[:2]
+    R = e.num_rows
+    x = fh[0]
+    cells = [live_cells(f[1], f[3], R) for f in (fh, ft)]
+    rows_g = torch.cat([torch.repeat_interleave(e.head_rowg.long(), fh[2].shape[1]),
+                        torch.repeat_interleave(e.tail_row.long(), ft[2].shape[1])])
+    cols_g = torch.cat([fh[2].reshape(-1), ft[2].reshape(-1)]).long()
+    vals_g = torch.cat([fh[3].reshape(-1), ft[3].reshape(-1)])
+    live = (vals_g != 0) & (rows_g < R)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_coo_tensor(torch.stack([rows_g[live], cols_g[live]]), vals_g[live],
+                                      (R, R)).coalesce().to_sparse_csr()
+
+    def fwd():
+        return ell_aggregate(*fh, **kh), ell_aggregate(*ft, **kt)
+
+    t = {"ms": cuda_time_ms(torch, fwd),
+         "plain_ms": cuda_time_ms(torch, lambda: (ell_aggregate_plain(*fh),
+                                                  ell_aggregate_plain(*ft)), reps=5),
+         "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr, x))}
+    n_head = int((torch.diff(e.head_ptr) > 0).sum())  # the compact rows with a head slot
+    in_bytes = R * C * 4 + sum(f[1].shape[0] * 4 + 2 * f[2].numel() * 4 for f in (fh, ft))
+    b_ms, b_by = bound(in_bytes + (n_head + R) * C * 4, 2 * sum(cells) * C, F32_FLOPS)
+    split = kernel_split(torch, fwd)
+    fold_ms = cuda_time_ms(torch, lambda: ell_aggregate(*ft, **kt).add_(
+        torch.cat([ell_aggregate(*fh, **kh), x.new_zeros((1, C))]).index_select(
+            0, e.head_inv.long())))
+    log(f"[14a ell_aggregate mixed forward] head S={fh[2].shape[0]} x K={fh[2].shape[1]}, tail "
+        f"S={ft[2].shape[0]} x Kt={ft[2].shape[1]}, live cells {cells}, C={C}: {t}; bound "
+        f"{b_ms:.4f} ms ({b_by}); device us per call {split}; with the head's fold and the add "
+        f"(spmm's forward) {fold_ms:.4f} ms | {gpu}")
+    kern[MIXED_ROW] = dict(source="vq_gnn_tpu_torch/csrc/ell_aggregate.cu",
+                           replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms,
+                           bound_by=b_by)
+    add(ra["launches"])
+    out[MIXED_ROW] = ra["launches"]["ell_aggregate"]
+    del ra, calls, csr, x, fh, ft
+
+    # 14b: GAT B + B' at bf16 on the mixed-K layout: kernel 8 per family,
+    # with its scalar channel
+    rb = drive_path(torch, ops, NodeTrainer, "14b GAT-bf16 mixed", graphs["GAT"],
+                    flagship_cfg(Config, conv_type="GAT", compute_dtype="bfloat16", ell_Kt=2),
+                    gpu, NEW_TIMED_STEPS, profile=True, evaluate=False,
+                    kernels=LAYOUT_KERNELS["14b"], on_init=check_first_step("14b", graphs["GAT"]))
+    path_summary("14b GAT-bf16 mixed", rb, gpu)
+    for name in ("gat_aggregate", "gat_backward", "gat_aggregate_bf16", "gat_backward_bf16"):
+        assert rb["launches"][name] == 0, f"{name} ran on the mixed GAT path"
+    e = rb["batch0"].edges
+    C = rb["tr"].cfg.hidden_channels
+    scal_calls = scalar_family_calls(torch, e, C, gen)
+    hold_segment_sums(torch, "14b segment_sum scalar", scal_calls, err, "segment_sum_scalar")
+    fams = scal_calls[:2]  # the forward's two family sums
+
+    def seg_fwd():
+        return [segment_sum_sorted(*a, scalar_partials=sc, **kw) for _, a, sc, kw in fams]
+
+    bufs = [(torch.zeros((a[2] + 1, C + 1), device="cuda"),
+             torch.cat([a[0], sc[:, None]], 1), a[1].long()) for _, a, sc, _ in fams]
+    t = {"ms": cuda_time_ms(torch, seg_fwd),
+         "plain_ms": cuda_time_ms(torch, lambda: [segment_sum_sorted_plain(
+             *a, scalar_partials=sc) for _, a, sc, _ in fams]),
+         "library_ms": cuda_time_ms(torch, lambda: [buf.index_add_(0, sg, ps)
+                                                    for buf, ps, sg in bufs])}
+    # per family: the live slots' partials and scalars, the offsets and long
+    # rows read once, both outputs written once; one add a value
+    n_live = [int(kw["ptr"][-1]) for _, _, _, kw in fams]
+    lists_b = sum((kw["ptr"].numel() + kw["long_rows"].numel()) * 4 for _, _, _, kw in fams)
+    b_ms, b_by = bound(sum(n * (C + 1) * 4 for n in n_live) + lists_b
+                       + sum(a[2] * (C + 1) * 4 for _, a, _, _ in fams),
+                       sum(n * (C + 1) for n in n_live), F32_FLOPS)
+    log(f"[14b segment_sum scalar forward] head and tail families, live slots {n_live}, C={C} "
+        f"+ the scalar: {t}; bound {b_ms:.4f} ms ({b_by}); device us per call "
+        f"{kernel_split(torch, seg_fwd)}; the library two index_add_ calls on [S, C + 1] | {gpu}")
+    kern["segment_sum_scalar"] = dict(source="vq_gnn_tpu_torch/csrc/segment_sum.cu",
+                                      replaces="vq_gnn_tpu/ops/pallas_segsum.py:107", **t,
+                                      bound_ms=b_ms, bound_by=b_by)
+    add(rb["launches"])
+    del rb, scal_calls, fams, bufs
+
+    # 14c: the flagship GCN B + B' on COO: kernel 8, forward and transposed
+    rc = drive_path(torch, ops, NodeTrainer, "14c GCN coo", graphs["GCN"],
+                    flagship_cfg(Config, spmm_backend="coo"), gpu, NEW_TIMED_STEPS,
+                    profile=True, evaluate=False, kernels=LAYOUT_KERNELS["14c"],
+                    on_init=check_first_step("14c", graphs["GCN"]))
+    path_summary("14c GCN coo", rc, gpu)
+    assert rc["launches"]["ell_aggregate"] == 0, "kernel 1 ran on the COO path"
+    # kernel 8 at the batch's shapes: the forward over the padded edges, the
+    # dx over the tperm-sorted ones, both at the layers' width
+    hold_segment_sums(torch, "14c segment_sum coo", coo_sum_calls(
+        torch, rc["batch0"].edges, rc["tr"].cfg.hidden_channels, gen), err, "segment_sum")
+    add(rc["launches"])
+    del rc
+
+    # 14d: GAT B + M f32 at the bench's cell on COO: the per-branch fallback
+    # and the recovery term's grid path
+    rd = drive_path(torch, ops, NodeTrainer, "14d GAT-bm coo", graphs["GAT-bm"],
+                    bm_cfg(Config, spmm_backend="coo"), gpu, NEW_TIMED_STEPS, profile=True,
+                    evaluate=False, kernels=LAYOUT_KERNELS["14d"])
+    path_summary("14d GAT-bm coo", rd, gpu)
+    for name in ("rev_forward", "rev_backward", "ell_aggregate"):
+        assert rd["launches"][name] == 0, f"{name} ran on the B + M COO path"
+    # kernel 8 at the branch sum's shapes: every branch's D + 1 columns side
+    # by side, forward and transposed
+    cfg_d = rd["tr"].cfg
+    hold_segment_sums(torch, "14d segment_sum coo branches", coo_sum_calls(
+        torch, rd["batch0"].edges, cfg_d.hidden_channels // cfg_d.num_D * (cfg_d.num_D + 1),
+        gen), err, "segment_sum")
+    r3 = runs.get("3 GAT-bm")
+    if r3 is not None:
+        log(f"[14d beside phase 3] GAT B + M f32 on the single-K ELL {r3['ms']:.2f} ms/step, "
+            f"peak {r3['peak'] / 1e9:.3f} GB | {gpu}")
+    add(rd["launches"])
+    del rd
+
+    # 14e: the card against the CPU on a small graph, each layout's path
+    small = dict(num_M=64, matmul_precision="highest", vq_backend="pallas")
+    for tag, cfg in (
+            ("GCN mixed", flagship_cfg(Config, num_parts=8, batch_size=4, test_batch_size=4,
+                                       ell_Kt=2, **small)),
+            ("GAT mixed", flagship_cfg(Config, conv_type="GAT", num_parts=8, batch_size=4,
+                                       test_batch_size=4, ell_Kt=2, **small)),
+            ("GCN coo", flagship_cfg(Config, num_parts=8, batch_size=4, test_batch_size=4,
+                                     spmm_backend="coo", **small)),
+            ("GAT-bm coo", bm_cfg(Config, batch_size=1000, test_batch_size=1500,
+                                  walk_length=2, spmm_backend="coo", **small))):
+        t0 = time.time()
+        small_layout_compare(Config, NodeTrainer, prepare, synthetic_sbm, gpu, tag, cfg)
+        log(f"[14e {tag}] {time.time() - t0:.1f}s")
     return out
 
 
@@ -2127,6 +2544,13 @@ def main() -> int:
     counts.append(options_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs,
                                 prepare, synthetic_sbm))
     log(f"[13 options] the phase took {time.time() - t0:.1f}s")
+
+    # ---- 14. the adjacency layouts: mixed-K slot-ELL and COO ----
+    phase("14 layouts")
+    t0 = time.time()
+    counts.append(layouts_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs,
+                                prepare, synthetic_sbm))
+    log(f"[14 layouts] the phase took {time.time() - t0:.1f}s")
     for c in counts:
         for k, v in c.items():
             launches[k] = launches.get(k, 0) + v

@@ -20,6 +20,9 @@ from vq_gnn_tpu.sampler import samplers as jsamplers
 from vq_gnn_tpu_torch.graph import datasets as tdata
 
 import bench_torch  # noqa: E402  (the repo root is on sys.path, see conftest)
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -176,6 +179,39 @@ def test_first_batch_edges_match_jax(conv, form):
     batch, E_batch, line = bench_torch.first_batch(tg, tc, tci, "cpu")
     assert E_batch == expected > 0
     assert f"E={expected} " in line and batch.batch_idx.device.type == "cpu"
+
+
+@pytest.mark.parametrize("knob", [("VQ_GNN_BENCH_SPMM", "coo"), ("VQ_GNN_BENCH_KT", "2")],
+                         ids=["coo", "mixed"])
+def test_first_batch_line_per_layout(knob):
+    """Under ``VQ_GNN_BENCH_SPMM=coo`` and ``VQ_GNN_BENCH_KT=2`` the bench's
+    batch line is bench.py's for that layout (bench.py:217-233): the edge
+    count and the layout's words of the JAX package's first batch."""
+    layout = {"spmm_backend": "coo"} if knob[0] == "VQ_GNN_BENCH_SPMM" else {"ell_Kt": 2}
+    assert bench_torch.bench_config(dict([knob])) == dataclasses.replace(
+        bench_torch.bench_config({}), **layout)
+    tc, _ = _small("GCN", "bbprime")
+    tc = dataclasses.replace(tc, **layout)
+    jc = jcfg.Config(**dataclasses.asdict(tc))
+    n, deg, f, c, _, _ = SMALL
+    graphs = []
+    for data, cfg in ((jdata, jc), (tdata, tc)):
+        g, _ = data.synthetic_sbm(num_nodes=n, num_classes=c, num_features=f, avg_degree=deg,
+                                  seed=0)
+        graphs.append(data.prepare(g, cfg, c))
+    (jg, _, jci), (tg, _, tci) = graphs
+    e = next(jsamplers.BatchLoader(jg, jc, train_flag=True,
+                                   cluster_indices=jci)._epoch_iter())[0][0].edges
+    if e.tail_row is not None:
+        E = int((np.asarray(e.head_val) != 0).sum() + (np.asarray(e.tail_val) != 0).sum())
+        words = (f"mixed-ELL K={jc.ell_K}+{jc.ell_Kt} Sh={e.head_rowc.shape[0]} "
+                 f"St2={e.tail_row.shape[0]} pad={1 - E / (e.head_col.size + e.tail_col.size):.1%}")
+    else:
+        E = int((np.asarray(e.val) != 0).sum())
+        words = f"E_pad={e.row.shape[0]}"
+    batch, E_batch, line = bench_torch.first_batch(tg, tc, tci, "cpu")
+    assert E_batch == E > 0
+    assert f" E={E} " in line and line.endswith(words), (line, words)
 
 
 def _small_profile(monkeypatch, tmp_path):

@@ -39,6 +39,9 @@ from vq_gnn_tpu_torch.nn import model as tmodel
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 from vq_gnn_tpu_torch.train.step import masked_ce
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 # tests/test_bf16_fused_seam.py:BASE
 SEAM = dict(dataset="synthetic", conv_type="GAT", num_layers=2, hidden_channels=128, num_D=4,

@@ -48,6 +48,9 @@ from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 from vq_gnn_tpu_torch.ops.spmm import long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 RTOL_SUM = 1e-5  # x the largest |ref|: f32 sums in another order
 RTOL_STEP = 1e-4  # per-step losses over a few live-VQ steps

@@ -24,8 +24,12 @@ from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 from vq_gnn_tpu_torch.utils import logger as tlogger
 
-import main_node  # noqa: E402  (the repo root is on sys.path, see conftest)
+import main_link_torch  # noqa: E402  (the repo root is on sys.path, see conftest)
+import main_node  # noqa: E402
 import main_node_torch  # noqa: E402
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 0.005
@@ -77,7 +81,8 @@ def _jax_config(argv, monkeypatch):
     ["--grad-scale", "1", "2", "--clip", "0.5", "--no-second-fc", "--EMA", "--split",
      "--bn-flag", "--warm-up", "--warm-up-epochs", "2", "--runs", "3", "--seed", "4",
      "--compute-dtype", "bfloat16", "--ell-K", "4", "--matmul-precision", "default"],
-], ids=["default", "verify", "cluster", "gat", "bm", "sage-reference", "flags"])
+    ["--spmm-backend", "coo", "--ell-K", "4", "--ell-Kt", "2"],
+], ids=["default", "verify", "cluster", "gat", "bm", "sage-reference", "flags", "layouts"])
 def test_parse_args_config_matches_main_node(argv, monkeypatch, capsys):
     ja, jc = _jax_config(argv, monkeypatch)
     ta = main_node_torch.parse_args(argv)
@@ -211,6 +216,38 @@ def test_cli_unported_options_raise(extra, error, match, tmp_path, capsys):
     with pytest.raises(error, match=match):
         main_node_torch.main(argv)
     assert not os.path.exists(tmp_path / "CKPT")
+
+
+@pytest.mark.parametrize("extra,mixed", [
+    (["--spmm-backend", "coo"], False),
+    (["--ell-Kt", "2"], True),
+    (["--ell-Kt", "2", "--conv-type", "GAT", "--compute-dtype", "bfloat16"], True),
+    (["--spmm-backend", "coo", "--conv-type", "GAT", "--formulation", "bm", "--sampler-type",
+      "cont", "--walk-length", "2"], False),
+], ids=["coo", "mixed", "mixed-GAT-bf16", "coo-bm-GAT"])
+def test_cli_trains_layouts(extra, mixed, capsys):
+    """``--spmm-backend coo`` and ``--ell-Kt 2`` train on the CPU: one epoch
+    with finite results over batches of that layout."""
+    tr = main_node_torch.main(SMALL_ARGS + extra)
+    out = capsys.readouterr().out
+    e = next(iter(tr.train_loader))[0][0].edges
+    assert e.mixed == mixed and (e.row is not None) == (not mixed)
+    assert len(tr.logger.results[0]) == 1 and "Run 01:" in out
+    assert all(math.isfinite(v) for r in tr.logger.results[0] for v in r)
+
+
+def test_link_cli_trains_mixed_k(tmp_path, capsys):
+    """``main_link_torch.py --ell-Kt 2 --device cpu`` on its synthetic
+    fallback: one epoch over mixed-K batches, Hits@50 in [0, 1]."""
+    tr = main_link_torch.main([
+        "--epochs", "1", "--num-layers", "2", "--hidden-channels", "16", "--num-M", "8",
+        "--sampler-type", "node", "--batch-size", "1000", "--test-batch-size", "2000",
+        "--lr", "0.01", "--data-root", str(tmp_path), "--ell-Kt", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert tr.cfg.ell_Kt == 2 and next(iter(tr.train_loader))[0][0].edges.mixed
+    assert "Run: 1, Epoch: 1, Loss: " in out and "Run 01:" in out
+    (res,) = tr.logger.results[0]
+    assert all(0.0 <= v <= 1.0 for v in res)
 
 
 @pytest.mark.parametrize("extra", [

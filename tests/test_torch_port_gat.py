@@ -34,6 +34,9 @@ from vq_gnn_tpu_torch.ops import gat_kernels
 from vq_gnn_tpu_torch.ops.gat_kernels import gat_aggregate, gat_backward, gat_backward_plain
 from vq_gnn_tpu_torch.ops.spmm import build_ell_host, long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 RTOL_SUM = 1e-5  # x the largest |ref|: f32 sums in another order
 RTOL_GRAD = 2e-4  # the closed-form d_ar's bound on random data

@@ -33,6 +33,9 @@ from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.train import step as tstep
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 from vq_gnn_tpu_torch.utils import metrics as tmetrics
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
 sys.path.insert(0, TOOLS)

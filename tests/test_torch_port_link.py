@@ -38,6 +38,9 @@ from vq_gnn_tpu_torch.utils import metrics as tmetrics
 
 import main_link  # noqa: E402  (the repo root is on sys.path, see conftest)
 import main_link_torch  # noqa: E402
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
 sys.path.insert(0, TOOLS)

@@ -38,6 +38,9 @@ from vq_gnn_tpu_torch.ops.vq_kernels import (
     lookup_codewords,
 )
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 # f32 sums in another order (segment sums vs index_add_): rtol/atol 1e-5
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -319,3 +322,31 @@ def test_lookup_plain_matches_pallas(fast):
     ref = np.asarray(j_lookup(c, jnp.asarray(emb_out), interpret=True, fast=fast))
     out = lookup_codewords(_t(c_idx), _t(ids), _t(emb_out), fast=fast).numpy()
     np.testing.assert_array_equal(out, ref)  # a gather: bit-equal in both modes
+
+
+def test_uncounted_leaves_every_counter_as_it_was():
+    """Launches inside ``ops.uncounted()`` (here set by hand: CPU tensors
+    launch nothing) leave every counter, the per-width ones included, as it
+    was; outside it they count."""
+    from vq_gnn_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    ops.KERNELS["segment_sum"].launches = 2
+    ops.KERNELS["gat_backward"].by_width[(128, "float32")] = 1
+    before = ops.launch_counts()
+    widths = {k: dict(ops.KERNELS[k].by_width) for k in ("gat_backward", "vq_assign")}
+    with ops.uncounted():
+        for name, fn in ops.KERNELS.items():
+            fn.launches += 1
+        for fn in ops.BF16_MODES.values():
+            fn.launches_bf16 += 1
+        for fn in ops.SCALAR_MODES.values():
+            fn.launches_scalar += 1
+        ops.KERNELS["gat_backward"].by_width[(256, "bfloat16")] += 1
+        ops.KERNELS["vq_assign"].by_width[9] += 1
+    assert ops.launch_counts() == before
+    assert {k: dict(ops.KERNELS[k].by_width) for k in widths} == widths
+    ops.KERNELS["segment_sum"].launches += 1
+    assert ops.launch_counts()["segment_sum"] == 3
+    ops.reset_launch_counts()
+    assert not any(ops.launch_counts().values())

@@ -44,6 +44,9 @@ from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train import link as tlink
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 from vq_gnn_tpu_torch.train.step import draw_branch_masks
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 RTOL_SUM = 1e-5  # x the largest |ref|: f32 sums in another order
 RTOL_STEP = 1e-4  # per-step losses over an epoch of live-VQ steps

@@ -48,6 +48,9 @@ from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train import parity as tparity
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 from vq_gnn_tpu_torch.utils import diagnostics as tdiag
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 jspmm = importlib.import_module("vq_gnn_tpu.ops.spmm")  # the package exports a function `spmm`
 RTOL_SUM = 1e-5  # x the largest |ref|: f32 sums in another order
@@ -176,7 +179,7 @@ def _converted_state(jc, tc, jg, tg, c, bn_seed=None):
 def test_full_graph_inference_matches_jax(conv, skip):
     """The COO forward and the whole plain conv stack (fc_sage left out, BN in
     eval mode with random running statistics, GAT as plain SpMM) on converted
-    parameters."""
+    parameters; and the COO backward's dx."""
     (jc, jg, c, _), (tc, tg, _, _) = _graphs(conv_type=conv, skip=skip, num_layers=3)
     jms, jstate, tms, tstate = _converted_state(jc, tc, jg, tg, c, bn_seed=1)
     je = jspmm.make_edges(*jg.coo(), jg.num_nodes)
@@ -187,8 +190,12 @@ def test_full_graph_inference_matches_jax(conv, skip):
     out = tmodel.full_graph_inference(tstate.model, tstate.bn_state, tms, torch.as_tensor(tg.x),
                                       te)
     _close(out, ref, RTOL_SUM, "full_graph_inference")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tspmm.spmm(te, torch.as_tensor(x).requires_grad_(True))
+    # the COO backward (training on spmm_backend='coo'): dx against jax.grad
+    g = np.random.RandomState(3).randn(jg.num_nodes, 16).astype(np.float32)
+    ref_dx = jax.grad(lambda xx: jnp.sum(jspmm.spmm(je, xx) * g))(jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_(True)
+    (dx,) = torch.autograd.grad((tspmm.spmm(te, xt) * torch.as_tensor(g)).sum(), xt)
+    _close(dx, ref_dx, RTOL_SUM, "COO dx")
 
 
 def test_full_graph_predict_matches_jax():

@@ -33,6 +33,9 @@ from vq_gnn_tpu_torch.convert import state_from_numpy
 from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.train.loop import NodeTrainer
 from vq_gnn_tpu_torch.train.optim import rmsprop_nu
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 LR = 0.005
 RTOL_STEP = 1e-4  # per-step scalars: f32 sums in another order, over 3 steps

@@ -14,6 +14,9 @@ from vq_gnn_tpu.nn import vq as jvq
 from vq_gnn_tpu_torch.convert import vq_state_from_numpy
 from vq_gnn_tpu_torch.nn import vq as tvq
 from vq_gnn_tpu_torch.ops.vq_kernels import lookup_codewords, lookup_codewords_plain
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
 
 NB, N, B, M, D = 4, 500, 300, 16, 4
 B_REAL = 260  # rows [B_REAL, B) are padding (dustbin id N, invalid)

@@ -150,8 +150,6 @@ def check_ported(cfg: Config) -> None:
     silently ignored (ROADMAP.md lists what is still to come)."""
     for what, unported, where in (
         ("kmeans_init", cfg.kmeans_init, "queue 8"),
-        (f"spmm_backend={cfg.spmm_backend!r}", cfg.spmm_backend != "ell", "queue 1 item 5"),
-        ("mixed-K ELL (ell_Kt > 0)", cfg.ell_Kt > 0, "queue 1 item 5"),
         (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype not in COMPUTE_DTYPES,
          "queue 2a"),
         ("vq_backend='scan'", cfg.vq_backend == "scan", "(the step's glue)"),

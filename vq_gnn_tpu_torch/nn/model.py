@@ -43,10 +43,11 @@ from vq_gnn_tpu_torch.ops.gat import (
     explosion_scale,
     gat_conv_ell,
     gat_conv_ell_mh,
+    gat_edge_values,
     node_logits,
 )
 from vq_gnn_tpu_torch.ops.rev_kernels import rev_fold_mode, rev_recovery_info
-from vq_gnn_tpu_torch.ops.spmm import spmm
+from vq_gnn_tpu_torch.ops.spmm import spmm, spmm_branches
 from vq_gnn_tpu_torch.ops.vq_ops import masked_mean_var
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 
@@ -337,9 +338,29 @@ def layer_forward(
         grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim)
 
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, C_in]
+    coo = batch.edges.ell_row is None and not batch.edges.mixed
+    if ms.conv_type == "GAT" and coo:
+        # the COO fallback appends the reference's ones column before the
+        # cast (vq_gnn_tpu/nn/model.py:312-318)
+        x_input = torch.cat([x_input, x_input.new_ones((x_input.shape[0], 1))], dim=1)
     if x_input.dtype != cd:
         x_input = x_input.to(cd)
-    if ms.conv_type == "GAT":
+    if ms.conv_type == "GAT" and coo:
+        # logits of the (C+1)-wide input (f32 dots of the possibly bf16 rows),
+        # the Trick-1 scale, the per-edge values, then a COO spmm that
+        # differentiates them (vq_gnn_tpu/nn/model.py:323-352)
+        xf = x_input.float()
+        al, ar = xf @ layer.att_l, xf @ layer.att_r
+        scale = explosion_scale(al, ar, torch.cat([batch.valid_B, batch.valid_fo]))
+        e = batch.edges
+        ev = gat_edge_values(e.row, e.col, e.val, al / scale, ar / scale)
+        x_out = spmm(dataclasses.replace(e, val=ev), x_input)  # [dim_pad, C_in + 1]
+        x_out_B = x_out[:B_pad]
+        if probe is not None:
+            x_out_B = x_out_B + probe
+        x_out_B = x_out_B[:, :-1] / (x_out_B[:, -1:] + 1e-16)
+        x_out = x_out[:, :-1]
+    elif ms.conv_type == "GAT":
         # logits of the (C+1)-wide reference input: the C-wide product plus
         # the ones-column bias att[C] (a bf16 dot under bf16 compute, then
         # f32 with the bias), for the Trick-1 scale; the conv reuses x
@@ -395,9 +416,11 @@ def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatc
     (``vq_gnn_tpu/nn/model.py:408-500``): per branch the [M, B] cell matrix
     relu(sum of reverse values) the mapper produces after coalesce +
     keep-positive, times the GAT attention when given, contracted with the
-    batch features and the codeword grad table.  Kernels 9-10 on CUDA
-    tensors, the plain grid on CPU tensors (``ops/rev_kernels.py``), folding
-    the cells as ``VQ_GNN_REV_FOLD`` says (``rev_fold_mode``).
+    batch features and the codeword grad table.  Over the batch's rev-ELL
+    (beside an ELL adjacency): kernels 9-10 on CUDA tensors, the plain grid
+    on CPU tensors (``ops/rev_kernels.py``), folding the cells as
+    ``VQ_GNN_REV_FOLD`` says (``rev_fold_mode``).  Over the raw list (beside
+    COO): the JAX package's grid path, plain PyTorch on every device.
 
     x_cols [nb, B_pad, Dg]; al [nb, B_pad] and ar_cb [nb, M] (zeros: no
     attention, exp(leaky(0)) == 1); a dropped branch's term is zeroed."""
@@ -406,16 +429,38 @@ def _bm_exact_reverse_info(vq_state: VQState, ms: ModelStatic, batch: PaddedBatc
     D, M = ms.num_D, ms.vq.num_M
     nb, B_pad, _ = x_cols.shape
     grad_table = vq_state.embedding_output[:, :, D:].detach()
-    if al is None:
-        al = x_cols.new_zeros((nb, B_pad))
-        ar_cb = x_cols.new_zeros((nb, M))
-    infos = rev_recovery_info(vq_state.c_indices, batch.rev_slot_col, batch.rev_slot_val,
-                              batch.rev_slot_row, x_cols, al, ar_cb, grad_table,
-                              row_ptr=batch.rev_row_ptr, long_rows=batch.rev_long_rows,
-                              fold=rev_fold_mode())
+    if batch.rev_slot_row is None:  # the raw list beside a COO adjacency
+        infos = _bm_reverse_grid(vq_state.c_indices, batch, x_cols, al, ar_cb, grad_table, M)
+    else:
+        if al is None:
+            al = x_cols.new_zeros((nb, B_pad))
+            ar_cb = x_cols.new_zeros((nb, M))
+        infos = rev_recovery_info(vq_state.c_indices, batch.rev_slot_col, batch.rev_slot_val,
+                                  batch.rev_slot_row, x_cols, al, ar_cb, grad_table,
+                                  row_ptr=batch.rev_row_ptr, long_rows=batch.rev_long_rows,
+                                  fold=rev_fold_mode())
     if branch_keep is not None:
         infos = infos * branch_keep.to(infos.dtype)
     return infos.sum() * warm_up_rate
+
+
+def _bm_reverse_grid(c_indices, batch: PaddedBatch, x_cols, al, ar_cb, grad_table, M: int):
+    """Per-branch recovery terms [nb] over the raw reverse list, the JAX
+    package's grid path (``vq_gnn_tpu/nn/model.py:478-500``) in plain
+    PyTorch: per branch the values summed into an [M * B_pad] cell grid at
+    (codeword of the neighbour, batch row), relu, the attention surface when
+    given, then the product with the batch features and the grad table."""
+    nb, B_pad, _ = x_cols.shape
+    cols = batch.bm_rev_col.clamp(0, c_indices.shape[0] - 1)
+    code = c_indices.index_select(0, cols).long().t()  # [nb, R]
+    cell = code * B_pad + batch.bm_rev_row[None, :]
+    grid = torch.zeros((nb, M * B_pad), dtype=torch.float32, device=x_cols.device)
+    grid.scatter_add_(1, cell, batch.bm_rev_val[None, :].expand(nb, -1))
+    S = F.relu(grid).reshape(nb, M, B_pad)
+    if al is not None:
+        S = S * torch.exp(F.leaky_relu(al[:, None, :] + ar_cb[:, :, None], 0.2))
+    out_M = torch.bmm(S, x_cols.float())  # [nb, M, Dg]
+    return (out_M * grad_table).sum((1, 2))
 
 
 def _branch_logits(x, att, D: int):
@@ -527,7 +572,7 @@ def layer_forward_bm(
         x_fo = x_fo * _keep_cols(branch_keep, D)
         grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim)
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, nb * D]
-    rev = batch.rev_slot_row is not None
+    rev = batch.rev_slot_row is not None or batch.bm_rev_row is not None
     x_tr = None
     info_tr = 0.0
     if ms.transformer_flag:
@@ -558,6 +603,10 @@ def layer_forward_bm(
                     x.new_ones((nb, M, 1))], dim=2)  # [nb, M, D + 1]
     al_cb = (cb * layer.att_l[:, None, :]).sum(-1)  # [nb, M]
     ar_cb = (cb * layer.att_r[:, None, :]).sum(-1)
+    if batch.edges.ell_row is None:
+        x_out_B, info_backward = _gat_bm_coo(layer, vq_state, ms, x, x_fo, grad_fo, batch,
+                                             probe, warm_up_rate, al_cb, ar_cb, branch_keep)
+        return _layer_output(layer, ms, x, x_out_B, x_tr), info_backward + info_tr
     al_n = _branch_logits(x_input, layer.att_l, D)  # [dim_pad, nb]
     ar_n = _branch_logits(x_input, layer.att_r, D)
     invalid = ~batch.valid_B[:, None]
@@ -589,6 +638,48 @@ def layer_forward_bm(
     if branch_keep is not None:
         out_B = out_B * _keep_cols(branch_keep, D)
     return _layer_output(layer, ms, x, out_B, x_tr), info_backward + info_tr
+
+
+def _gat_bm_coo(layer, vq_state: VQState, ms: ModelStatic, x, x_fo, grad_fo,
+                batch: PaddedBatch, probe, warm_up_rate, al_cb, ar_cb, branch_keep):
+    """The B + M GAT conv over a COO adjacency, the JAX package's fallback
+    (``vq_gnn_tpu/nn/model.py:728-780``), f32: per branch the input with its
+    ones column [nb, dim, D + 1], the branch's logits and Trick-1 scale from
+    the valid batch rows and the codebook logits, the per-edge values, and
+    a COO spmm per branch (one kernel-8 sum over all branches,
+    ``spmm_branches``); the probe adds to the batch rows before the
+    ones-column division.  Returns (out_B [B_pad, nb * D], info_backward)."""
+    B_pad, Bp_pad, D = batch.B_pad, batch.Bp_pad, ms.num_D
+    nb = x.shape[1] // D
+    xb = x.reshape(B_pad, nb, D).permute(1, 0, 2)
+    xfo_b = x_fo.reshape(Bp_pad, nb, D).permute(1, 0, 2)
+    x_br = torch.cat([torch.cat([xb, xfo_b], dim=1),
+                      x.new_ones((nb, B_pad + Bp_pad, 1))], dim=2)  # [nb, dim, D + 1]
+    al = (x_br * layer.att_l[:, None, :]).sum(-1)  # [nb, dim]
+    ar = (x_br * layer.att_r[:, None, :]).sum(-1)
+    invalid = ~batch.valid_B[None, :]
+    ml = torch.maximum(al[:, :B_pad].masked_fill(invalid, float("-inf")).amax(1), al_cb.amax(1))
+    mr = torch.maximum(ar[:, :B_pad].masked_fill(invalid, float("-inf")).amax(1), ar_cb.amax(1))
+    scale = (torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0))[:, None]  # [nb, 1]
+    al, ar = al / scale, ar / scale
+    e = batch.edges
+    ev = gat_edge_values(e.row, e.col, e.val, al, ar)  # [nb, E_pad]
+    x_out = spmm_branches(e, ev, x_br)  # [nb, dim, D + 1]
+    out_B = x_out[:, :B_pad]
+    if probe is not None:  # [nb, B_pad, D + 1]
+        out_B = out_B + probe
+    if batch.bm_rev_row is not None:  # exact non-GCN recovery reverse
+        info_backward = _bm_exact_reverse_info(
+            vq_state, ms, batch, x_br[:, :B_pad], warm_up_rate, al=al[:, :B_pad],
+            ar_cb=ar_cb / scale, branch_keep=branch_keep)
+    else:
+        gfo = grad_fo.reshape(Bp_pad, nb, D + 1).permute(1, 0, 2)
+        info_backward = (x_out[:, B_pad:] * gfo * warm_up_rate).sum()
+    # ones-column normalisation of the batch rows (v1/models.py:209-210)
+    out_B = out_B[:, :, :D] / (out_B[:, :, D:] + 1e-16)
+    if branch_keep is not None:
+        out_B = out_B * branch_keep.to(out_B.dtype)[:, None, None]
+    return out_B.permute(1, 0, 2).reshape(B_pad, nb * D), info_backward
 
 
 def model_forward(

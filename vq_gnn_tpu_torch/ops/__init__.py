@@ -3,11 +3,17 @@
 Each kernel wrapper counts its launches in ``<wrapper>.launches``; the
 wrappers of kernels 1, 4 and 5 count their bf16-row mode apart, in
 ``launches_bf16``, and those of kernels 9 and 10 their bf16 fold
-(``VQ_GNN_REV_FOLD=fast``) there too (``BF16_MODES`` names each such mode).
+(``VQ_GNN_REV_FOLD=fast``) there too (``BF16_MODES`` names each such mode);
+the segment sum counts its launches with the scalar channel apart, in
+``launches_scalar`` (``SCALAR_MODES``).
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero them all
 (``gat_backward`` also counts them per width C and row dtype, in
-``by_width``, and ``fused_assign_branches`` per width K).
+``by_width``, and ``fused_assign_branches`` per width K); launches inside
+:func:`uncounted` leave every one of them as it was.
 """
+
+import collections
+import contextlib
 
 from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate
 from vq_gnn_tpu_torch.ops.gat_kernels import gat_aggregate, gat_backward
@@ -35,20 +41,47 @@ BF16_MODES = {
     "rev_backward_fold_bf16": rev_backward,
 }
 
+# the segment sum's launches with its scalar channel
+SCALAR_MODES = {"segment_sum_scalar": segment_sum_sorted}
+
+
+# the wrappers that also count their launches per width
+_BY_WIDTH = (gat_backward, fused_assign_branches)
+
+
+def _counters():
+    """(name, wrapper, attribute) of every launch counter."""
+    return ([(n, fn, "launches") for n, fn in KERNELS.items()]
+            + [(n, fn, "launches_bf16") for n, fn in BF16_MODES.items()]
+            + [(n, fn, "launches_scalar") for n, fn in SCALAR_MODES.items()])
+
 
 def launch_counts() -> dict:
-    counts = {name: fn.launches for name, fn in KERNELS.items()}
-    counts.update({name: fn.launches_bf16 for name, fn in BF16_MODES.items()})
-    return counts
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-    for fn in BF16_MODES.values():
-        fn.launches_bf16 = 0
-    gat_backward.by_width.clear()
-    fused_assign_branches.by_width.clear()
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
+    for fn in _BY_WIDTH:
+        fn.by_width.clear()
 
 
-__all__ = ["BF16_MODES", "KERNELS", "launch_counts", "reset_launch_counts"]
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside leave every counter, the per-width ones included, as
+    it was (the checks beside a path that are not the path)."""
+    saved = [(fn, attr, getattr(fn, attr)) for _, fn, attr in _counters()]
+    widths = [(fn, collections.Counter(fn.by_width)) for fn in _BY_WIDTH]
+    try:
+        yield
+    finally:
+        for fn, attr, v in saved:
+            setattr(fn, attr, v)
+        for fn, w in widths:
+            fn.by_width.clear()
+            fn.by_width.update(w)
+
+
+__all__ = ["BF16_MODES", "KERNELS", "SCALAR_MODES", "launch_counts", "reset_launch_counts",
+           "uncounted"]

@@ -1,7 +1,8 @@
-"""GAT edge attention over the slot-ELL (port of ``vq_gnn_tpu/ops/gat.py``:
-the single-K fused path of the B + B' formulation, and the per-branch conv
-``gat_conv_ell_mh`` of the B + M formulation, whose segment sums are
-kernel 8).
+"""GAT edge attention (port of ``vq_gnn_tpu/ops/gat.py``): the fused conv of
+the B + B' formulation over the single-K slot-ELL (kernels 4 and 5) and over
+the mixed-K layout (per family, its segment sums kernel 8), the per-branch
+conv ``gat_conv_ell_mh`` of the B + M formulation (kernel 8), and the
+per-edge values ``gat_edge_values`` of the COO fallback.
 
 Reference semantics (``vq_gnn_v2/convs.py:165-266`` + ``utils/vq_softmax.py``):
 
@@ -15,9 +16,13 @@ Reference semantics (``vq_gnn_v2/convs.py:165-266`` + ``utils/vq_softmax.py``):
 - the ones column becomes ``rowsum``, the normaliser the model divides by.
 
 Convention: row = destination, col = source.  :func:`gat_conv_ell` is a
-``torch.autograd.Function`` whose forward is kernel 4 and whose backward is
-kernel 5 over the transposed ELL (``ops/gat_kernels.py``); ``d_ar`` and
-``d_scale`` have closed forms over the forward's aggregates.
+``torch.autograd.Function``: over the single-K ELL its forward is kernel 4
+and its backward kernel 5 over the transposed ELL (``ops/gat_kernels.py``);
+over the mixed-K layout each family's cells are gathered and weighted in
+plain PyTorch and summed by kernel 8 with its scalar channel (the
+normaliser, and d_al in the backward), as the JAX package's mixed path
+reduces with its segment-sum kernel.  ``d_ar`` has a closed form over the
+forward's aggregates.
 
 Under ``compute_dtype='bfloat16'`` both convs take bf16 x and round where
 the JAX package rounds (``vq_gnn_tpu/ops/gat.py``): the conv's outputs and
@@ -30,13 +35,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vq_gnn_tpu_torch.config import not_ported
 from vq_gnn_tpu_torch.ops.gat_kernels import NEGATIVE_SLOPE, gat_aggregate, gat_backward
 from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
-from vq_gnn_tpu_torch.ops.spmm import Edges
+from vq_gnn_tpu_torch.ops.spmm import Edges, fold_rows, mixed_families
 
 __all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_ell",
-           "gat_conv_ell_mh", "node_logits"]
+           "gat_conv_ell_mh", "gat_edge_values", "node_logits"]
 
 
 def attention_logits(x, att_l, att_r):
@@ -54,6 +58,18 @@ def explosion_scale(alpha_l, alpha_r, valid=None):
     else:
         ml, mr = alpha_l.max(), alpha_r.max()
     return torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)
+
+
+def gat_edge_values(row, col, adj_val, alpha_l, alpha_r, negative_slope=NEGATIVE_SLOPE):
+    """Per-edge unnormalised-exp attention times the normalised adjacency
+    value (``vq_gnn_tpu/ops/gat.py:gat_edge_values``): exp(leaky_relu(
+    alpha_l[col] + alpha_r[row])) * adj_val, the indices clipped to the
+    logits (padding edges have adj_val 0).  Logits [n], or [nb, n] for one
+    row of values per branch.  Plain PyTorch, differentiable in the logits."""
+    n = alpha_l.shape[-1] - 1
+    a = (alpha_l.index_select(-1, col.long().clamp(0, n))
+         + alpha_r.index_select(-1, row.long().clamp(0, alpha_r.shape[-1] - 1)))
+    return torch.exp(F.leaky_relu(a, negative_slope)) * adj_val
 
 
 def _gat_d_ar_closed_form(g_agg, g_rowsum, agg, rowsum, aggn, rsn):
@@ -156,6 +172,133 @@ class _GATConv(torch.autograd.Function):
         return dx, d_attl, d_attr, d_scale, None, None, None
 
 
+# ---------------------------------------------------------------------------
+# the fused conv over the mixed-K layout
+# ---------------------------------------------------------------------------
+def _al_node(xf, att_l, C: int, bf16: bool):
+    """The column logit before the division by scale, as the JAX package's
+    mixed path forms it from the gathered rows: f32 sums of x times att_l
+    rounded to x's dtype (``einsum(..., preferred_element_type=f32)``), so
+    under bf16 the att is rounded and the sum is not."""
+    w = att_l[:C].to(torch.bfloat16).float() if bf16 else att_l[:C]
+    return xf @ w + att_l[C]
+
+
+def _family_cells(al, ar, rows_g, cols, vals):
+    """(a, ev) [S, K] of one family: a = al[col] + ar[row], ev =
+    exp(leaky_relu(a)) * val, indices clipped to the tables."""
+    alc = al.index_select(0, cols.reshape(-1).long().clamp(0, al.shape[0] - 1)).reshape(
+        cols.shape)
+    arr = ar.index_select(0, rows_g.long().clamp(0, ar.shape[0] - 1))
+    a = alc + arr[:, None]
+    return a, torch.exp(F.leaky_relu(a, NEGATIVE_SLOPE)) * vals
+
+
+def _gather_rows(tbl, cols):
+    """tbl[cols] widened to f32, [S, K, C] (cols clipped)."""
+    S, K = cols.shape
+    rows = tbl.index_select(0, cols.reshape(-1).long().clamp(0, tbl.shape[0] - 1))
+    return rows.float().reshape(S, K, tbl.shape[1])
+
+
+def _family_sum(part, scal, fam, R: int, inv):
+    """Kernel 8 over one family's rows with its lists (both channels where
+    ``part`` is given, else the scalars alone), the head folded back to the
+    global rows through ``inv``."""
+    rows_c, ptr, long_rows = fam[0], fam[4], fam[5]
+    out = segment_sum_sorted(part, rows_c, R, scalar_partials=scal.contiguous(), ptr=ptr,
+                             long_rows=long_rows)
+    if part is None:
+        out = (None, out)
+    if inv is not None:
+        out = tuple(None if o is None else fold_rows(o, inv) for o in out)
+    return out
+
+
+def _gat_forward_mixed(edges: Edges, x, att_l, att_r, scale, with_neg: bool, xf=None, ar=None):
+    """(agg [R, C], rowsum [R], aggn, rsn) over the mixed families
+    (``vq_gnn_tpu/ops/gat.py:_gat_conv_fwd_impl_mixed``): per family the
+    gathered rows weighted per cell, both sums by kernel 8 with its scalar
+    channel, the head folded through head_inv, the families added."""
+    C, R = x.shape[1], edges.num_rows
+    bf16 = x.dtype == torch.bfloat16
+    xf = x.float() if xf is None else xf
+    if ar is None:
+        _, ar = node_logits(x, xf, att_l, att_r)
+    al_n, ar_n = _al_node(xf, att_l, C, bf16) / scale, ar / scale
+    head, tail, inv = mixed_families(edges)
+    sums = None
+    for fam, fold in ((head, inv), (tail, None)):
+        rows_g, cols, vals = fam[1], fam[2], fam[3]
+        nbrs = _gather_rows(x, cols)
+        a, ev = _family_cells(al_n, ar_n, rows_g, cols, vals)
+        res = _family_sum((ev[:, :, None] * nbrs).sum(1), ev.sum(1), fam, R, fold)
+        if with_neg:
+            evn = ev * (a <= 0)
+            res += _family_sum((evn[:, :, None] * nbrs).sum(1), evn.sum(1), fam, R, fold)
+        sums = res if sums is None else tuple(s + r for s, r in zip(sums, res))
+    return sums if with_neg else sums + (None, None)
+
+
+class _GATConvMixed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, att_l, att_r, scale, edges: Edges, xf, ar):
+        xf = x.float() if xf is None else xf
+        if ar is None:
+            _, ar = node_logits(x, xf, att_l, att_r)
+        agg, rowsum, aggn, rsn = _gat_forward_mixed(edges, x, att_l, att_r, scale, True, xf, ar)
+        ctx.edges = edges
+        ctx.save_for_backward(x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, ar)
+        return agg, rowsum[:, None]
+
+    @staticmethod
+    def backward(ctx, g_agg, g_rowsum):
+        """``vq_gnn_tpu/ops/gat.py:_gat_conv_bwd_mixed``: per transposed
+        family (all of it: this conv has no truncation) the cells recomputed
+        with the cotangents gathered at x's dtype (ar too), dx and d_al
+        summed by kernel 8 and the head folded through t_head_inv; d_ar by
+        the closed form; d_scale by the per-cell sum."""
+        e: Edges = ctx.edges
+        x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, ar = ctx.saved_tensors
+        R, C = x.shape
+        gs = x.dtype
+        bf16 = gs == torch.bfloat16
+        g_rs = g_rowsum[:, 0]
+        g_s = g_agg.to(gs)
+        g_rs_s = g_rs.to(gs).float()
+        ar_s = (ar / scale).to(gs).float()  # the ar lane rides the gather at x's dtype
+        # the row-side logit as the JAX backward forms it: x @ att_l in x's
+        # dtype (a bf16 dot, rounded, under bf16)
+        al_t_node = (bf16_dot(xf, att_l[:C]) if bf16 else xf @ att_l[:C]) + att_l[C]
+        al_t_node = al_t_node / scale
+        want_dx = ctx.needs_input_grad[0]
+        head, tail, inv = mixed_families(e, transposed=True, whole=True)
+        dx = d_al = None
+        d_scale = scale.new_zeros(())
+        for fam, fold in ((head, inv), (tail, None)):
+            rows_g, cols, vals = fam[1], fam[2], fam[3]
+            # transposed cells: row = source, column = destination
+            a_t, ev_t = _family_cells(ar_s, al_t_node, rows_g, cols, vals)
+            g3 = _gather_rows(g_s, cols)
+            x_rows = xf.index_select(0, rows_g.long().clamp(0, R - 1))
+            g_ev = (g3 * x_rows[:, None, :]).sum(-1) + g_rs_s.index_select(
+                0, cols.reshape(-1).long().clamp(0, R - 1)).reshape(cols.shape)
+            d_a = g_ev * ev_t * torch.where(a_t > 0, 1.0, NEGATIVE_SLOPE)
+            d_scale = d_scale - (d_a * a_t).sum() / scale
+            part = (ev_t[:, :, None] * g3).sum(1) if want_dx else None
+            dx_f, d_al_f = _family_sum(part, d_a.sum(1), fam, R, fold)
+            d_al = d_al_f if d_al is None else d_al + d_al_f
+            if want_dx:
+                dx = dx_f if dx is None else dx + dx_f
+        d_ar = _gat_d_ar_closed_form(g_agg, g_rs, agg, rowsum, aggn, rsn)
+        if want_dx:
+            dx = (dx + d_al[:, None] * (att_l[None, :C] / scale)
+                  + d_ar[:, None] * (att_r[None, :C] / scale)).to(gs)
+        d_attl = torch.cat([(d_al @ xf) / scale, (d_al.sum() / scale)[None]])
+        d_attr = torch.cat([(d_ar @ xf) / scale, (d_ar.sum() / scale)[None]])
+        return dx, d_attl, d_attr, d_scale, None, None, None
+
+
 def gat_conv_ell(edges: Edges, x, att_l, att_r, scale, xf=None, ar=None):
     """Attention-weighted slot-ELL aggregation -> (agg [R, C], rowsum [R, 1]).
 
@@ -170,13 +313,17 @@ def gat_conv_ell(edges: Edges, x, att_l, att_r, scale, xf=None, ar=None):
     passes ``xf``, x widened to f32, and ``ar``, :func:`node_logits`' second
     logit before the division by scale, so that neither is formed twice.
     Both are values only: the gradients come from the closed forms."""
-    if edges.ell_row is None:  # mixed-K stops earlier, in config.check_ported
-        raise not_ported("GAT over a layout other than the single-K slot-ELL")
     if x.shape[0] != edges.num_rows:
         raise ValueError(f"x has {x.shape[0]} rows, the ELL {edges.num_rows}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, att_l, att_r, scale)
-    ):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, att_l, att_r, scale))
+    if edges.mixed:
+        if grad:
+            return _GATConvMixed.apply(x, att_l, att_r, scale, edges, xf, ar)
+        agg, rowsum, _, _ = _gat_forward_mixed(edges, x, att_l, att_r, scale, False, xf, ar)
+        return agg, rowsum[:, None]
+    if edges.ell_row is None:  # COO runs gat_edge_values and spmm instead
+        raise ValueError("gat_conv_ell: the edges hold neither slot-ELL layout")
+    if grad:
         return _GATConv.apply(x, att_l, att_r, scale, edges, xf, ar)
     agg, rowsum, _, _, _, _ = _gat_forward(edges, x, att_l, att_r, scale, with_neg=False,
                                            xf=xf, ar=ar)
@@ -279,7 +426,9 @@ def gat_conv_ell_mh(edges: Edges, x_g, al, ar):
     the backward works in the transposed layout and mirrors the per-cell
     logit cotangent back through ``edges.f_from_t`` for ``d_ar``."""
     if edges.ell_row is None or edges.f_from_t is None:
-        raise not_ported("the B + M GAT conv over a layout other than the single-K slot-ELL")
+        # B + M GAT batches keep the single-K ELL under ell_Kt > 0, and COO
+        # batches take the layer's per-branch fallback
+        raise ValueError("gat_conv_ell_mh needs the single-K slot-ELL with its f_from_t map")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_g, al, ar)):
         return _GATConvMH.apply(x_g, al, ar, edges)
     return _gat_mh_forward(edges, x_g, al, ar)

@@ -14,6 +14,8 @@ not depend on them.
 The CUDA kernel (``csrc/segment_sum.cu``) replaces
 ``vq_gnn_tpu/ops/pallas_segsum.py:_make_kernel``; on CPU tensors the wrapper
 runs the plain version, on CUDA tensors it launches the kernel or raises.
+Launches with the scalar channel (the mixed-K GAT conv's normaliser and
+d_al) count in ``launches_scalar``, the others in ``launches``.
 """
 
 from __future__ import annotations
@@ -117,9 +119,13 @@ def segment_sum_sorted(partials, seg, num_rows: int, scalar_partials=None, ptr=N
         out_s.data_ptr() if out_s is not None else None, stream,
     )
     _build.check(rc, "segment_sum_sorted")
-    segment_sum_sorted.launches += 1
+    if scalar_partials is not None:  # the scalar channel's launches apart
+        segment_sum_sorted.launches_scalar += 1
+    else:
+        segment_sum_sorted.launches += 1
     res = [t for t in (out, out_s) if t is not None]
     return res[0] if len(res) == 1 else tuple(res)
 
 
 segment_sum_sorted.launches = 0
+segment_sum_sorted.launches_scalar = 0

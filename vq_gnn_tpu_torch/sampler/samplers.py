@@ -289,8 +289,11 @@ class BatchLoader:
         # pad-size high-water marks keep the set of shapes small and monotone
         self._B_bucket = 0
         self._Bp_bucket = 0
+        self._E_bucket = 0
         self._S_bucket = 0
         self._St_bucket = 0
+        self._Sm_bucket = self._Stm_bucket = (0, 0)  # mixed-K (head, tail) slots
+        self._R_bucket = 0  # the raw reverse list beside COO (B + M)
         self._tb_bucket = {"multiple": max(cfg.pad_multiple_edges // cfg.ell_K, 64)}
         self._rev_bucket = {}  # rev-ELL slot count high-water mark (B + M)
         self._L_bucket = 0  # in-batch link edges (with_link_edges)
@@ -348,11 +351,12 @@ class BatchLoader:
                 raise ValueError("Sampler type not supported!")
         return out
 
-    def _pad_sizes(self, B, Bp):
-        mn = self.cfg.pad_multiple_nodes
+    def _pad_sizes(self, B, Bp, E):
+        mn, me = self.cfg.pad_multiple_nodes, self.cfg.pad_multiple_edges
         self._B_bucket = max(self._B_bucket, round_up(B, mn))
         self._Bp_bucket = max(self._Bp_bucket, round_up(max(Bp, 1), mn))
-        return self._B_bucket, self._Bp_bucket
+        self._E_bucket = max(self._E_bucket, round_up(max(E, 1), me))
+        return self._B_bucket, self._Bp_bucket, self._E_bucket
 
     def _slot_pad(self, er, K, dim_pad, attr):
         ms = max(self.cfg.pad_multiple_edges // K, 64)
@@ -363,6 +367,27 @@ class BatchLoader:
         bucket = max(getattr(self, attr), round_up(max(S, 1), ms))
         setattr(self, attr, bucket)
         return bucket
+
+    def _mixed_slot_pads(self, er, K, Kt, dim_pad, attr):
+        """(Sh_pad, St2_pad) for the mixed-K families (head full K-slots,
+        dense Kt tail): monotone high-water buckets like _slot_pad
+        (``vq_gnn_tpu/sampler/samplers.py:421-440``)."""
+        ms = max(self.cfg.pad_multiple_edges // K, 64)
+        mst = max(self.cfg.pad_multiple_edges // Kt, 64)
+        deg = np.bincount(er, minlength=dim_pad)
+        Sh = int((deg // K).sum())
+        St2 = int(np.maximum((deg % K + Kt - 1) // Kt, 1).sum())
+        b = getattr(self, attr)
+        bucket = (max(b[0], round_up(max(Sh, 1), ms)), max(b[1], round_up(max(St2, 1), mst)))
+        setattr(self, attr, bucket)
+        return bucket
+
+    def _rev_pad(self, rev):
+        if rev is None:
+            return 0
+        self._R_bucket = max(self._R_bucket,
+                             round_up(max(len(rev[0]), 1), self.cfg.pad_multiple_edges))
+        return self._R_bucket
 
     def _build(self, node_idx: np.ndarray) -> PaddedBatch:
         g, cfg = self.graph, self.cfg
@@ -377,18 +402,29 @@ class BatchLoader:
             fo_ids, er, ec, ev = k_hop_subgraph(
                 self.rowptr, self.col, self.val, node_idx, self.N, self.train_flag
             )
-        B_pad, Bp_pad = self._pad_sizes(len(node_idx), len(fo_ids))
-        K = self.cfg.ell_K
+        B_pad, Bp_pad, E_pad = self._pad_sizes(len(node_idx), len(fo_ids), len(er))
         dim_pad = B_pad + Bp_pad
-        S_pad = self._slot_pad(er, K, dim_pad, "_S_bucket")
-        St_pad = self._slot_pad(ec, K, dim_pad, "_St_bucket")
+        ell = cfg.spmm_backend == "ell"
+        # the layout (vq_gnn_tpu/sampler/samplers.py:479-556): mixed-K
+        # serves the spmm convs and the B + B' GAT conv; the B + M GAT conv
+        # mirrors per-cell values through f_from_t, a map of the single-K
+        # ELL only, so it keeps single-K under ell_Kt > 0, as there
+        if ell and cfg.ell_Kt > 0 and not (cfg.conv_type == "GAT" and cfg.formulation == "bm"):
+            K, Kt = cfg.ell_K, cfg.ell_Kt
+            layout = dict(ell_K=K, ell_Kt=Kt, mixed_pads=(
+                self._mixed_slot_pads(er, K, Kt, dim_pad, "_Sm_bucket")
+                + self._mixed_slot_pads(ec, K, Kt, dim_pad, "_Stm_bucket")))
+        elif ell:
+            K = cfg.ell_K
+            layout = dict(ell_K=K, S_pad=self._slot_pad(er, K, dim_pad, "_S_bucket"),
+                          St_pad=self._slot_pad(ec, K, dim_pad, "_St_bucket"))
+        else:
+            layout = dict(E_pad=E_pad)
         L_pad = 0
         if self.with_link_edges:
             n_link = int(((er < len(node_idx)) & (ec < len(node_idx))).sum())
             self._L_bucket = max(self._L_bucket, round_up(max(n_link, 1), 1024))
             L_pad = self._L_bucket
-        # backward truncation: x rows >= B_pad are codebook lookups whose
-        # cotangent flows only into the non-differentiated VQ state
         return build_padded_batch(
             node_idx,
             fo_ids,
@@ -398,21 +434,27 @@ class BatchLoader:
             self.N,
             B_pad,
             Bp_pad,
-            ell_K=K,
-            S_pad=S_pad,
-            St_pad=St_pad,
             y=None if g.y is None else g.y[node_idx],
             train_mask=None if g.train_mask is None else g.train_mask[node_idx],
-            t_b_bucket=self._tb_bucket if self.train_flag else None,
+            # backward truncation (either ELL layout): x rows >= B_pad are
+            # codebook lookups whose cotangent flows only into the
+            # non-differentiated VQ state
+            t_b_bucket=self._tb_bucket if ell and self.train_flag else None,
             # the B + M GAT conv's backward mirrors per-cell values through it
             with_f_from_t=cfg.formulation == "bm" and cfg.conv_type == "GAT",
             bm_rev=rev,
-            rev_bucket=self._rev_bucket,
+            # the reverse list as rev-ELL slots beside an ELL adjacency, raw
+            # beside COO (whose recovery term takes the grid path, as the
+            # JAX package's tests pin it)
+            rev_bucket=self._rev_bucket if ell else None,
+            R_pad=self._rev_pad(rev),
             # the GAT backward walks every transposed row: kernel 5 on B + B',
-            # the per-branch conv's segment sums (kernel 8) on B + M
+            # the per-branch conv's segment sums (kernel 8) on B + M, and
+            # kernel 8 per family on the mixed layout
             with_t_all_lists=cfg.conv_type == "GAT",
             with_link_edges=self.with_link_edges,
             L_pad=L_pad,
+            **layout,
         )
 
     def _epoch_iter(self):
