@@ -184,6 +184,32 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       the loss and every gradient within 1e-6 of max(1, max|cpu|), the
       assignments after one step >= 99 % equal.
 
+15. data-parallel training (``parallel/multihost.py``) on an NCCL process
+   group of one rank (the card's machine has one GPU), the flagship GCN B +
+   B' on phase 2's graph, from the state of phase 3's GCN trainer; fixed
+   pads at that trainer's high-water buckets, one epoch of batches built
+   at the fixed pads and one of the same node sets in the trainer's
+   buckets:
+   a. one step of the data-parallel step and one of ``train_step`` from one
+      state on the same fixed-pad batch: the loss within 1e-6 relative, the
+      codebooks and the parameters bit-identical, ``c_indices[:N]``
+      agreeing on >= 0.9999 (row N is the padding dustbin);
+   a'. rows 1, 6 and 7 against their plain versions at the fixed pads'
+      shapes: kernel 1's forward over the padded slots and its dx over the
+      whole transposed ELL (fixed pads keep no truncation), kernel 2 and
+      kernel 3 at the fixed B_pad;
+   b. 20 timed steps and 3 profiled ones each of ``train_step`` on the
+      bucketed batches, ``train_step`` on the fixed-pad batches and the
+      data-parallel step on them, from copies of one state: ms/step, device
+      busy, idle share and peak memory, so that the fixed pads' cost and the
+      collectives' are told apart; the launch counters zeroed just before
+      the data-parallel steps and read just after;
+   c. rows 1, 6 and 7 launched on that path, by the counters and by the
+      profile's device kernels;
+   d. the collective ledger: bytes and calls per step by category, and no
+      collective as large as the feature table, a ``c_indices`` table or
+      the batch's ELL columns.
+
 Logs the seconds each phase took.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line (with rows for kernel 2 at nb = 64, M = 4,096
 and at K = 4, M = 4,096, and kernel 3 at M = 4,096, from phase 12, and
@@ -195,6 +221,7 @@ and the script exits non-zero without that line.  Without a CUDA device, or
 without the package beside it, it exits non-zero at once.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -254,6 +281,9 @@ LAYOUT_KERNELS = {
     "14d": ("segment_sum", "vq_assign", "vq_lookup"),
 }
 MIXED_ROW = "ell_aggregate (mixed K = 8 + 2, 14a)"  # kernel 1's sub-row on the mixed families
+DDP_STEPS = 20  # timed steps of each variant in phase 15
+DDP_KERNELS = {"ell_aggregate": "ell_aggregate_kernel", "vq_assign": "assign_fast_kernel",
+               "vq_lookup": "lookup_kernel"}  # rows 1, 6, 7: launch counter -> device kernel
 
 
 
@@ -693,9 +723,11 @@ def layout_line(e) -> str:
 def hold_ell(torch, tag, label, edges, calls, gen, err):
     """Kernel 1 against its plain version on a batch's ELL, with the
     batch's row offsets and long rows as spmm passes them, at each (width C,
-    'forward' or 'dx') of ``calls``: dx over the transposed ELL's slots of
-    the rows < b_rows (the step's truncated backward).  Tolerance: f32 sums
-    in another order, 1e-5 of the largest |ref|; the same bits twice."""
+    'forward', 'dx' or 'dx full') of ``calls``: dx over the transposed ELL's
+    slots of the rows < b_rows (the step's truncated backward), 'dx full'
+    over all of it (the backward of a batch without the truncation).
+    Tolerance: f32 sums in another order, 1e-5 of the largest |ref|; the
+    same bits twice."""
     from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
 
     R = edges.num_rows
@@ -705,6 +737,10 @@ def hold_ell(torch, tag, label, edges, calls, gen, err):
         if which == "forward":
             args = (x, edges.ell_row, edges.ell_col, edges.ell_val, R)
             kw = dict(ptr=edges.ell_ptr, long_rows=edges.ell_long_rows)
+        elif which == "dx full":
+            assert not edges.b_rows, "the batch truncates its backward"
+            args = (x, edges.t_ell_row, edges.t_ell_col, edges.t_ell_val, R)
+            kw = dict(ptr=edges.t_ell_ptr, long_rows=edges.t_ell_long_rows)
         else:
             assert edges.b_rows and tb, "the training batch has no truncated backward"
             args = (x, torch.clamp(edges.t_ell_row[:tb], max=edges.b_rows),
@@ -1734,6 +1770,150 @@ def layouts_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs,
     return out
 
 
+def ddp_phase(torch, ops, runs, graphs, gpu, err):
+    """Phase 15: the data-parallel step (``parallel/multihost.py``) on an
+    NCCL group of one rank at the flagship widths, against ``train_step``
+    (the module docstring says what it runs).  Returns its launch counts."""
+    import torch.distributed as dist
+
+    from vq_gnn_tpu_torch.parallel import init_distributed, make_ddp_step, make_mesh
+    from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+    from vq_gnn_tpu_torch.train.step import make_step_fns
+
+    t0 = time.time()
+    init_distributed("nccl")  # one rank, tcp://localhost:<a free port>
+    mesh = make_mesh(1)
+    tr = runs["3 GCN"]["tr"]
+    g, _, ci = graphs["GCN"]
+    N = g.num_nodes
+    hw = tr.train_loader  # its high-water buckets over phase 3's batches
+    cfg_b = tr.cfg
+    cfg = dataclasses.replace(cfg_b, fixed_B_pad=hw._B_bucket, fixed_Bp_pad=hw._Bp_bucket,
+                              fixed_E_pad=hw._E_bucket)
+    # one epoch of the same node sets (seed and epoch of phase 3's first),
+    # at the fixed pads and in the trainer's buckets
+    fixed, bucketed = ([w[0] for w, _ in BatchLoader(g, c, train_flag=True, cluster_indices=ci,
+                                                      seed=c.seed, device=mesh.device)]
+                       for c in (cfg, cfg_b))
+    log(f"[15 setup] NCCL group of {mesh.size} rank(s) on {mesh.device}; fixed pads B_pad "
+        f"{cfg.fixed_B_pad} Bp_pad {cfg.fixed_Bp_pad} E_pad {cfg.fixed_E_pad}; an epoch of "
+        f"{len(fixed)} batches in each padding built in {time.time() - t0:.1f}s")
+    for tag, b in (("fixed", fixed[0]), ("bucketed", bucketed[0])):
+        log(f"[15 batch {tag}] {batch_line(b, edge_count(b.edges))}")
+    assert [b.num_B for b in fixed] == [b.num_B for b in bucketed]
+    assert fixed[0].edges.b_rows == 0, "fixed pads keep the full transposed VJP"
+    train_step = make_step_fns(tr.ms, cfg).train_step
+    ddp = make_ddp_step(tr.ms, cfg, group=mesh.group)
+    X, lr = tr.X_dev, cfg.lr
+
+    # 15a: one step from one state on the same fixed-pad batch
+    with ops.uncounted():
+        sa, sb = copy.deepcopy(tr.state), copy.deepcopy(tr.state)
+        _, ma = train_step(sa, X, fixed[0], 1.0, lr, 1.0)
+        _, mb = ddp(sb, X, fixed[0], 1.0, lr, 1.0)
+        torch.cuda.synchronize()
+    la, lb = float(ma["loss"]), float(mb["loss"])
+    rel = abs(la - lb) / max(abs(la), 1e-30)
+    d_emb = max(float((a.embedding - b.embedding).abs().max())
+                for a, b in zip(sa.vq_states, sb.vq_states))
+    d_par = max(float((p.detach() - q.detach()).abs().max())
+                for p, q in zip(sa.model.parameters(), sb.model.parameters()))
+    agree = min(float((a.c_indices[:N] == b.c_indices[:N]).float().mean())
+                for a, b in zip(sa.vq_states, sb.vq_states))
+    log(f"[15a ddp vs train_step] one step from one state on the fixed-pad batch: loss "
+        f"{lb:.7f} vs {la:.7f}, rel diff {rel:.3g} (tol 1e-6); codebooks max|diff| {d_emb:.3g} "
+        f"(tol 0); parameters max|diff| {d_par:.3g} (tol 0); c_indices[:N] agree {agree:.6f} "
+        f"(>= 0.9999) | {gpu}")
+    assert rel <= 1e-6 and d_emb == 0 and d_par == 0 and agree >= 0.9999, \
+        (rel, d_emb, d_par, agree)
+    del sa, sb
+    ddp.ledger.reset()
+
+    # 15a': rows 1, 6 and 7 at the fixed pads' shapes, which no other phase
+    # gives them: kernel 1's forward over S_pad slots (padding past the real
+    # rows) and its dx over the whole transposed ELL, kernels 2 and 3 at B_pad
+    b0 = fixed[0]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    C = cfg.hidden_channels
+    vq1 = tr.state.vq_states[1]
+    nb, M, K = vq1.embedding.shape
+    with ops.uncounted():
+        hold_ell(torch, 15, "ddp fixed pads", b0.edges, ((C, "forward"), (C, "dx full")), gen,
+                 err)
+        xn = torch.randn((nb, b0.B_pad, K), generator=gen, device="cuda")
+        hold_assign(torch, 15, "ddp fixed pads vq_update", xn, vq1.embedding.contiguous(),
+                    b0.valid_B.contiguous(), err, chunk=branch_chunk(b0.B_pad, M))
+        hold_lookup(torch, 15, "ddp fixed pads", vq1, b0.fo_ids, cfg.num_D)
+    del xn
+
+    # 15b: 20 steps of each, from copies of one state
+    def variant(tag, step, batches, counted):
+        state = copy.deepcopy(tr.state)
+
+        def one(b):
+            nonlocal state
+            state, m = step(state, X, b, 1.0, lr, 1.0)
+            return m
+
+        with ops.uncounted():  # warm-up
+            for b in batches[:2]:
+                one(b)
+        base = new_path_start(torch, ops)
+        ctx = contextlib.nullcontext() if counted else ops.uncounted()
+        with ctx:
+            times, losses = timed_steps(torch, one, batches, DDP_STEPS)
+            prof = profile_steps(lambda i: one(batches[i % len(batches)]), log=log,
+                                 tag=f"15 {tag}", gpu=gpu)
+        peak = torch.cuda.max_memory_allocated() - base
+        mean = sum(times) / len(times)
+        std = (sum((t - mean) ** 2 for t in times) / max(len(times) - 1, 1)) ** 0.5
+        busy = "not measured" if prof is None else f"{prof['busy_ms']:.3f}"
+        idle = ("not measured" if prof is None
+                else f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} %")
+        log(f"[15b {tag}] {DDP_STEPS} steps: {mean:.2f} ms/step (std {std:.2f}, median "
+            f"{sorted(times)[len(times) // 2]:.2f}), device busy {busy} ms/step, idle {idle}, "
+            f"peak {peak / 1e9:.3f} GB above the earlier phases'; losses "
+            f"{[round(x, 4) for x in losses[:4]]}... | {gpu}")
+        assert all(math.isfinite(x) for x in losses)
+        return dict(ms=mean, prof=prof, peak=peak)
+
+    res = {"train_step bucketed": variant("train_step bucketed", train_step, bucketed, False),
+           "train_step fixed": variant("train_step fixed", train_step, fixed, False)}
+    res["ddp fixed"] = variant("ddp fixed", ddp, fixed, True)
+    launches = ops.launch_counts()  # the data-parallel path's alone
+    steps = DDP_STEPS + 3
+    log("[15b summary] ms/step: " + ", ".join(f"{k} {v['ms']:.2f}" for k, v in res.items())
+        + f"; phase 3's GCN {runs['3 GCN']['ms']:.2f}; launches per ddp step "
+        f"{ {k: v / steps for k, v in launches.items() if v} } | {gpu}")
+
+    # 15c: the path went through rows 1, 6 and 7 (counters, and the profile)
+    prof = res["ddp fixed"]["prof"]
+    for name, kernel in DDP_KERNELS.items():
+        assert launches[name] > 0, f"kernel {name} was not launched on the data-parallel path"
+        if prof is not None:
+            assert any(kernel in k for _, _, k in prof["rows"]), f"{kernel} not in the profile"
+    if prof is None:
+        log("[15c] the profiler saw no device rows: the launch counters alone hold rows 1, 6, 7")
+
+    # 15d: the collective ledger at these widths; no collective as large as
+    # the feature table, a c_indices table or the batch's ELL columns
+    led = ddp.ledger
+    per = led.per_step()
+    log(f"[15d ledger] {led.steps} steps; bytes per step {per['bytes']}; calls per step "
+        f"{per['calls']}; {sum(per['bytes'].values()) / 1e6:.4f} MB a step in all")
+    cidx = tr.state.vq_states[0].c_indices
+    col = fixed[0].edges.ell_col
+    cap = min(X.numel() * X.element_size(), cidx.numel() * cidx.element_size(),
+              col.numel() * col.element_size())
+    for kind in sorted(led.kinds):
+        nbytes = sum(math.prod(s) for s in kind[3]) * torch.empty(0, dtype=getattr(
+            torch, kind[2])).element_size()
+        log(f"[15d ledger]   {kind}: {nbytes} B a call")
+        assert nbytes < cap, f"a graph-sized collective payload {kind} ({nbytes} B, cap {cap} B)"
+    dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2551,6 +2731,12 @@ def main() -> int:
     counts.append(layouts_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs,
                                 prepare, synthetic_sbm))
     log(f"[14 layouts] the phase took {time.time() - t0:.1f}s")
+
+    # ---- 15. data-parallel training: the DDP step on an NCCL group of one ----
+    phase("15 ddp")
+    t0 = time.time()
+    counts.append(ddp_phase(torch, ops, runs, graphs, gpu, err))
+    log(f"[15 ddp] the phase took {time.time() - t0:.1f}s")
     for c in counts:
         for k, v in c.items():
             launches[k] = launches.get(k, 0) + v

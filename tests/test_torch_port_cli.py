@@ -309,8 +309,9 @@ def test_entry_points_import_no_jax():
     """bench_torch.py, main_node_torch.py, main_link_torch.py, chip_smoke.py,
     tools/parity_experiment_torch.py, tools/link_experiment_torch.py,
     tools/inductive_experiment_torch.py and every module of the port (the
-    parity harness, the diagnostics, the metrics and the link trainer among
-    them) import in a process where jax and vq_gnn_tpu cannot be imported."""
+    parity harness, the diagnostics, the metrics, the link trainer and the
+    data-parallel step among them) import in a process where jax and
+    vq_gnn_tpu cannot be imported."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "BLOCKED = ('jax', 'jaxlib', 'flax', 'vq_gnn_tpu')\n"
@@ -335,7 +336,8 @@ def test_entry_points_import_no_jax():
         "'GCN', 1, 0.001), inductive_experiment_torch.build_graphs(7, 0.001), 'cpu')\n"
         "want = {'vq_gnn_tpu_torch.utils.logger', 'vq_gnn_tpu_torch.utils.diagnostics',\n"
         "        'vq_gnn_tpu_torch.train.parity', 'vq_gnn_tpu_torch.utils.metrics',\n"
-        "        'vq_gnn_tpu_torch.train.link'}\n"
+        "        'vq_gnn_tpu_torch.train.link', 'vq_gnn_tpu_torch.parallel.multihost',\n"
+        "        'vq_gnn_tpu_torch.parallel.mesh'}\n"
         "assert want <= set(mods), mods\n"
         "print('clean', len(mods))\n"
     )

@@ -1,8 +1,10 @@
 """The port's VQ state transitions against ``vq_gnn_tpu.nn.vq`` on the same
 numpy inputs: ``feature_update``, ``vq_update`` (live, BN seeded or not) and
-``lookup``, for the plain ('xla') and kernel ('pallas') backends."""
+``lookup``, for the plain ('xla') and kernel ('pallas') backends; and the
+masked BN moments bit for bit against the two-pass formula."""
 
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ from vq_gnn_tpu.nn import vq as jvq
 from vq_gnn_tpu_torch.convert import vq_state_from_numpy
 from vq_gnn_tpu_torch.nn import vq as tvq
 from vq_gnn_tpu_torch.ops.vq_kernels import lookup_codewords, lookup_codewords_plain
+from vq_gnn_tpu_torch.ops.vq_ops import masked_moments
 from tests.test_torch_port_native import steady_native
 
 steady_native()  # one native host library on both sides (that file says why)
@@ -197,3 +200,83 @@ def test_init_add_flag_matches_jax():
     assert s.embedding.shape == (NB, M, 2 * D + 1)
     assert (s.embedding[:, :, 2 * D] == 0).all() and (s.ema_w[:, :, 2 * D] == 0).all()
     assert (s.embedding[:, :, :D] != 0).all() and s.bn_grad_mean.shape == (NB, D + 1)
+
+
+def _two_pass(x, valid, ddof):
+    """The masked mean and variance as two separate passes per ddof (the
+    form ``masked_moments`` replaces)."""
+    if valid is None:
+        n = float(x.shape[-2])
+        mean = x.mean(-2)
+        return mean, ((x - mean.unsqueeze(-2)) ** 2).sum(-2) / max(n - ddof, 1.0)
+    v = valid.to(x.dtype)[:, None]
+    n = torch.clamp(v.sum(), min=1.0)
+    mean = (x * v).sum(-2) / n
+    var = (((x - mean.unsqueeze(-2)) ** 2) * v).sum(-2) / torch.clamp(n - ddof, min=1.0)
+    return mean, var
+
+
+def _mask(kind, rows, rng):
+    if kind == "none":
+        return None
+    if kind == "all-invalid":
+        return torch.zeros(rows, dtype=torch.bool)
+    if kind == "one-valid":
+        return torch.as_tensor(np.arange(rows) == rng.randint(rows))
+    return torch.as_tensor(rng.rand(rows) < rng.uniform(0.2, 0.95))
+
+
+@pytest.mark.parametrize("kind", ["random-0", "random-1", "random-2", "all-invalid",
+                                  "one-valid", "none"])
+@pytest.mark.parametrize("shape", [(NB, B, D), (B, 40)])
+def test_masked_moments_bit_equal_two_pass(shape, kind):
+    """Each of (mean, biased var, unbiased var) equals the two-pass formula's
+    bits, for a [nb, B, d] pair (the VQ update's [X_B || grad]) and a [B, C]
+    activation (the inter-layer BN)."""
+    rng = np.random.RandomState(sum(map(ord, kind)) + len(shape))
+    xs = [torch.as_tensor(rng.randn(*shape).astype(np.float32) * s + o)
+          for s, o in ((2.0, 0.5), (1e-3, 0.0))]
+    valid = _mask(kind, shape[-2], rng)
+    for x, (mean, var, var_u) in zip(xs, masked_moments(xs, valid), strict=True):
+        ref_mean, ref_var = _two_pass(x, valid, 0)
+        _, ref_var_u = _two_pass(x, valid, 1)
+        for got, ref in ((mean, ref_mean), (var, ref_var), (var_u, ref_var_u)):
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["random-0", "one-valid", "all-invalid"])
+def test_masked_moments_summed_over_shards(kind):
+    """Two row shards in lock step (threads), each with a ``stats_reduce``
+    that sums both shards' lists as an all-reduce does: every shard gets the
+    moments of all rows, the one transition of the data-parallel step
+    (summation order differs, so within f32 rounding)."""
+    rng = np.random.RandomState(3)
+    xs = [torch.as_tensor(rng.randn(NB, B, D).astype(np.float32) * 2 + 0.5),
+          torch.as_tensor(rng.randn(NB, B, D).astype(np.float32) * 1e-3)]
+    valid = _mask(kind, B, rng)
+    cut = (0, 120, B)
+    posted = [None, None]
+    barrier = threading.Barrier(2)
+    got = [None, None]
+
+    def rank(r):
+        def all_reduce(tensors):
+            posted[r] = tensors
+            barrier.wait()
+            out = [a + b for a, b in zip(*posted, strict=True)]
+            barrier.wait()  # both have read this round before the next posts
+            return out
+
+        a, b = cut[r], cut[r + 1]
+        got[r] = masked_moments([x[:, a:b] for x in xs], valid[a:b], stats_reduce=all_reduce)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    whole = masked_moments(xs, valid)
+    for g in got:
+        for g3, w3 in zip(g, whole, strict=True):
+            for a, w in zip(g3, w3, strict=True):
+                torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-7)

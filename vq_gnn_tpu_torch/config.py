@@ -97,7 +97,11 @@ class Config:
     vq_backend: str = "auto"
     compute_dtype: str = "float32"
     matmul_precision: str = "highest"  # highest | default
+    # data-parallel ranks (parallel/multihost.py): 0 = every rank of the
+    # process group; another value must equal the group's size
     mesh_data: int = 0
+    # fixed pad sizes (0 = monotone high-water buckets); every rank of a
+    # data-parallel run sets them, so that all batches share one B_pad
     fixed_B_pad: int = 0
     fixed_Bp_pad: int = 0
     fixed_E_pad: int = 0
@@ -153,8 +157,6 @@ def check_ported(cfg: Config) -> None:
         (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype not in COMPUTE_DTYPES,
          "queue 2a"),
         ("vq_backend='scan'", cfg.vq_backend == "scan", "(the step's glue)"),
-        ("multi-GPU (mesh_data, fixed pad sizes)", cfg.mesh_data > 1 or cfg.fixed_B_pad > 0,
-         "queue 1 item 7"),
     ):
         if unported:
             raise not_ported(what, where)

@@ -48,7 +48,7 @@ from vq_gnn_tpu_torch.ops.gat import (
 )
 from vq_gnn_tpu_torch.ops.rev_kernels import rev_fold_mode, rev_recovery_info
 from vq_gnn_tpu_torch.ops.spmm import spmm, spmm_branches
-from vq_gnn_tpu_torch.ops.vq_ops import masked_mean_var
+from vq_gnn_tpu_torch.ops.vq_ops import masked_moments
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 
 ALPHA_DROPOUT_ALPHA = -1.7580993408473766  # SELU alpha' (torch AlphaDropout)
@@ -282,8 +282,7 @@ def batchnorm_infer(x, mean, var, eps=1e-5):
 
 def batchnorm_train(x, mean, var, valid, eps=1e-5, momentum=0.1):
     """Affine-free BN over valid batch rows; returns (y, new_mean, new_var)."""
-    b_mean, b_var = masked_mean_var(x, valid, ddof=0)
-    _, b_var_u = masked_mean_var(x, valid, ddof=1)
+    ((b_mean, b_var, b_var_u),) = masked_moments([x], valid)
     y = (x - b_mean[None, :]) * torch.rsqrt(b_var[None, :] + eps)
     return (
         y,

@@ -32,7 +32,7 @@ import torch
 
 from vq_gnn_tpu_torch.config import not_ported
 from vq_gnn_tpu_torch.ops.vq_kernels import fused_assign_branches, lookup_codewords
-from vq_gnn_tpu_torch.ops.vq_ops import assignment_stats, masked_mean_var, nearest_codeword
+from vq_gnn_tpu_torch.ops.vq_ops import assignment_stats, masked_moments, nearest_codeword
 
 BN_FEAT_EPS = 1e-5  # torch BatchNorm1d default (vq.py:86)
 BN_FEAT_MOMENTUM = 0.1
@@ -122,12 +122,11 @@ def _grad_half(K: int, D: int, v0: float, v1: float, add_flag: bool, device=None
     return t
 
 
-def _bn_train(x, r_mean, r_var, eps, momentum, valid):
+def _bn_apply(x, moments, r_mean, r_var, eps, momentum):
     """BatchNorm1d(affine=False) in train mode over rows of [nb, B, D]:
-    normalize by masked biased batch stats, EMA the running stats toward the
+    normalize by the biased batch stats, EMA the running stats toward the
     unbiased batch var."""
-    b_mean, b_var = masked_mean_var(x, valid, ddof=0)
-    _, b_var_u = masked_mean_var(x, valid, ddof=1)
+    b_mean, b_var, b_var_u = moments
     xn = (x - b_mean[:, None, :]) * torch.rsqrt(b_var[:, None, :] + eps)
     new_mean = (1.0 - momentum) * r_mean + momentum * b_mean
     new_var = (1.0 - momentum) * r_var + momentum * b_var_u
@@ -181,8 +180,9 @@ def feature_update(
     only the assignment: the state (``c_indices`` too) is returned as it
     came, with ``idx [nb, B]`` (the inductive eval, ``eval_assign_step``)."""
     D = p.num_D
-    xn, new_mean, new_var = _bn_train(
-        X_B, state.bn_feat_mean, state.bn_feat_var, BN_FEAT_EPS, BN_FEAT_MOMENTUM, valid
+    xn, new_mean, new_var = _bn_apply(
+        X_B, masked_moments([X_B], valid)[0], state.bn_feat_mean, state.bn_feat_var, BN_FEAT_EPS,
+        BN_FEAT_MOMENTUM,
     )
     idx, counts, sums = _assign_and_stats(xn, state.embedding[:, :, :D], valid, p)
     if not training:
@@ -220,6 +220,8 @@ def vq_update(
     p: VQParams,
     valid: Optional[torch.Tensor] = None,
     branch_keep: Optional[torch.Tensor] = None,  # [nb] bool, the dropbranch mask
+    stats_reduce=None,  # data-parallel: sums a list of tensors over the ranks
+    cidx_merge_fn=None,  # data-parallel: writes every rank's rows of c_indices
 ) -> Tuple[VQState, torch.Tensor]:
     """Joint feature+gradient codebook update (``vq.py:204-279``) — the body
     of the reference's backward hook: BN-normalize [X_B || grad] (seeding the
@@ -230,26 +232,35 @@ def vq_update(
     dropped branch's hook never fires, so every per-branch tensor and its
     ``c_indices`` column keep their values, and its ``bad_init`` does not
     count.  The shared ``bn_inited`` still flips, as in the JAX package (a
-    documented deviation there)."""
+    documented deviation there).
+
+    The two hooks make one transition of all data-parallel ranks' rows
+    (``parallel/multihost.py``): ``stats_reduce`` sums the BN moments' sums
+    and the assignment counts and sums over the ranks before any divide,
+    and ``cidx_merge_fn(c_indices, batch_idx, idx)`` writes the [nb, B]
+    assignments of every rank in place of ``c_indices[batch_idx] = idx.T``
+    (the JAX ``cidx_merge_fn``).  Unset, the update is this batch's alone."""
     D = p.num_D
     gs0 = p.grad_scale[0]
+    mf, mg = masked_moments([X_B, grad], valid, stats_reduce)
 
-    def seed(x, r_mean, r_var):
-        b_mean, b_var_u = masked_mean_var(x, valid, ddof=1)
+    def seed(moments, r_mean, r_var):
         return (
-            torch.where(state.bn_inited, r_mean, b_mean),
-            torch.where(state.bn_inited, r_var, b_var_u),
+            torch.where(state.bn_inited, r_mean, moments[0]),
+            torch.where(state.bn_inited, r_var, moments[2]),
         )
 
-    f_mean, f_var = seed(X_B, state.bn_feat_mean, state.bn_feat_var)
-    g_mean, g_var = seed(grad, state.bn_grad_mean, state.bn_grad_var)
-    xn_f, f_mean, f_var = _bn_train(X_B, f_mean, f_var, BN_FEAT_EPS, BN_FEAT_MOMENTUM, valid)
-    xn_g, g_mean, g_var = _bn_train(grad, g_mean, g_var, p.epsilon, p.momentum, valid)
+    f_mean, f_var = seed(mf, state.bn_feat_mean, state.bn_feat_var)
+    g_mean, g_var = seed(mg, state.bn_grad_mean, state.bn_grad_var)
+    xn_f, f_mean, f_var = _bn_apply(X_B, mf, f_mean, f_var, BN_FEAT_EPS, BN_FEAT_MOMENTUM)
+    xn_g, g_mean, g_var = _bn_apply(grad, mg, g_mean, g_var, p.epsilon, p.momentum)
     gs1 = p.grad_scale[1]
     xn = torch.cat([xn_f, xn_g], dim=2) * _grad_half(
         p.total_dim, D, gs0, gs1, p.add_flag, X_B.device)
 
     idx, counts, sums = _assign_and_stats(xn, state.embedding, valid, p)
+    if stats_reduce is not None:  # the psum before the EMA divide
+        counts, sums = stats_reduce([counts, sums])
 
     new_size = _ema_counts(state.ema_cluster_size, counts, p)
     bad = (new_size == 0).any()
@@ -276,7 +287,7 @@ def vq_update(
         ids = batch_idx.clamp(0, state.c_indices.shape[0] - 1)
         idx_w = torch.where(branch_keep[:, None], idx,
                             state.c_indices.index_select(0, ids).t().to(idx.dtype))
-    _write_rows(state.c_indices, batch_idx, idx_w)
+    (cidx_merge_fn or _write_rows)(state.c_indices, batch_idx, idx_w)
     return (
         dataclasses.replace(
             state,

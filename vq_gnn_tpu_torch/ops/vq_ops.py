@@ -51,17 +51,28 @@ def assignment_stats(xn: torch.Tensor, idx: torch.Tensor, num_M: int, valid=None
     return counts.reshape(nb, num_M), sums.reshape(nb, num_M, K)
 
 
-def masked_mean_var(x: torch.Tensor, valid=None, ddof: int = 0):
-    """Mean/variance over the rows (dim -2) of valid entries, torch
-    semantics: ddof=0 (biased) for BatchNorm normalization, ddof=1 for
-    running-stat updates and seeding (``vq.py:208-220``)."""
+def masked_moments(xs, valid=None, stats_reduce=None):
+    """(mean, biased var, unbiased var) over the rows (dim -2) of the valid
+    entries of each tensor of ``xs`` (one dtype), torch semantics: the biased
+    var normalises BatchNorm, the unbiased one updates the running stats and
+    seeds them (``vq.py:208-220``).  Two passes, each run once for both
+    variances: the valid count and the sums of x*v, then the squared
+    deviations from the mean.  ``stats_reduce`` (a list of tensors -> their
+    sums over the data-parallel ranks) adds each pass's sums over the ranks
+    before any divide, so every rank gets the moments of all ranks' rows;
+    it needs ``valid``."""
     if valid is None:
-        n = float(x.shape[-2])
-        mean = x.mean(-2)
-        var = ((x - mean.unsqueeze(-2)) ** 2).sum(-2) / max(n - ddof, 1.0)
-        return mean, var
-    v = valid.to(x.dtype)[:, None]
-    n = torch.clamp(v.sum(), min=1.0)
-    mean = (x * v).sum(-2) / n
-    var = (((x - mean.unsqueeze(-2)) ** 2) * v).sum(-2) / torch.clamp(n - ddof, min=1.0)
-    return mean, var
+        assert stats_reduce is None, "the data-parallel moments need the valid mask"
+        n = float(xs[0].shape[-2])
+        means = [x.mean(-2) for x in xs]
+        second = [((x - m.unsqueeze(-2)) ** 2).sum(-2) for x, m in zip(xs, means)]
+        return [(m, s / max(n, 1.0), s / max(n - 1, 1.0)) for m, s in zip(means, second)]
+    assert all(x.dtype == xs[0].dtype for x in xs), [x.dtype for x in xs]
+    stats_reduce = stats_reduce or (lambda tensors: tensors)
+    v = valid.to(xs[0].dtype)[:, None]
+    first = stats_reduce([(x * v).sum(-2) for x in xs] + [v.sum()])
+    n = torch.clamp(first[-1], min=1.0)
+    means = [s / n for s in first[:-1]]
+    second = stats_reduce([(((x - m.unsqueeze(-2)) ** 2) * v).sum(-2)
+                           for x, m in zip(xs, means)])
+    return [(m, s / n, s / torch.clamp(n - 1, min=1.0)) for m, s in zip(means, second)]

@@ -167,7 +167,8 @@ def build_padded_batch(
     dict) enables the backward truncation bound of :class:`Edges` under
     either ELL layout; ``with_f_from_t`` adds the single-K cross-layout map
     ``Edges.f_from_t``; ``with_t_all_lists`` the lists of the whole
-    transposed ELL (or families), for the GAT backward.  ``bm_rev`` (rows,
+    transposed ELL (or families), for the GAT backward.  A batch of more than
+    ``E_pad`` edges raises under every layout (0: no bound).  ``bm_rev`` (rows,
     global cols, values) is the B + M reverse list: laid out as rev-ELL
     slots padded to the monotone ``rev_bucket["S"]``, or without a
     ``rev_bucket`` (beside COO) kept raw, padded to ``R_pad``.
@@ -175,8 +176,9 @@ def build_padded_batch(
     among the batch rows) padded to ``L_pad`` (0: the next multiple of 1,024).
     """
     B, Bp, E = len(node_idx), len(fo_ids), len(edge_row)
-    if B > B_pad or Bp > Bp_pad:
-        raise ValueError(f"batch exceeds pad sizes: B={B}/{B_pad} Bp={Bp}/{Bp_pad}")
+    if B > B_pad or Bp > Bp_pad or (E_pad and E > E_pad):
+        raise ValueError(
+            f"batch exceeds pad sizes: B={B}/{B_pad} Bp={Bp}/{Bp_pad} E={E}/{E_pad}")
     dim_pad = B_pad + Bp_pad
 
     def pad_ids(ids, size):
@@ -200,8 +202,6 @@ def build_padded_batch(
         edges = _single_k_edges(rs, cs, vs, dim_pad, ell_K, S_pad, St_pad, B_pad, t_b_bucket,
                                 with_f_from_t, with_t_all_lists)
     else:
-        if E > E_pad:
-            raise ValueError(f"batch exceeds pad sizes: E={E}/{E_pad}")
         row = np.full(E_pad, dim_pad, np.int32)
         col = np.full(E_pad, dim_pad, np.int32)
         val = np.zeros(E_pad, np.float32)

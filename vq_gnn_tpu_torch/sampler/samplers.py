@@ -19,7 +19,7 @@ the native C++ kernels when they build.
 from __future__ import annotations
 
 import sys
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -236,9 +236,14 @@ class BatchLoader:
         seed: int = 0,
         device: Union[str, torch.device, None] = None,
         with_link_edges: bool = False,
+        node_range: Optional[Tuple[int, int]] = None,
     ):
         check_ported(cfg)
         self.with_link_edges = with_link_edges
+        # data parallelism: this rank draws its batch seeds from its own
+        # nodes [lo, hi) (parallel/multihost.py); walks and neighbours may
+        # leave the range, and those nodes enter as codebook rows
+        self.node_range = node_range
         self.device = resolve_device(device)
         self.graph = graph
         self.cfg = cfg
@@ -274,6 +279,11 @@ class BatchLoader:
 
         if st == "cluster" and cluster_indices is None:
             raise ValueError("cluster sampler needs cluster_indices")
+        if st == "cluster" and node_range is not None:
+            raise ValueError(
+                "node_range with the cluster sampler: partition hosts by "
+                "clusters instead (give each process its own cluster_indices)"
+            )
         if st == "cluster" and train_flag:
             # the reference's partition-quality print (dataloader.py v2:29-35)
             labels = labels_from_cluster_indices(self.N, cluster_indices)
@@ -315,7 +325,7 @@ class BatchLoader:
                 [np.concatenate([self.cluster_indices[c] for c in g])] for g in groups
             ]
 
-        pool = np.arange(self.N)
+        pool = np.arange(*self.node_range) if self.node_range is not None else np.arange(self.N)
         ids = rng.permutation(pool) if self.shuffle else pool
         chunks = [
             ids[i : i + self.batch_size] for i in range(0, len(pool), self.batch_size)
@@ -352,6 +362,8 @@ class BatchLoader:
         return out
 
     def _pad_sizes(self, B, Bp, E):
+        if self.cfg.fixed_B_pad:  # data-parallel: one set of shapes on every rank
+            return self.cfg.fixed_B_pad, self.cfg.fixed_Bp_pad, self.cfg.fixed_E_pad
         mn, me = self.cfg.pad_multiple_nodes, self.cfg.pad_multiple_edges
         self._B_bucket = max(self._B_bucket, round_up(B, mn))
         self._Bp_bucket = max(self._Bp_bucket, round_up(max(Bp, 1), mn))
@@ -360,6 +372,11 @@ class BatchLoader:
 
     def _slot_pad(self, er, K, dim_pad, attr):
         ms = max(self.cfg.pad_multiple_edges // K, 64)
+        if self.cfg.fixed_B_pad:
+            # fixed pads: a bound every rank computes alike (E/K full slots
+            # and at most one partial or empty slot a row)
+            cfg = self.cfg
+            return round_up(cfg.fixed_E_pad // K + cfg.fixed_B_pad + cfg.fixed_Bp_pad + 1, ms)
         # dense-rows ELL: every one of the dim_pad local rows owns >= 1 slot
         deg = np.bincount(er, minlength=dim_pad)
         nnz_rows = int((deg > 0).sum())
@@ -374,6 +391,10 @@ class BatchLoader:
         (``vq_gnn_tpu/sampler/samplers.py:421-440``)."""
         ms = max(self.cfg.pad_multiple_edges // K, 64)
         mst = max(self.cfg.pad_multiple_edges // Kt, 64)
+        if self.cfg.fixed_B_pad:  # fixed pads: bounds every rank computes alike
+            cfg = self.cfg
+            return (round_up(cfg.fixed_E_pad // K + 1, ms),
+                    round_up(cfg.fixed_B_pad + cfg.fixed_Bp_pad + cfg.fixed_E_pad // Kt + 1, mst))
         deg = np.bincount(er, minlength=dim_pad)
         Sh = int((deg // K).sum())
         St2 = int(np.maximum((deg % K + Kt - 1) // Kt, 1).sum())
@@ -419,7 +440,7 @@ class BatchLoader:
             layout = dict(ell_K=K, S_pad=self._slot_pad(er, K, dim_pad, "_S_bucket"),
                           St_pad=self._slot_pad(ec, K, dim_pad, "_St_bucket"))
         else:
-            layout = dict(E_pad=E_pad)
+            layout = {}
         L_pad = 0
         if self.with_link_edges:
             n_link = int(((er < len(node_idx)) & (ec < len(node_idx))).sum())
@@ -438,8 +459,10 @@ class BatchLoader:
             train_mask=None if g.train_mask is None else g.train_mask[node_idx],
             # backward truncation (either ELL layout): x rows >= B_pad are
             # codebook lookups whose cotangent flows only into the
-            # non-differentiated VQ state
-            t_b_bucket=self._tb_bucket if ell and self.train_flag else None,
+            # non-differentiated VQ state; fixed pads keep the full VJP, as
+            # the JAX package does (its bound is a bucket, not a fixed size)
+            t_b_bucket=(self._tb_bucket if ell and self.train_flag and not cfg.fixed_B_pad
+                        else None),
             # the B + M GAT conv's backward mirrors per-cell values through it
             with_f_from_t=cfg.formulation == "bm" and cfg.conv_type == "GAT",
             bm_rev=rev,
@@ -454,6 +477,7 @@ class BatchLoader:
             with_t_all_lists=cfg.conv_type == "GAT",
             with_link_edges=self.with_link_edges,
             L_pad=L_pad,
+            E_pad=E_pad,
             **layout,
         )
 

@@ -67,10 +67,17 @@ def draw_branch_masks(ms: ModelStatic, generator=None, device=None) -> List[torc
     return masks
 
 
-def masked_ce(logits, y, mask):
+def masked_ce_parts(logits, y, mask):
+    """(the summed CE over the masked rows, their count): the data-parallel
+    step divides the sum by the count of every rank's rows."""
     ll = F.log_softmax(logits, dim=-1).gather(1, y[:, None].long())[:, 0]
     m = mask.to(logits.dtype)
-    return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return -(ll * m).sum(), m.sum()
+
+
+def masked_ce(logits, y, mask):
+    ce_sum, count = masked_ce_parts(logits, y, mask)
+    return ce_sum / torch.clamp(count, min=1.0)
 
 
 def masked_bce(logits, y, mask):
@@ -85,6 +92,64 @@ def masked_accuracy(logits, y, mask):
     hit = (logits.argmax(-1) == y).to(torch.float32)
     m = mask.to(torch.float32)
     return (hit * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def step_forward(state: TrainState, ms: ModelStatic, X_dev: torch.Tensor, batch: PaddedBatch,
+                 warm_up_rate, generator=None, branch_masks=None, dropout_keeps=None):
+    """A training step's forward: zero probes at each conv output (and the
+    transformer's hook points), the batch rows gathered from the feature
+    table, ``model_forward`` in training mode.  Returns (out, info_b,
+    layer_inputs, new_bn, probes, probes_tr)."""
+    dev = X_dev.device
+    probes = zero_probes(ms, batch.B_pad, dev)
+    probes_tr = zero_probes_tr(ms, batch.B_pad, dev) if ms.transformer_flag else []
+    x_B = X_dev.index_select(0, batch.batch_idx)
+    out, info_b, layer_inputs, new_bn = model_forward(
+        state.model,
+        state.vq_states,
+        state.bn_state,
+        ms,
+        x_B,
+        batch,
+        probes=probes,
+        warm_up_rate=warm_up_rate,
+        training=True,
+        generator=generator,
+        vq_states_tr=state.vq_states_tr,
+        probes_tr=probes_tr,
+        branch_masks=branch_masks,
+        dropout_keeps=dropout_keeps,
+    )
+    return out, info_b, layer_inputs, new_bn, probes, probes_tr
+
+
+def live_vq_update(state: TrainState, ms: ModelStatic, layer_inputs, g_probes, g_probes_tr,
+                   batch: PaddedBatch, branch_masks=None, stats_reduce=None,
+                   cidx_merge_fn=None) -> None:
+    """The reference hook body (models.py v2:39-56) per layer, in place on
+    ``state``: X_B = the layer input's branch slices (detached), grad = the
+    probe gradient's, i.e. dL/d(output slice); with ``transformer_flag`` also
+    the transformer's codebooks.  ``stats_reduce`` and ``cidx_merge_fn`` are
+    ``vq_update``'s data-parallel hooks."""
+    D = ms.num_D
+    for l in range(ms.num_layers):
+        nb = ms.num_branches[l]
+        Xb = _branch_view(layer_inputs[l].detach(), nb, D)
+        gp = g_probes[l]
+        # the B + M GAT probe is [nb, B_pad, D + 1]: the ones-column
+        # gradient is quantized too (VQParams.add_flag)
+        Gb = gp if gp.dim() == 3 else _branch_view(gp[:, : nb * D], nb, D)
+        keep = None if branch_masks is None else branch_masks[l]
+        state.vq_states[l], _ = vq_update(
+            state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B,
+            branch_keep=keep, stats_reduce=stats_reduce, cidx_merge_fn=cidx_merge_fn,
+        )
+        if ms.transformer_flag:  # its hook point is [nb, B_pad, D + 1]
+            state.vq_states_tr[l], _ = vq_update(
+                state.vq_states_tr[l], Xb, g_probes_tr[l], batch.batch_idx, ms.vq_tr,
+                valid=batch.valid_B, branch_keep=keep, stats_reduce=stats_reduce,
+                cidx_merge_fn=cidx_merge_fn,
+            )
 
 
 @dataclasses.dataclass
@@ -116,29 +181,11 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
         Metrics are device tensors (no host sync).  ``branch_masks`` (a [nb]
         bool per layer) and ``dropout_keeps`` (a keep mask per hidden layer)
         override the draws from ``generator``."""
-        dev = X_dev.device
-        probes = zero_probes(ms, batch.B_pad, dev)
-        probes_tr = zero_probes_tr(ms, batch.B_pad, dev) if ms.transformer_flag else []
         if branch_masks is None and ms.dropbranch > 0:
-            branch_masks = draw_branch_masks(ms, generator, dev)
+            branch_masks = draw_branch_masks(ms, generator, X_dev.device)
         params = list(state.model.parameters())
-        x_B = X_dev.index_select(0, batch.batch_idx)
-        out, info_b, layer_inputs, new_bn = model_forward(
-            state.model,
-            state.vq_states,
-            state.bn_state,
-            ms,
-            x_B,
-            batch,
-            probes=probes,
-            warm_up_rate=warm_up_rate,
-            training=True,
-            generator=generator,
-            vq_states_tr=state.vq_states_tr,
-            probes_tr=probes_tr,
-            branch_masks=branch_masks,
-            dropout_keeps=dropout_keeps,
-        )
+        out, info_b, layer_inputs, new_bn, probes, probes_tr = step_forward(
+            state, ms, X_dev, batch, warm_up_rate, generator, branch_masks, dropout_keeps)
         mask = batch.train_mask & batch.valid_B
         if multilabel:
             loss_cls = masked_bce(out, batch.y, mask)
@@ -154,27 +201,8 @@ def make_step_fns(ms: ModelStatic, cfg: Config, multilabel: bool = False) -> Ste
 
         rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
 
-        if live:
-            # the reference hook body (models.py v2:39-56): X_B = layer input
-            # slice (detached), grad = dL/d(output slice); runs even on
-            # skipped-optimizer windows (backward always fires hooks)
-            for l in range(ms.num_layers):
-                nb = ms.num_branches[l]
-                Xb = _branch_view(layer_inputs[l].detach(), nb, D)
-                gp = g_probes[l]
-                # the B + M GAT probe is [nb, B_pad, D + 1]: the ones-column
-                # gradient is quantized too (VQParams.add_flag)
-                Gb = gp if gp.dim() == 3 else _branch_view(gp[:, : nb * D], nb, D)
-                keep = None if branch_masks is None else branch_masks[l]
-                state.vq_states[l], _ = vq_update(
-                    state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B,
-                    branch_keep=keep,
-                )
-                if ms.transformer_flag:  # its hook point is [nb, B_pad, D + 1]
-                    state.vq_states_tr[l], _ = vq_update(
-                        state.vq_states_tr[l], Xb, g_probes_tr[l], batch.batch_idx, ms.vq_tr,
-                        valid=batch.valid_B, branch_keep=keep,
-                    )
+        if live:  # runs even on skipped-optimizer windows (backward always fires hooks)
+            live_vq_update(state, ms, layer_inputs, g_probes, g_probes_tr, batch, branch_masks)
 
         bad = [s.bad_init for s in state.vq_states + (state.vq_states_tr or [])]
         grad_norm = torch.sqrt(sum((g * g).sum() for g in g_params))
