@@ -210,6 +210,32 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       collective as large as the feature table, a ``c_indices`` table or
       the batch's ELL columns.
 
+16. the upkeep modules, each run with the launch counters zeroed just before
+   it and read just after:
+   a. node checkpoints at the flagship widths on phase 2's GCN graph: a
+      trainer fits 2 epochs with ``ckpt_dir`` (a temporary directory) and
+      ``ckpt_every=1``; the archive restores into a fresh trainer with every
+      leaf bit-identical to the first trainer's state, and its evaluation
+      equals the first trainer's; that trainer's ``fit(resume=True)`` goes
+      on at epoch 3 through rows 1, 6 and 7; the archive restores into a
+      CPU trainer bit-identical too; its size and the seconds to save and
+      to restore are logged;
+   b. link checkpoints on a 3,000-node dot-product graph (the collab
+      configuration cut as ``tools/link_experiment_torch.py`` cuts it): 2
+      epochs with a checkpoint, then a fresh trainer resumes to 3; the
+      state, the predictor and its ``nu`` restore bit-identical and the
+      final Hits@50 are finite;
+   c. ``vq_backend='scan'``: one step each under 'scan', 'xla' and 'pallas'
+      (exact) from one state on phase 3's first GCN batch, the assignments
+      agreeing on >= 0.9999 and the peak memory of each logged, 'scan''s
+      below 'xla''s; then the init sweep, one epoch and five timed steps
+      under 'scan' beside phase 3's 'pallas_fast', rows 1 and 7 launched
+      and row 6 not;
+   d. ``kmeans_init``: where scikit-learn cannot be imported, ``fit``
+      raises the ImportError that names it; where it can, ``seed_kmeans``
+      on the flagship trainer, each layer's feature half equal to its
+      centroids (``ema_w / ema_cluster_size``), rows 1 and 7 launched.
+
 Logs the seconds each phase took.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line (with rows for kernel 2 at nb = 64, M = 4,096
 and at K = 4, M = 4,096, and kernel 3 at M = 4,096, from phase 12, and
@@ -282,6 +308,7 @@ LAYOUT_KERNELS = {
 }
 MIXED_ROW = "ell_aggregate (mixed K = 8 + 2, 14a)"  # kernel 1's sub-row on the mixed families
 DDP_STEPS = 20  # timed steps of each variant in phase 15
+SCAN_KERNELS = ("ell_aggregate", "vq_lookup")  # 16c: 'scan' launches these, and not vq_assign
 DDP_KERNELS = {"ell_aggregate": "ell_aggregate_kernel", "vq_assign": "assign_fast_kernel",
                "vq_lookup": "lookup_kernel"}  # rows 1, 6, 7: launch counter -> device kernel
 
@@ -1914,6 +1941,180 @@ def ddp_phase(torch, ops, runs, graphs, gpu, err):
     return launches
 
 
+def state_leaves(state):
+    """[(archive name, numpy leaf)] of a port train state or link tree."""
+    from vq_gnn_tpu_torch.train.checkpoint import _numpy, named_leaves
+
+    return [(n, _numpy(leaf)) for n, leaf in named_leaves(state)]
+
+
+def assert_same_leaves(tag, a, b):
+    """Two [(name, leaf)] lists: the same names, dtypes, shapes and bits."""
+    assert [n for n, _ in a] == [n for n, _ in b], f"[{tag}] the archive names differ"
+    for (name, x), (_, y) in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape and (x == y).all(), (
+            f"[{tag}] leaf {name} differs")
+
+
+def upkeep_phase(torch, ops, NodeTrainer, Config, graphs, gpu, runs):
+    """Phase 16: checkpoints, 'scan' and k-means (the module docstring says
+    what it runs).  Returns its launch counts."""
+    import tempfile
+
+    import link_experiment_torch as tool
+    from vq_gnn_tpu_torch.convert import state_like, state_to_numpy
+    from vq_gnn_tpu_torch.graph.datasets import prepare
+    from vq_gnn_tpu_torch.train.checkpoint import load_step, restore_checkpoint, save_checkpoint
+    from vq_gnn_tpu_torch.train.link import LinkTrainer
+    from vq_gnn_tpu_torch.train.step import make_step_fns
+
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    g, c, ci = graphs["GCN"]
+    with tempfile.TemporaryDirectory() as d:
+        # ---- a. node checkpoints at the flagship widths ----
+        cfg = flagship_cfg(Config, epochs=2)
+        tr = NodeTrainer(g, cfg, c, ci, device="cuda")
+        new_path_start(torch, ops)
+        t0 = time.time()
+        tr.fit(ckpt_dir=d, ckpt_every=1, verbose=False)
+        torch.cuda.synchronize()
+        add(ops.launch_counts())
+        path = os.path.join(d, "run0.npz")
+        log(f"[16a fit] 2 epochs with ckpt_dir in {time.time() - t0:.1f}s; results "
+            f"{tr.logger.results[0]}; archive step {load_step(path)}")
+        assert load_step(path) == 2
+        want = state_leaves(tr.state)
+        t0 = time.time()
+        save_checkpoint(os.path.join(d, "again.npz"), tr.state, step=2)
+        t_save = time.time() - t0
+        tr2 = NodeTrainer(g, dataclasses.replace(cfg, epochs=3), c, ci, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tr2.state = restore_checkpoint(path, tr2.state)
+        torch.cuda.synchronize()
+        t_restore = time.time() - t0
+        assert_same_leaves("16a restore", state_leaves(tr2.state), want)
+        acc, acc2 = tr.evaluate(), tr2.evaluate()
+        mb = os.path.getsize(path) / 1e6
+        cidx = sum(x.nbytes for n, x in want if n.endswith(".c_indices")) / 1e6
+        log(f"[16a archive] {mb:.2f} MB ({cidx:.2f} MB of it c_indices, int16), {len(want)} "
+            f"leaves; save {t_save:.2f}s, restore onto the card {t_restore:.2f}s; evaluation "
+            f"of the restored trainer {acc2}, of the original {acc} | {gpu}")
+        assert acc2 == acc, (acc2, acc)
+        new_path_start(torch, ops)
+        t0 = time.time()
+        tr2.fit(ckpt_dir=d, resume=True)
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()
+        add(launched)
+        log(f"[16a resume] epoch 3 in {time.time() - t0:.1f}s: results {tr2.logger.results[0]}; "
+            f"launches {launched}")
+        assert len(tr2.logger.results[0]) == 1 and tr2.state.step > tr.state.step
+        for name in NEW_PATH_KERNELS:
+            assert launched[name] > 0, f"kernel {name} was not launched in the resumed epoch"
+        tr_cpu = NodeTrainer(g, cfg, c, ci, device="cpu")
+        t0 = time.time()
+        cpu_state = restore_checkpoint(path, tr_cpu.state)
+        assert next(cpu_state.model.parameters()).device.type == "cpu"
+        assert cpu_state.vq_states[0].c_indices.device.type == "cpu"
+        assert_same_leaves("16a cpu", state_leaves(cpu_state), want)
+        log(f"[16a cpu] the archive restores into a CPU trainer bit-identical in "
+            f"{time.time() - t0:.2f}s")
+        del tr, tr2, tr_cpu, cpu_state
+
+        # ---- b. link checkpoints on a 3,000-node graph ----
+        lg, split = tool.build_graph_and_split(nodes=3000)
+        lcfg = tool.scaled_config(tool.vq_config("GCN", 2), 3000)
+        lg, _, _ = prepare(lg, lcfg, 0, symmetrize_adj=False)
+        ltr = LinkTrainer(lg, lcfg, split, device="cuda")
+        new_path_start(torch, ops)
+        ltr.fit(ckpt_dir=d, ckpt_every=1, verbose=False)
+        add(ops.launch_counts())
+        lpath = os.path.join(d, "link_run0.npz")
+        lwant = state_leaves(ltr._ckpt_tree())
+        ltr2 = LinkTrainer(lg, dataclasses.replace(lcfg, epochs=3), split, device="cuda")
+        restored = restore_checkpoint(lpath, ltr2._ckpt_tree())
+        assert_same_leaves("16b restore", state_leaves(restored), lwant)
+        new_path_start(torch, ops)
+        ltr2.fit(ckpt_dir=d, resume=True)
+        torch.cuda.synchronize()
+        add(ops.launch_counts())
+        hits = ltr2.logger.results[0]
+        log(f"[16b link] {len(lwant)} leaves (predictor and nu among them) bit-identical; "
+            f"resumed at epoch {load_step(lpath) + 1}: Hits@50 {hits}")
+        assert len(hits) == 1 and all(math.isfinite(h) for h in hits[0])
+
+    # ---- c. 'scan' against 'xla' and 'pallas' from one state ----
+    tr3, b0 = runs["3 GCN"]["tr"], runs["3 GCN"]["batch0"]
+    B, idx = b0.num_B, b0.batch_idx[: b0.num_B]
+    assigned, peaks = {}, {}
+    for backend in ("scan", "xla", "pallas"):
+        ms = dataclasses.replace(tr3.ms, vq=dataclasses.replace(tr3.ms.vq, backend=backend))
+        fns = make_step_fns(ms, tr3.cfg)
+        st = state_like(tr3.state, state_to_numpy(tr3.state))
+        base = new_path_start(torch, ops)
+        st, m = fns.train_step(st, tr3.X_dev, b0, 1.0, tr3.cfg.lr, 1.0, tr3.generator)
+        torch.cuda.synchronize()
+        peaks[backend] = torch.cuda.max_memory_allocated() - base
+        add(ops.launch_counts())
+        assert math.isfinite(float(m["loss"])) and not bool(m["bad_init"])
+        assigned[backend] = torch.stack([s.c_indices[idx] for s in st.vq_states])
+        del st
+    n = assigned["scan"].numel()
+    agree = {b: float((assigned[b] == assigned["scan"]).sum()) / n for b in ("xla", "pallas")}
+    log(f"[16c one step] B={B}: 'scan' agrees with 'xla' on {agree['xla']:.6f} and with "
+        f"'pallas' (exact) on {agree['pallas']:.6f} of {n} assignments; peak above the state: "
+        + ", ".join(f"{b} {p / 1e9:.3f} GB" for b, p in peaks.items()) + f" | {gpu}")
+    assert min(agree.values()) >= 0.9999, agree
+    assert peaks["scan"] < peaks["xla"], peaks
+    r = drive_path(torch, ops, NodeTrainer, "16c scan", graphs["GCN"],
+                   flagship_cfg(Config, vq_backend="scan"), gpu, NEW_TIMED_STEPS, profile=False,
+                   evaluate=False, kernels=SCAN_KERNELS)
+    add(r["launches"])
+    r3 = runs["3 GCN"]
+    log(f"[16c summary] GCN B + B' under 'scan' {r['ms']:.2f} ms/step, peak {r['peak'] / 1e9:.3f} "
+        f"GB; phase 3 ('pallas_fast') {r3['ms']:.2f} ms/step, peak {r3['peak'] / 1e9:.3f} GB "
+        f"| {gpu}")
+    assert r["launches"]["vq_assign"] == 0, "row 6 ran under vq_backend='scan'"
+    del r
+
+    # ---- d. kmeans_init ----
+    cfg = flagship_cfg(Config, kmeans_init=True, epochs=1)
+    trk = NodeTrainer(g, cfg, c, ci, device="cuda")
+    try:
+        import sklearn.cluster  # noqa: F401
+    except ImportError:
+        try:
+            trk.fit(verbose=False)
+        except ImportError as e:
+            log(f"[16d kmeans_init] scikit-learn cannot be imported here; fit raised: {e}")
+            assert "kmeans_init" in str(e) and "scikit-learn" in str(e)
+            return counts
+        raise AssertionError("kmeans_init trained without scikit-learn")
+    new_path_start(torch, ops)
+    t0 = time.time()
+    trk.seed_kmeans()
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    add(launched)
+    D = cfg.num_D
+    for l, s in enumerate(trk.state.vq_states):
+        size = s.ema_cluster_size
+        cent = s.ema_w[:, :, :D] / size.clamp(min=1.0)[:, :, None]
+        used = (size > 0)[:, :, None].expand_as(cent)
+        assert torch.allclose(s.embedding[:, :, :D][used], cent[used], rtol=1e-5, atol=1e-6), l
+    log(f"[16d kmeans_init] seed_kmeans in {time.time() - t0:.1f}s; each layer's feature half "
+        f"equals its centroids; launches {launched}")
+    for name in SCAN_KERNELS:
+        assert launched[name] > 0, f"kernel {name} was not launched by seed_kmeans"
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2737,6 +2938,12 @@ def main() -> int:
     t0 = time.time()
     counts.append(ddp_phase(torch, ops, runs, graphs, gpu, err))
     log(f"[15 ddp] the phase took {time.time() - t0:.1f}s")
+
+    # ---- 16. the upkeep modules: checkpoints, 'scan', kmeans_init ----
+    phase("16 upkeep")
+    t0 = time.time()
+    counts.append(upkeep_phase(torch, ops, NodeTrainer, Config, graphs, gpu, runs))
+    log(f"[16 upkeep] the phase took {time.time() - t0:.1f}s")
     for c in counts:
         for k, v in c.items():
             launches[k] = launches.get(k, 0) + v

@@ -27,9 +27,11 @@ from vq_gnn_tpu_torch.utils import logger as tlogger
 import main_link_torch  # noqa: E402  (the repo root is on sys.path, see conftest)
 import main_node  # noqa: E402
 import main_node_torch  # noqa: E402
+from tests._torch_threads import one_thread  # noqa: F401
 from tests.test_torch_port_native import steady_native
 
 steady_native()  # one native host library on both sides (that file says why)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 0.005
@@ -198,19 +200,15 @@ def test_cli_refuses_to_run_without_a_gpu():
         main_node_torch.main(SMALL_ARGS[:-2])
 
 
-# each option the port refuses, with the ROADMAP.md item that ports it; the
-# inductive datasets' own refusals: the cluster sampler (refused by the JAX
-# package too) and ppi without its archive (FileNotFoundError naming the
+# the inductive datasets' own refusals: the cluster sampler (refused by the
+# JAX package too) and ppi without its archive (FileNotFoundError naming the
 # converter, as main_node.py)
 @pytest.mark.parametrize("extra,error,match", [
-    (["--ckpt-dir", "CKPT"], NotImplementedError, "ROADMAP.md queue 1 item 8"),
-    (["--resume"], NotImplementedError, "ROADMAP.md queue 1 item 8"),
-    (["--kmeans-init"], NotImplementedError, "ROADMAP.md queue 8"),
     (["--dataset", "synthetic_inductive:300", "--sampler-type", "cluster"],
      NotImplementedError, "cluster sampler on inductive datasets"),
     (["--dataset", "ppi", "--data-root", "CKPT"], FileNotFoundError,
      "ppi.npz not found; run tools/convert_dataset.py --dataset ppi"),
-], ids=["ckpt-dir", "resume", "kmeans-init", "synthetic-inductive", "ppi"])
+], ids=["synthetic-inductive", "ppi"])
 def test_cli_unported_options_raise(extra, error, match, tmp_path, capsys):
     argv = [str(tmp_path / a) if a == "CKPT" else a for a in SMALL_ARGS + extra]
     with pytest.raises(error, match=match):
@@ -309,9 +307,9 @@ def test_entry_points_import_no_jax():
     """bench_torch.py, main_node_torch.py, main_link_torch.py, chip_smoke.py,
     tools/parity_experiment_torch.py, tools/link_experiment_torch.py,
     tools/inductive_experiment_torch.py and every module of the port (the
-    parity harness, the diagnostics, the metrics, the link trainer and the
-    data-parallel step among them) import in a process where jax and
-    vq_gnn_tpu cannot be imported."""
+    parity harness, the diagnostics, the metrics, the link trainer, the
+    data-parallel step, the checkpoints and the lr schedules among them)
+    import in a process where jax and vq_gnn_tpu cannot be imported."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "BLOCKED = ('jax', 'jaxlib', 'flax', 'vq_gnn_tpu')\n"
@@ -337,7 +335,8 @@ def test_entry_points_import_no_jax():
         "want = {'vq_gnn_tpu_torch.utils.logger', 'vq_gnn_tpu_torch.utils.diagnostics',\n"
         "        'vq_gnn_tpu_torch.train.parity', 'vq_gnn_tpu_torch.utils.metrics',\n"
         "        'vq_gnn_tpu_torch.train.link', 'vq_gnn_tpu_torch.parallel.multihost',\n"
-        "        'vq_gnn_tpu_torch.parallel.mesh'}\n"
+        "        'vq_gnn_tpu_torch.parallel.mesh', 'vq_gnn_tpu_torch.train.checkpoint',\n"
+        "        'vq_gnn_tpu_torch.utils.scheduler'}\n"
         "assert want <= set(mods), mods\n"
         "print('clean', len(mods))\n"
     )

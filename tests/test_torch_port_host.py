@@ -145,10 +145,7 @@ def test_entry_points_default_to_cuda():
     assert tcfg.resolve_vq_backend("auto", torch.device("cuda")) == "pallas_fast"
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [dict(kmeans_init=True), dict(compute_dtype="float16"), dict(vq_backend="scan")],
-)
+@pytest.mark.parametrize("kw", [dict(compute_dtype="float16")])
 def test_unported_options_raise(kw):
     from vq_gnn_tpu_torch.train.loop import NodeTrainer
 
@@ -159,6 +156,24 @@ def test_unported_options_raise(kw):
     g, c, ci = tdata.prepare(g, tcfg.Config(sampler_type="node", **CFG), c)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NodeTrainer(g, cfg, c, ci, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(kmeans_init=True), dict(vq_backend="scan")],
+                         ids=["kmeans_init", "scan"])
+def test_upkeep_options_train(kw):
+    """The options the upkeep slice ported, which the port refused before:
+    the data and the trainer build, and ``fit`` trains an epoch to finite
+    results (the k-means seeding, or the row-chunked assignment, on the
+    way)."""
+    from vq_gnn_tpu_torch.train.loop import NodeTrainer
+
+    cfg = tcfg.Config(sampler_type="node", epochs=1, **{**CFG, **kw})
+    g, c = tdata.synthetic_sbm(num_nodes=200, num_classes=3, num_features=8, seed=0)
+    g, c, ci = tdata.prepare(g, cfg, c)
+    tr = NodeTrainer(g, cfg, c, ci, device="cpu")
+    assert tr.ms.vq.backend == kw.get("vq_backend", "xla")
+    tr.fit(verbose=False)
+    assert all(np.isfinite(v) for v in tr.logger.results[0][0])
 
 
 @pytest.mark.parametrize("kw", [

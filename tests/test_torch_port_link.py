@@ -410,13 +410,32 @@ def test_citation2_mrr_learns_on_the_cpu():
     assert all(0.0 < m <= 1.0 for m in res) and res[2] > 0.3, res
 
 
-def test_link_fit_refuses_checkpoints(tmp_path):
+def test_link_fit_checkpoints(tmp_path):
+    """``fit(ckpt_dir)`` writes ``link_run0.npz`` after the epoch (before its
+    evaluation), ``resume`` without an archive starts at epoch 1, and with
+    one goes on after it with the predictor restored bit for bit."""
+    from vq_gnn_tpu_torch.convert import predictor_to_numpy
+
     _, tc, _, tg = _graphs(_cfg_kw(epochs=1), nodes=200)
-    tr = tlink.LinkTrainer(tg, tc, _split(tg, np.random.RandomState(0), 20, 20), device="cpu")
-    for kw in (dict(ckpt_dir=str(tmp_path / "ck")), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-            tr.fit(verbose=False, **kw)
-    assert not os.path.exists(tmp_path / "ck")
+    split = _split(tg, np.random.RandomState(0), 20, 20)
+    tr = tlink.LinkTrainer(tg, tc, split, device="cpu")
+    tr.fit(verbose=False, resume=True)
+    assert len(tr.logger.results[0]) == 1
+    tr = tlink.LinkTrainer(tg, tc, split, device="cpu")
+    tr.fit(verbose=False, ckpt_dir=str(tmp_path / "ck"), ckpt_every=1)
+    assert os.listdir(tmp_path / "ck") == ["link_run0.npz"]
+    tc2 = dataclasses.replace(tc, epochs=2)
+    tr2 = tlink.LinkTrainer(tg, tc2, split, device="cpu")
+    tr2.fit(verbose=False, ckpt_dir=str(tmp_path / "ck"), resume=True, ckpt_every=5)
+    assert len(tr2.logger.results[0]) == 1
+    tr3 = tlink.LinkTrainer(tg, tc2, split, device="cpu")
+    tr3.fit(verbose=False, ckpt_dir=str(tmp_path / "ck"), resume=True)
+    for a, b in zip(predictor_to_numpy(tr2.predictor, tr2.pred_opt),
+                    predictor_to_numpy(tr3.predictor, tr3.pred_opt)):
+        for la, lb in zip(a, b):
+            for k in ("w", "b"):
+                np.testing.assert_array_equal(la[k], lb[k])
+    assert tr2.logger.results == tr3.logger.results
 
 
 # ---------------- the CLI ----------------
@@ -480,8 +499,32 @@ def test_main_link_cli_on_the_cpu(tmp_path, capsys):
         np.testing.assert_array_equal(getattr(tr.split, f.name), getattr(jsplit, f.name))
 
 
-def test_main_link_cli_refuses_checkpoints(tmp_path, capsys):
+def test_main_link_cli_checkpoints(tmp_path, monkeypatch, capsys):
+    """``--ckpt-dir D --ckpt-every 1`` writes ``D/link_run0.npz``; a run with
+    ``--resume`` and ``--epochs 2`` prints where it resumed and trains epoch
+    2 alone, and a second such run ends with the same statistics;
+    main_link.py resumes from the same archive (its negatives come from
+    another generator, so its statistics are its own)."""
     argv = [str(tmp_path) if a == "NONE" else a for a in LINK_CLI]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        main_link_torch.main(argv + ["--ckpt-dir", str(tmp_path / "ck"), "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "ck")
+    ckpt = ["--ckpt-dir", str(tmp_path / "ck")]
+    main_link_torch.main(argv + ckpt + ["--ckpt-every", "1", "--device", "cpu"])
+    path = tmp_path / "ck" / "link_run0.npz"
+    assert os.path.exists(path)
+    argv2 = argv[:argv.index("--epochs")] + ["--epochs", "2"] + argv[argv.index("--epochs") + 2:]
+
+    def stats(o):
+        return [ln for ln in o.splitlines() if ln.strip().startswith(("Highest", "Final"))]
+
+    outs = []
+    for _ in range(2):
+        capsys.readouterr()
+        tr = main_link_torch.main(argv2 + ckpt + ["--resume", "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert f"resumed from {path} at epoch 2" in out and "Run: 1, Epoch: 2," in out
+        assert len(tr.logger.results[0]) == 1
+        outs.append(stats(out))
+    assert outs[0] == outs[1] and outs[0]
+    monkeypatch.setattr(sys, "argv", ["main_link.py"] + argv2 + ckpt + ["--resume"])
+    main_link.main()
+    j_out = capsys.readouterr().out
+    assert f"resumed from {path} at epoch 2" in j_out and "Run: 1, Epoch: 2," in j_out

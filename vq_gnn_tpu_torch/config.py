@@ -13,8 +13,9 @@ additions are the port's own:
 
 ``vq_backend`` keeps the JAX package's values: 'pallas'/'pallas_fast' select
 the hand-written CUDA kernels (exact / bf16-operand mode), 'xla'/'xla_fast'
-the plain PyTorch path, and 'auto' resolves to 'pallas_fast' on CUDA and
-'xla' on the CPU (mirroring ``vq_gnn_tpu/nn/model.py:91-98``).
+the plain PyTorch path, 'scan' the plain assignment over row chunks (no
+[nb, B, M] tile), and 'auto' resolves to 'pallas_fast' on CUDA and 'xla' on
+the CPU (mirroring ``vq_gnn_tpu/nn/model.py:91-98``).
 """
 
 from __future__ import annotations
@@ -152,14 +153,8 @@ def no_reference_path(what: str) -> NotImplementedError:
 def check_ported(cfg: Config) -> None:
     """Raise for any setting whose port has not landed, so that no option is
     silently ignored (ROADMAP.md lists what is still to come)."""
-    for what, unported, where in (
-        ("kmeans_init", cfg.kmeans_init, "queue 8"),
-        (f"compute_dtype={cfg.compute_dtype!r}", cfg.compute_dtype not in COMPUTE_DTYPES,
-         "queue 2a"),
-        ("vq_backend='scan'", cfg.vq_backend == "scan", "(the step's glue)"),
-    ):
-        if unported:
-            raise not_ported(what, where)
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise not_ported(f"compute_dtype={cfg.compute_dtype!r}", "queue 2a")
 
 
 def torch_dtype(compute_dtype: str) -> torch.dtype:

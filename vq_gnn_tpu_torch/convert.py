@@ -1,4 +1,4 @@
-"""Carry a JAX-package train state into the port.
+"""Carry a train state between the JAX package and the port, both ways.
 
 ``state_from_numpy`` takes the JAX package's ``TrainState`` with every leaf
 as a numpy array (``jax.tree.map(np.asarray, state)``; nested dicts with the
@@ -8,6 +8,13 @@ same keys work too) and builds the port's :class:`TrainState`: parameters
 the RMSprop square averages ``nu``.  ``predictor_from_numpy`` does the same for
 the link trainer's predictor (the JAX list of ``{w, b}`` and its ``nu``).
 
+``state_to_numpy`` and ``predictor_to_numpy`` are their inverses: the JAX
+package's tree with numpy leaves in the JAX layouts and dtypes (``c_indices``
+int16, ``bn_inited``/``bad_init`` bool scalars, ``step`` an int32 scalar),
+its dataclass nodes as :class:`Fields`.  ``train/checkpoint.py`` writes that
+tree under the JAX package's names, so an archive of either package restores
+in the other.
+
 The JAX package stores a Linear weight ``w`` as [fan_in, fan_out]
 (``vq_gnn_tpu/nn/model.py:154-160``); ``nn.Linear`` keeps [out, in].  The
 transpose happens here and nowhere else.
@@ -15,6 +22,7 @@ transpose happens here and nowhere else.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections.abc import Mapping
 
@@ -31,6 +39,13 @@ _LINEARS = ("gnn_transform", "linear_skip", "fc_sage", "transformer_v", "transfo
 _VECTORS = ("att_l", "att_r")  # GAT: [c_in + 1], or [nb, D + 1] in B + M
 
 
+class Fields(dict):
+    """A dataclass node of the JAX package's pytrees (the flax ``struct``s
+    ``TrainState``, ``VQState`` and ``BNState``): its fields in declaration
+    order.  A checkpoint names a field ``.name`` and keeps this order, where
+    it names a plain dict's key ``['key']`` and sorts the keys."""
+
+
 def _get(obj, name, *default):
     if isinstance(obj, Mapping):
         return obj.get(name, *default) if default else obj[name]
@@ -38,7 +53,8 @@ def _get(obj, name, *default):
 
 
 def _t(a, device, dtype=None):
-    return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
+    """A contiguous copy of ``a`` on ``device`` (a transposed ``w`` too)."""
+    return torch.as_tensor(np.array(a, order="C")).to(device=device, dtype=dtype)
 
 
 def _linear_tensors(lin, device):
@@ -74,10 +90,23 @@ def _layer_tensors(layer, layer_np, device):
 
 
 def state_from_numpy(state_np, ms: ModelStatic, lr: float, device) -> TrainState:
-    device = torch.device(device)
+    return _state_into(state_np, LowRankGNN(ms, device=torch.device(device)), lr)
+
+
+def state_like(template: TrainState, state_np) -> TrainState:
+    """A new :class:`TrainState` of ``template``'s structure, device and
+    learning rate, holding the values of ``state_np`` (as
+    :func:`state_from_numpy` takes it)."""
+    return _state_into(state_np, copy.deepcopy(template.model),
+                       template.optimizer.defaults["lr"])
+
+
+def _state_into(state_np, model: LowRankGNN, lr: float) -> TrainState:
+    """``state_np``'s values in ``model`` (its parameters overwritten) and a
+    new optimizer, codebooks and BN state on the model's device."""
+    device = next(model.parameters()).device
     params_np = _get(state_np, "params")
     nu_np = _get(state_np, "opt_nu")
-    model = LowRankGNN(ms, device=device)
     with torch.no_grad():
         for l, layer in enumerate(model.layers):
             for p, v in _layer_tensors(layer, params_np[l], device):
@@ -121,3 +150,64 @@ def predictor_from_numpy(pred_np, nu_np, lr: float, device):
     for p, nu in pairs:
         opt.state[p] = {"step": torch.tensor(0.0), "square_avg": nu}
     return pred, opt
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _layer_numpy(layer, value) -> dict:
+    """One port layer as the JAX package's parameter dict, each entry
+    ``value(parameter)`` in the JAX layout (a Linear's ``w`` [fan_in,
+    fan_out])."""
+    out = {}
+    for name in _LINEARS:
+        if hasattr(layer, name):
+            lin = getattr(layer, name)
+            out[name] = {"w": np.ascontiguousarray(value(lin.weight).T), "b": value(lin.bias)}
+    for name in _VECTORS:
+        if hasattr(layer, name):
+            out[name] = value(getattr(layer, name))
+    if hasattr(layer, "transformer_k"):
+        out["transformer_k"] = {"w": value(layer.transformer_k.w),
+                                "b": value(layer.transformer_k.b)}
+    return out
+
+
+def _nu(opt: torch.optim.RMSprop):
+    """parameter -> its RMSprop square average (zeros before the first step),
+    numpy."""
+    def value(p):
+        st = opt.state.get(p, {})
+        return _np(st["square_avg"]) if "square_avg" in st else np.zeros(p.shape, np.float32)
+    return value
+
+
+def vq_state_to_numpy(s: VQState) -> Fields:
+    return Fields((f.name, _np(getattr(s, f.name))) for f in dataclasses.fields(VQState))
+
+
+def state_to_numpy(state: TrainState) -> Fields:
+    """The JAX package's ``TrainState`` of the port's ``state``: ``params``,
+    ``vq_states``, ``bn_state``, ``opt_nu``, ``step`` and ``vq_states_tr``
+    (None when off), numpy leaves in the JAX layouts and dtypes."""
+    layers = state.model.layers
+    return Fields(
+        params=[_layer_numpy(layer, _np) for layer in layers],
+        vq_states=[vq_state_to_numpy(s) for s in state.vq_states],
+        bn_state=Fields(mean=[_np(m) for m in state.bn_state.mean],
+                        var=[_np(v) for v in state.bn_state.var]),
+        opt_nu=[_layer_numpy(layer, _nu(state.optimizer)) for layer in layers],
+        step=np.asarray(state.step, np.int32),
+        vq_states_tr=(None if state.vq_states_tr is None
+                      else [vq_state_to_numpy(s) for s in state.vq_states_tr]),
+    )
+
+
+def predictor_to_numpy(pred: LinkPredictor, opt: torch.optim.RMSprop):
+    """(the JAX predictor, a list of ``{"w", "b"}``, and its RMSprop ``nu``),
+    numpy, ``w`` [fan_in, fan_out]: the inverse of
+    :func:`predictor_from_numpy`."""
+    params, nu = ([{"w": np.ascontiguousarray(value(lin.weight).T), "b": value(lin.bias)}
+                   for lin in pred.lins] for value in (_np, _nu(opt)))
+    return params, nu

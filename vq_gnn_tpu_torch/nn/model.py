@@ -696,13 +696,18 @@ def model_forward(
     probes_tr: Optional[List[torch.Tensor]] = None,
     branch_masks: Optional[List[torch.Tensor]] = None,
     dropout_keeps: Optional[List[torch.Tensor]] = None,
+    num_layers_to_run: Optional[int] = None,
+    with_bn_act: bool = True,
 ):
     """Full LowRankGNN forward (``models.py v2:308-348``).
 
     ``vq_states_tr`` and ``probes_tr``: the transformer branch's codebooks and
     hook points per layer; ``branch_masks``: the dropbranch keep mask [nb]
     per layer; ``dropout_keeps``: the (alpha) dropout keep mask per hidden
-    layer, drawn from ``generator`` where not given.
+    layer, drawn from ``generator`` where not given.  ``num_layers_to_run``
+    and ``with_bn_act=False`` are the init bootstrap's partial forward
+    (``models.py v2:370-374``): the first layers only, each hidden layer
+    followed by its activation alone (no BN, no dropout).
 
     Returns (out [B_pad, C_out], info_backward, layer_inputs, new_bn_state)."""
     x = x_B
@@ -710,7 +715,8 @@ def model_forward(
     info_total = 0.0
     new_means, new_vars = list(bn_state.mean), list(bn_state.var)
     drop = alpha_dropout if ms.alpha_dropout_flag else dropout
-    for l in range(ms.num_layers):
+    L = ms.num_layers if num_layers_to_run is None else num_layers_to_run
+    for l in range(L):
         layer_inputs.append(x)
         probe = probes[l] if probes is not None else None
         x, info_b = layer_forward(
@@ -720,7 +726,9 @@ def model_forward(
             probe_tr=probes_tr[l] if probes_tr else None,
         )
         info_total = info_total + info_b
-        if l < ms.num_layers - 1:
+        if l < ms.num_layers - 1 and not with_bn_act:
+            x = activation(x, ms.act)
+        elif l < ms.num_layers - 1:
             if ms.bn_flag:
                 if training:
                     x, new_means[l], new_vars[l] = batchnorm_train(

@@ -28,11 +28,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from vq_gnn_tpu_torch.config import not_ported
 from vq_gnn_tpu_torch.ops.vq_kernels import fused_assign_branches, lookup_codewords
-from vq_gnn_tpu_torch.ops.vq_ops import assignment_stats, masked_moments, nearest_codeword
+from vq_gnn_tpu_torch.ops.vq_ops import (
+    assign_stats_scan,
+    assignment_stats,
+    masked_moments,
+    nearest_codeword,
+)
 
 BN_FEAT_EPS = 1e-5  # torch BatchNorm1d default (vq.py:86)
 BN_FEAT_MOMENTUM = 0.1
@@ -52,7 +57,8 @@ class VQParams:
     momentum: float = 0.1  # grad-BN running-stat momentum (vq.py:87-88)
     add_flag: bool = False  # quantize one extra (ones-column) grad dim
     # 'pallas'/'pallas_fast': CUDA kernels (plain versions on CPU tensors);
-    # 'xla'/'xla_fast': plain PyTorch (ops/vq_ops.py)
+    # 'xla'/'xla_fast': plain PyTorch (ops/vq_ops.py); 'scan': the plain
+    # assignment over row chunks (ops/vq_ops.assign_stats_scan)
     backend: str = "xla"
 
     @property
@@ -142,8 +148,10 @@ def _assign_and_stats(xn, emb, valid, p: VQParams):
             xn.contiguous(), emb.contiguous(), valid.contiguous(),
             fast=p.backend == "pallas_fast",
         )
+    if p.backend == "scan":  # plain PyTorch, as the JAX package's XLA scan
+        return assign_stats_scan(xn, emb, valid)
     if p.backend not in ("xla", "xla_fast"):
-        raise not_ported(f"vq_backend={p.backend!r}")
+        raise ValueError(f"unknown vq_backend {p.backend!r}")
     fast = p.backend == "xla_fast"
     idx = nearest_codeword(xn, emb, fast=fast)
     counts, sums = assignment_stats(xn, idx, p.num_M, valid, fast=fast)
@@ -308,8 +316,11 @@ def lookup(state: VQState, node_ids: torch.Tensor, p: VQParams, stream=None):
     ``stream`` (a dtype, bf16 under bf16 compute) rounds the selected
     codewords to it, as the JAX package's one-hot einsum at that dtype does
     (``vq_gnn_tpu/nn/vq.py:433-484``); on the 'pallas' backends it forces
-    the kernel's fast mode even on the exact 'pallas', as there."""
-    if p.backend in ("pallas", "pallas_fast"):
+    the kernel's fast mode even on the exact 'pallas', as there.  'scan'
+    reads the table through the kernel too, in its exact mode: the same
+    values as the row gather (the JAX package's one-hot einsum at 'highest'),
+    which the other plain backends keep."""
+    if p.backend in ("pallas", "pallas_fast", "scan"):
         # the kernel writes both halves where the step reads them
         return lookup_codewords(
             state.c_indices, node_ids, state.embedding_output,
@@ -326,3 +337,56 @@ def lookup(state: VQState, node_ids: torch.Tensor, p: VQParams, stream=None):
     feats = table[:, :, : p.num_D].reshape(n, nb * p.num_D)
     grads = table[:, :, p.num_D :].reshape(n, nb * p.grad_dim)
     return feats, grads
+
+
+def feature_kmeans_init(state: VQState, X_B, batch_idx, p: VQParams) -> VQState:
+    """MiniBatchKMeans seeding of the feature half (reference
+    ``--kmeans-init``, ``v1/models.py:147-159`` + ``vq.py:102-105``; port of
+    ``vq_gnn_tpu/nn/vq.py:373-411``): per branch, k-means++ on the
+    batch-normalized features [B, D] of ``X_B`` [nb, B, D]; the centroids
+    seed the feature half of ``embedding``, centroids times counts that of
+    ``ema_w``, the counts ``ema_cluster_size``, and the labels the rows
+    ``batch_idx`` [B] of ``c_indices``.  On the host, with scikit-learn, whose
+    draws come from numpy's global RNG (no ``random_state``, as in the JAX
+    package).  Returns the new state on the state's device."""
+    try:
+        from sklearn.cluster import MiniBatchKMeans
+    except ImportError as e:
+        raise ImportError(
+            "kmeans_init needs scikit-learn (sklearn.cluster.MiniBatchKMeans), which "
+            "cannot be imported here") from e
+    X, ids = X_B.detach().cpu().numpy(), batch_idx.cpu().numpy()
+    emb, ema_w, size, c_idx = (getattr(state, k).cpu().numpy().copy()
+                               for k in ("embedding", "ema_w", "ema_cluster_size", "c_indices"))
+    for b in range(X.shape[0]):
+        xb = X[b]
+        xn = (xb - xb.mean(0)) / np.sqrt(xb.var(0) + 1e-5)
+        km = MiniBatchKMeans(n_clusters=p.num_M, init="k-means++", batch_size=400, n_init=10,
+                             init_size=4000, reassignment_ratio=0.3).fit(xn)
+        cent = km.cluster_centers_.astype(np.float32)
+        counts = np.bincount(km.labels_, minlength=p.num_M).astype(np.float32)
+        emb[b, :, : p.num_D] = cent
+        size[b] = counts
+        ema_w[b, :, : p.num_D] = cent * counts[:, None]
+        c_idx[ids, b] = km.labels_.astype(np.int16)
+    dev = state.embedding.device
+    return dataclasses.replace(
+        state, embedding=torch.as_tensor(emb).to(dev), ema_w=torch.as_tensor(ema_w).to(dev),
+        ema_cluster_size=torch.as_tensor(size).to(dev), c_indices=torch.as_tensor(c_idx).to(dev))
+
+
+def ste_vector_quantizer(inputs: torch.Tensor, embedding: torch.Tensor,
+                         commitment_cost: float = 0.5, holistic_cost: float = 0.1):
+    """The legacy straight-through-estimator VQ (reference VectorQuantizer,
+    ``vq.py:10-57``, constructed but unused there; port of
+    ``vq_gnn_tpu/nn/vq.py:414-432``): inputs [B, K], embedding [M, K].
+    Returns (loss, quantized with the straight-through gradient, the one-hot
+    encodings [B, M], the indices [B])."""
+    idx = nearest_codeword(inputs.detach()[None], embedding.detach()[None])[0]
+    quantized = embedding.index_select(0, idx)
+    e_latent = ((quantized.detach() - inputs) ** 2).mean()
+    q_latent = ((quantized - inputs.detach()) ** 2).mean()
+    loss = holistic_cost * (q_latent + commitment_cost * e_latent)
+    st = inputs + (quantized - inputs).detach()
+    onehot = torch.nn.functional.one_hot(idx, embedding.shape[0]).to(inputs.dtype)
+    return loss, st, onehot, idx

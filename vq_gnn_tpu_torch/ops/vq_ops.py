@@ -1,5 +1,6 @@
 """VQ assignment primitives in plain PyTorch (port of
-``vq_gnn_tpu/ops/vq_ops.py``): the ``xla``/``xla_fast`` backends.
+``vq_gnn_tpu/ops/vq_ops.py``): the ``xla``/``xla_fast`` backends and the
+row-chunked ``scan`` backend.
 
 All functions take a leading branch axis (the JAX package's ``vmap`` over
 branches, written out): xn [nb, B, K], emb [nb, M, K].
@@ -49,6 +50,33 @@ def assignment_stats(xn: torch.Tensor, idx: torch.Tensor, num_M: int, valid=None
     sums = torch.zeros((nb * num_M, K), dtype=torch.float32, device=xn.device)
     sums.index_add_(0, flat, (x * v[None, :, None]).reshape(-1, K))
     return counts.reshape(nb, num_M), sums.reshape(nb, num_M, K)
+
+
+def assign_stats_scan(xn: torch.Tensor, emb: torch.Tensor, valid=None, chunk: int = 8192):
+    """(idx [nb, B], counts [nb, M], sums [nb, M, K]) over row chunks of
+    ``chunk`` rows (``vq_gnn_tpu/ops/vq_ops.py:77-127``, the JAX ``lax.scan``
+    vmapped over the branches): no [nb, B, M] distance tile is made, only one
+    [nb, chunk, M] tile at a time.  Per chunk d = ||e||^2 - 2 x.e (the
+    per-row ||x||^2 does not move the argmin), the first index of the
+    minimum, and the chunk's valid rows added to the f32 counts and sums.
+    The JAX package pads the last chunk with invalid rows; here it is the
+    shorter slice, which adds the same."""
+    nb, B, K = xn.shape
+    M = emb.shape[1]
+    if valid is None:
+        valid = torch.ones(B, dtype=torch.bool, device=xn.device)
+    e2 = (emb * emb).sum(-1)[:, None, :]
+    counts = torch.zeros((nb, M), dtype=torch.float32, device=xn.device)
+    sums = torch.zeros((nb, M, K), dtype=torch.float32, device=xn.device)
+    idxs = []
+    for i in range(0, B, chunk):
+        x, v = xn[:, i : i + chunk], valid[i : i + chunk]
+        idx = torch.argmin(e2 - 2.0 * _dot_k(x, emb), dim=2)
+        c, s = assignment_stats(x, idx, M, v)
+        counts += c
+        sums += s
+        idxs.append(idx)
+    return torch.cat(idxs, dim=1), counts, sums
 
 
 def masked_moments(xs, valid=None, stats_reduce=None):

@@ -8,7 +8,8 @@
   loss (``main_link.py v2:43-99``), the per-layer gradient clip (84-88), the
   predictor's own RMSprop state, and the live VQ update;
 - :class:`LinkTrainer`: the init sweep, epochs, Hits@K / MRR evaluation over
-  the stochastic embeddings of the whole graph (126-244), and ``fit``.
+  the stochastic embeddings of the whole graph (126-244), and ``fit``, with
+  its checkpoints (``vq_gnn_tpu/train/link.py:325-400``).
 
 The reference's quirks are kept: the negatives are uniform over the batch's
 ``num_B`` rows; the positive and the negative predictor calls share their
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import List, Optional, Sequence, Union
 
@@ -39,7 +41,6 @@ from vq_gnn_tpu_torch.config import (
     Config,
     apply_matmul_precision,
     no_reference_path,
-    not_ported,
     resolve_device,
 )
 from vq_gnn_tpu_torch.graph.store import HostGraph
@@ -47,12 +48,14 @@ from vq_gnn_tpu_torch.nn.model import ModelStatic, model_forward, model_static, 
 from vq_gnn_tpu_torch.nn.vq import vq_update
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
-from vq_gnn_tpu_torch.train.loop import device_features
+from vq_gnn_tpu_torch.train.checkpoint import load_step, restore_checkpoint, save_checkpoint
+from vq_gnn_tpu_torch.train.loop import device_features, iter_cached
 from vq_gnn_tpu_torch.train.optim import clip_grads_by_norm, make_rmsprop, rmsprop_update
 from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
 from vq_gnn_tpu_torch.train.step import _branch_view, draw_branch_masks, make_step_fns
 from vq_gnn_tpu_torch.utils.logger import Logger
 from vq_gnn_tpu_torch.utils.metrics import hits_at_k, mrr
+from vq_gnn_tpu_torch.utils.scheduler import linear_ramp
 
 
 # ---------------- LinkPredictor MLP ----------------
@@ -258,12 +261,13 @@ class LinkTrainer:
         # negatives and dropout masks are drawn on the device, from their own stream
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 29)
         self.logger = Logger(cfg.runs, cfg)
-        self._test_batches = None  # the eval loader is deterministic: built once
+        # the eval loader and the exact control's one full-graph train batch
+        # are deterministic: built once (train/loop.iter_cached)
+        self._batch_cache = {}
+        self._cache_train = cfg.sampler_type == "node" and cfg.batch_size >= graph.num_nodes
 
     def test_batches(self):
-        if self._test_batches is None:
-            self._test_batches = list(self.test_loader)
-        return self._test_batches
+        return iter_cached(self._batch_cache, "test", self.test_loader)
 
     def run_init_sweep(self):
         for layer_idx in range(1, self.ms.num_layers + 1):
@@ -277,9 +281,12 @@ class LinkTrainer:
         cfg = self.cfg
         wur = (epoch / cfg.warm_up_epochs
                if cfg.warm_up and epoch <= cfg.warm_up_epochs else 1.0)
-        lr = cfg.lr * epoch / 200 if (cfg.sche and epoch < 200) else cfg.lr
+        lr = linear_ramp(cfg.lr, epoch) if cfg.sche else cfg.lr
         losses = []
-        for windows, _ in self.train_loader:
+        train_iter = self.train_loader
+        if self._cache_train:
+            train_iter = iter_cached(self._batch_cache, "train", self.train_loader)
+        for windows, _ in train_iter:
             for j, batch in enumerate(windows):
                 do_opt = 0.0 if (len(windows) > 1 and j == 0) else 1.0
                 metrics = self.step_fn(self.state, self.predictor, self.pred_opt, self.X_dev,
@@ -335,19 +342,49 @@ class LinkTrainer:
             split_mrr(s.test_pos, s.test_neg),
         )
 
+    def _ckpt_tree(self) -> dict:
+        """The whole resumable state, as the JAX package's link trainer
+        writes it: the GNN train state, the predictor's parameters and its
+        RMSprop ``nu`` (the JAX layouts, ``convert.predictor_to_numpy``)."""
+        from vq_gnn_tpu_torch.convert import predictor_to_numpy
+
+        pred_params, pred_nu = predictor_to_numpy(self.predictor, self.pred_opt)
+        return {"state": self.state, "pred_params": pred_params, "pred_nu": pred_nu}
+
     def fit(self, run: int = 0, verbose: bool = True, ckpt_dir: Optional[str] = None,
             ckpt_every: int = 50, resume: bool = False, eval_every: int = 1):
         """The init sweep, then per epoch ``train_epoch`` and, every
         ``eval_every`` epochs and at the last, Hits@50 (MRR for per-source
         negatives) into the logger; returns ``logger.statistics(run)``.
-        Checkpoints are not ported and raise."""
-        if ckpt_dir or resume:
-            raise not_ported("checkpoints (ckpt_dir, resume)", "queue 1 item 8")
+
+        With ``ckpt_dir``, ``_ckpt_tree`` is saved to
+        ``<ckpt_dir>/link_run<run>.npz`` after each ``ckpt_every``-th epoch's
+        training, before its evaluation; with ``resume`` too, an archive
+        found there is restored and the run goes on at the next epoch,
+        without the init sweep.  As in the JAX package the generator, the
+        loader's epoch cursor and the logger's history are not restored
+        (its leak segmentation, ``segment_path``, is not ported)."""
+        from vq_gnn_tpu_torch.convert import predictor_from_numpy
+
         cfg = self.cfg
-        self.run_init_sweep()
+        ckpt_path, start_epoch = None, 1
+        if ckpt_dir:
+            ckpt_path = os.path.join(ckpt_dir, f"link_run{run}.npz")
+            if resume and os.path.exists(ckpt_path):
+                restored = restore_checkpoint(ckpt_path, self._ckpt_tree())
+                self.state = restored["state"]
+                self.predictor, self.pred_opt = predictor_from_numpy(
+                    restored["pred_params"], restored["pred_nu"], cfg.lr, self.device)
+                start_epoch = load_step(ckpt_path) + 1
+                if verbose:
+                    print(f"resumed from {ckpt_path} at epoch {start_epoch}")
+        if start_epoch == 1:
+            self.run_init_sweep()
         t0 = time.time()
-        for epoch in range(1, cfg.epochs + 1):
+        for epoch in range(start_epoch, cfg.epochs + 1):
             loss = self.train_epoch(epoch)
+            if ckpt_path and epoch % ckpt_every == 0:
+                save_checkpoint(ckpt_path, self._ckpt_tree(), step=epoch)
             if epoch % eval_every == 0 or epoch == cfg.epochs:
                 result = (self.evaluate_mrr() if self.split.neg_per_source
                           else self.evaluate_hits())

@@ -1,10 +1,13 @@
 """Node-classification trainer — the reference ``main_node.py`` loop (port of
 ``vq_gnn_tpu/train/loop.py``).
 
-Layerwise codebook init sweep over the test loader, per-epoch training with
-the warm-up rate and the linear lr ramp, stochastic batched evaluation,
-exact full-graph inference (``full_graph_predict``), and ``fit``: the whole
-run, logged per epoch (with the per-layer VQ health lines on request).
+Layerwise codebook init sweep over the test loader (after the optional
+MiniBatchKMeans seeding, ``seed_kmeans``), per-epoch training with the
+warm-up rate and the linear lr ramp, stochastic batched evaluation, exact
+full-graph inference (``full_graph_predict``), and ``fit``: the whole run,
+logged per epoch (with the per-layer VQ health lines on request),
+checkpointed every ``ckpt_every`` epochs and resumable.  Deterministic
+loaders go through a device-side batch cache (``iter_cached``).
 Multilabel graphs train with BCE and are scored by micro-F1; inductive
 datasets (``val_graph``/``test_graph``) evaluate each split graph as one
 full batch, or stochastically into a per-split codeword table
@@ -13,32 +16,46 @@ full batch, or stochastically into a per-split codeword table
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from vq_gnn_tpu_torch.config import (
-    Config,
-    apply_matmul_precision,
-    not_ported,
-    resolve_device,
-)
+from vq_gnn_tpu_torch.config import Config, apply_matmul_precision, resolve_device
 from vq_gnn_tpu_torch.graph.store import HostGraph
-from vq_gnn_tpu_torch.nn.model import ModelStatic, full_graph_inference, model_static
+from vq_gnn_tpu_torch.nn.model import (
+    ModelStatic,
+    full_graph_inference,
+    model_forward,
+    model_static,
+)
+from vq_gnn_tpu_torch.nn.vq import feature_kmeans_init
 from vq_gnn_tpu_torch.ops.spmm import make_edges
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+from vq_gnn_tpu_torch.train.checkpoint import load_step, restore_checkpoint, save_checkpoint
 from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
-from vq_gnn_tpu_torch.train.step import make_step_fns
+from vq_gnn_tpu_torch.train.step import _branch_view, make_step_fns
 from vq_gnn_tpu_torch.utils.diagnostics import codebook_stats
 from vq_gnn_tpu_torch.utils.logger import Logger
 from vq_gnn_tpu_torch.utils.metrics import accuracy, micro_f1
+from vq_gnn_tpu_torch.utils.scheduler import linear_ramp
 
 
 def device_features(x: np.ndarray, device) -> torch.Tensor:
     """[N+1, F] feature table with a zero dustbin row for padded slots."""
     return torch.as_tensor(np.concatenate([x, np.zeros((1, x.shape[1]), x.dtype)])).to(device)
+
+
+def iter_cached(cache: dict, name: str, loader) -> list:
+    """The batches of a DETERMINISTIC loader, built and moved to the device
+    on the first pass and kept under ``name`` in ``cache``; later passes
+    return the same list (``vq_gnn_tpu/train/loop.py:32-52``, without its
+    host-memory switch and cap, which fence a TPU-runtime leak)."""
+    if name not in cache:
+        cache[name] = list(loader)
+    return cache[name]
 
 
 class NodeTrainer:
@@ -99,8 +116,11 @@ class NodeTrainer:
         # dropout masks are drawn on the device, from their own stream
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
         self.logger = Logger(cfg.runs, cfg)
-        self._test_batches = None  # the eval loader is deterministic: built once
-        self._split_batches = {}  # the inductive splits' full batches, built once
+        # the eval loaders are deterministic (shuffle off), and so is the
+        # train loader of the exact full-graph control (one batch, the whole
+        # graph): their batches are built once (iter_cached)
+        self._batch_cache = {}
+        self._cache_train = cfg.sampler_type == "node" and cfg.batch_size >= graph.num_nodes
         if self.inductive:
             self._split_loaders = {
                 name: (BatchLoader(gr, cfg, train_flag=False, sampler_type="node",
@@ -111,15 +131,11 @@ class NodeTrainer:
             }
 
     def test_batches(self):
-        if self._test_batches is None:
-            self._test_batches = list(self.test_loader)
-        return self._test_batches
+        return iter_cached(self._batch_cache, "test", self.test_loader)
 
     def split_batches(self, name: str):
         """The inductive split's one full batch (a list of (windows, raw))."""
-        if name not in self._split_batches:
-            self._split_batches[name] = list(self._split_loaders[name][0])
-        return self._split_batches[name]
+        return iter_cached(self._batch_cache, f"split_{name}", self._split_loaders[name][0])
 
     # ---- layerwise codebook bootstrap (main_node.py v2:17-37) ----
     def run_init_sweep(self, verbose: bool = False):
@@ -140,9 +156,7 @@ class NodeTrainer:
 
     def lr_at(self, epoch: int) -> float:
         cfg = self.cfg
-        if cfg.sche:
-            return cfg.lr * epoch / 200 if epoch < 200 else cfg.lr
-        return cfg.lr
+        return linear_ramp(cfg.lr, epoch) if cfg.sche else cfg.lr
 
     # ---- one training epoch (main_node.py v2:39-122) ----
     def train_epoch(self, epoch: int, verbose: bool = False):
@@ -150,7 +164,10 @@ class NodeTrainer:
         lr = self.lr_at(epoch)
         have_train_mask = self.graph.train_mask is not None
         losses, losses_cls = [], []
-        for windows, raw_idx in self.train_loader:
+        train_iter = self.train_loader
+        if self._cache_train:
+            train_iter = iter_cached(self._batch_cache, "train", self.train_loader)
+        for windows, raw_idx in train_iter:
             for j, batch in enumerate(windows):
                 if have_train_mask:
                     n_train = int(self.graph.train_mask[raw_idx[j]].sum())
@@ -228,6 +245,31 @@ class NodeTrainer:
         out = full_graph_inference(self.state.model, self.state.bn_state, self.ms, x, edges)
         return out.cpu().numpy()
 
+    # ---- optional MiniBatchKMeans codebook seeding (reference --kmeans-init,
+    # v1/models.py:147-159) ----
+    def seed_kmeans(self):
+        """Seeds each layer's feature half by k-means (``feature_kmeans_init``)
+        on the first eval batch's valid rows: layer 0 on the raw features,
+        layer l on the output of the first l layers, each with its
+        activation and no BN (``model_forward(num_layers_to_run=l,
+        with_bn_act=False)``), through the codebooks seeded so far
+        (``vq_gnn_tpu/train/loop.py:280-313``).  ``kmeans_iter`` is unused, as
+        there.  Needs scikit-learn (an ImportError names it otherwise)."""
+        windows, _ = self.test_batches()[0]
+        batch = windows[0]
+        x = self.X_dev.index_select(0, batch.batch_idx)
+        B = int(batch.num_B)
+        for l in range(self.ms.num_layers):
+            x_l = x
+            if l > 0:
+                with torch.no_grad():
+                    x_l, _, _, _ = model_forward(
+                        self.state.model, self.state.vq_states, self.state.bn_state, self.ms,
+                        x, batch, num_layers_to_run=l, with_bn_act=False)
+            Xb = _branch_view(x_l, self.ms.num_branches[l], self.ms.num_D)[:, :B]
+            self.state.vq_states[l] = feature_kmeans_init(
+                self.state.vq_states[l], Xb, batch.batch_idx[:B], self.ms.vq)
+
     # ---- full run (main_node.py v2:233-308) ----
     def fit(
         self,
@@ -238,22 +280,42 @@ class NodeTrainer:
         resume: bool = False,
         vq_diagnostics: bool = False,
     ):
-        """The init sweep, then per epoch ``train_epoch``, ``evaluate`` and
-        ``logger.add_result``, with ``vq_diagnostics`` each logged epoch's
-        per-layer VQ health lines (``print_vq_diagnostics``); returns
-        ``logger.statistics(run)``.  Checkpoints are not ported and raise
-        (``kmeans_init`` is refused when the trainer is built)."""
-        if ckpt_dir or resume:
-            raise not_ported("checkpoints (ckpt_dir, resume)", "queue 1 item 8")
+        """``seed_kmeans`` with ``kmeans_init``, the init sweep, then per
+        epoch ``train_epoch``, ``evaluate`` and ``logger.add_result``, with
+        ``vq_diagnostics`` each logged epoch's per-layer VQ health lines
+        (``print_vq_diagnostics``); returns ``logger.statistics(run)``.
+
+        With ``ckpt_dir`` the train state is saved to
+        ``<ckpt_dir>/run<run>.npz`` (``train/checkpoint.py``, the JAX
+        package's archive) after each ``ckpt_every``-th epoch's evaluation,
+        under that epoch's number.  With ``resume`` too, an archive found
+        there is restored and the run goes on at the next epoch, without the
+        k-means seeding and the init sweep.  As in the JAX package
+        (``vq_gnn_tpu/train/loop.py:346-387``) only the train state is
+        restored: the dropout generator, the train loader's epoch cursor
+        (``BatchLoader._epoch``) and the logger's history start anew."""
         cfg = self.cfg
-        self.run_init_sweep(verbose=verbose)
-        if verbose:
-            print("init done")
-        for epoch in range(1, cfg.epochs + 1):
+        ckpt_path, start_epoch = None, 1
+        if ckpt_dir:
+            ckpt_path = os.path.join(ckpt_dir, f"run{run}.npz")
+            if resume and os.path.exists(ckpt_path):
+                self.state = restore_checkpoint(ckpt_path, self.state)
+                start_epoch = load_step(ckpt_path) + 1  # the stored epoch number
+                if verbose:
+                    print(f"resumed from {ckpt_path} at epoch {start_epoch}")
+        if start_epoch == 1:
+            if cfg.kmeans_init:
+                self.seed_kmeans()
+            self.run_init_sweep(verbose=verbose)
+            if verbose:
+                print("init done")
+        for epoch in range(start_epoch, cfg.epochs + 1):
             t0 = time.time()
             loss, loss_cls = self.train_epoch(epoch)
             result = self.evaluate()
             self.logger.add_result(run, result)
+            if ckpt_path and epoch % ckpt_every == 0:
+                save_checkpoint(ckpt_path, self.state, step=epoch)
             if verbose and epoch % cfg.log_steps == 0:
                 tr, va, te = result
                 print(

@@ -1,2 +1,2 @@
-"""Host-side utilities: run logging, the evaluation metrics, the step profile
-and the VQ-health diagnostics."""
+"""Host-side utilities: run logging, the evaluation metrics, the step profile,
+the VQ-health diagnostics and the learning-rate schedules."""
