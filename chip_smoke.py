@@ -236,6 +236,37 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       on the flagship trainer, each layer's feature half equal to its
       centroids (``ema_w / ema_cluster_size``), rows 1 and 7 launched.
 
+17. one batch sharded over two ranks (``parallel/mesh.py``,
+   ``parallel/sharded.py``): two processes on the one card, a gloo group
+   (the card's machine has one GPU, and NCCL takes one rank a device; gloo
+   carries CUDA tensors through host memory), the flagship GCN B + B' on
+   phase 2's graph from the state of phase 3's trainer, at phase 15's
+   fixed pads, one epoch of two batches; the launch counters zeroed just
+   before each mesh's steps and read just after, in each rank:
+   a. one step of the 1-D sharded step and one of ``train_step`` on the
+      whole batch from one state, in exact f32 (TF32 off, row 6's exact
+      mode) with the inter-layer BN and without, and at the flagship's own
+      settings (TF32, row 6's fast mode): the loss within 1e-5 relative,
+      the parameters within 1e-2 (1e-4 without the BN), ``c_indices[:N]``
+      agreeing on >= 0.9999, in exact f32 the codebooks within 2e-5 but
+      for the codewords of the assignments that differ (at the flagship's
+      settings their difference is logged: ``compare_step`` says why);
+      both ranks' states one sha256;
+   b. rows 1, 6 and 7 launched on each rank; each rank's row 1 forward over
+      its rows' slots and dx over its batch columns' transposed slots, row
+      6 at its batch rows and row 7 at its boundary rows, against their
+      plain versions;
+   c. the same step check of the 2-D step at 1 x 2 (each rank half the
+      branches and the fan-in columns), row 1 at C = 64 and row 6 at nb =
+      16 against their plain versions;
+   d. 20 timed steps and 3 profiled ones of each sharded step: ms/step,
+      device busy, idle share and peak memory of rank 0, the collective
+      ledger of each rank by category, and no payload as large as the
+      feature table, nor one shaped like a ``c_indices`` table or an edge
+      array (at these widths the batch holds half the graph's nodes, so
+      the exchanged rows outweigh a ``c_indices`` table: the sizes are
+      logged).
+
 Logs the seconds each phase took.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line (with rows for kernel 2 at nb = 64, M = 4,096
 and at K = 4, M = 4,096, and kernel 3 at M = 4,096, from phase 12, and
@@ -1941,6 +1972,371 @@ def ddp_phase(torch, ops, runs, graphs, gpu, err):
     return launches
 
 
+SHARDED_RANKS = 2  # phase 17: two ranks on the one card, over gloo
+SHARDED_STEPS = 20  # timed steps of each sharded step in phase 17
+
+
+def _state_digest(arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _step_record(torch, state, loss):
+    """What phase 17 compares of a state after one step: the loss, the
+    named parameters, each layer's codebook and c_indices (numpy)."""
+    return dict(loss=loss,
+                params={k: v.detach().cpu().numpy() for k, v in state.model.named_parameters()},
+                emb=[s.embedding.cpu().numpy() for s in state.vq_states],
+                cidx=[s.c_indices.cpu().numpy() for s in state.vq_states])
+
+
+def hold_sub_ell(torch, tag, label, edges, rows_all, C, gen, err):
+    """Kernel 1 against its plain version on a row shard's adjacency
+    (``parallel/mesh.py:ShardEdges``), with its own row offsets and long
+    rows: the forward over the owned rows' slots and the dx over the owned
+    batch columns' transposed slots, each reading the gathered [rows_all,
+    C] rows as the exchange hands them over.  Tolerance as ``hold_ell``."""
+    from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+
+    for which, args, kw in (
+            ("forward", (edges.ell_row, edges.ell_col, edges.ell_val, edges.num_rows),
+             dict(ptr=edges.ell_ptr, long_rows=edges.ell_long_rows)),
+            ("dx", (edges.t_ell_row, edges.t_ell_col, edges.t_ell_val, edges.b_rows),
+             dict(ptr=edges.t_ell_ptr, long_rows=edges.t_ell_long_rows))):
+        x = torch.randn((rows_all, C), generator=gen, device=edges.ell_col.device)
+        out, again = ell_aggregate(x, *args, **kw), ell_aggregate(x, *args, **kw)
+        ref = ell_aggregate_plain(x, *args)
+        torch.cuda.synchronize()
+        d = float((out - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        same = torch.equal(out, again)
+        log(f"[{tag} ell_aggregate {label} {which} C={C}] slots {args[0].shape[0]}, out "
+            f"{tuple(out.shape)} from {rows_all} gathered rows, max|err| {d:.3g} (tol "
+            f"{tol:.3g}); {kw['long_rows'].shape[0] - 1} long rows; two calls bit-identical: "
+            f"{same}")
+        assert torch.isfinite(out).all() and d <= tol and same
+        err["ell_aggregate"] = max(err.get("ell_aggregate", 0.0), d)
+
+
+def sharded_rank(rank, tmp):
+    """One of phase 17's ranks, on cuda:0 over gloo (the module docstring
+    says what it runs); pickles its results to ``tmp``/out<rank>.pkl."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from vq_gnn_tpu_torch import ops
+    from vq_gnn_tpu_torch.config import Config, apply_matmul_precision
+    from vq_gnn_tpu_torch.convert import state_from_numpy
+    from vq_gnn_tpu_torch.nn.model import model_static
+    from vq_gnn_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+        make_sharded_step,
+        make_sharded_step_2d,
+        shard_train_inputs,
+        shard_train_inputs_2d,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", world_size=SHARDED_RANKS,
+                            rank=rank, timeout=timedelta(seconds=300))
+    with open(os.path.join(tmp, "plan.pkl"), "rb") as f:
+        plan = pickle.load(f)
+    gpu, batches = plan["gpu"], plan["batches"]
+    cfgs = {k: Config(**v) for k, v in plan["cfgs"].items()}
+    X = torch.as_tensor(plan["X"]).cuda()
+    R_all = batches[0].B_pad + batches[0].Bp_pad
+    gen = torch.Generator(device="cuda").manual_seed(17 + rank)
+    res, err = {"err": {}, "launches": {}, "steps": {}, "ledger": {}, "digest": {}}, {}
+    rlog = log if rank == 0 else (lambda *a: None)
+
+    def fresh(tag):
+        apply_matmul_precision(cfgs[tag])  # TF32 for the flagship ('default'), else off
+        ms = model_static(cfgs[tag], plan["F"], plan["C"], torch.device("cuda"))
+        return ms, state_from_numpy(plan["state"], ms, cfgs[tag].lr, "cuda")
+
+    def timed(name, step, state, shards):
+        """20 timed and 3 profiled steps on this rank's shards, the ledger
+        and the peak memory over them."""
+        def one(sh):
+            nonlocal state
+            state, m = step(state, X, sh, 1.0, cfgs["flagship"].lr, 1.0)
+            return m
+
+        for sh in shards:  # warm-up
+            one(sh)
+        step.ledger.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times, losses = timed_steps(torch, one, shards, SHARDED_STEPS)
+        prof = profile_steps(lambda i: one(shards[i % len(shards)]), log=rlog,
+                             tag=f"17d {name}", gpu=gpu)
+        mean = sum(times) / len(times)
+        std = (sum((t - mean) ** 2 for t in times) / max(len(times) - 1, 1)) ** 0.5
+        res["steps"][name] = dict(
+            ms=mean, std=std, median=sorted(times)[len(times) // 2], losses=losses,
+            busy=None if prof is None else prof["busy_ms"],
+            wall=None if prof is None else prof["wall_ms"],
+            kernels=None if prof is None else sorted({k for _, _, k in prof["rows"]}),
+            peak=torch.cuda.max_memory_allocated() - base, held=base)
+        res["ledger"][name] = dict(per_step=step.ledger.per_step(),
+                                   kinds=sorted(step.ledger.kinds), steps=step.ledger.steps)
+        return state
+
+    # ---- the 1-D mesh: the step check, then the timed steps ----
+    mesh = make_mesh(SHARDED_RANKS, device="cuda:0")
+    ops.reset_launch_counts()
+    for tag in cfgs:
+        ms, state = fresh(tag)
+        _, _, shard = shard_train_inputs(mesh, state, X, batches[0])
+        step = make_sharded_step(ms, cfgs[tag], mesh)
+        state, m = step(state, X, shard, 1.0, cfgs[tag].lr, 1.0)
+        rec = _step_record(torch, state, float(m["loss"]))
+        res["digest"]["1d", tag] = _state_digest(
+            list(rec["params"].values()) + rec["emb"] + [c[:-1] for c in rec["cidx"]])
+        if rank == 0:
+            res["1d", tag] = rec
+    ms, state = fresh("flagship")
+    shards = [shard_train_inputs(mesh, state, X, b)[2] for b in batches]
+    step = make_sharded_step(ms, cfgs["flagship"], mesh)
+    state = timed("1-D", step, state, shards)
+    res["launches"]["1-D"] = ops.launch_counts()
+    sh = shards[0]
+    rlog(f"[17 shard] rank {rank} of {SHARDED_RANKS}: B_pad {sh.B_pad} of {sh.batch_B_pad}, "
+         f"Bp_pad {sh.Bp_pad}, owned slots {sh.edges.ell_row.shape[0]}, transposed slots of "
+         f"its batch columns {sh.edges.t_ell_row.shape[0]}, gathered rows {R_all}")
+
+    # 17b: rows 1, 6 and 7 at this rank's shapes, against their plain versions
+    with ops.uncounted():
+        C = cfgs["flagship"].hidden_channels
+        hold_sub_ell(torch, "17b", f"rank {rank} 1-D shard", sh.edges, R_all, C, gen, err)
+        vq1 = state.vq_states[1]
+        nb, M, K = vq1.embedding.shape
+        xn = torch.randn((nb, sh.B_pad, K), generator=gen, device="cuda")
+        hold_assign(torch, "17b", f"rank {rank} 1-D shard", xn, vq1.embedding.contiguous(),
+                    sh.valid_B.contiguous(), err, chunk=branch_chunk(sh.B_pad, M))
+        hold_lookup(torch, "17b", f"rank {rank} 1-D shard", vq1, sh.fo_ids,
+                    cfgs["flagship"].num_D)
+    del state, shards, step, xn
+
+    # ---- the 2-D mesh at 1 x 2: the step check, then the timed steps ----
+    mesh2 = make_mesh_2d(1, SHARDED_RANKS, device="cuda:0")
+    ops.reset_launch_counts()
+    for tag in cfgs:
+        ms, state = fresh(tag)
+        state_m, _, shard = shard_train_inputs_2d(mesh2, state, X, batches[0])
+        step = make_sharded_step_2d(ms, cfgs[tag], mesh2)
+        state_m, m = step(state_m, X, shard, 1.0, cfgs[tag].lr, 1.0)
+        res["2d", tag] = _step_record(torch, state_m, float(m["loss"]))
+    ms, state = fresh("flagship")
+    placed = [shard_train_inputs_2d(mesh2, state, X, b) for b in batches]
+    state_m, shards = placed[0][0], [p[2] for p in placed]
+    del placed, state
+    step = make_sharded_step_2d(ms, cfgs["flagship"], mesh2)
+    state_m = timed("2-D 1x2", step, state_m, shards)
+    res["launches"]["2-D 1x2"] = ops.launch_counts()
+
+    # 17c: row 1 at C / 2 over the rows of the 2-D shard, row 6 at nb / 2
+    with ops.uncounted():
+        sh = shards[0]
+        hold_sub_ell(torch, "17c", f"rank {rank} 2-D shard", sh.edges, R_all, C // SHARDED_RANKS,
+                     gen, err)
+        vq1 = state_m.vq_states[1]
+        nb, M, K = vq1.embedding.shape
+        xn = torch.randn((nb, sh.B_pad, K), generator=gen, device="cuda")
+        hold_assign(torch, "17c", f"rank {rank} 2-D branches", xn, vq1.embedding.contiguous(),
+                    sh.valid_B.contiguous(), err, chunk=branch_chunk(sh.B_pad, M))
+        hold_lookup(torch, "17c", f"rank {rank} 2-D branches", vq1, sh.fo_ids,
+                    cfgs["flagship"].num_D)
+    res["err"] = err
+    with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True):
+    """One sharded step (``got``, model rank m's part on the 2-D mesh)
+    against ``train_step`` on the whole batch from one state: the loss to
+    1e-5 relative, the parameters to ``atol``, ``c_indices[:N]`` agreeing
+    on >= 0.9999, and with ``codebooks`` the codebooks to rtol and atol 2e-5
+    (the tolerances of tests/test_multichip.py) except the codewords of the
+    assignments that differ: a near tie that the moments' sums in another
+    order moved, counted by the agreement.  Without it the codebooks'
+    difference is logged: under TF32 and row 6's fast mode a sum in another
+    order (1e-7) moves the odd value across a rounding step (1e-3 of it), and
+    a codeword of one or two members carries that whole."""
+    import numpy as np
+
+    rel = abs(got["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+    d_par = 0.0
+    for k, v in ref["params"].items():
+        if n_model > 1 and v.ndim == 2:  # the fan-in columns of this rank's branches
+            w = v.shape[1] // n_model
+            v = v[:, m * w : (m + 1) * w]
+        d_par = max(d_par, float(np.abs(got["params"][k] - v).max()))
+    agree, d_emb, moved = 1.0, 0.0, 0
+    for e_got, e_ref, c_got, c_ref in zip(got["emb"], ref["emb"], got["cidx"], ref["cidx"]):
+        nb = e_got.shape[0]
+        e_ref, c_ref = e_ref[m * nb : (m + 1) * nb], c_ref[:N, m * nb : (m + 1) * nb]
+        c_got = c_got[:N]
+        agree = min(agree, float((c_got == c_ref).mean()))
+        keep = np.ones(e_got.shape[:2], bool)
+        rows, br = np.nonzero(c_got != c_ref)
+        keep[br, c_got[rows, br]] = keep[br, c_ref[rows, br]] = False
+        moved += int((~keep).sum())
+        diff = np.abs(e_got - e_ref) - 2e-5 * np.abs(e_ref)
+        d_emb = max(d_emb, float(diff[keep].max()))
+    log(f"[{tag}] one step from one state on the fixed-pad batch: loss {got['loss']:.7f} vs "
+        f"train_step {ref['loss']:.7f}, rel diff {rel:.3g} (tol 1e-5); parameters max|diff| "
+        f"{d_par:.3g} (tol {atol:g}); c_indices[:N] agree {agree:.6f} (>= 0.9999); codebooks "
+        f"max(|diff| - 2e-5 |ref|) {d_emb:.3g} (tol 2e-5) over all but the {moved} codewords "
+        f"of the differing assignments{'' if codebooks else ' (logged, not held)'} | {gpu}")
+    assert rel <= 1e-5 and d_par <= atol and agree >= 0.9999, (tag, rel, d_par, agree)
+    assert d_emb <= 2e-5 or not codebooks, (tag, d_emb)
+
+
+def sharded_phase(torch, ops, tr, graph, gpu, err):
+    """Phase 17: one batch sharded over two ranks on the card
+    (``parallel/mesh.py``, ``parallel/sharded.py``), the flagship GCN B + B'
+    from the state of phase 3's trainer (the module docstring says what it
+    runs).  Returns the two ranks' launches on the sharded paths."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from vq_gnn_tpu_torch.config import apply_matmul_precision
+    from vq_gnn_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from vq_gnn_tpu_torch.nn.model import model_static
+    from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+    from vq_gnn_tpu_torch.train.step import make_step_fns
+
+    t0 = time.time()
+    g, c, ci = graph
+    N = g.num_nodes
+    hw = tr.train_loader  # its high-water buckets, as phase 15
+    cfg = dataclasses.replace(tr.cfg, fixed_B_pad=hw._B_bucket, fixed_Bp_pad=hw._Bp_bucket,
+                              fixed_E_pad=hw._E_bucket)
+    # the step checks in exact f32 (TF32 off, row 6's exact mode), whose sums
+    # differ in order only, and at the flagship's own settings, which the
+    # timed steps run
+    exact = dataclasses.replace(cfg, matmul_precision="highest", vq_backend="pallas")
+    cfgs = {"bn": exact, "no bn": dataclasses.replace(exact, bn_flag=False), "flagship": cfg}
+    loader = BatchLoader(g, cfg, train_flag=True, cluster_indices=ci, seed=cfg.seed,
+                         device="cuda")
+    batches = [w[0] for w, _ in loader._epoch_iter()]  # host batches, one epoch
+    state_np = state_to_numpy(tr.state)
+    F, C = g.num_features, tr.ms.channels[-1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_17_")
+    with open(os.path.join(tmp, "plan.pkl"), "wb") as f:
+        pickle.dump(dict(gpu=gpu, batches=batches, cfgs={k: dataclasses.asdict(v) for k, v in
+                                                        cfgs.items()},
+                         X=tr.X_dev.cpu().numpy(), state=state_np, F=F, C=C), f)
+    b0 = batches[0]
+    log(f"[17 setup] fixed pads B_pad {cfg.fixed_B_pad} Bp_pad {cfg.fixed_Bp_pad} E_pad "
+        f"{cfg.fixed_E_pad}; {len(batches)} batches, the first {batch_line(b0, edge_count(b0.edges))}"
+        f"; plan written in {time.time() - t0:.1f}s")
+
+    # the references: train_step on the whole batch from the same state
+    refs = {}
+    for tag, cf in cfgs.items():
+        apply_matmul_precision(cf)
+        ms = model_static(cf, F, C, torch.device("cuda"))
+        st = state_from_numpy(state_np, ms, cf.lr, "cuda")
+        with ops.uncounted():
+            st, m = make_step_fns(ms, cf).train_step(st, tr.X_dev, b0.to("cuda"), 1.0, cf.lr,
+                                                     1.0)
+        refs[tag] = _step_record(torch, st, float(m["loss"]))
+        del st
+
+    t1 = time.time()
+    mp.spawn(sharded_rank, args=(tmp,), nprocs=SHARDED_RANKS, join=True)
+    outs = []
+    for r in range(SHARDED_RANKS):
+        with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    log(f"[17 ranks] {SHARDED_RANKS} gloo ranks on cuda:0 ran in {time.time() - t1:.1f}s")
+
+    apply_matmul_precision(cfg)
+
+    # 17a / 17c: each step against train_step on the whole batch
+    for tag, cf in cfgs.items():
+        atol = 1e-2 if cf.bn_flag else 1e-4
+        exact_f32 = tag != "flagship"
+        assert outs[0]["digest"]["1d", tag] == outs[1]["digest"]["1d", tag], \
+            f"the 1-D ranks' states differ ({tag})"
+        compare_step(f"17a 1-D vs train_step, {tag}", outs[0]["1d", tag], refs[tag], N, atol,
+                     gpu, codebooks=exact_f32)
+        for r in range(SHARDED_RANKS):
+            compare_step(f"17c 2-D 1x2 model rank {r} vs train_step, {tag}", outs[r]["2d", tag],
+                         refs[tag], N, atol, gpu, m=r, n_model=SHARDED_RANKS,
+                         codebooks=exact_f32)
+
+    # 17b: the launch counters of each rank, on each path
+    launches = {}
+    for r, out in enumerate(outs):
+        for path, counts in out["launches"].items():
+            log(f"[17b launches] rank {r} {path}: {counts}")
+            for name in DDP_KERNELS:
+                assert counts[name] > 0, f"kernel {name} was not launched on rank {r}'s {path}"
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        for k, v in out["err"].items():
+            err[k] = max(err.get(k, 0.0), v)
+
+    # 17d: timing and the ledger; nothing table- or edge-shaped rides a collective
+    X = tr.X_dev
+    cidx_bytes = (N + 1) * tr.state.vq_states[0].c_indices.shape[1] * 2
+    S_pad, K = b0.edges.ell_col.shape
+    St_pad = b0.edges.t_ell_col.shape[0]
+    col_bytes = S_pad * K * 4
+    banned = {(S_pad, K), (S_pad,), (S_pad * K,), (St_pad, K), (St_pad,), (St_pad * K,)}
+    for path, st in outs[0]["steps"].items():
+        busy = "not measured" if st["busy"] is None else f"{st['busy']:.3f}"
+        idle = ("not measured" if st["busy"] is None
+                else f"{100 * (1 - st['busy'] / st['wall']):.1f} %")
+        log(f"[17d {path}] {SHARDED_STEPS} steps on rank 0: {st['ms']:.2f} ms/step (std "
+            f"{st['std']:.2f}, median {st['median']:.2f}), device busy {busy} ms/step, idle "
+            f"{idle}, peak {st['peak'] / 1e9:.3f} GB above the {st['held'] / 1e9:.3f} GB the "
+            f"rank held; losses {[round(x, 4) for x in st['losses'][:4]]}... | {gpu}")
+        assert all(math.isfinite(x) for x in st["losses"])
+        if st["kernels"] is not None:
+            for kernel in DDP_KERNELS.values():
+                assert any(kernel in k for k in st["kernels"]), f"{kernel} not in the profile"
+        for r, out in enumerate(outs):
+            led = out["ledger"][path]
+            per = led["per_step"]
+            log(f"[17d ledger] {path} rank {r}: {led['steps']} steps; bytes a step "
+                f"{per['bytes']}; calls a step {per['calls']}; "
+                f"{sum(per['bytes'].values()) / 1e6:.4f} MB a step in all")
+            biggest = 0
+            for kind in led["kinds"]:
+                nbytes = sum(math.prod(s) for s in kind[3]) * np.dtype(kind[2]).itemsize
+                biggest = max(biggest, nbytes)
+                if r == 0:
+                    log(f"[17d ledger]   {kind}: {nbytes} B a call")
+                assert nbytes < X.numel() * X.element_size(), \
+                    f"a payload as large as the feature table: {kind}"
+                for s in kind[3]:
+                    assert not (len(s) and s[0] == N + 1) and tuple(s) not in banned, \
+                        f"a table- or edge-shaped payload: {kind}"
+            if r == 0:
+                log(f"[17d ledger] {path}: the largest payload {biggest / 1e6:.2f} MB against "
+                    f"the feature table {X.numel() * X.element_size() / 1e6:.2f} MB, a "
+                    f"c_indices table {cidx_bytes / 1e6:.2f} MB and the ELL columns "
+                    f"{col_bytes / 1e6:.2f} MB")
+    return launches
+
+
 def state_leaves(state):
     """[(archive name, numpy leaf)] of a port train state or link tree."""
     from vq_gnn_tpu_torch.train.checkpoint import _numpy, named_leaves
@@ -2944,6 +3340,12 @@ def main() -> int:
     t0 = time.time()
     counts.append(upkeep_phase(torch, ops, NodeTrainer, Config, graphs, gpu, runs))
     log(f"[16 upkeep] the phase took {time.time() - t0:.1f}s")
+
+    # ---- 17. one batch sharded over two ranks: the 1-D and 2-D meshes ----
+    phase("17 sharded")
+    t0 = time.time()
+    counts.append(sharded_phase(torch, ops, runs["3 GCN"]["tr"], graphs["GCN"], gpu, err))
+    log(f"[17 sharded] the phase took {time.time() - t0:.1f}s")
     for c in counts:
         for k, v in c.items():
             launches[k] = launches.get(k, 0) + v

@@ -1,0 +1,105 @@
+"""One rank of the gloo group that ``tests/test_torch_port_mesh.py`` spawns.
+
+    python tests/_torch_mesh_worker.py RANK WORLD INIT_FILE PLAN OUT
+
+Reads the plan (a pickle the test writes: per case a ``Config``'s fields,
+the graph's generator arguments, the initial train state as numpy, the
+mesh, ``(1d, n)`` or ``(2d, n_data, n_model)``, and the whole batch's
+dropbranch and dropout masks), builds the case's first batch with the
+port's ``BatchLoader`` on every rank alike, takes this rank's shard, runs
+one sharded step and pickles the metrics, the state, the collective ledger
+and the batch's arrays.  Ranks outside a case's mesh (a mesh of two in a
+group of four) make its groups and sit it out.  Imports the port and torch
+only, never JAX.
+"""
+
+import dataclasses
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from vq_gnn_tpu_torch.config import Config  # noqa: E402
+from vq_gnn_tpu_torch.convert import state_from_numpy  # noqa: E402
+from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm  # noqa: E402
+from vq_gnn_tpu_torch.nn.model import model_static  # noqa: E402
+from vq_gnn_tpu_torch.nn.vq import VQState  # noqa: E402
+from vq_gnn_tpu_torch.parallel import (  # noqa: E402
+    DataMesh,
+    init_distributed,
+    make_mesh_2d,
+    make_sharded_step,
+    make_sharded_step_2d,
+    shard_train_inputs,
+    shard_train_inputs_2d,
+)
+from vq_gnn_tpu_torch.sampler.samplers import BatchLoader  # noqa: E402
+from vq_gnn_tpu_torch.train.loop import device_features  # noqa: E402
+
+VQ_FIELDS = [f.name for f in dataclasses.fields(VQState)]
+BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
+EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val")
+
+
+def run_case(case: dict, rank: int, meshes: dict) -> dict:
+    kind = case["mesh"]
+    if meshes[kind[1] if kind[0] == "1d" else "2d"] is None:
+        return {}  # a rank outside the case's mesh
+    cfg = Config(**case["cfg"])
+    g, c = synthetic_sbm(**case["graph"])
+    g, c, _ = prepare(g, cfg, c)
+    ms = model_static(cfg, g.num_features, c, torch.device("cpu"))
+    state = state_from_numpy(case["state"], ms, cfg.lr, "cpu")
+    X = device_features(g.x, "cpu")
+    loader = BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu")
+    batch = next(loader._epoch_iter())[0][0]  # the host batch, alike on every rank
+    masks = {k: None if case[k] is None else [torch.as_tensor(m) for m in case[k]]
+             for k in ("branch_masks", "dropout_keeps")}
+    if kind[0] == "1d":
+        mesh = meshes[kind[1]]
+        state, X, shard = shard_train_inputs(mesh, state, X, batch)
+        step = make_sharded_step(ms, cfg, mesh)
+    else:
+        mesh = meshes["2d"]
+        state, X, shard = shard_train_inputs_2d(mesh, state, X, batch)
+        step = make_sharded_step_2d(ms, cfg, mesh)
+    state, m = step(state, X, shard, 1.0, cfg.lr, 1.0, **masks)
+    return {
+        "metrics": {k: float(v) for k, v in m.items()},
+        "params": {k: v.detach().numpy().copy() for k, v in state.model.named_parameters()},
+        "vq": [{f: getattr(s, f).numpy().copy() for f in VQ_FIELDS} for s in state.vq_states],
+        "bn": {"mean": [t.numpy().copy() for t in state.bn_state.mean],
+               "var": [t.numpy().copy() for t in state.bn_state.var]},
+        "ledger": {"per_step": step.ledger.per_step(), "kinds": sorted(step.ledger.kinds)},
+        "batch": {f: np.asarray(getattr(batch, f)) for f in BATCH_FIELDS},
+        "edges": {f: np.asarray(getattr(batch.edges, f)) for f in EDGE_FIELDS},
+        "X_elems": X.numel(),
+    }
+
+
+def main():
+    rank, world = int(sys.argv[1]), int(sys.argv[2])
+    init_file, plan_path, out_path = sys.argv[3:6]
+    torch.set_num_threads(1)
+    init_distributed("gloo", f"file://{init_file}", world, rank)
+    with open(plan_path, "rb") as f:
+        plan = pickle.load(f)
+    # every rank makes every group, in one order
+    pair = dist.new_group([0, 1])
+    dev = torch.device("cpu")
+    meshes = {world: DataMesh(None, rank, world, dev),
+              2: DataMesh(pair, rank, 2, dev) if rank < 2 else None,
+              "2d": make_mesh_2d(2, world // 2, device="cpu")}
+    res = {case["name"]: run_case(case, rank, meshes) for case in plan["cases"]}
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

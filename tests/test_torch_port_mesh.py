@@ -1,0 +1,534 @@
+"""The port's single-batch sharding (``vq_gnn_tpu_torch/parallel/mesh.py``,
+``parallel/sharded.py``) against the JAX package's ``train_step`` under
+``shard_train_inputs`` / ``shard_train_inputs_2d``
+(``vq_gnn_tpu/parallel/mesh.py``), on the CPU.
+
+Four gloo ranks are spawned once for the module (``_torch_mesh_worker.py``,
+``init_method=file://`` in a temporary directory).  Every rank builds each
+case's first batch alike, keeps its shard and runs one sharded step from
+the JAX package's initial state; the pytest process holds what they saw to
+the references:
+
+(a) the shards' sub-ELLs and sub-transposed-ELLs, with their row offsets
+    and long rows, reassemble the batch's exactly, at 2 and 4 ranks;
+(b) the 1-D step at 2 and 4 ranks, GCN and SAGE, against the JAX
+    ``train_step`` on ``shard_train_inputs(make_mesh(8))`` of the same state
+    and batch, with ``tests/test_multichip.py``'s tolerances: the loss to
+    rtol 1e-5, the parameters to atol 1e-2 (the inter-layer BN is on: the
+    biases ahead of it have a zero gradient in exact arithmetic, and
+    RMSprop's first step turns its rounding noise into an lr-sized move),
+    the codebooks to 2e-5, ``c_indices[:N]`` equal;
+(c) the same cases without the inter-layer BN against the port's
+    ``train_step`` on the whole batch, the parameters to atol 1e-4, and one
+    with dropbranch and dropout on the whole batch's masks;
+(d) the 2-D step at 2 x 2 against JAX ``shard_train_inputs_2d(make_mesh_2d(4,
+    2))``: the loss, ``c_indices[:N]`` and the codebooks, each model rank
+    holding nb / 2 branches and its fan-in columns; without the BN (GCN
+    and SAGE) against the port's ``train_step`` as in (c);
+(e) the collective ledger on the 4,000-node graph of
+    ``tests/test_collective_audit.py:125``: no payload as large as the
+    feature table or a ``c_indices`` table, none shaped like an edge array;
+(f) each option outside the slice refused by name, and the padding error.
+
+The replicated state (parameters, codebooks, BN) agrees across the ranks
+that hold it.
+"""
+
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vq_gnn_tpu import config as jcfg
+from vq_gnn_tpu.graph import datasets as jdata
+from vq_gnn_tpu.nn import model as jmodel
+from vq_gnn_tpu.parallel import mesh as jmesh
+from vq_gnn_tpu.sampler import samplers as jsamplers
+from vq_gnn_tpu.train.loop import device_features as j_device_features
+from vq_gnn_tpu.train.state import init_train_state as j_init_train_state
+from vq_gnn_tpu.train.step import make_step_fns as j_make_step_fns
+from vq_gnn_tpu_torch import config as tcfg
+from vq_gnn_tpu_torch import parallel as tpar
+from vq_gnn_tpu_torch.convert import state_from_numpy
+from vq_gnn_tpu_torch.graph import datasets as tdata
+from vq_gnn_tpu_torch.nn import model as tmodel
+from vq_gnn_tpu_torch.ops.spmm import gathered_order, long_rows_host, row_offsets_host
+from vq_gnn_tpu_torch.sampler import samplers as tsamplers
+from vq_gnn_tpu_torch.train.loop import device_features
+from vq_gnn_tpu_torch.train.step import make_step_fns
+from tests.test_torch_port_native import steady_native
+
+steady_native()  # one native host library on both sides (that file says why)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+WORLD = 4
+LR = 0.01
+GRAPH = dict(num_nodes=400, num_features=16, seed=0)  # tests/test_multichip.py's
+AUDIT_GRAPH = dict(num_nodes=4000, num_features=16, seed=0)  # test_collective_audit.py:125
+BASE = dict(dataset="synthetic", conv_type="GCN", num_layers=2, hidden_channels=16, num_D=4,
+            num_M=8, batch_size=128, skip=True, pad_multiple_nodes=64, pad_multiple_edges=512,
+            vq_update_mode="live", lr=LR)
+NO_BN = dict(bn_flag=False)
+SAGE = dict(conv_type="SAGE")
+OPTIONS = dict(bn_flag=False, dropbranch=0.5, dropout=0.5)
+# name: (Config fields over BASE, mesh, reference, graph)
+CASES = {
+    "1d-GCN-2": ({}, ("1d", 2), "jax", GRAPH),
+    "1d-GCN-4": ({}, ("1d", 4), "jax", GRAPH),
+    "1d-SAGE-2": (SAGE, ("1d", 2), "jax", GRAPH),
+    "1d-SAGE-4": (SAGE, ("1d", 4), "jax", GRAPH),
+    "1d-GCN-2-noBN": (NO_BN, ("1d", 2), "port", GRAPH),
+    "1d-GCN-4-noBN": (NO_BN, ("1d", 4), "port", GRAPH),
+    "1d-SAGE-2-noBN": ({**SAGE, **NO_BN}, ("1d", 2), "port", GRAPH),
+    "1d-SAGE-4-noBN": ({**SAGE, **NO_BN}, ("1d", 4), "port", GRAPH),
+    "1d-GCN-4-options": (OPTIONS, ("1d", 4), "port", GRAPH),
+    "2d-GCN": ({}, ("2d", 2, 2), "jax", GRAPH),
+    "2d-GCN-noBN": (NO_BN, ("2d", 2, 2), "port", GRAPH),
+    "2d-SAGE-noBN": ({**SAGE, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
+    "1d-GCN-4-audit": ({}, ("1d", 4), None, AUDIT_GRAPH),
+}
+# tests/test_multichip.py:50-76 (BN on), and the parameters without it
+RTOL_LOSS, ATOL_PARAMS_BN, ATOL_PARAMS, TOL_CODEBOOK = 1e-5, 1e-2, 1e-4, 2e-5
+BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
+EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val")
+
+
+def _plain(x):
+    """A JAX state as dicts, lists and numpy arrays (the worker imports no JAX)."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: _plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return None if x is None else np.asarray(x)
+
+
+def _jax_setup(kw, graph):
+    """(cfg, graph, classes, ModelStatic, a fresh initial state) of the JAX package."""
+    cfg = jcfg.Config(**{**BASE, **kw})
+    g, c = jdata.synthetic_sbm(**graph)
+    g, c, _ = jdata.prepare(g, cfg, c)
+    ms = jmodel.model_static(cfg, g.num_features, c)
+    return cfg, g, c, ms, j_init_train_state(jax.random.PRNGKey(0), ms, g.num_nodes)
+
+
+def _masks(cfg, ms, B_pad):
+    """The whole batch's dropbranch and dropout masks of a case (numpy)."""
+    if not cfg.dropbranch:
+        return None, None
+    rng = np.random.default_rng(5)
+    branch = [rng.permutation(nb) < int(nb * (1 - cfg.dropbranch)) for nb in ms.num_branches]
+    keeps = [rng.random((B_pad, c)) < 1 - cfg.dropout for c in ms.channels[1:-1]]
+    return branch, keeps
+
+
+def _port_graph(graph, cfg):
+    """The port's SBM of ``graph``'s arguments, prepared for ``cfg``."""
+    g, c = tdata.synthetic_sbm(**graph)
+    return tdata.prepare(g, cfg, c)[0]
+
+
+def _jax_batch(cfg, g):
+    loader = jsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0)
+    return next(loader._epoch_iter())[0][0]
+
+
+class MeshRun:
+    """The plan, the four spawned ranks and, once they finish, what they saw."""
+
+    def __init__(self, tmp):
+        self.ctx, cases = {}, []
+        for name, (kw, mesh, ref, graph) in CASES.items():
+            cfg, g, c, ms, st = _jax_setup(kw, graph)
+            branch, keeps = _masks(cfg, ms, _jax_batch(cfg, g).B_pad)
+            self.ctx[name] = (cfg, g, c, ms)
+            cases.append(dict(name=name, cfg=dataclasses.asdict(cfg), graph=graph,
+                              state=_plain(st), mesh=mesh, branch_masks=branch,
+                              dropout_keeps=keeps))
+        plan = os.path.join(tmp, "plan.pkl")
+        with open(plan, "wb") as f:
+            pickle.dump(dict(cases=cases), f)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["OMP_NUM_THREADS"] = "1"
+        self.outs = [os.path.join(tmp, f"out{r}.pkl") for r in range(WORLD)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "_torch_mesh_worker.py"), str(r), str(WORLD),
+             os.path.join(tmp, "pg"), plan, self.outs[r]],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(WORLD)]
+        self._res = None
+
+    def results(self):
+        """Every rank's pickled results, waiting for the ranks once."""
+        if self._res is None:
+            logs = []
+            try:
+                for p in self.procs:
+                    logs.append(p.communicate(timeout=300)[0].decode(errors="replace"))
+            finally:
+                self.stop()
+            for p, log in zip(self.procs, logs):
+                assert p.returncode == 0, f"rank failed:\n{log[-4000:]}"
+            self._res = []
+            for out in self.outs:
+                with open(out, "rb") as f:
+                    self._res.append(pickle.load(f))
+        return self._res
+
+    def ranks(self, name):
+        """[(rank, its result)] of the ranks in the case's mesh."""
+        return [(r, res[name]) for r, res in enumerate(self.results()) if res[name]]
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    r = MeshRun(str(tmp_path_factory.mktemp("mesh")))
+    yield r
+    r.stop()
+
+
+def _port_params(jstate, case):
+    """{name: value} of a JAX state's parameters in the port's layout."""
+    cfg, g, c, _ = case
+    ms_t = tmodel.model_static(tcfg.Config(**dataclasses.asdict(cfg)), g.num_features, c,
+                               torch.device("cpu"))
+    st = state_from_numpy(jax.tree.map(np.asarray, jstate), ms_t, LR, "cpu")
+    return {k: v.detach().numpy() for k, v in st.model.named_parameters()}
+
+
+def _jax_reference(name):
+    """(loss, {param: value}, [VQ state as numpy], the batch) of one JAX
+    ``train_step`` on a case's inputs, sharded as its mesh says: the 1-D
+    cases on ``make_mesh(8)``, the 2-D on ``make_mesh_2d(4, 2)``."""
+    kw, mesh, _, graph = CASES[name]
+    cfg, g, c, ms, state = _jax_setup(kw, graph)
+    X = j_device_features(g.x)
+    batch = _jax_batch(cfg, g)
+    if mesh[0] == "1d":
+        placed = jmesh.shard_train_inputs(jmesh.make_mesh(8), state, X, batch)
+    else:
+        placed = jmesh.shard_train_inputs_2d(jmesh.make_mesh_2d(4, 2), state, X, batch)
+    new, m = j_make_step_fns(ms, cfg, multilabel=False).train_step(
+        *placed, jnp.float32(1.0), jnp.float32(LR), jnp.float32(1.0), jax.random.PRNGKey(3))
+    vq = [{f: np.asarray(getattr(s, f)) for f in ("embedding", "c_indices")}
+          for s in new.vq_states]
+    return float(m["loss"]), _port_params(new, (cfg, g, c, ms)), vq, batch
+
+
+def _port_reference(case, graph, state_np, masks):
+    """(loss, {param: value}, [VQ state as numpy]) of the port's
+    ``train_step`` on the whole batch from ``state_np``."""
+    cfg, g, c, _ = case
+    tc = tcfg.Config(**dataclasses.asdict(cfg))
+    cpu = torch.device("cpu")
+    ms = tmodel.model_static(tc, g.num_features, c, cpu)
+    state = state_from_numpy(state_np, ms, LR, cpu)
+    tg = _port_graph(graph, tc)
+    batch = next(tsamplers.BatchLoader(tg, tc, train_flag=True, shuffle=False, seed=0,
+                                       device="cpu")._epoch_iter())[0][0].to(cpu)
+    branch, keeps = ([None if m is None else [torch.as_tensor(t) for t in m] for m in masks])
+    state, m = make_step_fns(ms, tc).train_step(state, device_features(tg.x, cpu), batch, 1.0,
+                                                LR, 1.0, branch_masks=branch,
+                                                dropout_keeps=keeps)
+    vq = [{f: getattr(s, f).numpy() for f in ("embedding", "c_indices")}
+          for s in state.vq_states]
+    return float(m["loss"]), {k: v.detach().numpy() for k, v in
+                              state.model.named_parameters()}, vq
+
+
+def _model_part(a, m, n_model, axis):
+    w = a.shape[axis] // n_model
+    return np.take(a, np.arange(m * w, (m + 1) * w), axis=axis)
+
+
+def _check(name, out, rank, mesh, loss, params, vq, N, atol_params):
+    """One rank's step against a reference; on the 2-D mesh its model
+    rank's part of it."""
+    n_model = mesh[2] if mesh[0] == "2d" else 1
+    m = rank % n_model
+    np.testing.assert_allclose(out["metrics"]["loss"], loss, rtol=RTOL_LOSS,
+                               err_msg=f"{name} rank {rank} loss")
+    for k, v in params.items():
+        if n_model > 1 and v.ndim == 2:  # a fan-in weight: this rank's columns
+            v = _model_part(v, m, n_model, 1)
+        assert out["params"][k].shape == v.shape, (name, k)
+        np.testing.assert_allclose(out["params"][k], v, atol=atol_params,
+                                   err_msg=f"{name} rank {rank} {k}")
+    for l, ref in enumerate(vq):
+        emb, cidx = ref["embedding"], ref["c_indices"]
+        if n_model > 1:
+            emb, cidx = _model_part(emb, m, n_model, 0), _model_part(cidx, m, n_model, 1)
+        o = out["vq"][l]
+        np.testing.assert_allclose(o["embedding"], emb, rtol=TOL_CODEBOOK, atol=TOL_CODEBOOK,
+                                   err_msg=f"{name} rank {rank} layer {l} codebook")
+        np.testing.assert_array_equal(o["c_indices"][:N], cidx[:N],
+                                      err_msg=f"{name} rank {rank} layer {l} c_indices")
+
+
+def _replicas_agree(run, name, mesh):
+    """The ranks that hold one part of the state hold it bit for bit."""
+    n_model = mesh[2] if mesh[0] == "2d" else 1
+    by_part = {}
+    for r, out in run.ranks(name):
+        by_part.setdefault(r % n_model, []).append(out)
+    for outs in by_part.values():
+        a = outs[0]
+        for b in outs[1:]:
+            assert a["metrics"] == b["metrics"], name
+            for k in a["params"]:
+                assert np.array_equal(a["params"][k], b["params"][k]), (name, k)
+            for x, y in zip(a["vq"], b["vq"]):
+                for f in x:
+                    assert np.array_equal(x[f][:-1] if f == "c_indices" else x[f],
+                                          y[f][:-1] if f == "c_indices" else y[f]), (name, f)
+            for key in ("mean", "var"):
+                for x, y in zip(a["bn"][key], b["bn"][key]):
+                    assert np.array_equal(x, y), name
+
+
+# ---------------------------------------------------------------------------
+# (b), (d) against the JAX package's sharded train_step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("jname", ["1d-GCN", "1d-SAGE", "2d-GCN"])
+def test_sharded_step_matches_jax(run, jname):
+    names = [n for n in CASES if n.startswith(jname) and CASES[n][2] == "jax"]
+    case = run.ctx[names[0]]
+    loss, params, vq, jbatch = _jax_reference(names[0])
+    N = case[1].num_nodes
+    for name in names:
+        mesh = CASES[name][1]
+        outs = run.ranks(name)
+        assert len(outs) == (mesh[1] if mesh[0] == "1d" else mesh[1] * mesh[2])
+        for rank, out in outs:
+            for f in BATCH_FIELDS:  # the port's loader built the JAX batch
+                np.testing.assert_array_equal(out["batch"][f], np.asarray(getattr(jbatch, f)))
+            for f in EDGE_FIELDS:
+                np.testing.assert_array_equal(out["edges"][f],
+                                              np.asarray(getattr(jbatch.edges, f)))
+            _check(name, out, rank, mesh, loss, params, vq, N, ATOL_PARAMS_BN)
+        _replicas_agree(run, name, mesh)
+    if jname == "2d-GCN":  # each model rank: nb / 2 branches, its fan-in columns
+        ms = case[3]
+        for rank, out in run.ranks("2d-GCN"):
+            for l, nb in enumerate(ms.num_branches):
+                assert out["vq"][l]["embedding"].shape[0] == nb // 2
+                assert out["vq"][l]["c_indices"].shape == (N + 1, nb // 2)
+                w = out["params"][f"layers.{l}.gnn_transform.weight"]
+                assert w.shape == (ms.channels[l + 1], ms.channels[l] // 2)
+                assert out["params"][f"layers.{l}.gnn_transform.bias"].shape == \
+                    (ms.channels[l + 1],)
+
+
+# ---------------------------------------------------------------------------
+# (c), (d) against the port's train_step on the whole batch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", [n for n in CASES if CASES[n][2] == "port"])
+def test_sharded_step_matches_whole_batch(run, name):
+    case = run.ctx[name]
+    cfg, g, _, ms = case
+    state = j_init_train_state(jax.random.PRNGKey(0), ms, g.num_nodes)
+    masks = _masks(cfg, ms, _jax_batch(cfg, g).B_pad)
+    loss, params, vq = _port_reference(case, CASES[name][3], _plain(state), masks)
+    mesh = CASES[name][1]
+    for rank, out in run.ranks(name):
+        _check(name, out, rank, mesh, loss, params, vq, g.num_nodes, ATOL_PARAMS)
+        assert np.isfinite(out["metrics"]["grad_norm"]) and not out["metrics"]["bad_init"]
+    _replicas_agree(run, name, mesh)
+    if cfg.dropbranch:  # the dropped branches' codebooks kept their values
+        for l, keep in enumerate(masks[0]):
+            for _, out in run.ranks(name):
+                np.testing.assert_array_equal(out["vq"][l]["embedding"][~keep],
+                                              np.asarray(state.vq_states[l].embedding)[~keep])
+
+
+# ---------------------------------------------------------------------------
+# (e) the ledger at the audit's graph
+# ---------------------------------------------------------------------------
+def test_sharded_ledger_moves_no_graph_sized_payload(run):
+    """As ``tests/test_collective_audit.py:125`` holds the JAX step: the
+    feature table, a ``c_indices`` table and the edge arrays never ride a
+    collective; the row exchange is batch-row sized, [B_pad + Bp_pad, C],
+    once per layer forward and once per layer backward above layer 0."""
+    name = "1d-GCN-4-audit"
+    cfg, g, c, ms = run.ctx[name]
+    batch = _jax_batch(cfg, g)
+    N, F = g.num_nodes, g.num_features
+    cap = min((N + 1) * F, (N + 1) * ms.num_branches[0])
+    S_pad, K = np.asarray(batch.edges.ell_col).shape
+    St_pad = np.asarray(batch.edges.t_ell_col).shape[0]
+    edge_shapes = {(S_pad, K), (S_pad,), (S_pad * K,), (St_pad, K), (St_pad,), (St_pad * K,)}
+    R = batch.B_pad + batch.Bp_pad
+    outs = run.ranks(name)
+    assert len(outs) == WORLD
+    for rank, out in outs:
+        assert out["X_elems"] == (N + 1) * F
+        kinds = out["ledger"]["kinds"]
+        for cat, op, dtype, shapes in kinds:
+            for s in shapes:
+                assert int(np.prod(s)) < cap, (rank, cat, s, cap)
+                assert tuple(s) not in edge_shapes, (rank, cat, s)
+        assert {op for _, op, _, _ in kinds} == {"all_reduce", "all_gather"}
+        assert ("rows", "all_gather", "float32", ((R, F),)) in kinds
+        nb, M, D = ms.num_branches[0], ms.vq.num_M, ms.num_D
+        assert any(cat == "stats" and (nb, M, 2 * D) in shapes for cat, _, _, shapes in kinds)
+        assert ("c_indices", "all_gather", "uint8", ((batch.B_pad, nb),)) in kinds
+        per = out["ledger"]["per_step"]["bytes"]
+        chans = ms.channels[:-1]
+        assert per["rows"] == 4 * R * (sum(chans) + sum(chans[1:])), per
+        assert per["partials"] == 0 and per["grad"] == 4 * sum(
+            v.size for v in out["params"].values())
+
+
+# ---------------------------------------------------------------------------
+# (a) the sub-ELLs, in-process
+# ---------------------------------------------------------------------------
+def _port_batch():
+    cfg = tcfg.Config(**BASE)
+    g = _port_graph(GRAPH, cfg)
+    loader = tsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu")
+    return next(loader._epoch_iter())[0][0]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_shards_reassemble_the_batch(n):
+    """Every rank's sub-ELL (its batch rows, then its boundary rows) and
+    sub-transposed-ELL (its batch columns), columns mapped back from the
+    gathered order, laid end to end in the batch's row order, are the
+    batch's live slots exactly; each keeps its rows' slot counts (row
+    offsets) and the batch's long rows among its rows, longest first."""
+    batch = _port_batch()
+    e = batch.edges
+    B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
+    R = B_pad + Bp_pad
+    b, bp = B_pad // n, Bp_pad // n
+    back = np.full(R + 1, R, np.int64)
+    back[gathered_order(np.arange(R + 1), B_pad, Bp_pad, n)] = np.arange(R + 1)
+    ptr = row_offsets_host(e.ell_row, R)
+    t_ptr = row_offsets_host(e.t_ell_row, R)
+    long_all = set(long_rows_host(ptr)[1:].tolist())
+    parts = {"B": [], "fo": [], "t": []}
+    for r in range(n):
+        _, _, shard = tpar.shard_train_inputs(tpar.DataMesh(None, r, n, torch.device("cpu")),
+                                              None, None, batch)
+        se = shard.edges
+        assert (se.num_rows, se.b_rows, shard.B_pad, shard.Bp_pad) == (b + bp, b, b, bp)
+        for f in ("batch_idx", "valid_B", "y", "train_mask"):
+            np.testing.assert_array_equal(getattr(shard, f).numpy(),
+                                          getattr(batch, f)[r * b : (r + 1) * b])
+        for f in ("fo_ids", "valid_fo"):
+            np.testing.assert_array_equal(getattr(shard, f).numpy(),
+                                          getattr(batch, f)[r * bp : (r + 1) * bp])
+        np.testing.assert_array_equal(shard.batch_idx_all.numpy(), batch.batch_idx)
+        row, col, val = (getattr(se, f).numpy() for f in ("ell_row", "ell_col", "ell_val"))
+        sptr, slong = se.ell_ptr.numpy(), se.ell_long_rows.numpy()
+        # the row offsets: the batch's slot counts of the owned rows
+        own = np.r_[r * b : (r + 1) * b, B_pad + r * bp : B_pad + (r + 1) * bp]
+        np.testing.assert_array_equal(np.diff(sptr), np.diff(ptr)[own])
+        assert set(own[slong[1:]].tolist()) == long_all & set(own.tolist())
+        counts = np.diff(sptr)[slong[1:]]
+        assert (np.diff(counts) <= 0).all()  # longest first
+        cut = sptr[b]
+        glob = np.where(row < b, row + r * b, row - b + B_pad + r * bp)
+        parts["B"].append((glob[:cut], back[col[:cut]], val[:cut]))
+        parts["fo"].append((glob[cut:], back[col[cut:]], val[cut:]))
+        trow, tcol, tval = (getattr(se, f).numpy() for f in ("t_ell_row", "t_ell_col",
+                                                             "t_ell_val"))
+        np.testing.assert_array_equal(np.diff(se.t_ell_ptr.numpy()),
+                                      np.diff(t_ptr)[r * b : (r + 1) * b])
+        parts["t"].append((trow + r * b, back[tcol], tval))
+    for key, (rows, cols, vals), (lo, hi) in (
+            ("forward", (e.ell_row, e.ell_col, e.ell_val), (0, ptr[R])),
+            ("transposed", (e.t_ell_row, e.t_ell_col, e.t_ell_val), (0, t_ptr[B_pad]))):
+        pieces = parts["B"] + parts["fo"] if key == "forward" else parts["t"]
+        for i, whole in enumerate((rows, cols, vals)):
+            np.testing.assert_array_equal(np.concatenate([p[i] for p in pieces]),
+                                          np.asarray(whole)[lo:hi], err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# (f) refusals by name
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kw,what", [
+    (dict(conv_type="GAT"), "with GAT"),
+    (dict(formulation="bm"), "formulation='bm'"),
+    (dict(spmm_backend="coo"), "COO layout"),
+    (dict(ell_Kt=2), "mixed-K layout"),
+    (dict(compute_dtype="bfloat16"), "compute_dtype='bfloat16'"),
+], ids=["GAT", "bm", "COO", "mixed-K", "bf16"])
+def test_sharded_steps_refuse_by_name(kw, what):
+    """Both steps raise, pointing at ROADMAP.md queue 1 item 7c, before
+    they need a process group."""
+    cfg = tcfg.Config(**{**BASE, **kw})
+    ms = tmodel.model_static(cfg, 16, 4, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    for make, mesh in ((tpar.make_sharded_step, tpar.DataMesh(None, 0, 2, cpu)),
+                       (tpar.make_sharded_step_2d, tpar.Mesh2D(None, None, None, 1, 2, 0, 0, 0,
+                                                               cpu))):
+        with pytest.raises(NotImplementedError, match=f"{what}.*queue 1 item 7c"):
+            make(ms, cfg, mesh)
+
+
+def test_transformer_refused_by_name():
+    """The transformer branch (B + M only, so the B + M refusal comes first
+    on a real configuration) is refused by name on its own too."""
+    ms = tmodel.model_static(tcfg.Config(**{**BASE, "formulation": "bm",
+                                            "transformer_flag": True}), 16, 4,
+                             torch.device("cpu"))
+    from vq_gnn_tpu_torch.parallel.sharded import check_sharded
+
+    with pytest.raises(NotImplementedError, match="transformer_flag.*queue 1 item 7c"):
+        check_sharded(dataclasses.replace(ms, formulation="bbprime"),
+                      tcfg.Config(**BASE))
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(ell_Kt=2), "mixed-K layout"),
+    (dict(spmm_backend="coo"), "COO layout"),
+    (dict(formulation="bm", conv_type="SAGE"), "B \\+ M batches"),
+    ("link", "link batches"),
+    ("multilabel", "multilabel batches"),
+], ids=["mixed-K", "COO", "bm", "link", "multilabel"])
+def test_shard_train_inputs_refuses_by_name(kw, what):
+    """The batches the sharded step does not take yet."""
+    if isinstance(kw, dict):
+        cfg = tcfg.Config(**{**BASE, **kw})
+        g = _port_graph(GRAPH, cfg)
+        batch = next(tsamplers.BatchLoader(g, cfg, train_flag=True, seed=0,
+                                           device="cpu")._epoch_iter())[0][0]
+    else:
+        batch = _port_batch()
+        if kw == "link":
+            batch = dataclasses.replace(batch, link_src=np.zeros(8, np.int32))
+        else:
+            batch = dataclasses.replace(batch, y=np.zeros((batch.B_pad, 3), np.float32))
+    mesh = tpar.DataMesh(None, 0, 2, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=f"{what}.*queue 1 item 7c"):
+        tpar.shard_train_inputs(mesh, None, None, batch)
+
+
+def test_padding_and_branches_must_divide():
+    """B_pad or Bp_pad that does not divide by the rows' ranks raises a
+    ValueError naming the padding; so do branches that do not divide by the
+    model ranks."""
+    batch = _port_batch()
+    assert batch.B_pad == 128
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="B_pad=128.*fixed_B_pad"):
+        tpar.shard_train_inputs(tpar.DataMesh(None, 0, 3, cpu), None, None, batch)
+    cfg = tcfg.Config(**BASE)
+    ms = tmodel.model_static(cfg, 16, 4, cpu)
+    with pytest.raises(ValueError, match="do not divide by n_model=3"):
+        tpar.make_sharded_step_2d(ms, cfg, tpar.Mesh2D(None, None, None, 1, 3, 0, 0, 0, cpu))

@@ -1,0 +1,130 @@
+"""The port's collective ledger at the bench flagship's widths, on the CPU:
+the data-parallel step (``parallel/multihost.py:make_ddp_step``) and the
+1-D sharded step (``parallel/sharded.py:make_sharded_step``) on two gloo
+ranks, one step each, and their bytes and calls a step by category.  The
+counterpart of ``tools/collective_ledger_at_scale.py``, which compiles the
+JAX package's DDP step and reads its HLO; the port runs its steps.
+
+    python tools/collective_ledger_at_scale_torch.py [--nodes 169343]
+
+The graph is the bench's arxiv-scale SBM (``--nodes`` cuts it; the widths
+stay: 3 layers x 128, num_D = 4, M = 256, 80 cluster parts).  The sharded
+step takes one batch of 40 parts, split over the two ranks; the DDP step
+gives each rank a batch of half as many nodes from its own half of the
+graph (``partition_hosts``), at fixed pads both ranks share.  Row 6 runs
+as ``vq_backend='scan'`` (the plain assignment in row chunks), which moves
+the same collectives as the kernels.  Prints one JSON line on stdout.
+"""
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import sys
+import tempfile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+RANKS = 2
+
+
+def ledger_of(step) -> dict:
+    """A step's ledger: bytes and calls a step by category, the MB a step
+    in all and the largest single payload's bytes."""
+    import numpy as np
+
+    per = step.ledger.per_step()
+    return {"bytes": per["bytes"], "calls": per["calls"],
+            "MB": round(sum(per["bytes"].values()) / 1e6, 4),
+            "largest_B": max(sum(math.prod(s) for s in shapes) * np.dtype(dt).itemsize
+                             for _, _, dt, shapes in step.ledger.kinds)}
+
+
+def rank_main(rank: int, tmp: str, nodes: int) -> None:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bench_torch import PROFILES, bench_config
+    from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm
+    from vq_gnn_tpu_torch.graph.partition import permute_graph
+    from vq_gnn_tpu_torch.nn.model import model_static
+    from vq_gnn_tpu_torch.parallel import (
+        init_distributed,
+        make_ddp_step,
+        make_mesh,
+        make_sharded_step,
+        partition_hosts,
+        shard_train_inputs,
+    )
+    from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+    from vq_gnn_tpu_torch.train.loop import device_features
+    from vq_gnn_tpu_torch.train.state import init_train_state
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // RANKS))
+    init_distributed("gloo", f"file://{tmp}/pg", RANKS, rank)
+    cpu = torch.device("cpu")
+    # the bench's default cell, with row 6 as the plain assignment in row chunks
+    cfg = dataclasses.replace(bench_config({}), vq_backend="scan")
+    _, degree, features, classes, _, _ = PROFILES["arxiv"]
+    g0, c0 = synthetic_sbm(num_nodes=nodes, num_classes=classes, num_features=features,
+                           avg_degree=degree, seed=0)
+    g, c, ci = prepare(g0, cfg, c0)
+    ms = model_static(cfg, g.num_features, c, cpu)
+
+    def state():
+        return init_train_state(torch.Generator().manual_seed(0), ms, g.num_nodes, cfg.lr, cpu)
+
+    out = {}
+    # the sharded step: one batch of 40 parts, each rank its half of the rows
+    batch = next(BatchLoader(g, cfg, train_flag=True, cluster_indices=ci, seed=0,
+                             device="cpu")._epoch_iter())[0][0]
+    mesh = make_mesh(RANKS, device="cpu")
+    st, X, shard = shard_train_inputs(mesh, state(), device_features(g.x, cpu), batch)
+    step = make_sharded_step(ms, cfg, mesh)
+    step(st, X, shard, 1.0, cfg.lr, 1.0)
+    out["sharded"] = dict(B=int(batch.num_B), B_pad=batch.B_pad, Bp_pad=batch.Bp_pad,
+                          **ledger_of(step))
+    del st, shard, step
+
+    # the DDP step: each rank half as many nodes from its half of the graph
+    perm, ptr = partition_hosts(g.adj, RANKS)
+    gp = permute_graph(g, perm)
+    half = int(batch.num_B) // RANKS
+    node_cfg = dataclasses.replace(cfg, sampler_type="node")
+    loaders = [BatchLoader(gp, node_cfg, train_flag=True, shuffle=False, seed=h, device="cpu")
+               for h in range(RANKS)]
+    for h, ld in enumerate(loaders):  # every rank builds both: the shared pads
+        ld._build(np.arange(ptr[h], ptr[h] + half))
+    pads = {k: max(getattr(ld, a) for ld in loaders) for k, a in
+            (("fixed_B_pad", "_B_bucket"), ("fixed_Bp_pad", "_Bp_bucket"),
+             ("fixed_E_pad", "_E_bucket"))}
+    ddp_cfg = dataclasses.replace(node_cfg, **pads)
+    b = BatchLoader(gp, ddp_cfg, train_flag=True, shuffle=False, seed=rank,
+                    device="cpu")._build(np.arange(ptr[rank], ptr[rank] + half)).to(cpu)
+    step = make_ddp_step(ms, ddp_cfg)
+    step(state(), device_features(gp.x, cpu), b, 1.0, cfg.lr, 1.0)
+    out["ddp"] = dict(B=half, B_pad=b.B_pad, Bp_pad=b.Bp_pad, **ledger_of(step))
+    if rank == 0:
+        print(json.dumps({"experiment": "collective_ledger_at_scale_torch", "nodes": nodes,
+                          "ranks": RANKS, "num_M": cfg.num_M, "nb": ms.num_branches[0],
+                          "feature_table_B": X.numel() * 4,
+                          "c_indices_table_B": (g.num_nodes + 1) * ms.num_branches[0] * 2,
+                          **out}), flush=True)
+    dist.destroy_process_group()
+
+
+def main():
+    import torch.multiprocessing as mp
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--nodes", type=int, default=169_343, help="the graph's nodes (the bench's "
+                   "arxiv profile: 169,343)")
+    args = p.parse_args()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(rank_main, args=(tmp, args.nodes), nprocs=RANKS, join=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -280,9 +280,11 @@ def batchnorm_infer(x, mean, var, eps=1e-5):
     return (x - mean[None, :]) * torch.rsqrt(var[None, :] + eps)
 
 
-def batchnorm_train(x, mean, var, valid, eps=1e-5, momentum=0.1):
-    """Affine-free BN over valid batch rows; returns (y, new_mean, new_var)."""
-    ((b_mean, b_var, b_var_u),) = masked_moments([x], valid)
+def batchnorm_train(x, mean, var, valid, eps=1e-5, momentum=0.1, stats_reduce=None):
+    """Affine-free BN over valid batch rows; returns (y, new_mean, new_var).
+    ``stats_reduce`` (``masked_moments``'s, differentiable) takes the moments
+    over every rank's rows: a batch sharded by rows (``parallel/sharded.py``)."""
+    ((b_mean, b_var, b_var_u),) = masked_moments([x], valid, stats_reduce)
     y = (x - b_mean[None, :]) * torch.rsqrt(b_var[None, :] + eps)
     return (
         y,
@@ -305,6 +307,7 @@ def layer_forward(
     branch_keep: Optional[torch.Tensor] = None,  # [nb] bool, the dropbranch mask
     vq_tr: Optional[VQState] = None,
     probe_tr: Optional[torch.Tensor] = None,
+    fan_in_reduce=None,
 ):
     """One LowRankGNNLayer forward (``models.py v2:144-231``), GCN, SAGE or
     GAT.  A GAT probe is [B_pad, C_in + 1]: its last column lands on the
@@ -318,6 +321,11 @@ def layer_forward(
     Under bf16 compute (``ms.compute_dtype``) the lookup rounds its codewords
     to bf16 and x_input is cast to bf16 after the concatenation
     (``vq_gnn_tpu/nn/model.py:294-321``); the conv's output is f32.
+
+    ``fan_in_reduce`` is the 2-D mesh's (``parallel/sharded.py``): x holds
+    this rank's branches' columns and the linears their fan-in rows, and
+    the function sums the partial products over the ranks of the branches
+    (see :func:`_layer_output`).
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     if ms.formulation == "bm":
@@ -387,14 +395,23 @@ def layer_forward(
 
     # gradient recovery term (models.py v2:198-200)
     info_backward = (x_out_fo * grad_fo * warm_up_rate).sum()
-    return _layer_output(layer, ms, x, x_out_B), info_backward
+    return _layer_output(layer, ms, x, x_out_B, fan_in_reduce=fan_in_reduce), info_backward
 
 
-def _layer_output(layer, ms: ModelStatic, x, conv_B, x_tr=None):
+def _layer_output(layer, ms: ModelStatic, x, conv_B, x_tr=None, fan_in_reduce=None):
     """gnn_transform of the conv output, + the SAGE root weight (models.py
     v2:203-204), the transformer branch's ``transformer_v`` of its output
     ``x_tr`` and ``transformer_res`` of the layer input (v1/models.py:
-    342-362), and the skip linear of the layer input."""
+    342-362), and the skip linear of the layer input.  With
+    ``fan_in_reduce`` (the 2-D mesh, B + B' GCN and SAGE) the products
+    without their biases are summed locally, ``fan_in_reduce`` adds the
+    other ranks' partial sums, then the biases are added once."""
+    if fan_in_reduce is not None:
+        lins = [(layer.gnn_transform, conv_B)]
+        lins += [(layer.fc_sage, x)] if ms.conv_type == "SAGE" else []
+        lins += [(layer.linear_skip, x)] if ms.skip else []
+        out = fan_in_reduce(sum(F.linear(a, lin.weight) for lin, a in lins))
+        return out + sum(lin.bias for lin, _ in lins)
     out = F.linear(conv_B, layer.gnn_transform.weight, layer.gnn_transform.bias)
     if ms.conv_type == "SAGE":
         out = out + F.linear(x, layer.fc_sage.weight, layer.fc_sage.bias)
@@ -698,6 +715,8 @@ def model_forward(
     dropout_keeps: Optional[List[torch.Tensor]] = None,
     num_layers_to_run: Optional[int] = None,
     with_bn_act: bool = True,
+    stats_reduce=None,
+    model_axis=None,
 ):
     """Full LowRankGNN forward (``models.py v2:308-348``).
 
@@ -709,6 +728,12 @@ def model_forward(
     (``models.py v2:370-374``): the first layers only, each hidden layer
     followed by its activation alone (no BN, no dropout).
 
+    A batch sharded over ranks (``parallel/sharded.py``) passes
+    ``stats_reduce``, which sums the inter-layer BN's moment sums over the
+    ranks of the rows, and on the 2-D mesh ``model_axis``: its ``split(x)``
+    gives each layer the columns of this rank's branches (the layer inputs
+    returned are those), its ``reduce`` is the layers' ``fan_in_reduce``.
+
     Returns (out [B_pad, C_out], info_backward, layer_inputs, new_bn_state)."""
     x = x_B
     layer_inputs = []
@@ -717,6 +742,8 @@ def model_forward(
     drop = alpha_dropout if ms.alpha_dropout_flag else dropout
     L = ms.num_layers if num_layers_to_run is None else num_layers_to_run
     for l in range(L):
+        if model_axis is not None:
+            x = model_axis.split(x)
         layer_inputs.append(x)
         probe = probes[l] if probes is not None else None
         x, info_b = layer_forward(
@@ -724,6 +751,7 @@ def model_forward(
             branch_keep=None if branch_masks is None else branch_masks[l],
             vq_tr=None if vq_states_tr is None else vq_states_tr[l],
             probe_tr=probes_tr[l] if probes_tr else None,
+            fan_in_reduce=None if model_axis is None else model_axis.reduce,
         )
         info_total = info_total + info_b
         if l < ms.num_layers - 1 and not with_bn_act:
@@ -732,7 +760,8 @@ def model_forward(
             if ms.bn_flag:
                 if training:
                     x, new_means[l], new_vars[l] = batchnorm_train(
-                        x, bn_state.mean[l], bn_state.var[l], batch.valid_B
+                        x, bn_state.mean[l], bn_state.var[l], batch.valid_B,
+                        stats_reduce=stats_reduce,
                     )
                 else:
                     x = batchnorm_infer(x, bn_state.mean[l], bn_state.var[l])

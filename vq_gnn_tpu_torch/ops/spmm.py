@@ -358,7 +358,11 @@ def spmm(edges: Edges, x: torch.Tensor, ell_val: Optional[torch.Tensor] = None):
     ``ell_val`` overrides ``edges.ell_val`` (single-K; e.g. values that need
     a gradient).  COO edges differentiate ``edges.val`` when it requires a
     gradient (the GAT fallback puts its attention values there); the mixed
-    layout never differentiates its values."""
+    layout never differentiates its values.  A row shard's edges
+    (``parallel/mesh.py:ShardEdges``, bound to its group by the sharded
+    step) carry their own aggregate, which exchanges rows between ranks."""
+    if getattr(edges, "aggregate", None) is not None:
+        return edges.aggregate(x)
     if edges.mixed:
         return _SpMM.apply(x, None, edges)
     if edges.ell_row is None:
@@ -442,6 +446,44 @@ def build_ell_host(row, col, val, num_rows: int, K: int, S_pad: int = 0):
     ell_col[sid, k] = col
     ell_val[sid, k] = val
     return ell_row, ell_col, ell_val
+
+
+def sub_ell_host(ell_row, ell_col, ell_val, num_rows: int, blocks):
+    """The slots of the rows in ``blocks`` ([(r0, r1), ...] row ranges) of a
+    slot-ELL whose rows ascend over num_rows (numpy): since the rows ascend,
+    each range's slots are one contiguous run, ``[ptr[r0], ptr[r1])`` of
+    :func:`row_offsets_host`, so padding slots (row >= num_rows) fall in none.
+    The rows are renumbered from 0 in block order, the columns and values
+    kept.  Returns (row, col, val, ptr, long_rows), the last two the
+    kernel's lists over the ``sum(r1 - r0)`` rows."""
+    ell_row = np.asarray(ell_row)
+    ptr = row_offsets_host(ell_row, num_rows)
+    rows, cols, vals, base = [], [], [], 0
+    for r0, r1 in blocks:
+        s0, s1 = int(ptr[r0]), int(ptr[r1])
+        rows.append(ell_row[s0:s1].astype(np.int64) - r0 + base)
+        cols.append(np.asarray(ell_col)[s0:s1])
+        vals.append(np.asarray(ell_val)[s0:s1])
+        base += r1 - r0
+    row = np.concatenate(rows).astype(np.int32)
+    sub_ptr = row_offsets_host(row, base)
+    return (row, np.concatenate(cols).astype(np.int32), np.concatenate(vals).astype(np.float32),
+            sub_ptr, long_rows_host(sub_ptr))
+
+
+def gathered_order(idx, B_pad: int, Bp_pad: int, n: int) -> np.ndarray:
+    """Batch-local rows (the batch rows [0, B_pad), the boundary rows
+    [B_pad, B_pad + Bp_pad), the dustbin B_pad + Bp_pad) in the order of an
+    all-gather over n row shards, each its B_pad / n batch rows, then its
+    Bp_pad / n boundary rows (``parallel/mesh.py``); the dustbin stays.
+    The identity at n = 1."""
+    idx = np.asarray(idx, np.int64)
+    b, bp = B_pad // n, Bp_pad // n
+    fo = idx - B_pad
+    b1, bp1 = max(b, 1), max(bp, 1)  # np.where evaluates both sides
+    out = np.where(idx < B_pad, (idx // b1) * (b + bp) + idx % b1,
+                   (fo // bp1) * (b + bp) + b + fo % bp1)
+    return np.where(idx >= B_pad + Bp_pad, idx, out).astype(np.int32)
 
 
 def build_mixed_ell_host(row, col, val, num_rows: int, K: int, Kt: int, Sh_pad: int,

@@ -1,25 +1,71 @@
-"""The data-parallel group and this rank's device (port of
-``vq_gnn_tpu/parallel/mesh.py``'s ``make_mesh``).
+"""Process groups, and one batch sharded over them (port of
+``vq_gnn_tpu/parallel/mesh.py``).
 
-JAX lays one program over a mesh of devices, ``('data',)``, and XLA inserts
-the collectives.  The port runs one process per GPU: its mesh is the
-``torch.distributed`` process group and the device this process drives.
-The single-batch sharding of that file (``shard_train_inputs``: one batch's
-rows and edges over the devices) and its 2-D data x model mesh
-(``make_mesh_2d``, ``shard_train_inputs_2d``) have no counterpart yet
-(ROADMAP.md queue 1 item 7b).
+JAX lays one program over a mesh of devices and XLA inserts the
+collectives.  The port runs one process per rank: a mesh is a
+``torch.distributed`` group (or, on the 2-D mesh, two) and the device this
+process drives, and the collectives are written out
+(``parallel/sharded.py``).
+
+- ``make_mesh``: the 1-D ``('data',)`` mesh, the whole group.
+- ``make_mesh_2d(n_data, n_model)``: ``('data', 'model')``, rank = d *
+  n_model + m as the JAX reshape (``vq_gnn_tpu/parallel/mesh.py:47``); the
+  *data group* holds the ranks of one model coordinate, the *model group*
+  those of one data coordinate.
+- ``shard_train_inputs(mesh, state, X_dev, batch)``: this rank's
+  :class:`RowShard` of a batch that every rank built alike from one seed (as
+  the JAX host builds it before ``device_put``), no batch broadcast.  Rank r
+  of n keeps the contiguous block r of the B_pad batch rows and of the
+  Bp_pad boundary rows (``batch_idx``, ``fo_ids``, ``valid_*``, ``y``,
+  ``train_mask``) and the adjacency of its rows as :class:`ShardEdges`: the
+  slot-ELL slots of the rows it owns (batch and boundary rows: the boundary
+  rows' aggregate feeds the recovery term), and the transposed slots of the
+  batch columns it owns (the only columns whose dx has a consumer,
+  ``ops/spmm.py:Edges.b_rows``), each renumbered from row 0 with its own
+  row offsets and long rows (``ops/spmm.py:sub_ell_host``).  Columns are
+  renumbered into the order of the all-gather of every rank's rows
+  (``ops/spmm.py:gathered_order``), so kernel 1 reads the gathered rows
+  where they land.  The state and the feature table stay replicated.
+- ``shard_train_inputs_2d``: the data split above over the data group, then
+  the model split of ``_shard_vq_state_model`` / ``place_params``
+  (``vq_gnn_tpu/parallel/mesh.py:55-111``): model rank m keeps branches [m
+  nb / n_model, (m + 1) nb / n_model) of every ``VQState`` leaf (the
+  ``c_indices`` columns: the table is node-major), the fan-in columns of
+  ``gnn_transform``, ``linear_skip`` and ``fc_sage`` (``nn.Linear`` keeps
+  [out, in]; JAX's ``w`` [in, out] is sharded on its rows) that take those
+  branches, and the same part of their RMSprop ``nu``; the biases, the BN
+  statistics and the step stay replicated.
+
+Both raise a ValueError that names the padding when B_pad or Bp_pad does
+not divide by the ranks of the rows, and refuse by name what the sharded
+step does not take yet (COO, mixed-K, B + M and link batches: ROADMAP.md
+queue 1 item 7c).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 
-from vq_gnn_tpu_torch.config import resolve_device
+from vq_gnn_tpu_torch.config import not_ported, resolve_device
+from vq_gnn_tpu_torch.nn.vq import VQState
+from vq_gnn_tpu_torch.ops.spmm import gathered_order, sub_ell_host
+from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
+from vq_gnn_tpu_torch.train.optim import make_rmsprop
+from vq_gnn_tpu_torch.train.state import TrainState
+
+# the linears whose fan-in the 2-D mesh splits over 'model' (the JAX
+# package's place_params also names the transformer's, which the sharded
+# step does not take)
+FAN_IN_LINEARS = ("gnn_transform", "linear_skip", "fc_sage")
+LATER = "queue 1 item 7c"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,18 +76,32 @@ class DataMesh:
     device: torch.device
 
 
-def make_mesh(n_ranks: int = 0, group=None,
-              device: Union[str, torch.device, None] = None) -> DataMesh:
-    """The group (``init_distributed`` first) and this rank's device:
-    ``cuda:<local rank>`` unless ``device`` says otherwise, the local rank
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """The ``('data', 'model')`` mesh seen from one rank: the whole group,
+    the data group (the ranks of this model coordinate) and the model group
+    (the ranks of this data coordinate), its coordinates and its device."""
+
+    group: Optional[object]
+    data_group: object
+    model_group: object
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+    rank: int
+    device: torch.device
+
+    @property
+    def data(self) -> DataMesh:
+        """The data axis as a 1-D mesh: the rows' ranks."""
+        return DataMesh(self.data_group, self.data_rank, self.n_data, self.device)
+
+
+def _device_of(rank: int, device) -> torch.device:
+    """``cuda:<local rank>`` unless ``device`` says otherwise, the local rank
     from ``LOCAL_RANK`` where a launcher sets it, else the rank modulo the
-    GPUs of this host.  ``n_ranks > 0`` must equal the group's size (0 =
-    every rank, as ``Config.mesh_data``)."""
-    if not dist.is_initialized():
-        raise RuntimeError("no process group: call parallel.init_distributed first")
-    size, rank = dist.get_world_size(group), dist.get_rank(group)
-    if n_ranks > 0 and n_ranks != size:
-        raise RuntimeError(f"need {n_ranks} ranks, the process group has {size}")
+    GPUs of this host."""
     if device is None:
         local = os.environ.get("LOCAL_RANK")
         local = int(local) if local is not None else rank % max(torch.cuda.device_count(), 1)
@@ -49,4 +109,223 @@ def make_mesh(n_ranks: int = 0, group=None,
     device = resolve_device(device)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
-    return DataMesh(group=group, rank=rank, size=size, device=device)
+    return device
+
+
+def make_mesh(n_ranks: int = 0, group=None,
+              device: Union[str, torch.device, None] = None) -> DataMesh:
+    """The group (``init_distributed`` first) and this rank's device
+    (:func:`_device_of`).  ``n_ranks > 0`` must equal the group's size (0 =
+    every rank, as ``Config.mesh_data``)."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call parallel.init_distributed first")
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n_ranks > 0 and n_ranks != size:
+        raise RuntimeError(f"need {n_ranks} ranks, the process group has {size}")
+    return DataMesh(group=group, rank=rank, size=size, device=_device_of(rank, device))
+
+
+def make_mesh_2d(n_data: int, n_model: int,
+                 device: Union[str, torch.device, None] = None) -> Mesh2D:
+    """The 2-D mesh over every rank of the default group, n_data * n_model
+    of them, rank = d * n_model + m.  Every rank makes every subgroup, in
+    one order (``dist.new_group`` is collective), and keeps its own two."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call parallel.init_distributed first")
+    size, rank = dist.get_world_size(), dist.get_rank()
+    if n_data * n_model != size:
+        raise RuntimeError(f"need {n_data} x {n_model} = {n_data * n_model} ranks, the "
+                           f"process group has {size}")
+    d, m = divmod(rank, n_model)
+    data_groups = [dist.new_group([i * n_model + j for i in range(n_data)])
+                   for j in range(n_model)]
+    model_groups = [dist.new_group([i * n_model + j for j in range(n_model)])
+                    for i in range(n_data)]
+    return Mesh2D(group=None, data_group=data_groups[m], model_group=model_groups[d],
+                  n_data=n_data, n_model=n_model, data_rank=d, model_rank=m, rank=rank,
+                  device=_device_of(rank, device))
+
+
+@dataclasses.dataclass
+class ShardEdges:
+    """The adjacency of one row shard (see the module docstring): the
+    slot-ELL slots of the ``num_rows`` rows it owns (its ``b_rows`` batch
+    rows, then its boundary rows) and the transposed slots of its
+    ``b_rows`` batch columns, rows from 0, columns in the gathered order,
+    each with the kernel's row offsets and long rows.  The sharded step binds
+    it to its group (``aggregate``), which ``ops/spmm.py:spmm`` then calls."""
+
+    ell_row: object
+    ell_col: object
+    ell_val: object
+    ell_ptr: object
+    ell_long_rows: object
+    t_ell_row: object
+    t_ell_col: object
+    t_ell_val: object
+    t_ell_ptr: object
+    t_ell_long_rows: object
+    num_rows: int
+    b_rows: int
+    aggregate: object = None  # x_own -> the owned rows' aggregate (parallel/sharded.py)
+    mixed = False
+
+    def to(self, device) -> "ShardEdges":
+        moved = {}
+        for f in dataclasses.fields(self):
+            a = getattr(self, f.name)
+            if isinstance(a, np.ndarray):
+                t = torch.as_tensor(np.ascontiguousarray(a))
+                moved[f.name] = t.to(device=device, dtype=torch.float32 if t.is_floating_point()
+                                     else torch.int32)
+        return dataclasses.replace(self, **moved)
+
+
+@dataclasses.dataclass
+class RowShard(PaddedBatch):
+    """This rank's block of a batch (a :class:`PaddedBatch` of its own rows,
+    B_pad = the batch's B_pad / ranks, ``edges`` a :class:`ShardEdges`), with
+    where the block lies and what the ``c_indices`` merge reads: every
+    rank's batch ids (the whole ``batch_idx``) and, for each, the last
+    position of its node among them."""
+
+    rank: int = 0
+    ranks: int = 1
+    batch_B_pad: int = 0  # the whole batch's B_pad
+    batch_idx_all: object = None  # [batch_B_pad]
+    merge_src: object = None  # [batch_B_pad]
+
+    @property
+    def row0(self) -> int:
+        """The first batch row of this block."""
+        return self.rank * self.B_pad
+
+    def to(self, device) -> "RowShard":
+        base = PaddedBatch.to(self, device)
+        return RowShard(
+            **{f.name: getattr(base, f.name) for f in dataclasses.fields(PaddedBatch)},
+            rank=self.rank, ranks=self.ranks, batch_B_pad=self.batch_B_pad,
+            batch_idx_all=torch.as_tensor(self.batch_idx_all).to(device, torch.int64),
+            merge_src=torch.as_tensor(self.merge_src).to(device, torch.int64))
+
+
+def _host(a):
+    """A host numpy array of a batch field (numpy, or a tensor on any device)."""
+    if a is None or isinstance(a, np.ndarray):
+        return a
+    return a.detach().cpu().numpy()
+
+
+def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
+    """Block r of n of ``batch`` (a host batch or one on a device), on
+    ``device``."""
+    e = batch.edges
+    if e.mixed:
+        raise not_ported("the sharded step on the mixed-K layout (ell_Kt > 0)", LATER)
+    if e.ell_row is None:
+        raise not_ported("the sharded step on the COO layout (spmm_backend='coo')", LATER)
+    if batch.rev_slot_col is not None or batch.bm_rev_row is not None:
+        raise not_ported("the sharded step on B + M batches (formulation='bm')", LATER)
+    if batch.link_src is not None:
+        raise not_ported("the sharded step on link batches", LATER)
+    y = _host(batch.y)
+    if y is not None and y.ndim != 1:
+        raise not_ported("the sharded step on multilabel batches", LATER)
+    B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
+    if B_pad % n or Bp_pad % n:
+        raise ValueError(
+            f"a batch sharded over {n} ranks needs B_pad and Bp_pad that divide by {n}, the "
+            f"batch has B_pad={B_pad}, Bp_pad={Bp_pad}: set Config.fixed_B_pad and "
+            f"fixed_Bp_pad (or pad_multiple_nodes) to multiples of {n}")
+    b, bp = B_pad // n, Bp_pad // n
+    R = B_pad + Bp_pad
+    own_B, own_fo = (r * b, (r + 1) * b), (B_pad + r * bp, B_pad + (r + 1) * bp)
+
+    def sub(rows, cols, vals, blocks):
+        row, col, val, ptr, lr = sub_ell_host(_host(rows), _host(cols), _host(vals), R, blocks)
+        return row, gathered_order(col, B_pad, Bp_pad, n), val, ptr, lr
+
+    edges = ShardEdges(*sub(e.ell_row, e.ell_col, e.ell_val, [own_B, own_fo]),
+                       *sub(e.t_ell_row, e.t_ell_col, e.t_ell_val, [own_B]),
+                       num_rows=b + bp, b_rows=b)
+    ids = _host(batch.batch_idx).astype(np.int64)
+    last = np.full(int(ids.max()) + 1, -1, np.int64)
+    np.maximum.at(last, ids, np.arange(len(ids)))
+
+    def rows_of(a, lo, k):
+        a = _host(a)
+        return None if a is None else a[lo : lo + k]
+
+    valid_B = rows_of(batch.valid_B, r * b, b)
+    shard = RowShard(
+        batch_idx=ids[r * b : (r + 1) * b], fo_ids=rows_of(batch.fo_ids, r * bp, bp),
+        valid_B=valid_B, valid_fo=rows_of(batch.valid_fo, r * bp, bp), edges=edges,
+        num_B=int(valid_B.sum()), y=rows_of(y, r * b, b),
+        train_mask=rows_of(batch.train_mask, r * b, b),
+        rank=r, ranks=n, batch_B_pad=B_pad, batch_idx_all=ids, merge_src=last[ids])
+    return shard.to(device)
+
+
+def shard_train_inputs(mesh: DataMesh, state: TrainState, X_dev: torch.Tensor,
+                       batch: PaddedBatch):
+    """(state, X_dev, this rank's :class:`RowShard` of ``batch``): rows and
+    edges sharded, the state and the feature table replicated, as they are."""
+    return state, X_dev, _row_shard(batch, mesh.rank, mesh.size, mesh.device)
+
+
+def _shard_vq_state_model(vq_state: VQState, m: int, n_model: int) -> VQState:
+    """Model rank m's branches of a VQState: the leading branch axis of every
+    leaf, axis 1 of the node-major ``c_indices``; scalars replicated."""
+
+    def part(a, axis):
+        if a.dim() == 0:
+            return a.clone()
+        w = a.shape[axis] // n_model
+        return a.narrow(axis, m * w, w).contiguous()
+
+    return VQState(**{f.name: part(getattr(vq_state, f.name), 1 if f.name == "c_indices" else 0)
+                      for f in dataclasses.fields(VQState)})
+
+
+def _shard_params(state: TrainState, m: int, n_model: int):
+    """(model, optimizer) of model rank m: a copy of the model whose fan-in
+    linears keep the input columns of this rank's branches, and an RMSprop
+    over it holding the same part of each square average."""
+    model = copy.deepcopy(state.model)
+    old = list(state.model.parameters())
+    for layer in model.layers:
+        for name in FAN_IN_LINEARS:
+            if hasattr(layer, name):
+                lin = getattr(layer, name)
+                w = lin.in_features // n_model
+                lin.weight = nn.Parameter(lin.weight.detach()[:, m * w : (m + 1) * w].clone())
+                lin.in_features = w
+    opt = make_rmsprop(model.parameters(), state.optimizer.defaults["lr"])
+    for p_old, p in zip(old, model.parameters()):
+        st = state.optimizer.state.get(p_old, {})
+        if "square_avg" in st:
+            nu = st["square_avg"]
+            if nu.shape != p.shape:  # a fan-in weight: the same columns
+                w = p.shape[1]
+                nu = nu[:, m * w : (m + 1) * w]
+            opt.state[p] = {"step": st["step"].clone(), "square_avg": nu.clone()}
+    return model, opt
+
+
+def shard_train_inputs_2d(mesh: Mesh2D, state: TrainState, X_dev: torch.Tensor,
+                          batch: PaddedBatch):
+    """(this model rank's state, X_dev, this data rank's :class:`RowShard`):
+    see the module docstring.  Every layer's branch count must divide by
+    n_model."""
+    m, n_model = mesh.model_rank, mesh.n_model
+    for l, s in enumerate(state.vq_states):
+        if s.embedding.shape[0] % n_model:
+            raise ValueError(f"layer {l} has {s.embedding.shape[0]} branches, which do not "
+                             f"divide by n_model={n_model}")
+    if state.vq_states_tr is not None:
+        raise not_ported("the 2-D mesh with transformer_flag", LATER)
+    model, opt = _shard_params(state, m, n_model)
+    state_m = TrainState(
+        model=model, vq_states=[_shard_vq_state_model(s, m, n_model) for s in state.vq_states],
+        bn_state=copy.deepcopy(state.bn_state), optimizer=opt, step=state.step)
+    return state_m, X_dev, _row_shard(batch, mesh.data_rank, mesh.n_data, mesh.device)

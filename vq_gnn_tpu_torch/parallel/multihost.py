@@ -66,9 +66,12 @@ from vq_gnn_tpu_torch.train.step import (
 )
 
 # 'grad': the parameter gradients; 'stats': the VQ BN moments, the EMA
-# counts and sums, the sync-BN running statistics; 'c_indices': the batch
-# ids and the assignments; 'scalars': the CE count and the loss
-CATEGORIES = ("grad", "stats", "c_indices", "scalars")
+# counts and sums, the sync-BN running statistics (the sharded steps: the
+# inter-layer BN's moments); 'c_indices': the batch ids and the
+# assignments; 'scalars': the CE count and the loss; the sharded steps'
+# (parallel/sharded.py) 'rows': the row exchange, 'partials': the 2-D
+# mesh's model-axis sums
+CATEGORIES = ("grad", "stats", "c_indices", "scalars", "rows", "partials")
 
 
 def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,

@@ -1,0 +1,320 @@
+"""One batch sharded over ranks: the training step on each rank's
+:class:`~vq_gnn_tpu_torch.parallel.mesh.RowShard` (the port of the JAX
+package's ``train_step`` under ``shard_train_inputs`` and
+``shard_train_inputs_2d``, where XLA inserts the collectives; here they are
+written out).
+
+**The row exchange** (:class:`_RowExchange`, the slot-ELL aggregate of a
+row shard).  Forward: the ranks' conv inputs (each its batch rows and its
+looked-up boundary rows) are all-gathered into the whole [B_pad + Bp_pad,
+C], and kernel 1 (``ops/ell_aggregate.py``) sums the slots of the rows
+this rank owns.  Backward: the cotangents of every rank's owned rows are
+all-gathered, and kernel 1 sums the transposed slots of this rank's batch
+columns, so each rank gets dx for its own rows (the boundary rows' dx has
+no consumer: zeros).  All-gathers only: gloo has no reduce-scatter, and no
+row is reduced twice.  The JAX docstring's design, each rank's partial
+aggregate over its slots all-reduced, reads the same gathered rows and adds
+an all-reduce of [B_pad + Bp_pad, C] (on a ring about twice an all-gather's
+bytes) to every aggregate.
+
+**The 1-D step** (:func:`make_sharded_step`, ``train_step``'s signature).
+It runs ``train/step.py:step_forward`` and ``live_vq_update`` on the
+shard, with hooks and no copy of the layer: ``spmm`` calls the bound
+exchange, and ``model_forward``'s ``stats_reduce`` sums the inter-layer
+BN's moment sums over the ranks in a differentiable all-reduce (its
+backward an all-reduce), so every rank normalises by the whole batch's
+moments.  Each rank's loss is its rows' CE sum over the whole batch's
+count plus its boundary rows' recovery term, whose sum over the ranks is
+the whole batch's loss; the backward, through the exchange and the moments,
+gives each rank the gradient of that sum, the parameter gradients are
+summed over the ranks, RMSprop runs on the sums alike on every rank.  The
+VQ transition is the data-parallel step's (``parallel/multihost.py``): the
+moments and the EMA statistics summed before any divide, each rank's
+assignments gathered as uint8 and written by every rank
+(``_cidx_merge``), from the whole batch's ids the shard carries (no id
+gather).  Rows 1, 6 and 7 run on the shard: the aggregate of its rows, the
+assignment of its batch rows, the lookup of its boundary rows.
+
+**The 2-D step** (:func:`make_sharded_step_2d`).  The data axis as above
+over the data group.  On the model axis each rank holds nb / n_model
+branches: each layer takes the columns of its branches from the
+replicated layer input through ``_CopyToModel`` (identity forward, the
+gradient all-reduced over the model group: Megatron-LM's "f", Shoeybi et
+al., 2019), looks up, aggregates (row 1 at C / n_model) and assigns (row 6
+at nb / n_model) its branches only, multiplies them by its fan-in columns
+of each linear, and ``_ReduceFromModel`` sums the partial products over
+the model group (all-reduce forward, identity backward: "g"); the biases,
+BN and the loss then run replicated over the model group.  The gradients
+(of the fan-in columns and of the replicated parameters) are summed over
+the data group only: a model rank's replicated gradient is already the
+whole one.
+
+``CollectiveLedger`` counts every collective: ``rows`` (the exchange),
+``partials`` (both model-axis all-reduces), ``stats`` (the BN and VQ
+moments, the EMA statistics), ``grad``, ``c_indices`` and ``scalars``.
+
+Only GCN and SAGE, B + B', single-K slot-ELL, f32 compute, without the
+transformer branch, take a sharded step; the rest raises by name
+(ROADMAP.md queue 1 item 7c; the JAX package shards them all through XLA).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+from vq_gnn_tpu_torch.config import Config, not_ported
+from vq_gnn_tpu_torch.nn.model import ModelStatic
+from vq_gnn_tpu_torch.ops.spmm import _ell_matvec
+from vq_gnn_tpu_torch.parallel.mesh import LATER, DataMesh, Mesh2D, RowShard
+from vq_gnn_tpu_torch.parallel.multihost import CollectiveLedger, _cidx_merge, _Collectives
+from vq_gnn_tpu_torch.train.optim import rmsprop_update
+from vq_gnn_tpu_torch.train.state import TrainState
+from vq_gnn_tpu_torch.train.step import (
+    draw_branch_masks,
+    live_vq_update,
+    masked_ce_parts,
+    step_forward,
+)
+
+
+def check_sharded(ms: ModelStatic, cfg: Config) -> None:
+    """Refuse by name what the sharded steps do not take yet."""
+    if ms.conv_type == "GAT":
+        raise not_ported("the sharded step with GAT", LATER)
+    if ms.formulation == "bm":
+        raise not_ported("the sharded step with formulation='bm'", LATER)
+    if cfg.spmm_backend == "coo":
+        raise not_ported("the sharded step on the COO layout (spmm_backend='coo')", LATER)
+    if cfg.ell_Kt > 0:
+        raise not_ported("the sharded step on the mixed-K layout (ell_Kt > 0)", LATER)
+    if ms.compute_dtype != "float32":
+        raise not_ported(f"the sharded step with compute_dtype={ms.compute_dtype!r}", LATER)
+    if ms.transformer_flag:
+        raise not_ported("the sharded step with transformer_flag", LATER)
+
+
+class _RowExchange(torch.autograd.Function):
+    """The aggregate of a row shard's owned rows (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, edges, comm):
+        ctx.edges, ctx.comm = edges, comm
+        xf = comm.gather(x, "rows") if comm.size > 1 else x
+        return _ell_matvec(edges.ell_row, edges.ell_col, edges.ell_val, xf, edges.num_rows,
+                           edges.ell_ptr, edges.ell_long_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, comm = ctx.edges, ctx.comm
+        g = g.contiguous()
+        gf = comm.gather(g, "rows") if comm.size > 1 else g
+        dx_b = _ell_matvec(e.t_ell_row, e.t_ell_col, e.t_ell_val, gf, e.b_rows, e.t_ell_ptr,
+                           e.t_ell_long_rows)
+        return torch.cat([dx_b, dx_b.new_zeros((e.num_rows - e.b_rows, dx_b.shape[1]))]), \
+            None, None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Tensors summed over the ranks of ``comm`` (one all-reduce); the
+    backward sums the cotangents over the same ranks."""
+
+    @staticmethod
+    def forward(ctx, comm, category, *tensors):
+        ctx.comm, ctx.category = comm, category
+        ctx.like = [torch.zeros_like(t) for t in tensors]
+        return tuple(t.clone() for t in comm.sum([t.detach() for t in tensors], category))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [z if g is None else g for g, z in zip(grads, ctx.like)]
+        return (None, None) + tuple(ctx.comm.sum(grads, ctx.category))
+
+
+def _all_reduce(comm: _Collectives, t: torch.Tensor, category: str) -> torch.Tensor:
+    """A copy of ``t`` summed over the ranks of ``comm``."""
+    out = t.contiguous().clone()
+    comm.ledger.add(category, "all_reduce", out, [out.shape])
+    dist.all_reduce(out, group=comm.group)
+    return out
+
+
+def _moments_reduce(comm: _Collectives):
+    """``masked_moments``'s differentiable ``stats_reduce`` over ``comm``."""
+
+    def reduce(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        return list(_SumOverRanks.apply(comm, "stats", *tensors))
+
+    return reduce
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron-LM's "f": identity forward, the gradient summed over the
+    model group."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.comm, g, "partials"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron-LM's "g": the partial products summed over the model group,
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, partial, comm):
+        return _all_reduce(comm, partial, "partials")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class _ModelAxis:
+    """``model_forward``'s ``model_axis`` on the 2-D mesh: each layer's
+    columns of this rank's branches, and the fan-in partial sum."""
+
+    comm: _Collectives
+    m: int
+    n: int
+
+    def split(self, x):
+        w = x.shape[1] // self.n
+        if self.n > 1 and x.requires_grad:
+            x = _CopyToModel.apply(x, self.comm)
+        return x[:, self.m * w : (self.m + 1) * w]
+
+    def reduce(self, partial):
+        return _ReduceFromModel.apply(partial, self.comm) if self.n > 1 else partial
+
+
+def _local_ms(ms: ModelStatic, n_model: int) -> ModelStatic:
+    """The model as one model rank holds it: nb / n_model branches a layer
+    (the probes, the VQ update and the lookups read ``channels[:-1]``)."""
+    return dataclasses.replace(
+        ms, channels=tuple(c // n_model for c in ms.channels[:-1]) + (ms.channels[-1],))
+
+
+def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m=0,
+               n_model=1, world_group=None):
+    """The sharded step of both meshes (the module docstring): ``data`` the
+    rows' ranks; on the 2-D mesh ``model_group`` the model group, m and
+    n_model this rank's coordinate, ``world_group`` every rank (for the
+    reported scalars)."""
+    check_sharded(ms, cfg)
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call parallel.init_distributed first")
+    ledger = CollectiveLedger()  # every collective of the step
+    comm = _Collectives(data.group, ledger)
+    comm_all = comm if n_model == 1 else _Collectives(world_group, ledger)
+    axis = None if n_model == 1 else _ModelAxis(_Collectives(model_group, ledger), m, n_model)
+    ms_l = _local_ms(ms, n_model)
+    live = cfg.vq_update_mode == "live"
+    mask_gens = {}  # per device: the dropbranch draws, alike on every rank
+    moments = _moments_reduce(comm)
+
+    def own(masks, shard: RowShard, by_rows: bool):
+        """This rank's part of whole-batch masks: its rows (dropout) or its
+        branches (dropbranch)."""
+        if masks is None:
+            return None
+        if by_rows:
+            return [t[shard.row0 : shard.row0 + shard.B_pad] for t in masks]
+        return [t[m * (t.shape[0] // n_model) : (m + 1) * (t.shape[0] // n_model)]
+                for t in masks]
+
+    def sharded_step(state: TrainState, X_dev: torch.Tensor, shard: RowShard, warm_up_rate, lr,
+                     do_opt_step, generator=None, branch_masks=None, dropout_keeps=None):
+        """One step of the whole batch on this rank's shard; updates ``state``
+        in place and returns (state, metrics), the metrics of ``train_step``
+        for the whole batch.  ``branch_masks`` ([nb] per layer) and
+        ``dropout_keeps`` ([B_pad, C] per hidden layer) are the whole
+        batch's; drawn, the dropbranch masks come from a generator seeded
+        with ``cfg.seed`` on every rank, the dropout masks from ``generator``
+        at the whole batch's shape (give every rank one seed)."""
+        dev = X_dev.device
+        if shard.ranks != comm.size:
+            raise ValueError(f"the shard is one of {shard.ranks}, the mesh has {comm.size} ranks")
+        if branch_masks is None and ms.dropbranch > 0:
+            if dev not in mask_gens:
+                mask_gens[dev] = torch.Generator(device=dev).manual_seed(cfg.seed)
+            branch_masks = draw_branch_masks(ms, mask_gens[dev], dev)
+        if dropout_keeps is None and ms.dropout > 0:
+            dropout_keeps = [torch.rand((shard.batch_B_pad, c), generator=generator, device=dev)
+                             < 1.0 - ms.dropout for c in ms.channels[1:-1]]
+        masks = own(branch_masks, shard, False)
+        batch = dataclasses.replace(shard, edges=dataclasses.replace(
+            shard.edges, aggregate=lambda x: _RowExchange.apply(x, shard.edges, comm)))
+        params = list(state.model.parameters())
+        out, info_b, layer_inputs, new_bn, probes, _ = step_forward(
+            state, ms_l, X_dev, batch, warm_up_rate, generator, masks,
+            own(dropout_keeps, shard, True), stats_reduce=moments, model_axis=axis)
+        mask = batch.train_mask & batch.valid_B
+        ce_sum, count = masked_ce_parts(out, batch.y, mask)
+        (count_all,) = comm.sum([count.detach()], "scalars")
+        loss_cls = ce_sum / torch.clamp(count_all, min=1.0)
+        loss_r = loss_cls if cfg.ce_only else loss_cls + info_b
+        grads = torch.autograd.grad(loss_r, params + probes)
+        g_params = comm.sum(list(grads[: len(params)]), "grad")
+        rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
+        state.bn_state = new_bn  # the whole batch's moments: alike on every rank
+
+        if live:
+            merge = _cidx_merge(comm, shard.batch_idx_all, shard.merge_src, ms.vq.num_M <= 256)
+            live_vq_update(state, ms_l, layer_inputs, grads[len(params) :], [], batch, masks,
+                           stats_reduce=lambda ts: comm.sum(ts, "stats"), cidx_merge_fn=merge)
+
+        # the whole batch's metrics: the CE terms, replicated over a model
+        # group, from its rank 0; every rank's recovery term; the fan-in
+        # columns' squared gradients from data rank 0 (they are alike over
+        # the data group); the bad codebooks of every rank
+        first_m, first_d = float(m == 0), float(data.rank == 0)
+        hits = ((out.detach().argmax(-1) == batch.y) & mask).float().sum()
+        sq = [(g * g).sum() for g in g_params]
+        fan_in = sum(s for p, s in zip(params, sq) if p.dim() == 2)
+        info = torch.as_tensor(info_b, device=dev).detach()
+        bad = torch.stack([s.bad_init for s in state.vq_states]).any().float()
+        cls_all, info_all, hits_all, fan_in_all, bad_all = comm_all.sum(
+            [first_m * loss_cls.detach(), info, first_m * hits, first_d * fan_in, bad], "scalars")
+        grad_sq = fan_in_all + sum(s for p, s in zip(params, sq) if p.dim() != 2)
+        state.step += 1
+        ledger.steps += 1
+        return state, {
+            "loss": cls_all if cfg.ce_only else cls_all + info_all, "loss_cls": cls_all,
+            "train_acc": hits_all / torch.clamp(count_all, min=1.0),
+            "info_backward": info_all, "grad_norm": torch.sqrt(grad_sq),
+            "bad_init": bad_all > 0,
+        }
+
+    sharded_step.ledger = ledger
+    return sharded_step
+
+
+def make_sharded_step(ms: ModelStatic, cfg: Config, mesh: DataMesh):
+    """The 1-D sharded step over ``mesh`` (the module docstring): called with
+    the state, the feature table and this rank's ``shard_train_inputs``
+    shard; the ledger is ``step.ledger``."""
+    if cfg.mesh_data and cfg.mesh_data != mesh.size:
+        raise ValueError(f"mesh_data={cfg.mesh_data}, but the mesh has {mesh.size} ranks")
+    return _make_step(ms, cfg, mesh)
+
+
+def make_sharded_step_2d(ms: ModelStatic, cfg: Config, mesh: Mesh2D):
+    """The 2-D sharded step over ``mesh`` (the module docstring): called with
+    this model rank's state and this data rank's shard, both from
+    ``shard_train_inputs_2d``."""
+    for l, nb in enumerate(ms.num_branches):
+        if nb % mesh.n_model:
+            raise ValueError(f"layer {l} has {nb} branches, which do not divide by "
+                             f"n_model={mesh.n_model}")
+    return _make_step(ms, cfg, mesh.data, mesh.model_group, mesh.model_rank, mesh.n_model,
+                      mesh.group)

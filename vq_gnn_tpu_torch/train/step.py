@@ -95,11 +95,13 @@ def masked_accuracy(logits, y, mask):
 
 
 def step_forward(state: TrainState, ms: ModelStatic, X_dev: torch.Tensor, batch: PaddedBatch,
-                 warm_up_rate, generator=None, branch_masks=None, dropout_keeps=None):
+                 warm_up_rate, generator=None, branch_masks=None, dropout_keeps=None,
+                 stats_reduce=None, model_axis=None):
     """A training step's forward: zero probes at each conv output (and the
     transformer's hook points), the batch rows gathered from the feature
-    table, ``model_forward`` in training mode.  Returns (out, info_b,
-    layer_inputs, new_bn, probes, probes_tr)."""
+    table, ``model_forward`` in training mode (``stats_reduce`` and
+    ``model_axis`` are its hooks for a batch sharded over ranks).  Returns
+    (out, info_b, layer_inputs, new_bn, probes, probes_tr)."""
     dev = X_dev.device
     probes = zero_probes(ms, batch.B_pad, dev)
     probes_tr = zero_probes_tr(ms, batch.B_pad, dev) if ms.transformer_flag else []
@@ -119,6 +121,8 @@ def step_forward(state: TrainState, ms: ModelStatic, X_dev: torch.Tensor, batch:
         probes_tr=probes_tr,
         branch_masks=branch_masks,
         dropout_keeps=dropout_keeps,
+        stats_reduce=stats_reduce,
+        model_axis=model_axis,
     )
     return out, info_b, layer_inputs, new_bn, probes, probes_tr
 
