@@ -239,33 +239,43 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 17. one batch sharded over two ranks (``parallel/mesh.py``,
    ``parallel/sharded.py``): two processes on the one card, a gloo group
    (the card's machine has one GPU, and NCCL takes one rank a device; gloo
-   carries CUDA tensors through host memory), the flagship GCN B + B' on
-   phase 2's graph from the state of phase 3's trainer, at phase 15's
-   fixed pads, one epoch of two batches; the launch counters zeroed just
-   before each mesh's steps and read just after, in each rank:
+   carries CUDA tensors through host memory; a probe logs whether it takes
+   bf16 tensors and an all-reduce MAX), two families from the states of
+   phase 3's trainers, each on phase 2's graph normalised for it, at its
+   trainer's high-water pads (phase 15's fixed pads for GCN), one epoch of
+   two batches: the flagship GCN B + B' and GAT B + B'.  For each mesh and
+   each family, the launch counters zeroed just before its steps and read
+   just after, in each rank:
    a. one step of the 1-D sharded step and one of ``train_step`` on the
-      whole batch from one state, in exact f32 (TF32 off, row 6's exact
-      mode) with the inter-layer BN and without, and at the flagship's own
-      settings (TF32, row 6's fast mode): the loss within 1e-5 relative,
-      the parameters within 1e-2 (1e-4 without the BN), ``c_indices[:N]``
-      agreeing on >= 0.9999, in exact f32 the codebooks within 2e-5 but
-      for the codewords of the assignments that differ (at the flagship's
-      settings their difference is logged: ``compare_step`` says why);
-      both ranks' states one sha256;
-   b. rows 1, 6 and 7 launched on each rank; each rank's row 1 forward over
-      its rows' slots and dx over its batch columns' transposed slots, row
-      6 at its batch rows and row 7 at its boundary rows, against their
-      plain versions;
-   c. the same step check of the 2-D step at 1 x 2 (each rank half the
-      branches and the fan-in columns), row 1 at C = 64 and row 6 at nb =
-      16 against their plain versions;
-   d. 20 timed steps and 3 profiled ones of each sharded step: ms/step,
-      device busy, idle share and peak memory of rank 0, the collective
-      ledger of each rank by category, and no payload as large as the
-      feature table, nor one shaped like a ``c_indices`` table or an edge
-      array (at these widths the batch holds half the graph's nodes, so
-      the exchanged rows outweigh a ``c_indices`` table: the sizes are
-      logged).
+      whole batch from one state: GCN in exact f32 (TF32 off, row 6's exact
+      mode) with the inter-layer BN and without, at the flagship's own
+      settings (TF32, row 6's fast mode) and at bf16 compute; GAT in exact
+      f32 and at bf16 compute (the bench's GAT cell): the loss within 1e-5
+      relative, the parameters within 1e-2 (1e-4 without the BN),
+      ``c_indices[:N]`` agreeing on >= 0.9999, in exact f32 the codebooks
+      within 2e-5 but for the codewords of the assignments that differ (at
+      the flagship's settings their difference is logged: ``compare_step``
+      says why); both ranks' states one sha256;
+   b. the family's kernels launched on each rank, and logged a step (both
+      modes together): rows 1, 6 and 7 (GCN), rows 2, 3, 6 and 7 (GAT);
+      against their plain versions at each rank's shard shapes: row 1's
+      forward over its rows' slots and dx over its batch columns'
+      transposed slots, row 6 at its batch rows and row 7 at its boundary
+      rows; rows 2 and 3 in the f32 and bf16 modes as the sharded GAT conv
+      calls them, row 2 over its rows' slots from the gathered x with ar of
+      its rows, row 3 over the transposed slots of every row it owns from
+      the gathered cotangents and ar;
+   c. the same step checks of the 2-D step at 1 x 2 (each rank half the
+      branches and the fan-in columns), rows 1, 2 and 3 at C = 64 and row 6
+      at nb = 16 against their plain versions;
+   d. timed steps and 3 profiled ones (20 of the flagship GCN, 5 each of
+      GCN and GAT at bf16 compute) of each sharded step: ms/step, device
+      busy, idle share and peak memory of rank 0, the collective ledger of
+      each rank by category, the row exchanges of the bf16 steps at bf16,
+      and no payload as large as the feature table, nor one shaped like a
+      ``c_indices`` table or an edge array (at these widths the batch
+      holds half the graph's nodes, so the exchanged rows outweigh a
+      ``c_indices`` table: the sizes are logged).
 
 Logs the seconds each phase took.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line (with rows for kernel 2 at nb = 64, M = 4,096
@@ -1973,7 +1983,18 @@ def ddp_phase(torch, ops, runs, graphs, gpu, err):
 
 
 SHARDED_RANKS = 2  # phase 17: two ranks on the one card, over gloo
-SHARDED_STEPS = 20  # timed steps of each sharded step in phase 17
+SHARDED_STEPS = 20  # timed steps of each sharded step in phase 17 (the flagship GCN)
+SHARDED_STEPS_BF16 = 5  # timed steps of the bf16 sharded steps (GCN and GAT)
+# 17b: the kernels each family's sharded path launches on every rank (its
+# f32 and bf16 cases together: rows 1 or 2-3 in both modes), launch counter
+# -> device kernel, the name the profile of its timed steps must show
+SHARDED_KERNELS = {
+    "GCN": {"ell_aggregate": "ell_aggregate_kernel", "ell_aggregate_bf16": "ell_aggregate_kernel",
+            "vq_assign": "assign_fast_kernel", "vq_lookup": "lookup_kernel"},
+    "GAT": {"gat_aggregate": "gat_aggregate_kernel", "gat_aggregate_bf16": "gat_aggregate_kernel",
+            "gat_backward": "gat_backward_kernel", "gat_backward_bf16": "gat_backward_kernel",
+            "vq_assign": "assign_fast_kernel", "vq_lookup": "lookup_kernel"},
+}
 
 
 def _state_digest(arrays) -> str:
@@ -2022,6 +2043,85 @@ def hold_sub_ell(torch, tag, label, edges, rows_all, C, gen, err):
         err["ell_aggregate"] = max(err.get("ell_aggregate", 0.0), d)
 
 
+def hold_gat_shard(torch, tag, label, edges, rows_all, C, gen, err):
+    """Kernels 4 and 5 (rows 2 and 3) against their plain versions on a GAT
+    row shard's adjacency as ``ops/gat.py:gat_conv_sharded`` calls them, in
+    the f32 and the bf16-row modes: row 2 over the owned rows' slots,
+    reading the gathered [rows_all, C] x with al of every gathered row and
+    ar of the owned rows; row 3 over the transposed slots of every owned
+    row, reading the gathered g_agg, g_rowsum and ar with al of the owned
+    rows, dx for its batch rows (``b_rows``).  Tolerance as phase 5's: 1e-5
+    of the largest |ref| of each output; the same bits twice."""
+    from vq_gnn_tpu_torch.ops.gat_kernels import (
+        gat_aggregate,
+        gat_aggregate_plain,
+        gat_backward,
+        gat_backward_plain,
+    )
+
+    dev, R, b = edges.ell_col.device, edges.num_rows, edges.b_rows
+    own = slice(edges.row0, edges.row0 + R)
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        x = torch.randn((rows_all, C), generator=gen, device=dev).to(dt)
+        al, ar = (torch.randn(rows_all, generator=gen, device=dev) for _ in range(2))
+        g_agg = torch.randn((rows_all, C), generator=gen, device=dev).to(dt)
+        g_rs = torch.randn(rows_all, generator=gen, device=dev).to(dt)
+        fwd = (x, edges.ell_row, edges.ell_col, edges.ell_val, al, ar[own].contiguous(), R)
+        bwd = (x[own].contiguous(), edges.t_ell_row, edges.t_ell_col, edges.t_ell_val, g_agg,
+               g_rs, al[own].contiguous(), ar.to(dt), R)
+        for name, args, kw, plain in (
+                ("gat_aggregate", fwd, dict(with_neg=True, ptr=edges.ell_ptr,
+                                            long_rows=edges.ell_long_rows), gat_aggregate_plain),
+                ("gat_backward", bwd, dict(dx_rows=b, ptr=edges.t_ell_ptr,
+                                           long_rows=edges.t_ell_long_rows), gat_backward_plain)):
+            fn = gat_aggregate if name == "gat_aggregate" else gat_backward
+            out, again = fn(*args, **kw), fn(*args, **kw)
+            ref = plain(*args, **{k: v for k, v in kw.items() if k in ("with_neg", "dx_rows")})
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, a) for o, a in zip(out, again))
+            d = 0.0
+            for o, r in zip(out, ref):
+                tol = 1e-5 * max(1.0, float(r.abs().max()))
+                dd = float((o - r).abs().max())
+                assert torch.isfinite(o).all() and dd <= tol, (tag, name + sfx, dd, tol)
+                d = max(d, dd)
+            log(f"[{tag} {name}{sfx} {label} C={C}] slots {args[1].shape[0]} over {R} owned "
+                f"rows from {rows_all} gathered, max|err| {d:.3g} (1e-5 of each output's "
+                f"largest |ref|); {kw['long_rows'].shape[0] - 1} long rows; two calls "
+                f"bit-identical: {same}")
+            assert same
+            err[name + sfx] = max(err.get(name + sfx, 0.0), d)
+
+
+def gloo_probe(torch, dist, rank):
+    """Whether gloo carries a bf16 CUDA tensor through an all-gather and an
+    all-reduce (sum), and an f32 one through an all-reduce MAX, with the
+    values right; {'bf16 all_gather': bool, ...}."""
+    from vq_gnn_tpu_torch.parallel.multihost import _all_gather
+
+    res = {}
+    for label, dt, op in (("bf16 all_gather", torch.bfloat16, None),
+                          ("bf16 all_reduce", torch.bfloat16, dist.ReduceOp.SUM),
+                          ("f32 all_reduce MAX", torch.float32, dist.ReduceOp.MAX)):
+        t = torch.full((4, 3), rank + 1.5, dtype=dt, device="cuda")
+        try:
+            if op is None:
+                out = t.new_empty((SHARDED_RANKS * 4, 3))
+                _all_gather(out, t)
+                want = torch.arange(SHARDED_RANKS, device="cuda").repeat_interleave(4) + 1.5
+                ok = torch.equal(out[:, 0].float(), want)
+            else:
+                dist.all_reduce(t, op=op)
+                want = (SHARDED_RANKS * (SHARDED_RANKS + 2) / 2 if op == dist.ReduceOp.SUM
+                        else SHARDED_RANKS + 0.5)
+                ok = bool((t.float() == want).all())
+            res[label] = ok
+        except RuntimeError as e:
+            res[label] = f"refused: {str(e).splitlines()[0][:120]}"
+    return res
+
+
 def sharded_rank(rank, tmp):
     """One of phase 17's ranks, on cuda:0 over gloo (the module docstring
     says what it runs); pickles its results to ``tmp``/out<rank>.pkl."""
@@ -2049,25 +2149,29 @@ def sharded_rank(rank, tmp):
                             rank=rank, timeout=timedelta(seconds=300))
     with open(os.path.join(tmp, "plan.pkl"), "rb") as f:
         plan = pickle.load(f)
-    gpu, batches = plan["gpu"], plan["batches"]
-    cfgs = {k: Config(**v) for k, v in plan["cfgs"].items()}
-    X = torch.as_tensor(plan["X"]).cuda()
-    R_all = batches[0].B_pad + batches[0].Bp_pad
+    gpu = plan["gpu"]
     gen = torch.Generator(device="cuda").manual_seed(17 + rank)
-    res, err = {"err": {}, "launches": {}, "steps": {}, "ledger": {}, "digest": {}}, {}
+    res = {"err": {}, "launches": {}, "path_steps": {}, "steps": {}, "ledger": {}, "digest": {},
+           "probe": gloo_probe(torch, dist, rank)}
+    err = {}
     rlog = log if rank == 0 else (lambda *a: None)
+    fams = {}
+    for fname, fam in plan["families"].items():
+        fams[fname] = dict(fam, X=torch.as_tensor(fam["X"]).cuda(),
+                           cfgs={k: Config(**v) for k, v in fam["cfgs"].items()})
 
-    def fresh(tag):
-        apply_matmul_precision(cfgs[tag])  # TF32 for the flagship ('default'), else off
-        ms = model_static(cfgs[tag], plan["F"], plan["C"], torch.device("cuda"))
-        return ms, state_from_numpy(plan["state"], ms, cfgs[tag].lr, "cuda")
+    def fresh(fam, tag):
+        cfg = fam["cfgs"][tag]
+        apply_matmul_precision(cfg)  # TF32 for the flagship's settings ('default'), else off
+        ms = model_static(cfg, plan["F"], plan["C"], torch.device("cuda"))
+        return ms, state_from_numpy(fam["state"], ms, cfg.lr, "cuda")
 
-    def timed(name, step, state, shards):
-        """20 timed and 3 profiled steps on this rank's shards, the ledger
-        and the peak memory over them."""
+    def timed(name, step, state, X, shards, cfg, n_steps):
+        """Timed and 3 profiled steps on this rank's shards, the ledger and
+        the peak memory over them."""
         def one(sh):
             nonlocal state
-            state, m = step(state, X, sh, 1.0, cfgs["flagship"].lr, 1.0)
+            state, m = step(state, X, sh, 1.0, cfg.lr, 1.0)
             return m
 
         for sh in shards:  # warm-up
@@ -2076,14 +2180,14 @@ def sharded_rank(rank, tmp):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        times, losses = timed_steps(torch, one, shards, SHARDED_STEPS)
+        times, losses = timed_steps(torch, one, shards, n_steps)
         prof = profile_steps(lambda i: one(shards[i % len(shards)]), log=rlog,
                              tag=f"17d {name}", gpu=gpu)
         mean = sum(times) / len(times)
         std = (sum((t - mean) ** 2 for t in times) / max(len(times) - 1, 1)) ** 0.5
         res["steps"][name] = dict(
             ms=mean, std=std, median=sorted(times)[len(times) // 2], losses=losses,
-            busy=None if prof is None else prof["busy_ms"],
+            n=n_steps, busy=None if prof is None else prof["busy_ms"],
             wall=None if prof is None else prof["wall_ms"],
             kernels=None if prof is None else sorted({k for _, _, k in prof["rows"]}),
             peak=torch.cuda.max_memory_allocated() - base, held=base)
@@ -2091,71 +2195,69 @@ def sharded_rank(rank, tmp):
                                    kinds=sorted(step.ledger.kinds), steps=step.ledger.steps)
         return state
 
-    # ---- the 1-D mesh: the step check, then the timed steps ----
-    mesh = make_mesh(SHARDED_RANKS, device="cuda:0")
-    ops.reset_launch_counts()
-    for tag in cfgs:
-        ms, state = fresh(tag)
-        _, _, shard = shard_train_inputs(mesh, state, X, batches[0])
-        step = make_sharded_step(ms, cfgs[tag], mesh)
-        state, m = step(state, X, shard, 1.0, cfgs[tag].lr, 1.0)
-        rec = _step_record(torch, state, float(m["loss"]))
-        res["digest"]["1d", tag] = _state_digest(
-            list(rec["params"].values()) + rec["emb"] + [c[:-1] for c in rec["cidx"]])
-        if rank == 0:
-            res["1d", tag] = rec
-    ms, state = fresh("flagship")
-    shards = [shard_train_inputs(mesh, state, X, b)[2] for b in batches]
-    step = make_sharded_step(ms, cfgs["flagship"], mesh)
-    state = timed("1-D", step, state, shards)
-    res["launches"]["1-D"] = ops.launch_counts()
-    sh = shards[0]
-    rlog(f"[17 shard] rank {rank} of {SHARDED_RANKS}: B_pad {sh.B_pad} of {sh.batch_B_pad}, "
-         f"Bp_pad {sh.Bp_pad}, owned slots {sh.edges.ell_row.shape[0]}, transposed slots of "
-         f"its batch columns {sh.edges.t_ell_row.shape[0]}, gathered rows {R_all}")
-
-    # 17b: rows 1, 6 and 7 at this rank's shapes, against their plain versions
-    with ops.uncounted():
-        C = cfgs["flagship"].hidden_channels
-        hold_sub_ell(torch, "17b", f"rank {rank} 1-D shard", sh.edges, R_all, C, gen, err)
-        vq1 = state.vq_states[1]
-        nb, M, K = vq1.embedding.shape
-        xn = torch.randn((nb, sh.B_pad, K), generator=gen, device="cuda")
-        hold_assign(torch, "17b", f"rank {rank} 1-D shard", xn, vq1.embedding.contiguous(),
-                    sh.valid_B.contiguous(), err, chunk=branch_chunk(sh.B_pad, M))
-        hold_lookup(torch, "17b", f"rank {rank} 1-D shard", vq1, sh.fo_ids,
-                    cfgs["flagship"].num_D)
-    del state, shards, step, xn
-
-    # ---- the 2-D mesh at 1 x 2: the step check, then the timed steps ----
+    # each mesh, each family: the step checks and the timed steps with the
+    # launch counters zeroed just before and read just after, then (not
+    # counted) the family's kernels against their plain versions at this
+    # rank's shard shapes
+    mesh1 = make_mesh(SHARDED_RANKS, device="cuda:0")
     mesh2 = make_mesh_2d(1, SHARDED_RANKS, device="cuda:0")
-    ops.reset_launch_counts()
-    for tag in cfgs:
-        ms, state = fresh(tag)
-        state_m, _, shard = shard_train_inputs_2d(mesh2, state, X, batches[0])
-        step = make_sharded_step_2d(ms, cfgs[tag], mesh2)
-        state_m, m = step(state_m, X, shard, 1.0, cfgs[tag].lr, 1.0)
-        res["2d", tag] = _step_record(torch, state_m, float(m["loss"]))
-    ms, state = fresh("flagship")
-    placed = [shard_train_inputs_2d(mesh2, state, X, b) for b in batches]
-    state_m, shards = placed[0][0], [p[2] for p in placed]
-    del placed, state
-    step = make_sharded_step_2d(ms, cfgs["flagship"], mesh2)
-    state_m = timed("2-D 1x2", step, state_m, shards)
-    res["launches"]["2-D 1x2"] = ops.launch_counts()
-
-    # 17c: row 1 at C / 2 over the rows of the 2-D shard, row 6 at nb / 2
-    with ops.uncounted():
-        sh = shards[0]
-        hold_sub_ell(torch, "17c", f"rank {rank} 2-D shard", sh.edges, R_all, C // SHARDED_RANKS,
-                     gen, err)
-        vq1 = state_m.vq_states[1]
-        nb, M, K = vq1.embedding.shape
-        xn = torch.randn((nb, sh.B_pad, K), generator=gen, device="cuda")
-        hold_assign(torch, "17c", f"rank {rank} 2-D branches", xn, vq1.embedding.contiguous(),
-                    sh.valid_B.contiguous(), err, chunk=branch_chunk(sh.B_pad, M))
-        hold_lookup(torch, "17c", f"rank {rank} 2-D branches", vq1, sh.fo_ids,
-                    cfgs["flagship"].num_D)
+    for mname, mesh, place, make, n_model in (
+            ("1-D", mesh1, shard_train_inputs, make_sharded_step, 1),
+            ("2-D 1x2", mesh2, shard_train_inputs_2d, make_sharded_step_2d, SHARDED_RANKS)):
+        for fname, fam in fams.items():
+            X, batches, cfgs = fam["X"], fam["batches"], fam["cfgs"]
+            R_all = batches[0].B_pad + batches[0].Bp_pad
+            path = f"{fname} {mname}"
+            ops.reset_launch_counts()
+            n_steps = 0
+            for tag, cfg in cfgs.items():
+                ms, state = fresh(fam, tag)
+                state, _, shard = place(mesh, state, X, batches[0])
+                step = make(ms, cfg, mesh)
+                state, m = step(state, X, shard, 1.0, cfg.lr, 1.0)
+                n_steps += 1
+                rec = _step_record(torch, state, float(m["loss"]))
+                if n_model == 1:
+                    res["digest"][mname, fname, tag] = _state_digest(
+                        list(rec["params"].values()) + rec["emb"] + [c[:-1] for c in rec["cidx"]])
+                if rank == 0 or n_model > 1:
+                    res[mname, fname, tag] = rec
+            for tag, n in fam["timed"].items():
+                ms, state = fresh(fam, tag)
+                placed = [place(mesh, state, X, b) for b in batches]
+                state, shards = placed[0][0], [p[2] for p in placed]
+                del placed
+                step = make(ms, cfgs[tag], mesh)
+                state = timed(f"{fname} {tag} {mname}", step, state, X, shards, cfgs[tag], n)
+                n_steps += len(shards) + n + 3
+            res["launches"][path] = ops.launch_counts()
+            res["path_steps"][path] = n_steps
+            sh = shards[0]
+            if mname == "1-D":
+                rlog(f"[17 shard] {fname} rank {rank} of {SHARDED_RANKS}: B_pad {sh.B_pad} of "
+                     f"{sh.batch_B_pad}, Bp_pad {sh.Bp_pad}, owned slots "
+                     f"{sh.edges.ell_row.shape[0]}, transposed slots of its "
+                     f"{'owned' if fname == 'GAT' else 'batch'} columns "
+                     f"{sh.edges.t_ell_row.shape[0]}, gathered rows {R_all}")
+            # 17b / 17c: the family's kernels at this rank's shapes
+            tag17 = "17b" if n_model == 1 else "17c"
+            label = f"rank {rank} {mname} shard"
+            C = fam["C_hidden"] // n_model
+            with ops.uncounted():
+                if fname == "GAT":
+                    hold_gat_shard(torch, tag17, label, sh.edges, R_all, C, gen, err)
+                else:
+                    hold_sub_ell(torch, tag17, label, sh.edges, R_all, C, gen, err)
+                    vq1 = state.vq_states[1]
+                    nb, M, K = vq1.embedding.shape
+                    xn = torch.randn((nb, sh.B_pad, K), generator=gen, device="cuda")
+                    hold_assign(torch, tag17, f"{label}, {nb} branches", xn,
+                                vq1.embedding.contiguous(), sh.valid_B.contiguous(), err,
+                                chunk=branch_chunk(sh.B_pad, M))
+                    hold_lookup(torch, tag17, f"{label}, {nb} branches", vq1, sh.fo_ids,
+                                cfgs["flagship"].num_D)
+                    del xn
+            del state, shards, step
     res["err"] = err
     with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
@@ -2203,60 +2305,86 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True):
     assert d_emb <= 2e-5 or not codebooks, (tag, d_emb)
 
 
-def sharded_phase(torch, ops, tr, graph, gpu, err):
+def _family_plan(tr, graph, cfgs, timed):
+    """Phase 17's plan for one family (a conv's trainer from phase 3): its
+    configurations at the trainer's high-water pads (phase 15's fixed pads),
+    one epoch of host batches, the feature table and the state (numpy)."""
+    from vq_gnn_tpu_torch.convert import state_to_numpy
+    from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+
+    g, c, ci = graph
+    hw = tr.train_loader
+    pads = dict(fixed_B_pad=hw._B_bucket, fixed_Bp_pad=hw._Bp_bucket, fixed_E_pad=hw._E_bucket)
+    cfgs = {k: dataclasses.replace(v, **pads) for k, v in cfgs.items()}
+    base = next(iter(cfgs.values()))
+    loader = BatchLoader(g, base, train_flag=True, cluster_indices=ci, seed=base.seed,
+                         device="cuda")
+    return dict(cfgs=cfgs, timed=timed, batches=[w[0] for w, _ in loader._epoch_iter()],
+                X=tr.X_dev.cpu().numpy(), state=state_to_numpy(tr.state),
+                C_hidden=base.hidden_channels)
+
+
+def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     """Phase 17: one batch sharded over two ranks on the card
-    (``parallel/mesh.py``, ``parallel/sharded.py``), the flagship GCN B + B'
-    from the state of phase 3's trainer (the module docstring says what it
-    runs).  Returns the two ranks' launches on the sharded paths."""
+    (``parallel/mesh.py``, ``parallel/sharded.py``), the flagship GCN and GAT
+    B + B' from the states of phase 3's trainers (the module docstring says
+    what it runs).  Returns the two ranks' launches on the sharded paths."""
     import pickle
     import tempfile
 
-    import numpy as np
     import torch.multiprocessing as mp
 
     from vq_gnn_tpu_torch.config import apply_matmul_precision
-    from vq_gnn_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from vq_gnn_tpu_torch.convert import state_from_numpy
     from vq_gnn_tpu_torch.nn.model import model_static
-    from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
     from vq_gnn_tpu_torch.train.step import make_step_fns
 
     t0 = time.time()
-    g, c, ci = graph
-    N = g.num_nodes
-    hw = tr.train_loader  # its high-water buckets, as phase 15
-    cfg = dataclasses.replace(tr.cfg, fixed_B_pad=hw._B_bucket, fixed_Bp_pad=hw._Bp_bucket,
-                              fixed_E_pad=hw._E_bucket)
+    tr = trainers["GCN"]
+    N = graphs["GCN"][0].num_nodes
     # the step checks in exact f32 (TF32 off, row 6's exact mode), whose sums
     # differ in order only, and at the flagship's own settings, which the
-    # timed steps run
-    exact = dataclasses.replace(cfg, matmul_precision="highest", vq_backend="pallas")
-    cfgs = {"bn": exact, "no bn": dataclasses.replace(exact, bn_flag=False), "flagship": cfg}
-    loader = BatchLoader(g, cfg, train_flag=True, cluster_indices=ci, seed=cfg.seed,
-                         device="cuda")
-    batches = [w[0] for w, _ in loader._epoch_iter()]  # host batches, one epoch
-    state_np = state_to_numpy(tr.state)
-    F, C = g.num_features, tr.ms.channels[-1]
+    # timed steps run, in f32 and at bf16 compute
+    def exact(cf):
+        return dataclasses.replace(cf, matmul_precision="highest", vq_backend="pallas")
+
+    bf16 = dict(compute_dtype="bfloat16")
+    gcn, gat = tr.cfg, trainers["GAT"].cfg
+    fams = {
+        "GCN": _family_plan(tr, graphs["GCN"], {
+            "bn": exact(gcn), "no bn": dataclasses.replace(exact(gcn), bn_flag=False),
+            "flagship": gcn, "bf16": dataclasses.replace(gcn, **bf16)},
+            {"flagship": SHARDED_STEPS, "bf16": SHARDED_STEPS_BF16}),
+        "GAT": _family_plan(trainers["GAT"], graphs["GAT"], {
+            "exact": exact(gat), "bf16": dataclasses.replace(gat, **bf16)},
+            {"bf16": SHARDED_STEPS_BF16}),
+    }
+    F, C = graphs["GCN"][0].num_features, tr.ms.channels[-1]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_17_")
     with open(os.path.join(tmp, "plan.pkl"), "wb") as f:
-        pickle.dump(dict(gpu=gpu, batches=batches, cfgs={k: dataclasses.asdict(v) for k, v in
-                                                        cfgs.items()},
-                         X=tr.X_dev.cpu().numpy(), state=state_np, F=F, C=C), f)
-    b0 = batches[0]
-    log(f"[17 setup] fixed pads B_pad {cfg.fixed_B_pad} Bp_pad {cfg.fixed_Bp_pad} E_pad "
-        f"{cfg.fixed_E_pad}; {len(batches)} batches, the first {batch_line(b0, edge_count(b0.edges))}"
-        f"; plan written in {time.time() - t0:.1f}s")
+        pickle.dump(dict(gpu=gpu, F=F, C=C, families={
+            k: dict(fam, cfgs={t: dataclasses.asdict(v) for t, v in fam["cfgs"].items()})
+            for k, fam in fams.items()}), f)
+    for fname, fam in fams.items():
+        b0, cf = fam["batches"][0], next(iter(fam["cfgs"].values()))
+        log(f"[17 setup] {fname}: fixed pads B_pad {cf.fixed_B_pad} Bp_pad {cf.fixed_Bp_pad} "
+            f"E_pad {cf.fixed_E_pad}; {len(fam['batches'])} batches, the first "
+            f"{batch_line(b0, edge_count(b0.edges))}")
+    log(f"[17 setup] plan written in {time.time() - t0:.1f}s")
 
     # the references: train_step on the whole batch from the same state
     refs = {}
-    for tag, cf in cfgs.items():
-        apply_matmul_precision(cf)
-        ms = model_static(cf, F, C, torch.device("cuda"))
-        st = state_from_numpy(state_np, ms, cf.lr, "cuda")
-        with ops.uncounted():
-            st, m = make_step_fns(ms, cf).train_step(st, tr.X_dev, b0.to("cuda"), 1.0, cf.lr,
-                                                     1.0)
-        refs[tag] = _step_record(torch, st, float(m["loss"]))
-        del st
+    for fname, fam in fams.items():
+        X = trainers[fname].X_dev
+        for tag, cf in fam["cfgs"].items():
+            apply_matmul_precision(cf)
+            ms = model_static(cf, F, C, torch.device("cuda"))
+            st = state_from_numpy(fam["state"], ms, cf.lr, "cuda")
+            with ops.uncounted():
+                st, m = make_step_fns(ms, cf).train_step(st, X, fam["batches"][0].to("cuda"),
+                                                         1.0, cf.lr, 1.0)
+            refs[fname, tag] = _step_record(torch, st, float(m["loss"]))
+            del st
 
     t1 = time.time()
     mp.spawn(sharded_rank, args=(tmp,), nprocs=SHARDED_RANKS, join=True)
@@ -2264,29 +2392,39 @@ def sharded_phase(torch, ops, tr, graph, gpu, err):
     for r in range(SHARDED_RANKS):
         with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
             outs.append(pickle.load(f))
-    log(f"[17 ranks] {SHARDED_RANKS} gloo ranks on cuda:0 ran in {time.time() - t1:.1f}s")
+    log(f"[17 ranks] {SHARDED_RANKS} gloo ranks on cuda:0 ran in {time.time() - t1:.1f}s; "
+        f"gloo on CUDA tensors: {outs[0]['probe']} | {gpu}")
+    assert all(v is True for out in outs for v in out["probe"].values()), outs[0]["probe"]
 
-    apply_matmul_precision(cfg)
+    apply_matmul_precision(tr.cfg)
 
     # 17a / 17c: each step against train_step on the whole batch
-    for tag, cf in cfgs.items():
-        atol = 1e-2 if cf.bn_flag else 1e-4
-        exact_f32 = tag != "flagship"
-        assert outs[0]["digest"]["1d", tag] == outs[1]["digest"]["1d", tag], \
-            f"the 1-D ranks' states differ ({tag})"
-        compare_step(f"17a 1-D vs train_step, {tag}", outs[0]["1d", tag], refs[tag], N, atol,
-                     gpu, codebooks=exact_f32)
-        for r in range(SHARDED_RANKS):
-            compare_step(f"17c 2-D 1x2 model rank {r} vs train_step, {tag}", outs[r]["2d", tag],
-                         refs[tag], N, atol, gpu, m=r, n_model=SHARDED_RANKS,
-                         codebooks=exact_f32)
+    for fname, fam in fams.items():
+        for tag, cf in fam["cfgs"].items():
+            atol = 1e-2 if cf.bn_flag else 1e-4
+            held = cf.matmul_precision == "highest"  # exact f32: the codebooks held
+            assert outs[0]["digest"]["1-D", fname, tag] == outs[1]["digest"]["1-D", fname, tag], \
+                f"the 1-D ranks' states differ ({fname} {tag})"
+            ref = refs[fname, tag]
+            compare_step(f"17a {fname} 1-D vs train_step, {tag}", outs[0]["1-D", fname, tag], ref,
+                         N, atol, gpu, codebooks=held)
+            for r in range(SHARDED_RANKS):
+                compare_step(f"17c {fname} 2-D 1x2 model rank {r} vs train_step, {tag}",
+                             outs[r]["2-D 1x2", fname, tag], ref, N, atol, gpu, m=r,
+                             n_model=SHARDED_RANKS, codebooks=held)
 
-    # 17b: the launch counters of each rank, on each path
+    # 17b: the launch counters of each rank, on each path, a step
     launches = {}
     for r, out in enumerate(outs):
         for path, counts in out["launches"].items():
-            log(f"[17b launches] rank {r} {path}: {counts}")
-            for name in DDP_KERNELS:
+            n = out["path_steps"][path]
+            per = {}  # a step, each kernel's f32 and bf16 modes together
+            for k, v in counts.items():
+                if v:
+                    per[k.removesuffix("_bf16")] = per.get(k.removesuffix("_bf16"), 0) + v / n
+            log(f"[17b launches] rank {r} {path}: {counts} over {n} steps; a step, both modes: "
+                f"{ {k: round(v, 3) for k, v in per.items()} }")
+            for name in SHARDED_KERNELS[path.split()[0]]:
                 assert counts[name] > 0, f"kernel {name} was not launched on rank {r}'s {path}"
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
@@ -2295,23 +2433,29 @@ def sharded_phase(torch, ops, tr, graph, gpu, err):
 
     # 17d: timing and the ledger; nothing table- or edge-shaped rides a collective
     X = tr.X_dev
+    x_bytes = X.numel() * X.element_size()
     cidx_bytes = (N + 1) * tr.state.vq_states[0].c_indices.shape[1] * 2
-    S_pad, K = b0.edges.ell_col.shape
-    St_pad = b0.edges.t_ell_col.shape[0]
-    col_bytes = S_pad * K * 4
-    banned = {(S_pad, K), (S_pad,), (S_pad * K,), (St_pad, K), (St_pad,), (St_pad * K,)}
     for path, st in outs[0]["steps"].items():
+        fname = path.split()[0]
+        e0 = fams[fname]["batches"][0].edges
+        S_pad, K = e0.ell_col.shape
+        St_pad = e0.t_ell_col.shape[0]
+        col_bytes = S_pad * K * 4
+        banned = {(S_pad, K), (S_pad,), (S_pad * K,), (St_pad, K), (St_pad,), (St_pad * K,)}
         busy = "not measured" if st["busy"] is None else f"{st['busy']:.3f}"
         idle = ("not measured" if st["busy"] is None
                 else f"{100 * (1 - st['busy'] / st['wall']):.1f} %")
-        log(f"[17d {path}] {SHARDED_STEPS} steps on rank 0: {st['ms']:.2f} ms/step (std "
+        log(f"[17d {path}] {st['n']} steps on rank 0: {st['ms']:.2f} ms/step (std "
             f"{st['std']:.2f}, median {st['median']:.2f}), device busy {busy} ms/step, idle "
             f"{idle}, peak {st['peak'] / 1e9:.3f} GB above the {st['held'] / 1e9:.3f} GB the "
             f"rank held; losses {[round(x, 4) for x in st['losses'][:4]]}... | {gpu}")
         assert all(math.isfinite(x) for x in st["losses"])
         if st["kernels"] is not None:
-            for kernel in DDP_KERNELS.values():
-                assert any(kernel in k for k in st["kernels"]), f"{kernel} not in the profile"
+            bf = "bf16" in path
+            for name, kernel in SHARDED_KERNELS[fname].items():
+                if name.endswith("_bf16") == bf or not name.startswith(("ell", "gat")):
+                    assert any(kernel in k for k in st["kernels"]), \
+                        f"{kernel} not in the profile of {path}"
         for r, out in enumerate(outs):
             led = out["ledger"][path]
             per = led["per_step"]
@@ -2320,20 +2464,21 @@ def sharded_phase(torch, ops, tr, graph, gpu, err):
                 f"{sum(per['bytes'].values()) / 1e6:.4f} MB a step in all")
             biggest = 0
             for kind in led["kinds"]:
-                nbytes = sum(math.prod(s) for s in kind[3]) * np.dtype(kind[2]).itemsize
+                nbytes = sum(math.prod(s) for s in kind[3]) * torch.empty(
+                    0, dtype=getattr(torch, kind[2])).element_size()
                 biggest = max(biggest, nbytes)
                 if r == 0:
                     log(f"[17d ledger]   {kind}: {nbytes} B a call")
-                assert nbytes < X.numel() * X.element_size(), \
-                    f"a payload as large as the feature table: {kind}"
+                assert nbytes < x_bytes, f"a payload as large as the feature table: {kind}"
                 for s in kind[3]:
                     assert not (len(s) and s[0] == N + 1) and tuple(s) not in banned, \
                         f"a table- or edge-shaped payload: {kind}"
+                if "bf16" in path and kind[0] == "rows":  # the exchange rides at bf16
+                    assert kind[2] == "bfloat16", f"a widened row payload: {kind}"
             if r == 0:
                 log(f"[17d ledger] {path}: the largest payload {biggest / 1e6:.2f} MB against "
-                    f"the feature table {X.numel() * X.element_size() / 1e6:.2f} MB, a "
-                    f"c_indices table {cidx_bytes / 1e6:.2f} MB and the ELL columns "
-                    f"{col_bytes / 1e6:.2f} MB")
+                    f"the feature table {x_bytes / 1e6:.2f} MB, a c_indices table "
+                    f"{cidx_bytes / 1e6:.2f} MB and the ELL columns {col_bytes / 1e6:.2f} MB")
     return launches
 
 
@@ -2608,7 +2753,7 @@ def main() -> int:
         graph = graphs["GAT-bm" if cfg_p.formulation == "bm" else cfg_p.conv_type]
         runs[tag] = drive_path(torch, ops, NodeTrainer, tag, graph, cfg_p, gpu, steps,
                                profile=full, evaluate=full, kernels=PATH_KERNELS[kind])
-        if tag not in ("3 GCN", "3 GAT-bm"):
+        if tag not in ("3 GCN", "3 GAT", "3 GAT-bm"):
             runs[tag].pop("tr")  # only these trainers' states are read later
     for tag, dtype in (("3 GAT-256", "float32"), ("3 GAT-256-bf16", "bfloat16")):
         assert runs[tag]["by_width"].get((256, dtype), 0) > 0, (
@@ -3344,7 +3489,8 @@ def main() -> int:
     # ---- 17. one batch sharded over two ranks: the 1-D and 2-D meshes ----
     phase("17 sharded")
     t0 = time.time()
-    counts.append(sharded_phase(torch, ops, runs["3 GCN"]["tr"], graphs["GCN"], gpu, err))
+    counts.append(sharded_phase(torch, ops, {"GCN": runs["3 GCN"]["tr"],
+                                             "GAT": runs["3 GAT"]["tr"]}, graphs, gpu, err))
     log(f"[17 sharded] the phase took {time.time() - t0:.1f}s")
     for c in counts:
         for k, v in c.items():

@@ -7,10 +7,12 @@ the graph's generator arguments, the initial train state as numpy, the
 mesh, ``(1d, n)`` or ``(2d, n_data, n_model)``, and the whole batch's
 dropbranch and dropout masks), builds the case's first batch with the
 port's ``BatchLoader`` on every rank alike, takes this rank's shard, runs
-one sharded step and pickles the metrics, the state, the collective ledger
-and the batch's arrays.  Ranks outside a case's mesh (a mesh of two in a
-group of four) make its groups and sit it out.  Imports the port and torch
-only, never JAX.
+one sharded step and pickles the metrics, the state (with the RMSprop
+square averages), the collective ledger and the batch's arrays.  Ranks
+outside a case's mesh (a mesh of two in a group of four) make its groups
+and sit it out.  The plan's ``scale`` cases (ranks 0 and 1) run the
+sharded Trick-1 scale on each rank's logits and pickle its value and the
+logits' gradients.  Imports the port and torch only, never JAX.
 """
 
 import dataclasses
@@ -29,7 +31,9 @@ from vq_gnn_tpu_torch.convert import state_from_numpy  # noqa: E402
 from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm  # noqa: E402
 from vq_gnn_tpu_torch.nn.model import model_static  # noqa: E402
 from vq_gnn_tpu_torch.nn.vq import VQState  # noqa: E402
+from vq_gnn_tpu_torch.ops.gat import explosion_scale  # noqa: E402
 from vq_gnn_tpu_torch.parallel import (  # noqa: E402
+    CollectiveLedger,
     DataMesh,
     init_distributed,
     make_mesh_2d,
@@ -38,15 +42,33 @@ from vq_gnn_tpu_torch.parallel import (  # noqa: E402
     shard_train_inputs,
     shard_train_inputs_2d,
 )
+from vq_gnn_tpu_torch.parallel.multihost import _Collectives  # noqa: E402
+from vq_gnn_tpu_torch.parallel.sharded import _ScaleRanks  # noqa: E402
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader  # noqa: E402
 from vq_gnn_tpu_torch.train.loop import device_features  # noqa: E402
+from vq_gnn_tpu_torch.train.optim import rmsprop_nu  # noqa: E402
 
 VQ_FIELDS = [f.name for f in dataclasses.fields(VQState)]
 BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
 EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val")
 
 
+def run_scale(case: dict, rank: int, meshes: dict) -> dict:
+    """This rank's logits, valid rows and cotangent of the scale, through
+    ``explosion_scale(..., ranks)`` over the pair's group."""
+    mesh = meshes[2]
+    if mesh is None:
+        return {}
+    al, ar = (torch.tensor(case[k][rank], requires_grad=True) for k in ("al", "ar"))
+    ranks = _ScaleRanks(_Collectives(mesh.group, CollectiveLedger()))
+    scale = explosion_scale(al, ar, torch.tensor(case["valid"][rank]), ranks)
+    (case["g"][rank] * scale).backward()
+    return {"scale": float(scale), "d_al": al.grad.numpy(), "d_ar": ar.grad.numpy()}
+
+
 def run_case(case: dict, rank: int, meshes: dict) -> dict:
+    if case.get("kind") == "scale":
+        return run_scale(case, rank, meshes)
     kind = case["mesh"]
     if meshes[kind[1] if kind[0] == "1d" else "2d"] is None:
         return {}  # a rank outside the case's mesh
@@ -72,6 +94,7 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
     return {
         "metrics": {k: float(v) for k, v in m.items()},
         "params": {k: v.detach().numpy().copy() for k, v in state.model.named_parameters()},
+        "nu": _nu(state),
         "vq": [{f: getattr(s, f).numpy().copy() for f in VQ_FIELDS} for s in state.vq_states],
         "bn": {"mean": [t.numpy().copy() for t in state.bn_state.mean],
                "var": [t.numpy().copy() for t in state.bn_state.var]},
@@ -80,6 +103,12 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
         "edges": {f: np.asarray(getattr(batch.edges, f)) for f in EDGE_FIELDS},
         "X_elems": X.numel(),
     }
+
+
+def _nu(state) -> dict:
+    """{parameter name: its RMSprop square average} (numpy) of a state."""
+    names, params = zip(*state.model.named_parameters())
+    return {k: v.numpy().copy() for k, v in zip(names, rmsprop_nu(state.optimizer, params))}
 
 
 def main():

@@ -10,25 +10,38 @@ the JAX package's initial state; the pytest process holds what they saw to
 the references:
 
 (a) the shards' sub-ELLs and sub-transposed-ELLs, with their row offsets
-    and long rows, reassemble the batch's exactly, at 2 and 4 ranks;
-(b) the 1-D step at 2 and 4 ranks, GCN and SAGE, against the JAX
+    and long rows, reassemble the batch's exactly, at 2 and 4 ranks, the
+    GAT shards' transposed slots of their boundary columns too;
+(b) the 1-D step at 2 and 4 ranks, GCN, SAGE and GAT, against the JAX
     ``train_step`` on ``shard_train_inputs(make_mesh(8))`` of the same state
     and batch, with ``tests/test_multichip.py``'s tolerances: the loss to
     rtol 1e-5, the parameters to atol 1e-2 (the inter-layer BN is on: the
     biases ahead of it have a zero gradient in exact arithmetic, and
     RMSprop's first step turns its rounding noise into an lr-sized move),
-    the codebooks to 2e-5, ``c_indices[:N]`` equal;
+    the codebooks to 2e-5, ``c_indices[:N]`` equal, and RMSprop's square
+    averages (the gradients' size, which a first step's parameters do not
+    show) to ``F32_TOL``;
 (c) the same cases without the inter-layer BN against the port's
     ``train_step`` on the whole batch, the parameters to atol 1e-4, and one
     with dropbranch and dropout on the whole batch's masks;
 (d) the 2-D step at 2 x 2 against JAX ``shard_train_inputs_2d(make_mesh_2d(4,
-    2))``: the loss, ``c_indices[:N]`` and the codebooks, each model rank
-    holding nb / 2 branches and its fan-in columns; without the BN (GCN
-    and SAGE) against the port's ``train_step`` as in (c);
+    2))``, GCN and GAT: the loss, ``c_indices[:N]`` and the codebooks, each
+    model rank holding nb / 2 branches and its fan-in columns; without the
+    BN (GCN, SAGE and GAT) against the port's ``train_step`` as in (c);
 (e) the collective ledger on the 4,000-node graph of
     ``tests/test_collective_audit.py:125``: no payload as large as the
     feature table or a ``c_indices`` table, none shaped like an edge array;
-(f) each option outside the slice refused by name, and the padding error.
+(f) each option outside the slice refused by name, and the padding error;
+(g) bf16 compute (GCN, SAGE and GAT at 4 ranks) against the JAX sharded
+    ``train_step`` at ``tests/test_torch_port_bf16.py``'s tolerances (the
+    loss to 5e-3, the codebooks to rtol 2e-2, the parameters to 1e-2,
+    ``BF16_TOL``; ``c_indices[:N]`` equal), and GAT bf16 without the BN,
+    1-D and 2-D (the partial logits summed before the bf16 rounding), and
+    SAGE bf16 without the BN on the 2-D mesh, against the port's
+    whole-batch step to the same;
+(h) the Trick-1 scale over two ranks with its maximum tied across them:
+    the logits' gradients are those of torch's masked max over the whole
+    batch.
 
 The replicated state (parameters, codebooks, BN) agrees across the ranks
 that hold it.
@@ -59,9 +72,11 @@ from vq_gnn_tpu_torch import parallel as tpar
 from vq_gnn_tpu_torch.convert import state_from_numpy
 from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.nn import model as tmodel
+from vq_gnn_tpu_torch.ops import gat as tgat
 from vq_gnn_tpu_torch.ops.spmm import gathered_order, long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train.loop import device_features
+from vq_gnn_tpu_torch.train.optim import rmsprop_nu
 from vq_gnn_tpu_torch.train.step import make_step_fns
 from tests.test_torch_port_native import steady_native
 
@@ -77,6 +92,8 @@ BASE = dict(dataset="synthetic", conv_type="GCN", num_layers=2, hidden_channels=
             vq_update_mode="live", lr=LR)
 NO_BN = dict(bn_flag=False)
 SAGE = dict(conv_type="SAGE")
+GAT = dict(conv_type="GAT")
+BF16 = dict(compute_dtype="bfloat16")
 OPTIONS = dict(bn_flag=False, dropbranch=0.5, dropout=0.5)
 # name: (Config fields over BASE, mesh, reference, graph)
 CASES = {
@@ -93,9 +110,54 @@ CASES = {
     "2d-GCN-noBN": (NO_BN, ("2d", 2, 2), "port", GRAPH),
     "2d-SAGE-noBN": ({**SAGE, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
     "1d-GCN-4-audit": ({}, ("1d", 4), None, AUDIT_GRAPH),
+    "1d-GAT-2": (GAT, ("1d", 2), "jax", GRAPH),
+    "1d-GAT-4": (GAT, ("1d", 4), "jax", GRAPH),
+    "2d-GAT": (GAT, ("2d", 2, 2), "jax", GRAPH),
+    "1d-GAT-4-noBN": ({**GAT, **NO_BN}, ("1d", 4), "port", GRAPH),
+    "2d-GAT-noBN": ({**GAT, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
+    "1d-GCN-bf16-4": (BF16, ("1d", 4), "jax", GRAPH),
+    "1d-GAT-bf16-4": ({**GAT, **BF16}, ("1d", 4), "jax", GRAPH),
+    "1d-GAT-bf16-4-noBN": ({**GAT, **BF16, **NO_BN}, ("1d", 4), "port", GRAPH),
+    "2d-GAT-bf16-noBN": ({**GAT, **BF16, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
+    "1d-SAGE-bf16-4": ({**SAGE, **BF16}, ("1d", 4), "jax", GRAPH),
+    "2d-SAGE-bf16-noBN": ({**SAGE, **BF16, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
 }
 # tests/test_multichip.py:50-76 (BN on), and the parameters without it
 RTOL_LOSS, ATOL_PARAMS_BN, ATOL_PARAMS, TOL_CODEBOOK = 1e-5, 1e-2, 1e-4, 2e-5
+# RMSprop's square averages after the first step, (1 - alpha) g^2: rtol,
+# and the same times the largest of the tensor as the atol, where that is
+# above NU_FLOOR (the biases ahead of the BN, whose gradient is rounding
+# noise about 1e-9: nu about 1e-19).  Measured worst gap: 3e-6 of the
+# largest in f32; a gradient off by a factor of 2 moves nu by 3 times it
+F32_TOL = dict(loss=(RTOL_LOSS, 0.0), codebook=(TOL_CODEBOOK, TOL_CODEBOOK), nu=1e-4)
+NU_FLOOR = 1e-12
+# bf16 compute: the loss to tests/test_torch_port_bf16.py's LOSS_TOL; the
+# codebooks, whose gradient half follows the probe gradients, to that
+# file's gradient tolerance (LEAF_RTOL 2e-2, its 3e-5 floor as the atol);
+# the parameters to ATOL_PARAMS_BN with or without the BN: a sum in another
+# order (the 2-D mesh sums partial logits before the bf16 rounding) moves a
+# bf16 logit by one unit, and RMSprop's first step turns the change of a
+# small gradient into a move of up to lr (the JAX package's own 2-D bf16
+# step moves layer 0's att_l 2.9e-2 from its one-device step on 2d-GAT-
+# bf16-noBN's inputs); c_indices[:N] equal all the same
+# bf16 compute; nu to 5e-2 (measured: 2e-2 of the largest, the 2-D GAT's
+# att_r, from the logits rounded after the model sum) and to 0.25 against
+# JAX (measured: 0.15 of the largest, layer 0's att_l under the BN, which
+# the port's whole-batch step shows against JAX alike)
+BF16_TOL = dict(loss=(5e-3, 5e-3), codebook=(2e-2, 3e-5), params=ATOL_PARAMS_BN, nu=5e-2)
+BF16_JAX_NU = 0.25
+# (h): two ranks' logits; al's maximum 2.5 once on each rank, ar's 1.25
+# twice on rank 0 and once on rank 1, and a larger value on an invalid row
+# of each; each rank's cotangent of the scale is its part of the whole
+SCALE_TIE = dict(
+    name="scale-tie", kind="scale",
+    al=[np.array([0.5, 2.5, -1.0, 9.0, 0.25], np.float32),
+        np.array([1.0, -2.0, 7.0, 2.5, 0.0], np.float32)],
+    ar=[np.array([1.25, 0.5, 1.25, 3.0, -0.5], np.float32),
+        np.array([-1.0, 1.25, 0.75, 0.0, 4.0], np.float32)],
+    valid=[np.array([True, True, True, False, True]),
+           np.array([True, True, False, True, False])],
+    g=[0.75, -0.3125])
 BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
 EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val")
 
@@ -155,7 +217,7 @@ class MeshRun:
                               dropout_keeps=keeps))
         plan = os.path.join(tmp, "plan.pkl")
         with open(plan, "wb") as f:
-            pickle.dump(dict(cases=cases), f)
+            pickle.dump(dict(cases=cases + [SCALE_TIE]), f)
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["OMP_NUM_THREADS"] = "1"
         self.outs = [os.path.join(tmp, f"out{r}.pkl") for r in range(WORLD)]
@@ -200,17 +262,24 @@ def run(tmp_path_factory):
     r.stop()
 
 
+def _params_nu(state):
+    """({name: value}, {name: its RMSprop square average}) of a port state."""
+    names, params = zip(*state.model.named_parameters())
+    nu = rmsprop_nu(state.optimizer, params)
+    return ({k: p.detach().numpy() for k, p in zip(names, params)},
+            {k: v.numpy() for k, v in zip(names, nu)})
+
+
 def _port_params(jstate, case):
-    """{name: value} of a JAX state's parameters in the port's layout."""
+    """:func:`_params_nu` of a JAX state, in the port's layout."""
     cfg, g, c, _ = case
     ms_t = tmodel.model_static(tcfg.Config(**dataclasses.asdict(cfg)), g.num_features, c,
                                torch.device("cpu"))
-    st = state_from_numpy(jax.tree.map(np.asarray, jstate), ms_t, LR, "cpu")
-    return {k: v.detach().numpy() for k, v in st.model.named_parameters()}
+    return _params_nu(state_from_numpy(jax.tree.map(np.asarray, jstate), ms_t, LR, "cpu"))
 
 
 def _jax_reference(name):
-    """(loss, {param: value}, [VQ state as numpy], the batch) of one JAX
+    """(loss, ({param: value}, {param: nu}), [VQ state as numpy], the batch) of one JAX
     ``train_step`` on a case's inputs, sharded as its mesh says: the 1-D
     cases on ``make_mesh(8)``, the 2-D on ``make_mesh_2d(4, 2)``."""
     kw, mesh, _, graph = CASES[name]
@@ -229,7 +298,7 @@ def _jax_reference(name):
 
 
 def _port_reference(case, graph, state_np, masks):
-    """(loss, {param: value}, [VQ state as numpy]) of the port's
+    """(loss, ({param: value}, {param: nu}), [VQ state as numpy]) of the port's
     ``train_step`` on the whole batch from ``state_np``."""
     cfg, g, c, _ = case
     tc = tcfg.Config(**dataclasses.asdict(cfg))
@@ -245,8 +314,7 @@ def _port_reference(case, graph, state_np, masks):
                                                 dropout_keeps=keeps)
     vq = [{f: getattr(s, f).numpy() for f in ("embedding", "c_indices")}
           for s in state.vq_states]
-    return float(m["loss"]), {k: v.detach().numpy() for k, v in
-                              state.model.named_parameters()}, vq
+    return float(m["loss"]), _params_nu(state), vq
 
 
 def _model_part(a, m, n_model, axis):
@@ -254,25 +322,41 @@ def _model_part(a, m, n_model, axis):
     return np.take(a, np.arange(m * w, (m + 1) * w), axis=axis)
 
 
-def _check(name, out, rank, mesh, loss, params, vq, N, atol_params):
+def _tol(name):
+    if "bf16" not in name:
+        return F32_TOL
+    return {**BF16_TOL, "nu": BF16_JAX_NU} if CASES[name][2] == "jax" else BF16_TOL
+
+
+def _check(name, out, rank, mesh, loss, params_nu, vq, N, atol_params):
     """One rank's step against a reference; on the 2-D mesh its model
-    rank's part of it."""
+    rank's part of it, to the case's tolerances (:func:`_tol`)."""
     n_model = mesh[2] if mesh[0] == "2d" else 1
     m = rank % n_model
-    np.testing.assert_allclose(out["metrics"]["loss"], loss, rtol=RTOL_LOSS,
-                               err_msg=f"{name} rank {rank} loss")
+    tol = _tol(name)
+    np.testing.assert_allclose(out["metrics"]["loss"], loss, rtol=tol["loss"][0],
+                               atol=tol["loss"][1], err_msg=f"{name} rank {rank} loss")
+    params, nu = params_nu
     for k, v in params.items():
+        mine, nu_ref = out["params"][k], nu[k]
         if n_model > 1 and v.ndim == 2:  # a fan-in weight: this rank's columns
-            v = _model_part(v, m, n_model, 1)
-        assert out["params"][k].shape == v.shape, (name, k)
-        np.testing.assert_allclose(out["params"][k], v, atol=atol_params,
+            v, nu_ref = _model_part(v, m, n_model, 1), _model_part(nu_ref, m, n_model, 1)
+        assert mine.shape == v.shape, (name, k)
+        np.testing.assert_allclose(mine, v, atol=tol.get("params", atol_params),
                                    err_msg=f"{name} rank {rank} {k}")
+        # the first step's nu is (1 - alpha) g^2: the gradient's size, which
+        # the parameters (moved by about lr sign(g)) do not show
+        rtol = tol["nu"]
+        np.testing.assert_allclose(out["nu"][k], nu_ref, rtol=rtol,
+                                   atol=rtol * max(np.abs(nu_ref).max(), NU_FLOOR),
+                                   err_msg=f"{name} rank {rank} nu of {k}")
     for l, ref in enumerate(vq):
         emb, cidx = ref["embedding"], ref["c_indices"]
         if n_model > 1:
             emb, cidx = _model_part(emb, m, n_model, 0), _model_part(cidx, m, n_model, 1)
         o = out["vq"][l]
-        np.testing.assert_allclose(o["embedding"], emb, rtol=TOL_CODEBOOK, atol=TOL_CODEBOOK,
+        rtol, atol = tol["codebook"]
+        np.testing.assert_allclose(o["embedding"], emb, rtol=rtol, atol=atol,
                                    err_msg=f"{name} rank {rank} layer {l} codebook")
         np.testing.assert_array_equal(o["c_indices"][:N], cidx[:N],
                                       err_msg=f"{name} rank {rank} layer {l} c_indices")
@@ -302,9 +386,10 @@ def _replicas_agree(run, name, mesh):
 # ---------------------------------------------------------------------------
 # (b), (d) against the JAX package's sharded train_step
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("jname", ["1d-GCN", "1d-SAGE", "2d-GCN"])
+@pytest.mark.parametrize("jname", ["1d-GCN", "1d-SAGE", "2d-GCN", "1d-GAT", "2d-GAT",
+                                   "1d-GCN-bf16", "1d-GAT-bf16", "1d-SAGE-bf16"])
 def test_sharded_step_matches_jax(run, jname):
-    names = [n for n in CASES if n.startswith(jname) and CASES[n][2] == "jax"]
+    names = [n for n in CASES if jname in (n, n.rsplit("-", 1)[0]) and CASES[n][2] == "jax"]
     case = run.ctx[names[0]]
     loss, params, vq, jbatch = _jax_reference(names[0])
     N = case[1].num_nodes
@@ -320,9 +405,9 @@ def test_sharded_step_matches_jax(run, jname):
                                               np.asarray(getattr(jbatch.edges, f)))
             _check(name, out, rank, mesh, loss, params, vq, N, ATOL_PARAMS_BN)
         _replicas_agree(run, name, mesh)
-    if jname == "2d-GCN":  # each model rank: nb / 2 branches, its fan-in columns
+    if jname.startswith("2d"):  # each model rank: nb / 2 branches, its fan-in columns
         ms = case[3]
-        for rank, out in run.ranks("2d-GCN"):
+        for rank, out in run.ranks(jname):
             for l, nb in enumerate(ms.num_branches):
                 assert out["vq"][l]["embedding"].shape[0] == nb // 2
                 assert out["vq"][l]["c_indices"].shape == (N + 1, nb // 2)
@@ -393,23 +478,53 @@ def test_sharded_ledger_moves_no_graph_sized_payload(run):
 
 
 # ---------------------------------------------------------------------------
+# (h) the sharded Trick-1 scale under a tie across ranks
+# ---------------------------------------------------------------------------
+def test_sharded_scale_gradient_under_a_tie(run):
+    """Two ranks' ``explosion_scale(..., ranks)`` (an all-reduce MAX, then
+    the cotangent and the tie count summed in the backward) give the scale
+    and the logits' gradients of torch's masked max over the whole batch,
+    which splits the cotangent evenly over the ties: here over two ranks
+    for al and three rows on two ranks for ar."""
+    outs = run.ranks("scale-tie")
+    assert [r for r, _ in outs] == [0, 1]
+    whole = {k: torch.tensor(np.concatenate(SCALE_TIE[k]), requires_grad=True)
+             for k in ("al", "ar")}
+    scale = tgat.explosion_scale(whole["al"], whole["ar"],
+                                 torch.tensor(np.concatenate(SCALE_TIE["valid"])))
+    (sum(SCALE_TIE["g"]) * scale).backward()
+    for _, out in outs:
+        np.testing.assert_allclose(out["scale"], float(scale.detach()), rtol=1e-7)
+    for k in ("al", "ar"):
+        got = np.concatenate([out[f"d_{k}"] for _, out in outs])
+        ref = whole[k].grad.numpy()
+        assert (ref != 0).sum() == (2 if k == "al" else 3)  # the ties, on both ranks
+        assert all((out[f"d_{k}"] != 0).any() for _, out in outs)
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
 # (a) the sub-ELLs, in-process
 # ---------------------------------------------------------------------------
-def _port_batch():
-    cfg = tcfg.Config(**BASE)
+def _port_batch(conv="GCN"):
+    cfg = tcfg.Config(**{**BASE, "conv_type": conv})
     g = _port_graph(GRAPH, cfg)
     loader = tsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu")
     return next(loader._epoch_iter())[0][0]
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_shards_reassemble_the_batch(n):
+@pytest.mark.parametrize("n,conv", [(2, "GCN"), (4, "GCN"), (2, "GAT"), (4, "GAT")],
+                         ids=["2", "4", "2-GAT", "4-GAT"])
+def test_shards_reassemble_the_batch(n, conv):
     """Every rank's sub-ELL (its batch rows, then its boundary rows) and
-    sub-transposed-ELL (its batch columns), columns mapped back from the
-    gathered order, laid end to end in the batch's row order, are the
-    batch's live slots exactly; each keeps its rows' slot counts (row
-    offsets) and the batch's long rows among its rows, longest first."""
-    batch = _port_batch()
+    sub-transposed-ELL (its batch columns; in a GAT batch its batch, then
+    its boundary columns), columns mapped back from the gathered order, laid
+    end to end in the batch's row order, are the batch's live slots exactly;
+    each keeps its rows' slot counts (row offsets) and the batch's long rows
+    among its rows, longest first; ``row0`` is where its rows land in the
+    gathered order."""
+    batch = _port_batch(conv)
+    gat = conv == "GAT"
     e = batch.edges
     B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
     R = B_pad + Bp_pad
@@ -419,12 +534,19 @@ def test_shards_reassemble_the_batch(n):
     ptr = row_offsets_host(e.ell_row, R)
     t_ptr = row_offsets_host(e.t_ell_row, R)
     long_all = set(long_rows_host(ptr)[1:].tolist())
-    parts = {"B": [], "fo": [], "t": []}
+    parts = {"B": [], "fo": [], "t": [], "t fo": []}
+
+    def own_rows(r):
+        return np.r_[r * b : (r + 1) * b, B_pad + r * bp : B_pad + (r + 1) * bp]
+
     for r in range(n):
         _, _, shard = tpar.shard_train_inputs(tpar.DataMesh(None, r, n, torch.device("cpu")),
                                               None, None, batch)
         se = shard.edges
         assert (se.num_rows, se.b_rows, shard.B_pad, shard.Bp_pad) == (b + bp, b, b, bp)
+        assert se.row0 == r * (b + bp)
+        np.testing.assert_array_equal(gathered_order(own_rows(r), B_pad, Bp_pad, n),
+                                      np.arange(se.row0, se.row0 + b + bp))
         for f in ("batch_idx", "valid_B", "y", "train_mask"):
             np.testing.assert_array_equal(getattr(shard, f).numpy(),
                                           getattr(batch, f)[r * b : (r + 1) * b])
@@ -435,7 +557,7 @@ def test_shards_reassemble_the_batch(n):
         row, col, val = (getattr(se, f).numpy() for f in ("ell_row", "ell_col", "ell_val"))
         sptr, slong = se.ell_ptr.numpy(), se.ell_long_rows.numpy()
         # the row offsets: the batch's slot counts of the owned rows
-        own = np.r_[r * b : (r + 1) * b, B_pad + r * bp : B_pad + (r + 1) * bp]
+        own = own_rows(r)
         np.testing.assert_array_equal(np.diff(sptr), np.diff(ptr)[own])
         assert set(own[slong[1:]].tolist()) == long_all & set(own.tolist())
         counts = np.diff(sptr)[slong[1:]]
@@ -446,13 +568,21 @@ def test_shards_reassemble_the_batch(n):
         parts["fo"].append((glob[cut:], back[col[cut:]], val[cut:]))
         trow, tcol, tval = (getattr(se, f).numpy() for f in ("t_ell_row", "t_ell_col",
                                                              "t_ell_val"))
-        np.testing.assert_array_equal(np.diff(se.t_ell_ptr.numpy()),
-                                      np.diff(t_ptr)[r * b : (r + 1) * b])
-        parts["t"].append((trow + r * b, back[tcol], tval))
+        t_own = own if gat else own[:b]
+        tptr = se.t_ell_ptr.numpy()
+        np.testing.assert_array_equal(np.diff(tptr), np.diff(t_ptr)[t_own])
+        assert set(t_own[se.t_ell_long_rows.numpy()[1:]].tolist()) == \
+            set(long_rows_host(t_ptr)[1:].tolist()) & set(t_own.tolist())
+        tcut = tptr[b]
+        tglob = np.where(trow < b, trow + r * b, trow - b + B_pad + r * bp)
+        parts["t"].append((tglob[:tcut], back[tcol[:tcut]], tval[:tcut]))
+        parts["t fo"].append((tglob[tcut:], back[tcol[tcut:]], tval[tcut:]))
+    assert gat == bool(sum(len(p[0]) for p in parts["t fo"]))
     for key, (rows, cols, vals), (lo, hi) in (
             ("forward", (e.ell_row, e.ell_col, e.ell_val), (0, ptr[R])),
-            ("transposed", (e.t_ell_row, e.t_ell_col, e.t_ell_val), (0, t_ptr[B_pad]))):
-        pieces = parts["B"] + parts["fo"] if key == "forward" else parts["t"]
+            ("transposed", (e.t_ell_row, e.t_ell_col, e.t_ell_val),
+             (0, t_ptr[R if gat else B_pad]))):
+        pieces = parts["B"] + parts["fo"] if key == "forward" else parts["t"] + parts["t fo"]
         for i, whole in enumerate((rows, cols, vals)):
             np.testing.assert_array_equal(np.concatenate([p[i] for p in pieces]),
                                           np.asarray(whole)[lo:hi], err_msg=key)
@@ -462,12 +592,10 @@ def test_shards_reassemble_the_batch(n):
 # (f) refusals by name
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,what", [
-    (dict(conv_type="GAT"), "with GAT"),
     (dict(formulation="bm"), "formulation='bm'"),
     (dict(spmm_backend="coo"), "COO layout"),
     (dict(ell_Kt=2), "mixed-K layout"),
-    (dict(compute_dtype="bfloat16"), "compute_dtype='bfloat16'"),
-], ids=["GAT", "bm", "COO", "mixed-K", "bf16"])
+], ids=["bm", "COO", "mixed-K"])
 def test_sharded_steps_refuse_by_name(kw, what):
     """Both steps raise, pointing at ROADMAP.md queue 1 item 7c, before
     they need a process group."""

@@ -1,15 +1,18 @@
 """The port's collective ledger at the bench flagship's widths, on the CPU:
 the data-parallel step (``parallel/multihost.py:make_ddp_step``) and the
-1-D sharded step (``parallel/sharded.py:make_sharded_step``) on two gloo
-ranks, one step each, and their bytes and calls a step by category.  The
+1-D sharded step (``parallel/sharded.py:make_sharded_step``) of the bench's
+GCN cell, and the 1-D sharded step of its GAT cell (bf16 compute, as the
+bench runs it), on two gloo ranks, one step each, and their bytes and
+calls a step by category.  The
 counterpart of ``tools/collective_ledger_at_scale.py``, which compiles the
 JAX package's DDP step and reads its HLO; the port runs its steps.
 
     python tools/collective_ledger_at_scale_torch.py [--nodes 169343]
 
 The graph is the bench's arxiv-scale SBM (``--nodes`` cuts it; the widths
-stay: 3 layers x 128, num_D = 4, M = 256, 80 cluster parts).  The sharded
-step takes one batch of 40 parts, split over the two ranks; the DDP step
+stay: 3 layers x 128, num_D = 4, M = 256, 80 cluster parts), normalised
+for each conv.  The sharded steps take one batch of 40 parts, split over
+the two ranks; the DDP step
 gives each rank a batch of half as many nodes from its own half of the
 graph (``partition_hosts``), at fixed pads both ranks share.  Row 6 runs
 as ``vq_backend='scan'`` (the plain assignment in row chunks), which moves
@@ -17,6 +20,7 @@ the same collectives as the kernels.  Prints one JSON line on stdout.
 """
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -31,14 +35,18 @@ RANKS = 2
 
 def ledger_of(step) -> dict:
     """A step's ledger: bytes and calls a step by category, the MB a step
-    in all and the largest single payload's bytes."""
-    import numpy as np
+    in all, the largest single payload's bytes and the row exchanges'
+    dtypes."""
+    import torch
 
     per = step.ledger.per_step()
+    size = {dt: torch.empty(0, dtype=getattr(torch, dt)).element_size()
+            for _, _, dt, _ in step.ledger.kinds}
     return {"bytes": per["bytes"], "calls": per["calls"],
             "MB": round(sum(per["bytes"].values()) / 1e6, 4),
-            "largest_B": max(sum(math.prod(s) for s in shapes) * np.dtype(dt).itemsize
-                             for _, _, dt, shapes in step.ledger.kinds)}
+            "largest_B": max(sum(math.prod(s) for s in shapes) * size[dt]
+                             for _, _, dt, shapes in step.ledger.kinds),
+            "rows_dtypes": sorted({dt for cat, _, dt, _ in step.ledger.kinds if cat == "rows"})}
 
 
 def rank_main(rank: int, tmp: str, nodes: int) -> None:
@@ -70,23 +78,35 @@ def rank_main(rank: int, tmp: str, nodes: int) -> None:
     _, degree, features, classes, _, _ = PROFILES["arxiv"]
     g0, c0 = synthetic_sbm(num_nodes=nodes, num_classes=classes, num_features=features,
                            avg_degree=degree, seed=0)
-    g, c, ci = prepare(g0, cfg, c0)
+    g, c, ci = prepare(copy.deepcopy(g0), cfg, c0)  # prepare normalises in place
     ms = model_static(cfg, g.num_features, c, cpu)
 
     def state():
         return init_train_state(torch.Generator().manual_seed(0), ms, g.num_nodes, cfg.lr, cpu)
 
     out = {}
-    # the sharded step: one batch of 40 parts, each rank its half of the rows
-    batch = next(BatchLoader(g, cfg, train_flag=True, cluster_indices=ci, seed=0,
-                             device="cpu")._epoch_iter())[0][0]
     mesh = make_mesh(RANKS, device="cpu")
-    st, X, shard = shard_train_inputs(mesh, state(), device_features(g.x, cpu), batch)
-    step = make_sharded_step(ms, cfg, mesh)
-    step(st, X, shard, 1.0, cfg.lr, 1.0)
-    out["sharded"] = dict(B=int(batch.num_B), B_pad=batch.B_pad, Bp_pad=batch.Bp_pad,
-                          **ledger_of(step))
-    del st, shard, step
+
+    def sharded(cf, gr, ci_, ms_, init):
+        """One step of the 1-D sharded step on one batch of 40 parts, each
+        rank its half of the rows: (the batch, its ledger)."""
+        b = next(BatchLoader(gr, cf, train_flag=True, cluster_indices=ci_, seed=0,
+                             device="cpu")._epoch_iter())[0][0]
+        st, X_, shard = shard_train_inputs(mesh, init(), device_features(gr.x, cpu), b)
+        step = make_sharded_step(ms_, cf, mesh)
+        step(st, X_, shard, 1.0, cf.lr, 1.0)
+        return b, dict(B=int(b.num_B), B_pad=b.B_pad, Bp_pad=b.Bp_pad, **ledger_of(step))
+
+    batch, out["sharded"] = sharded(cfg, g, ci, ms, state)
+    X = device_features(g.x, cpu)
+    # the bench's GAT cell (bf16 compute), on the graph normalised for GAT
+    gat_cfg = dataclasses.replace(bench_config({"VQ_GNN_BENCH_CONV": "GAT"}), vq_backend="scan")
+    g_gat, c_gat, ci_gat = prepare(g0, gat_cfg, c0)
+    ms_gat = model_static(gat_cfg, g_gat.num_features, c_gat, cpu)
+    _, out["sharded_gat_bf16"] = sharded(
+        gat_cfg, g_gat, ci_gat, ms_gat, lambda: init_train_state(
+            torch.Generator().manual_seed(0), ms_gat, g_gat.num_nodes, gat_cfg.lr, cpu))
+    del g_gat
 
     # the DDP step: each rank half as many nodes from its half of the graph
     perm, ptr = partition_hosts(g.adj, RANKS)

@@ -325,7 +325,9 @@ def layer_forward(
     ``fan_in_reduce`` is the 2-D mesh's (``parallel/sharded.py``): x holds
     this rank's branches' columns and the linears their fan-in rows, and
     the function sums the partial products over the ranks of the branches
-    (see :func:`_layer_output`).
+    (see :func:`_layer_output`).  A row shard's edges carry their GAT conv
+    (``ShardEdges.gat``, bound to the ranks by the sharded step), which
+    takes the place of the logits, the Trick-1 scale and the conv here.
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     if ms.formulation == "bm":
@@ -374,11 +376,15 @@ def layer_forward(
         # widened once and ar, and forms its own al (f32 att, unrounded)
         C = x_input.shape[1]
         xf = x_input.float() if cd == torch.bfloat16 else x_input
-        al, ar = node_logits(x_input, xf, layer.att_l, layer.att_r)
         valid_all = torch.cat([batch.valid_B, batch.valid_fo])
-        scale = explosion_scale(al, ar, valid_all)  # Trick 1 (convs.py v2:209)
-        x_out, norm_col = gat_conv_ell(batch.edges, x_input, layer.att_l, layer.att_r, scale,
-                                       xf=xf.detach(), ar=ar.detach())
+        if getattr(batch.edges, "gat", None) is not None:
+            # a row shard's conv, bound to its ranks (parallel/sharded.py)
+            x_out, norm_col = batch.edges.gat(x_input, xf, layer.att_l, layer.att_r, valid_all)
+        else:
+            al, ar = node_logits(x_input, xf, layer.att_l, layer.att_r)
+            scale = explosion_scale(al, ar, valid_all)  # Trick 1 (convs.py v2:209)
+            x_out, norm_col = gat_conv_ell(batch.edges, x_input, layer.att_l, layer.att_r,
+                                           scale, xf=xf.detach(), ar=ar.detach())
         x_out_B, norm_B = x_out[:B_pad], norm_col[:B_pad]
         if probe is not None:  # the reference hook point, (C+1) wide
             x_out_B = x_out_B + probe[:, :C]
@@ -403,7 +409,7 @@ def _layer_output(layer, ms: ModelStatic, x, conv_B, x_tr=None, fan_in_reduce=No
     v2:203-204), the transformer branch's ``transformer_v`` of its output
     ``x_tr`` and ``transformer_res`` of the layer input (v1/models.py:
     342-362), and the skip linear of the layer input.  With
-    ``fan_in_reduce`` (the 2-D mesh, B + B' GCN and SAGE) the products
+    ``fan_in_reduce`` (the 2-D mesh, B + B' GCN, SAGE and GAT) the products
     without their biases are summed locally, ``fan_in_reduce`` adds the
     other ranks' partial sums, then the biases are added once."""
     if fan_in_reduce is not None:

@@ -28,6 +28,12 @@ Under ``compute_dtype='bfloat16'`` both convs take bf16 x and round where
 the JAX package rounds (``vq_gnn_tpu/ops/gat.py``): the conv's outputs and
 logit cotangents stay f32, the cotangents it gathers are bf16, and dx
 comes back in bf16.
+
+A batch sharded over ranks (``parallel/sharded.py``) runs the same two
+kernels over each rank's rows: :func:`gat_conv_sharded` (the conv over a
+row shard's ``ShardEdges``, with the collectives it is handed) and
+:func:`explosion_scale`'s ``ranks`` (the Trick-1 max over every rank's
+rows).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 from vq_gnn_tpu_torch.ops.spmm import Edges, fold_rows, mixed_families
 
 __all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_ell",
-           "gat_conv_ell_mh", "gat_edge_values", "node_logits"]
+           "gat_conv_ell_mh", "gat_conv_sharded", "gat_edge_values", "node_logits"]
 
 
 def attention_logits(x, att_l, att_r):
@@ -48,8 +54,39 @@ def attention_logits(x, att_l, att_r):
     return x @ att_l, x @ att_r
 
 
-def explosion_scale(alpha_l, alpha_r, valid=None):
-    """Trick 1 scale.  ``valid`` masks padded rows out of the global max."""
+class _RanksMax(torch.autograd.Function):
+    """The max of each row of v [k, n] over every rank's v: this rank's max,
+    then an all-reduce MAX.  The backward is the whole batch's full ``max``:
+    the cotangent (summed over the ranks, each holding its part of it) split
+    evenly over the ties of every rank (their count summed over the ranks),
+    as torch's ``max()`` and ``jnp.max`` split it."""
+
+    @staticmethod
+    def forward(ctx, v, ranks):
+        m = ranks.max(v.max(1).values)
+        ties = v == m[:, None]
+        ctx.ranks = ranks
+        ctx.save_for_backward(ties)
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        (ties,) = ctx.saved_tensors
+        k = g.shape[0]
+        both = ctx.ranks.sum(torch.cat([g, ties.sum(1).to(g.dtype)]))
+        return ties * (both[:k] / both[k:].clamp(min=1.0))[:, None], None
+
+
+def explosion_scale(alpha_l, alpha_r, valid=None, ranks=None):
+    """Trick 1 scale.  ``valid`` masks padded rows out of the global max.
+    With ``ranks`` (a row shard's: ``max(t)`` and ``sum(t)``, copies of t
+    reduced over the ranks of the rows, ``parallel/sharded.py``) the max is
+    over every rank's valid rows and its gradient the whole batch's
+    (:class:`_RanksMax`): one scalar all-reduce each way."""
+    if ranks is not None:
+        v = torch.stack([alpha_l, alpha_r]).masked_fill(~valid[None, :], float("-inf"))
+        ml, mr = _RanksMax.apply(v, ranks)
+        return torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)
     if valid is not None:
         # masked_fill takes the -inf as a scalar: a tensor made from it on the
         # card would be a host-to-device copy, which synchronises the stream
@@ -93,71 +130,122 @@ def bf16_dot(xf, w):
     return (xf @ w.to(torch.bfloat16).float()).to(torch.bfloat16).float()
 
 
-def node_logits(x, xf, att_l, att_r):
+def node_logits(x, xf, att_l, att_r, reduce=None):
     """The Trick-1 logits (x @ att[:C] + att[C]) of both sides, ([R], [R]);
     ``xf`` is x widened to f32 (x itself when f32).  Under bf16 x both are
     bf16 dots (:func:`bf16_dot`) from one [C, 2] product, as the JAX
-    package's ``x @ att[:C].astype(bfloat16)``."""
+    package's ``x @ att[:C].astype(bfloat16)``.
+
+    ``reduce`` (the 2-D mesh's, where x holds some of the columns) sums the
+    [R, 2] partial dots over the ranks of the columns, before the rounding
+    and the bias."""
     C = x.shape[1]
     if x.dtype != torch.bfloat16:  # two f32 matvecs (no TF32, whatever it allows)
-        return x @ att_l[:C] + att_l[C], x @ att_r[:C] + att_r[C]
-    # bf16 values are exact in TF32, so one [C, 2] product rounds nothing
-    dots = bf16_dot(xf, torch.stack([att_l[:C], att_r[:C]], 1))
+        if reduce is None:
+            return x @ att_l[:C] + att_l[C], x @ att_r[:C] + att_r[C]
+        dots = reduce(torch.stack([x @ att_l[:C], x @ att_r[:C]], 1))
+    else:
+        # bf16 values are exact in TF32, so one [C, 2] product rounds nothing
+        dots = xf @ torch.stack([att_l[:C], att_r[:C]], 1).to(torch.bfloat16).float()
+        dots = (dots if reduce is None else reduce(dots)).to(torch.bfloat16).float()
     return dots[:, 0] + att_l[C], dots[:, 1] + att_r[C]
 
 
-def _gat_forward(edges: Edges, x, att_l, att_r, scale, with_neg: bool, xf=None, ar=None):
-    """(agg [R, C], rowsum [R], aggn, rsn, al_node [R], ar_node [R]), all
-    f32, for f32 or bf16 x (``vq_gnn_tpu/ops/gat.py:365-385``).  al is the
-    f32 att on the widened rows (the TPU kernel forms it from the gathered
-    rows and never rounds it); ar is :func:`node_logits`' (a bf16 dot under
-    bf16 x), or the caller's ``ar`` when given."""
+def _table_logits(x, xf, att_l, att_r, reduce=None, al=None, ar=None):
+    """(al, ar) [Rx] of every row of the table x, f32 values: al as the conv
+    forms it (the f32 att on the widened rows: under bf16 x unrounded, as the
+    TPU kernel forms it from the gathered rows), ar as :func:`node_logits`
+    forms it (a bf16 dot under bf16 x); either the caller's where given.
+    ``reduce`` (the 2-D mesh's) sums the partial dots of both over the ranks
+    of the columns, once, before the rounding and the bias."""
+    C = x.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    dots = []
+    if al is None:
+        dots.append(xf @ att_l[:C])
+    if ar is None:  # bf16 values are exact in f32, so the matvec rounds only its sum
+        dots.append(xf @ (att_r[:C].to(torch.bfloat16).float() if bf16 else att_r[:C]))
+    if dots:
+        dots = torch.stack(dots, 1)
+        dots = list((dots if reduce is None else reduce(dots)).unbind(1))
+        if al is None:
+            al = dots.pop(0) + att_l[C]
+        if ar is None:
+            ar = (dots[0].to(torch.bfloat16).float() if bf16 else dots[0]) + att_r[C]
+    return al, ar
+
+
+def _gat_forward(edges, x, att_l, att_r, scale, with_neg: bool, xf=None, ar=None, al=None,
+                 gather=None, reduce=None):
+    """(agg [R, C], rowsum [R], aggn, rsn, al_node [R], ar_tab [Rx]), all
+    f32, for f32 or bf16 x (``vq_gnn_tpu/ops/gat.py:365-385``): kernel 4 over
+    the R rows of ``edges``, reading the table of x (x itself, or
+    ``gather(x)``, every rank's rows, where the owned rows start at
+    ``edges.row0``) with the logits of each of its rows divided by the scale
+    (:func:`_table_logits`, which takes the caller's ``al`` and ``ar`` where
+    given); al_node is the owned rows' al."""
+    R = x.shape[0]
     if xf is None:
         xf = x.float()
-    if ar is None:
-        _, ar = node_logits(x, xf, att_l, att_r)
-    C = x.shape[1]
-    al_node = (xf @ att_l[:C] + att_l[C]) / scale
-    ar_node = ar / scale
+    if gather is not None:  # the caller's logits are its own rows'
+        x = gather(x)
+        xf, al, ar = x.float(), None, None
+    al_tab, ar_tab = _table_logits(x, xf, att_l, att_r, reduce, al, ar)
+    al_tab, ar_tab = al_tab / scale, ar_tab / scale
+    own = slice(edges.row0, edges.row0 + R)
     agg, rowsum, aggn, rsn = gat_aggregate(
-        x, edges.ell_row, edges.ell_col, edges.ell_val, al_node, ar_node, edges.num_rows,
+        x, edges.ell_row, edges.ell_col, edges.ell_val, al_tab, ar_tab[own], R,
         with_neg=with_neg, ptr=edges.ell_ptr, long_rows=edges.ell_long_rows,
     )
-    return agg, rowsum, aggn, rsn, al_node, ar_node
+    return agg, rowsum, aggn, rsn, al_tab[own], ar_tab
 
 
 class _GATConv(torch.autograd.Function):
+    """The fused conv over the single-K slot-ELL (:func:`gat_conv_ell`) and,
+    with ``gather`` and ``model_sum``, over a row shard
+    (:func:`gat_conv_sharded`)."""
+
     @staticmethod
-    def forward(ctx, x, att_l, att_r, scale, edges: Edges, xf, ar):
+    def forward(ctx, x, att_l, att_r, scale, edges, xf, ar, al, gather, model_sum):
         xf = x.float() if xf is None else xf
-        agg, rowsum, aggn, rsn, al_node, ar_node = _gat_forward(
-            edges, x, att_l, att_r, scale, with_neg=True, xf=xf, ar=ar
+        agg, rowsum, aggn, rsn, al_node, ar_tab = _gat_forward(
+            edges, x, att_l, att_r, scale, True, xf, ar, al, gather, model_sum
         )
-        ctx.edges = edges
+        ctx.edges, ctx.gather, ctx.model_sum = edges, gather, model_sum
         # xf (x itself when f32) for d_attl and d_attr: the caller's widened
         # copy, which its own logit product holds for its backward anyway
         ctx.save_for_backward(x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node,
-                              ar_node)
+                              ar_tab)
         return agg, rowsum[:, None]
 
     @staticmethod
     def backward(ctx, g_agg, g_rowsum):
-        e: Edges = ctx.edges
-        x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_node = ctx.saved_tensors
+        e = ctx.edges
+        x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, al_node, ar_tab = ctx.saved_tensors
         R, C = x.shape
-        gs = x.dtype  # the kernel gathers g_agg, g_rowsum and ar at x's dtype
-        g_agg = g_agg.contiguous()
-        g_rs = g_rowsum[:, 0].contiguous()
+        gs = x.dtype  # the cotangents and ar ride the exchange and the kernel at x's dtype
+        g_rs = g_rowsum[:, 0]
+        if ctx.gather is None:
+            g_tab, g_rs_tab = g_agg.to(gs).contiguous(), g_rs.to(gs).contiguous()
+        else:  # every rank's cotangents, one buffer
+            g_all = ctx.gather(torch.cat([g_agg, g_rs[:, None]], 1).to(gs))
+            g_tab, g_rs_tab = g_all[:, :C].contiguous(), g_all[:, C].contiguous()
         # transposed layout: d_al for every row (B' rows carry logits), dx_agg
         # only for the rows whose cotangent has a consumer: none at layer 0
         # (x is the input features), the rows < b_rows where the batch sets
         # the truncation (Edges.b_rows)
         b = (e.b_rows or R) if ctx.needs_input_grad[0] else 0
         dx_agg, d_al = gat_backward(
-            x, e.t_ell_row, e.t_ell_col, e.t_ell_val, g_agg.to(gs), g_rs.to(gs), al_node,
-            ar_node.to(gs), R, dx_rows=b, ptr=e.t_all_ptr, long_rows=e.t_all_long_rows,
+            x, e.t_ell_row, e.t_ell_col, e.t_ell_val, g_tab, g_rs_tab, al_node, ar_tab.to(gs),
+            R, dx_rows=b, ptr=e.t_all_ptr, long_rows=e.t_all_long_rows,
         )
         d_ar = _gat_d_ar_closed_form(g_agg, g_rs, agg, rowsum, aggn, rsn)
+        if ctx.model_sum is not None:
+            # both are linear in this rank's channels of g_agg and in its
+            # g_rowsum, the cotangent of its own columns' normalisation: the
+            # sum over the model group is the whole batch's, each term once
+            d_al, d_ar = ctx.model_sum(torch.stack([d_al, d_ar], 1)).unbind(1)
+        ar_node = ar_tab[e.row0 : e.row0 + R]
         # d_scale = -sum(d_a * a) / scale with a = al[col] + ar[row]: the cell
         # sum separates into the per-node reductions
         d_scale = -(al_node @ d_al + ar_node @ d_ar) / scale
@@ -169,7 +257,35 @@ class _GATConv(torch.autograd.Function):
             dx = dx.to(gs)
         d_attl = torch.cat([(d_al @ xf) / scale, (d_al.sum() / scale)[None]])
         d_attr = torch.cat([(d_ar @ xf) / scale, (d_ar.sum() / scale)[None]])
-        return dx, d_attl, d_attr, d_scale, None, None, None
+        return dx, d_attl, d_attr, d_scale, None, None, None, None, None, None
+
+
+def gat_conv_sharded(edges, x, att_l, att_r, scale, xf, gather=None, model_sum=None, al=None,
+                     ar=None):
+    """:func:`gat_conv_ell` over one rank's rows of a batch sharded over
+    ranks -> (agg [R, C], rowsum [R, 1]) of its R owned rows.
+
+    ``edges`` is the rank's ``parallel/mesh.py:ShardEdges``: the forward
+    slots of its rows and the transposed slots of its rows (batch and
+    boundary), columns in the gathered order, its rows from ``row0`` there.
+    ``gather(t)`` all-gathers every rank's rows of t (None where the rows
+    have one rank).  Forward: x gathered, al and ar of every gathered row
+    recomputed from it (not gathered), kernel 4 over the owned rows' slots.
+    Backward: the cotangents (g_agg and g_rowsum, at x's dtype, one buffer)
+    gathered, ar of every row kept from the forward, kernel 5 over the
+    shard's transposed slots: dx_agg of its batch rows and d_al of every
+    owned row; d_ar by the closed form.  d_att* and d_scale are this rank's
+    parts of sums over the ranks (the step's gradient all-reduce,
+    :func:`explosion_scale`'s ``ranks``).
+
+    On the 2-D mesh x holds this rank's columns and att_* its columns and
+    the bias: ``model_sum(t)`` sums t over the model group (the table's
+    partial logits, and d_al, d_ar in the backward).  Without ``gather``
+    the table is x, and the caller's ``al`` and ``ar`` of it (values, as
+    :func:`_table_logits` forms them) are not formed again."""
+    if x.shape[0] != edges.num_rows:
+        raise ValueError(f"x has {x.shape[0]} rows, the shard {edges.num_rows}")
+    return _GATConv.apply(x, att_l, att_r, scale, edges, xf, ar, al, gather, model_sum)
 
 
 # ---------------------------------------------------------------------------
@@ -324,9 +440,8 @@ def gat_conv_ell(edges: Edges, x, att_l, att_r, scale, xf=None, ar=None):
     if edges.ell_row is None:  # COO runs gat_edge_values and spmm instead
         raise ValueError("gat_conv_ell: the edges hold neither slot-ELL layout")
     if grad:
-        return _GATConv.apply(x, att_l, att_r, scale, edges, xf, ar)
-    agg, rowsum, _, _, _, _ = _gat_forward(edges, x, att_l, att_r, scale, with_neg=False,
-                                           xf=xf, ar=ar)
+        return _GATConv.apply(x, att_l, att_r, scale, edges, xf, ar, None, None, None)
+    agg, rowsum, _, _, _, _ = _gat_forward(edges, x, att_l, att_r, scale, False, xf, ar)
     return agg, rowsum[:, None]
 
 

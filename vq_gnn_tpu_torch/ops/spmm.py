@@ -145,6 +145,9 @@ class Edges:
     t_head_all_long_rows: object = None
     t_tail_all_ptr: object = None
     t_tail_all_long_rows: object = None
+    # where the rows start in the table the GAT conv reads (a row shard's
+    # is every rank's rows, parallel/mesh.py:ShardEdges)
+    row0 = 0
 
     def to(self, device) -> "Edges":
         """Every array on ``device``: indices int32 (the kernels' type; the

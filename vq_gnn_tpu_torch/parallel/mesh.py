@@ -21,7 +21,10 @@ process drives, and the collectives are written out
   slot-ELL slots of the rows it owns (batch and boundary rows: the boundary
   rows' aggregate feeds the recovery term), and the transposed slots of the
   batch columns it owns (the only columns whose dx has a consumer,
-  ``ops/spmm.py:Edges.b_rows``), each renumbered from row 0 with its own
+  ``ops/spmm.py:Edges.b_rows``) or, in a GAT batch (one that carries the
+  whole transposed layout's lists, ``Edges.t_all_ptr``), of every column it
+  owns, batch and boundary (the B' rows carry logits, whose d_al the
+  backward needs, ``ops/gat.py``), each renumbered from row 0 with its own
   row offsets and long rows (``ops/spmm.py:sub_ell_host``).  Columns are
   renumbered into the order of the all-gather of every rank's rows
   (``ops/spmm.py:gathered_order``), so kernel 1 reads the gathered rows
@@ -38,8 +41,8 @@ process drives, and the collectives are written out
 
 Both raise a ValueError that names the padding when B_pad or Bp_pad does
 not divide by the ranks of the rows, and refuse by name what the sharded
-step does not take yet (COO, mixed-K, B + M and link batches: ROADMAP.md
-queue 1 item 7c).
+step does not take yet (COO, mixed-K, B + M, link and multilabel batches:
+ROADMAP.md queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -151,9 +154,12 @@ class ShardEdges:
     """The adjacency of one row shard (see the module docstring): the
     slot-ELL slots of the ``num_rows`` rows it owns (its ``b_rows`` batch
     rows, then its boundary rows) and the transposed slots of its
-    ``b_rows`` batch columns, rows from 0, columns in the gathered order,
-    each with the kernel's row offsets and long rows.  The sharded step binds
-    it to its group (``aggregate``), which ``ops/spmm.py:spmm`` then calls."""
+    ``b_rows`` batch columns (of all ``num_rows`` owned columns in a GAT
+    batch), rows from 0, columns in the gathered order, where the owned
+    rows start at ``row0``, each with the kernel's row offsets and long
+    rows.  The sharded step binds it to its groups (``aggregate``, which
+    ``ops/spmm.py:spmm`` calls, and ``gat``, which ``nn/model.py``'s GAT
+    layer calls)."""
 
     ell_row: object
     ell_col: object
@@ -167,8 +173,21 @@ class ShardEdges:
     t_ell_long_rows: object
     num_rows: int
     b_rows: int
+    row0: int = 0  # the first owned row in the gathered order
     aggregate: object = None  # x_own -> the owned rows' aggregate (parallel/sharded.py)
+    # (x_own, xf, att_l, att_r, valid) -> the GAT conv's (agg, rowsum) of the owned rows
+    gat: object = None
     mixed = False
+
+    @property
+    def t_all_ptr(self):
+        """The transposed slots' row offsets where they cover every owned row
+        (a GAT batch's shard), as ``Edges.t_all_ptr``; else None."""
+        return self.t_ell_ptr if self.t_ell_ptr.shape[0] == self.num_rows + 1 else None
+
+    @property
+    def t_all_long_rows(self):
+        return None if self.t_all_ptr is None else self.t_ell_long_rows
 
     def to(self, device) -> "ShardEdges":
         moved = {}
@@ -245,9 +264,11 @@ def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
         row, col, val, ptr, lr = sub_ell_host(_host(rows), _host(cols), _host(vals), R, blocks)
         return row, gathered_order(col, B_pad, Bp_pad, n), val, ptr, lr
 
+    gat = e.t_all_ptr is not None  # a GAT batch: d_al of every owned column
     edges = ShardEdges(*sub(e.ell_row, e.ell_col, e.ell_val, [own_B, own_fo]),
-                       *sub(e.t_ell_row, e.t_ell_col, e.t_ell_val, [own_B]),
-                       num_rows=b + bp, b_rows=b)
+                       *sub(e.t_ell_row, e.t_ell_col, e.t_ell_val,
+                            [own_B, own_fo] if gat else [own_B]),
+                       num_rows=b + bp, b_rows=b, row0=r * (b + bp))
     ids = _host(batch.batch_idx).astype(np.int64)
     last = np.full(int(ids.max()) + 1, -1, np.int64)
     np.maximum.at(last, ids, np.arange(len(ids)))

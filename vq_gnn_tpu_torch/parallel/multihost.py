@@ -159,6 +159,13 @@ class _Collectives:
             o += t.numel()
         return out
 
+    def max(self, t: torch.Tensor, category: str) -> torch.Tensor:
+        """A copy of ``t`` reduced over the ranks by max (one all-reduce)."""
+        out = t.contiguous().clone()
+        self.ledger.add(category, "all_reduce_max", out, [out.shape])
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
     def gather(self, t: torch.Tensor, category: str) -> torch.Tensor:
         """Every rank's ``t`` along dim 0, in rank order."""
         out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))

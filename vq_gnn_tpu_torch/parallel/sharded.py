@@ -15,7 +15,17 @@ no consumer: zeros).  All-gathers only: gloo has no reduce-scatter, and no
 row is reduced twice.  The JAX docstring's design, each rank's partial
 aggregate over its slots all-reduced, reads the same gathered rows and adds
 an all-reduce of [B_pad + Bp_pad, C] (on a ring about twice an all-gather's
-bytes) to every aggregate.
+bytes) to every aggregate.  Under bf16 compute the rows ride at bf16 both
+ways, the values the whole batch's step hands kernel 1.
+
+**The GAT conv** (:func:`_gat_conv`, ``ShardEdges.gat``): the logits of
+the owned rows, the Trick-1 scale over every rank's valid rows
+(``ops/gat.py:explosion_scale``'s ``ranks``: an all-reduce MAX, and in the
+backward one all-reduce of the cotangent and the tie count, so that its
+gradient is the whole batch's), then ``ops/gat.py:gat_conv_sharded``: the
+same exchange of x (forward) and of the cotangents with the row sums
+(backward), kernel 4 over the owned rows' slots, kernel 5 over the
+transposed slots of every owned row.
 
 **The 1-D step** (:func:`make_sharded_step`, ``train_step``'s signature).
 It runs ``train/step.py:step_forward`` and ``live_vq_update`` on the
@@ -40,21 +50,29 @@ over the data group.  On the model axis each rank holds nb / n_model
 branches: each layer takes the columns of its branches from the
 replicated layer input through ``_CopyToModel`` (identity forward, the
 gradient all-reduced over the model group: Megatron-LM's "f", Shoeybi et
-al., 2019), looks up, aggregates (row 1 at C / n_model) and assigns (row 6
-at nb / n_model) its branches only, multiplies them by its fan-in columns
-of each linear, and ``_ReduceFromModel`` sums the partial products over
-the model group (all-reduce forward, identity backward: "g"); the biases,
-BN and the loss then run replicated over the model group.  The gradients
-(of the fan-in columns and of the replicated parameters) are summed over
-the data group only: a model rank's replicated gradient is already the
-whole one.
+al., 2019), looks up, aggregates (row 1 or 2 at C / n_model) and assigns
+(row 6 at nb / n_model) its branches only, multiplies them by its fan-in
+columns of each linear, and ``_ReduceFromModel`` sums the partial products
+over the model group (all-reduce forward, identity backward: "g"); the
+biases, BN and the loss then run replicated over the model group.  The
+gradients (of the fan-in columns and of the replicated parameters) are
+summed over the data group only: a model rank's replicated gradient is
+already the whole one.  GAT keeps ``att_l`` and ``att_r`` replicated, as
+the JAX package does for B + B': a rank's logit is a partial dot over its
+columns, summed over the model group by "g" before the bias; the conv
+aggregates the rank's columns with the whole logits; in the backward row
+3's d_al and the closed-form d_ar of each rank cover its channels and its
+own columns' share of the row-sum cotangent, and their sum over the model
+group is the whole batch's; the attention vectors' columns pass "f", so
+each rank's gradient of them is whole.
 
-``CollectiveLedger`` counts every collective: ``rows`` (the exchange),
-``partials`` (both model-axis all-reduces), ``stats`` (the BN and VQ
-moments, the EMA statistics), ``grad``, ``c_indices`` and ``scalars``.
+``CollectiveLedger`` counts every collective: ``rows`` (the exchanges),
+``partials`` (the model-axis all-reduces), ``stats`` (the BN and VQ
+moments, the EMA statistics), ``grad``, ``c_indices`` and ``scalars``
+(with the Trick-1 max and its backward).
 
-Only GCN and SAGE, B + B', single-K slot-ELL, f32 compute, without the
-transformer branch, take a sharded step; the rest raises by name
+GCN, SAGE and GAT, B + B', single-K slot-ELL, f32 or bf16 compute, without
+the transformer branch, take a sharded step; the rest raises by name
 (ROADMAP.md queue 1 item 7c; the JAX package shards them all through XLA).
 """
 
@@ -68,6 +86,7 @@ import torch.distributed as dist
 
 from vq_gnn_tpu_torch.config import Config, not_ported
 from vq_gnn_tpu_torch.nn.model import ModelStatic
+from vq_gnn_tpu_torch.ops.gat import explosion_scale, gat_conv_sharded, node_logits
 from vq_gnn_tpu_torch.ops.spmm import _ell_matvec
 from vq_gnn_tpu_torch.parallel.mesh import LATER, DataMesh, Mesh2D, RowShard
 from vq_gnn_tpu_torch.parallel.multihost import CollectiveLedger, _cidx_merge, _Collectives
@@ -83,16 +102,12 @@ from vq_gnn_tpu_torch.train.step import (
 
 def check_sharded(ms: ModelStatic, cfg: Config) -> None:
     """Refuse by name what the sharded steps do not take yet."""
-    if ms.conv_type == "GAT":
-        raise not_ported("the sharded step with GAT", LATER)
     if ms.formulation == "bm":
         raise not_ported("the sharded step with formulation='bm'", LATER)
     if cfg.spmm_backend == "coo":
         raise not_ported("the sharded step on the COO layout (spmm_backend='coo')", LATER)
     if cfg.ell_Kt > 0:
         raise not_ported("the sharded step on the mixed-K layout (ell_Kt > 0)", LATER)
-    if ms.compute_dtype != "float32":
-        raise not_ported(f"the sharded step with compute_dtype={ms.compute_dtype!r}", LATER)
     if ms.transformer_flag:
         raise not_ported("the sharded step with transformer_flag", LATER)
 
@@ -102,7 +117,7 @@ class _RowExchange(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, edges, comm):
-        ctx.edges, ctx.comm = edges, comm
+        ctx.edges, ctx.comm, ctx.x_dtype = edges, comm, x.dtype
         xf = comm.gather(x, "rows") if comm.size > 1 else x
         return _ell_matvec(edges.ell_row, edges.ell_col, edges.ell_val, xf, edges.num_rows,
                            edges.ell_ptr, edges.ell_long_rows)
@@ -110,12 +125,14 @@ class _RowExchange(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         e, comm = ctx.edges, ctx.comm
-        g = g.contiguous()
+        # the cotangent rides at x's dtype, as the whole batch's spmm streams
+        # it (ops/spmm.py); dx comes back in it
+        g = g.to(ctx.x_dtype).contiguous()
         gf = comm.gather(g, "rows") if comm.size > 1 else g
         dx_b = _ell_matvec(e.t_ell_row, e.t_ell_col, e.t_ell_val, gf, e.b_rows, e.t_ell_ptr,
                            e.t_ell_long_rows)
-        return torch.cat([dx_b, dx_b.new_zeros((e.num_rows - e.b_rows, dx_b.shape[1]))]), \
-            None, None
+        return torch.cat([dx_b, dx_b.new_zeros((e.num_rows - e.b_rows, dx_b.shape[1]))]).to(
+            ctx.x_dtype), None, None
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -196,6 +213,58 @@ class _ModelAxis:
     def reduce(self, partial):
         return _ReduceFromModel.apply(partial, self.comm) if self.n > 1 else partial
 
+    def att(self, att_l, att_r):
+        """This rank's columns of the replicated GAT attention vectors, each
+        with its bias att[C]; the columns pass "f", so that each rank's
+        gradient (of its own columns) is summed into the whole one."""
+        C = att_l.shape[0] - 1
+        w = C // self.n
+        cols = torch.stack([att_l[:C], att_r[:C]])
+        if self.n > 1 and cols.requires_grad:
+            cols = _CopyToModel.apply(cols, self.comm)
+        cols = cols[:, self.m * w : (self.m + 1) * w]
+        return torch.cat([cols[0], att_l[C:]]), torch.cat([cols[1], att_r[C:]])
+
+
+class _ScaleRanks:
+    """``explosion_scale``'s ``ranks``: the rows' ranks."""
+
+    def __init__(self, comm: _Collectives):
+        self.comm = comm
+
+    def max(self, t):
+        return self.comm.max(t, "scalars")
+
+    def sum(self, t):
+        return self.comm.sum([t], "scalars")[0]
+
+
+def _gat_conv(edges, comm: _Collectives, axis):
+    """``ShardEdges.gat`` of a row shard over ``comm`` (the rows' ranks) and,
+    on the 2-D mesh, ``axis``: (x_own, xf, att_l, att_r, valid) -> the GAT
+    conv's (agg, rowsum) of the owned rows (the module docstring)."""
+    many = comm.size > 1
+    ranks = _ScaleRanks(comm) if many else None
+    gather = (lambda t: comm.gather(t, "rows")) if many else None
+    model_sum = None if axis is None else (lambda t: _all_reduce(axis.comm, t, "partials"))
+
+    def conv(x, xf, att_l, att_r, valid):
+        reduce = None
+        if axis is not None:
+            att_l, att_r = axis.att(att_l, att_r)
+            reduce = axis.reduce
+        al, ar = node_logits(x, xf, att_l, att_r, reduce=reduce)
+        scale = explosion_scale(al, ar, valid, ranks)
+        # where the rows have one rank the owned rows are the conv's table:
+        # their logits are not formed again (al only where the conv's is
+        # this one, in f32: under bf16 its att is not rounded)
+        known = {} if many else dict(ar=ar.detach(), al=None if x.dtype == torch.bfloat16
+                                     else al.detach())
+        return gat_conv_sharded(edges, x, att_l, att_r, scale, xf.detach(), gather, model_sum,
+                                **known)
+
+    return conv
+
 
 def _local_ms(ms: ModelStatic, n_model: int) -> ModelStatic:
     """The model as one model rank holds it: nb / n_model branches a layer
@@ -253,7 +322,8 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
                              < 1.0 - ms.dropout for c in ms.channels[1:-1]]
         masks = own(branch_masks, shard, False)
         batch = dataclasses.replace(shard, edges=dataclasses.replace(
-            shard.edges, aggregate=lambda x: _RowExchange.apply(x, shard.edges, comm)))
+            shard.edges, aggregate=lambda x: _RowExchange.apply(x, shard.edges, comm),
+            gat=_gat_conv(shard.edges, comm, axis)))
         params = list(state.model.parameters())
         out, info_b, layer_inputs, new_bn, probes, _ = step_forward(
             state, ms_l, X_dev, batch, warm_up_rate, generator, masks,
