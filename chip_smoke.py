@@ -243,14 +243,18 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    bf16 tensors and an all-reduce MAX), two families from the states of
    phase 3's trainers, each on phase 2's graph normalised for it, at its
    trainer's high-water pads (phase 15's fixed pads for GCN), one epoch of
-   two batches: the flagship GCN B + B' and GAT B + B'.  For each mesh and
-   each family, the launch counters zeroed just before its steps and read
-   just after, in each rank:
+   two batches: the flagship GCN B + B' and GAT B + B' on the single-K
+   slot-ELL, and phase 14's layouts: GCN on the mixed-K layout (14a) and
+   on COO (14c) and GAT on COO, in exact f32, and GAT on the mixed-K layout
+   at bf16 compute (14b).  For each mesh and each family, the launch
+   counters zeroed just before its steps and read just after, in each
+   rank:
    a. one step of the 1-D sharded step and one of ``train_step`` on the
       whole batch from one state: GCN in exact f32 (TF32 off, row 6's exact
       mode) with the inter-layer BN and without, at the flagship's own
       settings (TF32, row 6's fast mode) and at bf16 compute; GAT in exact
-      f32 and at bf16 compute (the bench's GAT cell): the loss within 1e-5
+      f32 and at bf16 compute (the bench's GAT cell); each layout family
+      in its one configuration: the loss within 1e-5
       relative, the parameters within 1e-2 (1e-4 without the BN),
       ``c_indices[:N]`` agreeing on >= 0.9999, in exact f32 the codebooks
       within 2e-5 but for the codewords of the assignments that differ (at
@@ -264,12 +268,20 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       rows; rows 2 and 3 in the f32 and bf16 modes as the sharded GAT conv
       calls them, row 2 over its rows' slots from the gathered x with ar of
       its rows, row 3 over the transposed slots of every row it owns from
-      the gathered cotangents and ar;
+      the gathered cotangents and ar; on the other layouts row 1 once per
+      mixed family (GCN) and no row 2, row 8 with its scalar channel per
+      mixed family (GAT) and no row 1, 2 or 3, row 8 over the COO edges
+      (GCN, GAT) and no row 1, 2 or 3, each held at the shard's shapes: the
+      mixed families' forward over the owned rows (the head over its
+      compact rows) and dx over the batch columns, or the COO forward over
+      the owned rows' edges and the transposed sum over the batch columns'
+      edges;
    c. the same step checks of the 2-D step at 1 x 2 (each rank half the
       branches and the fan-in columns), rows 1, 2 and 3 at C = 64 and row 6
       at nb = 16 against their plain versions;
    d. timed steps and 3 profiled ones (20 of the flagship GCN, 5 each of
-      GCN and GAT at bf16 compute) of each sharded step: ms/step, device
+      GCN and GAT at bf16 compute, 3 of each layout family) of each sharded
+      step: ms/step, device
       busy, idle share and peak memory of rank 0, the collective ledger of
       each rank by category, the row exchanges of the bf16 steps at bf16,
       and no payload as large as the feature table, nor one shaped like a
@@ -291,6 +303,7 @@ without the package beside it, it exits non-zero at once.
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -870,8 +883,7 @@ def new_path_start(torch, ops):
 def batch_line(b, E):
     e = b.edges
     return (f"B={b.num_B} B_pad={b.B_pad} B'={int(b.valid_fo.sum())} Bp_pad={b.Bp_pad} E={E} "
-            f"S_pad={e.ell_row.shape[0]} St_pad={e.t_ell_row.shape[0]} t_b_slots={e.t_b_slots} "
-            f"b_rows={e.b_rows}")
+            f"{layout_line(e)}")
 
 
 def link_phase(torch, ops, gpu, err):
@@ -1572,19 +1584,23 @@ def scalar_family_calls(torch, e, C, gen):
 def coo_sum_calls(torch, e, C, gen):
     """Kernel 8's calls on a COO batch, as ``spmm`` makes them: (label,
     (messages, rows, R), None, lists) of the forward over the row-sorted
-    edges and of the dx over the tperm-sorted ones (rows ``col[tperm]``),
+    edges and of the dx over the tperm-sorted ones (rows ``col[tperm]``; a
+    row shard's transposed edges, over its batch columns),
     with random messages C wide (nb * (D + 1) for the B + M branch sum),
     zero on the padding edges (row = col = num_rows, val = 0) as the path's
     are."""
     R = e.num_rows
+    # a row shard's (parallel/mesh.py:ShardEdges) transposed edges are kept
+    # apart, over its batch columns
+    t_rows, Rt = ((e.col.index_select(0, e.tperm.long()), R) if e.tperm is not None
+                  else (e.t_row, e.b_rows))
     out = []
-    for label, rows, ptr, lr in (
-            ("forward", e.row, e.row_ptr, e.row_long_rows),
-            ("transposed", e.col.index_select(0, e.tperm.long()), e.t_row_ptr,
-             e.t_row_long_rows)):
-        live = (rows < R).float()
+    for label, rows, n, ptr, lr in (
+            ("forward", e.row, R, e.row_ptr, e.row_long_rows),
+            ("transposed", t_rows, Rt, e.t_row_ptr, e.t_row_long_rows)):
+        live = (rows < n).float()
         msgs = torch.randn((rows.shape[0], C), generator=gen, device="cuda") * live[:, None]
-        out.append((label, (msgs, rows.contiguous(), R), None, dict(ptr=ptr, long_rows=lr)))
+        out.append((label, (msgs, rows.contiguous(), n), None, dict(ptr=ptr, long_rows=lr)))
     return out
 
 
@@ -1994,7 +2010,28 @@ SHARDED_KERNELS = {
     "GAT": {"gat_aggregate": "gat_aggregate_kernel", "gat_aggregate_bf16": "gat_aggregate_kernel",
             "gat_backward": "gat_backward_kernel", "gat_backward_bf16": "gat_backward_kernel",
             "vq_assign": "assign_fast_kernel", "vq_lookup": "lookup_kernel"},
+    # the other layouts: row 1 per mixed family (GCN), row 8 with its scalar
+    # channel per mixed family (GAT at bf16), row 8 over the COO edges; the
+    # exact-f32 families time row 6 in its exact mode
+    "GCN-mixed": {"ell_aggregate": "ell_aggregate_kernel", "vq_assign": "assign_kernel",
+                  "vq_lookup": "lookup_kernel"},
+    "GAT-mixed": {"segment_sum_scalar": "segment_sum_kernel", "vq_assign": "assign_fast_kernel",
+                  "vq_lookup": "lookup_kernel"},
+    "GCN-coo": {"segment_sum": "segment_sum_kernel", "vq_assign": "assign_kernel",
+                "vq_lookup": "lookup_kernel"},
+    "GAT-coo": {"segment_sum": "segment_sum_kernel", "vq_assign": "assign_kernel",
+                "vq_lookup": "lookup_kernel"},
 }
+# ... and the rows each of those must not launch: no row 2 or 3 off the
+# single-K layout, no row 1 on COO or under the mixed GAT conv
+SHARDED_NOT = {
+    "GCN-mixed": ("gat_aggregate", "gat_aggregate_bf16", "segment_sum", "segment_sum_scalar"),
+    "GAT-mixed": ("gat_aggregate", "gat_aggregate_bf16", "gat_backward", "gat_backward_bf16",
+                  "ell_aggregate", "ell_aggregate_bf16"),
+    "GCN-coo": ("ell_aggregate", "gat_aggregate", "segment_sum_scalar"),
+    "GAT-coo": ("ell_aggregate", "gat_aggregate", "gat_backward", "segment_sum_scalar"),
+}
+SHARDED_STEPS_LAYOUT = 3  # timed steps of each sharded step on the other layouts
 
 
 def _state_digest(arrays) -> str:
@@ -2041,6 +2078,63 @@ def hold_sub_ell(torch, tag, label, edges, rows_all, C, gen, err):
             f"{same}")
         assert torch.isfinite(out).all() and d <= tol and same
         err["ell_aggregate"] = max(err.get("ell_aggregate", 0.0), d)
+
+
+def hold_sub_mixed(torch, tag, label, edges, rows_all, C, gen, err):
+    """Kernel 1 against its plain version on a row shard's mixed families,
+    as its exchange calls it: the head (over its compact rows) and the tail
+    forward over the owned rows, and both dx families over the owned batch
+    columns, each reading the gathered [rows_all, C] rows with the family's
+    own row offsets and long rows.  Tolerance as ``hold_ell``."""
+    from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+
+    R, b = edges.num_rows, edges.b_rows
+    for fam, rows, n in (("head", "head_rowc", R), ("tail", "tail_row", R),
+                         ("t_head", "t_head_rowc", b), ("t_tail", "t_tail_row", b)):
+        args = (getattr(edges, rows), getattr(edges, fam + "_col"), getattr(edges, fam + "_val"),
+                n)
+        kw = dict(ptr=getattr(edges, fam + "_ptr"), long_rows=getattr(edges, fam + "_long_rows"))
+        x = torch.randn((rows_all, C), generator=gen, device=args[0].device)
+        out, again = ell_aggregate(x, *args, **kw), ell_aggregate(x, *args, **kw)
+        ref = ell_aggregate_plain(x, *args)
+        torch.cuda.synchronize()
+        d = float((out - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        same = torch.equal(out, again)
+        log(f"[{tag} ell_aggregate {label} {fam} C={C}] slots {args[0].shape[0]} x "
+            f"K={args[1].shape[1]}, out {tuple(out.shape)} from {rows_all} gathered rows, "
+            f"max|err| {d:.3g} (tol {tol:.3g}); {kw['long_rows'].shape[0] - 1} long rows; two "
+            f"calls bit-identical: {same}")
+        assert torch.isfinite(out).all() and d <= tol and same
+        err["ell_aggregate"] = max(err.get("ell_aggregate", 0.0), d)
+
+
+def shard_line(e) -> str:
+    """The slots or edges a row shard holds, forward and transposed."""
+    if e.mixed:
+        return (f"head {e.head_col.shape[0]} x {e.head_col.shape[1]} slots over "
+                f"{int((e.head_ptr[1:] > e.head_ptr[:-1]).sum())} compact rows, tail "
+                f"{e.tail_col.shape[0]} x {e.tail_col.shape[1]}; transposed head "
+                f"{e.t_head_col.shape[0]}, tail {e.t_tail_col.shape[0]}")
+    if e.ell_row is None:
+        return f"COO edges {e.row.shape[0]}, transposed {e.t_row.shape[0]}"
+    return f"slots {e.ell_row.shape[0]}, transposed slots {e.t_ell_row.shape[0]}"
+
+
+def edge_shapes(e) -> set:
+    """The shapes of a batch's edge arrays in its layout (and their flat
+    forms), which no collective may carry."""
+    if e.mixed:
+        cols = [e.head_col, e.tail_col, e.t_head_col, e.t_tail_col]
+    elif e.ell_row is None:
+        return {tuple(e.row.shape)}
+    else:
+        cols = [e.ell_col, e.t_ell_col]
+    out = set()
+    for c in cols:
+        S, K = c.shape
+        out |= {(S, K), (S,), (S * K,)}
+    return out
 
 
 def hold_gat_shard(torch, tag, label, edges, rows_all, C, gen, err):
@@ -2155,9 +2249,11 @@ def sharded_rank(rank, tmp):
            "probe": gloo_probe(torch, dist, rank)}
     err = {}
     rlog = log if rank == 0 else (lambda *a: None)
-    fams = {}
+    fams, xs = {}, {}  # one copy on the card of each trainer's feature table
     for fname, fam in plan["families"].items():
-        fams[fname] = dict(fam, X=torch.as_tensor(fam["X"]).cuda(),
+        if id(fam["X"]) not in xs:
+            xs[id(fam["X"])] = torch.as_tensor(fam["X"]).cuda()
+        fams[fname] = dict(fam, X=xs[id(fam["X"])],
                            cfgs={k: Config(**v) for k, v in fam["cfgs"].items()})
 
     def fresh(fam, tag):
@@ -2208,14 +2304,17 @@ def sharded_rank(rank, tmp):
             X, batches, cfgs = fam["X"], fam["batches"], fam["cfgs"]
             R_all = batches[0].B_pad + batches[0].Bp_pad
             path = f"{fname} {mname}"
+            t_fam = time.time()
             ops.reset_launch_counts()
-            n_steps = 0
+            n_steps, stepped = 0, {}
             for tag, cfg in cfgs.items():
                 ms, state = fresh(fam, tag)
                 state, _, shard = place(mesh, state, X, batches[0])
                 step = make(ms, cfg, mesh)
                 state, m = step(state, X, shard, 1.0, cfg.lr, 1.0)
                 n_steps += 1
+                if tag in fam["timed"]:  # its timed steps go on from here
+                    stepped[tag] = (state, shard, step)
                 rec = _step_record(torch, state, float(m["loss"]))
                 if n_model == 1:
                     res["digest"][mname, fname, tag] = _state_digest(
@@ -2223,22 +2322,22 @@ def sharded_rank(rank, tmp):
                 if rank == 0 or n_model > 1:
                     res[mname, fname, tag] = rec
             for tag, n in fam["timed"].items():
-                ms, state = fresh(fam, tag)
-                placed = [place(mesh, state, X, b) for b in batches]
-                state, shards = placed[0][0], [p[2] for p in placed]
-                del placed
-                step = make(ms, cfgs[tag], mesh)
+                state, shard, step = stepped.pop(tag)
+                shards = [shard] + [place(mesh, state, X, b)[2] for b in batches[1:]]
+                apply_matmul_precision(cfgs[tag])
                 state = timed(f"{fname} {tag} {mname}", step, state, X, shards, cfgs[tag], n)
                 n_steps += len(shards) + n + 3
             res["launches"][path] = ops.launch_counts()
             res["path_steps"][path] = n_steps
+            rlog(f"[17 time] {path}: {n_steps} steps with their placing in "
+                 f"{time.time() - t_fam:.1f}s")
             sh = shards[0]
             if mname == "1-D":
                 rlog(f"[17 shard] {fname} rank {rank} of {SHARDED_RANKS}: B_pad {sh.B_pad} of "
-                     f"{sh.batch_B_pad}, Bp_pad {sh.Bp_pad}, owned slots "
-                     f"{sh.edges.ell_row.shape[0]}, transposed slots of its "
-                     f"{'owned' if fname == 'GAT' else 'batch'} columns "
-                     f"{sh.edges.t_ell_row.shape[0]}, gathered rows {R_all}")
+                     f"{sh.batch_B_pad}, Bp_pad {sh.Bp_pad}, owned {shard_line(sh.edges)} "
+                     f"(transposed: of its {'owned' if fname in ('GAT', 'GAT-mixed') else 'batch'} "
+                     f"columns), "
+                     f"gathered rows {R_all}")
             # 17b / 17c: the family's kernels at this rank's shapes
             tag17 = "17b" if n_model == 1 else "17c"
             label = f"rank {rank} {mname} shard"
@@ -2246,6 +2345,15 @@ def sharded_rank(rank, tmp):
             with ops.uncounted():
                 if fname == "GAT":
                     hold_gat_shard(torch, tag17, label, sh.edges, R_all, C, gen, err)
+                elif fname == "GCN-mixed":
+                    hold_sub_mixed(torch, tag17, label, sh.edges, R_all, C, gen, err)
+                elif fname == "GAT-mixed":  # the partials C wide, the scalar beside them
+                    hold_segment_sums(torch, f"{tag17} segment_sum scalar {label}",
+                                      scalar_family_calls(torch, sh.edges, C, gen), err,
+                                      "segment_sum_scalar")
+                elif fname.endswith("-coo"):  # GAT's messages carry the ones column
+                    hold_segment_sums(torch, f"{tag17} segment_sum coo {label}", coo_sum_calls(
+                        torch, sh.edges, C + (fname == "GAT-coo"), gen), err, "segment_sum")
                 else:
                     hold_sub_ell(torch, tag17, label, sh.edges, R_all, C, gen, err)
                     vq1 = state.vq_states[1]
@@ -2305,13 +2413,17 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True):
     assert d_emb <= 2e-5 or not codebooks, (tag, d_emb)
 
 
-def _family_plan(tr, graph, cfgs, timed):
+def _family_plan(tr, graph, cfgs, timed, host, n_batches=None):
     """Phase 17's plan for one family (a conv's trainer from phase 3): its
     configurations at the trainer's high-water pads (phase 15's fixed pads),
-    one epoch of host batches, the feature table and the state (numpy)."""
+    one epoch of host batches in their layout (its first ``n_batches``), the
+    feature table and the state (numpy, one copy a trainer in ``host``,
+    which the plan's pickle stores once)."""
     from vq_gnn_tpu_torch.convert import state_to_numpy
     from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 
+    if id(tr) not in host:
+        host[id(tr)] = (tr.X_dev.cpu().numpy(), state_to_numpy(tr.state))
     g, c, ci = graph
     hw = tr.train_loader
     pads = dict(fixed_B_pad=hw._B_bucket, fixed_Bp_pad=hw._Bp_bucket, fixed_E_pad=hw._E_bucket)
@@ -2319,8 +2431,9 @@ def _family_plan(tr, graph, cfgs, timed):
     base = next(iter(cfgs.values()))
     loader = BatchLoader(g, base, train_flag=True, cluster_indices=ci, seed=base.seed,
                          device="cuda")
-    return dict(cfgs=cfgs, timed=timed, batches=[w[0] for w, _ in loader._epoch_iter()],
-                X=tr.X_dev.cpu().numpy(), state=state_to_numpy(tr.state),
+    X, state = host[id(tr)]
+    batches = [w[0] for w, _ in itertools.islice(loader._epoch_iter(), n_batches)]
+    return dict(cfgs=cfgs, timed=timed, batches=batches, X=X, state=state,
                 C_hidden=base.hidden_channels)
 
 
@@ -2349,16 +2462,33 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
         return dataclasses.replace(cf, matmul_precision="highest", vq_backend="pallas")
 
     bf16 = dict(compute_dtype="bfloat16")
+    mixed, coo = dict(ell_Kt=2), dict(spmm_backend="coo")
     gcn, gat = tr.cfg, trainers["GAT"].cfg
+    tr_of = {"GCN": tr, "GAT": trainers["GAT"], "GCN-mixed": tr, "GAT-mixed": trainers["GAT"],
+             "GCN-coo": tr, "GAT-coo": trainers["GAT"]}
+    host = {}
+    n3 = SHARDED_STEPS_LAYOUT
     fams = {
         "GCN": _family_plan(tr, graphs["GCN"], {
             "bn": exact(gcn), "no bn": dataclasses.replace(exact(gcn), bn_flag=False),
             "flagship": gcn, "bf16": dataclasses.replace(gcn, **bf16)},
-            {"flagship": SHARDED_STEPS, "bf16": SHARDED_STEPS_BF16}),
+            {"flagship": SHARDED_STEPS, "bf16": SHARDED_STEPS_BF16}, host),
         "GAT": _family_plan(trainers["GAT"], graphs["GAT"], {
             "exact": exact(gat), "bf16": dataclasses.replace(gat, **bf16)},
-            {"bf16": SHARDED_STEPS_BF16}),
+            {"bf16": SHARDED_STEPS_BF16}, host),
+        # the other layouts, on phase 14's paths (the epoch's first batch):
+        # 14a's GCN mixed-K and 14c's GCN COO in exact f32, 14b's GAT
+        # mixed-K at bf16 compute, and GAT B + B' on COO in exact f32
+        "GCN-mixed": _family_plan(tr, graphs["GCN"], {"exact": exact(dataclasses.replace(
+            gcn, **mixed))}, {"exact": n3}, host, 1),
+        "GAT-mixed": _family_plan(trainers["GAT"], graphs["GAT"], {"bf16": dataclasses.replace(
+            gat, **bf16, **mixed)}, {"bf16": n3}, host, 1),
+        "GCN-coo": _family_plan(tr, graphs["GCN"], {"exact": exact(dataclasses.replace(
+            gcn, **coo))}, {"exact": n3}, host, 1),
+        "GAT-coo": _family_plan(trainers["GAT"], graphs["GAT"], {"exact": exact(
+            dataclasses.replace(gat, **coo))}, {"exact": n3}, host, 1),
     }
+    del host
     F, C = graphs["GCN"][0].num_features, tr.ms.channels[-1]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_17_")
     with open(os.path.join(tmp, "plan.pkl"), "wb") as f:
@@ -2375,7 +2505,7 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     # the references: train_step on the whole batch from the same state
     refs = {}
     for fname, fam in fams.items():
-        X = trainers[fname].X_dev
+        X = tr_of[fname].X_dev
         for tag, cf in fam["cfgs"].items():
             apply_matmul_precision(cf)
             ms = model_static(cf, F, C, torch.device("cuda"))
@@ -2426,6 +2556,8 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
                 f"{ {k: round(v, 3) for k, v in per.items()} }")
             for name in SHARDED_KERNELS[path.split()[0]]:
                 assert counts[name] > 0, f"kernel {name} was not launched on rank {r}'s {path}"
+            for name in SHARDED_NOT.get(path.split()[0], ()):
+                assert counts[name] == 0, f"kernel {name} ran on rank {r}'s {path}"
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
         for k, v in out["err"].items():
@@ -2437,11 +2569,8 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     cidx_bytes = (N + 1) * tr.state.vq_states[0].c_indices.shape[1] * 2
     for path, st in outs[0]["steps"].items():
         fname = path.split()[0]
-        e0 = fams[fname]["batches"][0].edges
-        S_pad, K = e0.ell_col.shape
-        St_pad = e0.t_ell_col.shape[0]
-        col_bytes = S_pad * K * 4
-        banned = {(S_pad, K), (S_pad,), (S_pad * K,), (St_pad, K), (St_pad,), (St_pad * K,)}
+        banned = edge_shapes(fams[fname]["batches"][0].edges)
+        col_bytes = max(math.prod(sh) for sh in banned) * 4  # the largest edge array
         busy = "not measured" if st["busy"] is None else f"{st['busy']:.3f}"
         idle = ("not measured" if st["busy"] is None
                 else f"{100 * (1 - st['busy'] / st['wall']):.1f} %")
@@ -2478,7 +2607,8 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             if r == 0:
                 log(f"[17d ledger] {path}: the largest payload {biggest / 1e6:.2f} MB against "
                     f"the feature table {x_bytes / 1e6:.2f} MB, a c_indices table "
-                    f"{cidx_bytes / 1e6:.2f} MB and the ELL columns {col_bytes / 1e6:.2f} MB")
+                    f"{cidx_bytes / 1e6:.2f} MB and the largest edge array "
+                    f"{col_bytes / 1e6:.2f} MB")
     return launches
 
 

@@ -6,9 +6,10 @@ Reads the plan (a pickle the test writes: per case a ``Config``'s fields,
 the graph's generator arguments, the initial train state as numpy, the
 mesh, ``(1d, n)`` or ``(2d, n_data, n_model)``, and the whole batch's
 dropbranch and dropout masks), builds the case's first batch with the
-port's ``BatchLoader`` on every rank alike, takes this rank's shard, runs
-one sharded step and pickles the metrics, the state (with the RMSprop
-square averages), the collective ledger and the batch's arrays.  Ranks
+port's ``BatchLoader`` on every rank alike (in the case's layout), takes
+this rank's shard, runs one sharded step and pickles the metrics, the state
+(with the RMSprop square averages), the collective ledger and the batch's
+arrays.  Ranks
 outside a case's mesh (a mesh of two in a group of four) make its groups
 and sit it out.  The plan's ``scale`` cases (ranks 0 and 1) run the
 sharded Trick-1 scale on each rank's logits and pickle its value and the
@@ -50,7 +51,12 @@ from vq_gnn_tpu_torch.train.optim import rmsprop_nu  # noqa: E402
 
 VQ_FIELDS = [f.name for f in dataclasses.fields(VQState)]
 BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
-EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val")
+# the batch's adjacency in each layout: single-K, mixed-K, COO
+EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val",
+               "head_rowc", "head_col", "head_val", "head_inv", "head_rowg", "tail_row",
+               "tail_col", "tail_val", "t_head_rowc", "t_head_col", "t_head_val", "t_head_inv",
+               "t_head_rowg", "t_tail_row", "t_tail_col", "t_tail_val", "row", "col", "val",
+               "tperm")
 
 
 def run_scale(case: dict, rank: int, meshes: dict) -> dict:
@@ -100,7 +106,8 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
                "var": [t.numpy().copy() for t in state.bn_state.var]},
         "ledger": {"per_step": step.ledger.per_step(), "kinds": sorted(step.ledger.kinds)},
         "batch": {f: np.asarray(getattr(batch, f)) for f in BATCH_FIELDS},
-        "edges": {f: np.asarray(getattr(batch.edges, f)) for f in EDGE_FIELDS},
+        "edges": {f: np.asarray(getattr(batch.edges, f)) for f in EDGE_FIELDS
+                  if getattr(batch.edges, f) is not None},
         "X_elems": X.numel(),
     }
 

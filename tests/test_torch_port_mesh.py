@@ -95,6 +95,8 @@ SAGE = dict(conv_type="SAGE")
 GAT = dict(conv_type="GAT")
 BF16 = dict(compute_dtype="bfloat16")
 OPTIONS = dict(bn_flag=False, dropbranch=0.5, dropout=0.5)
+MIXED = dict(ell_Kt=2)  # the mixed-K layout, K = 8 + 2
+COO = dict(spmm_backend="coo")
 # name: (Config fields over BASE, mesh, reference, graph)
 CASES = {
     "1d-GCN-2": ({}, ("1d", 2), "jax", GRAPH),
@@ -121,6 +123,23 @@ CASES = {
     "2d-GAT-bf16-noBN": ({**GAT, **BF16, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
     "1d-SAGE-bf16-4": ({**SAGE, **BF16}, ("1d", 4), "jax", GRAPH),
     "2d-SAGE-bf16-noBN": ({**SAGE, **BF16, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
+    # the mixed-K and COO layouts
+    "1d-GCN-mixed-2": (MIXED, ("1d", 2), "jax", GRAPH),
+    "1d-GCN-mixed-4": (MIXED, ("1d", 4), "jax", GRAPH),
+    "1d-SAGE-mixed-2": ({**SAGE, **MIXED}, ("1d", 2), "jax", GRAPH),
+    "1d-SAGE-mixed-4": ({**SAGE, **MIXED}, ("1d", 4), "jax", GRAPH),
+    "1d-GAT-mixed-2": ({**GAT, **MIXED}, ("1d", 2), "jax", GRAPH),
+    "1d-GAT-mixed-4": ({**GAT, **MIXED}, ("1d", 4), "jax", GRAPH),
+    "2d-GCN-mixed": (MIXED, ("2d", 2, 2), "jax", GRAPH),
+    "2d-GAT-mixed": ({**GAT, **MIXED}, ("2d", 2, 2), "jax", GRAPH),
+    "1d-GCN-coo-4": (COO, ("1d", 4), "jax", GRAPH),
+    "1d-GAT-coo-4": ({**GAT, **COO}, ("1d", 4), "jax", GRAPH),
+    "2d-GCN-coo": (COO, ("2d", 2, 2), "jax", GRAPH),
+    "2d-GAT-coo": ({**GAT, **COO}, ("2d", 2, 2), "jax", GRAPH),
+    "1d-GAT-mixed-bf16-4": ({**GAT, **MIXED, **BF16}, ("1d", 4), "jax", GRAPH),
+    "1d-GAT-coo-bf16-4": ({**GAT, **COO, **BF16}, ("1d", 4), "jax", GRAPH),
+    "2d-GAT-mixed-noBN": ({**GAT, **MIXED, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
+    "2d-GAT-coo-noBN": ({**GAT, **COO, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
 }
 # tests/test_multichip.py:50-76 (BN on), and the parameters without it
 RTOL_LOSS, ATOL_PARAMS_BN, ATOL_PARAMS, TOL_CODEBOOK = 1e-5, 1e-2, 1e-4, 2e-5
@@ -159,7 +178,14 @@ SCALE_TIE = dict(
            np.array([True, True, False, True, False])],
     g=[0.75, -0.3125])
 BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
-EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val")
+# the adjacency each layout's batch must carry (the worker sends every field it has)
+EDGE_FIELDS = {
+    "single-K": ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val"),
+    "mixed-K": ("head_rowc", "head_col", "head_val", "head_inv", "head_rowg", "tail_row",
+                "tail_col", "tail_val", "t_head_rowc", "t_head_col", "t_head_val", "t_head_inv",
+                "t_head_rowg", "t_tail_row", "t_tail_col", "t_tail_val"),
+    "COO": ("row", "col", "val", "tperm"),
+}
 
 
 def _plain(x):
@@ -386,10 +412,20 @@ def _replicas_agree(run, name, mesh):
 # ---------------------------------------------------------------------------
 # (b), (d) against the JAX package's sharded train_step
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("jname", ["1d-GCN", "1d-SAGE", "2d-GCN", "1d-GAT", "2d-GAT",
-                                   "1d-GCN-bf16", "1d-GAT-bf16", "1d-SAGE-bf16"])
+def _layout(name):
+    return "mixed-K" if "-mixed" in name else "COO" if "-coo" in name else "single-K"
+
+
+@pytest.mark.parametrize("jname", [
+    "1d-GCN", "1d-SAGE", "2d-GCN", "1d-GAT", "2d-GAT", "1d-GCN-bf16", "1d-GAT-bf16",
+    "1d-SAGE-bf16", "1d-GCN-mixed", "1d-SAGE-mixed", "1d-GAT-mixed", "2d-GCN-mixed",
+    "2d-GAT-mixed", "1d-GCN-coo", "1d-GAT-coo", "2d-GCN-coo", "2d-GAT-coo", "1d-GAT-mixed-bf16",
+    "1d-GAT-coo-bf16"])
 def test_sharded_step_matches_jax(run, jname):
-    names = [n for n in CASES if jname in (n, n.rsplit("-", 1)[0]) and CASES[n][2] == "jax"]
+    """Each case named ``jname`` or ``jname-<ranks>`` against one JAX
+    reference."""
+    names = [n for n in CASES if CASES[n][2] == "jax" and (
+        n == jname or (n.startswith(jname + "-") and n[len(jname) + 1 :].isdigit()))]
     case = run.ctx[names[0]]
     loss, params, vq, jbatch = _jax_reference(names[0])
     N = case[1].num_nodes
@@ -400,9 +436,10 @@ def test_sharded_step_matches_jax(run, jname):
         for rank, out in outs:
             for f in BATCH_FIELDS:  # the port's loader built the JAX batch
                 np.testing.assert_array_equal(out["batch"][f], np.asarray(getattr(jbatch, f)))
-            for f in EDGE_FIELDS:
-                np.testing.assert_array_equal(out["edges"][f],
-                                              np.asarray(getattr(jbatch.edges, f)))
+            assert set(EDGE_FIELDS[_layout(name)]) <= set(out["edges"]), name
+            for f, a in out["edges"].items():
+                np.testing.assert_array_equal(a, np.asarray(getattr(jbatch.edges, f)),
+                                              err_msg=f"{name} {f}")
             _check(name, out, rank, mesh, loss, params, vq, N, ATOL_PARAMS_BN)
         _replicas_agree(run, name, mesh)
     if jname.startswith("2d"):  # each model rank: nb / 2 branches, its fan-in columns
@@ -588,17 +625,107 @@ def test_shards_reassemble_the_batch(n, conv):
                                           np.asarray(whole)[lo:hi], err_msg=key)
 
 
+def _layout_batch(kw):
+    cfg = tcfg.Config(**{**BASE, **kw})
+    g = _port_graph(GRAPH, cfg)
+    loader = tsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu")
+    return next(loader._epoch_iter())[0][0]
+
+
+def _reassembled(parts, rows, cols, vals, cover):
+    """The shards' pieces of one family or edge list, each (global rows, global
+    cols, vals), laid end to end in the batch's row order (every rank's batch
+    rows, then every rank's boundary rows), against the batch's slots or
+    edges of the rows < ``cover``, in its order, exactly."""
+    rows = np.asarray(rows)
+    keep = rows < cover
+    for i, whole in enumerate((rows, cols, vals)):
+        got = np.concatenate([p[i] for p in parts["B"] + parts["fo"]])
+        np.testing.assert_array_equal(got, np.asarray(whole)[keep])
+
+
+@pytest.mark.parametrize("layout,n,conv", [("mixed-K", 2, "GCN"), ("mixed-K", 4, "GCN"),
+                                           ("mixed-K", 4, "GAT"), ("COO", 2, "GCN"),
+                                           ("COO", 4, "GCN")],
+                         ids=["mixed-2", "mixed-4", "mixed-4-GAT", "coo-2", "coo-4"])
+def test_layout_shards_reassemble_the_batch(layout, n, conv):
+    """(a) on the other layouts, at the tier-1 batch: every rank's mixed
+    families (head and tail, forward and transposed) or COO edges (forward,
+    and transposed in column order), rows and columns mapped back to the
+    batch's, laid end to end in its row order, are the batch's live slots
+    or edges exactly (the transposed ones of the batch columns; in a mixed
+    GAT batch of every column); each rank's head and tail families are
+    non-empty; a head's compact rows ascend, its ``head_inv`` takes each
+    owned row to its compact row or to the sentinel (the shard's row count)
+    when it has no head slot, and every family carries the row offsets and
+    long rows of its rows."""
+    batch = _layout_batch(dict(conv_type=conv, **(MIXED if layout == "mixed-K" else COO)))
+    e = batch.edges
+    assert e.mixed == (layout == "mixed-K") and (e.row is not None) == (layout == "COO")
+    B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
+    R = B_pad + Bp_pad
+    b, bp = B_pad // n, Bp_pad // n
+    back = np.full(R + 1, R, np.int64)
+    back[gathered_order(np.arange(R + 1), B_pad, Bp_pad, n)] = np.arange(R + 1)
+    t_cover = R if conv == "GAT" and layout == "mixed-K" else B_pad
+    # family: its (global) rows, cols, vals, row offsets over the rows it sums
+    if layout == "mixed-K":
+        keys = {f: (f + ("_rowg" if f.endswith("head") else "_row"), f + "_col", f + "_val",
+                    f + "_ptr") for f in ("head", "tail", "t_head", "t_tail")}
+    else:
+        keys = {"": ("row", "col", "val", "row_ptr"), "t_": ("t_row", "t_col", "t_val",
+                                                          "t_row_ptr")}
+    parts = {k: {"B": [], "fo": []} for k in keys}
+    for r in range(n):
+        _, _, shard = tpar.shard_train_inputs(tpar.DataMesh(None, r, n, torch.device("cpu")),
+                                              None, None, batch)
+        se = shard.edges
+        assert (se.num_rows, se.b_rows, se.row0, se.mixed) == (b + bp, b, r * (b + bp),
+                                                                layout == "mixed-K")
+        for key, (rows_f, cols_f, vals_f, ptr_f) in keys.items():
+            rows, cols, vals, ptr = (getattr(se, f).numpy() for f in (rows_f, cols_f, vals_f,
+                                                                      ptr_f))
+            nr = b if key.startswith("t_") and t_cover == B_pad else b + bp
+            assert rows.shape[0] > 0 and (rows < nr).all(), (key, r)
+            seg = rows
+            if key.endswith("head"):
+                rowc, inv = getattr(se, key + "_rowc").numpy(), getattr(se, key + "_inv").numpy()
+                assert inv.shape == (nr,) and (np.diff(rowc) >= 0).all()
+                np.testing.assert_array_equal(inv[rows], rowc)
+                has = np.zeros(nr, bool)
+                has[rows] = True
+                np.testing.assert_array_equal(inv[~has], nr)
+                np.testing.assert_array_equal(np.sort(inv[has]), np.arange(has.sum()))
+                seg = rowc
+            np.testing.assert_array_equal(ptr, row_offsets_host(seg, nr))
+            np.testing.assert_array_equal(getattr(se, ptr_f.replace("ptr", "long_rows")),
+                                          long_rows_host(ptr))
+            glob = np.where(rows < b, rows + r * b, rows - b + B_pad + r * bp)
+            cut = int((rows < b).sum())
+            parts[key]["B"].append((glob[:cut], back[cols[:cut]], vals[:cut]))
+            parts[key]["fo"].append((glob[cut:], back[cols[cut:]], vals[cut:]))
+    if layout == "mixed-K":
+        for key, (rows_f, cols_f, vals_f, _) in keys.items():
+            _reassembled(parts[key], getattr(e, rows_f), getattr(e, cols_f), getattr(e, vals_f),
+                         t_cover if key.startswith("t_") else R)
+    else:
+        _reassembled(parts[""], e.row, e.col, e.val, R)
+        perm = e.tperm
+        _reassembled(parts["t_"], e.col[perm], e.row[perm], e.val[perm], B_pad)
+
+
 # ---------------------------------------------------------------------------
 # (f) refusals by name
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,what", [
     (dict(formulation="bm"), "formulation='bm'"),
-    (dict(spmm_backend="coo"), "COO layout"),
-    (dict(ell_Kt=2), "mixed-K layout"),
+    (dict(formulation="bm", **COO), "formulation='bm'"),
+    (dict(formulation="bm", **MIXED), "formulation='bm'"),
 ], ids=["bm", "COO", "mixed-K"])
 def test_sharded_steps_refuse_by_name(kw, what):
     """Both steps raise, pointing at ROADMAP.md queue 1 item 7c, before
-    they need a process group."""
+    they need a process group: B + M on each adjacency layout (the sharded
+    steps take B + B' on all three)."""
     cfg = tcfg.Config(**{**BASE, **kw})
     ms = tmodel.model_static(cfg, 16, 4, torch.device("cpu"))
     cpu = torch.device("cpu")
@@ -623,14 +750,16 @@ def test_transformer_refused_by_name():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(ell_Kt=2), "mixed-K layout"),
-    (dict(spmm_backend="coo"), "COO layout"),
+    (dict(formulation="bm", conv_type="SAGE", **MIXED), "B \\+ M batches"),
+    (dict(formulation="bm", conv_type="SAGE", **COO), "B \\+ M batches"),
     (dict(formulation="bm", conv_type="SAGE"), "B \\+ M batches"),
     ("link", "link batches"),
     ("multilabel", "multilabel batches"),
 ], ids=["mixed-K", "COO", "bm", "link", "multilabel"])
 def test_shard_train_inputs_refuses_by_name(kw, what):
-    """The batches the sharded step does not take yet."""
+    """The batches the sharded step does not take yet: B + M (its reverse
+    list beside each layout: rev-ELL slots, or raw beside COO), link and
+    multilabel batches."""
     if isinstance(kw, dict):
         cfg = tcfg.Config(**{**BASE, **kw})
         g = _port_graph(GRAPH, cfg)

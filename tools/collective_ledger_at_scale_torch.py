@@ -7,7 +7,8 @@ calls a step by category.  The
 counterpart of ``tools/collective_ledger_at_scale.py``, which compiles the
 JAX package's DDP step and reads its HLO; the port runs its steps.
 
-    python tools/collective_ledger_at_scale_torch.py [--nodes 169343]
+    python tools/collective_ledger_at_scale_torch.py [--nodes 169343] \
+        [--ell-Kt 2 | --spmm-backend coo]
 
 The graph is the bench's arxiv-scale SBM (``--nodes`` cuts it; the widths
 stay: 3 layers x 128, num_D = 4, M = 256, 80 cluster parts), normalised
@@ -16,7 +17,10 @@ the two ranks; the DDP step
 gives each rank a batch of half as many nodes from its own half of the
 graph (``partition_hosts``), at fixed pads both ranks share.  Row 6 runs
 as ``vq_backend='scan'`` (the plain assignment in row chunks), which moves
-the same collectives as the kernels.  Prints one JSON line on stdout.
+the same collectives as the kernels.  ``--ell-Kt`` and ``--spmm-backend``
+put every step on that adjacency layout (``Config.ell_Kt``, the mixed-K
+slot-ELL, or ``spmm_backend='coo'``), as the CLI's flags do.  Prints one
+JSON line on stdout.
 """
 
 import argparse
@@ -49,7 +53,7 @@ def ledger_of(step) -> dict:
             "rows_dtypes": sorted({dt for cat, _, dt, _ in step.ledger.kinds if cat == "rows"})}
 
 
-def rank_main(rank: int, tmp: str, nodes: int) -> None:
+def rank_main(rank: int, tmp: str, nodes: int, layout: dict) -> None:
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -74,7 +78,7 @@ def rank_main(rank: int, tmp: str, nodes: int) -> None:
     init_distributed("gloo", f"file://{tmp}/pg", RANKS, rank)
     cpu = torch.device("cpu")
     # the bench's default cell, with row 6 as the plain assignment in row chunks
-    cfg = dataclasses.replace(bench_config({}), vq_backend="scan")
+    cfg = dataclasses.replace(bench_config({}), vq_backend="scan", **layout)
     _, degree, features, classes, _, _ = PROFILES["arxiv"]
     g0, c0 = synthetic_sbm(num_nodes=nodes, num_classes=classes, num_features=features,
                            avg_degree=degree, seed=0)
@@ -100,7 +104,8 @@ def rank_main(rank: int, tmp: str, nodes: int) -> None:
     batch, out["sharded"] = sharded(cfg, g, ci, ms, state)
     X = device_features(g.x, cpu)
     # the bench's GAT cell (bf16 compute), on the graph normalised for GAT
-    gat_cfg = dataclasses.replace(bench_config({"VQ_GNN_BENCH_CONV": "GAT"}), vq_backend="scan")
+    gat_cfg = dataclasses.replace(bench_config({"VQ_GNN_BENCH_CONV": "GAT"}), vq_backend="scan",
+                                  **layout)
     g_gat, c_gat, ci_gat = prepare(g0, gat_cfg, c0)
     ms_gat = model_static(gat_cfg, g_gat.num_features, c_gat, cpu)
     _, out["sharded_gat_bf16"] = sharded(
@@ -128,7 +133,7 @@ def rank_main(rank: int, tmp: str, nodes: int) -> None:
     out["ddp"] = dict(B=half, B_pad=b.B_pad, Bp_pad=b.Bp_pad, **ledger_of(step))
     if rank == 0:
         print(json.dumps({"experiment": "collective_ledger_at_scale_torch", "nodes": nodes,
-                          "ranks": RANKS, "num_M": cfg.num_M, "nb": ms.num_branches[0],
+                          "ranks": RANKS, "layout": layout or "single-K", "num_M": cfg.num_M, "nb": ms.num_branches[0],
                           "feature_table_B": X.numel() * 4,
                           "c_indices_table_B": (g.num_nodes + 1) * ms.num_branches[0] * 2,
                           **out}), flush=True)
@@ -141,9 +146,15 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nodes", type=int, default=169_343, help="the graph's nodes (the bench's "
                    "arxiv profile: 169,343)")
+    p.add_argument("--ell-Kt", type=int, default=0, help="the mixed-K layout's tail width "
+                   "(Config.ell_Kt; 0: single-K)")
+    p.add_argument("--spmm-backend", choices=("ell", "coo"), default="ell",
+                   help="'coo': the COO layout")
     args = p.parse_args()
+    layout = {k: v for k, v in (("ell_Kt", args.ell_Kt), ("spmm_backend", args.spmm_backend))
+              if v not in (0, "ell")}
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(rank_main, args=(tmp, args.nodes), nprocs=RANKS, join=True)
+        mp.spawn(rank_main, args=(tmp, args.nodes, layout), nprocs=RANKS, join=True)
 
 
 if __name__ == "__main__":

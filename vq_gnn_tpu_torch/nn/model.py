@@ -41,6 +41,7 @@ from vq_gnn_tpu_torch.config import Config, check_ported, resolve_vq_backend, to
 from vq_gnn_tpu_torch.nn.vq import VQParams, VQState, lookup
 from vq_gnn_tpu_torch.ops.gat import (
     explosion_scale,
+    gat_conv_coo,
     gat_conv_ell,
     gat_conv_ell_mh,
     gat_edge_values,
@@ -327,7 +328,8 @@ def layer_forward(
     the function sums the partial products over the ranks of the branches
     (see :func:`_layer_output`).  A row shard's edges carry their GAT conv
     (``ShardEdges.gat``, bound to the ranks by the sharded step), which
-    takes the place of the logits, the Trick-1 scale and the conv here.
+    takes the place of the logits, the Trick-1 scale and the conv here, in
+    each layout.
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     if ms.formulation == "bm":
@@ -347,44 +349,30 @@ def layer_forward(
         grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim)
 
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, C_in]
-    coo = batch.edges.ell_row is None and not batch.edges.mixed
-    if ms.conv_type == "GAT" and coo:
-        # the COO fallback appends the reference's ones column before the
-        # cast (vq_gnn_tpu/nn/model.py:312-318)
-        x_input = torch.cat([x_input, x_input.new_ones((x_input.shape[0], 1))], dim=1)
     if x_input.dtype != cd:
         x_input = x_input.to(cd)
-    if ms.conv_type == "GAT" and coo:
-        # logits of the (C+1)-wide input (f32 dots of the possibly bf16 rows),
-        # the Trick-1 scale, the per-edge values, then a COO spmm that
-        # differentiates them (vq_gnn_tpu/nn/model.py:323-352)
-        xf = x_input.float()
-        al, ar = xf @ layer.att_l, xf @ layer.att_r
-        scale = explosion_scale(al, ar, torch.cat([batch.valid_B, batch.valid_fo]))
-        e = batch.edges
-        ev = gat_edge_values(e.row, e.col, e.val, al / scale, ar / scale)
-        x_out = spmm(dataclasses.replace(e, val=ev), x_input)  # [dim_pad, C_in + 1]
-        x_out_B = x_out[:B_pad]
-        if probe is not None:
-            x_out_B = x_out_B + probe
-        x_out_B = x_out_B[:, :-1] / (x_out_B[:, -1:] + 1e-16)
-        x_out = x_out[:, :-1]
-    elif ms.conv_type == "GAT":
-        # logits of the (C+1)-wide reference input: the C-wide product plus
-        # the ones-column bias att[C] (a bf16 dot under bf16 compute, then
-        # f32 with the bias), for the Trick-1 scale; the conv reuses x
-        # widened once and ar, and forms its own al (f32 att, unrounded)
+    if ms.conv_type == "GAT":
         C = x_input.shape[1]
         xf = x_input.float() if cd == torch.bfloat16 else x_input
         valid_all = torch.cat([batch.valid_B, batch.valid_fo])
-        if getattr(batch.edges, "gat", None) is not None:
+        e = batch.edges
+        if getattr(e, "gat", None) is not None:
             # a row shard's conv, bound to its ranks (parallel/sharded.py)
-            x_out, norm_col = batch.edges.gat(x_input, xf, layer.att_l, layer.att_r, valid_all)
+            x_out, norm_col = e.gat(x_input, xf, layer.att_l, layer.att_r, valid_all)
+        elif e.ell_row is None and not e.mixed:
+            # COO: f32 logits of the (C+1)-wide rows, per-edge values, a
+            # COO spmm that differentiates them (vq_gnn_tpu/nn/model.py:312-352)
+            x_out, norm_col = gat_conv_coo(e, x_input, xf, layer.att_l, layer.att_r, valid_all)
         else:
+            # logits of the (C+1)-wide reference input: the C-wide product
+            # plus the ones-column bias att[C] (a bf16 dot under bf16
+            # compute, then f32 with the bias), for the Trick-1 scale; the
+            # conv reuses x widened once and ar, and forms its own al (f32
+            # att, unrounded)
             al, ar = node_logits(x_input, xf, layer.att_l, layer.att_r)
             scale = explosion_scale(al, ar, valid_all)  # Trick 1 (convs.py v2:209)
-            x_out, norm_col = gat_conv_ell(batch.edges, x_input, layer.att_l, layer.att_r,
-                                           scale, xf=xf.detach(), ar=ar.detach())
+            x_out, norm_col = gat_conv_ell(e, x_input, layer.att_l, layer.att_r, scale,
+                                           xf=xf.detach(), ar=ar.detach())
         x_out_B, norm_B = x_out[:B_pad], norm_col[:B_pad]
         if probe is not None:  # the reference hook point, (C+1) wide
             x_out_B = x_out_B + probe[:, :C]

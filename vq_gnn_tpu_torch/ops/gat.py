@@ -2,7 +2,7 @@
 the B + B' formulation over the single-K slot-ELL (kernels 4 and 5) and over
 the mixed-K layout (per family, its segment sums kernel 8), the per-branch
 conv ``gat_conv_ell_mh`` of the B + M formulation (kernel 8), and the
-per-edge values ``gat_edge_values`` of the COO fallback.
+per-edge values ``gat_edge_values`` of the COO fallback (:func:`gat_conv_coo`).
 
 Reference semantics (``vq_gnn_v2/convs.py:165-266`` + ``utils/vq_softmax.py``):
 
@@ -29,24 +29,28 @@ the JAX package rounds (``vq_gnn_tpu/ops/gat.py``): the conv's outputs and
 logit cotangents stay f32, the cotangents it gathers are bf16, and dx
 comes back in bf16.
 
-A batch sharded over ranks (``parallel/sharded.py``) runs the same two
-kernels over each rank's rows: :func:`gat_conv_sharded` (the conv over a
-row shard's ``ShardEdges``, with the collectives it is handed) and
-:func:`explosion_scale`'s ``ranks`` (the Trick-1 max over every rank's
-rows).
+A batch sharded over ranks (``parallel/sharded.py``) runs the same
+kernels over each rank's rows: :func:`gat_conv_sharded` (either fused conv
+over a row shard's ``ShardEdges``, single-K or mixed-K, with the
+collectives it is handed), :func:`gat_conv_coo` (the COO fallback, over
+the rank's edges) and :func:`explosion_scale`'s ``ranks`` (the
+Trick-1 max over every rank's rows).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from vq_gnn_tpu_torch.ops.gat_kernels import NEGATIVE_SLOPE, gat_aggregate, gat_backward
 from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
-from vq_gnn_tpu_torch.ops.spmm import Edges, fold_rows, mixed_families
+from vq_gnn_tpu_torch.ops.spmm import Edges, fold_rows, mixed_families, spmm
 
-__all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_ell",
-           "gat_conv_ell_mh", "gat_conv_sharded", "gat_edge_values", "node_logits"]
+__all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_coo",
+           "gat_conv_ell", "gat_conv_ell_mh", "gat_conv_sharded", "gat_edge_values",
+           "node_logits"]
 
 
 def attention_logits(x, att_l, att_r):
@@ -122,19 +126,13 @@ def _gat_d_ar_closed_form(g_agg, g_rowsum, agg, rowsum, aggn, rsn):
     return base - (1.0 - NEGATIVE_SLOPE) * negp
 
 
-def bf16_dot(xf, w):
-    """``x @ w`` of bf16 x as the JAX package's ``x @ w.astype(bfloat16)``,
-    given x widened to f32 (``xf``, exact): w rounded to bf16, the exact
-    products summed in f32, the result rounded to bf16 (here, not wherever a
-    backend's bf16 matmul would) and handed on as f32."""
-    return (xf @ w.to(torch.bfloat16).float()).to(torch.bfloat16).float()
-
-
 def node_logits(x, xf, att_l, att_r, reduce=None):
     """The Trick-1 logits (x @ att[:C] + att[C]) of both sides, ([R], [R]);
     ``xf`` is x widened to f32 (x itself when f32).  Under bf16 x both are
-    bf16 dots (:func:`bf16_dot`) from one [C, 2] product, as the JAX
-    package's ``x @ att[:C].astype(bfloat16)``.
+    bf16 dots from one [C, 2] product, as the JAX package's ``x @
+    att[:C].astype(bfloat16)``: att rounded to bf16, the exact products
+    summed in f32, the sums rounded to bf16 (here, not wherever a backend's
+    bf16 matmul would) and handed on as f32.
 
     ``reduce`` (the 2-D mesh's, where x holds some of the columns) sums the
     [R, 2] partial dots over the ranks of the columns, before the rounding
@@ -267,7 +265,12 @@ def gat_conv_sharded(edges, x, att_l, att_r, scale, xf, gather=None, model_sum=N
 
     ``edges`` is the rank's ``parallel/mesh.py:ShardEdges``: the forward
     slots of its rows and the transposed slots of its rows (batch and
-    boundary), columns in the gathered order, its rows from ``row0`` there.
+    boundary), single-K or each mixed family, columns in the gathered
+    order, its rows from ``row0`` there.  The mixed families take the mixed
+    conv (kernel 8 per family, the logits as :func:`_mixed_logits` forms
+    them, d_scale by the per-cell sum) with the same hooks; the rest of
+    this says what the single-K conv does.
+
     ``gather(t)`` all-gathers every rank's rows of t (None where the rows
     have one rank).  Forward: x gathered, al and ar of every gathered row
     recomputed from it (not gathered), kernel 4 over the owned rows' slots.
@@ -285,19 +288,38 @@ def gat_conv_sharded(edges, x, att_l, att_r, scale, xf, gather=None, model_sum=N
     :func:`_table_logits` forms them) are not formed again."""
     if x.shape[0] != edges.num_rows:
         raise ValueError(f"x has {x.shape[0]} rows, the shard {edges.num_rows}")
+    if edges.mixed:
+        return _GATConvMixed.apply(x, att_l, att_r, scale, edges, xf, ar, gather, model_sum)
     return _GATConv.apply(x, att_l, att_r, scale, edges, xf, ar, al, gather, model_sum)
 
 
 # ---------------------------------------------------------------------------
 # the fused conv over the mixed-K layout
 # ---------------------------------------------------------------------------
-def _al_node(xf, att_l, C: int, bf16: bool):
-    """The column logit before the division by scale, as the JAX package's
-    mixed path forms it from the gathered rows: f32 sums of x times att_l
-    rounded to x's dtype (``einsum(..., preferred_element_type=f32)``), so
-    under bf16 the att is rounded and the sum is not."""
-    w = att_l[:C].to(torch.bfloat16).float() if bf16 else att_l[:C]
-    return xf @ w + att_l[C]
+def _mixed_logits(x, xf, att_l, att_r, ar=None, model_sum=None):
+    """(dl, ar) [Rx] of every row of the table x, f32 values: dl the column
+    logit's dot before its bias as the JAX package's mixed path forms it from
+    the gathered rows, f32 sums of x times att_l rounded to x's dtype
+    (``einsum(..., preferred_element_type=f32)``: under bf16 the att is
+    rounded and the sum is not; the backward's row-side logit rounds it),
+    and ar as :func:`node_logits` forms it, the caller's where given.
+    ``model_sum`` (the 2-D mesh's) sums the partial dots over the ranks of
+    the columns, once, before any rounding and the bias."""
+    C = x.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+
+    def w(att):
+        return att[:C].to(torch.bfloat16).float() if bf16 else att[:C]
+
+    if model_sum is None:
+        if ar is None:
+            _, ar = node_logits(x, xf, att_l, att_r)
+        return xf @ w(att_l), ar
+    dots = [xf @ w(att_l)] + ([xf @ w(att_r)] if ar is None else [])
+    dots = model_sum(torch.stack(dots, 1)).unbind(1)
+    if ar is None:
+        ar = (dots[1].to(torch.bfloat16).float() if bf16 else dots[1]) + att_r[C]
+    return dots[0], ar
 
 
 def _family_cells(al, ar, rows_g, cols, vals):
@@ -320,8 +342,12 @@ def _gather_rows(tbl, cols):
 def _family_sum(part, scal, fam, R: int, inv):
     """Kernel 8 over one family's rows with its lists (both channels where
     ``part`` is given, else the scalars alone), the head folded back to the
-    global rows through ``inv``."""
+    global rows through ``inv``; zeros, and no launch, for a family without
+    slots (a row shard's)."""
     rows_c, ptr, long_rows = fam[0], fam[4], fam[5]
+    if rows_c.shape[0] == 0:
+        out = scal.new_zeros((R,))
+        return (None if part is None else part.new_zeros((R, part.shape[1])), out)
     out = segment_sum_sorted(part, rows_c, R, scalar_partials=scal.contiguous(), ptr=ptr,
                              long_rows=long_rows)
     if part is None:
@@ -331,17 +357,25 @@ def _family_sum(part, scal, fam, R: int, inv):
     return out
 
 
-def _gat_forward_mixed(edges: Edges, x, att_l, att_r, scale, with_neg: bool, xf=None, ar=None):
-    """(agg [R, C], rowsum [R], aggn, rsn) over the mixed families
-    (``vq_gnn_tpu/ops/gat.py:_gat_conv_fwd_impl_mixed``): per family the
-    gathered rows weighted per cell, both sums by kernel 8 with its scalar
-    channel, the head folded through head_inv, the families added."""
+def _gat_forward_mixed(edges: Edges, x, att_l, att_r, scale, with_neg: bool, xf=None, ar=None,
+                       gather=None, model_sum=None):
+    """(agg [R, C], rowsum [R], aggn, rsn, dl [R], ar_tab [Rx]) over the
+    mixed families (``vq_gnn_tpu/ops/gat.py:_gat_conv_fwd_impl_mixed``):
+    per family the gathered rows weighted per cell, both sums by kernel 8
+    with its scalar channel, the head folded through head_inv, the families
+    added.  The table of x is x itself, or ``gather(x)`` (every rank's rows,
+    where the owned R rows start at ``edges.row0``), with the logits of each
+    of its rows from :func:`_mixed_logits` (the caller's ``ar`` where the
+    table is x); dl is the owned rows' column-logit dot."""
     C, R = x.shape[1], edges.num_rows
-    bf16 = x.dtype == torch.bfloat16
-    xf = x.float() if xf is None else xf
-    if ar is None:
-        _, ar = node_logits(x, xf, att_l, att_r)
-    al_n, ar_n = _al_node(xf, att_l, C, bf16) / scale, ar / scale
+    if gather is not None:  # the caller's ar is its own rows'
+        x, ar = gather(x), None
+        xf = x.float()
+    elif xf is None:
+        xf = x.float()
+    dl, ar_tab = _mixed_logits(x, xf, att_l, att_r, ar, model_sum)
+    own = slice(edges.row0, edges.row0 + R)
+    al_n, ar_n = (dl + att_l[C]) / scale, ar_tab[own] / scale
     head, tail, inv = mixed_families(edges)
     sums = None
     for fam, fold in ((head, inv), (tail, None)):
@@ -353,18 +387,21 @@ def _gat_forward_mixed(edges: Edges, x, att_l, att_r, scale, with_neg: bool, xf=
             evn = ev * (a <= 0)
             res += _family_sum((evn[:, :, None] * nbrs).sum(1), evn.sum(1), fam, R, fold)
         sums = res if sums is None else tuple(s + r for s, r in zip(sums, res))
-    return sums if with_neg else sums + (None, None)
+    return (sums if with_neg else sums + (None, None)) + (dl[own], ar_tab)
 
 
 class _GATConvMixed(torch.autograd.Function):
+    """The conv over the mixed-K layout (:func:`gat_conv_ell`) and, with
+    ``gather`` and ``model_sum``, over a row shard's mixed families
+    (:func:`gat_conv_sharded`)."""
+
     @staticmethod
-    def forward(ctx, x, att_l, att_r, scale, edges: Edges, xf, ar):
+    def forward(ctx, x, att_l, att_r, scale, edges: Edges, xf, ar, gather, model_sum):
         xf = x.float() if xf is None else xf
-        if ar is None:
-            _, ar = node_logits(x, xf, att_l, att_r)
-        agg, rowsum, aggn, rsn = _gat_forward_mixed(edges, x, att_l, att_r, scale, True, xf, ar)
-        ctx.edges = edges
-        ctx.save_for_backward(x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, ar)
+        agg, rowsum, aggn, rsn, dl, ar_tab = _gat_forward_mixed(
+            edges, x, att_l, att_r, scale, True, xf, ar, gather, model_sum)
+        ctx.edges, ctx.gather, ctx.model_sum = edges, gather, model_sum
+        ctx.save_for_backward(x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, dl, ar_tab)
         return agg, rowsum[:, None]
 
     @staticmethod
@@ -373,20 +410,27 @@ class _GATConvMixed(torch.autograd.Function):
         family (all of it: this conv has no truncation) the cells recomputed
         with the cotangents gathered at x's dtype (ar too), dx and d_al
         summed by kernel 8 and the head folded through t_head_inv; d_ar by
-        the closed form; d_scale by the per-cell sum."""
+        the closed form; d_scale by the per-cell sum.  Over a row shard the
+        cotangents are every rank's (``gather``, one buffer) and the
+        transposed families those of the owned columns; on the 2-D mesh
+        d_al, d_ar and d_scale, linear in this rank's channels and its share
+        of the row sums' cotangent, are summed over the model group."""
         e: Edges = ctx.edges
-        x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, ar = ctx.saved_tensors
+        x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, dl, ar_tab = ctx.saved_tensors
         R, C = x.shape
         gs = x.dtype
         bf16 = gs == torch.bfloat16
         g_rs = g_rowsum[:, 0]
-        g_s = g_agg.to(gs)
-        g_rs_s = g_rs.to(gs).float()
-        ar_s = (ar / scale).to(gs).float()  # the ar lane rides the gather at x's dtype
+        if ctx.gather is None:
+            g_s, g_rs_s = g_agg.to(gs), g_rs.to(gs).float()
+        else:  # every rank's cotangents, one buffer
+            g_all = ctx.gather(torch.cat([g_agg, g_rs[:, None]], 1).to(gs))
+            g_s, g_rs_s = g_all[:, :C], g_all[:, C].float()
+        Rt = g_s.shape[0]
+        ar_s = (ar_tab / scale).to(gs).float()  # the ar lane rides the gather at x's dtype
         # the row-side logit as the JAX backward forms it: x @ att_l in x's
         # dtype (a bf16 dot, rounded, under bf16)
-        al_t_node = (bf16_dot(xf, att_l[:C]) if bf16 else xf @ att_l[:C]) + att_l[C]
-        al_t_node = al_t_node / scale
+        al_t_node = ((dl.to(torch.bfloat16).float() if bf16 else dl) + att_l[C]) / scale
         want_dx = ctx.needs_input_grad[0]
         head, tail, inv = mixed_families(e, transposed=True, whole=True)
         dx = d_al = None
@@ -398,7 +442,7 @@ class _GATConvMixed(torch.autograd.Function):
             g3 = _gather_rows(g_s, cols)
             x_rows = xf.index_select(0, rows_g.long().clamp(0, R - 1))
             g_ev = (g3 * x_rows[:, None, :]).sum(-1) + g_rs_s.index_select(
-                0, cols.reshape(-1).long().clamp(0, R - 1)).reshape(cols.shape)
+                0, cols.reshape(-1).long().clamp(0, Rt - 1)).reshape(cols.shape)
             d_a = g_ev * ev_t * torch.where(a_t > 0, 1.0, NEGATIVE_SLOPE)
             d_scale = d_scale - (d_a * a_t).sum() / scale
             part = (ev_t[:, :, None] * g3).sum(1) if want_dx else None
@@ -407,12 +451,62 @@ class _GATConvMixed(torch.autograd.Function):
             if want_dx:
                 dx = dx_f if dx is None else dx + dx_f
         d_ar = _gat_d_ar_closed_form(g_agg, g_rs, agg, rowsum, aggn, rsn)
+        if ctx.model_sum is not None:
+            red = ctx.model_sum(torch.cat([d_al, d_ar, d_scale[None]]))
+            d_al, d_ar, d_scale = red[:R], red[R : 2 * R], red[2 * R]
         if want_dx:
             dx = (dx + d_al[:, None] * (att_l[None, :C] / scale)
                   + d_ar[:, None] * (att_r[None, :C] / scale)).to(gs)
         d_attl = torch.cat([(d_al @ xf) / scale, (d_al.sum() / scale)[None]])
         d_attr = torch.cat([(d_ar @ xf) / scale, (d_ar.sum() / scale)[None]])
-        return dx, d_attl, d_attr, d_scale, None, None, None
+        return dx, d_attl, d_attr, d_scale, None, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# the COO fallback
+# ---------------------------------------------------------------------------
+def gat_conv_coo(edges: Edges, x, xf, att_l, att_r, valid, ranks=None, reduce=None, table=None,
+                 aggregate=None):
+    """The layer's GAT conv on COO edges (``vq_gnn_tpu/nn/model.py:312-352``)
+    -> (agg [R, C], rowsum [R, 1]): the Trick-1 logits over the reference's
+    (C+1)-wide input (f32 dots of x, ``xf`` x widened, the ones column's
+    weight att[C]), the scale over the valid rows, the per-edge values
+    (:func:`gat_edge_values`), then a COO sum (kernel 8) of x with its ones
+    column that differentiates them.
+
+    Over a row shard (``parallel/sharded.py``; ``edges`` the rank's
+    ``parallel/mesh.py:ShardEdges``: the COO edges of its rows and, sorted by
+    column, of its batch columns, columns in the gathered order): the scale
+    over every rank's valid rows (:func:`explosion_scale`'s ``ranks``),
+    ``table(t)`` the scaled logits [R, 2] of every rank's rows
+    (differentiable: its backward sums the cotangents over the ranks and
+    keeps the owned rows'), the values of the owned rows' edges and of the
+    transposed ones (values only: the backward's) from it, and
+    ``aggregate(x1, ev, ev_t)`` the sum over every rank's rows of x with the
+    ones column, differentiable in x1 and ev.  On the 2-D mesh x holds this
+    rank's columns, att_* its columns and the bias, and ``reduce`` sums the
+    partial dots over the ranks of the columns before the bias."""
+    C = x.shape[1]
+    if reduce is None:  # the reference's (C+1)-wide product
+        x1f = torch.cat([xf, xf.new_ones((xf.shape[0], 1))], 1)
+        al, ar = x1f @ att_l, x1f @ att_r
+    else:
+        al, ar = node_logits(xf, xf, att_l, att_r, reduce=reduce)
+    scale = explosion_scale(al, ar, valid, ranks)
+    logits = torch.stack([al, ar], 1) / scale
+    x1 = torch.cat([x, x.new_ones((x.shape[0], 1))], 1)
+    e = edges
+    if table is None:  # the whole batch: spmm's backward walks tperm
+        al_t, ar_t = logits.unbind(1)
+        out = spmm(dataclasses.replace(e, val=gat_edge_values(e.row, e.col, e.val, al_t, ar_t)),
+                   x1)
+    else:
+        al_t, ar_t = table(logits).unbind(1)
+        ev = gat_edge_values(e.row + e.row0, e.col, e.val, al_t, ar_t)
+        with torch.no_grad():  # source = the owned column, destination = the gathered row
+            ev_t = gat_edge_values(e.t_col, e.t_row + e.row0, e.t_val, al_t, ar_t)
+        out = aggregate(x1, ev, ev_t)
+    return out[:, :C], out[:, C:]
 
 
 def gat_conv_ell(edges: Edges, x, att_l, att_r, scale, xf=None, ar=None):
@@ -434,8 +528,8 @@ def gat_conv_ell(edges: Edges, x, att_l, att_r, scale, xf=None, ar=None):
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, att_l, att_r, scale))
     if edges.mixed:
         if grad:
-            return _GATConvMixed.apply(x, att_l, att_r, scale, edges, xf, ar)
-        agg, rowsum, _, _ = _gat_forward_mixed(edges, x, att_l, att_r, scale, False, xf, ar)
+            return _GATConvMixed.apply(x, att_l, att_r, scale, edges, xf, ar, None, None)
+        agg, rowsum = _gat_forward_mixed(edges, x, att_l, att_r, scale, False, xf, ar)[:2]
         return agg, rowsum[:, None]
     if edges.ell_row is None:  # COO runs gat_edge_values and spmm instead
         raise ValueError("gat_conv_ell: the edges hold neither slot-ELL layout")

@@ -36,6 +36,12 @@ constants), COO has one (the GAT fallback's attention values).
 x may be bf16 (``compute_dtype='bfloat16'``): the output is f32 all the
 same, the backward streams the cotangent at x's dtype and returns dx in it
 (``vq_gnn_tpu/ops/spmm.py:_spmm_bwd``).
+
+A row shard (``parallel/mesh.py:ShardEdges``, a batch sharded over ranks)
+takes :func:`rows_aggregate` over its owned rows and :func:`shard_dx` over
+its batch columns, in each layout, reading every rank's rows in the
+gathered order; a family or edge list a shard leaves empty launches
+nothing.
 """
 
 from __future__ import annotations
@@ -173,6 +179,8 @@ def _ell_matvec(ell_row, ell_col, ell_val, x, num_rows, ptr=None, long_rows=None
     x[col[s,k]]`` -> f32 [num_rows, C].  ``ptr``, ``long_rows``: the batch's
     row offsets and long rows; ones built for another row count (an Edges
     whose truncation was switched off after the build) are not used."""
+    if ell_row.shape[0] == 0:  # a family a row shard leaves empty: nothing to launch
+        return x.new_zeros((num_rows, x.shape[1]), dtype=torch.float32)
     if ptr is None or ptr.shape[0] != num_rows + 1:
         ptr = long_rows = None
     return ell_aggregate(x, ell_row, ell_col, ell_val, num_rows, ptr=ptr, long_rows=long_rows)
@@ -263,9 +271,7 @@ class _SpMM(torch.autograd.Function):
         # x is only needed for d val; the GCN/SAGE path never asks for it
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
         if edges.mixed:
-            head, tail, inv = mixed_families(edges)
-            return _mixed_matvec((head[0],) + head[2:], (tail[0],) + tail[2:], inv, x,
-                                 edges.num_rows)
+            return rows_aggregate(edges, x)
         return _ell_matvec(edges.ell_row, edges.ell_col, ell_val, x, edges.num_rows,
                            edges.ell_ptr, edges.ell_long_rows)
 
@@ -313,6 +319,8 @@ def _segment_matvec(row, col, vals, x_br, num_rows, ptr=None, long_rows=None):
     num_rows (padding) are dropped; lists built for another row count are
     not used."""
     nb, R, Dc = x_br.shape
+    if row.shape[0] == 0:  # a row shard without edges: nothing to launch
+        return x_br.new_zeros((nb, num_rows, Dc), dtype=torch.float32)
     if ptr is not None and ptr.shape[0] != num_rows + 1:
         ptr = long_rows = None
     cols = col.long().clamp(max=R - 1)
@@ -347,12 +355,52 @@ class _SpMMCOO(torch.autograd.Function):
                                  vals.index_select(1, perm), g.to(ctx.x_dtype).contiguous(),
                                  ctx.x_rows, e.t_row_ptr, e.t_row_long_rows).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
-            # per branch the SDDMM d val[n, e] = g[n, row_e] . x[n, col_e]
-            # (pads clip), g unrounded
-            gr = g.index_select(1, e.row.long().clamp(max=g.shape[1] - 1))
-            xc = x_br.index_select(1, e.col.long().clamp(max=x_br.shape[1] - 1)).float()
-            dval = (gr * xc).sum(-1)
+            dval = _coo_sddmm(e.row, e.col, g, x_br)
         return dx, dval, None
+
+
+def _coo_sddmm(row, col, g, x_br):
+    """Per branch the SDDMM d val[n, e] = g[n, row_e] . x[n, col_e] (pads
+    clip; summed in f32 from x in its dtype, g unrounded)."""
+    gr = g.index_select(1, row.long().clamp(max=g.shape[1] - 1))
+    xc = x_br.index_select(1, col.long().clamp(max=x_br.shape[1] - 1)).float()
+    return (gr * xc).sum(-1)
+
+
+def rows_aggregate(e: Edges, x, vals=None):
+    """The aggregate of the ``e.num_rows`` rows of ``e`` -> f32 [num_rows, C]
+    from the table x its columns index: kernel 1 over the single-K slots or
+    once per mixed family (the head folded through ``head_inv``), kernel 8
+    over the COO edges with the values ``vals`` (``e.val`` by default).  A
+    row shard's edges (``parallel/mesh.py:ShardEdges``) are its owned rows'
+    and x every rank's rows in the gathered order."""
+    if e.mixed:
+        head, tail, inv = mixed_families(e)
+        return _mixed_matvec((head[0],) + head[2:], (tail[0],) + tail[2:], inv, x, e.num_rows)
+    if e.ell_row is None:
+        v = e.val if vals is None else vals
+        return _segment_matvec(e.row, e.col, v[None], x[None], e.num_rows, e.row_ptr,
+                               e.row_long_rows)[0]
+    return _ell_matvec(e.ell_row, e.ell_col, e.ell_val, x, e.num_rows, e.ell_ptr,
+                       e.ell_long_rows)
+
+
+def shard_dx(e, g, t_vals=None):
+    """The transposed aggregate of a row shard's ``b_rows`` batch columns ->
+    f32 [b_rows, C] from g, every rank's cotangents in the gathered order:
+    kernel 1 over its transposed slots or once per transposed mixed family,
+    kernel 8 over its transposed COO edges (``ShardEdges.t_row``, sorted by
+    column) with the values ``t_vals`` (``e.t_val`` by default).  The
+    shard holds the slots of those columns only, so nothing is cut here."""
+    if e.mixed:
+        head, tail, inv = mixed_families(e, transposed=True)
+        return _mixed_matvec((head[0],) + head[2:], (tail[0],) + tail[2:], inv, g, e.b_rows)
+    if e.ell_row is None:
+        v = e.t_val if t_vals is None else t_vals
+        return _segment_matvec(e.t_row, e.t_col, v[None], g[None], e.b_rows, e.t_row_ptr,
+                               e.t_row_long_rows)[0]
+    return _ell_matvec(e.t_ell_row, e.t_ell_col, e.t_ell_val, g, e.b_rows, e.t_ell_ptr,
+                       e.t_ell_long_rows)
 
 
 def spmm(edges: Edges, x: torch.Tensor, ell_val: Optional[torch.Tensor] = None):

@@ -17,17 +17,24 @@ process drives, and the collectives are written out
   the JAX host builds it before ``device_put``), no batch broadcast.  Rank r
   of n keeps the contiguous block r of the B_pad batch rows and of the
   Bp_pad boundary rows (``batch_idx``, ``fo_ids``, ``valid_*``, ``y``,
-  ``train_mask``) and the adjacency of its rows as :class:`ShardEdges`: the
-  slot-ELL slots of the rows it owns (batch and boundary rows: the boundary
-  rows' aggregate feeds the recovery term), and the transposed slots of the
-  batch columns it owns (the only columns whose dx has a consumer,
-  ``ops/spmm.py:Edges.b_rows``) or, in a GAT batch (one that carries the
-  whole transposed layout's lists, ``Edges.t_all_ptr``), of every column it
-  owns, batch and boundary (the B' rows carry logits, whose d_al the
-  backward needs, ``ops/gat.py``), each renumbered from row 0 with its own
-  row offsets and long rows (``ops/spmm.py:sub_ell_host``).  Columns are
+  ``train_mask``) and the adjacency of its rows as :class:`ShardEdges`, in
+  the batch's layout: the slots (single-K, or each mixed-K family) or COO
+  edges of the rows it owns (batch and boundary rows: the boundary rows'
+  aggregate feeds the recovery term), and the transposed slots or edges of
+  the batch columns it owns (the only columns whose dx has a consumer,
+  ``ops/spmm.py:Edges.b_rows``) or, in a slot-ELL GAT batch (one that
+  carries the whole transposed layout's lists, ``Edges.t_all_ptr`` or
+  ``t_head_all_ptr``), of every column it owns, batch and boundary (the B'
+  rows carry logits, whose d_al that backward sums over the transposed
+  slots, ``ops/gat.py``), each renumbered from row 0 with its own row
+  offsets and long rows (``ops/spmm.py:sub_ell_host``, ``lists_host``).  A
+  mixed head family is cut by its global rows (``head_rowg``) and its
+  compact rows re-ranked over the shard's rows, with a ``head_inv`` of the
+  shard's own; COO edges are cut as one-wide slots, the transposed ones in
+  ``tperm``'s order (the COO GAT conv's logit gradients come back through
+  its table of logits instead, ``parallel/sharded.py``).  Columns are
   renumbered into the order of the all-gather of every rank's rows
-  (``ops/spmm.py:gathered_order``), so kernel 1 reads the gathered rows
+  (``ops/spmm.py:gathered_order``), so the kernels read the gathered rows
   where they land.  The state and the feature table stay replicated.
 - ``shard_train_inputs_2d``: the data split above over the data group, then
   the model split of ``_shard_vq_state_model`` / ``place_params``
@@ -41,8 +48,8 @@ process drives, and the collectives are written out
 
 Both raise a ValueError that names the padding when B_pad or Bp_pad does
 not divide by the ranks of the rows, and refuse by name what the sharded
-step does not take yet (COO, mixed-K, B + M, link and multilabel batches:
-ROADMAP.md queue 1 item 7c).
+step does not take yet (B + M, link and multilabel batches: ROADMAP.md
+queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ from torch import nn
 
 from vq_gnn_tpu_torch.config import not_ported, resolve_device
 from vq_gnn_tpu_torch.nn.vq import VQState
-from vq_gnn_tpu_torch.ops.spmm import gathered_order, sub_ell_host
+from vq_gnn_tpu_torch.ops.spmm import Edges, gathered_order, lists_host, sub_ell_host
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 from vq_gnn_tpu_torch.train.optim import make_rmsprop
 from vq_gnn_tpu_torch.train.state import TrainState
@@ -150,54 +157,30 @@ def make_mesh_2d(n_data: int, n_model: int,
 
 
 @dataclasses.dataclass
-class ShardEdges:
-    """The adjacency of one row shard (see the module docstring): the
-    slot-ELL slots of the ``num_rows`` rows it owns (its ``b_rows`` batch
-    rows, then its boundary rows) and the transposed slots of its
-    ``b_rows`` batch columns (of all ``num_rows`` owned columns in a GAT
-    batch), rows from 0, columns in the gathered order, where the owned
-    rows start at ``row0``, each with the kernel's row offsets and long
-    rows.  The sharded step binds it to its groups (``aggregate``, which
+class ShardEdges(Edges):
+    """The adjacency of one row shard (see the module docstring), in its
+    batch's layout: the forward slots (single-K, or each mixed family) or
+    COO edges of the ``num_rows`` rows it owns (its ``b_rows`` batch rows,
+    then its boundary rows) and the transposed slots or edges of its
+    ``b_rows`` batch columns (in a slot-ELL GAT batch, of all ``num_rows``
+    owned columns, with the lists under ``t_all_ptr`` or ``t_*_all_ptr`` as
+    well), rows from 0, columns in the gathered order, where the owned rows
+    start at ``row0``, each with the kernels' row offsets and long rows.  A
+    mixed head family keeps its compact rows, re-ranked over the shard's
+    rows, and its own ``head_inv`` (the sentinel: the shard's row count).
+    COO keeps its transposed edges apart (``t_row``, the owned column, then
+    ``t_col`` and ``t_val``, sorted by column) in place of ``tperm``.  The
+    sharded step binds it to its groups (``aggregate``, which
     ``ops/spmm.py:spmm`` calls, and ``gat``, which ``nn/model.py``'s GAT
     layer calls)."""
 
-    ell_row: object
-    ell_col: object
-    ell_val: object
-    ell_ptr: object
-    ell_long_rows: object
-    t_ell_row: object
-    t_ell_col: object
-    t_ell_val: object
-    t_ell_ptr: object
-    t_ell_long_rows: object
-    num_rows: int
-    b_rows: int
+    t_row: object = None
+    t_col: object = None
+    t_val: object = None
     row0: int = 0  # the first owned row in the gathered order
     aggregate: object = None  # x_own -> the owned rows' aggregate (parallel/sharded.py)
     # (x_own, xf, att_l, att_r, valid) -> the GAT conv's (agg, rowsum) of the owned rows
     gat: object = None
-    mixed = False
-
-    @property
-    def t_all_ptr(self):
-        """The transposed slots' row offsets where they cover every owned row
-        (a GAT batch's shard), as ``Edges.t_all_ptr``; else None."""
-        return self.t_ell_ptr if self.t_ell_ptr.shape[0] == self.num_rows + 1 else None
-
-    @property
-    def t_all_long_rows(self):
-        return None if self.t_all_ptr is None else self.t_ell_long_rows
-
-    def to(self, device) -> "ShardEdges":
-        moved = {}
-        for f in dataclasses.fields(self):
-            a = getattr(self, f.name)
-            if isinstance(a, np.ndarray):
-                t = torch.as_tensor(np.ascontiguousarray(a))
-                moved[f.name] = t.to(device=device, dtype=torch.float32 if t.is_floating_point()
-                                     else torch.int32)
-        return dataclasses.replace(self, **moved)
 
 
 @dataclasses.dataclass
@@ -235,14 +218,66 @@ def _host(a):
     return a.detach().cpu().numpy()
 
 
+def _sub_families(rowg, col, val, tail_row, tail_col, tail_val, R: int, blocks, cols,
+                  pre: str = "") -> dict:
+    """One direction of a mixed-K layout (``pre`` '' or 't_') cut to the rows
+    in ``blocks`` (``sub_ell_host``): the head's slots taken by their global
+    rows, re-ranked into compact rows over the cut's rows with its own inv
+    (the sentinel: the cut's row count), and the tail's slots; each family
+    with its lists, its columns through ``cols``."""
+    nr = sum(r1 - r0 for r0, r1 in blocks)
+    hg, hc, hv, _, _ = sub_ell_host(rowg, col, val, R, blocks)
+    inv = np.full(nr, nr, np.int32)
+    kept = np.unique(hg)
+    inv[kept] = np.arange(len(kept))
+    rowc = inv[hg]
+    ptr, long_rows = lists_host(rowc, nr)
+    tr, tc, tv, tptr, tlong = sub_ell_host(tail_row, tail_col, tail_val, R, blocks)
+    out = dict(head_rowc=rowc, head_col=cols(hc), head_val=hv, head_inv=inv, head_rowg=hg,
+               head_ptr=ptr, head_long_rows=long_rows, tail_row=tr, tail_col=cols(tc),
+               tail_val=tv, tail_ptr=tptr, tail_long_rows=tlong)
+    return {pre + k: v for k, v in out.items()}
+
+
+def _shard_edges(e, R: int, own, own_B, gat: bool, cols) -> dict:
+    """The :class:`ShardEdges` fields of the owned rows ``own`` (row ranges)
+    of the batch's edges ``e`` (the module docstring)."""
+    t_own = own if gat else [own_B]
+    if e.mixed:
+        f = _sub_families(*(_host(getattr(e, k)) for k in (
+            "head_rowg", "head_col", "head_val", "tail_row", "tail_col", "tail_val")),
+            R, own, cols)
+        f.update(_sub_families(*(_host(getattr(e, k)) for k in (
+            "t_head_rowg", "t_head_col", "t_head_val", "t_tail_row", "t_tail_col",
+            "t_tail_val")), R, t_own, cols, "t_"))
+        if gat:  # the GAT backward walks the whole transposed families
+            for fam in ("head", "tail"):
+                f[f"t_{fam}_all_ptr"] = f[f"t_{fam}_ptr"]
+                f[f"t_{fam}_all_long_rows"] = f[f"t_{fam}_long_rows"]
+        return f
+    if e.ell_row is None:  # COO: the edges as one-wide slots
+        row, col, val, perm = (_host(getattr(e, k)) for k in ("row", "col", "val", "tperm"))
+        r, c, v, ptr, long_rows = sub_ell_host(row, col[:, None], val[:, None], R, own)
+        tr, tc, tv, tptr, tlong = sub_ell_host(col[perm], row[perm][:, None],
+                                               val[perm][:, None], R, t_own)
+        return dict(row=r, col=cols(c[:, 0]), val=v[:, 0], row_ptr=ptr,
+                    row_long_rows=long_rows, t_row=tr, t_col=cols(tc[:, 0]), t_val=tv[:, 0],
+                    t_row_ptr=tptr, t_row_long_rows=tlong)
+    f = {}
+    for pre, blocks in (("", own), ("t_", t_own)):
+        row, col, val, ptr, long_rows = sub_ell_host(
+            *(_host(getattr(e, f"{pre}ell_{k}")) for k in ("row", "col", "val")), R, blocks)
+        f.update({f"{pre}ell_row": row, f"{pre}ell_col": cols(col), f"{pre}ell_val": val,
+                  f"{pre}ell_ptr": ptr, f"{pre}ell_long_rows": long_rows})
+    if gat:
+        f["t_all_ptr"], f["t_all_long_rows"] = f["t_ell_ptr"], f["t_ell_long_rows"]
+    return f
+
+
 def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
     """Block r of n of ``batch`` (a host batch or one on a device), on
     ``device``."""
     e = batch.edges
-    if e.mixed:
-        raise not_ported("the sharded step on the mixed-K layout (ell_Kt > 0)", LATER)
-    if e.ell_row is None:
-        raise not_ported("the sharded step on the COO layout (spmm_backend='coo')", LATER)
     if batch.rev_slot_col is not None or batch.bm_rev_row is not None:
         raise not_ported("the sharded step on B + M batches (formulation='bm')", LATER)
     if batch.link_src is not None:
@@ -257,18 +292,14 @@ def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
             f"batch has B_pad={B_pad}, Bp_pad={Bp_pad}: set Config.fixed_B_pad and "
             f"fixed_Bp_pad (or pad_multiple_nodes) to multiples of {n}")
     b, bp = B_pad // n, Bp_pad // n
-    R = B_pad + Bp_pad
     own_B, own_fo = (r * b, (r + 1) * b), (B_pad + r * bp, B_pad + (r + 1) * bp)
-
-    def sub(rows, cols, vals, blocks):
-        row, col, val, ptr, lr = sub_ell_host(_host(rows), _host(cols), _host(vals), R, blocks)
-        return row, gathered_order(col, B_pad, Bp_pad, n), val, ptr, lr
-
-    gat = e.t_all_ptr is not None  # a GAT batch: d_al of every owned column
-    edges = ShardEdges(*sub(e.ell_row, e.ell_col, e.ell_val, [own_B, own_fo]),
-                       *sub(e.t_ell_row, e.t_ell_col, e.t_ell_val,
-                            [own_B, own_fo] if gat else [own_B]),
-                       num_rows=b + bp, b_rows=b, row0=r * (b + bp))
+    # a slot-ELL GAT batch (one that carries the whole transposed layout's
+    # lists): d_al of every owned column
+    gat = e.t_all_ptr is not None or e.t_head_all_ptr is not None
+    edges = ShardEdges(
+        **_shard_edges(e, B_pad + Bp_pad, [own_B, own_fo], own_B, gat,
+                       lambda c: gathered_order(c, B_pad, Bp_pad, n)),
+        num_rows=b + bp, dense_rows=True, b_rows=b, row0=r * (b + bp))
     ids = _host(batch.batch_idx).astype(np.int64)
     last = np.full(int(ids.max()) + 1, -1, np.int64)
     np.maximum.at(last, ids, np.arange(len(ids)))

@@ -70,8 +70,9 @@ from vq_gnn_tpu_torch.train.step import (
 # inter-layer BN's moments); 'c_indices': the batch ids and the
 # assignments; 'scalars': the CE count and the loss; the sharded steps'
 # (parallel/sharded.py) 'rows': the row exchange, 'partials': the 2-D
-# mesh's model-axis sums
-CATEGORIES = ("grad", "stats", "c_indices", "scalars", "rows", "partials")
+# mesh's model-axis sums, 'logits': the COO GAT conv's table of every
+# rank's logits and its backward sum
+CATEGORIES = ("grad", "stats", "c_indices", "scalars", "rows", "partials", "logits")
 
 
 def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,

@@ -4,19 +4,23 @@ package's ``train_step`` under ``shard_train_inputs`` and
 ``shard_train_inputs_2d``, where XLA inserts the collectives; here they are
 written out).
 
-**The row exchange** (:class:`_RowExchange`, the slot-ELL aggregate of a
-row shard).  Forward: the ranks' conv inputs (each its batch rows and its
-looked-up boundary rows) are all-gathered into the whole [B_pad + Bp_pad,
-C], and kernel 1 (``ops/ell_aggregate.py``) sums the slots of the rows
-this rank owns.  Backward: the cotangents of every rank's owned rows are
-all-gathered, and kernel 1 sums the transposed slots of this rank's batch
-columns, so each rank gets dx for its own rows (the boundary rows' dx has
-no consumer: zeros).  All-gathers only: gloo has no reduce-scatter, and no
-row is reduced twice.  The JAX docstring's design, each rank's partial
-aggregate over its slots all-reduced, reads the same gathered rows and adds
-an all-reduce of [B_pad + Bp_pad, C] (on a ring about twice an all-gather's
-bytes) to every aggregate.  Under bf16 compute the rows ride at bf16 both
-ways, the values the whole batch's step hands kernel 1.
+**The row exchange** (:class:`_RowExchange`, the aggregate of a row shard
+in its layout).  Forward: the ranks' conv inputs (each its batch rows and
+its looked-up boundary rows) are all-gathered into the whole [B_pad +
+Bp_pad, C], and ``ops/spmm.py:rows_aggregate`` sums the rows this rank
+owns: kernel 1 (``ops/ell_aggregate.py``) over its single-K slots or once
+per mixed-K family, the head folded through the shard's ``head_inv``, or
+kernel 8 (``ops/segsum.py``) over its COO edges.  Backward: the
+cotangents of every rank's owned rows are all-gathered, and
+``ops/spmm.py:shard_dx`` sums the transposed slots or edges of this rank's
+batch columns the same way, so each rank gets dx for its own rows (the
+boundary rows' dx has no consumer: zeros).  All-gathers only: gloo has no
+reduce-scatter, and no row is reduced twice.  The JAX docstring's design,
+each rank's partial aggregate over its slots all-reduced, reads the same
+gathered rows and adds an all-reduce of [B_pad + Bp_pad, C] (on a ring
+about twice an all-gather's bytes) to every aggregate.  Under bf16 compute
+the rows ride at bf16 both ways, the values the whole batch's step hands
+the kernels.
 
 **The GAT conv** (:func:`_gat_conv`, ``ShardEdges.gat``): the logits of
 the owned rows, the Trick-1 scale over every rank's valid rows
@@ -24,8 +28,17 @@ the owned rows, the Trick-1 scale over every rank's valid rows
 backward one all-reduce of the cotangent and the tie count, so that its
 gradient is the whole batch's), then ``ops/gat.py:gat_conv_sharded``: the
 same exchange of x (forward) and of the cotangents with the row sums
-(backward), kernel 4 over the owned rows' slots, kernel 5 over the
-transposed slots of every owned row.
+(backward), and on the single-K slots kernel 4 over the owned rows' slots
+and kernel 5 over the transposed slots of every owned row, on the mixed-K
+families kernel 8 with its scalar channel per family, forward and
+transposed.  On COO the layer's fallback (``gat_conv_coo``): the
+scaled logits of every rank's rows gathered as one [R, 2] table
+(:class:`_LogitTable`, whose backward sums the cotangents of the whole
+table in one all-reduce and keeps the owned rows': the column logit of an
+edge belongs to the rank that owns the column), the per-edge values of
+the owned rows' edges and of the batch columns' transposed edges from it,
+and the exchange above over the (C+1)-wide x with its ones column, whose
+backward also gives the edge values' gradient against the gathered rows.
 
 **The 1-D step** (:func:`make_sharded_step`, ``train_step``'s signature).
 It runs ``train/step.py:step_forward`` and ``live_vq_update`` on the
@@ -64,16 +77,21 @@ aggregates the rank's columns with the whole logits; in the backward row
 3's d_al and the closed-form d_ar of each rank cover its channels and its
 own columns' share of the row-sum cotangent, and their sum over the model
 group is the whole batch's; the attention vectors' columns pass "f", so
-each rank's gradient of them is whole.
+each rank's gradient of them is whole.  The mixed-K conv sums its per-cell
+d_scale with d_al and d_ar; the COO fallback sums its table's cotangent
+over every rank at once (the data and the model groups), each model rank
+holding its columns' part of the edge values' gradient.
 
 ``CollectiveLedger`` counts every collective: ``rows`` (the exchanges),
 ``partials`` (the model-axis all-reduces), ``stats`` (the BN and VQ
-moments, the EMA statistics), ``grad``, ``c_indices`` and ``scalars``
-(with the Trick-1 max and its backward).
+moments, the EMA statistics), ``grad``, ``c_indices``, ``scalars`` (with
+the Trick-1 max and its backward) and ``logits`` (the COO GAT conv's
+table and its backward sum).
 
-GCN, SAGE and GAT, B + B', single-K slot-ELL, f32 or bf16 compute, without
-the transformer branch, take a sharded step; the rest raises by name
-(ROADMAP.md queue 1 item 7c; the JAX package shards them all through XLA).
+GCN, SAGE and GAT, B + B', on each adjacency layout (single-K and mixed-K
+slot-ELL, COO), f32 or bf16 compute, take a sharded step; B + M (and with
+it the transformer branch) raises by name (ROADMAP.md queue 1 item 7c; the
+JAX package shards it through XLA).
 """
 
 from __future__ import annotations
@@ -86,8 +104,13 @@ import torch.distributed as dist
 
 from vq_gnn_tpu_torch.config import Config, not_ported
 from vq_gnn_tpu_torch.nn.model import ModelStatic
-from vq_gnn_tpu_torch.ops.gat import explosion_scale, gat_conv_sharded, node_logits
-from vq_gnn_tpu_torch.ops.spmm import _ell_matvec
+from vq_gnn_tpu_torch.ops.gat import (
+    explosion_scale,
+    gat_conv_coo,
+    gat_conv_sharded,
+    node_logits,
+)
+from vq_gnn_tpu_torch.ops.spmm import _coo_sddmm, rows_aggregate, shard_dx
 from vq_gnn_tpu_torch.parallel.mesh import LATER, DataMesh, Mesh2D, RowShard
 from vq_gnn_tpu_torch.parallel.multihost import CollectiveLedger, _cidx_merge, _Collectives
 from vq_gnn_tpu_torch.train.optim import rmsprop_update
@@ -104,35 +127,60 @@ def check_sharded(ms: ModelStatic, cfg: Config) -> None:
     """Refuse by name what the sharded steps do not take yet."""
     if ms.formulation == "bm":
         raise not_ported("the sharded step with formulation='bm'", LATER)
-    if cfg.spmm_backend == "coo":
-        raise not_ported("the sharded step on the COO layout (spmm_backend='coo')", LATER)
-    if cfg.ell_Kt > 0:
-        raise not_ported("the sharded step on the mixed-K layout (ell_Kt > 0)", LATER)
     if ms.transformer_flag:
         raise not_ported("the sharded step with transformer_flag", LATER)
 
 
 class _RowExchange(torch.autograd.Function):
-    """The aggregate of a row shard's owned rows (the module docstring)."""
+    """The aggregate of a row shard's owned rows in its layout (the module
+    docstring); on COO with the values ``vals`` of its edges (the GAT
+    conv's, differentiable) and ``t_vals`` of its transposed edges (values
+    only), else the adjacency's."""
 
     @staticmethod
-    def forward(ctx, x, edges, comm):
-        ctx.edges, ctx.comm, ctx.x_dtype = edges, comm, x.dtype
+    def forward(ctx, x, vals, t_vals, edges, comm):
+        ctx.edges, ctx.comm, ctx.x_dtype, ctx.t_vals = edges, comm, x.dtype, t_vals
         xf = comm.gather(x, "rows") if comm.size > 1 else x
-        return _ell_matvec(edges.ell_row, edges.ell_col, edges.ell_val, xf, edges.num_rows,
-                           edges.ell_ptr, edges.ell_long_rows)
+        ctx.save_for_backward(xf if ctx.needs_input_grad[1] else None)
+        return rows_aggregate(edges, xf, vals)
 
     @staticmethod
     def backward(ctx, g):
         e, comm = ctx.edges, ctx.comm
-        # the cotangent rides at x's dtype, as the whole batch's spmm streams
-        # it (ops/spmm.py); dx comes back in it
-        g = g.to(ctx.x_dtype).contiguous()
-        gf = comm.gather(g, "rows") if comm.size > 1 else g
-        dx_b = _ell_matvec(e.t_ell_row, e.t_ell_col, e.t_ell_val, gf, e.b_rows, e.t_ell_ptr,
-                           e.t_ell_long_rows)
-        return torch.cat([dx_b, dx_b.new_zeros((e.num_rows - e.b_rows, dx_b.shape[1]))]).to(
-            ctx.x_dtype), None, None
+        (xf,) = ctx.saved_tensors
+        dx = dval = None
+        if ctx.needs_input_grad[0]:
+            # the cotangent rides at x's dtype, as the whole batch's spmm
+            # streams it (ops/spmm.py); dx comes back in it
+            gc = g.to(ctx.x_dtype).contiguous()
+            gf = comm.gather(gc, "rows") if comm.size > 1 else gc
+            dx_b = shard_dx(e, gf, ctx.t_vals)
+            dx = torch.cat([dx_b, dx_b.new_zeros((e.num_rows - e.b_rows, dx_b.shape[1]))]).to(
+                ctx.x_dtype)
+        if ctx.needs_input_grad[1]:  # the owned rows' edges against the gathered rows
+            dval = _coo_sddmm(e.row, e.col, g[None], xf[None])[0]
+        return dx, dval, None, None, None
+
+
+class _LogitTable(torch.autograd.Function):
+    """Every rank's rows of the [R, k] logits t, in the gathered order (one
+    all-gather over the rows' ranks ``comm``).  The backward sums the
+    cotangent of the whole table over ``sum_comm`` (the rows' ranks; on the
+    2-D mesh every rank, whose model ranks each hold their columns' part of
+    it) in one all-reduce and keeps the owned rows': gloo has no
+    reduce-scatter, and [R, k] is a k / C-th of a row exchange."""
+
+    @staticmethod
+    def forward(ctx, t, comm, sum_comm, row0):
+        ctx.sum_comm, ctx.own = sum_comm, (row0, t.shape[0])
+        return comm.gather(t, "logits") if comm.size > 1 else t.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_comm.size > 1:
+            g = _all_reduce(ctx.sum_comm, g, "logits")
+        r0, n = ctx.own
+        return g[r0 : r0 + n], None, None, None
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -239,27 +287,38 @@ class _ScaleRanks:
         return self.comm.sum([t], "scalars")[0]
 
 
-def _gat_conv(edges, comm: _Collectives, axis):
+def _gat_conv(edges, comm: _Collectives, axis, comm_all: _Collectives):
     """``ShardEdges.gat`` of a row shard over ``comm`` (the rows' ranks) and,
-    on the 2-D mesh, ``axis``: (x_own, xf, att_l, att_r, valid) -> the GAT
-    conv's (agg, rowsum) of the owned rows (the module docstring)."""
+    on the 2-D mesh, ``axis`` (``comm_all`` every rank): (x_own, xf, att_l,
+    att_r, valid) -> the GAT conv's (agg, rowsum) of the owned rows (the
+    module docstring)."""
     many = comm.size > 1
     ranks = _ScaleRanks(comm) if many else None
+    coo = not edges.mixed and edges.ell_row is None  # the layer's COO fallback
     gather = (lambda t: comm.gather(t, "rows")) if many else None
     model_sum = None if axis is None else (lambda t: _all_reduce(axis.comm, t, "partials"))
+
+    def table(t):
+        return _LogitTable.apply(t, comm, comm_all, edges.row0)
+
+    def aggregate(x1, ev, ev_t):
+        return _RowExchange.apply(x1, ev, ev_t, edges, comm)
 
     def conv(x, xf, att_l, att_r, valid):
         reduce = None
         if axis is not None:
             att_l, att_r = axis.att(att_l, att_r)
             reduce = axis.reduce
+        if coo:
+            return gat_conv_coo(edges, x, xf, att_l, att_r, valid, ranks, reduce, table,
+                                aggregate)
         al, ar = node_logits(x, xf, att_l, att_r, reduce=reduce)
         scale = explosion_scale(al, ar, valid, ranks)
         # where the rows have one rank the owned rows are the conv's table:
-        # their logits are not formed again (al only where the conv's is
-        # this one, in f32: under bf16 its att is not rounded)
-        known = {} if many else dict(ar=ar.detach(), al=None if x.dtype == torch.bfloat16
-                                     else al.detach())
+        # their logits are not formed again (ar; the single-K conv's al only
+        # where it is this one, in f32: under bf16 its att is not rounded)
+        known = {} if many else dict(ar=ar.detach(), al=None if (
+            x.dtype == torch.bfloat16 or edges.mixed) else al.detach())
         return gat_conv_sharded(edges, x, att_l, att_r, scale, xf.detach(), gather, model_sum,
                                 **known)
 
@@ -322,8 +381,8 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
                              < 1.0 - ms.dropout for c in ms.channels[1:-1]]
         masks = own(branch_masks, shard, False)
         batch = dataclasses.replace(shard, edges=dataclasses.replace(
-            shard.edges, aggregate=lambda x: _RowExchange.apply(x, shard.edges, comm),
-            gat=_gat_conv(shard.edges, comm, axis)))
+            shard.edges, aggregate=lambda x: _RowExchange.apply(x, None, None, shard.edges, comm),
+            gat=_gat_conv(shard.edges, comm, axis, comm_all)))
         params = list(state.model.parameters())
         out, info_b, layer_inputs, new_bn, probes, _ = step_forward(
             state, ms_l, X_dev, batch, warm_up_rate, generator, masks,
