@@ -10,7 +10,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 2. build the bench's arxiv-scale synthetic graph (N = 169,343, degree 13.7,
    128 features, 40 classes) and its 80-part partition, normalised once per
    conv (GCN, SAGE and GAT normalise differently) and once with the v1
-   normalisation for the B + M GAT path and for phase 13's B + M GCN path;
+   normalisation for the B + M GAT path, for phase 13's B + M GCN path and
+   for phase 17's B + M SAGE path;
 3. drive the training paths through the trainer, one after the other, each
    with the launch counters zeroed just before it and read just after —
    3 layers x 128, num_D = 4, live VQ updates, f32, vq_backend =
@@ -78,7 +79,7 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    device times and its bound at 2 bytes a bf16 value);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT, and GAT at bf16) on the GPU and on the CPU (plain versions)
-   from one state,
+   from one state, two epochs (B + M one, of nine steps),
    count the codeword assignments that come to differ, and compare each
    step's loss terms up to the first such difference, and the predictions;
    at bf16 also the GPU's own init sweep against the CPU's, layer by layer;
@@ -98,8 +99,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    b. ``parity_gap`` of the flagship GCN B + B' (3 x 128, M = 256, cluster
       sampler) as ``tools/parity_experiment_torch.py`` runs it by default,
       uncut: the arxiv generator's SBM (169,343 nodes, 128 features, 48 of
-      them informative, noise 4.0, 40 classes, degree 13.7, seed 7), 60
-      epochs, evaluated every 5; then the exact arm's full-graph forward (the
+      them informative, noise 4.0, 40 classes, degree 13.7, seed 7), 30
+      epochs (the tool's default is 60), evaluated every 5; then the exact arm's full-graph forward (the
       COO layout through kernel 8) against its batched prediction, and
       kernel 8 at that shape (one layer's messages over the whole graph)
       against its plain sum in float64, bit-identical run to run;
@@ -246,7 +247,12 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    two batches: the flagship GCN B + B' and GAT B + B' on the single-K
    slot-ELL, and phase 14's layouts: GCN on the mixed-K layout (14a) and
    on COO (14c) and GAT on COO, in exact f32, and GAT on the mixed-K layout
-   at bf16 compute (14b).  For each mesh and each family, the launch
+   at bf16 compute (14b); and B + M on the epoch's first batch: GAT from
+   phase 3's B + M GAT states, in exact f32 and at bf16 compute (trained
+   codebooks: the recovery term reads a gradient table that is not zero),
+   and SAGE (the bench's B + M cell at ELL K = 8, zero attention) from a
+   trainer's init sweep and three whole-batch steps on phase 2's graph in
+   SAGE's v1 normalisation.  For each mesh and each family, the launch
    counters zeroed just before its steps and read just after, in each
    rank:
    a. one step of the 1-D sharded step and one of ``train_step`` on the
@@ -254,7 +260,7 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       mode) with the inter-layer BN and without, at the flagship's own
       settings (TF32, row 6's fast mode) and at bf16 compute; GAT in exact
       f32 and at bf16 compute (the bench's GAT cell); each layout family
-      in its one configuration: the loss within 1e-5
+      and each B + M family in its one configuration: the loss within 1e-5
       relative, the parameters within 1e-2 (1e-4 without the BN),
       ``c_indices[:N]`` agreeing on >= 0.9999, in exact f32 the codebooks
       within 2e-5 but for the codewords of the assignments that differ (at
@@ -275,17 +281,23 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       mixed families' forward over the owned rows (the head over its
       compact rows) and dx over the batch columns, or the COO forward over
       the owned rows' edges and the transposed sum over the batch columns'
-      edges;
+      edges; B + M GAT: row 8 (no row 1, 2 or 3) over the owned rows'
+      forward slots and the owned columns' transposed slots at the conv's
+      widths (nb * D and nb), rows 9 and 10 over the rank's own reverse
+      cells in both folds (as phase 5 holds the whole batch), rows 6 and 7;
+      B + M SAGE: row 1 (no row 2, 3 or 8), rows 9, 10, 6 and 7;
    c. the same step checks of the 2-D step at 1 x 2 (each rank half the
-      branches and the fan-in columns), rows 1, 2 and 3 at C = 64 and row 6
-      at nb = 16 against their plain versions;
-   d. timed steps and 3 profiled ones (20 of the flagship GCN, 5 each of
-      GCN and GAT at bf16 compute, 3 of each layout family) of each sharded
-      step: ms/step, device
-      busy, idle share and peak memory of rank 0, the collective ledger of
+      branches and the fan-in columns, on B + M GAT half the heads), rows
+      1, 2, 3 and 8 at C = 64 and rows 6, 9 and 10 at nb = 16 against
+      their plain versions;
+   d. timed steps and 3 profiled ones (10 of the flagship GCN, 5 each of
+      GCN and GAT at bf16 compute, 3 of each layout and B + M family) of
+      each sharded step: ms/step, device busy, idle share and peak memory
+      of rank 0, the collective ledger of
       each rank by category, the row exchanges of the bf16 steps at bf16,
       and no payload as large as the feature table, nor one shaped like a
-      ``c_indices`` table or an edge array (at these widths the batch
+      ``c_indices`` table, an edge array or the B + M reverse list (at
+      these widths the batch
       holds half the graph's nodes, so the exchanged rows outweigh a
       ``c_indices`` table: the sizes are logged).
 
@@ -345,6 +357,8 @@ SUITE_KERNELS = {
 }
 FOLD_KERNELS = {"x2": ("rev_forward", "rev_backward"),
                 "fast": ("rev_forward_fold_bf16", "rev_backward_fold_bf16")}
+# 10b: the tool's default run cut from its 60 epochs (the script's time limit)
+EPOCHS_10B = 30
 # 10c: the B + M GAT VQ arm (the suite's B + M epochs and evaluation period)
 EPOCHS_BM, EVAL_EVERY_BM = 40, 5
 # phases 11-12: the kernels of the link and inductive paths (rows 1, 6, 7)
@@ -1196,9 +1210,9 @@ def accuracy_phase(torch, ops, gpu, launches, err, device="cuda"):
             f"tests/test_parity_convergence.py {'hold' if ok else 'MISSED'} | {gpu}")
         assert ok, (name, ctrl, vq)
 
-    # 10b: the flagship GCN B + B' as the tool runs it by default, both arms;
-    # the trainers are kept for the full-graph forward
-    args = tool.parse_args([])
+    # 10b: the flagship GCN B + B' as the tool runs it by default but for its
+    # epochs, both arms; the trainers are kept for the full-graph forward
+    args = tool.parse_args(["--epochs", str(EPOCHS_10B)])
     graph_fn, src = tool.graph_source(args)
     cfg = tool.vq_config(args, args.nodes)
     trainers = {}
@@ -1999,7 +2013,7 @@ def ddp_phase(torch, ops, runs, graphs, gpu, err):
 
 
 SHARDED_RANKS = 2  # phase 17: two ranks on the one card, over gloo
-SHARDED_STEPS = 20  # timed steps of each sharded step in phase 17 (the flagship GCN)
+SHARDED_STEPS = 10  # timed steps of each sharded step in phase 17 (the flagship GCN)
 SHARDED_STEPS_BF16 = 5  # timed steps of the bf16 sharded steps (GCN and GAT)
 # 17b: the kernels each family's sharded path launches on every rank (its
 # f32 and bf16 cases together: rows 1 or 2-3 in both modes), launch counter
@@ -2021,16 +2035,35 @@ SHARDED_KERNELS = {
                 "vq_lookup": "lookup_kernel"},
     "GAT-coo": {"segment_sum": "segment_sum_kernel", "vq_assign": "assign_kernel",
                 "vq_lookup": "lookup_kernel"},
+    # B + M: the per-branch GAT conv's row 8 and rows 9-10 (GAT, f32 and
+    # bf16), row 1 and rows 9-10 with zero attention (SAGE)
+    "GAT-bm": {"segment_sum": "segment_sum_kernel", "rev_forward": "rev_rows_kernel",
+               "rev_backward": "rev_rows_kernel", "vq_assign": "assign_kernel",
+               "vq_lookup": "lookup_kernel"},
+    "GAT-bm-bf16": {"segment_sum": "segment_sum_kernel", "rev_forward": "rev_rows_kernel",
+                    "rev_backward": "rev_rows_kernel", "vq_assign": "assign_fast_kernel",
+                    "vq_lookup": "lookup_kernel"},
+    "SAGE-bm": {"ell_aggregate": "ell_aggregate_kernel", "rev_forward": "rev_rows_kernel",
+                "rev_backward": "rev_rows_kernel", "vq_assign": "assign_kernel",
+                "vq_lookup": "lookup_kernel"},
 }
 # ... and the rows each of those must not launch: no row 2 or 3 off the
-# single-K layout, no row 1 on COO or under the mixed GAT conv
+# single-K layout, no row 1 on COO or under the mixed or per-branch GAT
+# conv
 SHARDED_NOT = {
     "GCN-mixed": ("gat_aggregate", "gat_aggregate_bf16", "segment_sum", "segment_sum_scalar"),
     "GAT-mixed": ("gat_aggregate", "gat_aggregate_bf16", "gat_backward", "gat_backward_bf16",
                   "ell_aggregate", "ell_aggregate_bf16"),
     "GCN-coo": ("ell_aggregate", "gat_aggregate", "segment_sum_scalar"),
     "GAT-coo": ("ell_aggregate", "gat_aggregate", "gat_backward", "segment_sum_scalar"),
+    "GAT-bm": ("ell_aggregate", "ell_aggregate_bf16", "gat_aggregate", "gat_aggregate_bf16",
+               "gat_backward", "gat_backward_bf16", "segment_sum_scalar"),
+    "GAT-bm-bf16": ("ell_aggregate", "ell_aggregate_bf16", "gat_aggregate", "gat_aggregate_bf16",
+                    "gat_backward", "gat_backward_bf16", "segment_sum_scalar"),
+    "SAGE-bm": ("gat_aggregate", "gat_aggregate_bf16", "gat_backward", "gat_backward_bf16",
+                "segment_sum", "segment_sum_scalar"),
 }
+SAGE_BM_STEPS = 3  # whole-batch steps of the SAGE B + M state before phase 17
 SHARDED_STEPS_LAYOUT = 3  # timed steps of each sharded step on the other layouts
 
 
@@ -2043,10 +2076,12 @@ def _state_digest(arrays) -> str:
     return h.hexdigest()
 
 
-def _step_record(torch, state, loss):
-    """What phase 17 compares of a state after one step: the loss, the
-    named parameters, each layer's codebook and c_indices (numpy)."""
-    return dict(loss=loss,
+def _step_record(torch, state, m):
+    """What phase 17 compares of a state after one step: the loss and its
+    two terms (the step's metrics ``m``), the named parameters, each layer's
+    codebook and c_indices (numpy)."""
+    return dict(loss=float(m["loss"]), loss_cls=float(m["loss_cls"]),
+                info=float(m["info_backward"]),
                 params={k: v.detach().cpu().numpy() for k, v in state.model.named_parameters()},
                 emb=[s.embedding.cpu().numpy() for s in state.vq_states],
                 cidx=[s.c_indices.cpu().numpy() for s in state.vq_states])
@@ -2188,6 +2223,86 @@ def hold_gat_shard(torch, tag, label, edges, rows_all, C, gen, err):
             err[name + sfx] = max(err.get(name + sfx, 0.0), d)
 
 
+def mh_sum_calls(torch, e, widths, gen):
+    """Kernel 8's calls in the B + M GAT conv over a row shard, as
+    ``ops/gat.py:gat_conv_mh_sharded`` makes them: (label, (partials, seg,
+    R), None, lists) over the owned rows' forward slots (the aggregate and
+    the row sums forward, d_ar backward) and over the owned columns'
+    transposed slots (dx and d_al), each at the conv's widths (nb * D and
+    nb), random partials, with the shard's row offsets and long rows."""
+    R = e.num_rows
+    out = []
+    for label, rows, ptr, lr in (("forward", e.ell_row, e.ell_ptr, e.ell_long_rows),
+                                 ("transposed", e.t_ell_row, e.t_all_ptr, e.t_all_long_rows)):
+        for C in widths:
+            part = torch.randn((rows.shape[0], C), generator=gen, device="cuda")
+            out.append((f"{label} C={C}", (part, rows, R), None, dict(ptr=ptr, long_rows=lr)))
+    return out
+
+
+def hold_rev_shard(torch, tag, label, c_indices, sh, Dg, M, gen, err):
+    """Kernels 9 and 10 (rows 9 and 10) against their plain version over a
+    row shard's own reverse cells (``RowShard.rev_slot_*``, its row offsets
+    and long rows), as the recovery term calls them, in both folds, with
+    random O(1) xb [nb, b, Dg], al, arcb and gbar and the shard's codes of
+    ``c_indices``: each value to 1e-5 of the sum of the |terms| it adds up
+    plus 1e-6 of the largest such sum, as phase 5 holds the whole batch;
+    the same bits twice."""
+    from vq_gnn_tpu_torch.ops.rev_kernels import (
+        rev_backward,
+        rev_forward,
+        rev_recovery_info_plain,
+    )
+
+    nb, b = c_indices.shape[1], sh.B_pad
+    dev = c_indices.device
+    xb = torch.randn((nb, b, Dg), generator=gen, device=dev)
+    al = 0.5 * torch.randn((nb, b), generator=gen, device=dev)
+    arcb = 0.5 * torch.randn((nb, M), generator=gen, device=dev)
+    gbar = torch.randn((nb, M, Dg), generator=gen, device=dev)
+    g = torch.linspace(-1.0, 2.0, nb, device=dev)
+    kw = dict(c_indices=c_indices, slot_col=sh.rev_slot_col, slot_val=sh.rev_slot_val,
+              row_ptr=sh.rev_row_ptr, long_rows=sh.rev_long_rows)
+
+    def plain(xb_, gbar_, g_, fold):
+        leaves = [t.clone().requires_grad_(True) for t in (xb_, al, arcb)]
+        info = rev_recovery_info_plain(c_indices, sh.rev_slot_col, sh.rev_slot_val,
+                                       sh.rev_slot_row, *leaves, gbar_, fold=fold)
+        return (info.detach(), *torch.autograd.grad((info * g_).sum(), leaves))
+
+    absb = plain(xb.abs(), gbar.abs(), g.abs(), "x2")
+    for fold, keys in (("x2", ("rev_forward", "rev_backward")),
+                       ("fast", ("rev_forward_fold_bf16", "rev_backward_fold_bf16"))):
+        ref = plain(xb, gbar, g, fold)
+        outs, again = ((rev_forward(xb=xb, al=al, arcb=arcb, gbar=gbar, fold=fold, **kw),
+                        *rev_backward(xb=xb, al=al, arcb=arcb, gbar=gbar, g=g, fold=fold, **kw))
+                       for _ in range(2))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(outs, again))
+        worst = 0.0
+        for i, (o, r, bb) in enumerate(zip(outs, ref, absb)):
+            d = (o - r).abs()
+            ratio = float((d / (1e-5 * bb + 1e-6 * float(bb.max()))).max())
+            assert torch.isfinite(o).all() and ratio <= 1.0, (tag, fold, i, ratio)
+            worst = max(worst, ratio)
+            key = keys[0] if i == 0 else keys[1]
+            err[key] = max(err.get(key, 0.0), float(d.max()))
+        log(f"[{tag} rev fold={fold} {label}] nb {nb}, b {b}, M {M}, Dg {Dg}: slots "
+            f"{sh.rev_slot_row.shape[0]}, live cells {int((sh.rev_slot_val != 0).sum())}, "
+            f"{sh.rev_long_rows.shape[0] - 1} long rows; info, d_xb, d_al, d_arcb at most "
+            f"{worst:.4g} of the tolerance; two calls bit-identical: {same}")
+        assert same
+
+
+def rev_shapes(batch) -> set:
+    """The shapes of a B + M batch's reverse list (its rev-ELL slots and
+    their flat forms, or its raw entries), which no collective may carry."""
+    if batch.rev_slot_col is not None:
+        S, K = batch.rev_slot_col.shape
+        return {(S, K), (S,), (S * K,)}
+    return set() if batch.bm_rev_row is None else {tuple(batch.bm_rev_row.shape)}
+
+
 def gloo_probe(torch, dist, rank):
     """Whether gloo carries a bf16 CUDA tensor through an all-gather and an
     all-reduce (sum), and an f32 one through an all-reduce MAX, with the
@@ -2315,7 +2430,7 @@ def sharded_rank(rank, tmp):
                 n_steps += 1
                 if tag in fam["timed"]:  # its timed steps go on from here
                     stepped[tag] = (state, shard, step)
-                rec = _step_record(torch, state, float(m["loss"]))
+                rec = _step_record(torch, state, m)
                 if n_model == 1:
                     res["digest"][mname, fname, tag] = _state_digest(
                         list(rec["params"].values()) + rec["emb"] + [c[:-1] for c in rec["cidx"]])
@@ -2333,10 +2448,12 @@ def sharded_rank(rank, tmp):
                  f"{time.time() - t_fam:.1f}s")
             sh = shards[0]
             if mname == "1-D":
+                own_t = fname.startswith("GAT") and fname != "GAT-coo"
+                rev = ("" if sh.rev_slot_row is None else
+                       f", reverse list {sh.rev_slot_row.shape[0]} slots over its batch rows")
                 rlog(f"[17 shard] {fname} rank {rank} of {SHARDED_RANKS}: B_pad {sh.B_pad} of "
                      f"{sh.batch_B_pad}, Bp_pad {sh.Bp_pad}, owned {shard_line(sh.edges)} "
-                     f"(transposed: of its {'owned' if fname in ('GAT', 'GAT-mixed') else 'batch'} "
-                     f"columns), "
+                     f"(transposed: of its {'owned' if own_t else 'batch'} columns){rev}, "
                      f"gathered rows {R_all}")
             # 17b / 17c: the family's kernels at this rank's shapes
             tag17 = "17b" if n_model == 1 else "17c"
@@ -2354,16 +2471,23 @@ def sharded_rank(rank, tmp):
                 elif fname.endswith("-coo"):  # GAT's messages carry the ones column
                     hold_segment_sums(torch, f"{tag17} segment_sum coo {label}", coo_sum_calls(
                         torch, sh.edges, C + (fname == "GAT-coo"), gen), err, "segment_sum")
-                else:
-                    hold_sub_ell(torch, tag17, label, sh.edges, R_all, C, gen, err)
+                else:  # row 1 or the per-branch conv's row 8, rows 9-10 on B + M, rows 6, 7
                     vq1 = state.vq_states[1]
                     nb, M, K = vq1.embedding.shape
+                    D = next(iter(cfgs.values())).num_D
+                    if fname.startswith("GAT-bm"):
+                        hold_segment_sums(torch, f"{tag17} segment_sum {label}", mh_sum_calls(
+                            torch, sh.edges, (C, nb), gen), err, "segment_sum")
+                    else:
+                        hold_sub_ell(torch, tag17, label, sh.edges, R_all, C, gen, err)
+                    if "-bm" in fname:  # GAT's table rows carry the ones column
+                        hold_rev_shard(torch, tag17, label, vq1.c_indices, sh,
+                                       D + fname.startswith("GAT"), M, gen, err)
                     xn = torch.randn((nb, sh.B_pad, K), generator=gen, device="cuda")
                     hold_assign(torch, tag17, f"{label}, {nb} branches", xn,
                                 vq1.embedding.contiguous(), sh.valid_B.contiguous(), err,
                                 chunk=branch_chunk(sh.B_pad, M))
-                    hold_lookup(torch, tag17, f"{label}, {nb} branches", vq1, sh.fo_ids,
-                                cfgs["flagship"].num_D)
+                    hold_lookup(torch, tag17, f"{label}, {nb} branches", vq1, sh.fo_ids, D)
                     del xn
             del state, shards, step
     res["err"] = err
@@ -2372,10 +2496,17 @@ def sharded_rank(rank, tmp):
     dist.destroy_process_group()
 
 
-def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True):
+def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True, terms=False):
     """One sharded step (``got``, model rank m's part on the 2-D mesh)
     against ``train_step`` on the whole batch from one state: the loss to
-    1e-5 relative, the parameters to ``atol``, ``c_indices[:N]`` agreeing
+    1e-5 relative (with ``terms``, the B + M families', each of its two
+    terms, the CE and the recovery term, to 1e-5 relative, and the loss to
+    1e-5 of the sum of their sizes, which those two checks imply: the
+    recovery term can nearly cancel the CE, to a loss of 2.8e-4 from terms
+    of 2.5e-3 and -2.2e-3 on phase 3's B + M bf16 state, and a check
+    relative to that difference magnifies each term's reordering error,
+    2.4e-6 of the CE there, 17 times), the parameters to ``atol``,
+    ``c_indices[:N]`` agreeing
     on >= 0.9999, and with ``codebooks`` the codebooks to rtol and atol 2e-5
     (the tolerances of tests/test_multichip.py) except the codewords of the
     assignments that differ: a near tie that the moments' sums in another
@@ -2385,10 +2516,20 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True):
     a codeword of one or two members carries that whole."""
     import numpy as np
 
-    rel = abs(got["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+    size = abs(ref["loss_cls"]) + abs(ref["info"]) if terms else abs(ref["loss"])
+    rel = abs(got["loss"] - ref["loss"]) / max(size, 1e-30)
+    if terms:
+        for k in ("loss_cls", "info"):
+            rel_k = abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+            log(f"[{tag}] {k} {got[k]:.7f} vs train_step {ref[k]:.7f}, rel diff {rel_k:.3g} "
+                f"(tol 1e-5)")
+            assert rel_k <= 1e-5, (tag, k, rel_k)
     d_par = 0.0
     for k, v in ref["params"].items():
-        if n_model > 1 and v.ndim == 2:  # the fan-in columns of this rank's branches
+        if n_model > 1 and v.ndim == 2 and k.endswith(("att_l", "att_r")):  # B + M GAT heads
+            h = v.shape[0] // n_model  # this rank's branches' rows
+            v = v[m * h : (m + 1) * h]
+        elif n_model > 1 and v.ndim == 2:  # the fan-in columns of this rank's branches
             w = v.shape[1] // n_model
             v = v[:, m * w : (m + 1) * w]
         d_par = max(d_par, float(np.abs(got["params"][k] - v).max()))
@@ -2405,7 +2546,8 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True):
         diff = np.abs(e_got - e_ref) - 2e-5 * np.abs(e_ref)
         d_emb = max(d_emb, float(diff[keep].max()))
     log(f"[{tag}] one step from one state on the fixed-pad batch: loss {got['loss']:.7f} vs "
-        f"train_step {ref['loss']:.7f}, rel diff {rel:.3g} (tol 1e-5); parameters max|diff| "
+        f"train_step {ref['loss']:.7f}, rel diff {rel:.3g}{' of the terms' if terms else ''} "
+        f"(tol 1e-5); parameters max|diff| "
         f"{d_par:.3g} (tol {atol:g}); c_indices[:N] agree {agree:.6f} (>= 0.9999); codebooks "
         f"max(|diff| - 2e-5 |ref|) {d_emb:.3g} (tol 2e-5) over all but the {moved} codewords "
         f"of the differing assignments{'' if codebooks else ' (logged, not held)'} | {gpu}")
@@ -2414,34 +2556,63 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True):
 
 
 def _family_plan(tr, graph, cfgs, timed, host, n_batches=None):
-    """Phase 17's plan for one family (a conv's trainer from phase 3): its
+    """Phase 17's plan for one family (a trainer's state): its
     configurations at the trainer's high-water pads (phase 15's fixed pads),
     one epoch of host batches in their layout (its first ``n_batches``), the
-    feature table and the state (numpy, one copy a trainer in ``host``,
-    which the plan's pickle stores once)."""
+    feature table and the state (numpy, one copy a graph and a trainer in
+    ``host``, which the plan's pickle stores once)."""
     from vq_gnn_tpu_torch.convert import state_to_numpy
     from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 
-    if id(tr) not in host:
-        host[id(tr)] = (tr.X_dev.cpu().numpy(), state_to_numpy(tr.state))
     g, c, ci = graph
+    if id(g) not in host:
+        host[id(g)] = tr.X_dev.cpu().numpy()
+    if id(tr) not in host:
+        host[id(tr)] = state_to_numpy(tr.state)
     hw = tr.train_loader
     pads = dict(fixed_B_pad=hw._B_bucket, fixed_Bp_pad=hw._Bp_bucket, fixed_E_pad=hw._E_bucket)
     cfgs = {k: dataclasses.replace(v, **pads) for k, v in cfgs.items()}
     base = next(iter(cfgs.values()))
     loader = BatchLoader(g, base, train_flag=True, cluster_indices=ci, seed=base.seed,
                          device="cuda")
-    X, state = host[id(tr)]
+    X, state = host[id(g)], host[id(tr)]
     batches = [w[0] for w, _ in itertools.islice(loader._epoch_iter(), n_batches)]
     return dict(cfgs=cfgs, timed=timed, batches=batches, X=X, state=state,
                 C_hidden=base.hidden_channels)
 
 
+def sage_bm_trainer(torch, ops, graph):
+    """The SAGE B + M trainer of phase 17 (the bench's B + M cell, ELL K =
+    8) on phase 2's graph in SAGE's v1 normalisation: its init sweep and
+    ``SAGE_BM_STEPS`` whole-batch steps on the epoch's first batches, so
+    that its codebooks' gradient half, which the recovery term reads, is
+    not zero; none counted."""
+    from vq_gnn_tpu_torch.config import Config
+    from vq_gnn_tpu_torch.train.loop import NodeTrainer
+
+    t0 = time.time()
+    cfg = bm_cfg(Config, conv_type="SAGE", ell_K=8)
+    g, c, ci = graph
+    tr = NodeTrainer(g, cfg, c, ci, device="cuda")
+    losses = []
+    with ops.uncounted():
+        tr.run_init_sweep()
+        for w, _ in itertools.islice(tr.train_loader._epoch_iter(), SAGE_BM_STEPS):
+            tr.state, m = tr.fns.train_step(tr.state, tr.X_dev, w[0].to("cuda"), 1.0, cfg.lr,
+                                            1.0, tr.generator)
+            losses.append((round(float(m["loss"]), 4), round(float(m["info_backward"]), 4)))
+    log(f"[17 setup] SAGE B + M: init sweep and {SAGE_BM_STEPS} steps (loss, info_backward) "
+        f"{losses} in {time.time() - t0:.1f}s")
+    assert all(math.isfinite(a) and math.isfinite(b) for a, b in losses)
+    return tr
+
+
 def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     """Phase 17: one batch sharded over two ranks on the card
     (``parallel/mesh.py``, ``parallel/sharded.py``), the flagship GCN and GAT
-    B + B' from the states of phase 3's trainers (the module docstring says
-    what it runs).  Returns the two ranks' launches on the sharded paths."""
+    B + B' and the B + M GAT from the states of phase 3's trainers, SAGE
+    B + M from :func:`sage_bm_trainer`'s (the module docstring says what it
+    runs).  Returns the two ranks' launches on the sharded paths."""
     import pickle
     import tempfile
 
@@ -2464,8 +2635,10 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     bf16 = dict(compute_dtype="bfloat16")
     mixed, coo = dict(ell_Kt=2), dict(spmm_backend="coo")
     gcn, gat = tr.cfg, trainers["GAT"].cfg
+    sage_bm = sage_bm_trainer(torch, ops, graphs["SAGE-bm"])
     tr_of = {"GCN": tr, "GAT": trainers["GAT"], "GCN-mixed": tr, "GAT-mixed": trainers["GAT"],
-             "GCN-coo": tr, "GAT-coo": trainers["GAT"]}
+             "GCN-coo": tr, "GAT-coo": trainers["GAT"], "GAT-bm": trainers["GAT-bm"],
+             "GAT-bm-bf16": trainers["GAT-bm-bf16"], "SAGE-bm": sage_bm}
     host = {}
     n3 = SHARDED_STEPS_LAYOUT
     fams = {
@@ -2479,16 +2652,25 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
         # the other layouts, on phase 14's paths (the epoch's first batch):
         # 14a's GCN mixed-K and 14c's GCN COO in exact f32, 14b's GAT
         # mixed-K at bf16 compute, and GAT B + B' on COO in exact f32
-        "GCN-mixed": _family_plan(tr, graphs["GCN"], {"exact": exact(dataclasses.replace(
-            gcn, **mixed))}, {"exact": n3}, host, 1),
-        "GAT-mixed": _family_plan(trainers["GAT"], graphs["GAT"], {"bf16": dataclasses.replace(
-            gat, **bf16, **mixed)}, {"bf16": n3}, host, 1),
-        "GCN-coo": _family_plan(tr, graphs["GCN"], {"exact": exact(dataclasses.replace(
-            gcn, **coo))}, {"exact": n3}, host, 1),
+        "GCN-mixed": _family_plan(tr, graphs["GCN"], {"exact": exact(
+            dataclasses.replace(gcn, **mixed))}, {"exact": n3}, host, 1),
+        "GAT-mixed": _family_plan(trainers["GAT"], graphs["GAT"], {
+            "bf16": dataclasses.replace(gat, **bf16, **mixed)}, {"bf16": n3}, host, 1),
+        "GCN-coo": _family_plan(tr, graphs["GCN"], {"exact": exact(
+            dataclasses.replace(gcn, **coo))}, {"exact": n3}, host, 1),
         "GAT-coo": _family_plan(trainers["GAT"], graphs["GAT"], {"exact": exact(
             dataclasses.replace(gat, **coo))}, {"exact": n3}, host, 1),
+        # B + M on the epoch's first batch: phase 3's GAT states in exact f32
+        # and at bf16 compute (their codebooks trained, so that rows 9-10 read
+        # a gradient table that is not zero), SAGE's in exact f32
+        "GAT-bm": _family_plan(trainers["GAT-bm"], graphs["GAT-bm"], {
+            "exact": exact(trainers["GAT-bm"].cfg)}, {"exact": n3}, host, 1),
+        "GAT-bm-bf16": _family_plan(trainers["GAT-bm-bf16"], graphs["GAT-bm"], {
+            "bf16": trainers["GAT-bm-bf16"].cfg}, {"bf16": n3}, host, 1),
+        "SAGE-bm": _family_plan(sage_bm, graphs["SAGE-bm"], {
+            "exact": exact(sage_bm.cfg)}, {"exact": n3}, host, 1),
     }
-    del host
+    del host, sage_bm
     F, C = graphs["GCN"][0].num_features, tr.ms.channels[-1]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_17_")
     with open(os.path.join(tmp, "plan.pkl"), "wb") as f:
@@ -2513,7 +2695,7 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             with ops.uncounted():
                 st, m = make_step_fns(ms, cf).train_step(st, X, fam["batches"][0].to("cuda"),
                                                          1.0, cf.lr, 1.0)
-            refs[fname, tag] = _step_record(torch, st, float(m["loss"]))
+            refs[fname, tag] = _step_record(torch, st, m)
             del st
 
     t1 = time.time()
@@ -2536,12 +2718,13 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             assert outs[0]["digest"]["1-D", fname, tag] == outs[1]["digest"]["1-D", fname, tag], \
                 f"the 1-D ranks' states differ ({fname} {tag})"
             ref = refs[fname, tag]
+            bm = "-bm" in fname
             compare_step(f"17a {fname} 1-D vs train_step, {tag}", outs[0]["1-D", fname, tag], ref,
-                         N, atol, gpu, codebooks=held)
+                         N, atol, gpu, codebooks=held, terms=bm)
             for r in range(SHARDED_RANKS):
                 compare_step(f"17c {fname} 2-D 1x2 model rank {r} vs train_step, {tag}",
                              outs[r]["2-D 1x2", fname, tag], ref, N, atol, gpu, m=r,
-                             n_model=SHARDED_RANKS, codebooks=held)
+                             n_model=SHARDED_RANKS, codebooks=held, terms=bm)
 
     # 17b: the launch counters of each rank, on each path, a step
     launches = {}
@@ -2569,7 +2752,8 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     cidx_bytes = (N + 1) * tr.state.vq_states[0].c_indices.shape[1] * 2
     for path, st in outs[0]["steps"].items():
         fname = path.split()[0]
-        banned = edge_shapes(fams[fname]["batches"][0].edges)
+        b0 = fams[fname]["batches"][0]
+        banned = edge_shapes(b0.edges) | rev_shapes(b0)
         col_bytes = max(math.prod(sh) for sh in banned) * 4  # the largest edge array
         busy = "not measured" if st["busy"] is None else f"{st['busy']:.3f}"
         idle = ("not measured" if st["busy"] is None
@@ -2854,6 +3038,8 @@ def main() -> int:
         graphs[conv] = prepare(g, flagship_cfg(Config, conv_type=conv), c)
     g, c = copy.deepcopy(raw)
     graphs["GCN-bm"] = prepare(g, bm_cfg(Config, conv_type="GCN"), c)  # for phase 13a
+    g, c = copy.deepcopy(raw)
+    graphs["SAGE-bm"] = prepare(g, bm_cfg(Config, conv_type="SAGE"), c)  # for phase 17
     g, c = raw
     graphs["GAT-bm"] = prepare(g, bm_cfg(Config), c)  # v1 normalisation, no partition
     del raw
@@ -2883,7 +3069,7 @@ def main() -> int:
         graph = graphs["GAT-bm" if cfg_p.formulation == "bm" else cfg_p.conv_type]
         runs[tag] = drive_path(torch, ops, NodeTrainer, tag, graph, cfg_p, gpu, steps,
                                profile=full, evaluate=full, kernels=PATH_KERNELS[kind])
-        if tag not in ("3 GCN", "3 GAT", "3 GAT-bm"):
+        if tag not in ("3 GCN", "3 GAT", "3 GAT-bm", "3 GAT-bm-bf16"):
             runs[tag].pop("tr")  # only these trainers' states are read later
     for tag, dtype in (("3 GAT-256", "float32"), ("3 GAT-256-bf16", "bfloat16")):
         assert runs[tag]["by_width"].get((256, dtype), 0) > 0, (
@@ -3487,9 +3673,11 @@ def main() -> int:
                               ("SAGE", "bm", "float32"), ("GAT", "bm", "float32"),
                               ("GAT", "bbprime", "bfloat16")):
         t0 = time.time()
+        # B + M: one epoch of nine steps, past the first flipped assignment
+        epochs = (1,) if form == "bm" else (1, 2)
         if dtype == "float32":  # the two init sweeps agree exactly
             rg, rc = (small_graph_run(Config, NodeTrainer, prepare, synthetic_sbm, conv, form,
-                                      device) for device in ("cuda", "cpu"))
+                                      device, epochs=epochs) for device in ("cuda", "cpu"))
         else:
             # at bf16 a sum in another order can move a bf16 rounding (a
             # logit dot, dx) by one unit, and the init sweep's near-tied
@@ -3619,8 +3807,9 @@ def main() -> int:
     # ---- 17. one batch sharded over two ranks: the 1-D and 2-D meshes ----
     phase("17 sharded")
     t0 = time.time()
-    counts.append(sharded_phase(torch, ops, {"GCN": runs["3 GCN"]["tr"],
-                                             "GAT": runs["3 GAT"]["tr"]}, graphs, gpu, err))
+    counts.append(sharded_phase(torch, ops, {
+        "GCN": runs["3 GCN"]["tr"], "GAT": runs["3 GAT"]["tr"], "GAT-bm": runs["3 GAT-bm"]["tr"],
+        "GAT-bm-bf16": runs["3 GAT-bm-bf16"]["tr"]}, graphs, gpu, err))
     log(f"[17 sharded] the phase took {time.time() - t0:.1f}s")
     for c in counts:
         for k, v in c.items():

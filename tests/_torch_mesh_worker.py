@@ -13,7 +13,9 @@ arrays.  Ranks
 outside a case's mesh (a mesh of two in a group of four) make its groups
 and sit it out.  The plan's ``scale`` cases (ranks 0 and 1) run the
 sharded Trick-1 scale on each rank's logits and pickle its value and the
-logits' gradients.  Imports the port and torch only, never JAX.
+logits' gradients: the B + B' scalar scale, or with ``kind`` 'branch-scale'
+the B + M per-branch one (with the codebooks' logits and their
+gradients).  Imports the port and torch only, never JAX.
 """
 
 import dataclasses
@@ -32,7 +34,7 @@ from vq_gnn_tpu_torch.convert import state_from_numpy  # noqa: E402
 from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm  # noqa: E402
 from vq_gnn_tpu_torch.nn.model import model_static  # noqa: E402
 from vq_gnn_tpu_torch.nn.vq import VQState  # noqa: E402
-from vq_gnn_tpu_torch.ops.gat import explosion_scale  # noqa: E402
+from vq_gnn_tpu_torch.ops.gat import branch_scale, explosion_scale  # noqa: E402
 from vq_gnn_tpu_torch.parallel import (  # noqa: E402
     CollectiveLedger,
     DataMesh,
@@ -67,13 +69,21 @@ def run_scale(case: dict, rank: int, meshes: dict) -> dict:
         return {}
     al, ar = (torch.tensor(case[k][rank], requires_grad=True) for k in ("al", "ar"))
     ranks = _ScaleRanks(_Collectives(mesh.group, CollectiveLedger()))
-    scale = explosion_scale(al, ar, torch.tensor(case["valid"][rank]), ranks)
-    (case["g"][rank] * scale).backward()
-    return {"scale": float(scale), "d_al": al.grad.numpy(), "d_ar": ar.grad.numpy()}
+    valid = torch.tensor(case["valid"][rank])
+    g = torch.as_tensor(case["g"][rank])
+    if case["kind"] == "scale":
+        scale = explosion_scale(al, ar, valid, ranks)
+        (g * scale).backward()
+        return {"scale": float(scale), "d_al": al.grad.numpy(), "d_ar": ar.grad.numpy()}
+    cb = [torch.tensor(case[k], requires_grad=True) for k in ("al_cb", "ar_cb")]
+    scale = branch_scale(al, ar, *cb, valid, ranks)
+    (g * scale).sum().backward()
+    return {"scale": scale.detach().numpy(), "d_al": al.grad.numpy(), "d_ar": ar.grad.numpy(),
+            "d_al_cb": cb[0].grad.numpy(), "d_ar_cb": cb[1].grad.numpy()}
 
 
 def run_case(case: dict, rank: int, meshes: dict) -> dict:
-    if case.get("kind") == "scale":
+    if case.get("kind") in ("scale", "branch-scale"):
         return run_scale(case, rank, meshes)
     kind = case["mesh"]
     if meshes[kind[1] if kind[0] == "1d" else "2d"] is None:

@@ -40,6 +40,7 @@ from torch import nn
 from vq_gnn_tpu_torch.config import Config, check_ported, resolve_vq_backend, torch_dtype
 from vq_gnn_tpu_torch.nn.vq import VQParams, VQState, lookup
 from vq_gnn_tpu_torch.ops.gat import (
+    branch_scale,
     explosion_scale,
     gat_conv_coo,
     gat_conv_ell,
@@ -326,15 +327,16 @@ def layer_forward(
     ``fan_in_reduce`` is the 2-D mesh's (``parallel/sharded.py``): x holds
     this rank's branches' columns and the linears their fan-in rows, and
     the function sums the partial products over the ranks of the branches
-    (see :func:`_layer_output`).  A row shard's edges carry their GAT conv
-    (``ShardEdges.gat``, bound to the ranks by the sharded step), which
-    takes the place of the logits, the Trick-1 scale and the conv here, in
-    each layout.
+    (see :func:`_layer_output`); the B + M layer takes it too.  A row
+    shard's edges carry their GAT conv (``ShardEdges.gat``, bound to the
+    ranks by the sharded step), which takes the place of the logits, the
+    Trick-1 scale and the conv here, in each layout.
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     if ms.formulation == "bm":
         return layer_forward_bm(layer, vq_state, ms, x, batch, probe, warm_up_rate,
-                                branch_keep=branch_keep, vq_tr=vq_tr, probe_tr=probe_tr)
+                                branch_keep=branch_keep, vq_tr=vq_tr, probe_tr=probe_tr,
+                                fan_in_reduce=fan_in_reduce)
     B_pad = batch.B_pad
     cd = torch_dtype(ms.compute_dtype)
     # out-of-batch features/grads from the codebook (models.py v2:165-173);
@@ -397,7 +399,7 @@ def _layer_output(layer, ms: ModelStatic, x, conv_B, x_tr=None, fan_in_reduce=No
     v2:203-204), the transformer branch's ``transformer_v`` of its output
     ``x_tr`` and ``transformer_res`` of the layer input (v1/models.py:
     342-362), and the skip linear of the layer input.  With
-    ``fan_in_reduce`` (the 2-D mesh, B + B' GCN, SAGE and GAT) the products
+    ``fan_in_reduce`` (the 2-D mesh: GCN, SAGE and GAT) the products
     without their biases are summed locally, ``fan_in_reduce`` adds the
     other ranks' partial sums, then the biases are added once."""
     if fan_in_reduce is not None:
@@ -552,6 +554,7 @@ def layer_forward_bm(
     branch_keep: Optional[torch.Tensor] = None,  # [nb] bool, the dropbranch mask
     vq_tr: Optional[VQState] = None,
     probe_tr: Optional[torch.Tensor] = None,
+    fan_in_reduce=None,
 ):
     """One v1 LowRankGNNLayer (``vq_gnn_v1/models.py:143-233, 307-367``;
     ``vq_gnn_tpu/nn/model.py:576-800``).
@@ -569,6 +572,14 @@ def layer_forward_bm(
     recovery term and a zeroed slice of the conv output.  With
     ``transformer_flag`` the transformer branch (over ``vq_tr``, its hook
     point ``probe_tr``) adds to the output and to info_backward.
+
+    On a row shard (``parallel/sharded.py``) the batch is the rank's rows
+    (its B_pad, Bp_pad, reverse list and ``fo_ids``), the GCN and SAGE convs
+    exchange rows through ``spmm``, and the GAT conv takes the shard's
+    hooks: ``scale_ranks`` for the per-branch Trick-1 max over every rank's
+    rows, ``gat_mh`` for the conv; the recovery term covers the rank's own
+    rows, and its sum over the ranks is the whole batch's.
+    ``fan_in_reduce`` as :func:`layer_forward` takes it (the 2-D mesh).
 
     Returns (x_out [B_pad, C_out], info_backward scalar)."""
     B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
@@ -604,7 +615,8 @@ def layer_forward_bm(
             info_backward = (x_out[B_pad:] * grad_fo * warm_up_rate).sum()
         if branch_keep is not None:
             out_B = out_B * _keep_cols(branch_keep, D)
-        return _layer_output(layer, ms, x, out_B, x_tr), info_backward + info_tr
+        return (_layer_output(layer, ms, x, out_B, x_tr, fan_in_reduce=fan_in_reduce),
+                info_backward + info_tr)
 
     # Trick-1 logits per branch over the valid batch rows and the whole
     # codebook (the v1 conv takes the max over its B + M input, convs.py:209)
@@ -616,18 +628,21 @@ def layer_forward_bm(
     if batch.edges.ell_row is None:
         x_out_B, info_backward = _gat_bm_coo(layer, vq_state, ms, x, x_fo, grad_fo, batch,
                                              probe, warm_up_rate, al_cb, ar_cb, branch_keep)
-        return _layer_output(layer, ms, x, x_out_B, x_tr), info_backward + info_tr
+        return (_layer_output(layer, ms, x, x_out_B, x_tr, fan_in_reduce=fan_in_reduce),
+                info_backward + info_tr)
+    e = batch.edges
     al_n = _branch_logits(x_input, layer.att_l, D)  # [dim_pad, nb]
     ar_n = _branch_logits(x_input, layer.att_r, D)
-    invalid = ~batch.valid_B[:, None]
-    ml = torch.maximum(al_n[:B_pad].masked_fill(invalid, float("-inf")).amax(0), al_cb.amax(1))
-    mr = torch.maximum(ar_n[:B_pad].masked_fill(invalid, float("-inf")).amax(0), ar_cb.amax(1))
-    scale_n = torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)  # [nb]
+    scale_n = branch_scale(al_n[:B_pad], ar_n[:B_pad], al_cb, ar_cb, batch.valid_B,
+                           getattr(e, "scale_ranks", None))  # [nb]
     al_n, ar_n = al_n / scale_n, ar_n / scale_n
     cd = torch_dtype(ms.compute_dtype)
     if x_input.dtype != cd:  # bf16 streaming halves the gathered bytes
         x_input = x_input.to(cd)
-    agg, rs = gat_conv_ell_mh(batch.edges, x_input, al_n, ar_n)
+    if getattr(e, "gat_mh", None) is not None:  # a row shard's, bound to its ranks
+        agg, rs = e.gat_mh(x_input, al_n, ar_n)
+    else:
+        agg, rs = gat_conv_ell_mh(e, x_input, al_n, ar_n)
     agg_B, rs_B = agg[:B_pad], rs[:B_pad]
     if probe is not None:  # [nb, B_pad, D + 1], the ones column last
         agg_B = agg_B + probe[:, :, :D].permute(1, 0, 2).reshape(B_pad, nb * D)
@@ -647,7 +662,8 @@ def layer_forward_bm(
     out_B = agg_B / (rs_B.repeat_interleave(D, dim=1) + 1e-16)
     if branch_keep is not None:
         out_B = out_B * _keep_cols(branch_keep, D)
-    return _layer_output(layer, ms, x, out_B, x_tr), info_backward + info_tr
+    return (_layer_output(layer, ms, x, out_B, x_tr, fan_in_reduce=fan_in_reduce),
+            info_backward + info_tr)
 
 
 def _gat_bm_coo(layer, vq_state: VQState, ms: ModelStatic, x, x_fo, grad_fo,

@@ -33,7 +33,8 @@ A batch sharded over ranks (``parallel/sharded.py``) runs the same
 kernels over each rank's rows: :func:`gat_conv_sharded` (either fused conv
 over a row shard's ``ShardEdges``, single-K or mixed-K, with the
 collectives it is handed), :func:`gat_conv_coo` (the COO fallback, over
-the rank's edges) and :func:`explosion_scale`'s ``ranks`` (the
+the rank's edges), :func:`gat_conv_mh_sharded` (the B + M per-branch conv)
+and the ``ranks`` of :func:`explosion_scale` and :func:`branch_scale` (the
 Trick-1 max over every rank's rows).
 """
 
@@ -48,9 +49,9 @@ from vq_gnn_tpu_torch.ops.gat_kernels import NEGATIVE_SLOPE, gat_aggregate, gat_
 from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 from vq_gnn_tpu_torch.ops.spmm import Edges, fold_rows, mixed_families, spmm
 
-__all__ = ["NEGATIVE_SLOPE", "attention_logits", "explosion_scale", "gat_conv_coo",
-           "gat_conv_ell", "gat_conv_ell_mh", "gat_conv_sharded", "gat_edge_values",
-           "node_logits"]
+__all__ = ["NEGATIVE_SLOPE", "attention_logits", "branch_scale", "explosion_scale",
+           "gat_conv_coo", "gat_conv_ell", "gat_conv_ell_mh", "gat_conv_mh_sharded",
+           "gat_conv_sharded", "gat_edge_values", "node_logits"]
 
 
 def attention_logits(x, att_l, att_r):
@@ -59,16 +60,17 @@ def attention_logits(x, att_l, att_r):
 
 
 class _RanksMax(torch.autograd.Function):
-    """The max of each row of v [k, n] over every rank's v: this rank's max,
-    then an all-reduce MAX.  The backward is the whole batch's full ``max``:
-    the cotangent (summed over the ranks, each holding its part of it) split
-    evenly over the ties of every rank (their count summed over the ranks),
-    as torch's ``max()`` and ``jnp.max`` split it."""
+    """The max over the last axis of v [..., n] over every rank's v: this
+    rank's max, then one all-reduce MAX of the [...] maxima.  The backward
+    is the whole batch's full ``amax``: the cotangent (summed over the
+    ranks, each holding its part of it) split evenly over the ties of every
+    rank (their count summed over the ranks), as torch's ``amax`` and
+    ``jnp.max`` split it; one all-reduce of both."""
 
     @staticmethod
     def forward(ctx, v, ranks):
-        m = ranks.max(v.max(1).values)
-        ties = v == m[:, None]
+        m = ranks.max(v.amax(-1))
+        ties = v == m[..., None]
         ctx.ranks = ranks
         ctx.save_for_backward(ties)
         return m
@@ -76,9 +78,10 @@ class _RanksMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ties,) = ctx.saved_tensors
-        k = g.shape[0]
-        both = ctx.ranks.sum(torch.cat([g, ties.sum(1).to(g.dtype)]))
-        return ties * (both[:k] / both[k:].clamp(min=1.0))[:, None], None
+        k = g.numel()
+        both = ctx.ranks.sum(torch.cat([g.reshape(-1), ties.sum(-1).reshape(-1).to(g.dtype)]))
+        share = (both[:k] / both[k:].clamp(min=1.0)).reshape(g.shape)
+        return ties * share[..., None], None
 
 
 def explosion_scale(alpha_l, alpha_r, valid=None, ranks=None):
@@ -99,6 +102,21 @@ def explosion_scale(alpha_l, alpha_r, valid=None, ranks=None):
     else:
         ml, mr = alpha_l.max(), alpha_r.max()
     return torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)
+
+
+def branch_scale(al, ar, al_cb, ar_cb, valid, ranks=None):
+    """The B + M GAT conv's per-branch Trick-1 scale [nb]
+    (``vq_gnn_tpu/nn/model.py:680-692``): each branch's largest logit over
+    the valid batch rows (al, ar [B_pad, nb]) and over its codewords (al_cb,
+    ar_cb [nb, M]), both sides, the v1 conv's max over its B + M input
+    (convs.py:209).  With ``ranks`` (a row shard's, as
+    :func:`explosion_scale` takes it) the batch rows' max is over every
+    rank's valid rows, one all-reduce of [2, nb] each way
+    (:class:`_RanksMax`); the codewords' max joins it after, locally."""
+    v = torch.stack([al.t(), ar.t()]).masked_fill(~valid[None, None, :], float("-inf"))
+    rows = v.amax(-1) if ranks is None else _RanksMax.apply(v, ranks)
+    m = torch.maximum(rows, torch.stack([al_cb.amax(1), ar_cb.amax(1)]))
+    return torch.sqrt(m[0] ** 2 + 1.0) * torch.sqrt(m[1] ** 2 + 1.0)
 
 
 def gat_edge_values(row, col, adj_val, alpha_l, alpha_r, negative_slope=NEGATIVE_SLOPE):
@@ -568,13 +586,50 @@ def _weighted_rows(ev, table, idx):
     return (ev[..., None] * rows.reshape(S, K, nb, -1)).sum(1).reshape(S, -1)
 
 
-def _gat_mh_forward(edges: Edges, x_g, al, ar):
-    """(agg [R, nb*D], rowsum [R, nb]) over the forward ELL."""
+def _gat_mh_forward(edges: Edges, x_tab, al_tab, ar):
+    """(agg [R, nb*D], rowsum [R, nb]) of the R rows of the forward ELL,
+    reading the table of x and al its columns index (the rows themselves,
+    or every rank's rows over a row shard) and ar of the rows."""
     R = edges.num_rows
-    _, ev = _gat_mh_ev(edges.ell_row, edges.ell_col, edges.ell_val, al, ar)
+    _, ev = _gat_mh_ev(edges.ell_row, edges.ell_col, edges.ell_val, al_tab, ar)
     lists = dict(ptr=edges.ell_ptr, long_rows=edges.ell_long_rows)
-    agg = segment_sum_sorted(_weighted_rows(ev, x_g, edges.ell_col), edges.ell_row, R, **lists)
+    agg = segment_sum_sorted(_weighted_rows(ev, x_tab, edges.ell_col), edges.ell_row, R,
+                             **lists)
     return agg, segment_sum_sorted(ev.sum(1), edges.ell_row, R, **lists)
+
+
+def _gat_mh_d_a(g, g_rs, x, a, ev):
+    """Per-cell logit cotangent d_a [S, K, nb]: (<g, x> over each branch's D
+    channels + g_rs) * ev * leaky_relu'(a), from the cells' cotangents g [.,
+    ., nb*D] and g_rs [., ., nb] and their rows of x [., ., nb*D], each
+    [S, K, ...] or [S, 1, ...] (the slot's own row), widened to f32."""
+    S, K, nb = ev.shape
+    d_ev = (g.float().reshape(g.shape[0], g.shape[1], nb, -1)
+            * x.float().reshape(x.shape[0], x.shape[1], nb, -1)).sum(-1) + g_rs.float()
+    return d_ev * ev * torch.where(a > 0, 1.0, NEGATIVE_SLOPE)
+
+
+def _mh_transposed_grads(e: Edges, g_tab, g_rs_tab, x_g, al, ar_tab, need_dx: bool):
+    """(dx, d_al [R, nb], d_a_t [St, Kt, nb]) of the R rows of ``x_g`` over
+    their transposed slots: row = the source (sorted), column = the
+    destination, which indexes the cotangent tables ``g_tab`` [., nb*D] and
+    ``g_rs_tab`` [., nb] (at x's dtype) and ``ar_tab``, so the logit roles
+    swap: a_t = al[source] + ar[destination].  dx (None unless ``need_dx``)
+    at x's dtype; kernel 8 each, with the whole transposed ELL's row lists."""
+    R, nb = al.shape
+    St, Kt = e.t_ell_col.shape
+    a_t, ev_t = _gat_mh_ev(e.t_ell_row, e.t_ell_col, e.t_ell_val, ar_tab, al)
+    t_lists = dict(ptr=e.t_all_ptr, long_rows=e.t_all_long_rows)
+    dx = None
+    if need_dx:
+        dx = segment_sum_sorted(_weighted_rows(ev_t, g_tab, e.t_ell_col), e.t_ell_row, R,
+                                **t_lists).to(x_g.dtype)
+    idx_t = e.t_ell_col.reshape(-1).long().clamp(0, g_tab.shape[0] - 1)
+    d_a_t = _gat_mh_d_a(g_tab.index_select(0, idx_t).reshape(St, Kt, -1),
+                        g_rs_tab.index_select(0, idx_t).reshape(St, Kt, nb),
+                        x_g.index_select(0, e.t_ell_row.long().clamp(0, R - 1))[:, None],
+                        a_t, ev_t)
+    return dx, segment_sum_sorted(d_a_t.sum(1), e.t_ell_row, R, **t_lists), d_a_t
 
 
 class _GATConvMH(torch.autograd.Function):
@@ -588,36 +643,104 @@ class _GATConvMH(torch.autograd.Function):
     def backward(ctx, g_agg, g_rs):
         e: Edges = ctx.edges
         x_g, al, ar = ctx.saved_tensors
-        R = e.num_rows
-        St, Kt = e.t_ell_col.shape
         nb = al.shape[1]
         # the cotangents are gathered at x_g's dtype, as JAX streams them
         gs = x_g.dtype
         g_agg, g_rs = g_agg.to(gs).contiguous(), g_rs.to(gs).contiguous()
-        # transposed cells: row = source (sorted), column = destination, so
-        # the logit roles swap: a_t = al[source] + ar[destination]
-        a_t, ev_t = _gat_mh_ev(e.t_ell_row, e.t_ell_col, e.t_ell_val, ar, al)
-        # the row lists of the whole transposed ELL and of the forward one
-        t_lists = dict(ptr=e.t_all_ptr, long_rows=e.t_all_long_rows)
-        f_lists = dict(ptr=e.ell_ptr, long_rows=e.ell_long_rows)
-        dx = None
-        if ctx.needs_input_grad[0]:
-            dx = segment_sum_sorted(_weighted_rows(ev_t, g_agg, e.t_ell_col), e.t_ell_row, R,
-                                    **t_lists).to(gs)
-        idx_t = e.t_ell_col.reshape(-1).long().clamp(0, R - 1)
-        g3 = g_agg.index_select(0, idx_t).float().reshape(St, Kt, nb, -1)
-        x_rows = x_g.index_select(0, e.t_ell_row.long().clamp(0, R - 1)).float().reshape(
-            St, 1, nb, -1)
-        d_ev_t = (g3 * x_rows).sum(-1) + g_rs.index_select(0, idx_t).float().reshape(St, Kt, nb)
-        d_a_t = d_ev_t * ev_t * torch.where(a_t > 0, 1.0, NEGATIVE_SLOPE)
-        d_al = segment_sum_sorted(d_a_t.sum(1), e.t_ell_row, R, **t_lists)
+        dx, d_al, d_a_t = _mh_transposed_grads(e, g_agg, g_rs, x_g, al, ar,
+                                               ctx.needs_input_grad[0])
         # forward layout: mirror the per-cell d_a through f_from_t (empty
         # cells point one past the end, at a zero row), then reduce by row
         S, K = e.ell_col.shape
-        d_a_flat = torch.cat([d_a_t.reshape(St * Kt, nb), d_a_t.new_zeros((1, nb))])
+        d_a_flat = torch.cat([d_a_t.reshape(-1, nb), d_a_t.new_zeros((1, nb))])
         d_a_f = d_a_flat.index_select(0, e.f_from_t.reshape(-1)).reshape(S, K, nb)
-        d_ar = segment_sum_sorted(d_a_f.sum(1), e.ell_row, R, **f_lists)
+        d_ar = segment_sum_sorted(d_a_f.sum(1), e.ell_row, e.num_rows, ptr=e.ell_ptr,
+                                  long_rows=e.ell_long_rows)
         return dx, d_al, d_ar, None
+
+
+def _gather_with_logits(gather, x, logits):
+    """(every rank's rows of x, of the f32 logits [R, k]) in one all-gather:
+    beside bf16 rows each logit rides as its bits, two bf16 values."""
+    C = x.shape[1]
+    lg = logits.contiguous()
+    lg = lg.view(x.dtype) if x.dtype != lg.dtype else lg
+    both = gather(torch.cat([x, lg], 1))
+    lg = both[:, C:].contiguous()
+    return both[:, :C], lg.view(logits.dtype) if lg.dtype != logits.dtype else lg
+
+
+class _GATConvMHSharded(torch.autograd.Function):
+    """:func:`gat_conv_mh_sharded`'s conv."""
+
+    @staticmethod
+    def forward(ctx, x_g, al, ar, edges, gather):
+        nb = al.shape[1]
+        x_tab, al_tab, ar_tab = x_g, al, ar
+        if gather is not None:
+            x_tab, lg = _gather_with_logits(gather, x_g, torch.cat([al, ar], 1))
+            al_tab, ar_tab = lg[:, :nb], lg[:, nb:]
+        ctx.edges, ctx.gather = edges, gather
+        ctx.save_for_backward(x_g, al, ar, x_tab, al_tab, ar_tab)
+        return _gat_mh_forward(edges, x_tab, al_tab, ar)
+
+    @staticmethod
+    def backward(ctx, g_agg, g_rs):
+        e = ctx.edges
+        x_g, al, ar, x_tab, al_tab, ar_tab = ctx.saved_tensors
+        R = al.shape[0]
+        C = x_g.shape[1]
+        gs = x_g.dtype  # the cotangents ride the exchange at x's dtype, as JAX streams them
+        g_own = torch.cat([g_agg, g_rs], 1).to(gs)
+        g_all = g_own if ctx.gather is None else ctx.gather(g_own)
+        Rt = g_all.shape[0]
+        # the transposed cells of every owned column: row = the owned
+        # source, column = the gathered destination
+        dx, d_al, _ = _mh_transposed_grads(e, g_all[:, :C].contiguous(),
+                                           g_all[:, C:].contiguous(), x_g, al, ar_tab,
+                                           ctx.needs_input_grad[0])
+        # d_ar from the owned rows' forward cells: a cell's mirror lies in
+        # its column's transposed slots, another rank's where the column
+        # is, so its d_a is formed again here, from the rows' own
+        # cotangents and the saved table (the same products, the same bits)
+        S, K = e.ell_col.shape
+        a_f, ev_f = _gat_mh_ev(e.ell_row, e.ell_col, e.ell_val, al_tab, ar)
+        rows = e.ell_row.long().clamp(0, R - 1)
+        g_rows = g_own.index_select(0, rows)[:, None]
+        d_a_f = _gat_mh_d_a(
+            g_rows[:, :, :C], g_rows[:, :, C:],
+            x_tab.index_select(0, e.ell_col.reshape(-1).long().clamp(0, Rt - 1)).reshape(S, K, -1),
+            a_f, ev_f)
+        d_ar = segment_sum_sorted(d_a_f.sum(1), e.ell_row, R, ptr=e.ell_ptr,
+                                  long_rows=e.ell_long_rows)
+        return dx, d_al, d_ar, None, None
+
+
+def gat_conv_mh_sharded(edges, x_g, al, ar, gather=None):
+    """:func:`gat_conv_ell_mh` over one rank's rows of a batch sharded over
+    ranks -> (agg [R, nb*D], rowsum [R, nb]) of its R owned rows.
+
+    ``edges`` is the rank's ``parallel/mesh.py:ShardEdges``: the forward
+    slots of its rows and the transposed slots of every column it owns
+    (batch and boundary), columns in the gathered order, its rows from
+    ``row0`` there; ``x_g`` [R, nb*D] its rows of the conv's input (at the
+    compute dtype) and ``al``, ``ar`` [R, nb] their scaled f32 logits, as
+    the layer forms them (before the bf16 cast: so they ride the exchange
+    and are not formed again from the gathered rows).
+
+    ``gather(t)`` all-gathers every rank's rows of t (None where the rows
+    have one rank).  Forward: x and both logits of every rank's rows
+    gathered in one call, kernel 8 over the owned rows' slots.  Backward:
+    the cotangents (g_agg and g_rowsum, at x's dtype, one buffer) gathered;
+    dx and d_al of every owned row over its transposed slots (a boundary
+    row's logit has its gradient too); d_ar of the owned rows over their
+    forward cells, whose cotangents are the rows' own: kernel 8 each.  No
+    ``f_from_t``: it would mirror cells across ranks.  d_al and d_ar are
+    the logits' gradients of the owned rows; what they feed (att_*, the
+    scale) is summed over the ranks by the step."""
+    if x_g.shape[0] != edges.num_rows:
+        raise ValueError(f"x has {x_g.shape[0]} rows, the shard {edges.num_rows}")
+    return _GATConvMHSharded.apply(x_g, al, ar, edges, gather)
 
 
 def gat_conv_ell_mh(edges: Edges, x_g, al, ar):

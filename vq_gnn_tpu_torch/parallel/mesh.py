@@ -43,13 +43,30 @@ process drives, and the collectives are written out
   ``c_indices`` columns: the table is node-major), the fan-in columns of
   ``gnn_transform``, ``linear_skip`` and ``fc_sage`` (``nn.Linear`` keeps
   [out, in]; JAX's ``w`` [in, out] is sharded on its rows) that take those
-  branches, and the same part of their RMSprop ``nu``; the biases, the BN
-  statistics and the step stay replicated.
+  branches, the rows of those branches of the B + M GAT's per-branch
+  ``att_l`` / ``att_r`` [nb, D + 1] (``mesh.py:92``), and the same part of
+  their RMSprop ``nu``; the biases, the BN statistics and the step stay
+  replicated.
+
+A B + M batch (``formulation='bm'``) also carries the recovery term's
+reverse list, a sum over cells (codeword, batch row) whose every entry
+belongs to its batch row and whose column is a global node id that indexes
+``c_indices`` (replicated, or split over the model ranks by branch): rank r
+keeps the entries of its own batch rows, no exchange.  Beside a slot-ELL
+adjacency the rev-ELL slots of its rows (``sub_ell_host``, rows from 0, the
+global columns kept) with their row offsets and long rows over its b rows
+(``ops/rev_ell.py:rev_long_rows_host``), or, where none of its rows has a
+cell, the empty list's pad slot (row b, the shard's sentinel, as
+``build_rev_ell`` gives the whole batch's; its cells at the batch's
+largest column, the dustbin N wherever the batch pads a cell); beside COO
+the raw list's entries of its rows, rows from 0 (the padding, row 0, stays
+with rank 0: value 0).
 
 Both raise a ValueError that names the padding when B_pad or Bp_pad does
 not divide by the ranks of the rows, and refuse by name what the sharded
-step does not take yet (B + M, link and multilabel batches: ROADMAP.md
-queue 1 item 7c).
+step does not take yet, each with its item of ROADMAP.md queue 1: B + M
+GAT on COO (7c.2b), ``transformer_flag`` (7c.4, read from the state), link
+and multilabel batches (7c.5).
 """
 
 from __future__ import annotations
@@ -66,6 +83,7 @@ from torch import nn
 
 from vq_gnn_tpu_torch.config import not_ported, resolve_device
 from vq_gnn_tpu_torch.nn.vq import VQState
+from vq_gnn_tpu_torch.ops.rev_ell import rev_long_rows_host
 from vq_gnn_tpu_torch.ops.spmm import Edges, gathered_order, lists_host, sub_ell_host
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 from vq_gnn_tpu_torch.train.optim import make_rmsprop
@@ -75,7 +93,10 @@ from vq_gnn_tpu_torch.train.state import TrainState
 # package's place_params also names the transformer's, which the sharded
 # step does not take)
 FAN_IN_LINEARS = ("gnn_transform", "linear_skip", "fc_sage")
+# the ROADMAP.md items of what the sharded steps refuse: B + M GAT on COO,
+# the transformer branch, link and multilabel batches
 LATER = "queue 1 item 7c"
+LATER_GAT_COO, LATER_TRANSFORMER, LATER_BATCHES = LATER + ".2b", LATER + ".4", LATER + ".5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,8 +192,9 @@ class ShardEdges(Edges):
     COO keeps its transposed edges apart (``t_row``, the owned column, then
     ``t_col`` and ``t_val``, sorted by column) in place of ``tperm``.  The
     sharded step binds it to its groups (``aggregate``, which
-    ``ops/spmm.py:spmm`` calls, and ``gat``, which ``nn/model.py``'s GAT
-    layer calls)."""
+    ``ops/spmm.py:spmm`` calls, ``gat`` and ``gat_mh``, which
+    ``nn/model.py``'s GAT layers call, and ``scale_ranks``, the B + M GAT
+    layer's)."""
 
     t_row: object = None
     t_col: object = None
@@ -181,15 +203,21 @@ class ShardEdges(Edges):
     aggregate: object = None  # x_own -> the owned rows' aggregate (parallel/sharded.py)
     # (x_own, xf, att_l, att_r, valid) -> the GAT conv's (agg, rowsum) of the owned rows
     gat: object = None
+    # (x_own, al, ar) -> the B + M GAT conv's (agg, rowsum) of the owned rows
+    gat_mh: object = None
+    # the rows' ranks of the B + M GAT's per-branch Trick-1 max
+    # (ops/gat.py:branch_scale); None where the rows have one rank
+    scale_ranks: object = None
 
 
 @dataclasses.dataclass
 class RowShard(PaddedBatch):
     """This rank's block of a batch (a :class:`PaddedBatch` of its own rows,
-    B_pad = the batch's B_pad / ranks, ``edges`` a :class:`ShardEdges`), with
-    where the block lies and what the ``c_indices`` merge reads: every
-    rank's batch ids (the whole ``batch_idx``) and, for each, the last
-    position of its node among them."""
+    B_pad = the batch's B_pad / ranks, ``edges`` a :class:`ShardEdges`, the
+    B + M reverse list cut to its batch rows), with where the block lies and
+    what the ``c_indices`` merge reads: every rank's batch ids (the whole
+    ``batch_idx``) and, for each, the last position of its node among
+    them."""
 
     rank: int = 0
     ranks: int = 1
@@ -274,17 +302,54 @@ def _shard_edges(e, R: int, own, own_B, gat: bool, cols) -> dict:
     return f
 
 
+def _shard_rev(batch: PaddedBatch, r: int, b: int) -> dict:
+    """The B + M reverse list of block r's b batch rows, as the module
+    docstring says: rev-ELL slots with their lists, or the raw entries."""
+    lo, hi = r * b, (r + 1) * b
+    if batch.rev_slot_row is not None:
+        col = _host(batch.rev_slot_col)
+        row, col_r, val, ptr, _ = sub_ell_host(_host(batch.rev_slot_row), col,
+                                               _host(batch.rev_slot_val), batch.B_pad, [(lo, hi)])
+        if not len(row):  # the empty list's pad slot
+            K = col.shape[1]
+            row = np.array([b], np.int32)
+            col_r, val = np.full((1, K), col.max(), np.int32), np.zeros((1, K), np.float32)
+        return dict(rev_slot_row=row, rev_slot_col=col_r, rev_slot_val=val, rev_row_ptr=ptr,
+                    rev_long_rows=rev_long_rows_host(ptr))
+    if batch.bm_rev_row is not None:
+        row = _host(batch.bm_rev_row).astype(np.int64)
+        keep = (row >= lo) & (row < hi)
+        return dict(bm_rev_row=row[keep] - lo, bm_rev_col=_host(batch.bm_rev_col)[keep],
+                    bm_rev_val=_host(batch.bm_rev_val)[keep])
+    return {}
+
+
+def _refuse(state: Optional[TrainState], batch: PaddedBatch) -> None:
+    """Refuse by name what the sharded steps do not take yet (the module
+    docstring); the state, where given, says whether the model runs the
+    transformer branch or the B + M GAT's per-branch heads."""
+    if batch.link_src is not None:
+        raise not_ported("the sharded step on link batches", LATER_BATCHES)
+    y = _host(batch.y)
+    if y is not None and y.ndim != 1:
+        raise not_ported("the sharded step on multilabel batches", LATER_BATCHES)
+    if state is None:
+        return
+    if state.vq_states_tr is not None:
+        raise not_ported("the sharded step with transformer_flag", LATER_TRANSFORMER)
+    e = batch.edges
+    heads = any(getattr(layer, "att_l", None) is not None and layer.att_l.dim() == 2
+                for layer in state.model.layers)
+    if heads and e.ell_row is None and not e.mixed:
+        raise not_ported("the sharded step on B + M GAT batches on COO (spmm_backend='coo')",
+                         LATER_GAT_COO)
+
+
 def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
     """Block r of n of ``batch`` (a host batch or one on a device), on
     ``device``."""
     e = batch.edges
-    if batch.rev_slot_col is not None or batch.bm_rev_row is not None:
-        raise not_ported("the sharded step on B + M batches (formulation='bm')", LATER)
-    if batch.link_src is not None:
-        raise not_ported("the sharded step on link batches", LATER)
     y = _host(batch.y)
-    if y is not None and y.ndim != 1:
-        raise not_ported("the sharded step on multilabel batches", LATER)
     B_pad, Bp_pad = batch.B_pad, batch.Bp_pad
     if B_pad % n or Bp_pad % n:
         raise ValueError(
@@ -313,7 +378,7 @@ def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
         batch_idx=ids[r * b : (r + 1) * b], fo_ids=rows_of(batch.fo_ids, r * bp, bp),
         valid_B=valid_B, valid_fo=rows_of(batch.valid_fo, r * bp, bp), edges=edges,
         num_B=int(valid_B.sum()), y=rows_of(y, r * b, b),
-        train_mask=rows_of(batch.train_mask, r * b, b),
+        train_mask=rows_of(batch.train_mask, r * b, b), **_shard_rev(batch, r, b),
         rank=r, ranks=n, batch_B_pad=B_pad, batch_idx_all=ids, merge_src=last[ids])
     return shard.to(device)
 
@@ -322,6 +387,7 @@ def shard_train_inputs(mesh: DataMesh, state: TrainState, X_dev: torch.Tensor,
                        batch: PaddedBatch):
     """(state, X_dev, this rank's :class:`RowShard` of ``batch``): rows and
     edges sharded, the state and the feature table replicated, as they are."""
+    _refuse(state, batch)
     return state, X_dev, _row_shard(batch, mesh.rank, mesh.size, mesh.device)
 
 
@@ -341,8 +407,9 @@ def _shard_vq_state_model(vq_state: VQState, m: int, n_model: int) -> VQState:
 
 def _shard_params(state: TrainState, m: int, n_model: int):
     """(model, optimizer) of model rank m: a copy of the model whose fan-in
-    linears keep the input columns of this rank's branches, and an RMSprop
-    over it holding the same part of each square average."""
+    linears keep the input columns of this rank's branches and whose B + M
+    GAT heads keep those branches' rows, and an RMSprop over it holding the
+    same part of each square average."""
     model = copy.deepcopy(state.model)
     old = list(state.model.parameters())
     for layer in model.layers:
@@ -352,12 +419,20 @@ def _shard_params(state: TrainState, m: int, n_model: int):
                 w = lin.in_features // n_model
                 lin.weight = nn.Parameter(lin.weight.detach()[:, m * w : (m + 1) * w].clone())
                 lin.in_features = w
+        for name in ("att_l", "att_r"):
+            att = getattr(layer, name, None)
+            if att is not None and att.dim() == 2:  # [nb, D + 1], a head a branch
+                w = att.shape[0] // n_model
+                setattr(layer, name, nn.Parameter(att.detach()[m * w : (m + 1) * w].clone()))
     opt = make_rmsprop(model.parameters(), state.optimizer.defaults["lr"])
     for p_old, p in zip(old, model.parameters()):
         st = state.optimizer.state.get(p_old, {})
         if "square_avg" in st:
             nu = st["square_avg"]
-            if nu.shape != p.shape:  # a fan-in weight: the same columns
+            if nu.shape[0] != p.shape[0]:  # a B + M GAT head: the same rows
+                w = p.shape[0]
+                nu = nu[m * w : (m + 1) * w]
+            elif nu.shape != p.shape:  # a fan-in weight: the same columns
                 w = p.shape[1]
                 nu = nu[:, m * w : (m + 1) * w]
             opt.state[p] = {"step": st["step"].clone(), "square_avg": nu.clone()}
@@ -374,8 +449,7 @@ def shard_train_inputs_2d(mesh: Mesh2D, state: TrainState, X_dev: torch.Tensor,
         if s.embedding.shape[0] % n_model:
             raise ValueError(f"layer {l} has {s.embedding.shape[0]} branches, which do not "
                              f"divide by n_model={n_model}")
-    if state.vq_states_tr is not None:
-        raise not_ported("the 2-D mesh with transformer_flag", LATER)
+    _refuse(state, batch)
     model, opt = _shard_params(state, m, n_model)
     state_m = TrainState(
         model=model, vq_states=[_shard_vq_state_model(s, m, n_model) for s in state.vq_states],

@@ -40,6 +40,30 @@ the owned rows' edges and of the batch columns' transposed edges from it,
 and the exchange above over the (C+1)-wide x with its ones column, whose
 backward also gives the edge values' gradient against the gathered rows.
 
+**B + M** (``formulation='bm'``).  The shard carries its rows' part of
+the recovery term's reverse list (``parallel/mesh.py``).  GCN and SAGE
+aggregate through the row exchange as above; GCN's recovery term is its
+boundary rows' ``x_out · grad_fo``, SAGE's rows 9-10 (or the grid path
+beside COO) over the rank's own reverse cells, each rank's term over its
+rows, their sum over the ranks the whole batch's.  The per-branch GAT conv
+(``ShardEdges.gat_mh``, ``ops/gat.py:gat_conv_mh_sharded``): the
+per-branch Trick-1 max over every rank's valid rows (``scale_ranks``,
+``ops/gat.py:branch_scale``: one all-reduce MAX of [2, nb], its backward
+one all-reduce of the cotangent and the ties), then the codebooks' max
+locally; the owned rows' x with both f32 logits all-gathered in one call
+(under bf16 the logits' bits ride beside the bf16 rows: the layer forms
+them from the f32 rows, so they cannot be formed again from the gathered
+ones), kernel 8 over the owned rows' slots; backward, the cotangents
+all-gathered, dx and d_al over the transposed slots of every owned column
+and d_ar over the owned rows' forward cells (no ``f_from_t``, which would
+mirror cells across ranks).  The recovery term reads the owned rows'
+logits and the ranks' scale; its d ``ar_cb`` reaches ``att_r`` through
+the replicated codebook logits, summed by the step's gradient all-reduce.
+On the 2-D mesh a model rank holds its branches' heads (rows of ``att_l``
+/ ``att_r``), so its logits, scale, conv and recovery term are its
+branches' alone, and the conv's output enters the layer's linears through
+"g" as the other convs' does.
+
 **The 1-D step** (:func:`make_sharded_step`, ``train_step``'s signature).
 It runs ``train/step.py:step_forward`` and ``live_vq_update`` on the
 shard, with hooks and no copy of the layer: ``spmm`` calls the bound
@@ -82,16 +106,18 @@ d_scale with d_al and d_ar; the COO fallback sums its table's cotangent
 over every rank at once (the data and the model groups), each model rank
 holding its columns' part of the edge values' gradient.
 
-``CollectiveLedger`` counts every collective: ``rows`` (the exchanges),
-``partials`` (the model-axis all-reduces), ``stats`` (the BN and VQ
-moments, the EMA statistics), ``grad``, ``c_indices``, ``scalars`` (with
-the Trick-1 max and its backward) and ``logits`` (the COO GAT conv's
-table and its backward sum).
+``CollectiveLedger`` counts every collective: ``rows`` (the exchanges,
+the B + M GAT conv's with its logits), ``partials`` (the model-axis
+all-reduces), ``stats`` (the BN and VQ moments, the EMA statistics),
+``grad``, ``c_indices``, ``scalars`` (with the Trick-1 max, per branch on
+B + M, and its backward) and ``logits`` (the COO GAT conv's table and its
+backward sum).
 
-GCN, SAGE and GAT, B + B', on each adjacency layout (single-K and mixed-K
-slot-ELL, COO), f32 or bf16 compute, take a sharded step; B + M (and with
-it the transformer branch) raises by name (ROADMAP.md queue 1 item 7c; the
-JAX package shards it through XLA).
+GCN, SAGE and GAT, B + B' and B + M, on each adjacency layout (single-K
+and mixed-K slot-ELL, COO), f32 or bf16 compute, take a sharded step; B + M
+GAT on COO (ROADMAP.md queue 1 item 7c.2b) and the transformer branch
+(7c.4) raise by name, as the inputs do for link and multilabel batches
+(7c.5; the JAX package shards each of them through XLA).
 """
 
 from __future__ import annotations
@@ -107,11 +133,18 @@ from vq_gnn_tpu_torch.nn.model import ModelStatic
 from vq_gnn_tpu_torch.ops.gat import (
     explosion_scale,
     gat_conv_coo,
+    gat_conv_mh_sharded,
     gat_conv_sharded,
     node_logits,
 )
 from vq_gnn_tpu_torch.ops.spmm import _coo_sddmm, rows_aggregate, shard_dx
-from vq_gnn_tpu_torch.parallel.mesh import LATER, DataMesh, Mesh2D, RowShard
+from vq_gnn_tpu_torch.parallel.mesh import (
+    LATER_GAT_COO,
+    LATER_TRANSFORMER,
+    DataMesh,
+    Mesh2D,
+    RowShard,
+)
 from vq_gnn_tpu_torch.parallel.multihost import CollectiveLedger, _cidx_merge, _Collectives
 from vq_gnn_tpu_torch.train.optim import rmsprop_update
 from vq_gnn_tpu_torch.train.state import TrainState
@@ -125,10 +158,11 @@ from vq_gnn_tpu_torch.train.step import (
 
 def check_sharded(ms: ModelStatic, cfg: Config) -> None:
     """Refuse by name what the sharded steps do not take yet."""
-    if ms.formulation == "bm":
-        raise not_ported("the sharded step with formulation='bm'", LATER)
     if ms.transformer_flag:
-        raise not_ported("the sharded step with transformer_flag", LATER)
+        raise not_ported("the sharded step with transformer_flag", LATER_TRANSFORMER)
+    if ms.formulation == "bm" and ms.conv_type == "GAT" and cfg.spmm_backend == "coo":
+        raise not_ported("the sharded step with B + M GAT on COO (spmm_backend='coo')",
+                         LATER_GAT_COO)
 
 
 class _RowExchange(torch.autograd.Function):
@@ -325,6 +359,14 @@ def _gat_conv(edges, comm: _Collectives, axis, comm_all: _Collectives):
     return conv
 
 
+def _gat_mh_conv(edges, comm: _Collectives):
+    """``ShardEdges.gat_mh`` of a row shard over ``comm`` (the rows' ranks):
+    (x_own, al, ar) -> the B + M GAT conv's (agg, rowsum) of the owned rows
+    (``ops/gat.py:gat_conv_mh_sharded``, its exchanges under ``rows``)."""
+    gather = (lambda t: comm.gather(t, "rows")) if comm.size > 1 else None
+    return lambda x, al, ar: gat_conv_mh_sharded(edges, x, al, ar, gather)
+
+
 def _local_ms(ms: ModelStatic, n_model: int) -> ModelStatic:
     """The model as one model rank holds it: nb / n_model branches a layer
     (the probes, the VQ update and the lookups read ``channels[:-1]``)."""
@@ -382,7 +424,8 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
         masks = own(branch_masks, shard, False)
         batch = dataclasses.replace(shard, edges=dataclasses.replace(
             shard.edges, aggregate=lambda x: _RowExchange.apply(x, None, None, shard.edges, comm),
-            gat=_gat_conv(shard.edges, comm, axis, comm_all)))
+            gat=_gat_conv(shard.edges, comm, axis, comm_all), gat_mh=_gat_mh_conv(
+                shard.edges, comm), scale_ranks=_ScaleRanks(comm) if comm.size > 1 else None))
         params = list(state.model.parameters())
         out, info_b, layer_inputs, new_bn, probes, _ = step_forward(
             state, ms_l, X_dev, batch, warm_up_rate, generator, masks,
