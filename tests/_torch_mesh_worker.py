@@ -15,6 +15,8 @@ and sit it out.  The plan's ``scale`` cases (ranks 0 and 1) run the
 sharded Trick-1 scale on each rank's logits and pickle its value and the
 logits' gradients: the B + B' scalar scale, or with ``kind`` 'branch-scale'
 the B + M per-branch one (with the codebooks' logits and their
+gradients), or with ``kind`` 'cmax' the transformer branch's c_max (the
+rows' squared norms [B, nb] and the codewords' [M, nb], and their
 gradients).  Imports the port and torch only, never JAX.
 """
 
@@ -32,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from vq_gnn_tpu_torch.config import Config  # noqa: E402
 from vq_gnn_tpu_torch.convert import state_from_numpy  # noqa: E402
 from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm  # noqa: E402
-from vq_gnn_tpu_torch.nn.model import model_static  # noqa: E402
+from vq_gnn_tpu_torch.nn.model import model_static, transformer_cmax  # noqa: E402
 from vq_gnn_tpu_torch.nn.vq import VQState  # noqa: E402
 from vq_gnn_tpu_torch.ops.gat import branch_scale, explosion_scale  # noqa: E402
 from vq_gnn_tpu_torch.parallel import (  # noqa: E402
@@ -62,15 +64,23 @@ EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell
 
 
 def run_scale(case: dict, rank: int, meshes: dict) -> dict:
-    """This rank's logits, valid rows and cotangent of the scale, through
-    ``explosion_scale(..., ranks)`` over the pair's group."""
+    """This rank's logits (or squared norms), valid rows and cotangent of
+    the scale (or c_max), through ``explosion_scale``, ``branch_scale`` or
+    ``transformer_cmax`` with the ranks of the pair's group."""
     mesh = meshes[2]
     if mesh is None:
         return {}
-    al, ar = (torch.tensor(case[k][rank], requires_grad=True) for k in ("al", "ar"))
     ranks = _ScaleRanks(_Collectives(mesh.group, CollectiveLedger()))
     valid = torch.tensor(case["valid"][rank])
     g = torch.as_tensor(case["g"][rank])
+    al = torch.tensor(case["al"][rank], requires_grad=True)
+    if case["kind"] == "cmax":  # al: the rows' squared norms, al_cb: the codewords'
+        nM = torch.tensor(case["al_cb"], requires_grad=True)
+        cmax = transformer_cmax(al.t(), nM.t(), valid, ranks)
+        (g * cmax).sum().backward()
+        return {"scale": cmax.detach().numpy(), "d_al": al.grad.numpy(),
+                "d_al_cb": nM.grad.numpy()}
+    ar = torch.tensor(case["ar"][rank], requires_grad=True)
     if case["kind"] == "scale":
         scale = explosion_scale(al, ar, valid, ranks)
         (g * scale).backward()
@@ -83,7 +93,7 @@ def run_scale(case: dict, rank: int, meshes: dict) -> dict:
 
 
 def run_case(case: dict, rank: int, meshes: dict) -> dict:
-    if case.get("kind") in ("scale", "branch-scale"):
+    if case.get("kind") in ("scale", "branch-scale", "cmax"):
         return run_scale(case, rank, meshes)
     kind = case["mesh"]
     if meshes[kind[1] if kind[0] == "1d" else "2d"] is None:
@@ -112,6 +122,8 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
         "params": {k: v.detach().numpy().copy() for k, v in state.model.named_parameters()},
         "nu": _nu(state),
         "vq": [{f: getattr(s, f).numpy().copy() for f in VQ_FIELDS} for s in state.vq_states],
+        "vq_tr": [{f: getattr(s, f).numpy().copy() for f in VQ_FIELDS}
+                  for s in state.vq_states_tr or []],
         "bn": {"mean": [t.numpy().copy() for t in state.bn_state.mean],
                "var": [t.numpy().copy() for t in state.bn_state.var]},
         "ledger": {"per_step": step.ledger.per_step(), "kinds": sorted(step.ledger.kinds)},

@@ -34,7 +34,7 @@ saw to the references:
 (e) the collective ledger on the 4,000-node graph of
     ``tests/test_collective_audit.py:125``: no payload as large as the
     feature table or a ``c_indices`` table, none shaped like an edge array;
-(f) each option outside the slice refused by name, and the padding error;
+(f) link and multilabel batches refused by name, and the padding error;
 (g) bf16 compute (GCN, SAGE and GAT at 4 ranks) against the JAX sharded
     ``train_step`` at ``tests/test_torch_port_bf16.py``'s tolerances (the
     loss to 5e-3, the codebooks to rtol 2e-2, the parameters to 1e-2,
@@ -44,14 +44,23 @@ saw to the references:
     whole-batch step to the same;
 (h) the Trick-1 scale over two ranks with its maximum tied across them:
     the logits' gradients are those of torch's masked max over the whole
-    batch; per branch too (B + M);
+    batch; per branch too (B + M), and the transformer branch's c_max;
 (i) B + M (``formulation='bm'``, without the inter-layer BN: ``CASES``
     says why): GCN, SAGE and GAT at 2 and 4 ranks and 2 x 2, GAT at bf16,
-    SAGE on the mixed-K layout and on COO, GCN on COO against the JAX
-    sharded ``train_step`` as in (b) and (g), GAT 1-D and 2-D against the
-    port's whole-batch step as in (c); the shards' reverse lists (rev-ELL
-    slots, raw entries) reassembling the batch's; (e) on B + M with the BN
-    at an 8,000-node graph.
+    SAGE on the mixed-K layout and on COO, GCN on COO, GAT on COO at 2, 4
+    and 2 x 2, and the transformer branch (GCN at 2, 4 and 2 x 2, SAGE and
+    GAT at 4, GAT bf16 at 4: the transformer stays f32) against the JAX
+    sharded ``train_step`` as in (b) and (g), GAT 1-D and 2-D (and GAT on
+    COO 2-D) against the port's whole-batch step as in (c), GCN with the
+    transformer and dropbranch 0.5 likewise; every codebook of the
+    transformer and its ``c_indices`` beside the layers'; the shards'
+    reverse lists (rev-ELL slots, raw entries) reassembling the batch's;
+    (e) on B + M with the BN at an 8,000-node graph, the transformer's and
+    the COO GAT conv's payloads too;
+(j) the 2-D split of the transformer's state in-process: its codebooks by
+    branch, ``transformer_k`` by branch rows, ``transformer_v`` and
+    ``transformer_res`` by fan-in columns, each with its RMSprop square
+    average, reassembling the whole.
 
 The replicated state (parameters, codebooks, BN) agrees across the ranks
 that hold it.
@@ -112,6 +121,7 @@ OPTIONS = dict(bn_flag=False, dropbranch=0.5, dropout=0.5)
 MIXED = dict(ell_Kt=2)  # the mixed-K layout, K = 8 + 2
 COO = dict(spmm_backend="coo")
 BM = dict(formulation="bm", bn_flag=False)
+TR = dict(transformer_flag=True)
 
 
 class Case(NamedTuple):
@@ -191,11 +201,27 @@ CASES = {name: Case(*c) for name, c in {
     "1d-SAGE-bm-bn-4": ({**BM, **SAGE, "bn_flag": True}, ("1d", 4), "jax", GRAPH, True),
     "1d-GAT-bm-4-noBN": ({**BM, **GAT}, ("1d", 4), "port", GRAPH, True),
     "2d-GAT-bm-noBN": ({**BM, **GAT}, ("2d", 2, 2), "port", GRAPH, True),
+    # the transformer branch (its codebooks' gradient half starts at zero
+    # too) and the B + M GAT conv on COO
+    "1d-GCN-bm-tr-2": ({**BM, **TR}, ("1d", 2), "jax", GRAPH, True),
+    "1d-GCN-bm-tr-4": ({**BM, **TR}, ("1d", 4), "jax", GRAPH, True),
+    "2d-GCN-bm-tr": ({**BM, **TR}, ("2d", 2, 2), "jax", GRAPH, True),
+    "1d-SAGE-bm-tr-4": ({**BM, **SAGE, **TR}, ("1d", 4), "jax", GRAPH, True),
+    "1d-GAT-bm-tr-4": ({**BM, **GAT, **TR}, ("1d", 4), "jax", GRAPH, True),
+    "1d-GAT-bm-tr-bf16-4": ({**BM, **GAT, **BF16, **TR}, ("1d", 4), "jax", GRAPH, True),
+    "1d-GCN-bm-tr-4-options": ({**BM, **TR, "dropbranch": 0.5}, ("1d", 4), "port", GRAPH, True),
+    "1d-GAT-bm-coo-2": ({**BM, **GAT, **COO}, ("1d", 2), "jax", GRAPH, True),
+    "1d-GAT-bm-coo-4": ({**BM, **GAT, **COO}, ("1d", 4), "jax", GRAPH, True),
+    "2d-GAT-bm-coo": ({**BM, **GAT, **COO}, ("2d", 2, 2), "jax", GRAPH, True),
+    "2d-GAT-bm-coo-noBN": ({**BM, **GAT, **COO}, ("2d", 2, 2), "port", GRAPH, True),
     # (e) on B + M, with the BN: the recovery term's lists ride no collective
     "1d-SAGE-bm-4-audit": ({**BM, **SAGE, "bn_flag": True}, ("1d", 4), None, AUDIT_GRAPH_BM),
     "1d-GAT-bm-4-audit": ({**BM, **GAT, "bn_flag": True}, ("1d", 4), None, AUDIT_GRAPH_BM),
     "1d-SAGE-bm-coo-4-audit": ({**BM, **SAGE, **COO, "bn_flag": True}, ("1d", 4), None,
                                AUDIT_GRAPH_BM),
+    "1d-GCN-bm-tr-4-audit": ({**BM, **TR, "bn_flag": True}, ("1d", 4), None, AUDIT_GRAPH_BM),
+    "1d-GAT-bm-coo-4-audit": ({**BM, **GAT, **COO, "bn_flag": True}, ("1d", 4), None,
+                              AUDIT_GRAPH_BM),
 }.items()}
 # tests/test_multichip.py:50-76 (BN on), and the parameters without it
 RTOL_LOSS, ATOL_PARAMS_BN, ATOL_PARAMS, TOL_CODEBOOK = 1e-5, 1e-2, 1e-4, 2e-5
@@ -255,6 +281,21 @@ SCALE_TIE_BRANCH = dict(
     valid=[np.array([True, True, False, True]), np.array([True, True, True, False])],
     al_cb=np.array([[1.0, -1.0], [3.0, 2.0], [1.5, 0.0]], np.float32),
     ar_cb=np.array([[1.0, 1.0], [0.5, 1.25], [-2.0, 1.0]], np.float32),
+    g=[np.array([0.75, -0.5, 1.25], np.float32), np.array([-0.3125, 0.25, 0.5], np.float32)])
+# (h) the transformer branch's c_max: the rows' squared norms [B, nb] on two
+# ranks, the codewords' [M, nb] alike on both, a larger value on an invalid
+# row of each rank.  Branch 0's rows' maximum 4.0 once on each rank, above
+# the codewords'; branch 1's codewords' 9.0 twice, above every row's; branch
+# 2's rows' 2.25 (once on rank 0, twice on rank 1) tied with a codeword.
+# Each rank's cotangent of c_max is its part of the whole
+SCALE_TIE_CMAX = dict(
+    name="transformer-cmax", kind="cmax",
+    al=[np.array([[4.0, 1.0, 2.25], [1.0, 3.0, 0.5], [16.0, 16.0, 16.0], [0.25, 2.0, 1.0]],
+                 np.float32),
+        np.array([[2.0, 0.5, 2.25], [4.0, 5.0, 2.25], [0.0, 1.0, 0.75], [25.0, 25.0, 25.0]],
+                 np.float32)],
+    valid=[np.array([True, True, False, True]), np.array([True, True, True, False])],
+    al_cb=np.array([[3.0, 9.0, 2.25], [1.0, 9.0, 0.5]], np.float32),
     g=[np.array([0.75, -0.5, 1.25], np.float32), np.array([-0.3125, 0.25, 0.5], np.float32)])
 BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
 # the adjacency each layout's batch must carry (the worker sends every field it has)
@@ -345,7 +386,7 @@ class MeshRun:
                               branch_masks=branch, dropout_keeps=keeps))
         plan = os.path.join(tmp, "plan.pkl")
         with open(plan, "wb") as f:
-            pickle.dump(dict(cases=cases + [SCALE_TIE, SCALE_TIE_BRANCH]), f)
+            pickle.dump(dict(cases=cases + [SCALE_TIE, SCALE_TIE_BRANCH, SCALE_TIE_CMAX]), f)
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["OMP_NUM_THREADS"] = "1"
         self.outs = [os.path.join(tmp, f"out{r}.pkl") for r in range(WORLD)]
@@ -406,9 +447,16 @@ def _port_params(jstate, case):
     return _params_nu(state_from_numpy(jax.tree.map(np.asarray, jstate), ms_t, LR, "cpu"))
 
 
+def _vq_np(states, vq_states_tr):
+    """{'vq': the layers' codebooks, 'vq_tr': the transformer's} as
+    [{'embedding', 'c_indices'} numpy] per layer."""
+    return {k: [{f: np.asarray(getattr(s, f)) for f in ("embedding", "c_indices")}
+                for s in ss or []] for k, ss in (("vq", states), ("vq_tr", vq_states_tr))}
+
+
 def _jax_reference(name):
-    """(loss, ({param: value}, {param: nu}), [VQ state as numpy], the batch,
-    info_backward) of one JAX ``train_step`` on a case's inputs from its
+    """(loss, ({param: value}, {param: nu}), :func:`_vq_np` of the new
+    state, the batch, info_backward) of one JAX ``train_step`` on a case's inputs from its
     starting state, sharded as its mesh says: the 1-D cases on
     ``make_mesh(8)``, the 2-D on ``make_mesh_2d(4, 2)``."""
     kw, mesh, graph = CASES[name].kw, CASES[name].mesh, CASES[name].graph
@@ -422,15 +470,14 @@ def _jax_reference(name):
         placed = jmesh.shard_train_inputs_2d(jmesh.make_mesh_2d(4, 2), state, X, batch)
     new, m = j_make_step_fns(ms, cfg, multilabel=False).train_step(
         *placed, jnp.float32(1.0), jnp.float32(LR), jnp.float32(1.0), jax.random.PRNGKey(3))
-    vq = [{f: np.asarray(getattr(s, f)) for f in ("embedding", "c_indices")}
-          for s in new.vq_states]
-    return (float(m["loss"]), _port_params(new, (cfg, g, c, ms)), vq, batch,
-            float(m["info_backward"]))
+    return (float(m["loss"]), _port_params(new, (cfg, g, c, ms)),
+            _vq_np(new.vq_states, new.vq_states_tr), batch, float(m["info_backward"]))
 
 
 def _port_reference(case, graph, state_np, masks):
-    """(loss, ({param: value}, {param: nu}), [VQ state as numpy], info_backward)
-    of the port's ``train_step`` on the whole batch from ``state_np``."""
+    """(loss, ({param: value}, {param: nu}), :func:`_vq_np` of the new state,
+    info_backward) of the port's ``train_step`` on the whole batch from
+    ``state_np``."""
     cfg, g, c, _ = case
     tc = tcfg.Config(**dataclasses.asdict(cfg))
     cpu = torch.device("cpu")
@@ -443,9 +490,8 @@ def _port_reference(case, graph, state_np, masks):
     state, m = make_step_fns(ms, tc).train_step(state, device_features(tg.x, cpu), batch, 1.0,
                                                 LR, 1.0, branch_masks=branch,
                                                 dropout_keeps=keeps)
-    vq = [{f: getattr(s, f).numpy() for f in ("embedding", "c_indices")}
-          for s in state.vq_states]
-    return float(m["loss"]), _params_nu(state), vq, float(m["info_backward"])
+    return (float(m["loss"]), _params_nu(state), _vq_np(state.vq_states, state.vq_states_tr),
+            float(m["info_backward"]))
 
 
 def _model_part(a, m, n_model, axis):
@@ -472,8 +518,9 @@ def _check(name, out, rank, mesh, loss, params_nu, vq, N, atol_params):
     noisy = []
     for k, v in params.items():
         mine, nu_ref = out["params"][k], nu[k]
-        if n_model > 1 and v.ndim == 2:  # a fan-in weight's columns, a B + M GAT head's rows
-            axis = 0 if k.endswith(("att_l", "att_r")) else 1
+        # a fan-in weight's columns; a B + M GAT head's or transformer_k's branch rows
+        if n_model > 1 and v.ndim >= 2:
+            axis = 0 if k.endswith(("att_l", "att_r")) or ".transformer_k." in k else 1
             v, nu_ref = _model_part(v, m, n_model, axis), _model_part(nu_ref, m, n_model, axis)
         assert mine.shape == v.shape, (name, k)
         if noise and np.abs(nu_ref).max() < NU_FLOOR:
@@ -495,16 +542,18 @@ def _check(name, out, rank, mesh, loss, params_nu, vq, N, atol_params):
     # only biases, and never all of them
     assert all(params[k].ndim == 1 for k in noisy) and len(noisy) < sum(
         v.ndim == 1 for v in params.values()), (name, noisy)
-    for l, ref in enumerate(vq):
-        emb, cidx = ref["embedding"], ref["c_indices"]
-        if n_model > 1:
-            emb, cidx = _model_part(emb, m, n_model, 0), _model_part(cidx, m, n_model, 1)
-        o = out["vq"][l]
-        rtol, atol = tol["codebook"]
-        np.testing.assert_allclose(o["embedding"], emb, rtol=rtol, atol=atol,
-                                   err_msg=f"{name} rank {rank} layer {l} codebook")
-        np.testing.assert_array_equal(o["c_indices"][:N], cidx[:N],
-                                      err_msg=f"{name} rank {rank} layer {l} c_indices")
+    assert len(out["vq_tr"]) == len(vq["vq_tr"]) == (len(vq["vq"]) if "-tr" in name else 0)
+    for key in ("vq", "vq_tr"):  # the layers' codebooks, the transformer's
+        for l, ref in enumerate(vq[key]):
+            emb, cidx = ref["embedding"], ref["c_indices"]
+            if n_model > 1:
+                emb, cidx = _model_part(emb, m, n_model, 0), _model_part(cidx, m, n_model, 1)
+            o = out[key][l]
+            rtol, atol = tol["codebook"]
+            np.testing.assert_allclose(o["embedding"], emb, rtol=rtol, atol=atol,
+                                       err_msg=f"{name} rank {rank} layer {l} {key} codebook")
+            np.testing.assert_array_equal(o["c_indices"][:N], cidx[:N],
+                                          err_msg=f"{name} rank {rank} layer {l} {key} c_indices")
 
 
 def _replicas_agree(run, name, mesh):
@@ -519,7 +568,7 @@ def _replicas_agree(run, name, mesh):
             assert a["metrics"] == b["metrics"], name
             for k in a["params"]:
                 assert np.array_equal(a["params"][k], b["params"][k]), (name, k)
-            for x, y in zip(a["vq"], b["vq"]):
+            for x, y in zip(a["vq"] + a["vq_tr"], b["vq"] + b["vq_tr"]):
                 for f in x:
                     assert np.array_equal(x[f][:-1] if f == "c_indices" else x[f],
                                           y[f][:-1] if f == "c_indices" else y[f]), (name, f)
@@ -541,7 +590,8 @@ def _layout(name):
     "2d-GAT-mixed", "1d-GCN-coo", "1d-GAT-coo", "2d-GCN-coo", "2d-GAT-coo", "1d-GAT-mixed-bf16",
     "1d-GAT-coo-bf16", "1d-GCN-bm", "1d-SAGE-bm", "1d-GAT-bm", "2d-GCN-bm", "2d-SAGE-bm",
     "2d-GAT-bm", "1d-GAT-bm-bf16", "1d-SAGE-bm-mixed", "1d-SAGE-bm-coo", "1d-GCN-bm-coo",
-    "1d-GCN-bm-bn", "1d-SAGE-bm-bn"])
+    "1d-GCN-bm-bn", "1d-SAGE-bm-bn", "1d-GCN-bm-tr", "2d-GCN-bm-tr", "1d-SAGE-bm-tr",
+    "1d-GAT-bm-tr", "1d-GAT-bm-tr-bf16", "1d-GAT-bm-coo", "2d-GAT-bm-coo"])
 def test_sharded_step_matches_jax(run, jname):
     """Each case named ``jname`` or ``jname-<ranks>`` against one JAX
     reference."""
@@ -569,8 +619,15 @@ def test_sharded_step_matches_jax(run, jname):
         ms = case[3]
         for rank, out in run.ranks(jname):
             for l, nb in enumerate(ms.num_branches):
-                assert out["vq"][l]["embedding"].shape[0] == nb // 2
-                assert out["vq"][l]["c_indices"].shape == (N + 1, nb // 2)
+                for key in ("vq", "vq_tr") if ms.transformer_flag else ("vq",):
+                    assert out[key][l]["embedding"].shape[0] == nb // 2
+                    assert out[key][l]["c_indices"].shape == (N + 1, nb // 2)
+                if ms.transformer_flag:  # its branches' rows, its fan-in columns
+                    D = ms.num_D
+                    assert out["params"][f"layers.{l}.transformer_k.w"].shape == (nb // 2, D, D)
+                    for lin in ("transformer_v", "transformer_res"):
+                        assert out["params"][f"layers.{l}.{lin}.weight"].shape == \
+                            (ms.channels[l + 1], ms.channels[l] // 2)
                 w = out["params"][f"layers.{l}.gnn_transform.weight"]
                 assert w.shape == (ms.channels[l + 1], ms.channels[l] // 2)
                 assert out["params"][f"layers.{l}.gnn_transform.bias"].shape == \
@@ -601,6 +658,10 @@ def test_sharded_step_matches_whole_batch(run, name):
             for _, out in run.ranks(name):
                 np.testing.assert_array_equal(out["vq"][l]["embedding"][~keep],
                                               np.asarray(state.vq_states[l].embedding)[~keep])
+                if cfg.transformer_flag:
+                    np.testing.assert_array_equal(
+                        out["vq_tr"][l]["embedding"][~keep],
+                        np.asarray(state.vq_states_tr[l].embedding)[~keep])
 
 
 # ---------------------------------------------------------------------------
@@ -665,16 +726,23 @@ def test_sharded_bm_ledger_moves_no_graph_sized_payload(run, name):
     row exchange is batch-row sized, and the per-branch GAT conv gathers its
     rows' f32 logits beside x ([R, C + 2 nb]) and the cotangents back ([R, C
     + nb]) in every layer, with the per-branch Trick-1 max ([2, nb]) under
-    ``scalars``."""
+    ``scalars``; on COO it gathers the per-branch rows with their ones
+    column ([R, nb (D + 1)], and their cotangents above layer 0) and its
+    table of logits ([R, 2 nb], and its backward sum) under ``logits``.  The
+    transformer branch moves c_max ([nb], and [2, nb] back) and out_M's
+    normaliser ([nb, 1, M], each way) a layer, under ``transformer``."""
     cfg, g, c, ms = run.ctx[name]
     batch = _jax_batch(cfg, g)
-    assert batch.bm_rev_row is not None  # the reverse list (and beside the ELL its slots)
+    # the reverse list (and beside the ELL its slots); GCN's recovery term reads none
+    assert (batch.bm_rev_row is not None) == (ms.conv_type != "GCN")
     N, F = g.num_nodes, g.num_features
     cap = min((N + 1) * F, (N + 1) * ms.num_branches[0])
     banned = _banned_shapes(batch)
     R = batch.B_pad + batch.Bp_pad
     chans, nbs = ms.channels[:-1], ms.num_branches
-    gat = ms.conv_type == "GAT"
+    gat, tr = ms.conv_type == "GAT", ms.transformer_flag
+    coo = gat and batch.edges.ell_row is None
+    D, M = ms.num_D, ms.vq.num_M
     outs = run.ranks(name)
     assert len(outs) == WORLD
     for rank, out in outs:
@@ -685,9 +753,18 @@ def test_sharded_bm_ledger_moves_no_graph_sized_payload(run, name):
                 assert int(np.prod(s)) < cap, (rank, cat, s, cap)
                 assert tuple(s) not in banned, (rank, cat, s)
         assert {op for _, op, _, _ in kinds} == (
-            {"all_reduce", "all_gather", "all_reduce_max"} if gat else {"all_reduce", "all_gather"})
+            {"all_reduce", "all_gather", "all_reduce_max"} if gat or tr
+            else {"all_reduce", "all_gather"})
         per = out["ledger"]["per_step"]["bytes"]
-        if gat:
+        if coo:
+            for nb in nbs:
+                assert ("rows", "all_gather", "float32", ((R, nb * (D + 1)),)) in kinds
+                for op in ("all_gather", "all_reduce"):
+                    assert ("logits", op, "float32", ((R, 2 * nb),)) in kinds
+                assert ("scalars", "all_reduce_max", "float32", ((2, nb),)) in kinds
+            assert per["rows"] == 4 * R * (D + 1) * (sum(nbs) + sum(nbs[1:])), per
+            assert per["logits"] == 4 * R * 4 * sum(nbs), per
+        elif gat:
             for c_, nb in zip(chans, nbs):
                 assert ("rows", "all_gather", "float32", ((R, c_ + 2 * nb),)) in kinds
                 assert ("rows", "all_gather", "float32", ((R, c_ + nb),)) in kinds
@@ -696,13 +773,18 @@ def test_sharded_bm_ledger_moves_no_graph_sized_payload(run, name):
         else:
             assert ("rows", "all_gather", "float32", ((R, F),)) in kinds
             assert per["rows"] == 4 * R * (sum(chans) + sum(chans[1:])), per
-        assert per["partials"] == 0 and per["logits"] == 0
+        got_tr = {k for k in kinds if k[0] == "transformer"}
+        assert got_tr == ({("transformer", op, "float32", (s,)) for nb in nbs for op, s in (
+            ("all_reduce_max", (nb,)), ("all_reduce", (2 * nb,)), ("all_reduce", (nb, 1, M)))}
+            if tr else set()), got_tr
+        assert per["transformer"] == 4 * sum(3 * nb + 2 * nb * M for nb in nbs) * tr, per
+        assert per["partials"] == 0 and (coo or per["logits"] == 0)
 
 
 # ---------------------------------------------------------------------------
 # (h) the sharded Trick-1 scale under a tie across ranks
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("which", ["scalar", "per-branch"])
+@pytest.mark.parametrize("which", ["scalar", "per-branch", "transformer-cmax"])
 def test_sharded_scale_gradient_under_a_tie(run, which):
     """Two ranks' ``explosion_scale(..., ranks)`` (an all-reduce MAX, then
     the cotangent and the tie count summed in the backward) give the scale
@@ -712,16 +794,30 @@ def test_sharded_scale_gradient_under_a_tie(run, which):
     scale (``branch_scale(..., ranks)``, one all-reduce of [2, nb] each
     way, then the codebooks' max locally) likewise, with ties across ranks
     and between the rows and the codebooks; the codebook logits' gradients
-    summed over the ranks (as the step sums them) are the whole batch's."""
-    case = SCALE_TIE if which == "scalar" else SCALE_TIE_BRANCH
+    summed over the ranks (as the step sums them) are the whole batch's.
+    The transformer branch's c_max (``nn/model.py:transformer_cmax``, one
+    all-reduce MAX of [nb], its backward one of [2, nb]) likewise over the
+    rows' squared norms and the codewords', with ties across the ranks,
+    among the codewords and between a row and a codeword."""
+    case = {"scalar": SCALE_TIE, "per-branch": SCALE_TIE_BRANCH,
+            "transformer-cmax": SCALE_TIE_CMAX}[which]
     outs = run.ranks(case["name"])
     assert [r for r, _ in outs] == [0, 1]
-    whole = {k: torch.tensor(np.concatenate(case[k]), requires_grad=True) for k in ("al", "ar")}
+    sides = ("al",) if which == "transformer-cmax" else ("al", "ar")
+    whole = {k: torch.tensor(np.concatenate(case[k]), requires_grad=True) for k in sides}
     valid = torch.tensor(np.concatenate(case["valid"]))
     if which == "scalar":
         scale = tgat.explosion_scale(whole["al"], whole["ar"], valid)
         (sum(case["g"]) * scale).backward()
         ties = {"al": 2, "ar": 3}
+    elif which == "transformer-cmax":
+        nM = torch.tensor(case["al_cb"], requires_grad=True)
+        scale = tmodel.transformer_cmax(whole["al"].t(), nM.t(), valid)
+        (torch.as_tensor(sum(case["g"])) * scale).sum().backward()
+        ties = {"al": 5}
+        got = sum(out["d_al_cb"] for _, out in outs)
+        assert (nM.grad != 0).sum() == 3  # two tied codewords, one tied with rows
+        np.testing.assert_allclose(got, nM.grad.numpy(), rtol=1e-6, atol=1e-7, err_msg="nM")
     else:
         cb = {k: torch.tensor(case[k], requires_grad=True) for k in ("al_cb", "ar_cb")}
         scale = tgat.branch_scale(whole["al"], whole["ar"], cb["al_cb"], cb["ar_cb"], valid)
@@ -733,7 +829,7 @@ def test_sharded_scale_gradient_under_a_tie(run, which):
                                        err_msg=k)
     for _, out in outs:
         np.testing.assert_allclose(out["scale"], scale.detach().numpy(), rtol=1e-7)
-    for k in ("al", "ar"):
+    for k in sides:
         got = np.concatenate([out[f"d_{k}"] for _, out in outs])
         ref = whole[k].grad.numpy()
         assert (ref != 0).sum() == ties[k]  # the ties, on both ranks
@@ -971,38 +1067,6 @@ def test_rev_shards_reassemble_the_batch(layout, n):
 # ---------------------------------------------------------------------------
 # (f) refusals by name
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("kw,what", [
-    (dict(formulation="bm", conv_type="GAT", **COO), "B \\+ M GAT on COO.*queue 1 item 7c.2b"),
-    (dict(formulation="bm", transformer_flag=True), "transformer_flag.*queue 1 item 7c.4"),
-    (dict(formulation="bm", conv_type="GAT", transformer_flag=True),
-     "transformer_flag.*queue 1 item 7c.4"),
-], ids=["bm-GAT-COO", "transformer", "transformer-GAT"])
-def test_sharded_steps_refuse_by_name(kw, what):
-    """Both steps raise, pointing at their item of ROADMAP.md queue 1,
-    before they need a process group: B + M GAT on COO (7c.2b) and the
-    transformer branch (7c.4; the sharded steps take B + M on every other
-    path, and B + B' on all three layouts)."""
-    cfg = tcfg.Config(**{**BASE, **kw})
-    ms = tmodel.model_static(cfg, 16, 4, torch.device("cpu"))
-    cpu = torch.device("cpu")
-    for make, mesh in ((tpar.make_sharded_step, tpar.DataMesh(None, 0, 2, cpu)),
-                       (tpar.make_sharded_step_2d, tpar.Mesh2D(None, None, None, 1, 2, 0, 0, 0,
-                                                               cpu))):
-        with pytest.raises(NotImplementedError, match=what):
-            make(ms, cfg, mesh)
-
-
-def test_transformer_refused_by_name():
-    """The transformer branch (B + M only) is refused by name on its real
-    configuration, pointing at its own item."""
-    cfg = tcfg.Config(**{**BASE, "formulation": "bm", "transformer_flag": True})
-    ms = tmodel.model_static(cfg, 16, 4, torch.device("cpu"))
-    from vq_gnn_tpu_torch.parallel.sharded import check_sharded
-
-    with pytest.raises(NotImplementedError, match="transformer_flag.*queue 1 item 7c.4"):
-        check_sharded(ms, cfg)
-
-
 def _port_state(cfg, g, c):
     """The port's initial state for ``cfg`` on the prepared graph ``g``."""
     from vq_gnn_tpu_torch.train.state import init_train_state
@@ -1011,40 +1075,67 @@ def _port_state(cfg, g, c):
     return init_train_state(torch.Generator().manual_seed(0), ms, g.num_nodes, LR, "cpu")
 
 
-@pytest.mark.parametrize("kw,mesh,what", [
-    (dict(formulation="bm", conv_type="GAT", **COO), "1d", "B \\+ M GAT batches on COO.*7c.2b"),
-    (dict(formulation="bm", conv_type="GAT", **COO), "2d", "B \\+ M GAT batches on COO.*7c.2b"),
-    (dict(formulation="bm", transformer_flag=True), "1d", "transformer_flag.*7c.4"),
-    (dict(formulation="bm", transformer_flag=True), "2d", "transformer_flag.*7c.4"),
-    ("link", "1d", "link batches.*7c.5"),
-    ("multilabel", "1d", "multilabel batches.*7c.5"),
-], ids=["bm-GAT-COO", "bm-GAT-COO-2d", "transformer", "transformer-2d", "link", "multilabel"])
-def test_shard_train_inputs_refuses_by_name(kw, mesh, what):
+@pytest.mark.parametrize("kind,what", [
+    ("link", "link batches.*7c.5"),
+    ("multilabel", "multilabel batches.*7c.5"),
+], ids=["link", "multilabel"])
+def test_shard_train_inputs_refuses_by_name(kind, what):
     """The inputs the sharded steps do not take yet, each pointing at its
-    item of ROADMAP.md queue 1: a B + M GAT batch on COO (the state holds
-    the per-branch heads), a state with the transformer's codebooks, link
-    and multilabel batches; on either mesh."""
-    state = None
-    if isinstance(kw, dict):
-        cfg = tcfg.Config(**{**BASE, **kw})
-        g, c = tdata.synthetic_sbm(**GRAPH)
-        g, c, _ = tdata.prepare(g, cfg, c)
-        batch = next(tsamplers.BatchLoader(g, cfg, train_flag=True, seed=0,
-                                           device="cpu")._epoch_iter())[0][0]
-        state = _port_state(cfg, g, c)
+    item of ROADMAP.md queue 1: link and multilabel batches."""
+    batch = _port_batch()
+    if kind == "link":
+        batch = dataclasses.replace(batch, link_src=np.zeros(8, np.int32))
     else:
-        batch = _port_batch()
-        if kw == "link":
-            batch = dataclasses.replace(batch, link_src=np.zeros(8, np.int32))
-        else:
-            batch = dataclasses.replace(batch, y=np.zeros((batch.B_pad, 3), np.float32))
-    cpu = torch.device("cpu")
+        batch = dataclasses.replace(batch, y=np.zeros((batch.B_pad, 3), np.float32))
     with pytest.raises(NotImplementedError, match=f"{what}"):
-        if mesh == "1d":
-            tpar.shard_train_inputs(tpar.DataMesh(None, 0, 2, cpu), state, None, batch)
+        tpar.shard_train_inputs(tpar.DataMesh(None, 0, 2, torch.device("cpu")), None, None, batch)
+
+
+@pytest.mark.parametrize("conv", ["GCN", "GAT"])
+def test_2d_split_of_the_transformer_state(conv):
+    """(j) ``shard_train_inputs_2d`` on a B + M state with the transformer,
+    at 1 x 2: each model rank keeps its branches of every transformer
+    codebook leaf (``c_indices`` by column), its branches' rows of
+    ``transformer_k`` (and on GAT of the per-branch heads), its fan-in
+    columns of ``transformer_v`` and ``transformer_res``, and the same part
+    of each RMSprop square average; the two ranks' parts laid side by side
+    are the whole state, bit for bit."""
+    cfg = tcfg.Config(**{**BASE, **BM, **TR, "conv_type": conv})
+    g, c = tdata.synthetic_sbm(**GRAPH)
+    g, c, _ = tdata.prepare(g, cfg, c)
+    batch = next(tsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0,
+                                       device="cpu")._epoch_iter())[0][0]
+    state = _port_state(cfg, g, c)
+    ms = tmodel.model_static(cfg, g.num_features, c, torch.device("cpu"))
+    fns = make_step_fns(ms, cfg)  # one step, so that every square average is set
+    state, _ = fns.train_step(state, device_features(g.x, "cpu"), batch.to("cpu"), 1.0, LR, 1.0)
+    whole, whole_nu = _params_nu(state)
+    cpu = torch.device("cpu")
+    parts = [tpar.shard_train_inputs_2d(tpar.Mesh2D(None, None, None, 1, 2, 0, m, m, cpu),
+                                        state, None, batch)[0] for m in range(2)]
+    got = [_params_nu(p) for p in parts]
+    for k, v in whole.items():
+        if ".transformer_k." in k or k.endswith(("att_l", "att_r")):
+            axis = 0  # a branch's rows
+        elif k.endswith(".weight"):
+            axis = 1  # the fan-in columns
         else:
-            tpar.shard_train_inputs_2d(tpar.Mesh2D(None, None, None, 1, 2, 0, 0, 0, cpu), state,
-                                       None, batch)
+            axis = None  # replicated
+        for vals, ref in ((0, v), (1, whole_nu[k])):
+            pieces = [gp[vals][k] for gp in got]
+            if axis is None:
+                for p in pieces:
+                    np.testing.assert_array_equal(p, ref, err_msg=k)
+            else:
+                assert pieces[0].shape[axis] * 2 == ref.shape[axis], k
+                np.testing.assert_array_equal(np.concatenate(pieces, axis), ref, err_msg=k)
+    for l in range(ms.num_layers):
+        for f in ("embedding", "embedding_output", "c_indices"):
+            ref = getattr(state.vq_states_tr[l], f).numpy()
+            axis = 1 if f == "c_indices" else 0
+            np.testing.assert_array_equal(
+                np.concatenate([getattr(p.vq_states_tr[l], f).numpy() for p in parts], axis),
+                ref, err_msg=f"layer {l} {f}")
 
 
 def test_padding_and_branches_must_divide():

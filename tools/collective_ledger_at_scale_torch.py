@@ -2,9 +2,10 @@
 the data-parallel step (``parallel/multihost.py:make_ddp_step``) and the
 1-D sharded step (``parallel/sharded.py:make_sharded_step``) of the bench's
 GCN cell, and the 1-D sharded step of its GAT cell (bf16 compute, as the
-bench runs it), on two gloo ranks, one step each, and their bytes and
-calls a step by category.  The
-counterpart of ``tools/collective_ledger_at_scale.py``, which compiles the
+bench runs it), and the 1-D sharded step of the bench's B + M cells (cont
+sampler, M = 1,024): GCN with ``transformer_flag`` and GAT (f32, K = 2) on
+COO, on two gloo ranks, one step each, and their bytes and calls a step by
+category.  The counterpart of ``tools/collective_ledger_at_scale.py``, which compiles the
 JAX package's DDP step and reads its HLO; the port runs its steps.
 
     python tools/collective_ledger_at_scale_torch.py [--nodes 169343] \
@@ -19,8 +20,11 @@ graph (``partition_hosts``), at fixed pads both ranks share.  Row 6 runs
 as ``vq_backend='scan'`` (the plain assignment in row chunks), which moves
 the same collectives as the kernels.  ``--ell-Kt`` and ``--spmm-backend``
 put every step on that adjacency layout (``Config.ell_Kt``, the mixed-K
-slot-ELL, or ``spmm_backend='coo'``), as the CLI's flags do.  Prints one
-JSON line on stdout.
+slot-ELL, or ``spmm_backend='coo'``), as the CLI's flags do (not the
+B + M steps, whose layouts are their own).  The B + M batches hold up to
+10,000 roots and their walks: their transformer's [nb, B, M] products
+peak at ~20 GB a rank at ``--nodes 12000`` (~2 min on 8 cores); a smaller
+``--nodes`` cuts them.  Prints one JSON line on stdout.
 """
 
 import argparse
@@ -106,12 +110,26 @@ def rank_main(rank: int, tmp: str, nodes: int, layout: dict) -> None:
     # the bench's GAT cell (bf16 compute), on the graph normalised for GAT
     gat_cfg = dataclasses.replace(bench_config({"VQ_GNN_BENCH_CONV": "GAT"}), vq_backend="scan",
                                   **layout)
-    g_gat, c_gat, ci_gat = prepare(g0, gat_cfg, c0)
+    g_gat, c_gat, ci_gat = prepare(copy.deepcopy(g0), gat_cfg, c0)
     ms_gat = model_static(gat_cfg, g_gat.num_features, c_gat, cpu)
     _, out["sharded_gat_bf16"] = sharded(
         gat_cfg, g_gat, ci_gat, ms_gat, lambda: init_train_state(
             torch.Generator().manual_seed(0), ms_gat, g_gat.num_nodes, gat_cfg.lr, cpu))
     del g_gat
+    # the bench's B + M cells: GCN with the transformer, GAT on COO
+    for key, env, extra in (
+            ("sharded_bm_gcn_transformer", {"VQ_GNN_BENCH_FORM": "bm", "VQ_GNN_BENCH_CONV": "GCN"},
+             dict(transformer_flag=True)),
+            ("sharded_bm_gat_coo", {"VQ_GNN_BENCH_FORM": "bm", "VQ_GNN_BENCH_CONV": "GAT",
+                                    "VQ_GNN_BENCH_K": "2", "VQ_GNN_BENCH_DTYPE": "float32"},
+             dict(spmm_backend="coo"))):
+        bm_cfg = dataclasses.replace(bench_config(env), vq_backend="scan", **extra)
+        g_bm, c_bm, ci_bm = prepare(copy.deepcopy(g0), bm_cfg, c0)
+        ms_bm = model_static(bm_cfg, g_bm.num_features, c_bm, cpu)
+        _, out[key] = sharded(
+            bm_cfg, g_bm, ci_bm, ms_bm, lambda: init_train_state(
+                torch.Generator().manual_seed(0), ms_bm, g_bm.num_nodes, bm_cfg.lr, cpu))
+        del g_bm
 
     # the DDP step: each rank half as many nodes from its half of the graph
     perm, ptr = partition_hosts(g.adj, RANKS)

@@ -47,6 +47,7 @@ from vq_gnn_tpu_torch.ops.gat import (
     gat_conv_ell_mh,
     gat_edge_values,
     node_logits,
+    ranks_max,
 )
 from vq_gnn_tpu_torch.ops.rev_kernels import rev_fold_mode, rev_recovery_info
 from vq_gnn_tpu_torch.ops.spmm import spmm, spmm_branches
@@ -399,12 +400,15 @@ def _layer_output(layer, ms: ModelStatic, x, conv_B, x_tr=None, fan_in_reduce=No
     v2:203-204), the transformer branch's ``transformer_v`` of its output
     ``x_tr`` and ``transformer_res`` of the layer input (v1/models.py:
     342-362), and the skip linear of the layer input.  With
-    ``fan_in_reduce`` (the 2-D mesh: GCN, SAGE and GAT) the products
-    without their biases are summed locally, ``fan_in_reduce`` adds the
-    other ranks' partial sums, then the biases are added once."""
+    ``fan_in_reduce`` (the 2-D mesh: GCN, SAGE and GAT, with or without the
+    transformer) the products without their biases are summed locally,
+    ``fan_in_reduce`` adds the other ranks' partial sums, then the biases
+    are added once."""
     if fan_in_reduce is not None:
         lins = [(layer.gnn_transform, conv_B)]
         lins += [(layer.fc_sage, x)] if ms.conv_type == "SAGE" else []
+        if x_tr is not None:
+            lins += [(layer.transformer_v, x_tr), (layer.transformer_res, x)]
         lins += [(layer.linear_skip, x)] if ms.skip else []
         out = fan_in_reduce(sum(F.linear(a, lin.weight) for lin, a in lins))
         return out + sum(lin.bias for lin, _ in lins)
@@ -482,6 +486,21 @@ def _branch_logits(x, att, D: int):
     return (x.reshape(x.shape[0], nb, D) * att[None, :, :D]).sum(-1) + att[None, :, D]
 
 
+def transformer_cmax(nB, nM, valid, ranks=None):
+    """The transformer branch's guard c_max [nb] (convs.py:279): each
+    branch's largest squared row norm over the valid batch rows (nB [nb,
+    B_pad]) and over its codewords (nM [nb, M]).  With ``ranks`` (a row
+    shard's, as ``ops/gat.py:branch_scale`` takes them) the rows' max is
+    over every rank's valid rows and its gradient the whole batch's, one
+    all-reduce of [nb] forward and of [2, nb] backward
+    (``ops/gat.py:ranks_max``); the codewords' max joins it after, locally,
+    and a tie between the two splits the cotangent as ``torch.maximum``
+    does."""
+    v = nB.masked_fill(~valid[None, :], float("-inf"))
+    rows = v.amax(1) if ranks is None else ranks_max(v, ranks)
+    return torch.maximum(rows, nM.amax(1))
+
+
 def transformer_branch(
     layer: nn.Module,
     vq_tr: VQState,
@@ -506,6 +525,16 @@ def transformer_branch(
     sum(out_M * gbar) * warm_up_rate).  A dropped branch has no output and
     no recovery.
 
+    On a row shard (``parallel/sharded.py``) x and the batch are the rank's
+    rows and the codewords are replicated; its edges carry ``tr_ranks``
+    (None where the rows have one rank), over which c_max is the max of
+    every rank's valid rows (:func:`transformer_cmax`) and out_M's
+    normaliser, a sum over the rows [nb, 1, M], is summed in a
+    differentiable all-reduce (its backward an all-reduce of the
+    cotangent); out_B's softmax over the codewords is row-local.  Each rank's
+    out_M, and so its recovery term, is its rows' part, and their sum over
+    the ranks is the whole batch's.
+
     Returns (x_out_tr [B_pad, nb * D], info_backward)."""
     B_pad, D = batch.B_pad, ms.num_D
     nb = x.shape[1] // D
@@ -523,14 +552,15 @@ def transformer_branch(
     xB, xM = x_in[:, :B_pad], x_in[:, B_pad:]
     C = torch.bmm(xB, xM.transpose(1, 2)) / math.sqrt(D + 1)  # [nb, B_pad, M]
     valid = batch.valid_B
-    c_max = torch.maximum(
-        (xB * xB).sum(2).masked_fill(~valid[None, :], float("-inf")).amax(1),
-        (xM * xM).sum(2).amax(1),
-    )[:, None, None]
+    ranks = getattr(batch.edges, "tr_ranks", None)  # a row shard's, bound to its ranks
+    c_max = transformer_cmax((xB * xB).sum(2), (xM * xM).sum(2), valid, ranks)[:, None, None]
     C = torch.exp(C / c_max)
     out_B = torch.bmm(C / C.sum(2, keepdim=True), xM)  # [nb, B_pad, D + 1]
     Cm = C * valid.to(C.dtype)[None, :, None]
-    out_M = torch.bmm((Cm / Cm.sum(1, keepdim=True).clamp_min(1e-30)).transpose(1, 2), xB)
+    norm = Cm.sum(1, keepdim=True)  # [nb, 1, M]
+    if ranks is not None:
+        norm = ranks.psum(norm)
+    out_M = torch.bmm((Cm / norm.clamp_min(1e-30)).transpose(1, 2), xB)
     if probe_tr is not None:
         out_B = out_B + probe_tr
     if branch_keep is not None:
@@ -576,8 +606,10 @@ def layer_forward_bm(
     On a row shard (``parallel/sharded.py``) the batch is the rank's rows
     (its B_pad, Bp_pad, reverse list and ``fo_ids``), the GCN and SAGE convs
     exchange rows through ``spmm``, and the GAT conv takes the shard's
-    hooks: ``scale_ranks`` for the per-branch Trick-1 max over every rank's
-    rows, ``gat_mh`` for the conv; the recovery term covers the rank's own
+    hooks, on the slot-ELL and on COO (:func:`_gat_bm_coo`):
+    ``scale_ranks`` for the per-branch Trick-1 max over every rank's rows,
+    ``gat_mh`` for the conv; the transformer branch takes ``tr_ranks``
+    (:func:`transformer_branch`); each recovery term covers the rank's own
     rows, and its sum over the ranks is the whole batch's.
     ``fan_in_reduce`` as :func:`layer_forward` takes it (the 2-D mesh).
 
@@ -671,10 +703,17 @@ def _gat_bm_coo(layer, vq_state: VQState, ms: ModelStatic, x, x_fo, grad_fo,
     """The B + M GAT conv over a COO adjacency, the JAX package's fallback
     (``vq_gnn_tpu/nn/model.py:728-780``), f32: per branch the input with its
     ones column [nb, dim, D + 1], the branch's logits and Trick-1 scale from
-    the valid batch rows and the codebook logits, the per-edge values, and
-    a COO spmm per branch (one kernel-8 sum over all branches,
-    ``spmm_branches``); the probe adds to the batch rows before the
-    ones-column division.  Returns (out_B [B_pad, nb * D], info_backward)."""
+    the valid batch rows and the codebook logits (``ops/gat.py:
+    branch_scale``), the per-edge values, and a COO spmm per branch (one
+    kernel-8 sum over all branches, ``spmm_branches``); the probe adds to
+    the batch rows before the ones-column division.
+
+    On a row shard (``parallel/sharded.py``) the scale's max is over every
+    rank's valid rows (the edges' ``scale_ranks``) and the edges' ``gat_mh``
+    takes the place of the values and the sum: (x_br, al, ar) of the owned
+    rows -> their [nb, R, D + 1] aggregate over every rank's rows; the
+    recovery term's grid path runs over the rank's raw reverse entries.
+    Returns (out_B [B_pad, nb * D], info_backward)."""
     B_pad, Bp_pad, D = batch.B_pad, batch.Bp_pad, ms.num_D
     nb = x.shape[1] // D
     xb = x.reshape(B_pad, nb, D).permute(1, 0, 2)
@@ -683,14 +722,15 @@ def _gat_bm_coo(layer, vq_state: VQState, ms: ModelStatic, x, x_fo, grad_fo,
                       x.new_ones((nb, B_pad + Bp_pad, 1))], dim=2)  # [nb, dim, D + 1]
     al = (x_br * layer.att_l[:, None, :]).sum(-1)  # [nb, dim]
     ar = (x_br * layer.att_r[:, None, :]).sum(-1)
-    invalid = ~batch.valid_B[None, :]
-    ml = torch.maximum(al[:, :B_pad].masked_fill(invalid, float("-inf")).amax(1), al_cb.amax(1))
-    mr = torch.maximum(ar[:, :B_pad].masked_fill(invalid, float("-inf")).amax(1), ar_cb.amax(1))
-    scale = (torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0))[:, None]  # [nb, 1]
-    al, ar = al / scale, ar / scale
     e = batch.edges
-    ev = gat_edge_values(e.row, e.col, e.val, al, ar)  # [nb, E_pad]
-    x_out = spmm_branches(e, ev, x_br)  # [nb, dim, D + 1]
+    scale = branch_scale(al[:, :B_pad].t(), ar[:, :B_pad].t(), al_cb, ar_cb, batch.valid_B,
+                         getattr(e, "scale_ranks", None))[:, None]  # [nb, 1]
+    al, ar = al / scale, ar / scale
+    if getattr(e, "gat_mh", None) is not None:  # a row shard's, bound to its ranks
+        x_out = e.gat_mh(x_br, al, ar)
+    else:
+        ev = gat_edge_values(e.row, e.col, e.val, al, ar)  # [nb, E_pad]
+        x_out = spmm_branches(e, ev, x_br)  # [nb, dim, D + 1]
     out_B = x_out[:, :B_pad]
     if probe is not None:  # [nb, B_pad, D + 1]
         out_B = out_B + probe

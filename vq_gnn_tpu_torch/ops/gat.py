@@ -51,7 +51,7 @@ from vq_gnn_tpu_torch.ops.spmm import Edges, fold_rows, mixed_families, spmm
 
 __all__ = ["NEGATIVE_SLOPE", "attention_logits", "branch_scale", "explosion_scale",
            "gat_conv_coo", "gat_conv_ell", "gat_conv_ell_mh", "gat_conv_mh_sharded",
-           "gat_conv_sharded", "gat_edge_values", "node_logits"]
+           "gat_conv_sharded", "gat_edge_values", "node_logits", "ranks_max"]
 
 
 def attention_logits(x, att_l, att_r):
@@ -84,6 +84,14 @@ class _RanksMax(torch.autograd.Function):
         return ties * share[..., None], None
 
 
+def ranks_max(v, ranks):
+    """The max over the last axis of v [..., n] over every rank's v
+    (``ranks``: ``max(t)`` and ``sum(t)``, copies of t reduced over the
+    ranks of the rows, ``parallel/sharded.py``), its gradient the whole
+    batch's (:class:`_RanksMax`)."""
+    return _RanksMax.apply(v, ranks)
+
+
 def explosion_scale(alpha_l, alpha_r, valid=None, ranks=None):
     """Trick 1 scale.  ``valid`` masks padded rows out of the global max.
     With ``ranks`` (a row shard's: ``max(t)`` and ``sum(t)``, copies of t
@@ -92,7 +100,7 @@ def explosion_scale(alpha_l, alpha_r, valid=None, ranks=None):
     (:class:`_RanksMax`): one scalar all-reduce each way."""
     if ranks is not None:
         v = torch.stack([alpha_l, alpha_r]).masked_fill(~valid[None, :], float("-inf"))
-        ml, mr = _RanksMax.apply(v, ranks)
+        ml, mr = ranks_max(v, ranks)
         return torch.sqrt(ml**2 + 1.0) * torch.sqrt(mr**2 + 1.0)
     if valid is not None:
         # masked_fill takes the -inf as a scalar: a tensor made from it on the
@@ -114,7 +122,7 @@ def branch_scale(al, ar, al_cb, ar_cb, valid, ranks=None):
     rank's valid rows, one all-reduce of [2, nb] each way
     (:class:`_RanksMax`); the codewords' max joins it after, locally."""
     v = torch.stack([al.t(), ar.t()]).masked_fill(~valid[None, None, :], float("-inf"))
-    rows = v.amax(-1) if ranks is None else _RanksMax.apply(v, ranks)
+    rows = v.amax(-1) if ranks is None else ranks_max(v, ranks)
     m = torch.maximum(rows, torch.stack([al_cb.amax(1), ar_cb.amax(1)]))
     return torch.sqrt(m[0] ** 2 + 1.0) * torch.sqrt(m[1] ** 2 + 1.0)
 

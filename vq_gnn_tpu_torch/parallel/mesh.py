@@ -39,14 +39,18 @@ process drives, and the collectives are written out
 - ``shard_train_inputs_2d``: the data split above over the data group, then
   the model split of ``_shard_vq_state_model`` / ``place_params``
   (``vq_gnn_tpu/parallel/mesh.py:55-111``): model rank m keeps branches [m
-  nb / n_model, (m + 1) nb / n_model) of every ``VQState`` leaf (the
+  nb / n_model, (m + 1) nb / n_model) of every ``VQState`` leaf, the
+  transformer's codebooks (``vq_states_tr``) as the layers' (the
   ``c_indices`` columns: the table is node-major), the fan-in columns of
-  ``gnn_transform``, ``linear_skip`` and ``fc_sage`` (``nn.Linear`` keeps
-  [out, in]; JAX's ``w`` [in, out] is sharded on its rows) that take those
-  branches, the rows of those branches of the B + M GAT's per-branch
-  ``att_l`` / ``att_r`` [nb, D + 1] (``mesh.py:92``), and the same part of
-  their RMSprop ``nu``; the biases, the BN statistics and the step stay
-  replicated.
+  ``gnn_transform``, ``linear_skip``, ``fc_sage``, ``transformer_v`` and
+  ``transformer_res`` (``nn.Linear`` keeps [out, in]; JAX's ``w`` [in,
+  out] is sharded on its rows) that take those branches, the rows of those
+  branches of the B + M GAT's per-branch ``att_l`` / ``att_r`` [nb, D + 1]
+  (``mesh.py:92``) and of the transformer's per-branch ``transformer_k``
+  (``w`` [nb, D, D], ``b`` [nb, D]; JAX replicates it, and each branch
+  reads its own slice, so the rank's gradient of its rows is whole), and
+  the same part of their RMSprop ``nu``; the biases, the BN statistics and
+  the step stay replicated.
 
 A B + M batch (``formulation='bm'``) also carries the recovery term's
 reverse list, a sum over cells (codeword, batch row) whose every entry
@@ -64,9 +68,8 @@ with rank 0: value 0).
 
 Both raise a ValueError that names the padding when B_pad or Bp_pad does
 not divide by the ranks of the rows, and refuse by name what the sharded
-step does not take yet, each with its item of ROADMAP.md queue 1: B + M
-GAT on COO (7c.2b), ``transformer_flag`` (7c.4, read from the state), link
-and multilabel batches (7c.5).
+step does not take yet, with its item of ROADMAP.md queue 1: link and
+multilabel batches (7c.5).
 """
 
 from __future__ import annotations
@@ -90,13 +93,11 @@ from vq_gnn_tpu_torch.train.optim import make_rmsprop
 from vq_gnn_tpu_torch.train.state import TrainState
 
 # the linears whose fan-in the 2-D mesh splits over 'model' (the JAX
-# package's place_params also names the transformer's, which the sharded
-# step does not take)
-FAN_IN_LINEARS = ("gnn_transform", "linear_skip", "fc_sage")
-# the ROADMAP.md items of what the sharded steps refuse: B + M GAT on COO,
-# the transformer branch, link and multilabel batches
-LATER = "queue 1 item 7c"
-LATER_GAT_COO, LATER_TRANSFORMER, LATER_BATCHES = LATER + ".2b", LATER + ".4", LATER + ".5"
+# package's place_params, vq_gnn_tpu/parallel/mesh.py:87)
+FAN_IN_LINEARS = ("gnn_transform", "linear_skip", "fc_sage", "transformer_v", "transformer_res")
+# the ROADMAP.md item of what the sharded steps refuse: link and multilabel
+# batches
+LATER_BATCHES = "queue 1 item 7c.5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,8 +194,8 @@ class ShardEdges(Edges):
     ``t_col`` and ``t_val``, sorted by column) in place of ``tperm``.  The
     sharded step binds it to its groups (``aggregate``, which
     ``ops/spmm.py:spmm`` calls, ``gat`` and ``gat_mh``, which
-    ``nn/model.py``'s GAT layers call, and ``scale_ranks``, the B + M GAT
-    layer's)."""
+    ``nn/model.py``'s GAT layers call, ``scale_ranks``, the B + M GAT
+    layer's, and ``tr_ranks``, the transformer branch's)."""
 
     t_row: object = None
     t_col: object = None
@@ -203,11 +204,15 @@ class ShardEdges(Edges):
     aggregate: object = None  # x_own -> the owned rows' aggregate (parallel/sharded.py)
     # (x_own, xf, att_l, att_r, valid) -> the GAT conv's (agg, rowsum) of the owned rows
     gat: object = None
-    # (x_own, al, ar) -> the B + M GAT conv's (agg, rowsum) of the owned rows
+    # the B + M GAT conv of the owned rows: on the slot-ELL (x_own, al, ar)
+    # -> (agg, rowsum), on COO (x_br, al, ar) -> the [nb, R, D + 1] aggregate
     gat_mh: object = None
     # the rows' ranks of the B + M GAT's per-branch Trick-1 max
-    # (ops/gat.py:branch_scale); None where the rows have one rank
+    # (ops/gat.py:branch_scale) and of the transformer branch's c_max and
+    # out_M normaliser (nn/model.py:transformer_branch); None where the rows
+    # have one rank
     scale_ranks: object = None
+    tr_ranks: object = None
 
 
 @dataclasses.dataclass
@@ -324,25 +329,14 @@ def _shard_rev(batch: PaddedBatch, r: int, b: int) -> dict:
     return {}
 
 
-def _refuse(state: Optional[TrainState], batch: PaddedBatch) -> None:
+def _refuse(batch: PaddedBatch) -> None:
     """Refuse by name what the sharded steps do not take yet (the module
-    docstring); the state, where given, says whether the model runs the
-    transformer branch or the B + M GAT's per-branch heads."""
+    docstring)."""
     if batch.link_src is not None:
         raise not_ported("the sharded step on link batches", LATER_BATCHES)
     y = _host(batch.y)
     if y is not None and y.ndim != 1:
         raise not_ported("the sharded step on multilabel batches", LATER_BATCHES)
-    if state is None:
-        return
-    if state.vq_states_tr is not None:
-        raise not_ported("the sharded step with transformer_flag", LATER_TRANSFORMER)
-    e = batch.edges
-    heads = any(getattr(layer, "att_l", None) is not None and layer.att_l.dim() == 2
-                for layer in state.model.layers)
-    if heads and e.ell_row is None and not e.mixed:
-        raise not_ported("the sharded step on B + M GAT batches on COO (spmm_backend='coo')",
-                         LATER_GAT_COO)
 
 
 def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
@@ -387,7 +381,7 @@ def shard_train_inputs(mesh: DataMesh, state: TrainState, X_dev: torch.Tensor,
                        batch: PaddedBatch):
     """(state, X_dev, this rank's :class:`RowShard` of ``batch``): rows and
     edges sharded, the state and the feature table replicated, as they are."""
-    _refuse(state, batch)
+    _refuse(batch)
     return state, X_dev, _row_shard(batch, mesh.rank, mesh.size, mesh.device)
 
 
@@ -408,8 +402,8 @@ def _shard_vq_state_model(vq_state: VQState, m: int, n_model: int) -> VQState:
 def _shard_params(state: TrainState, m: int, n_model: int):
     """(model, optimizer) of model rank m: a copy of the model whose fan-in
     linears keep the input columns of this rank's branches and whose B + M
-    GAT heads keep those branches' rows, and an RMSprop over it holding the
-    same part of each square average."""
+    GAT heads and transformer ``transformer_k`` keep those branches' rows,
+    and an RMSprop over it holding the same part of each square average."""
     model = copy.deepcopy(state.model)
     old = list(state.model.parameters())
     for layer in model.layers:
@@ -419,17 +413,20 @@ def _shard_params(state: TrainState, m: int, n_model: int):
                 w = lin.in_features // n_model
                 lin.weight = nn.Parameter(lin.weight.detach()[:, m * w : (m + 1) * w].clone())
                 lin.in_features = w
-        for name in ("att_l", "att_r"):
-            att = getattr(layer, name, None)
-            if att is not None and att.dim() == 2:  # [nb, D + 1], a head a branch
-                w = att.shape[0] // n_model
-                setattr(layer, name, nn.Parameter(att.detach()[m * w : (m + 1) * w].clone()))
+        heads = [(layer, name) for name in ("att_l", "att_r")
+                 if getattr(layer, name, None) is not None and getattr(layer, name).dim() == 2]
+        if hasattr(layer, "transformer_k"):
+            heads += [(layer.transformer_k, "w"), (layer.transformer_k, "b")]
+        for mod, name in heads:  # [nb, ...]: a branch's rows
+            p = getattr(mod, name)
+            w = p.shape[0] // n_model
+            setattr(mod, name, nn.Parameter(p.detach()[m * w : (m + 1) * w].clone()))
     opt = make_rmsprop(model.parameters(), state.optimizer.defaults["lr"])
     for p_old, p in zip(old, model.parameters()):
         st = state.optimizer.state.get(p_old, {})
         if "square_avg" in st:
             nu = st["square_avg"]
-            if nu.shape[0] != p.shape[0]:  # a B + M GAT head: the same rows
+            if nu.shape[0] != p.shape[0]:  # a branch's head: the same rows
                 w = p.shape[0]
                 nu = nu[m * w : (m + 1) * w]
             elif nu.shape != p.shape:  # a fan-in weight: the same columns
@@ -449,9 +446,11 @@ def shard_train_inputs_2d(mesh: Mesh2D, state: TrainState, X_dev: torch.Tensor,
         if s.embedding.shape[0] % n_model:
             raise ValueError(f"layer {l} has {s.embedding.shape[0]} branches, which do not "
                              f"divide by n_model={n_model}")
-    _refuse(state, batch)
+    _refuse(batch)
     model, opt = _shard_params(state, m, n_model)
     state_m = TrainState(
         model=model, vq_states=[_shard_vq_state_model(s, m, n_model) for s in state.vq_states],
-        bn_state=copy.deepcopy(state.bn_state), optimizer=opt, step=state.step)
+        bn_state=copy.deepcopy(state.bn_state), optimizer=opt, step=state.step,
+        vq_states_tr=None if state.vq_states_tr is None else [
+            _shard_vq_state_model(s, m, n_model) for s in state.vq_states_tr])
     return state_m, X_dev, _row_shard(batch, mesh.data_rank, mesh.n_data, mesh.device)

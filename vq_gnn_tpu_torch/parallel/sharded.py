@@ -62,7 +62,33 @@ the replicated codebook logits, summed by the step's gradient all-reduce.
 On the 2-D mesh a model rank holds its branches' heads (rows of ``att_l``
 / ``att_r``), so its logits, scale, conv and recovery term are its
 branches' alone, and the conv's output enters the layer's linears through
-"g" as the other convs' does.
+"g" as the other convs' does.  On COO (:func:`_gat_mh_conv`) the same
+scale, then the scaled logits of every rank's rows gathered as one [R, 2
+nb] table (:class:`_LogitTable`, over the data group: a model rank's
+table is its branches'), the per-branch values of the owned rows' edges
+and of the batch columns' transposed edges from it, and
+:class:`_BranchExchange`: every rank's rows of the per-branch input [nb,
+R, D + 1] gathered, one kernel-8 sum over all branches of the owned rows'
+edges (``ops/spmm.py:spmm_branches``' sum); backward, the cotangents
+gathered, dx of the batch columns over their transposed edges, and the
+values' gradient against the gathered rows.  Its recovery term is the grid
+path over the rank's raw reverse entries.
+
+**The transformer branch** (``transformer_flag``,
+``nn/model.py:transformer_branch``, ``ShardEdges.tr_ranks``): the batch
+rows are the rank's, the codewords replicated.  Per layer two
+all-reduces cross the ranks: c_max, the largest squared row norm of every
+rank's valid rows (MAX of [nb], its backward one all-reduce of the
+cotangent and the ties, [2, nb], as the Trick-1 max), and out_M's
+normaliser, a sum over every rank's rows ([nb, M], its backward an
+all-reduce of the cotangent); out_B's softmax over the codewords is
+row-local.  Each rank's out_M, and its recovery term, is its rows' part.
+The step takes the gradients of the transformer's probes too, and runs
+its codebooks' VQ update through the same moments, EMA sums and
+``c_indices`` merge as the layers'.  On the 2-D mesh a model rank holds
+its branches' codebooks, ``transformer_k`` rows and fan-in columns of
+``transformer_v`` and ``transformer_res``, whose products join the
+layer's partial sum.
 
 **The 1-D step** (:func:`make_sharded_step`, ``train_step``'s signature).
 It runs ``train/step.py:step_forward`` and ``live_vq_update`` on the
@@ -110,14 +136,15 @@ holding its columns' part of the edge values' gradient.
 the B + M GAT conv's with its logits), ``partials`` (the model-axis
 all-reduces), ``stats`` (the BN and VQ moments, the EMA statistics),
 ``grad``, ``c_indices``, ``scalars`` (with the Trick-1 max, per branch on
-B + M, and its backward) and ``logits`` (the COO GAT conv's table and its
-backward sum).
+B + M, and its backward), ``logits`` (the COO GAT conv's table and its
+backward sum, [R, 2] or on B + M [R, 2 nb]) and ``transformer`` (c_max
+and out_M's normaliser, each with its backward).
 
-GCN, SAGE and GAT, B + B' and B + M, on each adjacency layout (single-K
-and mixed-K slot-ELL, COO), f32 or bf16 compute, take a sharded step; B + M
-GAT on COO (ROADMAP.md queue 1 item 7c.2b) and the transformer branch
-(7c.4) raise by name, as the inputs do for link and multilabel batches
-(7c.5; the JAX package shards each of them through XLA).
+GCN, SAGE and GAT, B + B' and B + M, with or without the transformer
+branch, on each adjacency layout (single-K and mixed-K slot-ELL, COO), f32
+or bf16 compute, take a sharded step; the inputs refuse link and
+multilabel batches by name (ROADMAP.md queue 1 item 7c.5; the JAX package
+shards them through XLA).
 """
 
 from __future__ import annotations
@@ -128,23 +155,18 @@ from typing import List
 import torch
 import torch.distributed as dist
 
-from vq_gnn_tpu_torch.config import Config, not_ported
+from vq_gnn_tpu_torch.config import Config
 from vq_gnn_tpu_torch.nn.model import ModelStatic
 from vq_gnn_tpu_torch.ops.gat import (
     explosion_scale,
     gat_conv_coo,
     gat_conv_mh_sharded,
     gat_conv_sharded,
+    gat_edge_values,
     node_logits,
 )
-from vq_gnn_tpu_torch.ops.spmm import _coo_sddmm, rows_aggregate, shard_dx
-from vq_gnn_tpu_torch.parallel.mesh import (
-    LATER_GAT_COO,
-    LATER_TRANSFORMER,
-    DataMesh,
-    Mesh2D,
-    RowShard,
-)
+from vq_gnn_tpu_torch.ops.spmm import _coo_sddmm, _segment_matvec, rows_aggregate, shard_dx
+from vq_gnn_tpu_torch.parallel.mesh import DataMesh, Mesh2D, RowShard
 from vq_gnn_tpu_torch.parallel.multihost import CollectiveLedger, _cidx_merge, _Collectives
 from vq_gnn_tpu_torch.train.optim import rmsprop_update
 from vq_gnn_tpu_torch.train.state import TrainState
@@ -154,15 +176,6 @@ from vq_gnn_tpu_torch.train.step import (
     masked_ce_parts,
     step_forward,
 )
-
-
-def check_sharded(ms: ModelStatic, cfg: Config) -> None:
-    """Refuse by name what the sharded steps do not take yet."""
-    if ms.transformer_flag:
-        raise not_ported("the sharded step with transformer_flag", LATER_TRANSFORMER)
-    if ms.formulation == "bm" and ms.conv_type == "GAT" and cfg.spmm_backend == "coo":
-        raise not_ported("the sharded step with B + M GAT on COO (spmm_backend='coo')",
-                         LATER_GAT_COO)
 
 
 class _RowExchange(torch.autograd.Function):
@@ -193,6 +206,46 @@ class _RowExchange(torch.autograd.Function):
                 ctx.x_dtype)
         if ctx.needs_input_grad[1]:  # the owned rows' edges against the gathered rows
             dval = _coo_sddmm(e.row, e.col, g[None], xf[None])[0]
+        return dx, dval, None, None, None
+
+
+def _gather_branches(comm: _Collectives, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of a per-branch [nb, R, Dc] tensor, [nb, R_all,
+    Dc], in one all-gather of its [R, nb * Dc] rows."""
+    if comm.size == 1:
+        return t
+    nb, R, Dc = t.shape
+    got = comm.gather(t.permute(1, 0, 2).reshape(R, nb * Dc), "rows")
+    return got.reshape(-1, nb, Dc).permute(1, 0, 2)
+
+
+class _BranchExchange(torch.autograd.Function):
+    """The per-branch COO aggregate of a row shard's owned rows (the B + M
+    GAT conv on COO, the module docstring): x_br [nb, R, Dc] its rows, vals
+    [nb, E] the values of its edges (differentiable), t_vals [nb, Et] those
+    of its batch columns' transposed edges (values only)."""
+
+    @staticmethod
+    def forward(ctx, x_br, vals, t_vals, edges, comm):
+        ctx.edges, ctx.comm, ctx.t_vals = edges, comm, t_vals
+        xf = _gather_branches(comm, x_br)
+        ctx.save_for_backward(xf if ctx.needs_input_grad[1] else None)
+        return _segment_matvec(edges.row, edges.col, vals, xf, edges.num_rows, edges.row_ptr,
+                               edges.row_long_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, comm = ctx.edges, ctx.comm
+        (xf,) = ctx.saved_tensors
+        dx = dval = None
+        if ctx.needs_input_grad[0]:
+            gf = _gather_branches(comm, g.contiguous())
+            dx_b = _segment_matvec(e.t_row, e.t_col, ctx.t_vals, gf, e.b_rows, e.t_row_ptr,
+                                   e.t_row_long_rows)
+            dx = torch.cat([dx_b, dx_b.new_zeros((dx_b.shape[0], e.num_rows - e.b_rows,
+                                                  dx_b.shape[2]))], 1)
+        if ctx.needs_input_grad[1]:  # the owned rows' edges against the gathered rows
+            dval = _coo_sddmm(e.row, e.col, g, xf)
         return dx, dval, None, None, None
 
 
@@ -309,16 +362,22 @@ class _ModelAxis:
 
 
 class _ScaleRanks:
-    """``explosion_scale``'s ``ranks``: the rows' ranks."""
+    """The rows' ranks, as ``ops/gat.py:explosion_scale``, ``branch_scale``
+    and ``nn/model.py:transformer_branch`` take them: ``max`` and ``sum``
+    copies reduced over them, ``psum`` a differentiable sum (its backward
+    sums the cotangent); each under ``category``."""
 
-    def __init__(self, comm: _Collectives):
-        self.comm = comm
+    def __init__(self, comm: _Collectives, category: str = "scalars"):
+        self.comm, self.category = comm, category
 
     def max(self, t):
-        return self.comm.max(t, "scalars")
+        return self.comm.max(t, self.category)
 
     def sum(self, t):
-        return self.comm.sum([t], "scalars")[0]
+        return self.comm.sum([t], self.category)[0]
+
+    def psum(self, t):
+        return _SumOverRanks.apply(self.comm, self.category, t)[0]
 
 
 def _gat_conv(edges, comm: _Collectives, axis, comm_all: _Collectives):
@@ -360,9 +419,24 @@ def _gat_conv(edges, comm: _Collectives, axis, comm_all: _Collectives):
 
 
 def _gat_mh_conv(edges, comm: _Collectives):
-    """``ShardEdges.gat_mh`` of a row shard over ``comm`` (the rows' ranks):
-    (x_own, al, ar) -> the B + M GAT conv's (agg, rowsum) of the owned rows
-    (``ops/gat.py:gat_conv_mh_sharded``, its exchanges under ``rows``)."""
+    """``ShardEdges.gat_mh`` of a row shard over ``comm`` (the rows' ranks;
+    on the 2-D mesh the data group): on the slot-ELL (x_own, al, ar) -> the
+    B + M GAT conv's (agg, rowsum) of the owned rows
+    (``ops/gat.py:gat_conv_mh_sharded``, its exchanges under ``rows``); on
+    COO (x_br [nb, R, D + 1], al, ar [nb, R] scaled) -> the owned rows'
+    [nb, R, D + 1] aggregate (the module docstring)."""
+    if edges.ell_row is None:
+        def coo(x_br, al, ar):
+            nb = al.shape[0]
+            tab = _LogitTable.apply(torch.cat([al, ar]).t(), comm, comm, edges.row0).t()
+            al_t, ar_t = tab[:nb], tab[nb:]
+            e = edges
+            ev = gat_edge_values(e.row + e.row0, e.col, e.val, al_t, ar_t)
+            with torch.no_grad():  # source = the owned column, destination = the gathered row
+                ev_t = gat_edge_values(e.t_col, e.t_row + e.row0, e.t_val, al_t, ar_t)
+            return _BranchExchange.apply(x_br, ev, ev_t, edges, comm)
+
+        return coo
     gather = (lambda t: comm.gather(t, "rows")) if comm.size > 1 else None
     return lambda x, al, ar: gat_conv_mh_sharded(edges, x, al, ar, gather)
 
@@ -380,7 +454,6 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
     rows' ranks; on the 2-D mesh ``model_group`` the model group, m and
     n_model this rank's coordinate, ``world_group`` every rank (for the
     reported scalars)."""
-    check_sharded(ms, cfg)
     if not dist.is_initialized():
         raise RuntimeError("no process group: call parallel.init_distributed first")
     ledger = CollectiveLedger()  # every collective of the step
@@ -422,12 +495,14 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
             dropout_keeps = [torch.rand((shard.batch_B_pad, c), generator=generator, device=dev)
                              < 1.0 - ms.dropout for c in ms.channels[1:-1]]
         masks = own(branch_masks, shard, False)
+        many = comm.size > 1
         batch = dataclasses.replace(shard, edges=dataclasses.replace(
             shard.edges, aggregate=lambda x: _RowExchange.apply(x, None, None, shard.edges, comm),
             gat=_gat_conv(shard.edges, comm, axis, comm_all), gat_mh=_gat_mh_conv(
-                shard.edges, comm), scale_ranks=_ScaleRanks(comm) if comm.size > 1 else None))
+                shard.edges, comm), scale_ranks=_ScaleRanks(comm) if many else None,
+            tr_ranks=_ScaleRanks(comm, "transformer") if many else None))
         params = list(state.model.parameters())
-        out, info_b, layer_inputs, new_bn, probes, _ = step_forward(
+        out, info_b, layer_inputs, new_bn, probes, probes_tr = step_forward(
             state, ms_l, X_dev, batch, warm_up_rate, generator, masks,
             own(dropout_keeps, shard, True), stats_reduce=moments, model_axis=axis)
         mask = batch.train_mask & batch.valid_B
@@ -435,14 +510,16 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
         (count_all,) = comm.sum([count.detach()], "scalars")
         loss_cls = ce_sum / torch.clamp(count_all, min=1.0)
         loss_r = loss_cls if cfg.ce_only else loss_cls + info_b
-        grads = torch.autograd.grad(loss_r, params + probes)
-        g_params = comm.sum(list(grads[: len(params)]), "grad")
+        grads = torch.autograd.grad(loss_r, params + probes + probes_tr)
+        n_p, n_pr = len(params), len(probes)
+        g_params = comm.sum(list(grads[:n_p]), "grad")
         rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
         state.bn_state = new_bn  # the whole batch's moments: alike on every rank
 
         if live:
             merge = _cidx_merge(comm, shard.batch_idx_all, shard.merge_src, ms.vq.num_M <= 256)
-            live_vq_update(state, ms_l, layer_inputs, grads[len(params) :], [], batch, masks,
+            live_vq_update(state, ms_l, layer_inputs, grads[n_p : n_p + n_pr],
+                           grads[n_p + n_pr :], batch, masks,
                            stats_reduce=lambda ts: comm.sum(ts, "stats"), cidx_merge_fn=merge)
 
         # the whole batch's metrics: the CE terms, replicated over a model
@@ -454,7 +531,8 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
         sq = [(g * g).sum() for g in g_params]
         fan_in = sum(s for p, s in zip(params, sq) if p.dim() == 2)
         info = torch.as_tensor(info_b, device=dev).detach()
-        bad = torch.stack([s.bad_init for s in state.vq_states]).any().float()
+        bad = torch.stack([s.bad_init for s in state.vq_states + (state.vq_states_tr or [])]
+                          ).any().float()
         cls_all, info_all, hits_all, fan_in_all, bad_all = comm_all.sum(
             [first_m * loss_cls.detach(), info, first_m * hits, first_d * fan_in, bad], "scalars")
         grad_sq = fan_in_all + sum(s for p, s in zip(params, sq) if p.dim() != 2)
