@@ -255,7 +255,15 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    SAGE's v1 normalisation; GCN B + M with the transformer from phase 13a's
    trainer (the bench's B + M cell at ELL K = 8; its codebooks and the
    transformer's trained, so that both recovery terms are not zero) and
-   B + M GAT on COO from phase 14d's, each in exact f32.  The parent frees
+   B + M GAT on COO from phase 14d's, each in exact f32; and the link and
+   multilabel batches, each on the first batch its phase built, in exact
+   f32: ``GCN-link``, phase 11's trainer at the collab widths through the
+   sharded link step (every rank's output rows gathered, its block of the
+   in-batch pairs and of the negatives, the same negatives on both sides
+   of the compare), and ``GCN-ppi``, phase 12's at the ppi widths through
+   the sharded step with ``multilabel=True``, on the 1-D mesh only (its
+   input's 52 features make 13 branches at layer 0, which the 2-D 1 x 2
+   mesh cannot split: there its refusal by name is checked).  The parent frees
    its cached blocks after the whole-batch references (the transformer's
    step peaks there) and logs what it holds as the ranks start.  For each
    mesh and each family, the launch
@@ -266,8 +274,11 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       mode) with the inter-layer BN and without, at the flagship's own
       settings (TF32, row 6's fast mode) and at bf16 compute; GAT in exact
       f32 and at bf16 compute (the bench's GAT cell); each layout family
-      and each B + M family in its one configuration: the loss within 1e-5
-      relative, the parameters within 1e-2 (1e-4 without the BN),
+      and each B + M, link and multilabel family in its one configuration
+      (the link step against ``link_train_step``, the multilabel one
+      against the trainer's BCE ``train_step``): the loss within 1e-5
+      relative, the parameters (the link predictor's too) within 1e-2
+      (1e-4 without the BN),
       ``c_indices[:N]`` agreeing on >= 0.9999, in exact f32 the codebooks
       within 2e-5 but for the codewords of the assignments that differ (at
       the flagship's settings their difference is logged: ``compare_step``
@@ -300,21 +311,28 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       the transformer's), and held at the transformer codebook's shape
       too; B + M GAT on COO: row 8 (no row 1, 2, 3, 9 or 10: its recovery
       term is the grid path) over the owned rows' edges and the batch
-      columns' transposed edges at nb (D + 1), rows 6 and 7;
+      columns' transposed edges at nb (D + 1), rows 6 and 7; the link and
+      multilabel families: rows 1, 6 and 7 as GCN's, row 6 at nb = 64, M =
+      4,096 on ``GCN-ppi`` (phase 12's row);
    c. the same step checks of the 2-D step at 1 x 2 (each rank half the
       branches and the fan-in columns, on B + M GAT half the heads), rows
       1, 2, 3 and 8 at C = 64 and rows 6, 9 and 10 at nb = 16 against
       their plain versions;
    d. timed steps and 3 profiled ones (5 each of the flagship GCN and of
-      GCN and GAT at bf16 compute, 3 of each layout and B + M family) of
-      each sharded step: ms/step, device busy and idle share of rank 0,
-      each rank's peak memory, the collective ledger of each rank by
-      category (on the transformer's and the COO GAT's paths the rows,
-      ``logits`` and ``transformer`` bytes to the byte of
-      ``ledger_formula``), the row exchanges of the bf16 steps at bf16,
-      and no payload as large as the feature table, nor one shaped like a
-      ``c_indices`` table, an edge array or the B + M reverse list (at
-      these widths the batch
+      GCN and GAT at bf16 compute, 3 of each layout, B + M, link and
+      multilabel family; the link steps draw their negatives from a
+      generator seeded alike on both ranks) of each sharded step: ms/step,
+      device busy and idle share of rank 0, each rank's peak memory, the
+      collective ledger of each rank by category (on the transformer's, the
+      COO GAT's, the link and the multilabel paths the rows, ``logits``,
+      ``transformer`` and ``link`` bytes to the byte of ``ledger_formula``:
+      the link step's [B_pad, C_out] f32 each way), the row exchanges of
+      the bf16 steps at bf16, and no payload as large as the family's
+      feature table (but, on ppi, the rows, which the formula holds: that
+      batch holds most of its graph, 50 features wide, and the exchange
+      carries it 256 wide; and the codebooks' EMA sums, [nb, M] and [nb, M,
+      K] at M = 4,096), nor one shaped like a ``c_indices`` table, an edge
+      array, the link pairs or the B + M reverse list (at these widths the batch
       holds half the graph's nodes, so the exchanged rows outweigh a
       ``c_indices`` table: the sizes are logged).
 
@@ -886,6 +904,20 @@ def keep_batches(obj, name, pos, kept, n=3):
     return fn
 
 
+def host_batch(b):
+    """A copy of a batch (or its edges) with every tensor a host numpy
+    array, as the loaders build them (``PaddedBatch.to`` and the shards
+    take host arrays)."""
+    out = copy.copy(b)
+    for f in dataclasses.fields(b):
+        v = getattr(b, f.name)
+        if hasattr(v, "detach"):
+            setattr(out, f.name, v.detach().cpu().numpy())
+        elif dataclasses.is_dataclass(v):
+            setattr(out, f.name, host_batch(v))
+    return out
+
+
 def timed_steps(torch, step, batches, steps):
     """ms of ``steps`` synchronised calls ``step(batch)``, cycling through
     ``batches``; returns (times, losses)."""
@@ -916,9 +948,11 @@ def batch_line(b, E):
             f"{layout_line(e)}")
 
 
-def link_phase(torch, ops, gpu, err):
+def link_phase(torch, ops, gpu, err, keep):
     """Phase 11: link prediction at the collab widths through LinkTrainer
-    (the module docstring says what it runs).  Returns its launch counts."""
+    (the module docstring says what it runs).  Hands its trainer and its
+    epoch's first batch to ``keep`` (phase 17's ``GCN-link``); returns its
+    launch counts."""
     import link_experiment_torch as tool
     from vq_gnn_tpu_torch.graph.datasets import prepare
     from vq_gnn_tpu_torch.train.link import LinkTrainer
@@ -1003,14 +1037,17 @@ def link_phase(torch, ops, gpu, err):
     assign_times(torch, 11, "link vq_update", xn, emb, b0.valid_B.contiguous(), gpu,
                  chunk=branch_chunk(b0.B_pad, M))
     lookup_times(torch, 11, "link", vq1, b0.fo_ids, cfg.num_D, gpu)
+    tr._batch_cache.clear()  # the eval batches: phase 17 reads the state and b0 only
+    keep["GCN-link"], keep["batches"]["GCN-link"] = tr, [host_batch(b0)]
     return counts
 
 
-def inductive_phase(torch, ops, gpu, err, kern):
+def inductive_phase(torch, ops, gpu, err, kern, keep):
     """Phase 12: inductive multilabel training at the ppi widths through
     NodeTrainer(val_graph=, test_graph=), then evaluate_split_stochastic
     (the module docstring says what it runs).  Adds the timed rows of the
-    new shapes to ``kern``; returns its launch counts: the path's with
+    new shapes to ``kern``, its trainer and its epoch's first batch to
+    ``keep`` (phase 17's ``GCN-ppi``); returns its launch counts: the path's with
     evaluate_split_stochastic's, and under the new rows' names the path's
     (row 6 at nb = 64 and row 7) and evaluate_split_stochastic's (row 6 at K
     = 4)."""
@@ -1140,6 +1177,7 @@ def inductive_phase(torch, ops, gpu, err, kern):
     key, key4 = rows
     counts.update({key: path_counts["vq_assign"], key4: d["vq_assign"],
                    lkey: path_counts["vq_lookup"]})
+    keep["GCN-ppi"], keep["batches"]["GCN-ppi"] = tr, [host_batch(b0)]
     return counts
 
 
@@ -2073,6 +2111,12 @@ SHARDED_KERNELS = {
                   "vq_lookup": "lookup_kernel"},
     "GAT-bm-coo": {"segment_sum": "segment_sum_kernel", "vq_assign": "assign_kernel",
                    "vq_lookup": "lookup_kernel"},
+    # phase 11's link step at the collab widths and phase 12's multilabel
+    # step at the ppi widths (row 6 at nb = 64, M = 4,096), in exact f32
+    "GCN-link": {"ell_aggregate": "ell_aggregate_kernel", "vq_assign": "assign_kernel",
+                 "vq_lookup": "lookup_kernel"},
+    "GCN-ppi": {"ell_aggregate": "ell_aggregate_kernel", "vq_assign": "assign_kernel",
+                "vq_lookup": "lookup_kernel"},
 }
 # ... and the rows each of those must not launch: no row 2 or 3 off the
 # single-K layout, no row 1 on COO or under the mixed or per-branch GAT
@@ -2094,7 +2138,13 @@ SHARDED_NOT = {
     "GAT-bm-coo": ("ell_aggregate", "ell_aggregate_bf16", "gat_aggregate", "gat_aggregate_bf16",
                    "gat_backward", "gat_backward_bf16", "segment_sum_scalar", "rev_forward",
                    "rev_backward"),
+    **dict.fromkeys(("GCN-link", "GCN-ppi"), (
+        "gat_aggregate", "gat_aggregate_bf16", "gat_backward", "gat_backward_bf16",
+        "segment_sum", "segment_sum_scalar", "rev_forward", "rev_backward")),
 }
+LINK_NEG_SEED = 24  # phase 17's link negatives: the compare step's (numpy), the timed steps'
+# the families whose ledger phase 17 holds to the byte (ledger_formula)
+LEDGER_FORMULA_FAMILIES = ("GCN-bm-tr", "GAT-bm-coo", "GCN-link", "GCN-ppi")
 # row 6 a step on the transformer's path: the layers' codebooks and the
 # transformer's, three layers each
 TR_ASSIGNS = 6
@@ -2111,15 +2161,21 @@ def _state_digest(arrays) -> str:
     return h.hexdigest()
 
 
-def _step_record(torch, state, m):
+def _step_record(torch, state, m, pred=None):
     """What phase 17 compares of a state after one step: the loss and its
-    two terms (the step's metrics ``m``), the named parameters, each layer's
-    codebook and c_indices, and the transformer's beside them (numpy)."""
+    two terms (the step's metrics ``m``; a link step's ``loss_pre`` and the
+    rest), the named parameters (with a link step's predictor, ``pred.``),
+    each layer's codebook and c_indices, and the transformer's beside them
+    (numpy)."""
     tr = state.vq_states_tr or []
-    return dict(loss=float(m["loss"]), loss_cls=float(m["loss_cls"]),
-                info=float(m["info_backward"]),
-                params={k: v.detach().cpu().numpy() for k, v in state.model.named_parameters()},
-                emb=[s.embedding.cpu().numpy() for s in state.vq_states + tr],
+    params = {k: v.detach().cpu().numpy() for k, v in state.model.named_parameters()}
+    if pred is not None:
+        params.update({f"pred.{k}": v.detach().cpu().numpy()
+                       for k, v in pred.named_parameters()})
+    cls = float(m["loss_pre"] if "loss_pre" in m else m["loss_cls"])
+    return dict(loss=float(m["loss"]), loss_cls=cls,
+                info=float(m["info_backward"]) if "info_backward" in m else float(m["loss"]) - cls,
+                params=params, emb=[s.embedding.cpu().numpy() for s in state.vq_states + tr],
                 cidx=[s.c_indices.cpu().numpy() for s in state.vq_states + tr])
 
 
@@ -2470,11 +2526,13 @@ def sharded_rank(rank, tmp):
 
     from vq_gnn_tpu_torch import ops
     from vq_gnn_tpu_torch.config import Config, apply_matmul_precision
-    from vq_gnn_tpu_torch.convert import state_from_numpy
+    from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy
     from vq_gnn_tpu_torch.nn.model import model_static
     from vq_gnn_tpu_torch.parallel import (
         make_mesh,
         make_mesh_2d,
+        make_sharded_link_step,
+        make_sharded_link_step_2d,
         make_sharded_step,
         make_sharded_step_2d,
         shard_train_inputs,
@@ -2500,17 +2558,31 @@ def sharded_rank(rank, tmp):
                            cfgs={k: Config(**v) for k, v in fam["cfgs"].items()})
 
     def fresh(fam, tag):
+        """(ModelStatic, the family's state, on a link family its predictor
+        and RMSprop, else None) on the card."""
         cfg = fam["cfgs"][tag]
         apply_matmul_precision(cfg)  # TF32 for the flagship's settings ('default'), else off
-        ms = model_static(cfg, plan["F"], plan["C"], torch.device("cuda"))
-        return ms, state_from_numpy(fam["state"], ms, cfg.lr, "cuda")
+        ms = model_static(cfg, fam["F"], fam["C"], torch.device("cuda"))
+        pred = None if fam["pred"] is None else predictor_from_numpy(*fam["pred"], cfg.lr, "cuda")
+        return ms, state_from_numpy(fam["state"], ms, cfg.lr, "cuda"), pred
 
-    def timed(name, step, state, X, shards, cfg, n_steps):
+    def call(step, state, X, sh, cfg, pred, **kw):
+        """One step of the family's kind, (state, metrics): the node step,
+        or with a predictor the link step."""
+        if pred is None:
+            return step(state, X, sh, 1.0, cfg.lr, 1.0, **kw)
+        return state, step(state, *pred, X, sh, 1.0, cfg.lr, 1.0, **kw)
+
+    def timed(name, step, state, X, shards, cfg, n_steps, pred):
         """Timed and 3 profiled steps on this rank's shards, the ledger and
-        the peak memory over them."""
+        the peak memory over them; a link step draws its negatives from a
+        generator seeded alike on both ranks."""
+        kw = {} if pred is None else dict(generator=torch.Generator(
+            device="cuda").manual_seed(LINK_NEG_SEED))
+
         def one(sh):
             nonlocal state
-            state, m = step(state, X, sh, 1.0, cfg.lr, 1.0)
+            state, m = call(step, state, X, sh, cfg, pred, **kw)
             return m
 
         for sh in shards:  # warm-up
@@ -2540,42 +2612,59 @@ def sharded_rank(rank, tmp):
     # rank's shard shapes
     mesh1 = make_mesh(SHARDED_RANKS, device="cuda:0")
     mesh2 = make_mesh_2d(1, SHARDED_RANKS, device="cuda:0")
-    for mname, mesh, place, make, n_model in (
-            ("1-D", mesh1, shard_train_inputs, make_sharded_step, 1),
-            ("2-D 1x2", mesh2, shard_train_inputs_2d, make_sharded_step_2d, SHARDED_RANKS)):
+    for mname, mesh, place, make, make_link, n_model in (
+            ("1-D", mesh1, shard_train_inputs, make_sharded_step, make_sharded_link_step, 1),
+            ("2-D 1x2", mesh2, shard_train_inputs_2d, make_sharded_step_2d,
+             make_sharded_link_step_2d, SHARDED_RANKS)):
         for fname, fam in fams.items():
             X, batches, cfgs = fam["X"], fam["batches"], fam["cfgs"]
+            if mname not in fam["meshes"]:  # its branches do not split over the model ranks
+                cfg = next(iter(cfgs.values()))
+                ms = model_static(cfg, fam["F"], fam["C"], torch.device("cuda"))
+                try:
+                    make(ms, cfg, mesh)
+                except ValueError as e:
+                    rlog(f"[17c {fname} {mname}] refused by name, as it must be: {e}")
+                else:
+                    raise AssertionError(f"the {mname} step took {fname}'s "
+                                         f"{ms.num_branches} branches")
+                continue
             R_all = batches[0].B_pad + batches[0].Bp_pad
             path = f"{fname} {mname}"
             t_fam = time.time()
             ops.reset_launch_counts()
             n_steps, stepped = 0, {}
             for tag, cfg in cfgs.items():
-                ms, state = fresh(fam, tag)
+                ms, state, pred = fresh(fam, tag)
                 state, _, shard = place(mesh, state, X, batches[0])
-                step = make(ms, cfg, mesh)
+                step = (make_link(ms, cfg, mesh) if pred is not None
+                        else make(ms, cfg, mesh, multilabel=fam["multilabel"]))
+                # the compare step's negatives: the reference's
+                kw = {} if pred is None else dict(dst_neg=torch.as_tensor(fam["dst_neg"],
+                                                                          device="cuda"))
                 decisions = res["cmax"].setdefault((mname, fname, tag), [])
                 if tag.endswith(CMAX_CUT):  # a check beside the path: not counted
                     with ops.uncounted(), cmax_cut():
-                        state, m = step(state, X, shard, 1.0, cfg.lr, 1.0)
+                        state, m = call(step, state, X, shard, cfg, pred, **kw)
                 else:
                     with (cmax_decisions(decisions, shard.row0, rank if n_model > 1 else 0)
                           if ms.transformer_flag else contextlib.nullcontext()):
-                        state, m = step(state, X, shard, 1.0, cfg.lr, 1.0)
+                        state, m = call(step, state, X, shard, cfg, pred, **kw)
                     n_steps += 1
                 if tag in fam["timed"]:  # its timed steps go on from here
-                    stepped[tag] = (state, shard, step)
-                rec = _step_record(torch, state, m)
+                    stepped[tag] = (state, shard, step, pred)
+                rec = _step_record(torch, state, m, None if pred is None else pred[0])
                 if n_model == 1:
                     res["digest"][mname, fname, tag] = _state_digest(
                         list(rec["params"].values()) + rec["emb"] + [c[:-1] for c in rec["cidx"]])
                 if rank == 0 or n_model > 1:
                     res[mname, fname, tag] = rec
             for tag, n in fam["timed"].items():
-                state, shard, step = stepped.pop(tag)
+                state, shard, step, pred = stepped.pop(tag)
                 shards = [shard] + [place(mesh, state, X, b)[2] for b in batches[1:]]
                 apply_matmul_precision(cfgs[tag])
-                state = timed(f"{fname} {tag} {mname}", step, state, X, shards, cfgs[tag], n)
+                state = timed(f"{fname} {tag} {mname}", step, state, X, shards, cfgs[tag], n,
+                              pred)
                 n_steps += len(shards) + n + 3
             res["launches"][path] = ops.launch_counts()
             res["path_steps"][path] = n_steps
@@ -2586,6 +2675,10 @@ def sharded_rank(rank, tmp):
                 own_t = fname.startswith("GAT") and fname != "GAT-coo"
                 rev = ("" if sh.rev_slot_row is None else
                        f", reverse list {sh.rev_slot_row.shape[0]} slots over its batch rows")
+                if sh.link_src is not None:
+                    rev += (f", {sh.link_src.shape[0]} of the batch's "
+                            f"{len(batches[0].link_src)} link pairs ({int(sh.link_mask.sum())} "
+                            f"live)")
                 rlog(f"[17 shard] {fname} rank {rank} of {SHARDED_RANKS}: B_pad {sh.B_pad} of "
                      f"{sh.batch_B_pad}, Bp_pad {sh.Bp_pad}, owned {shard_line(sh.edges)} "
                      f"(transposed: of its {'owned' if own_t else 'batch'} columns){rev}, "
@@ -2624,8 +2717,11 @@ def sharded_rank(rank, tmp):
                         hold_rev_shard(torch, tag17, label, vq1.c_indices, sh,
                                        D + fname.startswith("GAT"), M, gen, err)
                     xn = torch.randn((nb, sh.B_pad, K), generator=gen, device="cuda")
+                    # the ppi widths: phase 12's row (nb = 64, M = 4,096)
                     hold_assign(torch, tag17, f"{label}, {nb} branches", xn,
                                 vq1.embedding.contiguous(), sh.valid_B.contiguous(), err,
+                                key=(f"vq_assign (nb={nb}, M={M})" if fname == "GCN-ppi"
+                                     and n_model == 1 else "vq_assign"),
                                 chunk=branch_chunk(sh.B_pad, M))
                     if state.vq_states_tr is not None:  # at the transformer codebook's shape
                         emb_tr = state.vq_states_tr[1].embedding.contiguous()
@@ -2636,7 +2732,7 @@ def sharded_rank(rank, tmp):
                                     chunk=branch_chunk(sh.B_pad, M))
                     hold_lookup(torch, tag17, f"{label}, {nb} branches", vq1, sh.fo_ids, D)
                     del xn
-            del state, shards, step
+            del state, shards, step, pred
     res["err"] = err
     with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
@@ -2693,8 +2789,10 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True, te
                 fails.append((tag, k, rel_k))
     d_par = 0.0
     for k, v in ref["params"].items():
+        if k.startswith("pred."):  # the link predictor: replicated
+            pass
         # B + M GAT heads, the transformer's transformer_k: this rank's branches' rows
-        if n_model > 1 and v.ndim >= 2 and (k.endswith(("att_l", "att_r"))
+        elif n_model > 1 and v.ndim >= 2 and (k.endswith(("att_l", "att_r"))
                                             or ".transformer_k." in k):
             h = v.shape[0] // n_model
             v = v[m * h : (m + 1) * h]
@@ -2743,30 +2841,47 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True, te
     return fails
 
 
-def _family_plan(tr, graph, cfgs, timed, host, n_batches=None):
+def _family_plan(tr, graph, cfgs, timed, host, n_batches=None, batches=None):
     """Phase 17's plan for one family (a trainer's state): its
     configurations at the trainer's high-water pads (phase 15's fixed pads),
-    one epoch of host batches in their layout (its first ``n_batches``), the
+    one epoch of host batches in their layout (its first ``n_batches``; or
+    ``batches``, those its phase built, and then ``graph`` None), the
     feature table and the state (numpy, one copy a graph and a trainer in
-    ``host``, which the plan's pickle stores once)."""
-    from vq_gnn_tpu_torch.convert import state_to_numpy
+    ``host``, which the plan's pickle stores once), the model's input and
+    output widths, the meshes it runs on; a link trainer's predictor with
+    its RMSprop (numpy) and the compare step's negatives, uniform over the
+    first batch's rows (seeded), or a multilabel trainer's flag."""
+    import numpy as np
+
+    from vq_gnn_tpu_torch.convert import predictor_to_numpy, state_to_numpy
     from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 
-    g, c, ci = graph
-    if id(g) not in host:
-        host[id(g)] = tr.X_dev.cpu().numpy()
+    xkey = id(tr.X_dev) if graph is None else id(graph[0])
+    if xkey not in host:
+        host[xkey] = tr.X_dev.cpu().numpy()
     if id(tr) not in host:
         host[id(tr)] = state_to_numpy(tr.state)
     hw = tr.train_loader
     pads = dict(fixed_B_pad=hw._B_bucket, fixed_Bp_pad=hw._Bp_bucket, fixed_E_pad=hw._E_bucket)
     cfgs = {k: dataclasses.replace(v, **pads) for k, v in cfgs.items()}
     base = next(iter(cfgs.values()))
-    loader = BatchLoader(g, base, train_flag=True, cluster_indices=ci, seed=base.seed,
-                         device="cuda")
-    X, state = host[id(g)], host[id(tr)]
-    batches = [w[0] for w, _ in itertools.islice(loader._epoch_iter(), n_batches)]
-    return dict(cfgs=cfgs, timed=timed, batches=batches, X=X, state=state,
-                C_hidden=base.hidden_channels)
+    if batches is None:
+        g, c, ci = graph
+        loader = BatchLoader(g, base, train_flag=True, cluster_indices=ci, seed=base.seed,
+                             device="cuda")
+        batches = [w[0] for w, _ in itertools.islice(loader._epoch_iter(), n_batches)]
+    link = hasattr(tr, "predictor")
+    b0 = batches[0]
+    # the 2-D 1 x 2 mesh splits every layer's branches over the model ranks
+    # (the ppi input's 52 features make 13 branches: the 1-D mesh alone)
+    split = all(nb % SHARDED_RANKS == 0 for nb in tr.ms.num_branches)
+    return dict(cfgs=cfgs, timed=timed, batches=batches, X=host[xkey], state=host[id(tr)],
+                meshes=("1-D", "2-D 1x2") if split else ("1-D",),
+                C_hidden=base.hidden_channels, F=tr.ms.channels[0], C=tr.ms.channels[-1],
+                pred=predictor_to_numpy(tr.predictor, tr.pred_opt) if link else None,
+                dst_neg=np.random.default_rng(LINK_NEG_SEED).integers(
+                    0, max(int(b0.num_B), 1), len(b0.link_src)) if link else None,
+                multilabel=getattr(tr, "multilabel", False))
 
 
 def sage_bm_trainer(torch, ops, graph):
@@ -2795,21 +2910,28 @@ def sage_bm_trainer(torch, ops, graph):
     return tr
 
 
-def ledger_formula(fname, cf, F, R, n_data) -> dict:
+def ledger_formula(fname, cf, F, C_out, b0, n_data) -> dict:
     """The bytes a step each rank's ledger must show, by category, on the
-    transformer's and the B + M COO GAT's sharded paths over ``n_data``
-    ranks of the rows (the 2-D 1 x 2 mesh's data group has one, and moves
-    none of these): GCN's row exchange, [R, C] forward and above layer 0
-    backward, and the transformer's c_max ([nb] forward, [2, nb] backward)
-    and out_M normaliser ([nb, M] each way) a layer; the COO GAT conv's
-    per-branch rows [R, nb (D + 1)] forward and above layer 0 backward, and
-    its table [R, 2 nb] gathered and its cotangent summed a layer."""
+    sharded paths of ``LEDGER_FORMULA_FAMILIES`` over ``n_data`` ranks of
+    the rows (the 2-D 1 x 2 mesh's data group has one, and moves none of
+    these), R = B_pad + Bp_pad of the batch ``b0``: GCN's row exchange, [R,
+    C] forward and above layer 0 backward; the transformer's c_max ([nb]
+    forward, [2, nb] backward) and out_M normaliser ([nb, M] each way) a
+    layer; the link step's output rows [B_pad, C_out] gathered and their
+    cotangent summed; the COO GAT conv's per-branch rows [R, nb (D + 1)]
+    forward and above layer 0 backward, and its table [R, 2 nb] gathered
+    and its cotangent summed a layer."""
     chans = (F,) + (cf.hidden_channels,) * (cf.num_layers - 1)
     nbs = [c // cf.num_D for c in chans]
     many = n_data > 1
+    R = b0.B_pad + b0.Bp_pad
+    rows = 4 * R * (sum(chans) + sum(chans[1:])) * many
     if fname == "GCN-bm-tr":
-        return {"rows": 4 * R * (sum(chans) + sum(chans[1:])) * many,
+        return {"rows": rows,
                 "transformer": 4 * sum(3 * nb + 2 * nb * cf.num_M for nb in nbs) * many}
+    if fname in ("GCN-link", "GCN-ppi"):
+        return {"rows": rows, "link": 2 * 4 * b0.B_pad * C_out * many * (fname == "GCN-link"),
+                "transformer": 0, "logits": 0}
     return {"rows": 4 * R * (cf.num_D + 1) * (sum(nbs) + sum(nbs[1:])) * many,
             "logits": 4 * R * 4 * sum(nbs) * many, "transformer": 0}
 
@@ -2819,22 +2941,23 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     (``parallel/mesh.py``, ``parallel/sharded.py``), the flagship GCN and GAT
     B + B' and the B + M GAT from the states of phase 3's trainers, SAGE
     B + M from :func:`sage_bm_trainer`'s, GCN B + M with the transformer
-    from phase 13a's and B + M GAT on COO from phase 14d's (the module
-    docstring says what it runs).  Returns the two ranks' launches on the
-    sharded paths."""
+    from phase 13a's, B + M GAT on COO from phase 14d's, the link step from
+    phase 11's and the multilabel step from phase 12's, each on its phase's
+    first batch (``trainers['batches']``) (the module docstring says what
+    it runs).  Returns the two ranks' launches on the sharded paths."""
     import pickle
     import tempfile
 
     import torch.multiprocessing as mp
 
     from vq_gnn_tpu_torch.config import apply_matmul_precision
-    from vq_gnn_tpu_torch.convert import state_from_numpy
+    from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy
     from vq_gnn_tpu_torch.nn.model import model_static
+    from vq_gnn_tpu_torch.train.link import make_link_step
     from vq_gnn_tpu_torch.train.step import make_step_fns
 
     t0 = time.time()
     tr = trainers["GCN"]
-    N = graphs["GCN"][0].num_nodes
     # the step checks in exact f32 (TF32 off, row 6's exact mode), whose sums
     # differ in order only, and at the flagship's own settings, which the
     # timed steps run, in f32 and at bf16 compute
@@ -2848,7 +2971,8 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     tr_of = {"GCN": tr, "GAT": trainers["GAT"], "GCN-mixed": tr, "GAT-mixed": trainers["GAT"],
              "GCN-coo": tr, "GAT-coo": trainers["GAT"], "GAT-bm": trainers["GAT-bm"],
              "GAT-bm-bf16": trainers["GAT-bm-bf16"], "SAGE-bm": sage_bm,
-             "GCN-bm-tr": trainers["GCN-bm-tr"], "GAT-bm-coo": trainers["GAT-bm-coo"]}
+             "GCN-bm-tr": trainers["GCN-bm-tr"], "GAT-bm-coo": trainers["GAT-bm-coo"],
+             "GCN-link": trainers["GCN-link"], "GCN-ppi": trainers["GCN-ppi"]}
     host = {}
     n3 = SHARDED_STEPS_LAYOUT
     fams = {
@@ -2888,36 +3012,50 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             f"exact, {CMAX_CUT}": exact(trainers["GCN-bm-tr"].cfg)}, {"exact": n3}, host, 1),
         "GAT-bm-coo": _family_plan(trainers["GAT-bm-coo"], graphs["GAT-bm"], {
             "exact": exact(trainers["GAT-bm-coo"].cfg)}, {"exact": n3}, host, 1),
+        # phase 11's link trainer at the collab widths (the link step: the
+        # whole batch's output rows gathered) and phase 12's multilabel
+        # trainer at the ppi widths (BCE; row 6 at nb = 64, M = 4,096), each
+        # on the batch its phase built first, in exact f32
+        **{k: _family_plan(trainers[k], None, {"exact": exact(trainers[k].cfg)}, {"exact": n3},
+                           host, batches=trainers["batches"][k]) for k in ("GCN-link", "GCN-ppi")},
     }
     del host, sage_bm
-    F, C = graphs["GCN"][0].num_features, tr.ms.channels[-1]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_17_")
     with open(os.path.join(tmp, "plan.pkl"), "wb") as f:
-        pickle.dump(dict(gpu=gpu, F=F, C=C, families={
+        pickle.dump(dict(gpu=gpu, families={
             k: dict(fam, cfgs={t: dataclasses.asdict(v) for t, v in fam["cfgs"].items()})
             for k, fam in fams.items()}), f)
     for fname, fam in fams.items():
         b0, cf = fam["batches"][0], next(iter(fam["cfgs"].values()))
+        link = "" if fam["pred"] is None else f", L_pad {len(b0.link_src)}"
         log(f"[17 setup] {fname}: fixed pads B_pad {cf.fixed_B_pad} Bp_pad {cf.fixed_Bp_pad} "
             f"E_pad {cf.fixed_E_pad}; {len(fam['batches'])} batches, the first "
-            f"{batch_line(b0, edge_count(b0.edges))}")
+            f"{batch_line(b0, edge_count(b0.edges))}{link}; model {fam['F']} -> {fam['C']}")
     log(f"[17 setup] plan written in {time.time() - t0:.1f}s")
 
-    # the references: train_step on the whole batch from the same state
+    # the references: train_step (or link_train_step, with the same
+    # negatives) on the whole batch from the same state
     refs = {}
     for fname, fam in fams.items():
         X = tr_of[fname].X_dev
         for tag, cf in fam["cfgs"].items():
             apply_matmul_precision(cf)
-            ms = model_static(cf, F, C, torch.device("cuda"))
+            ms = model_static(cf, fam["F"], fam["C"], torch.device("cuda"))
             st = state_from_numpy(fam["state"], ms, cf.lr, "cuda")
-            decisions = []
+            b0, decisions, pred = fam["batches"][0].to("cuda"), [], None
             with ops.uncounted(), (cmax_cut() if tag.endswith(CMAX_CUT) else cmax_decisions(
                     decisions) if ms.transformer_flag else contextlib.nullcontext()):
-                st, m = make_step_fns(ms, cf).train_step(st, X, fam["batches"][0].to("cuda"),
-                                                         1.0, cf.lr, 1.0)
-            refs[fname, tag] = dict(_step_record(torch, st, m), cmax=decisions)
-            del st, m
+                if fam["pred"] is None:
+                    st, m = make_step_fns(ms, cf, fam["multilabel"]).train_step(
+                        st, X, b0, 1.0, cf.lr, 1.0)
+                else:
+                    pred = predictor_from_numpy(*fam["pred"], cf.lr, "cuda")
+                    m = make_link_step(ms, cf)[0](st, *pred, X, b0, 1.0, cf.lr, 1.0,
+                                                  dst_neg=torch.as_tensor(fam["dst_neg"],
+                                                                          device="cuda"))
+            refs[fname, tag] = dict(_step_record(torch, st, m, None if pred is None else pred[0]),
+                                    cmax=decisions)
+            del st, m, b0, pred
     # the whole-batch transformer step's peak is the largest of the phase:
     # hand the two ranks the card with the references' blocks freed
     torch.cuda.synchronize()
@@ -2941,6 +3079,7 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     # 17a / 17c: each step against train_step on the whole batch
     fails = []
     for fname, fam in fams.items():
+        N = fam["X"].shape[0] - 1  # the family's graph (the feature table's dustbin row)
         for tag, cf in fam["cfgs"].items():
             atol = 1e-2 if cf.bn_flag else 1e-4
             held = cf.matmul_precision == "highest"  # exact f32: the codebooks held
@@ -2953,7 +3092,7 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             tr_fam = f"exact, {CMAX_CUT}" in fam["cfgs"]
             kw = dict(codebooks=held, terms=bm, D=cf.num_D if tr_fam else 0,
                       grads_held=not tr_fam or tag.endswith(CMAX_CUT))
-            for mname in ("1-D", "2-D 1x2"):
+            for mname in fam["meshes"]:
                 recs = [out["cmax"][mname, fname, tag] for out in outs]
                 if ref["cmax"]:  # the backward of ranks_max: the parts sum to the whole
                     grads = cmax_grads(ref["cmax"], recs)
@@ -2967,7 +3106,7 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
                               if g[1] > 1e-5 * g[2]]
             fails += compare_step(f"17a {fname} 1-D vs train_step, {tag}",
                                   outs[0]["1-D", fname, tag], ref, N, atol, gpu, **kw)
-            for r in range(SHARDED_RANKS):
+            for r in range(SHARDED_RANKS * ("2-D 1x2" in fam["meshes"])):
                 fails += compare_step(
                     f"17c {fname} 2-D 1x2 model rank {r} vs train_step, {tag}",
                     outs[r]["2-D 1x2", fname, tag], ref, N, atol, gpu, m=r,
@@ -2997,14 +3136,19 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             err[k] = max(err.get(k, 0.0), v)
 
     # 17d: timing and the ledger; nothing table- or edge-shaped rides a collective
-    X = tr.X_dev
-    x_bytes = X.numel() * X.element_size()
-    cidx_bytes = (N + 1) * tr.state.vq_states[0].c_indices.shape[1] * 2
     for path, st in outs[0]["steps"].items():
         fname = path.split()[0]
-        b0 = fams[fname]["batches"][0]
+        fam = fams[fname]
+        b0 = fam["batches"][0]
+        X = fam["X"]  # the family's feature table, [N + 1, F]
+        N, x_bytes = X.shape[0] - 1, X.nbytes
+        cidx_bytes = (N + 1) * tr_of[fname].state.vq_states[0].c_indices.shape[1] * 2
+        nb_M = {(nb, next(iter(fam["cfgs"].values())).num_M)
+                for nb in tr_of[fname].ms.num_branches}  # a codebook's leading dims
         banned = edge_shapes(b0.edges) | rev_shapes(b0)
         col_bytes = max(math.prod(sh) for sh in banned) * 4  # the largest edge array
+        if b0.link_src is not None:  # the pairs ride no collective either
+            banned.add((len(b0.link_src),))
         busy = "not measured" if st["busy"] is None else f"{st['busy']:.3f}"
         idle = ("not measured" if st["busy"] is None
                 else f"{100 * (1 - st['busy'] / st['wall']):.1f} %")
@@ -3028,9 +3172,9 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             log(f"[17d ledger] {path} rank {r}: {led['steps']} steps; bytes a step "
                 f"{per['bytes']}; calls a step {per['calls']}; "
                 f"{sum(per['bytes'].values()) / 1e6:.4f} MB a step in all")
-            if fname in ("GCN-bm-tr", "GAT-bm-coo"):  # to the byte
-                cf = next(iter(fams[fname]["cfgs"].values()))
-                want = ledger_formula(fname, cf, F, b0.B_pad + b0.Bp_pad,
+            if fname in LEDGER_FORMULA_FAMILIES:  # to the byte
+                cf = next(iter(fam["cfgs"].values()))
+                want = ledger_formula(fname, cf, fam["F"], fam["C"], b0,
                                       1 if "2-D" in path else SHARDED_RANKS)
                 got = {k: per["bytes"][k] for k in want}
                 log(f"[17d ledger] {path} rank {r}: {got} bytes a step, the formula {want}")
@@ -3042,7 +3186,16 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
                 biggest = max(biggest, nbytes)
                 if r == 0:
                     log(f"[17d ledger]   {kind}: {nbytes} B a call")
-                assert nbytes < x_bytes, f"a payload as large as the feature table: {kind}"
+                # at the ppi widths the batch holds most of its small graph
+                # (50 features), so two payloads outweigh its feature table by
+                # nature: the row exchange, 256 wide, which the formula holds
+                # to the byte, and the codebooks' EMA sums, [nb, M] and [nb,
+                # M, K] at M = 4,096, which grow with the codebooks, not the
+                # graph
+                codebook = kind[0] == "stats" and all(
+                    tuple(s[:2]) in nb_M for s in kind[3] if len(s) >= 2)
+                if not (fname == "GCN-ppi" and (kind[0] == "rows" or codebook)):
+                    assert nbytes < x_bytes, f"a payload as large as the feature table: {kind}"
                 for s in kind[3]:
                     assert not (len(s) and s[0] == N + 1) and tuple(s) not in banned, \
                         f"a table- or edge-shaped payload: {kind}"
@@ -4031,8 +4184,11 @@ def main() -> int:
     # ---- 11-12. link prediction at the collab widths, inductive at ppi ----
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
     counts = []
-    for name, run in (("11 link", lambda: link_phase(torch, ops, gpu, err)),
-                      ("12 inductive", lambda: inductive_phase(torch, ops, gpu, err, kern))):
+    # phase 17's trainers from phases 11-14, and phase 11's and 12's batches
+    keep = {"batches": {}}
+    for name, run in (("11 link", lambda: link_phase(torch, ops, gpu, err, keep)),
+                      ("12 inductive", lambda: inductive_phase(torch, ops, gpu, err, kern,
+                                                               keep))):
         phase(name)
         t0 = time.time()
         counts.append(run())
@@ -4041,7 +4197,6 @@ def main() -> int:
     # ---- 13. the model options: transformer, dropbranch, alpha dropout ----
     phase("13 options")
     t0 = time.time()
-    keep = {}  # phase 17's trainers from phases 13a and 14d
     counts.append(options_phase(torch, ops, NodeTrainer, Config, graphs, gpu, err, kern, runs,
                                 prepare, synthetic_sbm, keep))
     log(f"[13 options] the phase took {time.time() - t0:.1f}s")

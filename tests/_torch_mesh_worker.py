@@ -9,7 +9,11 @@ dropbranch and dropout masks), builds the case's first batch with the
 port's ``BatchLoader`` on every rank alike (in the case's layout), takes
 this rank's shard, runs one sharded step and pickles the metrics, the state
 (with the RMSprop square averages), the collective ledger and the batch's
-arrays.  Ranks
+arrays.  A multilabel case (its graph's ``multilabel``) runs the step with
+BCE; a link case (``link``) builds a link batch and runs the sharded link
+step with the plan's predictor (numpy, the JAX layout), negatives and
+predictor masks, and pickles the predictor and its square averages too,
+with the per-layer clip's scales where ``cfg.clip`` is set.  Ranks
 outside a case's mesh (a mesh of two in a group of four) make its groups
 and sit it out.  The plan's ``scale`` cases (ranks 0 and 1) run the
 sharded Trick-1 scale on each rank's logits and pickle its value and the
@@ -32,7 +36,7 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vq_gnn_tpu_torch.config import Config  # noqa: E402
-from vq_gnn_tpu_torch.convert import state_from_numpy  # noqa: E402
+from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy  # noqa: E402
 from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm  # noqa: E402
 from vq_gnn_tpu_torch.nn.model import model_static, transformer_cmax  # noqa: E402
 from vq_gnn_tpu_torch.nn.vq import VQState  # noqa: E402
@@ -42,11 +46,14 @@ from vq_gnn_tpu_torch.parallel import (  # noqa: E402
     DataMesh,
     init_distributed,
     make_mesh_2d,
+    make_sharded_link_step,
+    make_sharded_link_step_2d,
     make_sharded_step,
     make_sharded_step_2d,
     shard_train_inputs,
     shard_train_inputs_2d,
 )
+from vq_gnn_tpu_torch.parallel import sharded  # noqa: E402
 from vq_gnn_tpu_torch.parallel.multihost import _Collectives  # noqa: E402
 from vq_gnn_tpu_torch.parallel.sharded import _ScaleRanks  # noqa: E402
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader  # noqa: E402
@@ -54,7 +61,8 @@ from vq_gnn_tpu_torch.train.loop import device_features  # noqa: E402
 from vq_gnn_tpu_torch.train.optim import rmsprop_nu  # noqa: E402
 
 VQ_FIELDS = [f.name for f in dataclasses.fields(VQState)]
-BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
+BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask", "link_src",
+                "link_dst", "link_mask")
 # the batch's adjacency in each layout: single-K, mixed-K, COO
 EDGE_FIELDS = ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val",
                "head_rowc", "head_col", "head_val", "head_inv", "head_rowg", "tail_row",
@@ -99,25 +107,54 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
     if meshes[kind[1] if kind[0] == "1d" else "2d"] is None:
         return {}  # a rank outside the case's mesh
     cfg = Config(**case["cfg"])
+    link, multilabel = case["link"], case["graph"].get("multilabel", False)
     g, c = synthetic_sbm(**case["graph"])
     g, c, _ = prepare(g, cfg, c)
-    ms = model_static(cfg, g.num_features, c, torch.device("cpu"))
+    ms = model_static(cfg, g.num_features, cfg.hidden_channels if link else c,
+                      torch.device("cpu"))
     state = state_from_numpy(case["state"], ms, cfg.lr, "cpu")
     X = device_features(g.x, "cpu")
-    loader = BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu")
+    loader = BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu",
+                         with_link_edges=link)
     batch = next(loader._epoch_iter())[0][0]  # the host batch, alike on every rank
     masks = {k: None if case[k] is None else [torch.as_tensor(m) for m in case[k]]
              for k in ("branch_masks", "dropout_keeps")}
     if kind[0] == "1d":
         mesh = meshes[kind[1]]
         state, X, shard = shard_train_inputs(mesh, state, X, batch)
-        step = make_sharded_step(ms, cfg, mesh)
+        make = make_sharded_link_step if link else make_sharded_step
     else:
         mesh = meshes["2d"]
         state, X, shard = shard_train_inputs_2d(mesh, state, X, batch)
-        step = make_sharded_step_2d(ms, cfg, mesh)
-    state, m = step(state, X, shard, 1.0, cfg.lr, 1.0, **masks)
+        make = make_sharded_link_step_2d if link else make_sharded_step_2d
+    res = {}
+    if link:
+        step = make(ms, cfg, mesh)
+        pred, pred_opt = predictor_from_numpy(case["pred"], case["pred_nu"], cfg.lr, "cpu")
+        keep = None if case["pred_keep"] is None else [torch.as_tensor(k)
+                                                        for k in case["pred_keep"]]
+        scales, real = [], sharded.clip_scale
+
+        def recorded(sq, max_norm):  # the clip's scale of each group, as the step takes it
+            scales.append(real(sq, max_norm))
+            return scales[-1]
+
+        sharded.clip_scale = recorded
+        try:
+            m = step(state, pred, pred_opt, X, shard, 1.0, cfg.lr, 1.0,
+                     dst_neg=torch.as_tensor(case["dst_neg"]), pred_keep=keep, **masks)
+        finally:
+            sharded.clip_scale = real
+        names, pparams = zip(*pred.named_parameters())
+        res.update(pred={k: p.detach().numpy().copy() for k, p in zip(names, pparams)},
+                   pred_nu={k: v.numpy().copy() for k, v in zip(
+                       names, rmsprop_nu(pred_opt, pparams))},
+                   clip_scales=[float(s) for s in scales])
+    else:
+        step = make(ms, cfg, mesh, multilabel=multilabel)
+        state, m = step(state, X, shard, 1.0, cfg.lr, 1.0, **masks)
     return {
+        **res,
         "metrics": {k: float(v) for k, v in m.items()},
         "params": {k: v.detach().numpy().copy() for k, v in state.model.named_parameters()},
         "nu": _nu(state),
@@ -127,7 +164,8 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
         "bn": {"mean": [t.numpy().copy() for t in state.bn_state.mean],
                "var": [t.numpy().copy() for t in state.bn_state.var]},
         "ledger": {"per_step": step.ledger.per_step(), "kinds": sorted(step.ledger.kinds)},
-        "batch": {f: np.asarray(getattr(batch, f)) for f in BATCH_FIELDS},
+        "batch": {f: np.asarray(getattr(batch, f)) for f in BATCH_FIELDS
+                  if getattr(batch, f) is not None},
         "edges": {f: np.asarray(getattr(batch.edges, f)) for f in EDGE_FIELDS
                   if getattr(batch.edges, f) is not None},
         "X_elems": X.numel(),

@@ -34,7 +34,7 @@ saw to the references:
 (e) the collective ledger on the 4,000-node graph of
     ``tests/test_collective_audit.py:125``: no payload as large as the
     feature table or a ``c_indices`` table, none shaped like an edge array;
-(f) link and multilabel batches refused by name, and the padding error;
+(f) the padding errors (B_pad, and a link batch's L_pad);
 (g) bf16 compute (GCN, SAGE and GAT at 4 ranks) against the JAX sharded
     ``train_step`` at ``tests/test_torch_port_bf16.py``'s tolerances (the
     loss to 5e-3, the codebooks to rtol 2e-2, the parameters to 1e-2,
@@ -60,7 +60,21 @@ saw to the references:
 (j) the 2-D split of the transformer's state in-process: its codebooks by
     branch, ``transformer_k`` by branch rows, ``transformer_v`` and
     ``transformer_res`` by fan-in columns, each with its RMSprop square
-    average, reassembling the whole.
+    average, reassembling the whole;
+(k) link and multilabel batches.  The sharded link step (GCN at 2, 4 and
+    2 x 2, SAGE and GAT at 4, GAT at 2 x 2 with a per-layer clip whose
+    scale is below 1 on some layer, GCN at bf16, GCN B + M from a state
+    one JAX link step in) against the JAX ``make_link_step`` on the same
+    sharded inputs, fed JAX's own negatives (``tests/test_torch_port_link.py``
+    derives them the same way) and its predictor, which is held like the
+    model (its parameters and RMSprop square averages); GCN with predictor
+    and model dropout and dropbranch against the port's whole-batch
+    ``link_train_step`` on the whole batch's masks, 1-D and 2-D; the
+    multilabel step (GCN at 2, 4 and 2 x 2, SAGE at 4, GAT at 2 x 2, GCN
+    at bf16) against the JAX ``train_step`` of ``make_step_fns(multilabel=
+    True)``; the shards' link blocks reassembling the batch's pairs; the
+    link ledger ([B_pad, C_out] each way a step) at the audit's graph; the
+    B + M GAT link step refused by name, as the whole batch's.
 
 The replicated state (parameters, codebooks, BN) agrees across the ranks
 that hold it.
@@ -85,16 +99,19 @@ from vq_gnn_tpu.nn import model as jmodel
 from vq_gnn_tpu.parallel import mesh as jmesh
 from vq_gnn_tpu.sampler import samplers as jsamplers
 from vq_gnn_tpu.train.loop import device_features as j_device_features
+from vq_gnn_tpu.train import link as jlink
+from vq_gnn_tpu.train.optim import init_rmsprop as j_init_rmsprop
 from vq_gnn_tpu.train.state import init_train_state as j_init_train_state
 from vq_gnn_tpu.train.step import make_step_fns as j_make_step_fns
 from vq_gnn_tpu_torch import config as tcfg
 from vq_gnn_tpu_torch import parallel as tpar
-from vq_gnn_tpu_torch.convert import state_from_numpy
+from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy
 from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.nn import model as tmodel
 from vq_gnn_tpu_torch.ops import gat as tgat
 from vq_gnn_tpu_torch.ops.spmm import gathered_order, long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
+from vq_gnn_tpu_torch.train import link as tlink
 from vq_gnn_tpu_torch.train.loop import device_features
 from vq_gnn_tpu_torch.train.optim import rmsprop_nu
 from vq_gnn_tpu_torch.train.step import make_step_fns
@@ -122,6 +139,14 @@ MIXED = dict(ell_Kt=2)  # the mixed-K layout, K = 8 + 2
 COO = dict(spmm_backend="coo")
 BM = dict(formulation="bm", bn_flag=False)
 TR = dict(transformer_flag=True)
+# the link step's per-layer clip on the 2-D mesh: bounds below the
+# gradients' norms (test_sharded_link_step_matches_jax holds a scale below
+# 1): on this batch the port's whole-batch step from its own initial state
+# gives gnn_transform norms of about 1e-2 and att_l with att_r about 1e-4,
+# so at (1.0, 0.5) no scale falls below 1
+CLIP = dict(clip=(2e-3, 2e-5))
+ML_GRAPH = dict(GRAPH, multilabel=True, num_classes=6)  # multilabel targets [N, 6]
+REF_KEY = 3  # the PRNGKey of the JAX reference steps (a link step's negatives)
 
 
 class Case(NamedTuple):
@@ -133,6 +158,7 @@ class Case(NamedTuple):
     # batch: from the initial state a B + M step's recovery term is zero
     # (the codebooks' gradient half starts at zero), so it would test nothing
     warm: bool = False
+    link: bool = False  # a link batch through the link step
 
 
 CASES = {name: Case(*c) for name, c in {
@@ -222,6 +248,25 @@ CASES = {name: Case(*c) for name, c in {
     "1d-GCN-bm-tr-4-audit": ({**BM, **TR, "bn_flag": True}, ("1d", 4), None, AUDIT_GRAPH_BM),
     "1d-GAT-bm-coo-4-audit": ({**BM, **GAT, **COO, "bn_flag": True}, ("1d", 4), None,
                               AUDIT_GRAPH_BM),
+    # (k) link batches through the link step (B + M from a state one JAX
+    # link step in), and multilabel batches through the node step's BCE
+    "1d-GCN-link-2": ({}, ("1d", 2), "jax", GRAPH, False, True),
+    "1d-GCN-link-4": ({}, ("1d", 4), "jax", GRAPH, False, True),
+    "2d-GCN-link": ({}, ("2d", 2, 2), "jax", GRAPH, False, True),
+    "1d-SAGE-link-4": (SAGE, ("1d", 4), "jax", GRAPH, False, True),
+    "1d-GAT-link-4": (GAT, ("1d", 4), "jax", GRAPH, False, True),
+    "2d-GAT-link-clip": ({**GAT, **CLIP}, ("2d", 2, 2), "jax", GRAPH, False, True),
+    "1d-GCN-link-bf16-4": (BF16, ("1d", 4), "jax", GRAPH, False, True),
+    "1d-GCN-bm-link-4": (BM, ("1d", 4), "jax", GRAPH, True, True),
+    "1d-GCN-link-4-options": (OPTIONS, ("1d", 4), "port", GRAPH, False, True),
+    "2d-GCN-link-options": (OPTIONS, ("2d", 2, 2), "port", GRAPH, False, True),
+    "1d-GCN-link-4-audit": ({}, ("1d", 4), None, AUDIT_GRAPH, False, True),
+    "1d-GCN-ml-2": ({}, ("1d", 2), "jax", ML_GRAPH),
+    "1d-GCN-ml-4": ({}, ("1d", 4), "jax", ML_GRAPH),
+    "2d-GCN-ml": ({}, ("2d", 2, 2), "jax", ML_GRAPH),
+    "1d-SAGE-ml-4": (SAGE, ("1d", 4), "jax", ML_GRAPH),
+    "2d-GAT-ml": (GAT, ("2d", 2, 2), "jax", ML_GRAPH),
+    "1d-GCN-ml-bf16-4": (BF16, ("1d", 4), "jax", ML_GRAPH),
 }.items()}
 # tests/test_multichip.py:50-76 (BN on), and the parameters without it
 RTOL_LOSS, ATOL_PARAMS_BN, ATOL_PARAMS, TOL_CODEBOOK = 1e-5, 1e-2, 1e-4, 2e-5
@@ -298,6 +343,7 @@ SCALE_TIE_CMAX = dict(
     al_cb=np.array([[3.0, 9.0, 2.25], [1.0, 9.0, 0.5]], np.float32),
     g=[np.array([0.75, -0.5, 1.25], np.float32), np.array([-0.3125, 0.25, 0.5], np.float32)])
 BATCH_FIELDS = ("batch_idx", "fo_ids", "valid_B", "valid_fo", "y", "train_mask")
+LINK_FIELDS = ("link_src", "link_dst", "link_mask")
 # the adjacency each layout's batch must carry (the worker sends every field it has)
 EDGE_FIELDS = {
     "single-K": ("ell_row", "ell_col", "ell_val", "t_ell_row", "t_ell_col", "t_ell_val"),
@@ -319,13 +365,22 @@ def _plain(x):
     return None if x is None else np.asarray(x)
 
 
-def _jax_setup(kw, graph):
-    """(cfg, graph, classes, ModelStatic, a fresh initial state) of the JAX package."""
+def _jax_setup(kw, graph, link=False):
+    """(cfg, graph, the output width (the classes, or on a link case the
+    hidden width), ModelStatic, a fresh initial state) of the JAX package."""
     cfg = jcfg.Config(**{**BASE, **kw})
     g, c = jdata.synthetic_sbm(**graph)
     g, c, _ = jdata.prepare(g, cfg, c)
+    if link:
+        c = cfg.hidden_channels
     ms = jmodel.model_static(cfg, g.num_features, c)
     return cfg, g, c, ms, j_init_train_state(jax.random.PRNGKey(0), ms, g.num_nodes)
+
+
+def _setup(name):
+    """:func:`_jax_setup` of a case."""
+    case = CASES[name]
+    return _jax_setup(case.kw, case.graph, case.link)
 
 
 def _masks(cfg, ms, B_pad):
@@ -344,28 +399,65 @@ def _port_graph(graph, cfg):
     return tdata.prepare(g, cfg, c)[0]
 
 
-def _jax_batch(cfg, g):
-    loader = jsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0)
+def _jax_batch(cfg, g, link=False):
+    loader = jsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0,
+                                   with_link_edges=link)
     return next(loader._epoch_iter())[0][0]
+
+
+def _jax_dst_neg(batch, key):
+    """The negatives JAX ``make_link_step`` draws from ``key``
+    (``vq_gnn_tpu/train/link.py:67-71``), numpy."""
+    _, r_neg, _ = jax.random.split(key, 3)
+    return np.asarray(jax.random.randint(r_neg, np.asarray(batch.link_src).shape, 0,
+                                         jnp.maximum(batch.num_B, 1)))
+
+
+def _link_masks(cfg, L_pad):
+    """The whole batch's predictor keep masks of a link case (numpy; None
+    without dropout): one hidden predictor layer a model layer but the last."""
+    if not cfg.dropout:
+        return None
+    rng = np.random.default_rng(6)
+    return [rng.random((L_pad, cfg.hidden_channels)) < 1 - cfg.dropout
+            for _ in range(cfg.num_layers - 1)]
 
 
 _STARTS = {}
 
 
-def _start_state(name):
-    """A case's starting state, a JAX state of numpy leaves: the initial
-    state, or for a warm case (``Case.warm``) the state after one JAX
-    ``train_step`` on the whole of its first batch (one per configuration)."""
+def _start(name):
+    """A case's starting (state, predictor), a JAX state of numpy leaves and
+    on a link case the JAX predictor with its RMSprop ``nu`` (else None): the
+    initial ones, or for a warm case (``Case.warm``) those after one JAX
+    ``train_step`` (on a link case ``make_link_step``) on the whole of its
+    first batch (one per configuration)."""
     case = CASES[name]
-    key = (repr(sorted(case.kw.items())), repr(sorted(case.graph.items())), case.warm)
+    key = (repr(sorted(case.kw.items())), repr(sorted(case.graph.items())), case.warm,
+           case.link)
     if key not in _STARTS:
-        cfg, g, _, ms, state = _jax_setup(case.kw, case.graph)
+        cfg, g, c, ms, state = _setup(name)
+        pred = None
+        if case.link:
+            pp = jlink.init_predictor(jax.random.PRNGKey(1), c, c, 1, cfg.num_layers)
+            pred = (pp, j_init_rmsprop(pp))
         if case.warm:
-            state, _ = j_make_step_fns(ms, cfg, multilabel=False).train_step(
-                state, j_device_features(g.x), _jax_batch(cfg, g), jnp.float32(1.0),
-                jnp.float32(LR), jnp.float32(1.0), jax.random.PRNGKey(2))
-        _STARTS[key] = jax.tree.map(np.asarray, state)
+            X, batch = j_device_features(g.x), _jax_batch(cfg, g, case.link)
+            args = (jnp.float32(1.0), jnp.float32(LR), jnp.float32(1.0), jax.random.PRNGKey(2))
+            if case.link:
+                state, pp, nu, _ = jlink.make_link_step(ms, cfg)[0](state, *pred, X, batch,
+                                                                    *args)
+                pred = (pp, nu)
+            else:
+                state, _ = j_make_step_fns(ms, cfg, multilabel=False).train_step(
+                    state, X, batch, *args)
+        _STARTS[key] = jax.tree.map(np.asarray, (state, pred))
     return _STARTS[key]
+
+
+def _start_state(name):
+    """A case's starting state (:func:`_start`)."""
+    return _start(name)[0]
 
 
 def _is_bm(name):
@@ -376,14 +468,22 @@ class MeshRun:
     """The plan, the four spawned ranks and, once they finish, what they saw."""
 
     def __init__(self, tmp):
-        self.ctx, cases = {}, []
+        self.ctx, self.link, cases = {}, {}, []
         for name, case in CASES.items():
-            cfg, g, c, ms, _ = _jax_setup(case.kw, case.graph)
-            branch, keeps = _masks(cfg, ms, _jax_batch(cfg, g).B_pad)
+            cfg, g, c, ms, _ = _setup(name)
+            batch = _jax_batch(cfg, g, case.link)
+            branch, keeps = _masks(cfg, ms, batch.B_pad)
             self.ctx[name] = (cfg, g, c, ms)
+            state, pred = _start(name)
+            link = {}
+            if case.link:  # JAX's negatives at the reference's key, the predictor
+                link = dict(pred=_plain(pred[0]), pred_nu=_plain(pred[1]),
+                            dst_neg=_jax_dst_neg(batch, jax.random.PRNGKey(REF_KEY)),
+                            pred_keep=_link_masks(cfg, len(batch.link_src)))
+                self.link[name] = link
             cases.append(dict(name=name, cfg=dataclasses.asdict(cfg), graph=case.graph,
-                              state=_plain(_start_state(name)), mesh=case.mesh,
-                              branch_masks=branch, dropout_keeps=keeps))
+                              state=_plain(state), mesh=case.mesh, branch_masks=branch,
+                              dropout_keeps=keeps, link=case.link, **link))
         plan = os.path.join(tmp, "plan.pkl")
         with open(plan, "wb") as f:
             pickle.dump(dict(cases=cases + [SCALE_TIE, SCALE_TIE_BRANCH, SCALE_TIE_CMAX]), f)
@@ -459,25 +559,59 @@ def _jax_reference(name):
     state, the batch, info_backward) of one JAX ``train_step`` on a case's inputs from its
     starting state, sharded as its mesh says: the 1-D cases on
     ``make_mesh(8)``, the 2-D on ``make_mesh_2d(4, 2)``."""
-    kw, mesh, graph = CASES[name].kw, CASES[name].mesh, CASES[name].graph
-    cfg, g, c, ms, _ = _jax_setup(kw, graph)
+    mesh, graph = CASES[name].mesh, CASES[name].graph
+    cfg, g, c, ms, _ = _setup(name)
     state = jax.tree.map(jnp.asarray, _start_state(name))
-    X = j_device_features(g.x)
     batch = _jax_batch(cfg, g)
-    if mesh[0] == "1d":
-        placed = jmesh.shard_train_inputs(jmesh.make_mesh(8), state, X, batch)
-    else:
-        placed = jmesh.shard_train_inputs_2d(jmesh.make_mesh_2d(4, 2), state, X, batch)
-    new, m = j_make_step_fns(ms, cfg, multilabel=False).train_step(
-        *placed, jnp.float32(1.0), jnp.float32(LR), jnp.float32(1.0), jax.random.PRNGKey(3))
+    new, m = j_make_step_fns(ms, cfg, multilabel=graph.get("multilabel", False)).train_step(
+        *_jax_placed(mesh, state, g, batch), jnp.float32(1.0), jnp.float32(LR),
+        jnp.float32(1.0), jax.random.PRNGKey(REF_KEY))
     return (float(m["loss"]), _port_params(new, (cfg, g, c, ms)),
             _vq_np(new.vq_states, new.vq_states_tr), batch, float(m["info_backward"]))
 
 
-def _port_reference(case, graph, state_np, masks):
-    """(loss, ({param: value}, {param: nu}), :func:`_vq_np` of the new state,
-    info_backward) of the port's ``train_step`` on the whole batch from
-    ``state_np``."""
+def _jax_placed(mesh, state, g, batch):
+    """(state, X, batch) placed as a case's mesh says: the 1-D cases on
+    ``make_mesh(8)``, the 2-D on ``make_mesh_2d(4, 2)``."""
+    X = j_device_features(g.x)
+    if mesh[0] == "1d":
+        return jmesh.shard_train_inputs(jmesh.make_mesh(8), state, X, batch)
+    return jmesh.shard_train_inputs_2d(jmesh.make_mesh_2d(4, 2), state, X, batch)
+
+
+def _pred_np(pred_params, pred_nu):
+    """({name: value}, {name: nu}) of a JAX predictor in the port's layout."""
+    pred, opt = predictor_from_numpy(jax.tree.map(np.asarray, pred_params),
+                                     jax.tree.map(np.asarray, pred_nu), LR, "cpu")
+    names, params = zip(*pred.named_parameters())
+    return ({k: p.detach().numpy() for k, p in zip(names, params)},
+            {k: v.numpy() for k, v in zip(names, rmsprop_nu(opt, params))})
+
+
+def _jax_link_reference(name):
+    """(metrics, ({param: value}, {param: nu}), :func:`_vq_np`, the batch,
+    the predictor as :func:`_pred_np`) of one JAX ``make_link_step`` step on
+    a link case's sharded inputs from its starting state and predictor, at
+    ``REF_KEY`` (the negatives the ranks were given)."""
+    mesh = CASES[name].mesh
+    cfg, g, c, ms, _ = _setup(name)
+    state, pred = jax.tree.map(jnp.asarray, _start(name))
+    batch = _jax_batch(cfg, g, link=True)
+    state, X, batch_s = _jax_placed(mesh, state, g, batch)
+    new, pp, nu, m = jlink.make_link_step(ms, cfg)[0](
+        state, *pred, X, batch_s, jnp.float32(1.0), jnp.float32(LR), jnp.float32(1.0),
+        jax.random.PRNGKey(REF_KEY))
+    return ({k: float(v) for k, v in m.items()}, _port_params(new, (cfg, g, c, ms)),
+            _vq_np(new.vq_states, new.vq_states_tr), batch, _pred_np(pp, nu))
+
+
+def _port_reference(case, graph, state_np, masks, link=None):
+    """(metrics, ({param: value}, {param: nu}), :func:`_vq_np` of the new
+    state, and with ``link`` the predictor as :func:`_pred_np`) of the
+    port's ``train_step`` on the whole batch from ``state_np``, or with
+    ``link`` (the worker's plan of the case: the predictor, the negatives
+    and the predictor's masks) of its ``link_train_step`` on the whole link
+    batch."""
     cfg, g, c, _ = case
     tc = tcfg.Config(**dataclasses.asdict(cfg))
     cpu = torch.device("cpu")
@@ -485,13 +619,26 @@ def _port_reference(case, graph, state_np, masks):
     state = state_from_numpy(state_np, ms, LR, cpu)
     tg = _port_graph(graph, tc)
     batch = next(tsamplers.BatchLoader(tg, tc, train_flag=True, shuffle=False, seed=0,
-                                       device="cpu")._epoch_iter())[0][0].to(cpu)
+                                       device="cpu", with_link_edges=link is not None
+                                       )._epoch_iter())[0][0].to(cpu)
     branch, keeps = ([None if m is None else [torch.as_tensor(t) for t in m] for m in masks])
-    state, m = make_step_fns(ms, tc).train_step(state, device_features(tg.x, cpu), batch, 1.0,
-                                                LR, 1.0, branch_masks=branch,
-                                                dropout_keeps=keeps)
-    return (float(m["loss"]), _params_nu(state), _vq_np(state.vq_states, state.vq_states_tr),
-            float(m["info_backward"]))
+    X = device_features(tg.x, cpu)
+    if link is None:
+        state, m = make_step_fns(ms, tc).train_step(state, X, batch, 1.0, LR, 1.0,
+                                                    branch_masks=branch, dropout_keeps=keeps)
+        pred = None
+    else:
+        pred, opt = predictor_from_numpy(link["pred"], link["pred_nu"], LR, cpu)
+        m = tlink.make_link_step(ms, tc)[0](
+            state, pred, opt, X, batch, 1.0, LR, 1.0, dst_neg=torch.tensor(link["dst_neg"]),
+            pred_keep=None if link["pred_keep"] is None else [
+                torch.as_tensor(k) for k in link["pred_keep"]], branch_masks=branch,
+            dropout_keeps=keeps)
+        names, params = zip(*pred.named_parameters())
+        pred = ({k: p.detach().numpy() for k, p in zip(names, params)},
+                {k: v.numpy() for k, v in zip(names, rmsprop_nu(opt, params))})
+    return ({k: float(v) for k, v in m.items()}, _params_nu(state),
+            _vq_np(state.vq_states, state.vq_states_tr), pred)
 
 
 def _model_part(a, m, n_model, axis):
@@ -575,6 +722,8 @@ def _replicas_agree(run, name, mesh):
             for key in ("mean", "var"):
                 for x, y in zip(a["bn"][key], b["bn"][key]):
                     assert np.array_equal(x, y), name
+            for k in a.get("pred", {}):  # the link step's replicated predictor
+                assert np.array_equal(a["pred"][k], b["pred"][k]), (name, k)
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +740,8 @@ def _layout(name):
     "1d-GAT-coo-bf16", "1d-GCN-bm", "1d-SAGE-bm", "1d-GAT-bm", "2d-GCN-bm", "2d-SAGE-bm",
     "2d-GAT-bm", "1d-GAT-bm-bf16", "1d-SAGE-bm-mixed", "1d-SAGE-bm-coo", "1d-GCN-bm-coo",
     "1d-GCN-bm-bn", "1d-SAGE-bm-bn", "1d-GCN-bm-tr", "2d-GCN-bm-tr", "1d-SAGE-bm-tr",
-    "1d-GAT-bm-tr", "1d-GAT-bm-tr-bf16", "1d-GAT-bm-coo", "2d-GAT-bm-coo"])
+    "1d-GAT-bm-tr", "1d-GAT-bm-tr-bf16", "1d-GAT-bm-coo", "2d-GAT-bm-coo", "1d-GCN-ml",
+    "2d-GCN-ml", "1d-SAGE-ml", "2d-GAT-ml", "1d-GCN-ml-bf16"])
 def test_sharded_step_matches_jax(run, jname):
     """Each case named ``jname`` or ``jname-<ranks>`` against one JAX
     reference."""
@@ -639,13 +789,15 @@ def test_sharded_step_matches_jax(run, jname):
 # ---------------------------------------------------------------------------
 # (c), (d) against the port's train_step on the whole batch
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", [n for n in CASES if CASES[n][2] == "port"])
+@pytest.mark.parametrize("name", [n for n in CASES if CASES[n].ref == "port"
+                                  and not CASES[n].link])
 def test_sharded_step_matches_whole_batch(run, name):
     case = run.ctx[name]
     cfg, g, _, ms = case
     state = _start_state(name)
     masks = _masks(cfg, ms, _jax_batch(cfg, g).B_pad)
-    loss, params, vq, info = _port_reference(case, CASES[name][3], _plain(state), masks)
+    m, params, vq, _ = _port_reference(case, CASES[name][3], _plain(state), masks)
+    loss, info = m["loss"], m["info_backward"]
     if _is_bm(name):
         assert info != 0.0, name
     mesh = CASES[name][1]
@@ -662,6 +814,86 @@ def test_sharded_step_matches_whole_batch(run, name):
                     np.testing.assert_array_equal(
                         out["vq_tr"][l]["embedding"][~keep],
                         np.asarray(state.vq_states_tr[l].embedding)[~keep])
+
+
+# ---------------------------------------------------------------------------
+# (k) the link step against the JAX package's and the port's whole batch
+# ---------------------------------------------------------------------------
+def _check_link(name, out, rank, metrics, pred, atol_params):
+    """One rank's link step's ``loss_pre`` and predictor (its parameters and
+    RMSprop square averages, replicated) against a reference's."""
+    tol = _tol(name)
+    np.testing.assert_allclose(out["metrics"]["loss_pre"], metrics["loss_pre"],
+                               rtol=tol["loss"][0], atol=tol["loss"][1],
+                               err_msg=f"{name} rank {rank} loss_pre")
+    assert not out["metrics"]["bad_init"], name
+    values, nu = pred
+    assert set(out["pred"]) == set(values), name
+    for k, v in values.items():
+        np.testing.assert_allclose(out["pred"][k], v, atol=tol.get("params", atol_params),
+                                   err_msg=f"{name} rank {rank} predictor {k}")
+        rtol = tol["nu"]
+        np.testing.assert_allclose(out["pred_nu"][k], nu[k], rtol=rtol,
+                                   atol=rtol * max(np.abs(nu[k]).max(), NU_FLOOR),
+                                   err_msg=f"{name} rank {rank} predictor nu of {k}")
+
+
+@pytest.mark.parametrize("jname", ["1d-GCN-link", "2d-GCN-link", "1d-SAGE-link", "1d-GAT-link",
+                                   "2d-GAT-link-clip", "1d-GCN-link-bf16", "1d-GCN-bm-link"])
+def test_sharded_link_step_matches_jax(run, jname):
+    """Each link case named ``jname`` or ``jname-<ranks>`` against one JAX
+    ``make_link_step`` step on the sharded inputs (the case's mesh), fed
+    the same negatives: the loss and ``loss_pre``, the model and the
+    predictor, the codebooks and ``c_indices[:N]``.  B + M: the recovery
+    term is in the loss.  With the clip: each layer's scale alike on every
+    rank, and below 1 on some layer."""
+    names = [n for n in CASES if CASES[n].ref == "jax" and CASES[n].link and (
+        n == jname or (n.startswith(jname + "-") and n[len(jname) + 1 :].isdigit()))]
+    metrics, params, vq, jbatch, pred = _jax_link_reference(names[0])
+    if _is_bm(names[0]):  # the recovery term is in the step
+        assert metrics["loss"] != metrics["loss_pre"], names[0]
+    N = run.ctx[names[0]][1].num_nodes
+    for name in names:
+        mesh = CASES[name].mesh
+        outs = run.ranks(name)
+        assert len(outs) == (mesh[1] if mesh[0] == "1d" else mesh[1] * mesh[2])
+        for rank, out in outs:
+            for f in BATCH_FIELDS + LINK_FIELDS:  # the port's loader built the JAX batch
+                np.testing.assert_array_equal(out["batch"][f], np.asarray(getattr(jbatch, f)))
+            _check(name, out, rank, mesh, metrics["loss"], params, vq, N, ATOL_PARAMS_BN)
+            _check_link(name, out, rank, metrics, pred, ATOL_PARAMS_BN)
+        _replicas_agree(run, name, mesh)
+    if CASES[names[0]].kw.get("clip"):
+        scales = [out["clip_scales"] for _, out in run.ranks(names[0])]
+        ms = run.ctx[names[0]][3]
+        assert len(scales[0]) == 2 * ms.num_layers  # gnn_transform, att_l with att_r
+        assert all(s == scales[0] for s in scales), scales
+        assert min(scales[0]) < 1.0 and max(scales[0]) <= 1.0, scales[0]
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if CASES[n].ref == "port" and CASES[n].link])
+def test_sharded_link_step_matches_whole_batch(run, name):
+    """The link step with predictor and model dropout and dropbranch, 1-D
+    and 2-D, against the port's ``link_train_step`` on the whole batch with
+    the whole batch's masks and negatives; the dropped branches' codebooks
+    keep their values."""
+    case = run.ctx[name]
+    cfg, g, _, ms = case
+    state = _start_state(name)
+    masks = _masks(cfg, ms, _jax_batch(cfg, g).B_pad)
+    metrics, params, vq, pred = _port_reference(case, CASES[name].graph, _plain(state), masks,
+                                                link=run.link[name])
+    mesh = CASES[name].mesh
+    n_model = mesh[2] if mesh[0] == "2d" else 1
+    for rank, out in run.ranks(name):
+        _check(name, out, rank, mesh, metrics["loss"], params, vq, g.num_nodes, ATOL_PARAMS)
+        _check_link(name, out, rank, metrics, pred, ATOL_PARAMS)
+        for l, keep in enumerate(masks[0]):  # a model rank's branches
+            keep = _model_part(keep, rank % n_model, n_model, 0)
+            ref = _model_part(np.asarray(state.vq_states[l].embedding), rank % n_model,
+                              n_model, 0)
+            np.testing.assert_array_equal(out["vq"][l]["embedding"][~keep], ref[~keep])
+    _replicas_agree(run, name, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -700,6 +932,30 @@ def test_sharded_ledger_moves_no_graph_sized_payload(run):
         assert per["rows"] == 4 * R * (sum(chans) + sum(chans[1:])), per
         assert per["partials"] == 0 and per["grad"] == 4 * sum(
             v.size for v in out["params"].values())
+
+
+def test_sharded_link_ledger_moves_the_output_rows(run):
+    """(e) on the link step, at the audit's graph: the ``link`` payload is
+    the whole batch's output rows [B_pad, C_out] gathered forward and its
+    cotangent summed backward, once each a step; no payload as large as the
+    feature table, none shaped like an edge array or the pairs."""
+    name = "1d-GCN-link-4-audit"
+    cfg, g, c, ms = run.ctx[name]
+    batch = _jax_batch(cfg, g, link=True)
+    N, F = g.num_nodes, g.num_features
+    banned = _banned_shapes(batch) | {np.asarray(batch.link_src).shape}
+    outs = run.ranks(name)
+    assert len(outs) == WORLD
+    for rank, out in outs:
+        kinds = out["ledger"]["kinds"]
+        assert {k for k in kinds if k[0] == "link"} == {
+            ("link", op, "float32", ((batch.B_pad, c),)) for op in ("all_gather", "all_reduce")}
+        per = out["ledger"]["per_step"]
+        assert per["bytes"]["link"] == 2 * 4 * batch.B_pad * c and per["calls"]["link"] == 2
+        for cat, op, dtype, shapes in kinds:
+            for sh in shapes:
+                assert int(np.prod(sh)) < (N + 1) * F, (rank, cat, sh)
+                assert tuple(sh) not in banned, (rank, cat, sh)
 
 
 def _banned_shapes(batch):
@@ -1075,20 +1331,78 @@ def _port_state(cfg, g, c):
     return init_train_state(torch.Generator().manual_seed(0), ms, g.num_nodes, LR, "cpu")
 
 
-@pytest.mark.parametrize("kind,what", [
-    ("link", "link batches.*7c.5"),
-    ("multilabel", "multilabel batches.*7c.5"),
-], ids=["link", "multilabel"])
-def test_shard_train_inputs_refuses_by_name(kind, what):
-    """The inputs the sharded steps do not take yet, each pointing at its
-    item of ROADMAP.md queue 1: link and multilabel batches."""
-    batch = _port_batch()
-    if kind == "link":
-        batch = dataclasses.replace(batch, link_src=np.zeros(8, np.int32))
-    else:
-        batch = dataclasses.replace(batch, y=np.zeros((batch.B_pad, 3), np.float32))
-    with pytest.raises(NotImplementedError, match=f"{what}"):
-        tpar.shard_train_inputs(tpar.DataMesh(None, 0, 2, torch.device("cpu")), None, None, batch)
+@pytest.mark.parametrize("maker", ["1d", "2d"])
+def test_sharded_bm_gat_link_step_refuses_by_name(maker):
+    """A B + M GAT link step with live VQ raises the whole batch's
+    ``no_reference_path`` (the JAX link step has no such path)."""
+    cfg = tcfg.Config(**{**BASE, **BM, **GAT})
+    ms = tmodel.model_static(cfg, 16, cfg.hidden_channels, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="the JAX package has no such path") as whole:
+        tlink.make_link_step(ms, cfg)
+    with pytest.raises(NotImplementedError) as sharded:
+        if maker == "1d":
+            tpar.make_sharded_link_step(ms, cfg, tpar.DataMesh(None, 0, 2, cpu))
+        else:
+            tpar.make_sharded_link_step_2d(ms, cfg,
+                                           tpar.Mesh2D(None, None, None, 1, 2, 0, 0, 0, cpu))
+    assert str(sharded.value) == str(whole.value)
+
+
+def _link_batch():
+    cfg = tcfg.Config(**BASE)
+    g = _port_graph(GRAPH, cfg)
+    loader = tsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu",
+                                   with_link_edges=True)
+    return next(loader._epoch_iter())[0][0]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_link_shards_reassemble_the_batch(n):
+    """(k) Every rank's block of L_pad / n pairs, laid end to end in rank
+    order, is the batch's ``link_src``, ``link_dst`` and ``link_mask``; the
+    endpoints stay the whole batch's row indices (a block's pairs reach
+    other ranks' rows); each shard carries the whole batch's valid rows."""
+    batch = _link_batch()
+    L = len(batch.link_src)
+    assert L == 1024 and batch.link_mask.sum() > 0
+    parts = []
+    for r in range(n):
+        _, _, shard = tpar.shard_train_inputs(tpar.DataMesh(None, r, n, torch.device("cpu")),
+                                              None, None, batch)
+        assert shard.batch_num_B == batch.num_B and shard.link_src.shape == (L // n,)
+        assert shard.link_src.dtype == torch.int64 and shard.link_mask.dtype == torch.bool
+        parts.append([getattr(shard, f).numpy() for f in LINK_FIELDS])
+    for i, f in enumerate(LINK_FIELDS):
+        np.testing.assert_array_equal(np.concatenate([p[i] for p in parts]),
+                                      np.asarray(getattr(batch, f)), err_msg=f)
+    b = batch.B_pad // n
+    src0 = parts[0][0][parts[0][2]]
+    assert (src0 < batch.num_B).all() and (src0 >= b).any()
+
+
+def test_multilabel_shards_keep_their_targets():
+    """(k) A multilabel batch's [B_pad, 6] targets are cut by rows and stay
+    float32 on the shard."""
+    cfg = tcfg.Config(**BASE)
+    g = _port_graph(ML_GRAPH, cfg)
+    batch = next(tsamplers.BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0,
+                                       device="cpu")._epoch_iter())[0][0]
+    assert batch.y.shape == (batch.B_pad, 6)
+    ys = [tpar.shard_train_inputs(tpar.DataMesh(None, r, 4, torch.device("cpu")), None, None,
+                                  batch)[2].y for r in range(4)]
+    assert all(y.dtype == torch.float32 and y.shape == (batch.B_pad // 4, 6) for y in ys)
+    np.testing.assert_array_equal(torch.cat(ys).numpy(), batch.y)
+
+
+def test_link_padding_must_divide():
+    """An L_pad that does not divide by the rows' ranks raises a ValueError
+    naming L_pad and its fix."""
+    batch = _link_batch()
+    batch = dataclasses.replace(batch, **{f: np.asarray(getattr(batch, f))[:1020]
+                                          for f in LINK_FIELDS})
+    with pytest.raises(ValueError, match="L_pad=1020.*build_padded_batch"):
+        tpar.shard_train_inputs(tpar.DataMesh(None, 0, 8, torch.device("cpu")), None, None, batch)
 
 
 @pytest.mark.parametrize("conv", ["GCN", "GAT"])

@@ -4,7 +4,11 @@ the data-parallel step (``parallel/multihost.py:make_ddp_step``) and the
 GCN cell, and the 1-D sharded step of its GAT cell (bf16 compute, as the
 bench runs it), and the 1-D sharded step of the bench's B + M cells (cont
 sampler, M = 1,024): GCN with ``transformer_flag`` and GAT (f32, K = 2) on
-COO, on two gloo ranks, one step each, and their bytes and calls a step by
+COO, and the GCN cell's 1-D sharded link step
+(``make_sharded_link_step``: a link batch's in-batch pairs, a predictor of
+the hidden width) and multilabel step (``make_sharded_step(...,
+multilabel=True)``, on an SBM of the same size with multilabel targets),
+on two gloo ranks, one step each, and their bytes and calls a step by
 category.  The counterpart of ``tools/collective_ledger_at_scale.py``, which compiles the
 JAX package's DDP step and reads its HLO; the port runs its steps.
 
@@ -70,12 +74,15 @@ def rank_main(rank: int, tmp: str, nodes: int, layout: dict) -> None:
         init_distributed,
         make_ddp_step,
         make_mesh,
+        make_sharded_link_step,
         make_sharded_step,
         partition_hosts,
         shard_train_inputs,
     )
     from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
+    from vq_gnn_tpu_torch.train.link import init_predictor
     from vq_gnn_tpu_torch.train.loop import device_features
+    from vq_gnn_tpu_torch.train.optim import make_rmsprop
     from vq_gnn_tpu_torch.train.state import init_train_state
 
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // RANKS))
@@ -95,17 +102,40 @@ def rank_main(rank: int, tmp: str, nodes: int, layout: dict) -> None:
     out = {}
     mesh = make_mesh(RANKS, device="cpu")
 
-    def sharded(cf, gr, ci_, ms_, init):
-        """One step of the 1-D sharded step on one batch of 40 parts, each
-        rank its half of the rows: (the batch, its ledger)."""
-        b = next(BatchLoader(gr, cf, train_flag=True, cluster_indices=ci_, seed=0,
-                             device="cpu")._epoch_iter())[0][0]
+    def sharded(cf, gr, ci_, ms_, init, link=False, multilabel=False):
+        """One step of the 1-D sharded step (the link step with ``link``) on
+        one batch of 40 parts, each rank its half of the rows (and of the
+        link pairs): (the batch, its ledger)."""
+        b = next(BatchLoader(gr, cf, train_flag=True, cluster_indices=ci_, seed=0, device="cpu",
+                             with_link_edges=link)._epoch_iter())[0][0]
         st, X_, shard = shard_train_inputs(mesh, init(), device_features(gr.x, cpu), b)
-        step = make_sharded_step(ms_, cf, mesh)
-        step(st, X_, shard, 1.0, cf.lr, 1.0)
-        return b, dict(B=int(b.num_B), B_pad=b.B_pad, Bp_pad=b.Bp_pad, **ledger_of(step))
+        if link:
+            step = make_sharded_link_step(ms_, cf, mesh)
+            pred = init_predictor(torch.Generator().manual_seed(1), cf.hidden_channels,
+                                  cf.hidden_channels, 1, cf.num_layers)
+            step(st, pred, make_rmsprop(pred.parameters(), cf.lr), X_, shard, 1.0, cf.lr, 1.0,
+                 torch.Generator().manual_seed(2))
+            extra = dict(L_pad=len(b.link_src), pairs=int(b.link_mask.sum()))
+        else:
+            step = make_sharded_step(ms_, cf, mesh, multilabel=multilabel)
+            step(st, X_, shard, 1.0, cf.lr, 1.0)
+            extra = {}
+        return b, dict(B=int(b.num_B), B_pad=b.B_pad, Bp_pad=b.Bp_pad, **extra,
+                       **ledger_of(step))
 
     batch, out["sharded"] = sharded(cfg, g, ci, ms, state)
+    # the GCN cell's link step (the model's output the hidden width, as the
+    # link trainer's) and its multilabel step (the same SBM, 40 labels)
+    ms_link = model_static(cfg, g.num_features, cfg.hidden_channels, cpu)
+    _, out["sharded_link"] = sharded(cfg, g, ci, ms_link, lambda: init_train_state(
+        torch.Generator().manual_seed(0), ms_link, g.num_nodes, cfg.lr, cpu), link=True)
+    g_ml, c_ml = synthetic_sbm(num_nodes=nodes, num_classes=classes, num_features=features,
+                               avg_degree=degree, multilabel=True, seed=0)
+    g_ml, c_ml, ci_ml = prepare(g_ml, cfg, c_ml)
+    ms_ml = model_static(cfg, g_ml.num_features, c_ml, cpu)
+    _, out["sharded_multilabel"] = sharded(cfg, g_ml, ci_ml, ms_ml, lambda: init_train_state(
+        torch.Generator().manual_seed(0), ms_ml, g_ml.num_nodes, cfg.lr, cpu), multilabel=True)
+    del g_ml
     X = device_features(g.x, cpu)
     # the bench's GAT cell (bf16 compute), on the graph normalised for GAT
     gat_cfg = dataclasses.replace(bench_config({"VQ_GNN_BENCH_CONV": "GAT"}), vq_backend="scan",

@@ -66,10 +66,15 @@ largest column, the dustbin N wherever the batch pads a cell); beside COO
 the raw list's entries of its rows, rows from 0 (the padding, row 0, stays
 with rank 0: value 0).
 
-Both raise a ValueError that names the padding when B_pad or Bp_pad does
-not divide by the ranks of the rows, and refuse by name what the sharded
-step does not take yet, with its item of ROADMAP.md queue 1: link and
-multilabel batches (7c.5).
+A link batch's in-batch pairs (``link_src``, ``link_dst``, ``link_mask``,
+[L_pad]) are cut into n blocks of L_pad / n, as the JAX package places
+them over 'data' (``vq_gnn_tpu/parallel/mesh.py:157-159``): rank r keeps
+block r, its endpoints still the whole batch's row indices (the link step
+gathers every rank's output rows, ``parallel/sharded.py``).  A multilabel
+batch's targets [B_pad, C] are cut by rows as single labels are.
+
+Both raise a ValueError that names the padding when B_pad, Bp_pad or L_pad
+does not divide by the ranks of the rows.
 """
 
 from __future__ import annotations
@@ -84,7 +89,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from vq_gnn_tpu_torch.config import not_ported, resolve_device
+from vq_gnn_tpu_torch.config import resolve_device
 from vq_gnn_tpu_torch.nn.vq import VQState
 from vq_gnn_tpu_torch.ops.rev_ell import rev_long_rows_host
 from vq_gnn_tpu_torch.ops.spmm import Edges, gathered_order, lists_host, sub_ell_host
@@ -95,9 +100,6 @@ from vq_gnn_tpu_torch.train.state import TrainState
 # the linears whose fan-in the 2-D mesh splits over 'model' (the JAX
 # package's place_params, vq_gnn_tpu/parallel/mesh.py:87)
 FAN_IN_LINEARS = ("gnn_transform", "linear_skip", "fc_sage", "transformer_v", "transformer_res")
-# the ROADMAP.md item of what the sharded steps refuse: link and multilabel
-# batches
-LATER_BATCHES = "queue 1 item 7c.5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,14 +221,16 @@ class ShardEdges(Edges):
 class RowShard(PaddedBatch):
     """This rank's block of a batch (a :class:`PaddedBatch` of its own rows,
     B_pad = the batch's B_pad / ranks, ``edges`` a :class:`ShardEdges`, the
-    B + M reverse list cut to its batch rows), with where the block lies and
-    what the ``c_indices`` merge reads: every rank's batch ids (the whole
-    ``batch_idx``) and, for each, the last position of its node among
-    them."""
+    B + M reverse list cut to its batch rows, a link batch's pairs to its
+    block of L_pad / ranks), with where the block lies, the whole batch's
+    B_pad and valid rows and what the ``c_indices`` merge reads: every rank's batch ids
+    (the whole ``batch_idx``) and, for each, the last position of its node
+    among them."""
 
     rank: int = 0
     ranks: int = 1
     batch_B_pad: int = 0  # the whole batch's B_pad
+    batch_num_B: int = 0  # the whole batch's valid rows (the link negatives' range)
     batch_idx_all: object = None  # [batch_B_pad]
     merge_src: object = None  # [batch_B_pad]
 
@@ -240,6 +244,7 @@ class RowShard(PaddedBatch):
         return RowShard(
             **{f.name: getattr(base, f.name) for f in dataclasses.fields(PaddedBatch)},
             rank=self.rank, ranks=self.ranks, batch_B_pad=self.batch_B_pad,
+            batch_num_B=self.batch_num_B,
             batch_idx_all=torch.as_tensor(self.batch_idx_all).to(device, torch.int64),
             merge_src=torch.as_tensor(self.merge_src).to(device, torch.int64))
 
@@ -329,16 +334,6 @@ def _shard_rev(batch: PaddedBatch, r: int, b: int) -> dict:
     return {}
 
 
-def _refuse(batch: PaddedBatch) -> None:
-    """Refuse by name what the sharded steps do not take yet (the module
-    docstring)."""
-    if batch.link_src is not None:
-        raise not_ported("the sharded step on link batches", LATER_BATCHES)
-    y = _host(batch.y)
-    if y is not None and y.ndim != 1:
-        raise not_ported("the sharded step on multilabel batches", LATER_BATCHES)
-
-
 def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
     """Block r of n of ``batch`` (a host batch or one on a device), on
     ``device``."""
@@ -350,7 +345,13 @@ def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
             f"a batch sharded over {n} ranks needs B_pad and Bp_pad that divide by {n}, the "
             f"batch has B_pad={B_pad}, Bp_pad={Bp_pad}: set Config.fixed_B_pad and "
             f"fixed_Bp_pad (or pad_multiple_nodes) to multiples of {n}")
-    b, bp = B_pad // n, Bp_pad // n
+    L_pad = 0 if batch.link_src is None else len(batch.link_src)
+    if L_pad % n:
+        raise ValueError(
+            f"a link batch sharded over {n} ranks needs L_pad that divides by {n}, the batch "
+            f"has L_pad={L_pad}: pass build_padded_batch an L_pad that is a multiple of {n} (by "
+            f"default it rounds the pairs up to a multiple of 1,024)")
+    b, bp, lb = B_pad // n, Bp_pad // n, L_pad // n
     own_B, own_fo = (r * b, (r + 1) * b), (B_pad + r * bp, B_pad + (r + 1) * bp)
     # a slot-ELL GAT batch (one that carries the whole transposed layout's
     # lists): d_al of every owned column
@@ -373,7 +374,9 @@ def _row_shard(batch: PaddedBatch, r: int, n: int, device) -> RowShard:
         valid_B=valid_B, valid_fo=rows_of(batch.valid_fo, r * bp, bp), edges=edges,
         num_B=int(valid_B.sum()), y=rows_of(y, r * b, b),
         train_mask=rows_of(batch.train_mask, r * b, b), **_shard_rev(batch, r, b),
-        rank=r, ranks=n, batch_B_pad=B_pad, batch_idx_all=ids, merge_src=last[ids])
+        link_src=rows_of(batch.link_src, r * lb, lb), link_dst=rows_of(batch.link_dst, r * lb, lb),
+        link_mask=rows_of(batch.link_mask, r * lb, lb), rank=r, ranks=n, batch_B_pad=B_pad,
+        batch_num_B=int(batch.num_B), batch_idx_all=ids, merge_src=last[ids])
     return shard.to(device)
 
 
@@ -381,7 +384,6 @@ def shard_train_inputs(mesh: DataMesh, state: TrainState, X_dev: torch.Tensor,
                        batch: PaddedBatch):
     """(state, X_dev, this rank's :class:`RowShard` of ``batch``): rows and
     edges sharded, the state and the feature table replicated, as they are."""
-    _refuse(batch)
     return state, X_dev, _row_shard(batch, mesh.rank, mesh.size, mesh.device)
 
 
@@ -446,7 +448,6 @@ def shard_train_inputs_2d(mesh: Mesh2D, state: TrainState, X_dev: torch.Tensor,
         if s.embedding.shape[0] % n_model:
             raise ValueError(f"layer {l} has {s.embedding.shape[0]} branches, which do not "
                              f"divide by n_model={n_model}")
-    _refuse(batch)
     model, opt = _shard_params(state, m, n_model)
     state_m = TrainState(
         model=model, vq_states=[_shard_vq_state_model(s, m, n_model) for s in state.vq_states],

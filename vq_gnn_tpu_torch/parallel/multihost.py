@@ -72,9 +72,10 @@ from vq_gnn_tpu_torch.train.step import (
 # (parallel/sharded.py) 'rows': the row exchange, 'partials': the 2-D
 # mesh's model-axis sums, 'logits': the COO GAT conv's table of every
 # rank's logits and its backward sum, 'transformer': the transformer
-# branch's c_max and out_M normaliser, each with its backward
+# branch's c_max and out_M normaliser, each with its backward, 'link': the
+# link step's gather of every rank's output rows and its backward sum
 CATEGORIES = ("grad", "stats", "c_indices", "scalars", "rows", "partials", "logits",
-              "transformer")
+              "transformer", "link")
 
 
 def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,

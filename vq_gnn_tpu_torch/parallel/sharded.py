@@ -132,19 +132,46 @@ d_scale with d_al and d_ar; the COO fallback sums its table's cotangent
 over every rank at once (the data and the model groups), each model rank
 holding its columns' part of the edge values' gradient.
 
+**Multilabel** (``make_sharded_step(..., multilabel=True)``, JAX
+``make_step_fns(multilabel=True)``): each rank's loss is its rows' BCE
+sum over the count of every rank's rows times the labels, ``train_acc``
+0.
+
+**The link step** (:func:`make_sharded_link_step`, ``_2d``;
+``train/link.py:link_train_step``'s signature).  The forward as above on
+the shard; then every rank's output rows gathered into the whole batch's
+[B_pad, C_out] (:class:`_LogitTable` under ``link``: its backward sums the
+whole table's cotangent over the data group and keeps the owned rows; on
+the 2-D mesh the output is whole after "g", so a model rank's table is
+too).  Each rank scores its block of the in-batch pairs (``link_src`` and
+``link_dst``, the whole batch's row indices) and of the uniform negatives
+(``dst_neg``, drawn at the whole batch's [L_pad] from a generator seeded
+alike on every rank, or the caller's) through the replicated predictor,
+one set of dropout masks for both calls; its loss is its pairs' clamped
+log terms over the pairs' count summed over the data group, plus its
+recovery term, so that the ranks' losses sum to the whole batch's.  The
+model's and the predictor's gradients are summed over the data group in
+one call; then the per-layer clip (``cfg.clip``): ``gnn_transform`` by
+``clip[0]``, GAT's ``att_l`` and ``att_r`` by ``clip[1]``, the squared
+norms of the tensors a model rank holds in part (the fan-in columns, B +
+M GAT's heads) summed over the model group in one all-reduce, so the scale
+is alike on every rank; RMSprop on both; the live VQ update of the layers'
+codebooks only (the JAX link step keeps the transformer's).
+
 ``CollectiveLedger`` counts every collective: ``rows`` (the exchanges,
 the B + M GAT conv's with its logits), ``partials`` (the model-axis
 all-reduces), ``stats`` (the BN and VQ moments, the EMA statistics),
 ``grad``, ``c_indices``, ``scalars`` (with the Trick-1 max, per branch on
-B + M, and its backward), ``logits`` (the COO GAT conv's table and its
-backward sum, [R, 2] or on B + M [R, 2 nb]) and ``transformer`` (c_max
-and out_M's normaliser, each with its backward).
+B + M, and its backward, and the link step's clip norms), ``logits`` (the
+COO GAT conv's table and its backward sum, [R, 2] or on B + M [R, 2 nb]),
+``transformer`` (c_max and out_M's normaliser, each with its backward)
+and ``link`` (the link step's output rows, [B_pad, C_out] each way).
 
 GCN, SAGE and GAT, B + B' and B + M, with or without the transformer
 branch, on each adjacency layout (single-K and mixed-K slot-ELL, COO), f32
-or bf16 compute, take a sharded step; the inputs refuse link and
-multilabel batches by name (ROADMAP.md queue 1 item 7c.5; the JAX package
-shards them through XLA).
+or bf16 compute, node (CE or multilabel BCE) and link batches, take a
+sharded step; a B + M GAT link step with live VQ raises by name as the
+whole batch's does (no JAX reference).
 """
 
 from __future__ import annotations
@@ -168,11 +195,18 @@ from vq_gnn_tpu_torch.ops.gat import (
 from vq_gnn_tpu_torch.ops.spmm import _coo_sddmm, _segment_matvec, rows_aggregate, shard_dx
 from vq_gnn_tpu_torch.parallel.mesh import DataMesh, Mesh2D, RowShard
 from vq_gnn_tpu_torch.parallel.multihost import CollectiveLedger, _cidx_merge, _Collectives
-from vq_gnn_tpu_torch.train.optim import rmsprop_update
+from vq_gnn_tpu_torch.train.link import (
+    check_link_config,
+    clip_groups,
+    dropout_masks,
+    link_loss_parts,
+)
+from vq_gnn_tpu_torch.train.optim import clip_scale, rmsprop_update
 from vq_gnn_tpu_torch.train.state import TrainState
 from vq_gnn_tpu_torch.train.step import (
     draw_branch_masks,
     live_vq_update,
+    masked_bce_parts,
     masked_ce_parts,
     step_forward,
 )
@@ -255,19 +289,20 @@ class _LogitTable(torch.autograd.Function):
     cotangent of the whole table over ``sum_comm`` (the rows' ranks; on the
     2-D mesh every rank, whose model ranks each hold their columns' part of
     it) in one all-reduce and keeps the owned rows': gloo has no
-    reduce-scatter, and [R, k] is a k / C-th of a row exchange."""
+    reduce-scatter, and [R, k] is a k / C-th of a row exchange.  The link
+    step gathers its output rows the same way, under ``category`` 'link'."""
 
     @staticmethod
-    def forward(ctx, t, comm, sum_comm, row0):
-        ctx.sum_comm, ctx.own = sum_comm, (row0, t.shape[0])
-        return comm.gather(t, "logits") if comm.size > 1 else t.clone()
+    def forward(ctx, t, comm, sum_comm, row0, category="logits"):
+        ctx.sum_comm, ctx.own, ctx.category = sum_comm, (row0, t.shape[0]), category
+        return comm.gather(t, category) if comm.size > 1 else t.clone()
 
     @staticmethod
     def backward(ctx, g):
         if ctx.sum_comm.size > 1:
-            g = _all_reduce(ctx.sum_comm, g, "logits")
+            g = _all_reduce(ctx.sum_comm, g, ctx.category)
         r0, n = ctx.own
-        return g[r0 : r0 + n], None, None, None
+        return g[r0 : r0 + n], None, None, None, None
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -449,11 +484,14 @@ def _local_ms(ms: ModelStatic, n_model: int) -> ModelStatic:
 
 
 def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m=0,
-               n_model=1, world_group=None):
+               n_model=1, world_group=None, link=False, multilabel=False):
     """The sharded step of both meshes (the module docstring): ``data`` the
     rows' ranks; on the 2-D mesh ``model_group`` the model group, m and
     n_model this rank's coordinate, ``world_group`` every rank (for the
-    reported scalars)."""
+    reported scalars).  The node step (CE, or BCE with ``multilabel``), or
+    with ``link`` the link step."""
+    if link:
+        check_link_config(ms, cfg)
     if not dist.is_initialized():
         raise RuntimeError("no process group: call parallel.init_distributed first")
     ledger = CollectiveLedger()  # every collective of the step
@@ -464,6 +502,7 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
     live = cfg.vq_update_mode == "live"
     mask_gens = {}  # per device: the dropbranch draws, alike on every rank
     moments = _moments_reduce(comm)
+    first_m = float(m == 0)  # the loss terms, replicated over a model group, from its rank 0
 
     def own(masks, shard: RowShard, by_rows: bool):
         """This rank's part of whole-batch masks: its rows (dropout) or its
@@ -475,15 +514,11 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
         return [t[m * (t.shape[0] // n_model) : (m + 1) * (t.shape[0] // n_model)]
                 for t in masks]
 
-    def sharded_step(state: TrainState, X_dev: torch.Tensor, shard: RowShard, warm_up_rate, lr,
-                     do_opt_step, generator=None, branch_masks=None, dropout_keeps=None):
-        """One step of the whole batch on this rank's shard; updates ``state``
-        in place and returns (state, metrics), the metrics of ``train_step``
-        for the whole batch.  ``branch_masks`` ([nb] per layer) and
-        ``dropout_keeps`` ([B_pad, C] per hidden layer) are the whole
-        batch's; drawn, the dropbranch masks come from a generator seeded
-        with ``cfg.seed`` on every rank, the dropout masks from ``generator``
-        at the whole batch's shape (give every rank one seed)."""
+    def forward(state, X_dev, shard: RowShard, warm_up_rate, generator, branch_masks,
+                dropout_keeps):
+        """``step_forward`` on this rank's shard with its exchanges bound;
+        returns (the bound shard, this rank's dropbranch masks, the
+        forward's outputs)."""
         dev = X_dev.device
         if shard.ranks != comm.size:
             raise ValueError(f"the shard is one of {shard.ranks}, the mesh has {comm.size} ranks")
@@ -501,33 +536,55 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
             gat=_gat_conv(shard.edges, comm, axis, comm_all), gat_mh=_gat_mh_conv(
                 shard.edges, comm), scale_ranks=_ScaleRanks(comm) if many else None,
             tr_ranks=_ScaleRanks(comm, "transformer") if many else None))
-        params = list(state.model.parameters())
-        out, info_b, layer_inputs, new_bn, probes, probes_tr = step_forward(
+        return batch, masks, step_forward(
             state, ms_l, X_dev, batch, warm_up_rate, generator, masks,
             own(dropout_keeps, shard, True), stats_reduce=moments, model_axis=axis)
+
+    def vq_transition(state, batch: RowShard, masks, layer_inputs, g_probes, g_probes_tr):
+        """The live VQ update from the moments and EMA statistics summed over
+        the ranks, every rank's assignments merged (the module docstring)."""
+        if live:
+            merge = _cidx_merge(comm, batch.batch_idx_all, batch.merge_src, ms.vq.num_M <= 256)
+            live_vq_update(state, ms_l, layer_inputs, g_probes, g_probes_tr, batch, masks,
+                           stats_reduce=lambda ts: comm.sum(ts, "stats"), cidx_merge_fn=merge)
+
+    def sharded_step(state: TrainState, X_dev: torch.Tensor, shard: RowShard, warm_up_rate, lr,
+                     do_opt_step, generator=None, branch_masks=None, dropout_keeps=None):
+        """One step of the whole batch on this rank's shard; updates ``state``
+        in place and returns (state, metrics), the metrics of ``train_step``
+        for the whole batch.  ``branch_masks`` ([nb] per layer) and
+        ``dropout_keeps`` ([B_pad, C] per hidden layer) are the whole
+        batch's; drawn, the dropbranch masks come from a generator seeded
+        with ``cfg.seed`` on every rank, the dropout masks from ``generator``
+        at the whole batch's shape (give every rank one seed)."""
+        dev = X_dev.device
+        batch, masks, (out, info_b, layer_inputs, new_bn, probes, probes_tr) = forward(
+            state, X_dev, shard, warm_up_rate, generator, branch_masks, dropout_keeps)
+        params = list(state.model.parameters())
         mask = batch.train_mask & batch.valid_B
-        ce_sum, count = masked_ce_parts(out, batch.y, mask)
+        if multilabel:  # BCE over the rows and every label (JAX train/step.py:127-129)
+            cls_sum, count = masked_bce_parts(out, batch.y, mask)
+        else:
+            cls_sum, count = masked_ce_parts(out, batch.y, mask)
         (count_all,) = comm.sum([count.detach()], "scalars")
-        loss_cls = ce_sum / torch.clamp(count_all, min=1.0)
+        loss_cls = cls_sum / torch.clamp(count_all * out.shape[1] if multilabel else count_all,
+                                         min=1.0)
         loss_r = loss_cls if cfg.ce_only else loss_cls + info_b
         grads = torch.autograd.grad(loss_r, params + probes + probes_tr)
         n_p, n_pr = len(params), len(probes)
         g_params = comm.sum(list(grads[:n_p]), "grad")
         rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
         state.bn_state = new_bn  # the whole batch's moments: alike on every rank
+        vq_transition(state, batch, masks, layer_inputs, grads[n_p : n_p + n_pr],
+                      grads[n_p + n_pr :])
 
-        if live:
-            merge = _cidx_merge(comm, shard.batch_idx_all, shard.merge_src, ms.vq.num_M <= 256)
-            live_vq_update(state, ms_l, layer_inputs, grads[n_p : n_p + n_pr],
-                           grads[n_p + n_pr :], batch, masks,
-                           stats_reduce=lambda ts: comm.sum(ts, "stats"), cidx_merge_fn=merge)
-
-        # the whole batch's metrics: the CE terms, replicated over a model
-        # group, from its rank 0; every rank's recovery term; the fan-in
-        # columns' squared gradients from data rank 0 (they are alike over
-        # the data group); the bad codebooks of every rank
-        first_m, first_d = float(m == 0), float(data.rank == 0)
-        hits = ((out.detach().argmax(-1) == batch.y) & mask).float().sum()
+        # the whole batch's metrics: the loss terms from each model group's rank
+        # 0; every rank's recovery term; the fan-in columns' squared gradients
+        # from data rank 0 (they are alike over the data group); the bad
+        # codebooks of every rank
+        first_d = float(data.rank == 0)
+        hits = (torch.zeros((), device=dev) if multilabel else
+                ((out.detach().argmax(-1) == batch.y) & mask).float().sum())
         sq = [(g * g).sum() for g in g_params]
         fan_in = sum(s for p, s in zip(params, sq) if p.dim() == 2)
         info = torch.as_tensor(info_b, device=dev).detach()
@@ -545,26 +602,127 @@ def _make_step(ms: ModelStatic, cfg: Config, data: DataMesh, model_group=None, m
             "bad_init": bad_all > 0,
         }
 
-    sharded_step.ledger = ledger
-    return sharded_step
+    def clip(state, params, g_params):
+        """The link step's per-layer clip (``train/link.py:clip_groups``) of
+        the gradients summed over the data group, in place: on the 2-D mesh
+        the squared norms of the tensors a model rank holds in part (the
+        fan-in columns, B + M GAT's heads) summed over the model group in
+        one all-reduce, the replicated ones counted once."""
+        groups = clip_groups(state.model, params, ms, cfg.clip)
+        split = [[(g_params[i] * g_params[i]).sum() for i in idx if params[i].dim() >= 2]
+                 for idx, _ in groups]
+        part = torch.stack([sum(s) if s else g_params[0].new_zeros(()) for s in split])
+        if axis is not None:
+            (part,) = axis.comm.sum([part], "scalars")
+        for k, (idx, max_norm) in enumerate(groups):
+            whole = sum((g_params[i] * g_params[i]).sum() for i in idx if params[i].dim() < 2)
+            scale = clip_scale(part[k] + whole, max_norm)
+            for i in idx:
+                g_params[i] = g_params[i] * scale
+
+    def sharded_link_step(state: TrainState, pred, pred_opt, X_dev: torch.Tensor,
+                          shard: RowShard, warm_up_rate, lr, do_opt_step, generator=None,
+                          dst_neg=None, pred_keep=None, branch_masks=None, dropout_keeps=None):
+        """One link step of the whole batch on this rank's shard
+        (``train/link.py:link_train_step``'s signature; the module
+        docstring); updates ``state``, ``pred`` and ``pred_opt`` in place
+        and returns the whole batch's metrics.  ``dst_neg`` [L_pad],
+        ``pred_keep`` ([L_pad, hidden] per hidden predictor layer),
+        ``branch_masks`` and ``dropout_keeps`` are the whole batch's; drawn,
+        the negatives, then the predictor's masks, then the model's dropout
+        masks come from ``generator`` at the whole batch's shapes (give
+        every rank one seed), the dropbranch masks as the node step's."""
+        dev = X_dev.device
+        if shard.link_src is None:
+            raise ValueError("the sharded link step needs a link batch (with_link_edges)")
+        lb = shard.link_src.shape[0]  # this rank's pairs, L_pad / ranks
+        if dst_neg is None:  # uniform over the whole batch's rows (main_link.py v2:66-69)
+            dst_neg = torch.randint(0, max(shard.batch_num_B, 1), (lb * shard.ranks,),
+                                    generator=generator, device=dev)
+        if pred_keep is None:
+            pred_keep = dropout_masks(pred, lb * shard.ranks, cfg.dropout, generator, dev)
+        blk = slice(shard.rank * lb, (shard.rank + 1) * lb)
+        batch, masks, (out, info_b, layer_inputs, new_bn, probes, _) = forward(
+            state, X_dev, shard, warm_up_rate, generator, branch_masks, dropout_keeps)
+        params, pparams = list(state.model.parameters()), list(pred.parameters())
+        # every rank's output rows, the whole batch's [B_pad, C_out]; its
+        # backward sums the whole table's cotangent and keeps this rank's rows
+        table = _LogitTable.apply(out, comm, comm, shard.row0, "link")
+        pos_sum, neg_sum, count = link_loss_parts(
+            pred, table, batch.link_src, batch.link_dst, dst_neg[blk], batch.link_mask,
+            None if pred_keep is None else [k[blk] for k in pred_keep], cfg.dropout)
+        (count_all,) = comm.sum([count.detach()], "scalars")
+        n = torch.clamp(count_all, min=1.0)
+        loss_pre = pos_sum / n + neg_sum / n
+        loss_r = loss_pre if cfg.ce_only else loss_pre + info_b
+        grads = torch.autograd.grad(loss_r, params + pparams + probes)
+        n_p, n_pp = len(params), len(pparams)
+        g_all = comm.sum(list(grads[: n_p + n_pp]), "grad")
+        g_params, g_pred = g_all[:n_p], g_all[n_p:]
+        if cfg.clip is not None:
+            clip(state, params, g_params)
+        rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
+        rmsprop_update(pred_opt, pparams, g_pred, lr, do_opt_step > 0)
+        state.bn_state = new_bn
+        # the layers' codebooks only: the JAX link step takes no gradient of
+        # the transformer's probes and keeps its codebooks (train/link.py)
+        vq_transition(state, batch, masks, layer_inputs, grads[n_p + n_pp :], None)
+
+        info = torch.as_tensor(info_b, device=dev).detach()
+        bad = torch.stack([s.bad_init for s in state.vq_states]).any().float()
+        pre_all, info_all, bad_all = comm_all.sum([first_m * loss_pre.detach(), info, bad],
+                                                  "scalars")
+        state.step += 1
+        ledger.steps += 1
+        return {"loss": pre_all if cfg.ce_only else pre_all + info_all, "loss_pre": pre_all,
+                "bad_init": bad_all > 0}
+
+    step = sharded_link_step if link else sharded_step
+    step.ledger = ledger
+    return step
 
 
-def make_sharded_step(ms: ModelStatic, cfg: Config, mesh: DataMesh):
-    """The 1-D sharded step over ``mesh`` (the module docstring): called with
-    the state, the feature table and this rank's ``shard_train_inputs``
-    shard; the ledger is ``step.ledger``."""
+def _on_1d(cfg: Config, mesh: DataMesh) -> dict:
+    """``_make_step``'s mesh arguments on the 1-D mesh."""
     if cfg.mesh_data and cfg.mesh_data != mesh.size:
         raise ValueError(f"mesh_data={cfg.mesh_data}, but the mesh has {mesh.size} ranks")
-    return _make_step(ms, cfg, mesh)
+    return dict(data=mesh)
 
 
-def make_sharded_step_2d(ms: ModelStatic, cfg: Config, mesh: Mesh2D):
-    """The 2-D sharded step over ``mesh`` (the module docstring): called with
-    this model rank's state and this data rank's shard, both from
-    ``shard_train_inputs_2d``."""
+def _on_2d(ms: ModelStatic, mesh: Mesh2D) -> dict:
+    """``_make_step``'s mesh arguments on the 2-D mesh."""
     for l, nb in enumerate(ms.num_branches):
         if nb % mesh.n_model:
             raise ValueError(f"layer {l} has {nb} branches, which do not divide by "
                              f"n_model={mesh.n_model}")
-    return _make_step(ms, cfg, mesh.data, mesh.model_group, mesh.model_rank, mesh.n_model,
-                      mesh.group)
+    return dict(data=mesh.data, model_group=mesh.model_group, m=mesh.model_rank,
+                n_model=mesh.n_model, world_group=mesh.group)
+
+
+def make_sharded_step(ms: ModelStatic, cfg: Config, mesh: DataMesh, multilabel: bool = False):
+    """The 1-D sharded step over ``mesh`` (the module docstring): called with
+    the state, the feature table and this rank's ``shard_train_inputs``
+    shard; with ``multilabel`` BCE over [B, C] float targets, as
+    ``train/step.py:make_step_fns``.  The ledger is ``step.ledger``."""
+    return _make_step(ms, cfg, multilabel=multilabel, **_on_1d(cfg, mesh))
+
+
+def make_sharded_step_2d(ms: ModelStatic, cfg: Config, mesh: Mesh2D, multilabel: bool = False):
+    """The 2-D sharded step over ``mesh`` (the module docstring): called with
+    this model rank's state and this data rank's shard, both from
+    ``shard_train_inputs_2d``."""
+    return _make_step(ms, cfg, multilabel=multilabel, **_on_2d(ms, mesh))
+
+
+def make_sharded_link_step(ms: ModelStatic, cfg: Config, mesh: DataMesh):
+    """The 1-D sharded link step over ``mesh`` (the module docstring):
+    ``train/link.py:link_train_step``'s signature, with this rank's
+    ``shard_train_inputs`` shard of a link batch for the batch."""
+    return _make_step(ms, cfg, link=True, **_on_1d(cfg, mesh))
+
+
+def make_sharded_link_step_2d(ms: ModelStatic, cfg: Config, mesh: Mesh2D):
+    """The 2-D sharded link step over ``mesh``: this model rank's state and
+    this data rank's shard, both from ``shard_train_inputs_2d``; the
+    predictor replicated."""
+    return _make_step(ms, cfg, link=True, **_on_2d(ms, mesh))

@@ -45,14 +45,13 @@ from vq_gnn_tpu_torch.config import (
 )
 from vq_gnn_tpu_torch.graph.store import HostGraph
 from vq_gnn_tpu_torch.nn.model import ModelStatic, model_forward, model_static, zero_probes
-from vq_gnn_tpu_torch.nn.vq import vq_update
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 from vq_gnn_tpu_torch.train.checkpoint import load_step, restore_checkpoint, save_checkpoint
 from vq_gnn_tpu_torch.train.loop import device_features, iter_cached
 from vq_gnn_tpu_torch.train.optim import clip_grads_by_norm, make_rmsprop, rmsprop_update
 from vq_gnn_tpu_torch.train.state import TrainState, init_train_state
-from vq_gnn_tpu_torch.train.step import _branch_view, draw_branch_masks, make_step_fns
+from vq_gnn_tpu_torch.train.step import draw_branch_masks, live_vq_update, make_step_fns
 from vq_gnn_tpu_torch.utils.logger import Logger
 from vq_gnn_tpu_torch.utils.metrics import hits_at_k, mrr
 from vq_gnn_tpu_torch.utils.scheduler import linear_ramp
@@ -108,7 +107,23 @@ def predictor_forward(pred: LinkPredictor, x_i, x_j, keep: Optional[Sequence] = 
     return torch.sigmoid(F.linear(x, last.weight, last.bias))
 
 
-def _clip_groups(model: nn.Module, params: List[torch.Tensor], ms: ModelStatic, clip):
+def link_loss_parts(pred: LinkPredictor, out, src, dst, dst_neg, mask, keep, dropout_p: float):
+    """(the positive pairs' summed -log p, the negatives' summed -log(1 - p),
+    the pairs' count) over the pairs ``src`` -> ``dst`` and ``src`` ->
+    ``dst_neg``, rows of ``out``, where ``mask`` holds; ``keep`` the
+    predictor's dropout masks, one set for both calls.  The log is clamped
+    at 1e-15 with ``max``, not "+ 1e-15" (reference ``main_link.py
+    v2:64,69``): the same value in f32, and no log(0) at sigmoid saturation."""
+    x_src = out.index_select(0, src)
+    pos_out = predictor_forward(pred, x_src, out.index_select(0, dst), keep, dropout_p)[:, 0]
+    neg_out = predictor_forward(pred, x_src, out.index_select(0, dst_neg), keep, dropout_p)[:, 0]
+    m = mask.to(out.dtype)
+    pos = -(torch.log(torch.clamp(pos_out, min=1e-15)) * m).sum()
+    neg = -(torch.log(torch.clamp(1.0 - neg_out, min=1e-15)) * m).sum()
+    return pos, neg, m.sum()
+
+
+def clip_groups(model: nn.Module, params: List[torch.Tensor], ms: ModelStatic, clip):
     """Per layer, the indices into ``params`` of each group the link step
     clips: ``gnn_transform`` (``clip[0]``) and, for GAT with a second value,
     ``att_l`` with ``att_r`` (``clip[1]``)."""
@@ -122,13 +137,18 @@ def _clip_groups(model: nn.Module, params: List[torch.Tensor], ms: ModelStatic, 
     return groups
 
 
+def check_link_config(ms: ModelStatic, cfg: Config) -> None:
+    """Raise by name what the JAX link step cannot run: the live VQ update of
+    a B + M GAT model (its 3-D probe against a 2-D slice)."""
+    if cfg.vq_update_mode == "live" and ms.formulation == "bm" and ms.conv_type == "GAT":
+        raise no_reference_path("the link step's live VQ update of a B + M GAT model")
+
+
 def make_link_step(ms: ModelStatic, cfg: Config):
     """(link_train_step, score_pairs) (``vq_gnn_tpu/train/link.py:58-161``)."""
+    check_link_config(ms, cfg)
     live = cfg.vq_update_mode == "live"
-    D = ms.num_D
     clip = cfg.clip
-    if live and ms.formulation == "bm" and ms.conv_type == "GAT":
-        raise no_reference_path("the link step's live VQ update of a B + M GAT model")
 
     def link_train_step(state: TrainState, pred: LinkPredictor, pred_opt, X_dev: torch.Tensor,
                         batch: PaddedBatch, warm_up_rate: float, lr: float, do_opt_step: float,
@@ -161,18 +181,11 @@ def make_link_step(ms: ModelStatic, cfg: Config):
             vq_states_tr=state.vq_states_tr, branch_masks=branch_masks,
             dropout_keeps=dropout_keeps,
         )
-        src = out.index_select(0, batch.link_src)
-        dst = out.index_select(0, batch.link_dst)
-        neg = out.index_select(0, dst_neg)
-        m = batch.link_mask.to(out.dtype)
-        n = torch.clamp(m.sum(), min=1.0)
-        pos_out = predictor_forward(pred, src, dst, keep, cfg.dropout)[:, 0]
-        neg_out = predictor_forward(pred, src, neg, keep, cfg.dropout)[:, 0]
-        # clamp, not "+ 1e-15" (reference main_link.py v2:64,69): the same
-        # value in f32, and no log(0) at sigmoid saturation
-        pos_loss = -(torch.log(torch.clamp(pos_out, min=1e-15)) * m).sum() / n
-        neg_loss = -(torch.log(torch.clamp(1.0 - neg_out, min=1e-15)) * m).sum() / n
-        loss_pre = pos_loss + neg_loss
+        pos_sum, neg_sum, count = link_loss_parts(
+            pred, out, batch.link_src, batch.link_dst, dst_neg, batch.link_mask, keep,
+            cfg.dropout)
+        n = torch.clamp(count, min=1.0)
+        loss_pre = pos_sum / n + neg_sum / n
         loss = loss_pre if cfg.ce_only else loss_pre + info_b
         grads = torch.autograd.grad(loss, params + pparams + probes)
         g_params = list(grads[: len(params)])
@@ -182,22 +195,15 @@ def make_link_step(ms: ModelStatic, cfg: Config):
         if clip is not None:
             # per-layer clip of the gnn_transform (+ GAT attention) grads
             # (main_link.py v2:84-88)
-            for idx, max_norm in _clip_groups(state.model, params, ms, clip):
+            for idx, max_norm in clip_groups(state.model, params, ms, clip):
                 for i, g in zip(idx, clip_grads_by_norm([g_params[i] for i in idx], max_norm)):
                     g_params[i] = g
 
         rmsprop_update(state.optimizer, params, g_params, lr, do_opt_step > 0)
         rmsprop_update(pred_opt, pparams, g_pred, lr, do_opt_step > 0)
 
-        if live:
-            for l in range(ms.num_layers):
-                nb = ms.num_branches[l]
-                Xb = _branch_view(layer_inputs[l].detach(), nb, D)
-                Gb = _branch_view(g_probes[l][:, : nb * D], nb, D)
-                state.vq_states[l], _ = vq_update(
-                    state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B,
-                    branch_keep=None if branch_masks is None else branch_masks[l],
-                )
+        if live:  # the layers' codebooks only (the module docstring)
+            live_vq_update(state, ms, layer_inputs, g_probes, None, batch, branch_masks)
         state.bn_state = new_bn
         state.step += 1
         return {

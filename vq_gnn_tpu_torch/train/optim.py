@@ -52,9 +52,13 @@ def rmsprop_nu(opt: torch.optim.RMSprop, params: Sequence[torch.nn.Parameter]):
     ]
 
 
+def clip_scale(sq_sum: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / (total + 1e-6))``, ``total`` the 2-norm whose
+    square is ``sq_sum`` (``vq_gnn_tpu/train/optim.py:37-42``)."""
+    return torch.clamp(max_norm / (torch.sqrt(sq_sum) + 1e-6), max=1.0)
+
+
 def clip_grads_by_norm(grads: Sequence[torch.Tensor], max_norm: float) -> list:
-    """The gradients scaled by ``min(1, max_norm / (total + 1e-6))``, where
-    ``total`` is their joint 2-norm (``vq_gnn_tpu/train/optim.py:37-42``)."""
-    total = torch.sqrt(sum((g * g).sum() for g in grads))
-    scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    """The gradients scaled by :func:`clip_scale` of their joint 2-norm."""
+    scale = clip_scale(sum((g * g).sum() for g in grads), max_norm)
     return [g * scale for g in grads]

@@ -80,12 +80,20 @@ def masked_ce(logits, y, mask):
     return ce_sum / torch.clamp(count, min=1.0)
 
 
-def masked_bce(logits, y, mask):
-    """Mean over the masked rows and every label of BCE-with-logits, in the
-    JAX package's stable form (``vq_gnn_tpu/train/step.py:55-58``)."""
+def masked_bce_parts(logits, y, mask):
+    """(the BCE-with-logits summed over the masked rows and every label, in
+    the JAX package's stable form (``vq_gnn_tpu/train/step.py:55-58``), the
+    rows' count): the sharded step divides the sum by the count of every
+    rank's rows times the labels."""
     per = torch.clamp(logits, min=0) - logits * y + torch.log1p(torch.exp(-logits.abs()))
     m = mask.to(logits.dtype)[:, None]
-    return (per * m).sum() / torch.clamp(m.sum() * logits.shape[1], min=1.0)
+    return (per * m).sum(), m.sum()
+
+
+def masked_bce(logits, y, mask):
+    """Mean over the masked rows and every label of BCE-with-logits."""
+    bce_sum, count = masked_bce_parts(logits, y, mask)
+    return bce_sum / torch.clamp(count * logits.shape[1], min=1.0)
 
 
 def masked_accuracy(logits, y, mask):
@@ -133,8 +141,9 @@ def live_vq_update(state: TrainState, ms: ModelStatic, layer_inputs, g_probes, g
     """The reference hook body (models.py v2:39-56) per layer, in place on
     ``state``: X_B = the layer input's branch slices (detached), grad = the
     probe gradient's, i.e. dL/d(output slice); with ``transformer_flag`` also
-    the transformer's codebooks.  ``stats_reduce`` and ``cidx_merge_fn`` are
-    ``vq_update``'s data-parallel hooks."""
+    the transformer's codebooks, unless ``g_probes_tr`` is None (the link
+    step's quirk: they keep their values).  ``stats_reduce`` and
+    ``cidx_merge_fn`` are ``vq_update``'s data-parallel hooks."""
     D = ms.num_D
     for l in range(ms.num_layers):
         nb = ms.num_branches[l]
@@ -148,7 +157,7 @@ def live_vq_update(state: TrainState, ms: ModelStatic, layer_inputs, g_probes, g
             state.vq_states[l], Xb, Gb, batch.batch_idx, ms.vq, valid=batch.valid_B,
             branch_keep=keep, stats_reduce=stats_reduce, cidx_merge_fn=cidx_merge_fn,
         )
-        if ms.transformer_flag:  # its hook point is [nb, B_pad, D + 1]
+        if ms.transformer_flag and g_probes_tr is not None:  # its hook: [nb, B_pad, D + 1]
             state.vq_states_tr[l], _ = vq_update(
                 state.vq_states_tr[l], Xb, g_probes_tr[l], batch.batch_idx, ms.vq_tr,
                 valid=batch.valid_B, branch_keep=keep, stats_reduce=stats_reduce,
