@@ -20,6 +20,11 @@ There is no ``vs_baseline``: ``bench_anchor.json`` holds a TPU figure.
     VQ_GNN_BENCH_CONV=GAT python3 bench_torch.py  # bf16 compute, as bench.py
     VQ_GNN_BENCH_FORM=bm VQ_GNN_BENCH_CONV=GAT VQ_GNN_BENCH_K=2 \\
         VQ_GNN_BENCH_DTYPE=float32 python3 bench_torch.py
+    # f16 compute, as bench.py takes it: under live VQ updates the codebooks'
+    # feature half passes f16's range after the first step and the loss goes
+    # nonfinite, as in the JAX package, so the run raises;
+    # VQ_GNN_BENCH_MODE=reference keeps the codebooks at their initial state
+    VQ_GNN_BENCH_DTYPE=float16 python3 bench_torch.py
     python3 bench_torch.py --sweep [--reps 2] [--out bench_sweep_torch.json]
 
 ``--sweep`` runs every cell of ``SWEEP`` as a fresh process, ``--reps``
@@ -277,8 +282,10 @@ def run_bench(cfg, graph, num_classes, cluster_indices, device=None, steps=STEPS
     """Time ``steps`` back-to-back training steps on the first batch, after one
     warm-up step, then (on a GPU) read peak memory and profile
     ``PROFILE_STEPS`` more steps; then time ``steps`` eval forwards.  Returns
-    the record: ``E_batch``, ``dt_s``, ``eps``, ``ms_per_step``, ``loss`` and,
-    on a GPU, peak memory, device busy and idle share."""
+    the record: ``E_batch``, ``dt_s``, ``eps``, ``ms_per_step``, ``loss``, the
+    loss of each step (``losses``: the warm-up, then the timed steps; read
+    after the timing, so no step waits for its loss) and, on a GPU, peak
+    memory, device busy and idle share."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
 
@@ -301,6 +308,7 @@ def run_bench(cfg, graph, num_classes, cluster_indices, device=None, steps=STEPS
     batch, E_batch, line = first_batch(graph, cfg, cluster_indices, dev)
     log(f"{line} (built in {time.time() - t0:.1f}s)")
     gen = torch.Generator(device=dev).manual_seed(1)
+    losses = []  # each step's loss, as the step returned it
 
     def step(_=None):
         nonlocal state
@@ -309,6 +317,7 @@ def run_bench(cfg, graph, num_classes, cluster_indices, device=None, steps=STEPS
 
     t0 = time.time()
     m = step()
+    losses.append(m["loss"])
     sync()
     log(f"first step: {time.time() - t0:.2f}s loss={float(m['loss']):.4f}")
 
@@ -316,11 +325,13 @@ def run_bench(cfg, graph, num_classes, cluster_indices, device=None, steps=STEPS
     t0 = time.perf_counter()
     for _ in range(steps):
         m = step()
+        losses.append(m["loss"])
     sync()
     dt = time.perf_counter() - t0
     eps = E_batch * steps / dt
     rec = {"E_batch": E_batch, "steps": steps, "dt_s": dt, "eps": eps,
            "ms_per_step": 1e3 * dt / steps, "loss": float(m["loss"]),
+           "losses": [float(v) for v in losses],
            "launches_per_step": {k: v / steps for k, v in ops.launch_counts().items() if v}}
     log(f"{steps} steps in {dt:.3f}s ({rec['ms_per_step']:.2f} ms/step) -> "
         f"{eps / 1e6:.2f}M edges/s/chip, loss={rec['loss']:.4f} | {gpu}")

@@ -31,12 +31,19 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
      (the bf16-row mode of kernel 1) with an init sweep, one epoch and three
      timed steps, and GAT with hidden 256 as its f32 run (kernel 5's bf16
      mode at C = 256);
+   - under f16 compute (``compute_dtype='float16'``) with the codebooks
+     frozen after the init sweep (``vq_update_mode='reference'``: live
+     updates overflow f16 from the second step, as in the JAX package):
+     GCN B + B' (kernel 1's f16-row mode), GAT B + B' (kernels 4 and 5)
+     and GAT with hidden 256 (kernel 5's f16 mode at C = 256), each an init
+     sweep, one epoch and three timed steps, every loss finite;
    each profile also counts the copy kernels and checks, on the B + M
    paths, that no row offsets were built on the device;
 4. check that each path launched each of its kernels, that the bf16
    paths launched the bf16-row modes of kernels 1, 4 and 5 and never their
-   f32 modes, and that both GAT hidden-256 paths ran kernel 5 at C = 256 in
-   their own dtype (phase 10's runs are checked the same way, each B + M
+   f32 modes, the f16 paths their f16-row modes and never their f32 or
+   bf16 modes, and that the three GAT hidden-256 paths ran kernel 5 at C =
+   256 in their own dtype (phase 10's runs are checked the same way, each B + M
    GAT run launching the recovery kernels in its own fold only);
 5. hold each kernel against its plain PyTorch version on the card at the
    shapes of the real batch (kernel 1 with the batch's row offsets and long
@@ -57,10 +64,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    and with the offsets alone or built on the device; the recovery
    kernels at nb = 32, M = 1,024 over the batch's own reverse list, row
    offsets and long rows, in both folds (f32, and bf16 against the plain
-   'fast' fold), and bit-identical run to run; the bf16-row modes
-   of kernels 1, 4 and 5 on the same batches with bf16 x, cotangents, ar
-   and g_rowsum, against their plain versions on the same bf16 values, and
-   bit-identical run to run);
+   'fast' fold), and bit-identical run to run; the bf16-row and the
+   f16-row modes of kernels 1, 4 and 5 on the same batches with 16-bit x,
+   cotangents, ar and g_rowsum, against their plain versions on the same
+   16-bit values, and bit-identical run to run);
 6. time each kernel, its plain version and a PyTorch library yardstick where
    one call computes the same function (kernel 1 also at 2 and 4 panels,
    without the long-row list, on narrower copies of x and with x's rows
@@ -75,8 +82,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    indexing and the two slices the step ran before, and whole, with device
    times; the segment sum at each width and layout of the B + M conv, with
    device time and its bound over the live slots beside the one over every
-   slot; each bf16-row mode beside its f32 mode at the same shapes, with
-   device times and its bound at 2 bytes a bf16 value);
+   slot; each bf16-row and f16-row mode beside its f32 mode at the same
+   shapes, with device times and its bound at 2 bytes a value);
 7. run a small graph through the same paths (GCN, SAGE, GAT, and B + M GCN,
    SAGE and GAT, and GAT at bf16) on the GPU and on the CPU (plain versions)
    from one state, two epochs (B + M one, of nine steps),
@@ -86,7 +93,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
 8. run the bench's timing function (``bench_torch.run_bench``) on phase 2's
    GCN graph with the bench's default configuration: its batch must be the
    first batch phase 3's GCN epoch trains on, and its record (edges/s,
-   loss, peak memory, device busy, eval forward) finite and printed;
+   loss, peak memory, device busy, eval forward) finite and printed; then
+   the bench's f16 cell (``VQ_GNN_BENCH_DTYPE=float16``, live VQ) once:
+   the step at which its loss first goes nonfinite, if one does, logged,
+   and kernel 1's f16-row mode, and no other mode of rows 1-4, launched;
 9. run the CLI (``main_node_torch.main``) in-process on the card with its
    verification command (``main_node.py``'s quick check, ``CLI_ARGS``): 3
    epochs on a 500-node SBM must reach test accuracy 0.9;
@@ -263,7 +273,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
    of the compare), and ``GCN-ppi``, phase 12's at the ppi widths through
    the sharded step with ``multilabel=True``, on the 1-D mesh only (its
    input's 52 features make 13 branches at layer 0, which the 2-D 1 x 2
-   mesh cannot split: there its refusal by name is checked).  The parent frees
+   mesh cannot split: there its refusal by name is checked); and
+   ``GCN-f16``, phase 3's GCN-f16 trainer (f16 compute, the codebooks
+   frozen after its init sweep) on its epoch's first batch at the
+   flagship's settings.  The parent frees
    its cached blocks after the whole-batch references (the transformer's
    step peaks there) and logs what it holds as the ranks start.  For each
    mesh and each family, the launch
@@ -276,8 +289,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       f32 and at bf16 compute (the bench's GAT cell); each layout family
       and each B + M, link and multilabel family in its one configuration
       (the link step against ``link_train_step``, the multilabel one
-      against the trainer's BCE ``train_step``): the loss within 1e-5
-      relative, the parameters (the link predictor's too) within 1e-2
+      against the trainer's BCE ``train_step``, GCN-f16 at f16): the loss
+      within 1e-5 relative, the parameters (the link predictor's too) within 1e-2
       (1e-4 without the BN),
       ``c_indices[:N]`` agreeing on >= 0.9999, in exact f32 the codebooks
       within 2e-5 but for the codewords of the assignments that differ (at
@@ -313,21 +326,24 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Phases:
       term is the grid path) over the owned rows' edges and the batch
       columns' transposed edges at nb (D + 1), rows 6 and 7; the link and
       multilabel families: rows 1, 6 and 7 as GCN's, row 6 at nb = 64, M =
-      4,096 on ``GCN-ppi`` (phase 12's row);
+      4,096 on ``GCN-ppi`` (phase 12's row); GCN-f16: row 1's f16-row mode
+      (no other mode of rows 1-4) and row 7 launched, no row 6 (the
+      codebooks are frozen), rows 1 (f16), 6 and 7 held at the shard's
+      shapes;
    c. the same step checks of the 2-D step at 1 x 2 (each rank half the
       branches and the fan-in columns, on B + M GAT half the heads), rows
       1, 2, 3 and 8 at C = 64 and rows 6, 9 and 10 at nb = 16 against
       their plain versions;
    d. timed steps and 3 profiled ones (5 each of the flagship GCN and of
-      GCN and GAT at bf16 compute, 3 of each layout, B + M, link and
-      multilabel family; the link steps draw their negatives from a
+      GCN and GAT at bf16 compute, 3 of each layout, B + M, link,
+      multilabel and f16 family; the link steps draw their negatives from a
       generator seeded alike on both ranks) of each sharded step: ms/step,
       device busy and idle share of rank 0, each rank's peak memory, the
       collective ledger of each rank by category (on the transformer's, the
       COO GAT's, the link and the multilabel paths the rows, ``logits``,
       ``transformer`` and ``link`` bytes to the byte of ``ledger_formula``:
       the link step's [B_pad, C_out] f32 each way), the row exchanges of
-      the bf16 steps at bf16, and no payload as large as the family's
+      the bf16 steps at bf16 and of the f16 steps at f16, and no payload as large as the family's
       feature table (but, on ppi, the rows, which the formula holds: that
       batch holds most of its graph, 50 features wide, and the exchange
       carries it 256 wide; and the codebooks' EMA sums, [nb, M] and [nb, M,
@@ -381,10 +397,18 @@ PATH_KERNELS = {  # kernels each training path must launch
     "GCN-bf16": ("ell_aggregate_bf16", "vq_assign", "vq_lookup"),
     "GAT-bf16": ("gat_aggregate_bf16", "gat_backward_bf16", "vq_assign", "vq_lookup"),
     "GAT-bm-bf16": ("segment_sum", "rev_forward", "rev_backward", "vq_assign", "vq_lookup"),
+    # f16 compute: rows 1-4 in their f16-row modes
+    "GCN-f16": ("ell_aggregate_f16", "vq_assign", "vq_lookup"),
+    "GAT-f16": ("gat_aggregate_f16", "gat_backward_f16", "vq_assign", "vq_lookup"),
 }
 # kernels a bf16 path must not launch: the f32 modes of rows 1-4 (no cast of
 # the bf16 rows to f32 ahead of an f32 kernel)
 BF16_PATH_NOT = ("ell_aggregate", "gat_aggregate", "gat_backward")
+# ... and an f16 path: the f32 and the bf16 modes of rows 1-4
+F16_PATH_NOT = BF16_PATH_NOT + ("ell_aggregate_bf16", "gat_aggregate_bf16", "gat_backward_bf16")
+# the f16 paths freeze the codebooks after the init sweep: live updates
+# take their feature half past f16's range (in the JAX package too)
+F16_PATH = dict(compute_dtype="float16", vq_update_mode="reference")
 # phase 10: the convergence suite's kernels by case, the recovery kernels' by fold
 SUITE_KERNELS = {
     "GCN-cluster": PATH_KERNELS["GCN"], "SAGE-cont": PATH_KERNELS["SAGE"],
@@ -419,6 +443,19 @@ DDP_KERNELS = {"ell_aggregate": "ell_aggregate_kernel", "vq_assign": "assign_fas
 
 def log(*a):
     print(*a, flush=True)
+
+
+def spilling(reports) -> list:
+    """(function, its spill line) of each function whose ptxas report
+    (``nvcc -Xptxas -v``) has spill stores."""
+    out, fn = [], None
+    for rep in reports.values():
+        for ln in rep.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for", 1)[1].strip()
+            elif "spill stores" in ln and " 0 bytes spill stores" not in ln:
+                out.append((fn, ln.strip()))
+    return out
 
 
 def bm_cfg(Config, **kw):
@@ -824,6 +861,9 @@ def drive_path(torch, ops, NodeTrainer, tag, graph, cfg, gpu, timed_steps, profi
     if cfg.compute_dtype == "bfloat16":
         for name in BF16_PATH_NOT:
             assert launches[name] == 0, f"the f32 mode of {name} ran on the {tag} path"
+    if cfg.compute_dtype == "float16":
+        for name in F16_PATH_NOT:
+            assert launches[name] == 0, f"{name} ran on the f16 {tag} path"
     return dict(tr=tr, batch0=b0, test_batches=test_batches, launches=launches,
                 by_width=by_width, ms=mean, std=std, per_step=per_step,
                 prof=prof, peak=peak, E_batch=E_batch, assign_by_k=assign_by_k)
@@ -2079,6 +2119,9 @@ SHARDED_STEPS_BF16 = 5  # timed steps of the bf16 sharded steps (GCN and GAT)
 SHARDED_KERNELS = {
     "GCN": {"ell_aggregate": "ell_aggregate_kernel", "ell_aggregate_bf16": "ell_aggregate_kernel",
             "vq_assign": "assign_fast_kernel", "vq_lookup": "lookup_kernel"},
+    # GCN at f16 compute (phase 3's trainer, its codebooks frozen: no row 6
+    # on its steps): row 1's f16 mode
+    "GCN-f16": {"ell_aggregate_f16": "ell_aggregate_kernel", "vq_lookup": "lookup_kernel"},
     "GAT": {"gat_aggregate": "gat_aggregate_kernel", "gat_aggregate_bf16": "gat_aggregate_kernel",
             "gat_backward": "gat_backward_kernel", "gat_backward_bf16": "gat_backward_kernel",
             "vq_assign": "assign_fast_kernel", "vq_lookup": "lookup_kernel"},
@@ -2122,6 +2165,10 @@ SHARDED_KERNELS = {
 # single-K layout, no row 1 on COO or under the mixed or per-branch GAT
 # conv
 SHARDED_NOT = {
+    "GCN-f16": ("ell_aggregate", "ell_aggregate_bf16", "gat_aggregate", "gat_aggregate_bf16",
+                "gat_aggregate_f16", "gat_backward", "gat_backward_bf16", "gat_backward_f16",
+                "segment_sum", "segment_sum_scalar", "rev_forward", "rev_backward",
+                "vq_assign"),
     "GCN-mixed": ("gat_aggregate", "gat_aggregate_bf16", "segment_sum", "segment_sum_scalar"),
     "GAT-mixed": ("gat_aggregate", "gat_aggregate_bf16", "gat_backward", "gat_backward_bf16",
                   "ell_aggregate", "ell_aggregate_bf16"),
@@ -2271,13 +2318,16 @@ def cmax_grads(whole, ranks):
     return out
 
 
-def hold_sub_ell(torch, tag, label, edges, rows_all, C, gen, err):
+def hold_sub_ell(torch, tag, label, edges, rows_all, C, gen, err, dtype=None):
     """Kernel 1 against its plain version on a row shard's adjacency
     (``parallel/mesh.py:ShardEdges``), with its own row offsets and long
     rows: the forward over the owned rows' slots and the dx over the owned
     batch columns' transposed slots, each reading the gathered [rows_all,
-    C] rows as the exchange hands them over.  Tolerance as ``hold_ell``."""
+    C] rows as the exchange hands them over, in f32 or in ``dtype`` (f16:
+    the f16-row mode).  Tolerance as ``hold_ell``."""
     from vq_gnn_tpu_torch.ops.ell_aggregate import ell_aggregate, ell_aggregate_plain
+
+    name = "ell_aggregate" + ("_f16" if dtype == torch.float16 else "")
 
     for which, args, kw in (
             ("forward", (edges.ell_row, edges.ell_col, edges.ell_val, edges.num_rows),
@@ -2285,18 +2335,19 @@ def hold_sub_ell(torch, tag, label, edges, rows_all, C, gen, err):
             ("dx", (edges.t_ell_row, edges.t_ell_col, edges.t_ell_val, edges.b_rows),
              dict(ptr=edges.t_ell_ptr, long_rows=edges.t_ell_long_rows))):
         x = torch.randn((rows_all, C), generator=gen, device=edges.ell_col.device)
+        x = x if dtype is None else x.to(dtype)
         out, again = ell_aggregate(x, *args, **kw), ell_aggregate(x, *args, **kw)
         ref = ell_aggregate_plain(x, *args)
         torch.cuda.synchronize()
         d = float((out - ref).abs().max())
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
         same = torch.equal(out, again)
-        log(f"[{tag} ell_aggregate {label} {which} C={C}] slots {args[0].shape[0]}, out "
+        log(f"[{tag} {name} {label} {which} C={C}] slots {args[0].shape[0]}, out "
             f"{tuple(out.shape)} from {rows_all} gathered rows, max|err| {d:.3g} (tol "
             f"{tol:.3g}); {kw['long_rows'].shape[0] - 1} long rows; two calls bit-identical: "
             f"{same}")
         assert torch.isfinite(out).all() and d <= tol and same
-        err["ell_aggregate"] = max(err.get("ell_aggregate", 0.0), d)
+        err[name] = max(err.get(name, 0.0), d)
 
 
 def hold_sub_mixed(torch, tag, label, edges, rows_all, C, gen, err):
@@ -2712,7 +2763,8 @@ def sharded_rank(rank, tmp):
                         hold_segment_sums(torch, f"{tag17} segment_sum {label}", mh_sum_calls(
                             torch, sh.edges, (C, nb), gen), err, "segment_sum")
                     else:
-                        hold_sub_ell(torch, tag17, label, sh.edges, R_all, C, gen, err)
+                        hold_sub_ell(torch, tag17, label, sh.edges, R_all, C, gen, err,
+                                     torch.float16 if fname == "GCN-f16" else None)
                     if sh.rev_slot_row is not None:  # GAT's table rows carry the ones column
                         hold_rev_shard(torch, tag17, label, vq1.c_indices, sh,
                                        D + fname.startswith("GAT"), M, gen, err)
@@ -2823,6 +2875,12 @@ def compare_step(tag, got, ref, N, atol, gpu, m=0, n_model=1, codebooks=True, te
         if not grads_held:
             d_grad = max(d_grad, float(diff[:, :, D:].max()))
             diff = diff[:, :, :D]
+        if codebooks and diff.max() > 2e-5:  # where a held codebook misses, for the record
+            at = np.unravel_index(np.argmax(diff), diff.shape)
+            log(f"[{tag}] codebook {i} {e_got.shape}: {int((diff > 2e-5).sum())} values of "
+                f"{int(((diff > 2e-5).any(2)).sum())} codewords beyond 2e-5 + 2e-5 |ref|, the "
+                f"largest at (branch, codeword, column) {tuple(int(a) for a in at)}: ref "
+                f"{e_ref[at]:.7g} got {e_got[at]:.7g}; max|ref| {np.abs(e_ref).max():.4g}")
         d_emb = max(d_emb, float(diff.max()))
     log(f"[{tag}] one step from one state on the fixed-pad batch: loss {got['loss']:.7f} vs "
         f"train_step {ref['loss']:.7f}, rel diff {rel:.3g}{' of the terms' if terms else ''} "
@@ -2968,7 +3026,7 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     mixed, coo = dict(ell_Kt=2), dict(spmm_backend="coo")
     gcn, gat = tr.cfg, trainers["GAT"].cfg
     sage_bm = sage_bm_trainer(torch, ops, graphs["SAGE-bm"])
-    tr_of = {"GCN": tr, "GAT": trainers["GAT"], "GCN-mixed": tr, "GAT-mixed": trainers["GAT"],
+    tr_of = {"GCN": tr, "GCN-f16": trainers["GCN-f16"], "GAT": trainers["GAT"], "GCN-mixed": tr, "GAT-mixed": trainers["GAT"],
              "GCN-coo": tr, "GAT-coo": trainers["GAT"], "GAT-bm": trainers["GAT-bm"],
              "GAT-bm-bf16": trainers["GAT-bm-bf16"], "SAGE-bm": sage_bm,
              "GCN-bm-tr": trainers["GCN-bm-tr"], "GAT-bm-coo": trainers["GAT-bm-coo"],
@@ -2980,6 +3038,10 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
             "bn": exact(gcn), "no bn": dataclasses.replace(exact(gcn), bn_flag=False),
             "flagship": gcn, "bf16": dataclasses.replace(gcn, **bf16)},
             {"flagship": SHARDED_STEPS, "bf16": SHARDED_STEPS_BF16}, host),
+        # f16 compute from phase 3's GCN-f16 trainer (the codebooks frozen
+        # after its init sweep, as its path ran), on the epoch's first batch
+        "GCN-f16": _family_plan(trainers["GCN-f16"], graphs["GCN"], {
+            "f16": trainers["GCN-f16"].cfg}, {"f16": n3}, host, 1),
         "GAT": _family_plan(trainers["GAT"], graphs["GAT"], {
             "exact": exact(gat), "bf16": dataclasses.replace(gat, **bf16)},
             {"bf16": SHARDED_STEPS_BF16}, host),
@@ -3118,10 +3180,11 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
     for r, out in enumerate(outs):
         for path, counts in out["launches"].items():
             n = out["path_steps"][path]
-            per = {}  # a step, each kernel's f32 and bf16 modes together
+            per = {}  # a step, each kernel's f32 and 16-bit modes together
             for k, v in counts.items():
                 if v:
-                    per[k.removesuffix("_bf16")] = per.get(k.removesuffix("_bf16"), 0) + v / n
+                    base = k.removesuffix("_bf16").removesuffix("_f16")
+                    per[base] = per.get(base, 0) + v / n
             log(f"[17b launches] rank {r} {path}: {counts} over {n} steps; a step, both modes: "
                 f"{ {k: round(v, 3) for k, v in per.items()} }")
             for name in SHARDED_KERNELS[path.split()[0]]:
@@ -3201,6 +3264,8 @@ def sharded_phase(torch, ops, trainers, graphs, gpu, err):
                         f"a table- or edge-shaped payload: {kind}"
                 if "bf16" in path and kind[0] == "rows":  # the exchange rides at bf16
                     assert kind[2] == "bfloat16", f"a widened row payload: {kind}"
+                if "-f16" in path and kind[0] == "rows":  # ... and at f16
+                    assert kind[2] == "float16", f"a widened row payload: {kind}"
             if r == 0:
                 log(f"[17d ledger] {path}: the largest payload {biggest / 1e6:.2f} MB against "
                     f"the feature table {x_bytes / 1e6:.2f} MB, a c_indices table "
@@ -3439,6 +3504,7 @@ def main() -> int:
               if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
     log(f"[1 build] {time.time() - t0:.1f}s  registers per thread: {', '.join(regs)}  "
         f"spilling entries: {len(spills)}")
+    log(f"[1 build] kernels that spill registers: {spilling(reports) or 'none'}")
 
     # ---- 2. graph, normalised per conv ----
     phase("2 graph")
@@ -3478,13 +3544,19 @@ def main() -> int:
         ("3 GAT-256-bf16", "GAT-bf16",
          flagship_cfg(Config, conv_type="GAT", num_layers=2, hidden_channels=256,
                       compute_dtype="bfloat16"), 2, False),
+        ("3 GCN-f16", "GCN-f16", flagship_cfg(Config, **F16_PATH), 3, False),
+        ("3 GAT-f16", "GAT-f16", flagship_cfg(Config, conv_type="GAT", **F16_PATH), 3, False),
+        ("3 GAT-256-f16", "GAT-f16",
+         flagship_cfg(Config, conv_type="GAT", num_layers=2, hidden_channels=256, **F16_PATH),
+         3, False),
     ):
         graph = graphs["GAT-bm" if cfg_p.formulation == "bm" else cfg_p.conv_type]
         runs[tag] = drive_path(torch, ops, NodeTrainer, tag, graph, cfg_p, gpu, steps,
                                profile=full, evaluate=full, kernels=PATH_KERNELS[kind])
-        if tag not in ("3 GCN", "3 GAT", "3 GAT-bm", "3 GAT-bm-bf16"):
+        if tag not in ("3 GCN", "3 GAT", "3 GAT-bm", "3 GAT-bm-bf16", "3 GCN-f16"):
             runs[tag].pop("tr")  # only these trainers' states are read later
-    for tag, dtype in (("3 GAT-256", "float32"), ("3 GAT-256-bf16", "bfloat16")):
+    for tag, dtype in (("3 GAT-256", "float32"), ("3 GAT-256-bf16", "bfloat16"),
+                       ("3 GAT-256-f16", "float16")):
         assert runs[tag]["by_width"].get((256, dtype), 0) > 0, (
             f"gat_backward never ran at C = 256 in {dtype} on the {tag} path")
     log("[3 summary] ms/step " + ", ".join(
@@ -3534,29 +3606,33 @@ def main() -> int:
         log(f"[5 ell_aggregate {label}] bit-identical to the first call: {same}")
         assert all(same.values())
 
-    # kernel 1's bf16-row mode (GCN and SAGE under bf16 compute) on the same
-    # batch, x and the cotangent in bf16: against the plain version on the
-    # same bf16 values (f32 sums in another order, the tolerance above), and
-    # the same bits run to run, at every panel count and without the lists
-    bf = torch.bfloat16
-    ell16 = {"forward": (x.to(bf), *fwd_args[1:]), "dx": (gx.to(bf), *dx_args[1:])}
-    for label, args in ell16.items():
-        kw = ell_kw[label]
-        out, ref = ell_aggregate(*args, **kw), ell_aggregate_plain(*args)
-        torch.cuda.synchronize()
-        d = float((out - ref).abs().max())
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        log(f"[5 ell_aggregate_bf16 {label}] out {tuple(out.shape)} {out.dtype} max|err| {d:.3g} "
-            f"(tol {tol:.3g})")
-        assert out.dtype == torch.float32 and torch.isfinite(out).all() and d <= tol
-        err["ell_aggregate_bf16"] = max(err.get("ell_aggregate_bf16", 0.0), d)
-        same = {"again": ell_aggregate(*args, **kw),
-                **{f"P={P}": ell_aggregate(*args, panels=P, **kw) for P in (1, 2, 4)},
-                "offsets built on the device, rows in index order": ell_aggregate(*args)}
-        torch.cuda.synchronize()
-        same = {k: torch.equal(v, out) for k, v in same.items()}
-        log(f"[5 ell_aggregate_bf16 {label}] bit-identical to the first call: {same}")
-        assert all(same.values())
+    # kernel 1's 16-bit-row modes (GCN and SAGE under bf16 or f16 compute)
+    # on the same batch, x and the cotangent in bf16 or f16: against the
+    # plain version on the same 16-bit values (f32 sums in another order, the
+    # tolerance above), and the same bits run to run, at every panel count
+    # and without the lists
+    rows16 = {"_bf16": torch.bfloat16, "_f16": torch.float16}  # the modes' suffixes
+    ell16 = {sfx: {"forward": (x.to(dt), *fwd_args[1:]), "dx": (gx.to(dt), *dx_args[1:])}
+             for sfx, dt in rows16.items()}
+    for sfx, by_label in ell16.items():
+        name = "ell_aggregate" + sfx
+        for label, args in by_label.items():
+            kw = ell_kw[label]
+            out, ref = ell_aggregate(*args, **kw), ell_aggregate_plain(*args)
+            torch.cuda.synchronize()
+            d = float((out - ref).abs().max())
+            tol = 1e-5 * max(1.0, float(ref.abs().max()))
+            log(f"[5 {name} {label}] out {tuple(out.shape)} {out.dtype} max|err| {d:.3g} (tol "
+                f"{tol:.3g})")
+            assert out.dtype == torch.float32 and torch.isfinite(out).all() and d <= tol
+            err[name] = max(err.get(name, 0.0), d)
+            same = {"again": ell_aggregate(*args, **kw),
+                    **{f"P={P}": ell_aggregate(*args, panels=P, **kw) for P in (1, 2, 4)},
+                    "offsets built on the device, rows in index order": ell_aggregate(*args)}
+            torch.cuda.synchronize()
+            same = {k: torch.equal(v, out) for k, v in same.items()}
+            log(f"[5 {name} {label}] bit-identical to the first call: {same}")
+            assert all(same.values())
 
     vq1 = tr.state.vq_states[1]
     nb, M, Kq = vq1.embedding.shape
@@ -3652,38 +3728,40 @@ def main() -> int:
                 f"zeros above dx_rows: {zero}; {ge.t_all_long_rows.shape[0] - 1} long rows")
             assert same and zero
 
-    # the bf16-row modes of kernels 4 and 5 (GAT under bf16 compute) on the
-    # same inputs rounded to bf16 where the conv passes bf16: x, and g_agg,
-    # g_rowsum and ar in the backward (al and the aggregate's ar stay f32);
-    # against the plain versions on the same bf16 values, tolerance as above
-    gat_fwd16, gat_bwd16 = {}, {}
-    for width in (C, 256):
-        xw, *rest = gat_fwd[width]
-        gat_fwd16[width] = (xw.to(bf), *rest)
-        for with_neg in (True, False):
-            ref = gat_aggregate_plain(*gat_fwd16[width], with_neg=with_neg)
-            out = gat_aggregate(*gat_fwd16[width], with_neg=with_neg, **fwd_lists)
-            hold(f"C={width} with_neg={with_neg}", "gat_aggregate_bf16", out, ref)
-            again = gat_aggregate(*gat_fwd16[width], with_neg=with_neg)
-            torch.cuda.synchronize()
-            same = all(a is b or torch.equal(a, b) for a, b in zip(out, again))
-            log(f"[5 gat_aggregate_bf16 C={width} with_neg={with_neg}] bit-identical with the "
-                f"offsets built on the device and no long-row list: {same}")
-            assert same
-        xw, t_r, t_c, t_v, g_agg, g_rs, alw, arw, _ = gat_bwd[width]
-        gat_bwd16[width] = (xw.to(bf), t_r, t_c, t_v, g_agg.to(bf), g_rs.to(bf), alw, arw.to(bf),
-                            Rg)
-        for dxr in gat_dx_rows:
-            out = gat_backward(*gat_bwd16[width], dx_rows=dxr, **gat_lists)
-            hold(f"C={width} dx_rows={dxr}", "gat_backward_bf16", out,
-                 gat_backward_plain(*gat_bwd16[width], dx_rows=dxr))
-            again = gat_backward(*gat_bwd16[width], dx_rows=dxr, **gat_lists)
-            torch.cuda.synchronize()
-            same = all(a is b or torch.equal(a, b) for a, b in zip(out, again))
-            zero = out[0] is None or not out[0][dxr:].any()
-            log(f"[5 gat_backward_bf16 C={width} dx_rows={dxr}] bit-identical over two calls: "
-                f"{same}; zeros above dx_rows: {zero}")
-            assert same and zero
+    # the bf16-row and f16-row modes of kernels 4 and 5 (GAT under bf16 or
+    # f16 compute) on the same inputs rounded where the conv passes 16-bit
+    # values: x, and g_agg, g_rowsum and ar in the backward (al and the
+    # aggregate's ar stay f32); against the plain versions on the same
+    # 16-bit values, tolerance as above
+    gat_fwd16, gat_bwd16 = {}, {}  # by (suffix, width)
+    for sfx, dt in rows16.items():
+        for width in (C, 256):
+            xw, *rest = gat_fwd[width]
+            args = gat_fwd16[sfx, width] = (xw.to(dt), *rest)
+            for with_neg in (True, False):
+                ref = gat_aggregate_plain(*args, with_neg=with_neg)
+                out = gat_aggregate(*args, with_neg=with_neg, **fwd_lists)
+                hold(f"C={width} with_neg={with_neg}", "gat_aggregate" + sfx, out, ref)
+                again = gat_aggregate(*args, with_neg=with_neg)
+                torch.cuda.synchronize()
+                same = all(a is b or torch.equal(a, b) for a, b in zip(out, again))
+                log(f"[5 gat_aggregate{sfx} C={width} with_neg={with_neg}] bit-identical with "
+                    f"the offsets built on the device and no long-row list: {same}")
+                assert same
+            xw, t_r, t_c, t_v, g_agg, g_rs, alw, arw, _ = gat_bwd[width]
+            args = gat_bwd16[sfx, width] = (xw.to(dt), t_r, t_c, t_v, g_agg.to(dt), g_rs.to(dt),
+                                            alw, arw.to(dt), Rg)
+            for dxr in gat_dx_rows:
+                out = gat_backward(*args, dx_rows=dxr, **gat_lists)
+                hold(f"C={width} dx_rows={dxr}", "gat_backward" + sfx, out,
+                     gat_backward_plain(*args, dx_rows=dxr))
+                again = gat_backward(*args, dx_rows=dxr, **gat_lists)
+                torch.cuda.synchronize()
+                same = all(a is b or torch.equal(a, b) for a, b in zip(out, again))
+                zero = out[0] is None or not out[0][dxr:].any()
+                log(f"[5 gat_backward{sfx} C={width} dx_rows={dxr}] bit-identical over two "
+                    f"calls: {same}; zeros above dx_rows: {zero}")
+                assert same and zero
 
     # B + M GAT: the segment sum at the conv's widths (C = nb * D = 128 for
     # the aggregate and dx, nb = 32 for the normaliser and the logit
@@ -3854,41 +3932,51 @@ def main() -> int:
         f"{256 // panel_width(256)}) {by_p} | {gpu}")
     del x256
 
-    # kernel 1's bf16-row mode beside its f32 mode at the same shapes, in this
-    # call: bf16 rows halve the gathered bytes, so a time that falls towards
-    # half of the f32 one says the gathers' bytes (L2) held the f32 kernel
-    # back, one that hardly moves says its chains of dependent loads did.
-    # Library yardstick: torch.sparse.mm on the same values widened to f32
-    # (no PyTorch call takes bf16 rows into f32 sums)
-    for label, n_out in (("forward", R), ("dx", e0.b_rows)):
-        args = ell16[label]
-        xx, row, col, val, _ = args
-        kw = ell_kw[label]
-        S_, K = col.shape
-        nnz_ = live_cells(row, val, n_out)
-        xf = xx.float()
-        csr_ = csr_of(torch, row, col, val, n_out, R)
-        t = {
-            "ms": cuda_time_ms(torch, lambda: ell_aggregate(*args, **kw)),
-            "plain_ms": cuda_time_ms(torch, lambda: ell_aggregate_plain(*args), reps=5),
-            "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr_, xf)),
-        }
-        f32_ms = cuda_time_ms(torch, lambda: ell_aggregate(xf, *args[1:], **kw))
-        # x at 2 bytes a value, the slots, the f32 output
-        b_ms, b_by = bound(R * C * 2 + S_ * 4 + 2 * S_ * K * 4 + n_out * C * 4, 2 * nnz_ * C,
-                           F32_FLOPS)
-        dev16 = kernel_split(torch, lambda: ell_aggregate(*args, **kw))
-        dev32 = kernel_split(torch, lambda: ell_aggregate(xf, *args[1:], **kw))
-        log(f"[6 ell_aggregate_bf16 {label}] rows={n_out} slots={S_} nnz={nnz_}: {t} bound "
-            f"{b_ms:.4f} ms ({b_by}); the f32 mode on the same values {f32_ms:.4f} ms "
-            f"(bf16 / f32 {t['ms'] / f32_ms:.3f}); device us per call bf16 {dev16}, f32 "
-            f"{dev32}; gathered bf16 {nnz_ * C * 2 / 1e6:.1f} MB at "
-            f"{nnz_ * C * 2 / t['ms'] / 1e9:.3f} TB/s; library_ms: torch.sparse.mm on x "
-            f"widened to f32 | {gpu}")
-        if label == "forward":
-            kern["ell_aggregate_bf16"] = dict(
-                source="vq_gnn_tpu_torch/csrc/ell_aggregate.cu",
-                replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms, bound_by=b_by)
+    # kernel 1's bf16-row and f16-row modes beside its f32 mode at the same
+    # shapes, in this call: 16-bit rows halve the gathered bytes, so a time
+    # that falls towards half of the f32 one says the gathers' bytes (L2)
+    # held the f32 kernel back, one that hardly moves says its chains of
+    # dependent loads did; the f16 mode moves the bf16 mode's bytes, so the
+    # two should take about the same time.  Library yardstick:
+    # torch.sparse.mm on the same values widened to f32 (no PyTorch call
+    # takes 16-bit rows into f32 sums)
+    ell16_ms = {}
+    for sfx, by_label in ell16.items():
+        name = "ell_aggregate" + sfx
+        for label, n_out in (("forward", R), ("dx", e0.b_rows)):
+            args = by_label[label]
+            xx, row, col, val, _ = args
+            kw = ell_kw[label]
+            S_, K = col.shape
+            nnz_ = live_cells(row, val, n_out)
+            xf = xx.float()
+            csr_ = csr_of(torch, row, col, val, n_out, R)
+            t = {
+                "ms": cuda_time_ms(torch, lambda: ell_aggregate(*args, **kw)),
+                "plain_ms": cuda_time_ms(torch, lambda: ell_aggregate_plain(*args), reps=5),
+                "library_ms": cuda_time_ms(torch, lambda: torch.sparse.mm(csr_, xf)),
+            }
+            ell16_ms[sfx, label] = t["ms"]
+            f32_ms = cuda_time_ms(torch, lambda: ell_aggregate(xf, *args[1:], **kw))
+            # x at 2 bytes a value, the slots, the f32 output
+            b_ms, b_by = bound(R * C * 2 + S_ * 4 + 2 * S_ * K * 4 + n_out * C * 4,
+                               2 * nnz_ * C, F32_FLOPS)
+            dev16 = kernel_split(torch, lambda: ell_aggregate(*args, **kw))
+            dev32 = kernel_split(torch, lambda: ell_aggregate(xf, *args[1:], **kw))
+            vs_bf16 = ("" if sfx == "_bf16" else f"; the bf16 mode at these shapes "
+                       f"{ell16_ms['_bf16', label]:.4f} ms ({sfx[1:]} / bf16 "
+                       f"{t['ms'] / ell16_ms['_bf16', label]:.3f})")
+            log(f"[6 {name} {label}] rows={n_out} slots={S_} nnz={nnz_}: {t} bound "
+                f"{b_ms:.4f} ms ({b_by}); the f32 mode on the same values {f32_ms:.4f} ms "
+                f"({sfx[1:]} / f32 {t['ms'] / f32_ms:.3f}){vs_bf16}; device us per call "
+                f"{sfx[1:]} {dev16}, f32 {dev32}; gathered {nnz_ * C * 2 / 1e6:.1f} MB at "
+                f"{nnz_ * C * 2 / t['ms'] / 1e9:.3f} TB/s; library_ms: torch.sparse.mm on x "
+                f"widened to f32 | {gpu}")
+            if label == "forward":
+                kern[name] = dict(
+                    source="vq_gnn_tpu_torch/csrc/ell_aggregate.cu",
+                    replaces="vq_gnn_tpu/ops/pallas_ell.py:111", **t, bound_ms=b_ms,
+                    bound_by=b_by)
 
     emb1 = vq1.embedding.contiguous()
 
@@ -3913,13 +4001,31 @@ def main() -> int:
     # the ELL's columns and values, and the row offsets and long rows the
     # kernel reads in place of its rows
     fell_bytes = 2 * Sg * Kg * 4 + (Rg + 1) * 4 + ge.ell_long_rows.numel() * 4
-    # each kernel beside its bf16-row mode at the same shapes, in this call:
-    # bf16 rows halve the gathered bytes, so a mode that falls towards half
-    # of the f32 time says the gathered bytes (L2) held the f32 kernel back,
-    # one that hardly moves says its chains of dependent loads did
+    # each kernel beside its bf16-row and f16-row modes at the same shapes,
+    # in this call: 16-bit rows halve the gathered bytes, so a mode that
+    # falls towards half of the f32 time says the gathered bytes (L2) held
+    # the f32 kernel back, one that hardly moves says its chains of
+    # dependent loads did; the f16 mode moves the bf16 mode's bytes.  The
+    # f16 mode's plain version is timed at the calls its rows report only
+    def modes(base, f32_args, args16):
+        """(name, {width: args}, bytes a row value) of a kernel's modes."""
+        return [(base, f32_args, 4)] + [
+            (base + sfx, {w: args16[sfx, w] for w in (C, 256)}, 2) for sfx in rows16]
+
+    def versus(times, name, key, ms):
+        """The f32 mode's time (and the bf16 mode's for an f16 mode) at key."""
+        if not name.endswith("16"):
+            return ""
+        base = name.rsplit("_", 1)[0]
+        f32 = times[(base,) + key]["ms"]
+        vs = f"; the f32 mode {f32:.4f} ms ({name.rsplit('_', 1)[1]} / f32 {ms / f32:.3f})"
+        if name.endswith("_f16"):
+            bf = times[(base + "_bf16",) + key]["ms"]
+            vs += f", the bf16 mode {bf:.4f} ms (f16 / bf16 {ms / bf:.3f})"
+        return vs
+
     fwd_t = {}
-    for name, args_by_width, xb in (("gat_aggregate", gat_fwd, 4),
-                                    ("gat_aggregate_bf16", gat_fwd16, 2)):
+    for name, args_by_width, xb in modes("gat_aggregate", gat_fwd, gat_fwd16):
         for width, with_neg in ((C, True), (C, False), (256, True)):
             def run():
                 return gat_aggregate(*args_by_width[width], with_neg=with_neg, **fwd_lists)
@@ -3936,8 +4042,7 @@ def main() -> int:
                               + outs_n * (Rg * width * 4 + Rg * 4), 2 * outs_n * nnz_g * width,
                               F32_FLOPS)
             fwd_t[name, width, with_neg] = dict(**tt, bound_ms=bb, bound_by=bb_by)
-            f32 = fwd_t["gat_aggregate", width, with_neg]["ms"]
-            vs = "" if xb == 4 else f"; the f32 mode {f32:.4f} ms (bf16 / f32 {tt['ms'] / f32:.3f})"
+            vs = versus(fwd_t, name, (width, with_neg), tt["ms"])
             gathered = nnz_g * width * xb
             log(f"[6 {name}] C={width} with_neg={with_neg} R={Rg} S={Sg} nnz={nnz_g}: {tt} "
                 f"bound {bb:.4f} ms ({bb_by}){vs}; device us per call "
@@ -3953,19 +4058,16 @@ def main() -> int:
     tell_bytes = 2 * Stg * Kg * 4 + (Rg + 1) * 4 + ge.t_all_long_rows.numel() * 4
     t_live = (ge.t_ell_val != 0) & (ge.t_ell_row[:, None] < Rg)
     bwd_t = {}
-    for name, args_by_width, xb in (("gat_backward", gat_bwd, 4),
-                                    ("gat_backward_bf16", gat_bwd16, 2)):
+    for name, args_by_width, xb in modes("gat_backward", gat_bwd, gat_bwd16):
         for width, args in args_by_width.items():
             for dxr in gat_dx_rows:
                 def run():
                     return gat_backward(*args, dx_rows=dxr, **gat_lists)
 
-                tt = {
-                    "ms": cuda_time_ms(torch, run),
-                    "plain_ms": cuda_time_ms(
-                        torch, lambda: gat_backward_plain(*args, dx_rows=dxr), reps=5),
-                    "library_ms": None,
-                }
+                tt = {"ms": cuda_time_ms(torch, run), "plain_ms": None, "library_ms": None}
+                if not name.endswith("_f16") or dxr == Rg:
+                    tt["plain_ms"] = cuda_time_ms(
+                        torch, lambda: gat_backward_plain(*args, dx_rows=dxr), reps=5)
                 # x, g_agg, g_rowsum and ar (xb bytes a value), al and the
                 # ELL in, d_al and (with dx_rows > 0) dx_agg out; per live
                 # cell a dot over C, and an FMA over C where its row is <
@@ -3975,9 +4077,7 @@ def main() -> int:
                                   + Rg * (2 * xb + 4 + 4) + tell_bytes,
                                   2 * (nnz_gt + nnz_dx) * width, F32_FLOPS)
                 bwd_t[name, width, dxr] = dict(**tt, bound_ms=bb, bound_by=bb_by)
-                f32 = bwd_t["gat_backward", width, dxr]["ms"]
-                vs = ("" if xb == 4 else
-                      f"; the f32 mode {f32:.4f} ms (bf16 / f32 {tt['ms'] / f32:.3f})")
+                vs = versus(bwd_t, name, (width, dxr), tt["ms"])
                 log(f"[6 {name}] C={width} dx_rows={dxr} R={Rg} St={Stg} nnz={nnz_gt} (rows < "
                     f"dx_rows: {nnz_dx}): {tt} bound {bb:.4f} ms ({bb_by}){vs}; device us per "
                     f"call {kernel_split(torch, run)}; library_ms null: no single PyTorch call "
@@ -4166,6 +4266,26 @@ def main() -> int:
     assert rec["E_batch"] == E3, f"bench batch E={rec['E_batch']}, phase 3's first batch E={E3}"
     assert any(ln.startswith("peak device memory: allocated") for ln in bench_lines)
 
+    # 8b: the bench's own f16 cell (VQ_GNN_BENCH_DTYPE=float16, live VQ), as
+    # bench.py takes it.  Its loss may go nonfinite, as the JAX package's
+    # does (live updates take the codebooks' feature half past f16's range):
+    # the step at which it first does is logged; what must hold is that its
+    # timed steps ran kernel 1's f16-row mode and no other mode of rows 1-4
+    cfg_h = bench_torch.bench_config({"VQ_GNN_BENCH_DTYPE": "float16"})
+    assert cfg_h == dataclasses.replace(cfg_b, compute_dtype="float16")
+    t0 = time.time()
+    rec = bench_torch.run_bench(cfg_h, *graphs["GCN"], device="cuda", gpu=gpu,
+                                log=lambda *a: log("[8b bench f16]", *a))
+    bad = next((i for i, v in enumerate(rec["losses"]) if not math.isfinite(v)), None)
+    per = rec["launches_per_step"]
+    log(f"[8b bench f16] live VQ: losses by step (the warm-up first) {rec['losses']}: "
+        + ("every one finite" if bad is None else
+           f"the first nonfinite at step {bad + 1} of {len(rec['losses'])}")
+        + f"; launches per timed step {per}; in {time.time() - t0:.1f}s | {gpu}")
+    assert rec["E_batch"] == E3 and per.get("ell_aggregate_f16", 0) > 0, per
+    for name in F16_PATH_NOT:
+        assert per.get(name, 0) == 0, f"{name} ran in the bench's f16 cell"
+
     # ---- 9. the CLI (main_node_torch.py), in-process on the card ----
     phase("9 cli")
     t0 = time.time()
@@ -4224,7 +4344,8 @@ def main() -> int:
     phase("17 sharded")
     t0 = time.time()
     counts.append(sharded_phase(torch, ops, {
-        "GCN": runs["3 GCN"]["tr"], "GAT": runs["3 GAT"]["tr"], "GAT-bm": runs["3 GAT-bm"]["tr"],
+        "GCN": runs["3 GCN"]["tr"], "GCN-f16": runs["3 GCN-f16"]["tr"],
+        "GAT": runs["3 GAT"]["tr"], "GAT-bm": runs["3 GAT-bm"]["tr"],
         "GAT-bm-bf16": runs["3 GAT-bm-bf16"]["tr"], **keep}, graphs, gpu, err))
     del keep
     log(f"[17 sharded] the phase took {time.time() - t0:.1f}s")

@@ -255,8 +255,8 @@ def test_bench_refuses_to_run_without_a_gpu(bench_env, monkeypatch, tmp_path):
 def test_gat_default_dtype_raises(bench_env, monkeypatch, tmp_path, form):
     """bench.py runs GAT in bf16 by default, and so does the port's bench: its
     config says bfloat16 and it gets past the dtype to the device, where it
-    raises without a GPU as every cell does.  A dtype the port lacks
-    (float16) raises by name; nothing falls back to f32."""
+    raises without a GPU as every cell does.  A dtype neither package has
+    (float64) raises by name; nothing falls back to f32."""
     _small_profile(monkeypatch, tmp_path)
     monkeypatch.setenv("VQ_GNN_BENCH_CONV", "GAT")
     monkeypatch.setenv("VQ_GNN_BENCH_FORM", form)
@@ -264,8 +264,8 @@ def test_gat_default_dtype_raises(bench_env, monkeypatch, tmp_path, form):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_torch.main([])
-    monkeypatch.setenv("VQ_GNN_BENCH_DTYPE", "float16")
-    with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
+    monkeypatch.setenv("VQ_GNN_BENCH_DTYPE", "float64")
+    with pytest.raises(NotImplementedError, match="compute_dtype='float64'"):
         bench_torch.main([])
 
 
@@ -282,6 +282,36 @@ def test_bench_runs_the_gat_bf16_cell(bench_env, monkeypatch, tmp_path, capsys):
     rec = json.loads(out.splitlines()[-1])
     assert np.isfinite(rec["value"]) and rec["value"] > 0
     assert "compute_dtype='bfloat16'" in err
+
+
+def test_bench_runs_at_f16(bench_env, monkeypatch, tmp_path, capsys):
+    """``VQ_GNN_BENCH_DTYPE=float16``, as bench.py takes it, on a small graph
+    with the CPU standing in for the card: under 'reference' mode finite
+    steps and one record; under live updates the record holds each step's
+    loss, the warm-up's finite, and the run raises on a nonfinite last loss
+    rather than print a record (nothing falls back to f32)."""
+    _small_profile(monkeypatch, tmp_path)
+    monkeypatch.setattr(bench_torch, "resolve_device", lambda _: torch.device("cpu"))
+    monkeypatch.setattr(bench_torch, "gpu_line", lambda: "no card: the CPU stands in")
+    monkeypatch.setenv("VQ_GNN_BENCH_DTYPE", "float16")
+    cfg = bench_torch.bench_config(os.environ)
+    assert cfg.compute_dtype == "float16" and cfg.vq_update_mode == "live"
+    graph = bench_torch.load_graph(cfg, os.environ)
+    rec = bench_torch.run_bench(cfg, *graph, device="cpu", steps=bench_torch.STEPS)
+    assert len(rec["losses"]) == bench_torch.STEPS + 1 and np.isfinite(rec["losses"][0])
+    assert rec["loss"] == rec["losses"][-1] or not np.isfinite(rec["loss"])
+    if np.isfinite(rec["loss"]):
+        assert bench_torch.main([]) == 0
+    else:
+        with pytest.raises(RuntimeError, match="non-finite result"):
+            bench_torch.main([])
+    capsys.readouterr()
+    monkeypatch.setenv("VQ_GNN_BENCH_MODE", "reference")
+    assert bench_torch.main([]) == 0
+    out, err = capsys.readouterr()
+    rec = json.loads(out.splitlines()[-1])
+    assert np.isfinite(rec["value"]) and rec["value"] > 0
+    assert "compute_dtype='float16'" in err and "vq_update_mode='reference'" in err
 
 
 def _write_real(path, num_nodes, seed):
@@ -333,13 +363,13 @@ def test_real_data_wins_over_the_caches(monkeypatch, tmp_path):
 
 def test_sweep_records_a_failing_cell(monkeypatch, tmp_path):
     """A sweep cell runs as its own process; one that raises is recorded with
-    its error line, not dropped (a GAT cell at float16, which the port lacks,
-    fails before it needs a GPU or a graph)."""
+    its error line, not dropped (a GAT cell at float64, which neither
+    package has, fails before it needs a GPU or a graph)."""
     monkeypatch.setenv("VQ_GNN_BENCH_CACHE", str(tmp_path / "sbm.npz"))
-    rec = bench_torch.run_cell({"VQ_GNN_BENCH_CONV": "GAT", "VQ_GNN_BENCH_DTYPE": "float16"},
+    rec = bench_torch.run_cell({"VQ_GNN_BENCH_CONV": "GAT", "VQ_GNN_BENCH_DTYPE": "float64"},
                                timeout=300)
     assert rec["returncode"] != 0
-    assert rec["error"].startswith("NotImplementedError: compute_dtype='float16'"), rec
+    assert rec["error"].startswith("NotImplementedError: compute_dtype='float64'"), rec
     tb = "Traceback (most recent call last):\n  File \"x\", line 1\nValueError: bad\n  note\n"
     assert bench_torch.error_line(tb) == "ValueError: bad"
     assert bench_torch.error_line("killed\n") == "killed"

@@ -194,7 +194,7 @@ MODEL_CASES = [pytest.param("GCN", "bbprime", id="GCN-bbprime"),
                pytest.param("GAT", "bm", id="bm")]
 
 
-def _model_grads(conv, formulation, jit, dtypes=("bfloat16",)):
+def _model_grads(conv, formulation, jit, dtypes=("bfloat16",), codebook_seed=None, **kw):
     """The whole model on the first training batch: masked CE +
     info_backward and its gradients with respect to every parameter and
     every probe (what the VQ update reads).  Returns JAX's loss, its
@@ -202,8 +202,13 @@ def _model_grads(conv, formulation, jit, dtypes=("bfloat16",)):
     (loss, gradients) at each compute dtype of ``dtypes``.  ``jit=False``
     runs the JAX side op by op (``jax.disable_jit``), each op rounding
     where the code says; under ``jax.jit`` XLA fuses the GAT glue around
-    the bf16 values and rounds some of it elsewhere."""
-    (jc, jg, ms_j, jstate, jb), (tc, tg, ms_t, tb) = _setup(conv, formulation)
+    the bf16 values and rounds some of it elsewhere.  ``kw`` (Config
+    fields over ``SEAM``, such as another compute_dtype) goes to the JAX
+    side's config; ``codebook_seed`` starts from layer 0's codebook at
+    random (:func:`_random_codebook`), else from the initial state."""
+    (jc, jg, ms_j, jstate, jb), (tc, tg, ms_t, tb) = _setup(conv, formulation, **kw)
+    if codebook_seed is not None:
+        jstate, _ = _random_codebook(jstate, codebook_seed)
     state = state_from_numpy(jax.tree.map(np.asarray, jstate), ms_t, 0.01, "cpu")
     X = j_device_features(jg.x)
     j_probes = jmodel.zero_probes(ms_j, jb.B_pad)
@@ -332,14 +337,17 @@ def test_trainer_epoch_at_bf16(conv, formulation, monkeypatch):
 
 
 def test_other_compute_dtypes_raise():
-    """Only float32 and bfloat16 are ported; float16 raises by name."""
+    """float32, bfloat16 and float16, the JAX package's three, are ported;
+    any other dtype (float64) raises by name."""
     assert tcfg.torch_dtype("bfloat16") == torch.bfloat16
     assert tcfg.torch_dtype("float32") == torch.float32
-    with pytest.raises(NotImplementedError, match="compute_dtype='float16'.*queue 2a"):
-        tcfg.check_ported(tcfg.Config(compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
-        tcfg.torch_dtype("float16")
+    assert tcfg.torch_dtype("float16") == torch.float16
+    with pytest.raises(NotImplementedError, match="compute_dtype='float64'.*no such path"):
+        tcfg.check_ported(tcfg.Config(compute_dtype="float64"))
+    with pytest.raises(NotImplementedError, match="compute_dtype='float64'"):
+        tcfg.torch_dtype("float64")
     tcfg.check_ported(tcfg.Config(compute_dtype="bfloat16"))
+    tcfg.check_ported(tcfg.Config(compute_dtype="float16"))
 
 
 def test_rev_fold_fast_raises(monkeypatch):

@@ -435,14 +435,18 @@ def one_rank(tmp_path_factory):
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_one_rank_equals_train_step(one_rank, dtype):
     """Four steps (two batches of two cont windows, the optimizer skipped on
     each first window) of the data-parallel step and of ``train_step``
     from one state, with dropbranch on one set of masks: the same losses,
-    parameters, codebooks, BN statistics and ``c_indices[:N]``, bit for bit."""
+    parameters, codebooks, BN statistics and ``c_indices[:N]``, bit for bit.
+    float16 runs with the codebooks frozen ('reference'): live updates take
+    their feature half past f16's range after the first step, and the loss
+    goes nonfinite, as in the JAX package (tests/test_torch_port_f16.py)."""
+    mode = "reference" if dtype == "float16" else BASE["vq_update_mode"]
     cfg = tcfg.Config(**{**BASE, **CONT, "dropbranch": 0.5, "compute_dtype": dtype,
-                         "bn_flag": True})
+                         "bn_flag": True, "vq_update_mode": mode})
     g, c, _ = _prepared(tdata, cfg)
     cpu = torch.device("cpu")
     ms = tmodel.model_static(cfg, g.num_features, c, cpu)
@@ -477,9 +481,12 @@ def test_one_rank_equals_train_step(one_rank, dtype):
         assert torch.equal(x, y)
     led = ddp.ledger
     assert led.steps == n and led.calls["grad"] == n
-    # per layer: two BN rounds and the EMA statistics; the sync-BN once
-    assert led.calls["stats"] == n * (3 * ms.num_layers + 1)
-    assert led.calls["c_indices"] == n * (1 + ms.num_layers)
+    # per layer: two BN rounds and the EMA statistics; the sync-BN once; the
+    # assignments each step and each layer; under 'reference' only the
+    # sync-BN (the codebooks, and so their statistics and assignments, stay)
+    live = mode == "live"
+    assert led.calls["stats"] == n * (3 * ms.num_layers * live + 1)
+    assert led.calls["c_indices"] == n * (1 + ms.num_layers) * live
 
 
 @pytest.mark.parametrize("kw,err", [

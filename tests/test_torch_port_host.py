@@ -145,16 +145,18 @@ def test_entry_points_default_to_cuda():
     assert tcfg.resolve_vq_backend("auto", torch.device("cuda")) == "pallas_fast"
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="float16")])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="float64")])
 def test_unported_options_raise(kw):
+    """A setting the port has no path for (a compute dtype neither package
+    has) raises by name, in the data preparation and in the trainer."""
     from vq_gnn_tpu_torch.train.loop import NodeTrainer
 
     cfg = tcfg.Config(sampler_type="node", **{**CFG, **kw})
     g, c = tdata.synthetic_sbm(num_nodes=200, num_classes=3, num_features=8, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="compute_dtype='float64'"):
         tdata.prepare(g, cfg, c)
     g, c, ci = tdata.prepare(g, tcfg.Config(sampler_type="node", **CFG), c)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="compute_dtype='float64'"):
         NodeTrainer(g, cfg, c, ci, device="cpu")
 
 

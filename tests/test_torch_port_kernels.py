@@ -440,7 +440,8 @@ def test_gat_backward_dx_rows_and_row_lists(dev, C):
 # reading.
 @cuda
 @pytest.mark.parametrize("kernel", ["ell_aggregate", "gat_aggregate", "gat_backward"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 def test_zero_cells_are_padding(dev, kernel, dtype):
     R, C, nan_row = 900, 128, 7
     rng = np.random.RandomState(21)
@@ -456,7 +457,7 @@ def test_zero_cells_are_padding(dev, kernel, dtype):
     x, g = (rng.randn(R, C).astype(np.float32) for _ in range(2))
     g_rs, al, ar = ((rng.randn(R) * 0.7).astype(np.float32) for _ in range(3))
 
-    def rows(a):  # the tensors the bf16-row mode takes in bf16
+    def rows(a):  # the tensors the 16-bit-row modes take in 16 bits
         return torch.as_tensor(a).to(dev).to(dtype)
 
     def args(sel):
@@ -507,70 +508,90 @@ def test_gat_wrappers_refuse_bad_input(dev):
         gat_backward(x, er, ec, ev, x, al, al, al, 50, dx_rows=51)
 
 
-# ---- the bf16-row modes of kernels 1, 4 and 5 (compute_dtype='bfloat16') ----
-# The kernel and its plain version read the same bf16 values and sum them in
-# f32, so only the order of the f32 sums differs: the f32 tests' tolerance
-# (rtol 1e-5, atol 1e-5 x the largest |ref|).  C = 128 takes 16 lanes a row
-# of 8 bf16 values each, 256 a warp, 512 two vectors a lane, 1000 and 2000 the
-# chunked walk, 36 and 7 (not multiples of 8) and a misaligned x one value a
-# lane.
-def _bf16(*arrays, dev, offset=False):
-    """Each array on the card in bf16; with ``offset`` x starts 2 bytes into
-    its buffer, so its rows are not 16-byte aligned."""
+# ---- the 16-bit-row modes of kernels 1, 4 and 5 (compute_dtype='bfloat16'
+# or 'float16') ----
+# The kernel and its plain version read the same 16-bit values and sum them
+# in f32, so only the order of the f32 sums differs: the f32 tests'
+# tolerance (rtol 1e-5, atol 1e-5 x the largest |ref|).  C = 128 takes 16
+# lanes a row of 8 16-bit values each, 256 a warp, 512 two vectors a lane,
+# 1000 and 2000 the chunked walk, 36 and 7 (not multiples of 8) and a
+# misaligned x one value a lane.  Each mode counts its own launches.
+ROWS16 = {torch.bfloat16: "launches_bf16", torch.float16: "launches_f16"}
+
+
+def _bf16(*arrays, dev, offset=False, dtype=torch.bfloat16):
+    """Each array on the card in ``dtype`` (a 16-bit one); with ``offset`` x
+    starts 2 bytes into its buffer, so its rows are not 16-byte aligned."""
     out = []
     for a in arrays:
-        t = torch.as_tensor(a).to(dev).to(torch.bfloat16)
+        t = torch.as_tensor(a).to(dev).to(dtype)
         if offset and t.dim() == 2:
-            buf = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=dev)
+            buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
             buf[1:] = t.reshape(-1)
             t = buf[1:].view(t.shape)
         out.append(t)
     return out
 
 
-@cuda
-@pytest.mark.parametrize("num_rows,E,K,C,offset", [
+def _launches(fn, dtype):
+    return fn.launches, getattr(fn, ROWS16[dtype])
+
+
+ELL16_CASES = [
     (3000, 40000, 8, 128, False), (3000, 40000, 8, 128, True), (700, 6000, 8, 256, False),
     (300, 2000, 8, 1000, False), (517, 3000, 4, 36, False), (129, 900, 8, 7, False),
-    (200, 0, 8, 128, False)])
-def test_ell_aggregate_bf16_matches_plain(dev, num_rows, E, K, C, offset):
+    (200, 0, 8, 128, False)]
+
+
+def _hold_ell_aggregate16(dev, dtype, num_rows, E, K, C, offset):
     er, ec, ev, x = _ell_case(num_rows, E, K, C, 0)
-    (xb,) = _bf16(x, dev=dev, offset=offset)
+    (xb,) = _bf16(x, dev=dev, offset=offset, dtype=dtype)
     ell = [torch.as_tensor(a).to(dev) for a in (er, ec, ev)]
-    before = (ell_aggregate.launches, ell_aggregate.launches_bf16)
+    before = _launches(ell_aggregate, dtype)
     out = ell_aggregate(xb, *ell, num_rows)
     ref = ell_aggregate_plain(xb, *ell, num_rows)
     ptr = torch.as_tensor(row_offsets_host(er, num_rows)).to(dev)
     lr = torch.as_tensor(long_rows_host(ptr.cpu().numpy(), 2)).to(dev)
     same = [ell_aggregate(xb, *ell, num_rows, panels=P, ptr=ptr, long_rows=lr) for P in (1, 2)]
     torch.cuda.synchronize()
-    assert (ell_aggregate.launches, ell_aggregate.launches_bf16) == (before[0], before[1] + 3)
+    assert _launches(ell_aggregate, dtype) == (before[0], before[1] + 3)
     assert out.dtype == torch.float32 and out.shape == (num_rows, C)
     _close_to_ref(out, ref)
     assert all(torch.equal(o, out) for o in same)  # the same bits at any panel count
 
 
 @cuda
-@pytest.mark.parametrize("with_neg", [True, False])
-@pytest.mark.parametrize("num_rows,E,K,C", [
-    (3000, 40000, 8, 128), (300, 2000, 8, 256), (300, 2000, 8, 512), (300, 2000, 8, 1000),
-    (517, 3000, 4, 36), (129, 900, 8, 7)])
-def test_gat_aggregate_bf16_matches_plain(dev, num_rows, E, K, C, with_neg):
+@pytest.mark.parametrize("num_rows,E,K,C,offset", ELL16_CASES)
+def test_ell_aggregate_bf16_matches_plain(dev, num_rows, E, K, C, offset):
+    _hold_ell_aggregate16(dev, torch.bfloat16, num_rows, E, K, C, offset)
+
+
+@cuda
+@pytest.mark.parametrize("num_rows,E,K,C,offset", ELL16_CASES)
+def test_ell_aggregate_f16_matches_plain(dev, num_rows, E, K, C, offset):
+    _hold_ell_aggregate16(dev, torch.float16, num_rows, E, K, C, offset)
+
+
+GAT_AGG16_CASES = [(3000, 40000, 8, 128), (300, 2000, 8, 256), (300, 2000, 8, 512),
+                   (300, 2000, 8, 1000), (517, 3000, 4, 36), (129, 900, 8, 7)]
+
+
+def _hold_gat_aggregate16(dev, dtype, num_rows, E, K, C, with_neg):
     er, ec, ev, x = _ell_case(num_rows, E, K, C, 4)
     rng = np.random.RandomState(5)
     al = (rng.randn(x.shape[0]) * 0.7).astype(np.float32)
     ar = (rng.randn(num_rows) * 0.7).astype(np.float32)
-    (xb,) = _bf16(x, dev=dev)
+    (xb,) = _bf16(x, dev=dev, dtype=dtype)
     args = [xb] + [torch.as_tensor(a).to(dev) for a in (er, ec, ev, al, ar)]
     ptr = row_offsets_host(er, num_rows)
     lists = dict(ptr=torch.as_tensor(ptr).to(dev),
                  long_rows=torch.as_tensor(long_rows_host(ptr, 2)).to(dev))
-    before = gat_aggregate.launches_bf16
+    before = _launches(gat_aggregate, dtype)
     out = gat_aggregate(*args, num_rows, with_neg=with_neg, **lists)
     again = gat_aggregate(*args, num_rows, with_neg=with_neg)
     ref = gat_aggregate_plain(*args, num_rows, with_neg=with_neg)
     torch.cuda.synchronize()
-    assert gat_aggregate.launches_bf16 == before + 2
+    assert _launches(gat_aggregate, dtype) == (before[0], before[1] + 2)
     for o, a, r in zip(out, again, ref):
         if r is None:
             assert o is None and a is None
@@ -581,35 +602,64 @@ def test_gat_aggregate_bf16_matches_plain(dev, num_rows, E, K, C, with_neg):
 
 
 @cuda
-@pytest.mark.parametrize("num_rows,E,K,C", [
-    (3000, 40000, 8, 128), (700, 6000, 8, 256), (300, 2000, 8, 512), (300, 2000, 8, 2000),
-    (517, 3000, 4, 36), (129, 900, 8, 7)])
-def test_gat_backward_bf16_matches_plain(dev, num_rows, E, K, C):
+@pytest.mark.parametrize("with_neg", [True, False])
+@pytest.mark.parametrize("num_rows,E,K,C", GAT_AGG16_CASES)
+def test_gat_aggregate_bf16_matches_plain(dev, num_rows, E, K, C, with_neg):
+    _hold_gat_aggregate16(dev, torch.bfloat16, num_rows, E, K, C, with_neg)
+
+
+@cuda
+@pytest.mark.parametrize("with_neg", [True, False])
+@pytest.mark.parametrize("num_rows,E,K,C", GAT_AGG16_CASES)
+def test_gat_aggregate_f16_matches_plain(dev, num_rows, E, K, C, with_neg):
+    _hold_gat_aggregate16(dev, torch.float16, num_rows, E, K, C, with_neg)
+
+
+GAT_BWD16_CASES = [(3000, 40000, 8, 128), (700, 6000, 8, 256), (300, 2000, 8, 512),
+                   (300, 2000, 8, 2000), (517, 3000, 4, 36), (129, 900, 8, 7)]
+
+
+def _hold_gat_backward16(dev, dtype, num_rows, E, K, C):
     er, ec, ev, x = _ell_case(num_rows, E, K, C, 6)
     rng = np.random.RandomState(7)
     g = rng.randn(num_rows, C).astype(np.float32)
     g_rs = rng.randn(num_rows).astype(np.float32)
     al = (rng.randn(num_rows) * 0.7).astype(np.float32)
     ar = (rng.randn(num_rows) * 0.7).astype(np.float32)
-    xb, gb, g_rsb, arb = _bf16(x, g, g_rs, ar, dev=dev)
+    xb, gb, g_rsb, arb = _bf16(x, g, g_rs, ar, dev=dev, dtype=dtype)
     ell = [torch.as_tensor(a).to(dev) for a in (er, ec, ev)]
     args = [xb, *ell, gb, g_rsb, torch.as_tensor(al).to(dev), arb]
     ptr = row_offsets_host(er, num_rows)
     lists = dict(ptr=torch.as_tensor(ptr).to(dev),
                  long_rows=torch.as_tensor(long_rows_host(ptr, 2)).to(dev))
-    before = gat_backward.launches_bf16
+    before = _launches(gat_backward, dtype)
     for dx_rows in (num_rows, num_rows // 3, 0):
         dx, d_al = gat_backward(*args, num_rows, dx_rows=dx_rows, **lists)
+        again = gat_backward(*args, num_rows, dx_rows=dx_rows, **lists)
         dx_r, d_al_r = gat_backward_plain(*args, num_rows, dx_rows=dx_rows)
         torch.cuda.synchronize()
         assert d_al.dtype == torch.float32
         _close_to_ref(d_al, d_al_r)
+        assert all(a is b or torch.equal(a, b) for a, b in zip((dx, d_al), again))
         if dx_rows == 0:
             assert dx is None and dx_r is None
         else:
             assert dx.dtype == torch.float32 and not dx[dx_rows:].any()
             _close_to_ref(dx, dx_r)
-    assert gat_backward.launches_bf16 == before + 3
+    assert _launches(gat_backward, dtype) == (before[0], before[1] + 6)
+    assert gat_backward.by_width[(C, str(dtype).removeprefix("torch."))] >= 6
+
+
+@cuda
+@pytest.mark.parametrize("num_rows,E,K,C", GAT_BWD16_CASES)
+def test_gat_backward_bf16_matches_plain(dev, num_rows, E, K, C):
+    _hold_gat_backward16(dev, torch.bfloat16, num_rows, E, K, C)
+
+
+@cuda
+@pytest.mark.parametrize("num_rows,E,K,C", GAT_BWD16_CASES)
+def test_gat_backward_f16_matches_plain(dev, num_rows, E, K, C):
+    _hold_gat_backward16(dev, torch.float16, num_rows, E, K, C)
 
 
 @cuda
@@ -626,22 +676,45 @@ def test_gat_backward_bf16_wants_its_rows_in_bf16(dev):
         gat_backward(xb, *ell, xb, v.bfloat16(), v, v, 50)
 
 
+@cuda
+def test_gat_backward_f16_wants_its_rows_in_f16(dev):
+    """In the f16-row mode g_agg, g_rowsum and ar come in f16 beside x; a
+    mix of f16 with bf16 or f32 is refused, not cast."""
+    er, ec, ev, x = _ell_case(50, 300, 8, 16, 8)
+    (xh,) = _bf16(x, dev=dev, dtype=torch.float16)
+    ell = [torch.as_tensor(a).to(dev) for a in (er, ec, ev)]
+    v = torch.zeros(50, device=dev)
+    with pytest.raises(ValueError, match="g_agg"):
+        gat_backward(xh, *ell, xh.bfloat16(), v.half(), v, v.half(), 50)
+    with pytest.raises(ValueError, match="g_rowsum"):
+        gat_backward(xh, *ell, xh, v.bfloat16(), v, v.half(), 50)
+    with pytest.raises(ValueError, match="ar"):
+        gat_backward(xh, *ell, xh, v.half(), v, v, 50)
+
+
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=cuda)])
 @pytest.mark.parametrize("kernel", ["ell_aggregate", "gat_aggregate", "gat_backward"])
 def test_wrappers_refuse_float16(kernel, device, request):
-    """Kernels 1, 4 and 5 take f32 or bf16 rows; float16 is refused by name,
-    on the card and on the CPU alike (no cast to either)."""
+    """Kernels 1, 4 and 5 take f32, bf16 or f16 rows (float16 no longer
+    refused: f16 x runs, with f32 outputs); any other dtype (float64) is
+    refused by name, on the card and on the CPU alike (no cast to any)."""
     dev = request.getfixturevalue("dev") if device == "cuda" else torch.device("cpu")
     er, ec, ev, x = _ell_case(50, 300, 8, 16, 8)
     ell = [torch.as_tensor(a).to(dev) for a in (er, ec, ev)]
-    xh = torch.as_tensor(x).to(dev).half()
     v = torch.zeros(50, device=dev)
-    call = {"ell_aggregate": lambda: ell_aggregate(xh, *ell, 50),
-            "gat_aggregate": lambda: gat_aggregate(xh, *ell, v, v, 50),
-            "gat_backward": lambda: gat_backward(xh, *ell, xh, v.half(), v, v.half(), 50)}
-    with pytest.raises(ValueError, match=f"{kernel}: x must be float32 or bfloat16, got "
-                                         "torch.float16"):
-        call[kernel]()
+
+    def call(xt):
+        return {"ell_aggregate": lambda: ell_aggregate(xt, *ell, 50),
+                "gat_aggregate": lambda: gat_aggregate(xt, *ell, v, v, 50),
+                "gat_backward": lambda: gat_backward(xt, *ell, xt, v.to(xt.dtype), v,
+                                                     v.to(xt.dtype), 50)}[kernel]()
+
+    out = call(torch.as_tensor(x).to(dev).half())
+    out = out if isinstance(out, tuple) else (out,)
+    assert all(o is None or o.dtype == torch.float32 for o in out)
+    with pytest.raises(ValueError, match=f"{kernel}: x must be float32, bfloat16 or float16, "
+                                         "got torch.float64"):
+        call(torch.as_tensor(x).to(dev).double())
 
 
 def _assign_case(nb, B, M, K, seed):

@@ -41,7 +41,8 @@ saw to the references:
     ``BF16_TOL``; ``c_indices[:N]`` equal), and GAT bf16 without the BN,
     1-D and 2-D (the partial logits summed before the bf16 rounding), and
     SAGE bf16 without the BN on the 2-D mesh, against the port's
-    whole-batch step to the same;
+    whole-batch step to the same; f16 compute (GCN at 4 ranks, GAT at
+    2 x 2) against the JAX sharded ``train_step`` to the same;
 (h) the Trick-1 scale over two ranks with its maximum tied across them:
     the logits' gradients are those of torch's masked max over the whole
     batch; per branch too (B + M), and the transformer branch's c_max;
@@ -134,6 +135,7 @@ NO_BN = dict(bn_flag=False)
 SAGE = dict(conv_type="SAGE")
 GAT = dict(conv_type="GAT")
 BF16 = dict(compute_dtype="bfloat16")
+F16 = dict(compute_dtype="float16")
 OPTIONS = dict(bn_flag=False, dropbranch=0.5, dropout=0.5)
 MIXED = dict(ell_Kt=2)  # the mixed-K layout, K = 8 + 2
 COO = dict(spmm_backend="coo")
@@ -186,6 +188,9 @@ CASES = {name: Case(*c) for name, c in {
     "2d-GAT-bf16-noBN": ({**GAT, **BF16, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
     "1d-SAGE-bf16-4": ({**SAGE, **BF16}, ("1d", 4), "jax", GRAPH),
     "2d-SAGE-bf16-noBN": ({**SAGE, **BF16, **NO_BN}, ("2d", 2, 2), "port", GRAPH),
+    # f16 compute, from the initial state (its first live step is finite)
+    "1d-GCN-f16-4": (F16, ("1d", 4), "jax", GRAPH),
+    "2d-GAT-f16": ({**GAT, **F16}, ("2d", 2, 2), "jax", GRAPH),
     # the mixed-K and COO layouts
     "1d-GCN-mixed-2": (MIXED, ("1d", 2), "jax", GRAPH),
     "1d-GCN-mixed-4": (MIXED, ("1d", 4), "jax", GRAPH),
@@ -647,7 +652,8 @@ def _model_part(a, m, n_model, axis):
 
 
 def _tol(name):
-    if "bf16" not in name:
+    """bf16 and f16 compute ("f16" is in both names) at BF16_TOL."""
+    if "f16" not in name:
         return F32_TOL
     return {**BF16_TOL, "nu": BF16_JAX_NU} if CASES[name][2] == "jax" else BF16_TOL
 
@@ -735,8 +741,8 @@ def _layout(name):
 
 @pytest.mark.parametrize("jname", [
     "1d-GCN", "1d-SAGE", "2d-GCN", "1d-GAT", "2d-GAT", "1d-GCN-bf16", "1d-GAT-bf16",
-    "1d-SAGE-bf16", "1d-GCN-mixed", "1d-SAGE-mixed", "1d-GAT-mixed", "2d-GCN-mixed",
-    "2d-GAT-mixed", "1d-GCN-coo", "1d-GAT-coo", "2d-GCN-coo", "2d-GAT-coo", "1d-GAT-mixed-bf16",
+    "1d-SAGE-bf16", "1d-GCN-f16", "2d-GAT-f16", "1d-GCN-mixed", "1d-SAGE-mixed",
+    "1d-GAT-mixed", "2d-GCN-mixed", "2d-GAT-mixed", "1d-GCN-coo", "1d-GAT-coo", "2d-GCN-coo", "2d-GAT-coo", "1d-GAT-mixed-bf16",
     "1d-GAT-coo-bf16", "1d-GCN-bm", "1d-SAGE-bm", "1d-GAT-bm", "2d-GCN-bm", "2d-SAGE-bm",
     "2d-GAT-bm", "1d-GAT-bm-bf16", "1d-SAGE-bm-mixed", "1d-SAGE-bm-coo", "1d-GCN-bm-coo",
     "1d-GCN-bm-bn", "1d-SAGE-bm-bn", "1d-GCN-bm-tr", "2d-GCN-bm-tr", "1d-SAGE-bm-tr",

@@ -8,8 +8,8 @@ additions are the port's own:
   for the CPU; with no GPU and no explicit CPU request they raise.
 - ``apply_matmul_precision``: ``matmul_precision`` maps onto PyTorch's TF32
   switches ('highest' = exact f32, 'default' = TF32 allowed).
-- ``torch_dtype``: the ``torch.dtype`` of ``compute_dtype`` ('float32' or
-  'bfloat16', the two the port computes in).
+- ``torch_dtype``: the ``torch.dtype`` of ``compute_dtype`` ('float32',
+  'bfloat16' or 'float16', the three the JAX package computes in).
 
 ``vq_backend`` keeps the JAX package's values: 'pallas'/'pallas_fast' select
 the hand-written CUDA kernels (exact / bf16-operand mode), 'xla'/'xla_fast'
@@ -26,7 +26,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 VQ_BACKENDS = ("auto", "xla", "xla_fast", "scan", "pallas", "pallas_fast")
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,15 +136,6 @@ def num_branches(channels: int, num_D: int) -> int:
     return channels // num_D
 
 
-def not_ported(what: str, where: str = "") -> NotImplementedError:
-    """The error every unported option raises; ``where`` names its item in
-    ROADMAP.md's queues (e.g. 'queue 1 item 8')."""
-    return NotImplementedError(
-        f"{what} is not ported to vq_gnn_tpu_torch yet; see ROADMAP.md"
-        + (f" {where}" if where else "")
-    )
-
-
 def no_reference_path(what: str) -> NotImplementedError:
     """The error of a combination the JAX package cannot run either: the
     port has no path of its own for it."""
@@ -151,17 +143,16 @@ def no_reference_path(what: str) -> NotImplementedError:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for any setting whose port has not landed, so that no option is
-    silently ignored (ROADMAP.md lists what is still to come)."""
-    if cfg.compute_dtype not in COMPUTE_DTYPES:
-        raise not_ported(f"compute_dtype={cfg.compute_dtype!r}", "queue 2a")
+    """Raise for any setting the port has no path for, so that no option is
+    silently ignored: a compute dtype other than the JAX package's three."""
+    torch_dtype(cfg.compute_dtype)
 
 
 def torch_dtype(compute_dtype: str) -> torch.dtype:
     """The ``torch.dtype`` of a ``Config.compute_dtype``; any other than
-    'float32' and 'bfloat16' raises by name."""
+    'float32', 'bfloat16' and 'float16' raises by name."""
     if compute_dtype not in COMPUTE_DTYPES:
-        raise not_ported(f"compute_dtype={compute_dtype!r}", "queue 2a")
+        raise no_reference_path(f"compute_dtype={compute_dtype!r}")
     return COMPUTE_DTYPES[compute_dtype]
 
 

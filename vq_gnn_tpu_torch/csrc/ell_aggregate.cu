@@ -3,9 +3,9 @@
 //   out[r, :] = sum over slots s of row r, sum over k < K of
 //               val[s, k] * x[clip(col[s, k]), :]            (f32 accumulation)
 //
-// x is f32, or bf16 under compute_dtype='bfloat16' (the TPU kernel's bf16
-// nbrs_flat): its values are widened to f32 in registers, so the sums and
-// out stay f32 in both modes.
+// x is f32, or bf16 or f16 under compute_dtype='bfloat16' or 'float16' (the
+// TPU kernel's 16-bit nbrs_flat): its values are widened to f32 in
+// registers, so the sums and out stay f32 in every mode.
 //
 // Replaces the TPU kernel vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel
 // (gat=False), reached through _ell_fused_impl / ell_aggregate_fused, together
@@ -23,11 +23,11 @@
 //
 // Design:
 // - a group of G lanes per row, one vector of VEC channels per lane (G = 32
-//   and float4 at C = 128; 8 or 16 lanes for a narrower x; bf16 rows take 8
-//   channels, 16 bytes, a lane: 16 lanes at C = 128), rows in index
+//   and float4 at C = 128; 8 or 16 lanes for a narrower x; 16-bit rows take
+//   8 channels, 16 bytes, a lane: 16 lanes at C = 128), rows in index
 //   order, so neighbouring rows, which share neighbours, gather together;
 // - each group loads a window of G cells, takes the live ones (val != 0)
-//   from a ballot and gathers kLoads of them per lane (kLoadsBf16 of bf16
+//   from a ballot and gathers kLoads of them per lane (kLoads16 of 16-bit
 //   rows) before the first FMA
 //   waits (predicated loads in volatile asm, so the compiler neither sinks
 //   them into a branch nor merges them with their use); slot padding and
@@ -54,8 +54,8 @@
 //   fall outside every range and are dropped; rows without a slot give 0;
 // - padding columns equal the row count of x, one past its end: they clamp
 //   to the last row like JAX's mode="clip", so nothing is read out of bounds.
-//   float4 lanes need C % 4 == 0 and 16-byte aligned x and out, bf16 lanes of
-//   8 C % 8 == 0; otherwise a lane covers one channel (VEC = 1).
+//   float4 lanes need C % 4 == 0 and 16-byte aligned x and out, 16-bit lanes
+//   of 8 C % 8 == 0; otherwise a lane covers one channel (VEC = 1).
 
 #include "ell_common.cuh"
 
@@ -64,12 +64,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 4;  // blocks per SM the register budget allows
 constexpr int kLoads = 8;      // gathers in flight per lane
-// with bf16 rows: a 16-byte gather holds 8 values, and 8 in flight spilled
-// at the 64-register budget; 4 were faster than 8 and 6 at C = 128
-constexpr int kLoadsBf16 = 4;
+// with 16-bit rows: a 16-byte gather holds 8 values, and 8 in flight spilled
+// at the 64-register budget; 4 were faster than 8 and 6 at C = 128 (bf16)
+constexpr int kLoads16 = 4;
 
 struct Args {
-  const void* x;  // float or bf16_t
+  const void* x;  // float, bf16_t or f16_t
   int64_t x_rows;
   int C, Cp;  // channels, channels per panel
   const int *ptr, *col;
@@ -91,7 +91,7 @@ template <typename E, int VEC, int G>
 __device__ __forceinline__ void row_sum(const Args& a, int64_t r, int p0, int p1, int gl,
                                         int gbase) {
   using V = Row<E, VEC>;
-  constexpr int L = sizeof(E) == 2 ? kLoadsBf16 : kLoads;  // gathers in flight per lane
+  constexpr int L = sizeof(E) == 2 ? kLoads16 : kLoads;  // gathers in flight per lane
   const E* x = static_cast<const E*>(a.x);
   constexpr unsigned gbits = 0xffffffffu >> (32 - G);
   const unsigned gmask = gbits << gbase;
@@ -185,31 +185,41 @@ void launch_lanes(const Args& a, cudaStream_t st) {
   }
 }
 
+// 16-bit rows: 8 values a lane where C, the panel and the pointers allow
+template <typename E>
+void launch16(const Args& a, cudaStream_t st) {
+  if (a.C % 8 == 0 && a.Cp % 8 == 0 && aligned16(a.x) && aligned16(a.out)) {
+    launch_lanes<E, 8>(a, st);
+  } else {
+    launch_lanes<E, 1>(a, st);
+  }
+}
+
 }  // namespace
 
 // ptr: [num_rows + 1] row offsets; built here from ell_row when build_ptr is
 // set, else read as given (clamped to [0, S]).  long_rows: [1 + n_long], a
 // threshold t >= 0, then exactly the rows of more than t slots, in the order
 // their warps start; null for none.  Cp: channels per panel (> 0; a multiple
-// of 4 for the float4 lanes, of 8 for the bf16 lanes; a row group walks
-// panels wider than 32 vectors in chunks).  x_bf16: x holds bfloat16 values.
-extern "C" int vq_ell_aggregate(const void* x, int x_bf16, int64_t x_rows, int C, int Cp,
+// of 4 for the float4 lanes, of 8 for the 16-bit lanes; a row group walks
+// panels wider than 32 vectors in chunks).  x_type: what x holds (RowType:
+// 0 float, 1 bfloat16, 2 float16 values).
+extern "C" int vq_ell_aggregate(const void* x, int x_type, int64_t x_rows, int C, int Cp,
                                 const int* ell_row, const int* ell_col, const float* ell_val,
                                 int64_t S, int K, int64_t num_rows, int* ptr, int build_ptr,
                                 const int* long_rows, int64_t n_long, float* out,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_rows <= 0 || C <= 0) return (int)cudaGetLastError();
-  if (Cp <= 0 || Cp > C || K <= 0 || n_long < 0) return (int)cudaErrorInvalidValue;
+  if (Cp <= 0 || Cp > C || K <= 0 || n_long < 0 || x_type < kRowF32 || x_type > kRowF16)
+    return (int)cudaErrorInvalidValue;
   if (build_ptr) launch_row_offsets(ell_row, S, num_rows, ptr, st);
   Args a{x, x_rows, C, Cp, ptr, ell_col, ell_val, S, K, num_rows, long_rows,
          long_rows ? n_long : 0, 0u, out};
-  if (x_bf16) {
-    if (C % 8 == 0 && Cp % 8 == 0 && aligned16(x) && aligned16(out)) {
-      launch_lanes<bf16_t, 8>(a, st);
-    } else {
-      launch_lanes<bf16_t, 1>(a, st);
-    }
+  if (x_type == kRowBf16) {
+    launch16<bf16_t>(a, st);
+  } else if (x_type == kRowF16) {
+    launch16<f16_t>(a, st);
   } else if (C % 4 == 0 && Cp % 4 == 0 && aligned16(x) && aligned16(out)) {
     launch_lanes<float, 4>(a, st);
   } else {

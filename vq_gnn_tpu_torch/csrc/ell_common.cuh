@@ -1,11 +1,12 @@
 // Pieces shared by the slot-ELL kernels (ell_aggregate.cu, gat_aggregate.cu,
 // gat_backward.cu): row offsets from the sorted slot rows, per-lane vectors
-// of 1 or 4 floats (or 1 or 8 bfloat16 values, widened to f32), and the
+// of 1 or 4 floats (or 1 or 8 bfloat16 or float16 values, widened to f32), and the
 // predicated gathers and streaming stores of the
 // kernels that keep several row gathers in flight per lane.  Each kernel source compiles on its own into its
 // own library; this header is part of every one of them.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,28 +105,46 @@ __device__ __forceinline__ void store_streaming(float* p, float4 t) {
 }
 __device__ __forceinline__ void store_streaming(float* p, float t) { __stcs(p, t); }
 
-// ---- bf16 rows (compute_dtype='bfloat16'): kernels 1, 4 and 5 gather rows
-// of bfloat16 values and sum them in f32.  A value travels as its 16 bits
-// and becomes an f32 in registers by a shift, which is exact; accumulators
-// and outputs stay f32.
+// ---- 16-bit rows (compute_dtype='bfloat16' or 'float16'): kernels 1, 4
+// and 5 gather rows of bfloat16 or float16 values and sum them in f32.  A
+// value travels as its 16 bits and becomes an f32 in registers, which is
+// exact for both (bf16 by a shift, f16 by cuda_fp16.h's conversions);
+// accumulators and outputs stay f32.
 
 typedef unsigned short bf16_t;  // the bits of one bfloat16 value
+// the bits of one IEEE float16 value: a type of its own, so that a kernel
+// template tells the two 16-bit formats apart
+enum class f16_t : unsigned short {};
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(bf16_t v) { return __uint_as_float((unsigned)v << 16); }
-// the two bfloat16 values of a 32-bit word: the lower address in the low half
-__device__ __forceinline__ float widen_lo(unsigned w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float widen_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ float widen(f16_t v) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(v)));
+}
 
-// eight f32 values: a lane's share of a bf16 row taken 16 bytes at a time
+// the two 16-bit values of a 32-bit word, widened: the lower address in the
+// low half
+template <typename E>
+__device__ __forceinline__ float2 widen2(unsigned w);
+template <>
+__device__ __forceinline__ float2 widen2<bf16_t>(unsigned w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+template <>
+__device__ __forceinline__ float2 widen2<f16_t>(unsigned w) {
+  return __half22float2(__halves2half2(__ushort_as_half((unsigned short)(w & 0xffffu)),
+                                       __ushort_as_half((unsigned short)(w >> 16))));
+}
+
+// eight f32 values: a lane's share of a 16-bit row taken 16 bytes at a time
 struct float8 {
   float4 lo, hi;
 };
 
 // Row<E, VEC>: a lane's VEC values of a row of E, as gathered (R) and as the
 // f32 values they stand for (T, also the type of their accumulators).  For
-// f32 rows both are Vec<VEC>'s; for bf16 rows R is the raw bits: 8 values in
-// one 16-byte load, or 1 where C is not a multiple of 8.
+// f32 rows both are Vec<VEC>'s; for 16-bit rows R is the raw bits: 8 values
+// in one 16-byte load, or 1 where C is not a multiple of 8.
 template <typename E, int VEC>
 struct Row;
 
@@ -135,18 +154,20 @@ struct Row<float, VEC> : Vec<VEC> {
   __device__ static R rzero() { return Vec<VEC>::zero(); }
 };
 
-template <>
-struct Row<bf16_t, 8> {
+// 8 values of a 16-bit type E (bf16_t or f16_t) a lane
+template <typename E>
+struct Row16x8 {
   using T = float8;
   using R = uint4;
   __device__ static T zero() { return {Vec<4>::zero(), Vec<4>::zero()}; }
   __device__ static R rzero() { return make_uint4(0u, 0u, 0u, 0u); }
   __device__ static T wide(const R& t) {
-    return {make_float4(widen_lo(t.x), widen_hi(t.x), widen_lo(t.y), widen_hi(t.y)),
-            make_float4(widen_lo(t.z), widen_hi(t.z), widen_lo(t.w), widen_hi(t.w))};
+    const float2 a = widen2<E>(t.x), b = widen2<E>(t.y), c = widen2<E>(t.z),
+                 d = widen2<E>(t.w);
+    return {make_float4(a.x, a.y, b.x, b.y), make_float4(c.x, c.y, d.x, d.y)};
   }
   // read-only global memory read once: L2 evicts it first
-  __device__ static T load_once(const bf16_t* p) {
+  __device__ static T load_once(const E* p) {
     return wide(__ldcs(reinterpret_cast<const uint4*>(p)));
   }
   // f32 memory the kernel also writes (its own output row)
@@ -166,20 +187,32 @@ struct Row<bf16_t, 8> {
   }
 };
 
-template <>
-struct Row<bf16_t, 1> {
+// one value of a 16-bit type E a lane
+template <typename E>
+struct Row16x1 {
   using T = float;
-  using R = bf16_t;
+  using R = E;
   __device__ static T zero() { return 0.f; }
-  __device__ static R rzero() { return 0; }
-  __device__ static T load_once(const bf16_t* p) { return widen(__ldcs(p)); }
+  __device__ static R rzero() { return R{}; }
+  __device__ static T load_once(const E* p) {
+    return widen(static_cast<E>(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+  }
   __device__ static T ld(const float* p) { return *p; }
   __device__ static void fma(T& acc, float v, R t) { acc += v * widen(t); }
   __device__ static float dot(R t, T x) { return widen(t) * x; }
   __device__ static void store(float* p, T t) { *p = t; }
 };
 
-// predicated gathers of bf16 rows, as gather() above: 8 values, or 1
+template <>
+struct Row<bf16_t, 8> : Row16x8<bf16_t> {};
+template <>
+struct Row<f16_t, 8> : Row16x8<f16_t> {};
+template <>
+struct Row<bf16_t, 1> : Row16x1<bf16_t> {};
+template <>
+struct Row<f16_t, 1> : Row16x1<f16_t> {};
+
+// predicated gathers of 16-bit rows, as gather() above: 8 values, or 1
 __device__ __forceinline__ void gather(uint4& t, const bf16_t* p, bool on) {
   asm volatile(
       "{\n .reg .pred q;\n setp.ne.b32 q, %5, 0;\n"
@@ -193,11 +226,23 @@ __device__ __forceinline__ void gather(bf16_t& t, const bf16_t* p, bool on) {
       : "+h"(t)
       : "l"(p), "r"((int)on));
 }
+// float16 rows: the same loads of the same bits
+__device__ __forceinline__ void gather(uint4& t, const f16_t* p, bool on) {
+  gather(t, reinterpret_cast<const bf16_t*>(p), on);
+}
+__device__ __forceinline__ void gather(f16_t& t, const f16_t* p, bool on) {
+  bf16_t b = static_cast<bf16_t>(t);
+  gather(b, reinterpret_cast<const bf16_t*>(p), on);
+  t = static_cast<f16_t>(b);
+}
 
 __device__ __forceinline__ void store_streaming(float* p, const float8& t) {
   store_streaming(p, t.lo);
   store_streaming(p + 4, t.hi);
 }
+
+// the type of the rows a kernel is handed, as its wrapper passes it
+enum RowType { kRowF32 = 0, kRowBf16 = 1, kRowF16 = 2 };
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

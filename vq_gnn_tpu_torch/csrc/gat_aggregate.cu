@@ -7,9 +7,9 @@
 //   aggn[r,:], rsn[r] = the same two sums over the cells with a <= 0
 //                       (WITH_NEG: the backward's closed form for d_ar needs them)
 //
-// x is f32, or bf16 under compute_dtype='bfloat16' (the TPU kernel's bf16
-// nbrs_flat): its values are widened to f32 in registers; al, ar, the sums
-// and the outputs are f32 in both modes.
+// x is f32, or bf16 or f16 under compute_dtype='bfloat16' or 'float16' (the
+// TPU kernel's 16-bit nbrs_flat): its values are widened to f32 in
+// registers; al, ar, the sums and the outputs are f32 in every mode.
 //
 // Replaces the TPU kernel vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel
 // (gat=True), reached through gat_aggregate_fused, together with the
@@ -41,8 +41,8 @@
 //   barrier);
 // - each group loads a window of G cells, takes the live ones (val != 0)
 //   from a ballot and gathers their x rows in batches, kLoads cells a batch
-//   (kLoads2 at C = 256, where a lane gathers two vectors a cell; kLoadsBf16
-//   with one vector of bf16 values), with the
+//   (kLoads2 at C = 256, where a lane gathers two vectors a cell; kLoads16
+//   with one vector of 16-bit values), with the
 //   predicated loads of ell_common.cuh.  The predicate is the cell's value,
 //   never its weight: each lane loads al[col] of its own cell of the window
 //   beside the first batch's gathers and forms ev, and its a <= 0 bit, while
@@ -69,7 +69,7 @@
 //   to [0, S].  Slots of rows >= num_rows (padding) fall outside every range;
 //   rows without a slot give 0; padding columns clamp to the last row of x
 //   like JAX's mode="clip".  float4 lanes need C % 4 == 0 and 16-byte
-//   aligned x, agg and aggn (bf16 lanes of 8 channels, 16 bytes, C % 8 ==
+//   aligned x, agg and aggn (16-bit lanes of 8 channels, 16 bytes, C % 8 ==
 //   0: 16 lanes a row at C = 128, a warp at 256); otherwise a lane covers
 //   one channel.
 
@@ -81,12 +81,13 @@ constexpr float kNegSlope = 0.2f;  // PyG GATConv default
 constexpr int kThreads = 64;  // two warps a block
 constexpr int kLoads = 4;  // cells a batch with one vector a lane
 constexpr int kLoads2 = 2;  // cells a batch with two vectors a lane
-// bf16 rows, one vector (8 values) a lane: 2 cells a batch were faster than
-// 4 and 8 at C = 128, where 16 lanes take a row and 80 registers hold it
-constexpr int kLoadsBf16 = 2;
+// 16-bit rows, one vector (8 values) a lane: 2 cells a batch were faster
+// than 4 and 8 at C = 128 (bf16), where 16 lanes take a row and 80
+// registers hold it
+constexpr int kLoads16 = 2;
 
 struct Args {
-  const void* x;  // float or bf16_t
+  const void* x;  // float, bf16_t or f16_t
   int64_t x_rows;
   int C;
   const int *ptr, *col;
@@ -111,7 +112,7 @@ __device__ __forceinline__ void row_aggregate(const Args& a, int64_t r, int gl, 
   using T = typename V::T;
   using R = typename V::R;
   const E* x = static_cast<const E*>(a.x);
-  constexpr int L = NV == 1 ? (sizeof(E) == 2 ? kLoadsBf16 : kLoads) : kLoads2;  // cells a batch
+  constexpr int L = NV == 1 ? (sizeof(E) == 2 ? kLoads16 : kLoads) : kLoads2;  // cells a batch
   constexpr unsigned gbits = 0xffffffffu >> (32 - G);
   constexpr int kStride = G * VEC;  // channels from one of a lane's vectors to the next
   const unsigned gmask = gbits << gbase;
@@ -310,14 +311,25 @@ void launch_shape(const Args& a, bool with_neg, cudaStream_t st) {
   }
 }
 
+// 16-bit rows: 8 values a lane where C and the pointers allow
+template <typename E>
+void launch16(const Args& a, bool with_neg, bool out16, cudaStream_t st) {
+  if (a.C % 8 == 0 && aligned16(a.x) && out16) {
+    launch_shape<E, 8>(a, with_neg, st);
+  } else {
+    launch_shape<E, 1>(a, with_neg, st);
+  }
+}
+
 }  // namespace
 
 // ptr: [num_rows + 1] row offsets; built here from ell_row when build_ptr
 // is set, else read as given (clamped to [0, S]).  long_rows: [1 + n_long],
 // a threshold t >= 0, then exactly the rows of more than t slots, in the
 // order their warps start; null for none.  aggn and rsn are written only
-// when with_neg != 0.  x_bf16: x holds bfloat16 values.
-extern "C" int vq_gat_aggregate(const void* x, int x_bf16, int64_t x_rows, int C,
+// when with_neg != 0.  x_type: what x holds (RowType: 0 float, 1 bfloat16,
+// 2 float16 values).
+extern "C" int vq_gat_aggregate(const void* x, int x_type, int64_t x_rows, int C,
                                 const int* ell_row,
                                 const int* ell_col, const float* ell_val, int64_t S, int K,
                                 const float* al, const float* ar, int64_t num_rows,
@@ -326,17 +338,16 @@ extern "C" int vq_gat_aggregate(const void* x, int x_bf16, int64_t x_rows, int C
                                 float* rsn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_rows <= 0 || C <= 0) return (int)cudaGetLastError();
-  if (K <= 0 || x_rows <= 0 || n_long < 0) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || x_rows <= 0 || n_long < 0 || x_type < kRowF32 || x_type > kRowF16)
+    return (int)cudaErrorInvalidValue;
   if (build_ptr) launch_row_offsets(ell_row, S, num_rows, ptr, st);
   Args a{x, x_rows, C, ptr, ell_col, ell_val, S, K, al, ar, num_rows,
          long_rows, long_rows ? n_long : 0, agg, rowsum, aggn, rsn};
   const bool out16 = aligned16(agg) && (!with_neg || aligned16(aggn));
-  if (x_bf16) {
-    if (C % 8 == 0 && aligned16(x) && out16) {
-      launch_shape<bf16_t, 8>(a, with_neg != 0, st);
-    } else {
-      launch_shape<bf16_t, 1>(a, with_neg != 0, st);
-    }
+  if (x_type == kRowBf16) {
+    launch16<bf16_t>(a, with_neg != 0, out16, st);
+  } else if (x_type == kRowF16) {
+    launch16<f16_t>(a, with_neg != 0, out16, st);
   } else if (C % 4 == 0 && aligned16(x) && out16) {
     launch_shape<float, 4>(a, with_neg != 0, st);
   } else {

@@ -8,10 +8,10 @@
 //   dx_agg[s, :] = sum over the cells of row s of ev * g_agg[d, :]
 //   d_al[s]      = sum over the cells of row s of g_ev * ev * (a > 0 ? 1 : 0.2)
 //
-// x, g_agg, g_rowsum and ar are f32, or all four bf16 under
-// compute_dtype='bfloat16' (the TPU kernels' bf16 gathered block of g_agg,
-// g_rowsum and ar, and bf16 x): their values are widened to f32 in
-// registers; al, the sums, dx_agg and d_al are f32 in both modes.
+// x, g_agg, g_rowsum and ar are f32, or all four bf16 or all four f16 under
+// compute_dtype='bfloat16' or 'float16' (the TPU kernels' 16-bit gathered
+// block of g_agg, g_rowsum and ar, and 16-bit x): their values are widened
+// to f32 in registers; al, the sums, dx_agg and d_al are f32 in every mode.
 //
 // d_al for every row s < num_rows (the B' rows carry logits too); dx_agg
 // only for the rows s < dx_rows, the rows whose cotangent has a consumer:
@@ -77,7 +77,7 @@
 //   They are clamped to [0, St].  Rows >= num_rows (padding) are dropped;
 //   rows without a slot give d_al = 0 and dx_agg = 0; padding columns clamp
 //   to the last row of g_agg.  float4 lanes need C % 4 == 0 and 16-byte
-//   aligned x, g_agg and dx_agg (bf16 lanes of 8 channels, 16 bytes, C % 8
+//   aligned x, g_agg and dx_agg (16-bit lanes of 8 channels, 16 bytes, C % 8
 //   == 0: 16 lanes a row at C = 128, a warp at 256); otherwise a lane covers
 //   one channel.
 
@@ -90,7 +90,7 @@ constexpr int kThreads = 32;  // one warp a block
 constexpr int kLoads = 4;  // cells a batch with one vector a lane
 
 struct Args {
-  const void* x;  // x, g, g_rs, ar: float, or all bf16_t
+  const void* x;  // x, g, g_rs, ar: float, or all bf16_t, or all f16_t
   int C;
   const int *ptr, *col;
   const float* val;
@@ -172,7 +172,7 @@ __device__ __forceinline__ void row_backward(const Args& a, int64_t r, int gl, i
     // the first batch's gathers (not before them) and used after them
     const bool mine = my_val != 0.f;
     const int my_d = min(max(my_col, 0), last);
-    E ar_e = 0, grs_e = 0;  // widened where they are used, after the gathers
+    E ar_e{}, grs_e{};  // zeros, widened where they are used, after the gathers
     gather(ar_e, static_cast<const E*>(a.ar) + my_d, mine);
     gather(grs_e, static_cast<const E*>(a.g_rs) + my_d, mine);
     // bit j: cell base + j is live; the same in every lane of the group
@@ -321,6 +321,16 @@ void launch_shape(const Args& a, cudaStream_t st) {
   }
 }
 
+// 16-bit rows: 8 values a lane where C and the pointers allow
+template <typename E>
+void launch16(const Args& a, bool x16, cudaStream_t st) {
+  if (a.C % 8 == 0 && x16) {
+    launch_shape<E, 8>(a, st);
+  } else {
+    launch_shape<E, 1>(a, st);
+  }
+}
+
 }  // namespace
 
 // ptr: [num_rows + 1] row offsets over every row; built here from t_row when
@@ -328,9 +338,9 @@ void launch_shape(const Args& a, cudaStream_t st) {
 // [1 + n_long], a threshold t >= 0, then exactly the rows of more than t
 // slots, in the order their warps start; null for none.  dx_rows in
 // [0, num_rows]: dx_agg for the rows below it and zeros above; with 0, dx
-// may be null and nothing is written to it.  bf16: x, g, g_rs and ar hold
-// bfloat16 values (else all four f32).
-extern "C" int vq_gat_backward(const void* x, int bf16, int C, const int* t_row,
+// may be null and nothing is written to it.  x_type: what x, g, g_rs and ar
+// hold (RowType: 0 float, 1 bfloat16, 2 float16 values).
+extern "C" int vq_gat_backward(const void* x, int x_type, int C, const int* t_row,
                                const int* t_col, const float* t_val, int64_t St, int K,
                                const void* g, const void* g_rs, const void* ar, int64_t g_rows,
                                const float* al, int64_t num_rows, int64_t dx_rows, int* ptr,
@@ -338,18 +348,17 @@ extern "C" int vq_gat_backward(const void* x, int bf16, int C, const int* t_row,
                                float* dal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_rows <= 0 || C <= 0) return (int)cudaGetLastError();
-  if (K <= 0 || g_rows <= 0 || n_long < 0 || dx_rows < 0 || dx_rows > num_rows)
+  if (K <= 0 || g_rows <= 0 || n_long < 0 || dx_rows < 0 || dx_rows > num_rows ||
+      x_type < kRowF32 || x_type > kRowF16)
     return (int)cudaErrorInvalidValue;
   if (build_ptr) launch_row_offsets(t_row, St, num_rows, ptr, st);
   Args a{x, C, ptr, t_col, t_val, St, K, g, g_rs, ar, g_rows, al, num_rows, dx_rows,
          long_rows, long_rows ? n_long : 0, dx_rows > 0 ? dx : nullptr, dal};
   const bool x16 = aligned16(x) && aligned16(g) && (!a.dx || aligned16(a.dx));
-  if (bf16) {
-    if (C % 8 == 0 && x16) {
-      launch_shape<bf16_t, 8>(a, st);
-    } else {
-      launch_shape<bf16_t, 1>(a, st);
-    }
+  if (x_type == kRowBf16) {
+    launch16<bf16_t>(a, x16, st);
+  } else if (x_type == kRowF16) {
+    launch16<f16_t>(a, x16, st);
   } else if (C % 4 == 0 && x16) {
     launch_shape<float, 4>(a, st);
   } else {

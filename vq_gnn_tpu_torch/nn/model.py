@@ -74,8 +74,8 @@ class ModelStatic:
     # ce_only runs never read info_backward; the B + M exact-reverse term is
     # then skipped (0), as in the JAX package
     ce_only: bool = False
-    # the dtype the convs stream x_input at ('float32' or 'bfloat16'); sums,
-    # outputs, parameters and probes stay f32
+    # the dtype the convs stream x_input at ('float32', 'bfloat16' or
+    # 'float16'); sums, outputs, parameters and probes stay f32
     compute_dtype: str = "float32"
     alpha_dropout_flag: bool = False  # torch AlphaDropout in place of dropout
     # stochastic branch dropping: each training step keeps exactly
@@ -323,7 +323,9 @@ def layer_forward(
 
     Under bf16 compute (``ms.compute_dtype``) the lookup rounds its codewords
     to bf16 and x_input is cast to bf16 after the concatenation
-    (``vq_gnn_tpu/nn/model.py:294-321``); the conv's output is f32.
+    (``vq_gnn_tpu/nn/model.py:294-321``); under f16 compute the lookup stays
+    f32, as there (its stream is bf16's alone), and x_input is cast to f16
+    after the concatenation.  The conv's output is f32 in every dtype.
 
     ``fan_in_reduce`` is the 2-D mesh's (``parallel/sharded.py``): x holds
     this rank's branches' columns and the linears their fan-in rows, and
@@ -341,7 +343,8 @@ def layer_forward(
     B_pad = batch.B_pad
     cd = torch_dtype(ms.compute_dtype)
     # out-of-batch features/grads from the codebook (models.py v2:165-173);
-    # the lookup streams bf16 when the whole compute path does
+    # the lookup streams bf16 when the whole compute path does (f16 compute
+    # passes no stream: vq_gnn_tpu/nn/model.py:295-298)
     x_fo, grad_fo = lookup(vq_state, batch.fo_ids, ms.vq,
                            stream=cd if cd == torch.bfloat16 else None)
     fo_mask = batch.valid_fo.to(x.dtype)[:, None]
@@ -356,7 +359,7 @@ def layer_forward(
         x_input = x_input.to(cd)
     if ms.conv_type == "GAT":
         C = x_input.shape[1]
-        xf = x_input.float() if cd == torch.bfloat16 else x_input
+        xf = x_input.float() if cd != torch.float32 else x_input
         valid_all = torch.cat([batch.valid_B, batch.valid_fo])
         e = batch.edges
         if getattr(e, "gat", None) is not None:
@@ -368,7 +371,7 @@ def layer_forward(
             x_out, norm_col = gat_conv_coo(e, x_input, xf, layer.att_l, layer.att_r, valid_all)
         else:
             # logits of the (C+1)-wide reference input: the C-wide product
-            # plus the ones-column bias att[C] (a bf16 dot under bf16
+            # plus the ones-column bias att[C] (a 16-bit dot under 16-bit
             # compute, then f32 with the bias), for the Trick-1 scale; the
             # conv reuses x widened once and ar, and forms its own al (f32
             # att, unrounded)
@@ -595,8 +598,9 @@ def layer_forward_bm(
     parameters (``gat_conv_ell_mh``); info_backward uses the per-codeword
     identity sum_m out_M[m] * g[m] == sum_j out_fo[j] * g[c[j]], or, for the
     non-GCN convs in training, the exact reverse term over the rev-ELL.
-    Under bf16 compute only the GAT conv streams bf16: its x_input is cast
-    after the branch logits (``vq_gnn_tpu/nn/model.py:682-684``); the lookup,
+    Under bf16 or f16 compute only the GAT conv streams 16-bit rows: its
+    x_input is cast after the branch logits
+    (``vq_gnn_tpu/nn/model.py:682-684``); the lookup,
     the GCN and SAGE convs and the transformer branch stay f32.  A dropped
     branch (``branch_keep`` False) contributes no codebook features, no
     recovery term and a zeroed slice of the conv output.  With
@@ -669,7 +673,7 @@ def layer_forward_bm(
                            getattr(e, "scale_ranks", None))  # [nb]
     al_n, ar_n = al_n / scale_n, ar_n / scale_n
     cd = torch_dtype(ms.compute_dtype)
-    if x_input.dtype != cd:  # bf16 streaming halves the gathered bytes
+    if x_input.dtype != cd:  # 16-bit streaming halves the gathered bytes
         x_input = x_input.to(cd)
     if getattr(e, "gat_mh", None) is not None:  # a row shard's, bound to its ranks
         agg, rs = e.gat_mh(x_input, al_n, ar_n)

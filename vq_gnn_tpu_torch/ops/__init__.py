@@ -4,6 +4,8 @@ Each kernel wrapper counts its launches in ``<wrapper>.launches``; the
 wrappers of kernels 1, 4 and 5 count their bf16-row mode apart, in
 ``launches_bf16``, and those of kernels 9 and 10 their bf16 fold
 (``VQ_GNN_REV_FOLD=fast``) there too (``BF16_MODES`` names each such mode);
+kernels 1, 4 and 5 count their f16-row mode in ``launches_f16``
+(``F16_MODES``);
 the segment sum counts its launches with the scalar channel apart, in
 ``launches_scalar`` (``SCALAR_MODES``).
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero them all
@@ -41,6 +43,13 @@ BF16_MODES = {
     "rev_backward_fold_bf16": rev_backward,
 }
 
+# the f16-row modes (compute_dtype='float16') of kernels 1, 4 and 5
+F16_MODES = {
+    "ell_aggregate_f16": ell_aggregate,
+    "gat_aggregate_f16": gat_aggregate,
+    "gat_backward_f16": gat_backward,
+}
+
 # the segment sum's launches with its scalar channel
 SCALAR_MODES = {"segment_sum_scalar": segment_sum_sorted}
 
@@ -53,6 +62,7 @@ def _counters():
     """(name, wrapper, attribute) of every launch counter."""
     return ([(n, fn, "launches") for n, fn in KERNELS.items()]
             + [(n, fn, "launches_bf16") for n, fn in BF16_MODES.items()]
+            + [(n, fn, "launches_f16") for n, fn in F16_MODES.items()]
             + [(n, fn, "launches_scalar") for n, fn in SCALAR_MODES.items()])
 
 
@@ -83,5 +93,5 @@ def uncounted():
             fn.by_width.update(w)
 
 
-__all__ = ["BF16_MODES", "KERNELS", "SCALAR_MODES", "launch_counts", "reset_launch_counts",
-           "uncounted"]
+__all__ = ["BF16_MODES", "F16_MODES", "KERNELS", "SCALAR_MODES", "launch_counts",
+           "reset_launch_counts", "uncounted"]

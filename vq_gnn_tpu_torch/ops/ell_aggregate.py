@@ -3,9 +3,10 @@
 ``out[r] = sum over slots s of row r, sum over k of val[s,k] * x[col[s,k]]``,
 f32 [num_rows, C].  Slots are sorted by row; slots whose row is >= num_rows
 (padding, or the backward's ride-over dustbin) are dropped; columns clip to
-the rows of x (JAX's ``mode='clip'``).  x is f32, or bf16 under
-``compute_dtype='bfloat16'``: its values are summed in f32 either way (the
-bf16 mode counts its launches in ``ell_aggregate.launches_bf16``).
+the rows of x (JAX's ``mode='clip'``).  x is f32, or bf16 or f16 under
+``compute_dtype='bfloat16'`` or ``'float16'``: its values are summed in f32
+either way (the bf16 and f16 modes count their launches in
+``ell_aggregate.launches_bf16`` and ``launches_f16``).
 
 The CUDA kernel (``csrc/ell_aggregate.cu``) replaces
 ``vq_gnn_tpu/ops/pallas_ell.py:_make_fwd_kernel`` (gat=False) and the gather
@@ -24,13 +25,18 @@ import torch
 
 from vq_gnn_tpu_torch.ops import _build
 
-# Channels a warp covers in one pass (32 lanes x 16 bytes: float4, or 8 bf16
-# values): wider x is split into equal panels of at most this many channels,
-# walked side by side.
+# Channels a warp covers in one pass (32 lanes x 16 bytes: float4, or 8
+# 16-bit values): wider x is split into equal panels of at most this many
+# channels, walked side by side.
 PANEL_MAX = 128
-PANEL_MAX_BF16 = 256
-# the dtypes of x the kernel takes: f32, and bf16 rows under bf16 compute
-X_DTYPES = (torch.float32, torch.bfloat16)
+PANEL_MAX_BF16 = 256  # 16-bit rows, bf16 or f16
+# the dtypes of x the kernel takes, each with its code in the kernel's
+# interface (csrc/ell_common.cuh RowType): f32, and bf16 or f16 rows under
+# 16-bit compute
+X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the launch counter of each row dtype's mode
+LAUNCH_COUNTERS = {torch.float32: "launches", torch.bfloat16: "launches_bf16",
+                   torch.float16: "launches_f16"}
 # The batch's long-row lists (spmm.long_rows_host) hold the rows of more than
 # LONG_SLOTS slots: they start first, a warp each, longest first; the others
 # go in index order.
@@ -38,19 +44,19 @@ LONG_SLOTS = 16
 
 
 def _lane_unit(C: int, dtype) -> int:
-    """Channels a lane takes in one load: 8 bf16 values or 4 floats where C
-    is a multiple of that, else 1."""
-    unit = 8 if dtype == torch.bfloat16 else 4
+    """Channels a lane takes in one load: 8 16-bit values or 4 floats where
+    C is a multiple of that, else 1."""
+    unit = 8 if dtype.itemsize == 2 else 4
     return unit if C % unit == 0 else 1
 
 
 def panel_width(C: int, dtype=torch.float32) -> int:
     """Channels per panel: the widest divisor of C that is at most
-    PANEL_MAX (PANEL_MAX_BF16 for bf16 x; a multiple of the lane's load, 4
-    floats or 8 bf16 values, when C is, so the kernel keeps its vector
+    PANEL_MAX (PANEL_MAX_BF16 for 16-bit x; a multiple of the lane's load, 4
+    floats or 8 16-bit values, when C is, so the kernel keeps its vector
     lanes); C itself up to that."""
     unit = _lane_unit(C, dtype)
-    top = PANEL_MAX_BF16 if dtype == torch.bfloat16 else PANEL_MAX
+    top = PANEL_MAX_BF16 if dtype.itemsize == 2 else PANEL_MAX
     return max(w for w in range(unit, min(C, top) + 1, unit) if C % w == 0)
 
 
@@ -66,7 +72,7 @@ def row_offsets_plain(ell_row, num_rows: int) -> torch.Tensor:
 def ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows: int) -> torch.Tensor:
     """Gather, weight, K-reduce, then a sorted segment sum — in plain
     PyTorch.  Elementwise products (no matmul), so TF32 never enters; bf16
-    x is widened to f32 first, which is exact."""
+    or f16 x is widened to f32 first, which is exact."""
     S, K = ell_col.shape
     C = x.shape[1]
     nbrs = x.index_select(0, ell_col.reshape(-1).long().clamp(0, x.shape[0] - 1))
@@ -87,10 +93,17 @@ def _check(cond: bool, msg: str):
 
 
 def check_dtype(kernel: str, name: str, t: torch.Tensor) -> None:
-    """The kernels of rows 1-4 take f32 rows, or bf16 rows under bf16
-    compute; any other dtype is refused by name, on every device."""
+    """The kernels of rows 1-4 take f32 rows, or bf16 or f16 rows under
+    16-bit compute; any other dtype is refused by name, on every device."""
     if t.dtype not in X_DTYPES:
-        raise ValueError(f"{kernel}: {name} must be float32 or bfloat16, got {t.dtype}")
+        raise ValueError(
+            f"{kernel}: {name} must be float32, bfloat16 or float16, got {t.dtype}")
+
+
+def count_launch(fn, dtype) -> None:
+    """One launch of ``fn``'s kernel in the mode of its rows' dtype."""
+    attr = LAUNCH_COUNTERS[dtype]
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
@@ -105,8 +118,8 @@ def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
     threshold t, then exactly the rows of more than t slots, longest first)
     starts those rows first, a warp each; without it every row goes in index
     order.  ``panels`` forces the number of channel panels (by default
-    :func:`panel_width`).  The result depends on none of these.  x is f32 or
-    bf16 (the bf16-row mode); out is f32."""
+    :func:`panel_width`).  The result depends on none of these.  x is f32,
+    bf16 or f16 (the 16-bit-row modes); out is f32."""
     check_dtype("ell_aggregate", "x", x)
     if x.device.type == "cpu":
         return ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows)
@@ -132,7 +145,6 @@ def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
         _check(t.dtype == dt and tuple(t.shape) == shape and t.is_contiguous(),
                f"{name} must be contiguous {dt} of shape {shape}")
     C = x.shape[1]
-    bf16 = x.dtype == torch.bfloat16
     if panels is None:
         Cp = panel_width(C, x.dtype)
     else:
@@ -146,18 +158,14 @@ def ell_aggregate(x, ell_row, ell_col, ell_val, num_rows: int,
         ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.function("ell_aggregate", "vq_ell_aggregate", _ARGTYPES)(
-        x.data_ptr(), int(bf16), x.shape[0], C, Cp, ell_row.data_ptr(), ell_col.data_ptr(),
+        x.data_ptr(), X_DTYPES[x.dtype], x.shape[0], C, Cp, ell_row.data_ptr(), ell_col.data_ptr(),
         ell_val.data_ptr(), S, K, num_rows, ptr.data_ptr(), int(build_ptr),
         None if long_rows is None else long_rows.data_ptr(),
         0 if long_rows is None else long_rows.shape[0] - 1, out.data_ptr(), stream,
     )
     _build.check(rc, "ell_aggregate")
-    if bf16:
-        ell_aggregate.launches_bf16 += 1
-    else:
-        ell_aggregate.launches += 1
+    count_launch(ell_aggregate, x.dtype)
     return out
 
 
-ell_aggregate.launches = 0
-ell_aggregate.launches_bf16 = 0
+ell_aggregate.launches = ell_aggregate.launches_bf16 = ell_aggregate.launches_f16 = 0

@@ -24,10 +24,10 @@ normaliser, and d_al in the backward), as the JAX package's mixed path
 reduces with its segment-sum kernel.  ``d_ar`` has a closed form over the
 forward's aggregates.
 
-Under ``compute_dtype='bfloat16'`` both convs take bf16 x and round where
-the JAX package rounds (``vq_gnn_tpu/ops/gat.py``): the conv's outputs and
-logit cotangents stay f32, the cotangents it gathers are bf16, and dx
-comes back in bf16.
+Under ``compute_dtype='bfloat16'`` or ``'float16'`` both convs take 16-bit
+x and round where the JAX package rounds (``vq_gnn_tpu/ops/gat.py``), to x's
+own dtype: the conv's outputs and logit cotangents stay f32, the cotangents
+it gathers are at x's dtype, and dx comes back in it.
 
 A batch sharded over ranks (``parallel/sharded.py``) runs the same
 kernels over each rank's rows: :func:`gat_conv_sharded` (either fused conv
@@ -154,55 +154,58 @@ def _gat_d_ar_closed_form(g_agg, g_rowsum, agg, rowsum, aggn, rsn):
 
 def node_logits(x, xf, att_l, att_r, reduce=None):
     """The Trick-1 logits (x @ att[:C] + att[C]) of both sides, ([R], [R]);
-    ``xf`` is x widened to f32 (x itself when f32).  Under bf16 x both are
-    bf16 dots from one [C, 2] product, as the JAX package's ``x @
-    att[:C].astype(bfloat16)``: att rounded to bf16, the exact products
-    summed in f32, the sums rounded to bf16 (here, not wherever a backend's
-    bf16 matmul would) and handed on as f32.
+    ``xf`` is x widened to f32 (x itself when f32).  Under 16-bit x (bf16
+    or f16) both are dots at x's dtype from one [C, 2] product, as the JAX
+    package's ``x @ att[:C].astype(x.dtype)``: att rounded to that dtype,
+    the exact products summed in f32, the sums rounded to it (here, not
+    wherever a backend's 16-bit matmul would) and handed on as f32.
 
     ``reduce`` (the 2-D mesh's, where x holds some of the columns) sums the
     [R, 2] partial dots over the ranks of the columns, before the rounding
     and the bias."""
     C = x.shape[1]
-    if x.dtype != torch.bfloat16:  # two f32 matvecs (no TF32, whatever it allows)
+    if x.dtype == torch.float32:  # two f32 matvecs (no TF32, whatever it allows)
         if reduce is None:
             return x @ att_l[:C] + att_l[C], x @ att_r[:C] + att_r[C]
         dots = reduce(torch.stack([x @ att_l[:C], x @ att_r[:C]], 1))
     else:
-        # bf16 values are exact in TF32, so one [C, 2] product rounds nothing
-        dots = xf @ torch.stack([att_l[:C], att_r[:C]], 1).to(torch.bfloat16).float()
-        dots = (dots if reduce is None else reduce(dots)).to(torch.bfloat16).float()
+        # bf16 values are exact in TF32, and so are f16 values (TF32 has
+        # f16's 10-bit mantissa and f32's range), so one [C, 2] product
+        # rounds nothing
+        dots = xf @ torch.stack([att_l[:C], att_r[:C]], 1).to(x.dtype).float()
+        dots = (dots if reduce is None else reduce(dots)).to(x.dtype).float()
     return dots[:, 0] + att_l[C], dots[:, 1] + att_r[C]
 
 
 def _table_logits(x, xf, att_l, att_r, reduce=None, al=None, ar=None):
     """(al, ar) [Rx] of every row of the table x, f32 values: al as the conv
-    forms it (the f32 att on the widened rows: under bf16 x unrounded, as the
-    TPU kernel forms it from the gathered rows), ar as :func:`node_logits`
-    forms it (a bf16 dot under bf16 x); either the caller's where given.
+    forms it (the f32 att on the widened rows: under 16-bit x unrounded, as
+    the TPU kernel forms it from the gathered rows), ar as :func:`node_logits`
+    forms it (a dot at x's dtype under 16-bit x); either the caller's where
+    given.
     ``reduce`` (the 2-D mesh's) sums the partial dots of both over the ranks
     of the columns, once, before the rounding and the bias."""
     C = x.shape[1]
-    bf16 = x.dtype == torch.bfloat16
+    half = x.dtype != torch.float32
     dots = []
     if al is None:
         dots.append(xf @ att_l[:C])
-    if ar is None:  # bf16 values are exact in f32, so the matvec rounds only its sum
-        dots.append(xf @ (att_r[:C].to(torch.bfloat16).float() if bf16 else att_r[:C]))
+    if ar is None:  # 16-bit values are exact in f32, so the matvec rounds only its sum
+        dots.append(xf @ (att_r[:C].to(x.dtype).float() if half else att_r[:C]))
     if dots:
         dots = torch.stack(dots, 1)
         dots = list((dots if reduce is None else reduce(dots)).unbind(1))
         if al is None:
             al = dots.pop(0) + att_l[C]
         if ar is None:
-            ar = (dots[0].to(torch.bfloat16).float() if bf16 else dots[0]) + att_r[C]
+            ar = (dots[0].to(x.dtype).float() if half else dots[0]) + att_r[C]
     return al, ar
 
 
 def _gat_forward(edges, x, att_l, att_r, scale, with_neg: bool, xf=None, ar=None, al=None,
                  gather=None, reduce=None):
     """(agg [R, C], rowsum [R], aggn, rsn, al_node [R], ar_tab [Rx]), all
-    f32, for f32 or bf16 x (``vq_gnn_tpu/ops/gat.py:365-385``): kernel 4 over
+    f32, for f32, bf16 or f16 x (``vq_gnn_tpu/ops/gat.py:365-385``): kernel 4 over
     the R rows of ``edges``, reading the table of x (x itself, or
     ``gather(x)``, every rank's rows, where the owned rows start at
     ``edges.row0``) with the logits of each of its rows divided by the scale
@@ -326,16 +329,16 @@ def _mixed_logits(x, xf, att_l, att_r, ar=None, model_sum=None):
     """(dl, ar) [Rx] of every row of the table x, f32 values: dl the column
     logit's dot before its bias as the JAX package's mixed path forms it from
     the gathered rows, f32 sums of x times att_l rounded to x's dtype
-    (``einsum(..., preferred_element_type=f32)``: under bf16 the att is
+    (``einsum(..., preferred_element_type=f32)``: under 16-bit x the att is
     rounded and the sum is not; the backward's row-side logit rounds it),
     and ar as :func:`node_logits` forms it, the caller's where given.
     ``model_sum`` (the 2-D mesh's) sums the partial dots over the ranks of
     the columns, once, before any rounding and the bias."""
     C = x.shape[1]
-    bf16 = x.dtype == torch.bfloat16
+    half = x.dtype != torch.float32
 
     def w(att):
-        return att[:C].to(torch.bfloat16).float() if bf16 else att[:C]
+        return att[:C].to(x.dtype).float() if half else att[:C]
 
     if model_sum is None:
         if ar is None:
@@ -344,7 +347,7 @@ def _mixed_logits(x, xf, att_l, att_r, ar=None, model_sum=None):
     dots = [xf @ w(att_l)] + ([xf @ w(att_r)] if ar is None else [])
     dots = model_sum(torch.stack(dots, 1)).unbind(1)
     if ar is None:
-        ar = (dots[1].to(torch.bfloat16).float() if bf16 else dots[1]) + att_r[C]
+        ar = (dots[1].to(x.dtype).float() if half else dots[1]) + att_r[C]
     return dots[0], ar
 
 
@@ -445,7 +448,6 @@ class _GATConvMixed(torch.autograd.Function):
         x, xf, att_l, att_r, scale, agg, rowsum, aggn, rsn, dl, ar_tab = ctx.saved_tensors
         R, C = x.shape
         gs = x.dtype
-        bf16 = gs == torch.bfloat16
         g_rs = g_rowsum[:, 0]
         if ctx.gather is None:
             g_s, g_rs_s = g_agg.to(gs), g_rs.to(gs).float()
@@ -455,8 +457,8 @@ class _GATConvMixed(torch.autograd.Function):
         Rt = g_s.shape[0]
         ar_s = (ar_tab / scale).to(gs).float()  # the ar lane rides the gather at x's dtype
         # the row-side logit as the JAX backward forms it: x @ att_l in x's
-        # dtype (a bf16 dot, rounded, under bf16)
-        al_t_node = ((dl.to(torch.bfloat16).float() if bf16 else dl) + att_l[C]) / scale
+        # dtype (a dot rounded to it under 16-bit x)
+        al_t_node = ((dl.to(gs).float() if gs != torch.float32 else dl) + att_l[C]) / scale
         want_dx = ctx.needs_input_grad[0]
         head, tail, inv = mixed_families(e, transposed=True, whole=True)
         dx = d_al = None
@@ -583,8 +585,8 @@ def _gat_mh_ev(ell_row, ell_col, ell_val, al, ar):
 
 def _weighted_rows(ev, table, idx):
     """sum over k of ev[s, k, n] * table[idx[s, k], n*D:(n+1)*D] -> [S, nb*D]
-    (the per-branch weight broadcast over its D channels), f32.  A bf16 table
-    meets weights rounded to bf16, as in JAX's einsum of the bf16-cast
+    (the per-branch weight broadcast over its D channels), f32.  A 16-bit
+    table meets weights rounded to its dtype, as in JAX's einsum of the cast
     repeated weights (``vq_gnn_tpu/ops/gat.py:746, 786``); the exact
     products are summed in f32."""
     S, K, nb = ev.shape
@@ -669,7 +671,7 @@ class _GATConvMH(torch.autograd.Function):
 
 def _gather_with_logits(gather, x, logits):
     """(every rank's rows of x, of the f32 logits [R, k]) in one all-gather:
-    beside bf16 rows each logit rides as its bits, two bf16 values."""
+    beside 16-bit rows each logit rides as its bits, two 16-bit values."""
     C = x.shape[1]
     lg = logits.contiguous()
     lg = lg.view(x.dtype) if x.dtype != lg.dtype else lg
@@ -733,7 +735,7 @@ def gat_conv_mh_sharded(edges, x_g, al, ar, gather=None):
     (batch and boundary), columns in the gathered order, its rows from
     ``row0`` there; ``x_g`` [R, nb*D] its rows of the conv's input (at the
     compute dtype) and ``al``, ``ar`` [R, nb] their scaled f32 logits, as
-    the layer forms them (before the bf16 cast: so they ride the exchange
+    the layer forms them (before the 16-bit cast: so they ride the exchange
     and are not formed again from the gathered rows).
 
     ``gather(t)`` all-gathers every rank's rows of t (None where the rows

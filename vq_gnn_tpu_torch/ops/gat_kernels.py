@@ -24,11 +24,12 @@ Slots are sorted by row; rows >= R are dropped; columns clip to the rows of
 the gathered table (JAX's ``mode='clip'``).  On CPU tensors each wrapper runs
 its plain version; on CUDA tensors it launches its kernel or raises.
 
-Each has a bf16-row mode (``compute_dtype='bfloat16'``), as the TPU kernels
-take bf16 operands: ``gat_aggregate``'s x, and ``gat_backward``'s x, g_agg,
-g_rowsum and ar, in bf16; al (and the aggregate's ar) and every output stay
-f32, and the values are summed in f32.  Each wrapper counts the launches of
-that mode in ``launches_bf16``, the f32 mode's in ``launches``.
+Each has a bf16-row and an f16-row mode (``compute_dtype='bfloat16'`` or
+``'float16'``), as the TPU kernels take 16-bit operands: ``gat_aggregate``'s
+x, and ``gat_backward``'s x, g_agg, g_rowsum and ar, in bf16 or in f16; al
+(and the aggregate's ar) and every output stay f32, and the values are
+summed in f32.  Each wrapper counts the launches of those modes in
+``launches_bf16`` and ``launches_f16``, the f32 mode's in ``launches``.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from vq_gnn_tpu_torch.ops import _build
-from vq_gnn_tpu_torch.ops.ell_aggregate import check_dtype
+from vq_gnn_tpu_torch.ops.ell_aggregate import X_DTYPES, check_dtype, count_launch
 
 NEGATIVE_SLOPE = 0.2  # PyG GATConv default (reference convs.py v2:131)
 
@@ -67,7 +68,7 @@ def gat_aggregate_plain(x, ell_row, ell_col, ell_val, al, ar, num_rows: int,
                         with_neg: bool = True):
     """Plain version of kernel 4: the arithmetic of the XLA path of
     ``vq_gnn_tpu/ops/gat.py:_gat_conv_fwd_impl`` (gather, ev-weighted
-    K-reduce, sorted segment sums).  bf16 x is widened to f32 first."""
+    K-reduce, sorted segment sums).  bf16 or f16 x is widened to f32 first."""
     x = x.float()
     S, K = ell_col.shape
     C = x.shape[1]
@@ -90,7 +91,7 @@ def gat_backward_plain(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, 
     recompute in ``vq_gnn_tpu/ops/gat.py:_gat_conv_vjp_bwd``.  ``dx_rows``
     (default num_rows): dx_agg only for the rows below it, from the slots of
     those rows (a prefix, the rows being sorted), zeros above; None with 0.
-    bf16 x, g_agg, g_rowsum and ar are widened to f32 first."""
+    bf16 or f16 x, g_agg, g_rowsum and ar are widened to f32 first."""
     x, g_agg, g_rowsum, ar = (t.float() for t in (x, g_agg, g_rowsum, ar))
     dx_rows = num_rows if dx_rows is None else dx_rows
     St, K = t_ell_col.shape
@@ -160,7 +161,8 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
     ``spmm.row_offsets_host``) is built on the device when not given;
     ``long_rows`` (int32 ``spmm.long_rows_host(ptr, t)``) starts the rows of
     more than t slots first, a warp each.  The result depends on neither.
-    x is f32 or bf16 (the bf16-row mode); al, ar and the outputs are f32."""
+    x is f32, bf16 or f16 (the 16-bit-row modes); al, ar and the outputs
+    are f32."""
     k = "gat_aggregate"
     check_dtype(k, "x", x)
     if x.device.type == "cpu":
@@ -185,9 +187,8 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
     if build_ptr:
         ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    bf16 = x.dtype == torch.bfloat16
     rc = _build.function("gat_aggregate", "vq_gat_aggregate", _FWD_ARGTYPES)(
-        x.data_ptr(), int(bf16), Rx, C, ell_row.data_ptr(), ell_col.data_ptr(),
+        x.data_ptr(), X_DTYPES[x.dtype], Rx, C, ell_row.data_ptr(), ell_col.data_ptr(),
         ell_val.data_ptr(), S, K,
         al.data_ptr(), ar.data_ptr(), num_rows, int(with_neg), ptr.data_ptr(), int(build_ptr),
         None if long_rows is None else long_rows.data_ptr(),
@@ -196,10 +197,7 @@ def gat_aggregate(x, ell_row, ell_col, ell_val, al, ar, num_rows: int, with_neg:
         rsn.data_ptr() if with_neg else None, stream,
     )
     _build.check(rc, k)
-    if bf16:
-        gat_aggregate.launches_bf16 += 1
-    else:
-        gat_aggregate.launches += 1
+    count_launch(gat_aggregate, x.dtype)
     return agg, rowsum, aggn, rsn
 
 
@@ -207,8 +205,8 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
                  dx_rows: Optional[int] = None, ptr: Optional[torch.Tensor] = None,
                  long_rows: Optional[torch.Tensor] = None):
     """Kernel 5 for CUDA tensors, its plain version for CPU tensors.  Counts
-    its launches per width C and row dtype, ``(C, 'float32' or 'bfloat16')``,
-    in ``gat_backward.by_width``.
+    its launches per width C and row dtype, ``(C, 'float32', 'bfloat16' or
+    'float16')``, in ``gat_backward.by_width``.
 
     ``dx_rows`` (default num_rows): dx_agg for the rows below it, zeros
     above, None with 0; d_al for every row.  ``ptr`` ([num_rows + 1] int32
@@ -216,8 +214,8 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
     is built on the device when not given; ``long_rows`` (int32
     ``spmm.long_rows_host(ptr, t)``) starts the rows of more than t slots
     first, a warp each.  The result depends on none of these three but
-    dx_rows.  x, g_agg, g_rowsum and ar are all f32, or all bf16 (the
-    bf16-row mode); al and the outputs are f32."""
+    dx_rows.  x, g_agg, g_rowsum and ar are all f32, or all bf16, or all f16
+    (the 16-bit-row modes); al and the outputs are f32."""
     k = "gat_backward"
     check_dtype(k, "x", x)
     dx_rows = num_rows if dx_rows is None else dx_rows
@@ -249,9 +247,8 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
     if build_ptr:
         ptr = torch.empty((num_rows + 1,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    bf16 = xt == torch.bfloat16
     rc = _build.function("gat_backward", "vq_gat_backward", _BWD_ARGTYPES)(
-        x.data_ptr(), int(bf16), C, t_ell_row.data_ptr(), t_ell_col.data_ptr(),
+        x.data_ptr(), X_DTYPES[xt], C, t_ell_row.data_ptr(), t_ell_col.data_ptr(),
         t_ell_val.data_ptr(), St, K,
         g_agg.data_ptr(), g_rowsum.data_ptr(), ar.data_ptr(), Rg, al.data_ptr(), num_rows,
         dx_rows, ptr.data_ptr(), int(build_ptr),
@@ -260,16 +257,11 @@ def gat_backward(x, t_ell_row, t_ell_col, t_ell_val, g_agg, g_rowsum, al, ar, nu
         None if dx is None else dx.data_ptr(), d_al.data_ptr(), stream,
     )
     _build.check(rc, k)
-    if bf16:
-        gat_backward.launches_bf16 += 1
-    else:
-        gat_backward.launches += 1
+    count_launch(gat_backward, xt)
     gat_backward.by_width[(C, str(xt).removeprefix("torch."))] += 1
     return dx, d_al
 
 
-gat_aggregate.launches = 0
-gat_aggregate.launches_bf16 = 0
-gat_backward.launches = 0
-gat_backward.launches_bf16 = 0
+gat_aggregate.launches = gat_aggregate.launches_bf16 = gat_aggregate.launches_f16 = 0
+gat_backward.launches = gat_backward.launches_bf16 = gat_backward.launches_f16 = 0
 gat_backward.by_width = collections.Counter()

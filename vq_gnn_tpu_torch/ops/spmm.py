@@ -33,8 +33,9 @@ d``val`` (an SDDMM) only when the caller differentiates the edge values;
 the mixed layout has no d``val`` (GCN and SAGE adjacency values are
 constants), COO has one (the GAT fallback's attention values).
 
-x may be bf16 (``compute_dtype='bfloat16'``): the output is f32 all the
-same, the backward streams the cotangent at x's dtype and returns dx in it
+x may be bf16 or f16 (``compute_dtype='bfloat16'`` or ``'float16'``): the
+output is f32 all the same, the backward streams the cotangent at x's dtype
+and returns dx in it
 (``vq_gnn_tpu/ops/spmm.py:_spmm_bwd``).
 
 A row shard (``parallel/mesh.py:ShardEdges``, a batch sharded over ranks)
@@ -188,7 +189,7 @@ def _ell_matvec(ell_row, ell_col, ell_val, x, num_rows, ptr=None, long_rows=None
 
 def _ell_sddmm(ell_row, ell_col, g, x):
     """d val[s,k] = g[row_s] . x[col_sk] (padding rows/cols clamp, as JAX's
-    ``mode='clip'``), summed in f32 from bf16 g and x too."""
+    ``mode='clip'``), summed in f32 from 16-bit g and x too."""
     S, K = ell_col.shape
     g_rows = g.index_select(0, ell_row.long().clamp(max=g.shape[0] - 1)).float()
     x_cols = x.index_select(
@@ -279,7 +280,7 @@ class _SpMM(torch.autograd.Function):
     def backward(ctx, g):
         e: Edges = ctx.edges
         (x,) = ctx.saved_tensors
-        # stream the cotangent at the forward's dtype (bf16 halves the
+        # stream the cotangent at the forward's dtype (16 bits halve the
         # gathered bytes); the sums stay f32, dx comes back in x's dtype
         g = g.to(ctx.x_dtype).contiguous()
         num_cols = ctx.x_rows
@@ -312,7 +313,7 @@ class _SpMM(torch.autograd.Function):
 def _segment_matvec(row, col, vals, x_br, num_rows, ptr=None, long_rows=None):
     """The COO aggregate (``vq_gnn_tpu/ops/spmm.py:_segment_matvec``) of each
     branch n's values over x_br[n] -> f32 [nb, num_rows, Dc]: the messages
-    ``vals[n] * x_br[n][col]`` (in f32 for bf16 x; columns clip to the rows
+    ``vals[n] * x_br[n][col]`` (in f32 for 16-bit x; columns clip to the rows
     of x) of every branch side by side, [E, nb * Dc], summed per row in one
     call of kernel 8 on CUDA tensors, the plain sum on CPU tensors (each
     channel in the same order as a sum of that branch alone).  Rows >=

@@ -18,9 +18,9 @@ boundary rows' dx has no consumer: zeros).  All-gathers only: gloo has no
 reduce-scatter, and no row is reduced twice.  The JAX docstring's design,
 each rank's partial aggregate over its slots all-reduced, reads the same
 gathered rows and adds an all-reduce of [B_pad + Bp_pad, C] (on a ring
-about twice an all-gather's bytes) to every aggregate.  Under bf16 compute
-the rows ride at bf16 both ways, the values the whole batch's step hands
-the kernels.
+about twice an all-gather's bytes) to every aggregate.  Under bf16 or f16
+compute the rows ride at that dtype both ways, the values the whole batch's
+step hands the kernels.
 
 **The GAT conv** (:func:`_gat_conv`, ``ShardEdges.gat``): the logits of
 the owned rows, the Trick-1 scale over every rank's valid rows
@@ -51,9 +51,9 @@ per-branch Trick-1 max over every rank's valid rows (``scale_ranks``,
 ``ops/gat.py:branch_scale``: one all-reduce MAX of [2, nb], its backward
 one all-reduce of the cotangent and the ties), then the codebooks' max
 locally; the owned rows' x with both f32 logits all-gathered in one call
-(under bf16 the logits' bits ride beside the bf16 rows: the layer forms
-them from the f32 rows, so they cannot be formed again from the gathered
-ones), kernel 8 over the owned rows' slots; backward, the cotangents
+(under 16-bit compute the logits' bits ride beside the 16-bit rows: the
+layer forms them from the f32 rows, so they cannot be formed again from the
+gathered ones), kernel 8 over the owned rows' slots; backward, the cotangents
 all-gathered, dx and d_al over the transposed slots of every owned column
 and d_ar over the owned rows' forward cells (no ``f_from_t``, which would
 mirror cells across ranks).  The recovery term reads the owned rows'
@@ -168,8 +168,8 @@ COO GAT conv's table and its backward sum, [R, 2] or on B + M [R, 2 nb]),
 and ``link`` (the link step's output rows, [B_pad, C_out] each way).
 
 GCN, SAGE and GAT, B + B' and B + M, with or without the transformer
-branch, on each adjacency layout (single-K and mixed-K slot-ELL, COO), f32
-or bf16 compute, node (CE or multilabel BCE) and link batches, take a
+branch, on each adjacency layout (single-K and mixed-K slot-ELL, COO), f32,
+bf16 or f16 compute, node (CE or multilabel BCE) and link batches, take a
 sharded step; a B + M GAT link step with live VQ raises by name as the
 whole batch's does (no JAX reference).
 """
@@ -444,9 +444,9 @@ def _gat_conv(edges, comm: _Collectives, axis, comm_all: _Collectives):
         scale = explosion_scale(al, ar, valid, ranks)
         # where the rows have one rank the owned rows are the conv's table:
         # their logits are not formed again (ar; the single-K conv's al only
-        # where it is this one, in f32: under bf16 its att is not rounded)
+        # where it is this one, in f32: under 16-bit x its att is not rounded)
         known = {} if many else dict(ar=ar.detach(), al=None if (
-            x.dtype == torch.bfloat16 or edges.mixed) else al.detach())
+            x.dtype != torch.float32 or edges.mixed) else al.detach())
         return gat_conv_sharded(edges, x, att_l, att_r, scale, xf.detach(), gather, model_sum,
                                 **known)
 
