@@ -306,7 +306,8 @@ def test_cli_trains_bm_gat_bf16_fold_fast(capsys, monkeypatch):
 def test_entry_points_import_no_jax():
     """bench_torch.py, main_node_torch.py, main_link_torch.py, chip_smoke.py,
     tools/parity_experiment_torch.py, tools/link_experiment_torch.py,
-    tools/inductive_experiment_torch.py and every module of the port (the
+    tools/inductive_experiment_torch.py, tools/link_hold_probe_torch.py and
+    every module of the port (the
     parity harness, the diagnostics, the metrics, the link trainer, the
     data-parallel step, the checkpoints and the lr schedules among them)
     import in a process where jax and vq_gnn_tpu cannot be imported."""
@@ -323,6 +324,7 @@ def test_entry_points_import_no_jax():
         "sys.path.insert(0, 'tools')\n"
         "import bench_torch, chip_smoke, main_link_torch, main_node_torch\n"
         "import inductive_experiment_torch, link_experiment_torch, parity_experiment_torch\n"
+        "import link_hold_probe_torch\n"
         "import vq_gnn_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(vq_gnn_tpu_torch.__path__, "
         "'vq_gnn_tpu_torch.')]\n"

@@ -1329,3 +1329,51 @@ def test_new_wrappers_refuse_bad_input(dev):
     rev_forward(c_tab, col6, val6, ptr, lr, xb, al, arcb, gbar)  # K = 6: the f32 fold takes it
     with pytest.raises(ValueError):  # the bf16 fold needs K dividing 32
         rev_forward(c_tab, col6, val6, ptr, lr, xb, al, arcb, gbar, fold="fast")
+
+
+@cuda
+def test_link_step_same_bits_and_row_8(dev):
+    """The whole-batch link step (``train/link.py:link_train_step``, at 3,000
+    nodes and the collab tool's configuration scaled to them) twice from one
+    state on the card: the same bits (its pair gathers' gradient summed by
+    kernel 8 in a fixed order, not by ``index_add_``'s atomics), and kernel
+    8 launched once a step on the link path.  (Here, not in
+    tests/test_torch_port_link.py: that file imports the JAX package, which
+    the card's machine lacks.)"""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools"))
+    import link_experiment_torch as tool
+    from vq_gnn_tpu_torch.convert import (
+        predictor_from_numpy,
+        predictor_to_numpy,
+        state_like,
+        state_to_numpy,
+    )
+    from vq_gnn_tpu_torch.graph.datasets import prepare
+    from vq_gnn_tpu_torch.train.checkpoint import named_leaves
+    from vq_gnn_tpu_torch.train.link import LinkTrainer
+
+    g, split = tool.build_graph_and_split(nodes=3000)
+    cfg = tool.scaled_config(tool.vq_config("GCN", 1), 3000)
+    g, _, _ = prepare(g, cfg, 0, symmetrize_adj=False)
+    tr = LinkTrainer(g, cfg, split, device=dev)
+    tr.run_init_sweep()
+    loader = tr.train_loader
+    b0 = loader._to_device(next(loader._epoch_iter()))[0][0]
+    snap, pred_np = state_to_numpy(tr.state), predictor_to_numpy(tr.predictor, tr.pred_opt)
+    leaves = []
+    for _ in range(2):
+        st, pred = state_like(tr.state, snap), predictor_from_numpy(*pred_np, cfg.lr, dev)
+        before = segment_sum_sorted.launches
+        tr.step_fn(st, *pred, tr.X_dev, b0, 1.0, cfg.lr, 1.0,
+                   torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        assert segment_sum_sorted.launches - before == 1
+        # c_indices but its padding dustbin row N (which padded slot writes
+        # it is unspecified)
+        leaves.append([(x[:-1] if name.endswith("c_indices") else x).detach().cpu().numpy()
+                       if torch.is_tensor(x) else np.asarray(x) for name, x in named_leaves(st)]
+                      + [p.detach().cpu().numpy() for p in pred[0].parameters()])
+    assert all(np.array_equal(a, b) for a, b in zip(*leaves))

@@ -31,6 +31,7 @@ from vq_gnn_tpu.utils import metrics as jmetrics
 from vq_gnn_tpu_torch import config as tcfg
 from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy
 from vq_gnn_tpu_torch.graph import datasets as tdata
+from vq_gnn_tpu_torch.ops.segsum import take_rows
 from vq_gnn_tpu_torch.sampler import samplers as tsamplers
 from vq_gnn_tpu_torch.train import link as tlink
 from vq_gnn_tpu_torch.train import optim as toptim
@@ -325,6 +326,82 @@ def test_link_step_matches_jax(conv, clip, monkeypatch):
         np.testing.assert_allclose(p.detach().numpy(), r, atol=ATOL_STATE)
     for p, r in zip(tr.predictor.parameters(), _pred_leaves(jnu)):
         np.testing.assert_allclose(tr.pred_opt.state[p]["square_avg"].numpy(), r, atol=1e-7)
+
+
+# ---------------- the pair gathers: their gradient in a fixed order ----------------
+def _pair_case(case, rng, n=300, L=400):
+    """(src, dst, dst_neg, live) [L] of one case: duplicates everywhere; one
+    row gathered hundreds of times; rows never gathered; padding pairs
+    (row 0, no cotangent), as the batches pad them."""
+    src, dst, neg = (rng.integers(0, n, L) for _ in range(3))
+    live = np.ones(L, bool)
+    if case == "hub":
+        src[: L // 2] = 7
+        neg[::3] = 7
+    elif case == "unreached":
+        src, dst, neg = (rng.integers(0, n // 3, L) for _ in range(3))
+    elif case == "padding":
+        live[L - 90:] = False
+        src[~live] = dst[~live] = 0
+    return src, dst, neg, live
+
+
+@pytest.mark.parametrize("case", ["duplicates", "hub", "unreached", "padding"])
+def test_take_rows_matches_index_select_and_jax(case):
+    """``ops/segsum.py:take_rows`` as the link step gathers its pairs' rows
+    (``train/link.py:link_loss_parts``: three index tensors, the backward
+    summing each row's contributions in a fixed order through kernel 8's
+    plain version here) against ``index_select``'s autograd and
+    ``jax.vjp`` of ``jnp.take`` on the same numpy inputs: the rows exactly,
+    the gradient to rtol 1e-6 and atol 1e-5 (f32 sums in another order; a
+    row gathered hundreds of times sums ~700 terms of size ~1), the rows no
+    pair reaches exactly 0.  Padding pairs carry a zero cotangent, as the
+    step's masked loss gives them."""
+    rng = np.random.default_rng(26)
+    n, C = 300, 16
+    out = rng.standard_normal((n, C)).astype(np.float32)
+    src, dst, neg, live = _pair_case(case, rng, n)
+    idx = (src, dst, neg)
+    cot = (rng.standard_normal((3, len(src), C)) * live[None, :, None]).astype(np.float32)
+
+    t = torch.tensor(out, requires_grad=True)
+    rows = take_rows(t, *(torch.as_tensor(i) for i in idx))
+    for r, i in zip(rows, idx):
+        np.testing.assert_array_equal(r.detach().numpy(), out[i])
+    sum((r * torch.as_tensor(c)).sum() for r, c in zip(rows, cot)).backward()
+    g = t.grad.numpy()
+
+    t2 = torch.tensor(out, requires_grad=True)
+    sum((t2.index_select(0, torch.as_tensor(i)) * torch.as_tensor(c)).sum()
+        for i, c in zip(idx, cot)).backward()
+    _, vjp = jax.vjp(lambda o: tuple(jnp.take(o, jnp.asarray(i), axis=0) for i in idx),
+                     jnp.asarray(out))
+    (g_jax,) = vjp(tuple(jnp.asarray(c) for c in cot))
+    np.testing.assert_allclose(g, t2.grad.numpy(), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(g, np.asarray(g_jax), rtol=1e-6, atol=1e-5)
+    unreached = np.setdiff1d(np.arange(n), np.concatenate(idx))
+    assert len(unreached) > 0 or case != "unreached"
+    assert (g[unreached] == 0).all()
+    if case == "hub":
+        assert (np.concatenate(idx) == 7).sum() >= 300
+
+
+def test_take_rows_gradient_keeps_the_dtype():
+    """A bf16 table's gradient comes back bf16: the contributions summed in
+    f32 (kernel 8 sums in f32) in their fixed order (the sources', the
+    destinations', the negatives', each in pair order), then rounded once:
+    exactly the f32 sum of the bf16 cotangents in that order, rounded."""
+    rng = np.random.default_rng(27)
+    out = torch.tensor(rng.standard_normal((50, 8)), dtype=torch.bfloat16, requires_grad=True)
+    src, dst, neg, _ = _pair_case("hub", rng, 50, 120)
+    idx = [torch.as_tensor(i) for i in (src, dst, neg)]
+    cot = [torch.tensor(rng.standard_normal((120, 8)), dtype=torch.bfloat16) for _ in idx]
+    sum((r * c).float().sum() for r, c in zip(take_rows(out, *idx), cot)).backward()
+    want = torch.zeros(50, 8)
+    for i, c in zip(idx, cot):
+        want.index_add_(0, i, c.float())
+    assert out.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.grad.float().numpy(), want.bfloat16().float().numpy())
 
 
 # ---------------- evaluation from one state ----------------

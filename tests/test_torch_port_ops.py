@@ -28,6 +28,7 @@ from vq_gnn_tpu_torch.ops.ell_aggregate import (
     panel_width,
     row_offsets_plain,
 )
+from vq_gnn_tpu_torch.ops.segsum import sum_at
 from vq_gnn_tpu_torch.ops.spmm import build_ell_host, long_rows_host, row_offsets_host, spmm
 from vq_gnn_tpu_torch.ops.vq_kernels import (
     ASSIGN_FAST_STEP,
@@ -350,3 +351,65 @@ def test_uncounted_leaves_every_counter_as_it_was():
     assert ops.launch_counts()["segment_sum"] == 3
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
+
+
+# ---------------- sums in a fixed order: take_rows, sum_at ----------------
+@pytest.mark.parametrize("nb", [0, 3], ids=["logits", "per-branch"])
+def test_gat_edge_values_gradient_matches_jax(nb):
+    """``ops/gat.py:gat_edge_values`` gathers the logits through
+    ``ops/segsum.py:take_rows`` (each logit's edges summed in a fixed order
+    by kernel 8, its plain version here): the values exactly as
+    ``index_select``'s, the logits' gradient against ``index_select``'s
+    autograd and, for [n] logits, ``jax.vjp`` of the JAX package's
+    ``gat_edge_values``, to rtol 1e-6 and atol 1e-6 (f32 sums in another
+    order); the indices clip as JAX's ``mode='clip'``, a hub column
+    reached by a third of the edges."""
+    from vq_gnn_tpu.ops.gat import gat_edge_values as j_values
+    from vq_gnn_tpu_torch.ops.gat import gat_edge_values
+
+    rng = np.random.default_rng(5)
+    n, E = 200, 3000
+    shape = (nb, n) if nb else (n,)
+    al, ar = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    row, col = rng.integers(0, n + 5, E), rng.integers(0, n + 5, E)  # past the end: clipped
+    col[::3] = 11
+    val = rng.random(E).astype(np.float32)
+    cot = rng.standard_normal(shape[:-1] + (E,)).astype(np.float32)
+
+    def port(fn):
+        a, b = torch.tensor(al, requires_grad=True), torch.tensor(ar, requires_grad=True)
+        v = fn(torch.as_tensor(row), torch.as_tensor(col), torch.as_tensor(val), a, b)
+        (v * torch.as_tensor(cot)).sum().backward()
+        return v.detach().numpy(), a.grad.numpy(), b.grad.numpy()
+
+    def plain(r, c, w, a, b):
+        a = (a.index_select(-1, c.clamp(0, n - 1)) + b.index_select(-1, r.clamp(0, n - 1)))
+        return torch.exp(torch.nn.functional.leaky_relu(a, 0.2)) * w
+
+    got, want = port(gat_edge_values), port(plain)
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+    if not nb:
+        v, vjp = jax.vjp(lambda a, b: j_values(jnp.asarray(row), jnp.asarray(col),
+                                               jnp.asarray(val), a, b),
+                         jnp.asarray(al), jnp.asarray(ar))
+        for g, w in zip(got[1:], vjp(jnp.asarray(cot))):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_keys,size", [(1, 4), (40, 9), (5000, 700)])
+def test_sum_at_matches_scatter_add(n_keys, size):
+    """``ops/segsum.py:sum_at`` (the B + M grid path's scatter-add in a
+    fixed order) equals ``zeros(size).scatter_add_`` on the CPU bit for bit
+    (each key's values summed in their order, from zero), and JAX's
+    ``.at[].add`` to rtol 1e-6 and atol 1e-6; keys never hit stay 0."""
+    rng = np.random.default_rng(n_keys)
+    keys = rng.integers(0, size, n_keys)
+    vals = rng.standard_normal(n_keys).astype(np.float32)
+    got = sum_at(torch.as_tensor(keys), torch.as_tensor(vals), size)
+    want = torch.zeros(size).scatter_add_(0, torch.as_tensor(keys), torch.as_tensor(vals))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ref = jnp.zeros(size, jnp.float32).at[jnp.asarray(keys)].add(jnp.asarray(vals))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    assert (got.numpy()[np.setdiff1d(np.arange(size), keys)] == 0).all()

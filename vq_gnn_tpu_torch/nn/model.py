@@ -50,6 +50,7 @@ from vq_gnn_tpu_torch.ops.gat import (
     ranks_max,
 )
 from vq_gnn_tpu_torch.ops.rev_kernels import rev_fold_mode, rev_recovery_info
+from vq_gnn_tpu_torch.ops.segsum import sum_at
 from vq_gnn_tpu_torch.ops.spmm import spmm, spmm_branches
 from vq_gnn_tpu_torch.ops.vq_ops import masked_moments
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
@@ -473,8 +474,10 @@ def _bm_reverse_grid(c_indices, batch: PaddedBatch, x_cols, al, ar_cb, grad_tabl
     cols = batch.bm_rev_col.clamp(0, c_indices.shape[0] - 1)
     code = c_indices.index_select(0, cols).long().t()  # [nb, R]
     cell = code * B_pad + batch.bm_rev_row[None, :]
-    grid = torch.zeros((nb, M * B_pad), dtype=torch.float32, device=x_cols.device)
-    grid.scatter_add_(1, cell, batch.bm_rev_val[None, :].expand(nb, -1))
+    # the per-branch scatter-add in a fixed order (ops/segsum.py:sum_at; a
+    # scatter_add_ sums with float atomics on CUDA, in a new order each run)
+    keys = cell + torch.arange(nb, device=cell.device)[:, None] * (M * B_pad)
+    grid = sum_at(keys.reshape(-1), batch.bm_rev_val.float().repeat(nb), nb * M * B_pad)
     S = F.relu(grid).reshape(nb, M, B_pad)
     if al is not None:
         S = S * torch.exp(F.leaky_relu(al[:, None, :] + ar_cb[:, :, None], 0.2))
@@ -733,7 +736,7 @@ def _gat_bm_coo(layer, vq_state: VQState, ms: ModelStatic, x, x_fo, grad_fo,
     if getattr(e, "gat_mh", None) is not None:  # a row shard's, bound to its ranks
         x_out = e.gat_mh(x_br, al, ar)
     else:
-        ev = gat_edge_values(e.row, e.col, e.val, al, ar)  # [nb, E_pad]
+        ev = gat_edge_values(e.row, e.col, e.val, al, ar, edges=e)  # [nb, E_pad]
         x_out = spmm_branches(e, ev, x_br)  # [nb, dim, D + 1]
     out_B = x_out[:, :B_pad]
     if probe is not None:  # [nb, B_pad, D + 1]

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from vq_gnn_tpu_torch.ops.gat_kernels import NEGATIVE_SLOPE, gat_aggregate, gat_backward
-from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
+from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, take_listed, take_rows
 from vq_gnn_tpu_torch.ops.spmm import Edges, fold_rows, mixed_families, spmm
 
 __all__ = ["NEGATIVE_SLOPE", "attention_logits", "branch_scale", "explosion_scale",
@@ -127,15 +127,33 @@ def branch_scale(al, ar, al_cb, ar_cb, valid, ranks=None):
     return torch.sqrt(m[0] ** 2 + 1.0) * torch.sqrt(m[1] ** 2 + 1.0)
 
 
-def gat_edge_values(row, col, adj_val, alpha_l, alpha_r, negative_slope=NEGATIVE_SLOPE):
+def gat_edge_values(row, col, adj_val, alpha_l, alpha_r, negative_slope=NEGATIVE_SLOPE,
+                    edges=None):
     """Per-edge unnormalised-exp attention times the normalised adjacency
     value (``vq_gnn_tpu/ops/gat.py:gat_edge_values``): exp(leaky_relu(
     alpha_l[col] + alpha_r[row])) * adj_val, the indices clipped to the
     logits (padding edges have adj_val 0).  Logits [n], or [nb, n] for one
-    row of values per branch.  Plain PyTorch, differentiable in the logits."""
-    n = alpha_l.shape[-1] - 1
-    a = (alpha_l.index_select(-1, col.long().clamp(0, n))
-         + alpha_r.index_select(-1, row.long().clamp(0, alpha_r.shape[-1] - 1)))
+    row of values per branch.  Plain PyTorch, differentiable in the logits:
+    the backward sums each logit's edges in a fixed order by kernel 8, not
+    by ``index_add_``'s float atomics: over ``edges``' own lists where the
+    whole batch's COO ``Edges`` are given (``row = edges.row``, ``col =
+    edges.col``: the rows in their order with ``row_ptr``, the columns in
+    ``tperm``'s with ``t_row_ptr``; ``ops/segsum.py:take_listed``), else
+    sorted on the device (``take_rows``)."""
+
+    def take(t, i, lists):  # t [n] or [nb, n] at i [E] -> [E] or [nb, E]
+        tab, ic = t.reshape(-1, t.shape[-1]).t(), i.long().clamp(0, t.shape[-1] - 1)
+        got = (take_rows(tab, ic)[0] if lists is None else take_listed(tab, ic, *lists))
+        return got.t().reshape(t.shape[:-1] + i.shape)
+
+    lists_l = lists_r = None
+    if edges is not None:
+        n = alpha_l.shape[-1]
+        lists_r = (edges.row, None, edges.num_rows, edges.row_ptr, edges.row_long_rows)
+        t_ok = edges.t_row_ptr is not None and edges.t_row_ptr.shape[0] == n + 1
+        lists_l = (edges.col.index_select(0, edges.tperm.long()), edges.tperm.long(), n,
+                   *((edges.t_row_ptr, edges.t_row_long_rows) if t_ok else (None, None)))
+    a = take(alpha_l, col, lists_l) + take(alpha_r, row, lists_r)
     return torch.exp(F.leaky_relu(a, negative_slope)) * adj_val
 
 
@@ -526,8 +544,8 @@ def gat_conv_coo(edges: Edges, x, xf, att_l, att_r, valid, ranks=None, reduce=No
     e = edges
     if table is None:  # the whole batch: spmm's backward walks tperm
         al_t, ar_t = logits.unbind(1)
-        out = spmm(dataclasses.replace(e, val=gat_edge_values(e.row, e.col, e.val, al_t, ar_t)),
-                   x1)
+        out = spmm(dataclasses.replace(e, val=gat_edge_values(e.row, e.col, e.val, al_t, ar_t,
+                                                              edges=e)), x1)
     else:
         al_t, ar_t = table(logits).unbind(1)
         ev = gat_edge_values(e.row + e.row0, e.col, e.val, al_t, ar_t)

@@ -16,6 +16,15 @@ The CUDA kernel (``csrc/segment_sum.cu``) replaces
 runs the plain version, on CUDA tensors it launches the kernel or raises.
 Launches with the scalar channel (the mixed-K GAT conv's normaliser and
 d_al) count in ``launches_scalar``, the others in ``launches``.
+
+Sums in a fixed order are built on it, for the places where PyTorch's own
+would add floats with atomics on CUDA, in a new order each run:
+:func:`take_rows`, rows of a table whose backward sums each row's
+cotangents by kernel 8 (``index_select``'s backward is ``index_add_``),
+its indices sorted on the device (stable: a row's cotangents keep their
+order); :func:`take_listed`, the same over an order and row offsets the
+host built with the batch; and :func:`sum_at`, values summed at keys into
+a vector (for ``scatter_add_``).  Each gives the same bits run to run.
 """
 
 from __future__ import annotations
@@ -129,3 +138,86 @@ def segment_sum_sorted(partials, seg, num_rows: int, scalar_partials=None, ptr=N
 
 segment_sum_sorted.launches = 0
 segment_sum_sorted.launches_scalar = 0
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table.index_select(0, i)`` for each index tensor ``i``; the
+    backward sums the cotangents of every taken row in a fixed order:
+    the indices of all the calls concatenated and sorted by row (stable, so
+    a row's cotangents keep their order: the first index tensor's, then the
+    next one's, each in index order), summed by kernel 8 in f32 and cast to
+    the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, *idx):
+        ctx.save_for_backward(*idx)
+        ctx.num_rows, ctx.dtype = table.shape[0], table.dtype
+        return tuple(table.index_select(0, i) for i in idx)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        idx = ctx.saved_tensors
+        like = next(g for g in grads if g is not None)
+        g = torch.cat([like.new_zeros((i.shape[0],) + like.shape[1:]) if g is None else g
+                       for g, i in zip(grads, idx)]).float()
+        g = g.reshape(g.shape[0], -1)
+        seg, order = torch.sort(torch.cat(idx), stable=True)
+        out = segment_sum_sorted(g.index_select(0, order).contiguous(), seg.to(torch.int32),
+                                 ctx.num_rows)
+        return (out.reshape((ctx.num_rows,) + like.shape[1:]).to(ctx.dtype),) + (None,) * len(idx)
+
+
+def take_rows(table, *idx):
+    """(table[i] for i in idx), differentiable in ``table`` with
+    :class:`_TakeRows`' backward: the same bits run to run."""
+    return _TakeRows.apply(table, *idx)
+
+
+class _TakeListed(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose backward sums each row's
+    cotangents by kernel 8 in the order the host's lists give: ``seg`` the
+    indices in that order (``perm`` of them, or as they are), ascending,
+    with their row offsets ``ptr`` and long rows over ``rows`` rows (an
+    Edges' ``row_ptr`` / ``t_row_ptr``): no sort and no offsets on the
+    device.  Segments at ``rows`` or past it (padding) are dropped, and the
+    table's rows past ``rows`` get 0."""
+
+    @staticmethod
+    def forward(ctx, table, idx, seg, perm, rows, ptr, long_rows):
+        ctx.save_for_backward(seg, perm, ptr, long_rows)
+        ctx.shape, ctx.dtype, ctx.rows = table.shape, table.dtype, rows
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        seg, perm, ptr, long_rows = ctx.saved_tensors
+        g = g.float().reshape(g.shape[0], -1)
+        if perm is not None:
+            g = g.index_select(0, perm)
+        out = segment_sum_sorted(g.contiguous(), seg, ctx.rows, ptr=ptr, long_rows=long_rows)
+        pad = out.new_zeros((ctx.shape[0] - ctx.rows, out.shape[1]))
+        d = torch.cat([out, pad]).reshape(ctx.shape).to(ctx.dtype)
+        return d, None, None, None, None, None, None
+
+
+def take_listed(table, idx, seg, perm, rows: int, ptr, long_rows):
+    """``table[idx]`` with :class:`_TakeListed`'s backward (the arguments
+    there); ``ptr`` None (lists of another row count), kernel 8 builds the
+    offsets."""
+    return _TakeListed.apply(table, idx, seg, perm, rows, ptr, long_rows)
+
+
+def sum_at(keys, vals, size: int):
+    """f32 [size]: ``vals`` summed at ``keys`` (int64, each in [0, size)),
+    as ``zeros(size).scatter_add_(0, keys, vals)`` but in a fixed order: the
+    keys sorted (stable), each distinct key's values summed by kernel 8 in
+    their order (its row offsets the distinct keys' counts, summed up: no
+    search), written once."""
+    k, order = torch.sort(keys, stable=True)
+    uniq, inv, counts = torch.unique_consecutive(k, return_inverse=True, return_counts=True)
+    ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    sums = segment_sum_sorted(vals.index_select(0, order).float()[:, None].contiguous(),
+                              inv.to(torch.int32), uniq.shape[0], ptr=ptr)
+    out = torch.zeros(size, dtype=torch.float32, device=vals.device)
+    out[uniq] = sums[:, 0]
+    return out

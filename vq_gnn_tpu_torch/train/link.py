@@ -45,6 +45,7 @@ from vq_gnn_tpu_torch.config import (
 )
 from vq_gnn_tpu_torch.graph.store import HostGraph
 from vq_gnn_tpu_torch.nn.model import ModelStatic, model_forward, model_static, zero_probes
+from vq_gnn_tpu_torch.ops.segsum import take_rows
 from vq_gnn_tpu_torch.sampler.batch import PaddedBatch
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader
 from vq_gnn_tpu_torch.train.checkpoint import load_step, restore_checkpoint, save_checkpoint
@@ -113,10 +114,19 @@ def link_loss_parts(pred: LinkPredictor, out, src, dst, dst_neg, mask, keep, dro
     ``dst_neg``, rows of ``out``, where ``mask`` holds; ``keep`` the
     predictor's dropout masks, one set for both calls.  The log is clamped
     at 1e-15 with ``max``, not "+ 1e-15" (reference ``main_link.py
-    v2:64,69``): the same value in f32, and no log(0) at sigmoid saturation."""
-    x_src = out.index_select(0, src)
-    pos_out = predictor_forward(pred, x_src, out.index_select(0, dst), keep, dropout_p)[:, 0]
-    neg_out = predictor_forward(pred, x_src, out.index_select(0, dst_neg), keep, dropout_p)[:, 0]
+    v2:64,69``): the same value in f32, and no log(0) at sigmoid saturation.
+
+    The rows are gathered by ``ops/segsum.py:take_rows``, whose backward
+    adds each row's contributions in a fixed order with no float atomics
+    (``index_select``'s backward on CUDA is ``index_add_``, whose atomics
+    sum in a new order each run): the source's, then the destination's,
+    then the negative's, each in pair order, by kernel 8 (its plain version
+    on CPU tensors).  The negatives are drawn on the device each step, so
+    the 3 L endpoints are sorted there: one sort, glue beside the [3 L, C]
+    gather and sum."""
+    x_src, x_dst, x_neg = take_rows(out, src, dst, dst_neg)
+    pos_out = predictor_forward(pred, x_src, x_dst, keep, dropout_p)[:, 0]
+    neg_out = predictor_forward(pred, x_src, x_neg, keep, dropout_p)[:, 0]
     m = mask.to(out.dtype)
     pos = -(torch.log(torch.clamp(pos_out, min=1e-15)) * m).sum()
     neg = -(torch.log(torch.clamp(1.0 - neg_out, min=1e-15)) * m).sum()
