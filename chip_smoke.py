@@ -2295,7 +2295,10 @@ SHARDED_RANKS = 2  # phase 17: two ranks on the one card, over gloo
 # time gloo's host copies, not the step, so a few suffice after the warm-up
 SHARDED_STEPS = 2  # the flagship GCN
 SHARDED_STEPS_BF16 = 2  # the bf16 sharded steps (GCN and GAT)
-SHARDED_PROFILED = 1  # profiled steps after the timed ones (busy, the kernels' names)
+# profiled steps after the timed ones (busy, the kernels' names): two, since a
+# one-step window once lacked every event of the VQ assign kernel that its
+# launch counter saw run (the kernels are checked by name in that window)
+SHARDED_PROFILED = 2
 # 17b: the kernels each family's sharded path launches on every rank (its
 # f32 and bf16 cases together: rows 1 or 2-3 in both modes), launch counter
 # -> device kernel, the name the profile of its timed steps must show
@@ -2813,9 +2816,9 @@ def sharded_rank(rank, tmp):
         return state, step(state, *pred, X, sh, 1.0, cfg.lr, 1.0, **kw)
 
     def timed(name, step, state, X, shards, cfg, n_steps, pred):
-        """Timed and 3 profiled steps on this rank's shards, the ledger and
-        the peak memory over them; a link step draws its negatives from a
-        generator seeded alike on both ranks."""
+        """Timed and ``SHARDED_PROFILED`` profiled steps on this rank's
+        shards, the ledger and the peak memory over them; a link step draws
+        its negatives from a generator seeded alike on both ranks."""
         kw = {} if pred is None else dict(generator=torch.Generator(
             device="cuda").manual_seed(LINK_NEG_SEED))
 

@@ -13,9 +13,14 @@ arrays.  A multilabel case (its graph's ``multilabel``) runs the step with
 BCE; a link case (``link``) builds a link batch and runs the sharded link
 step with the plan's predictor (numpy, the JAX layout), negatives and
 predictor masks, and pickles the predictor and its square averages too,
-with the per-layer clip's scales where ``cfg.clip`` is set.  Ranks
-outside a case's mesh (a mesh of two in a group of four) make its groups
-and sit it out.  The plan's ``scale`` cases (ranks 0 and 1) run the
+with the per-layer clip's scales where ``cfg.clip`` is set.  A float64
+case (``f64``) casts the state, the features, the predictor and the shard
+to float64 (``convert.py:state_as``, ``predictor_as``, ``batch_as``) and
+pickles each layer's VQ inputs too (``vq_in``: the layer input's and the
+probe gradient's branch slices).  The meshes: the whole group of four
+(1-D), ranks 0 and 1 (1-D, and 2-D at 1 x 2: one data rank, two model
+ranks) and 2 x 2.  Ranks outside a case's mesh (a mesh of two in a group
+of four) make its groups and sit it out.  The plan's ``scale`` cases (ranks 0 and 1) run the
 sharded Trick-1 scale on each rank's logits and pickle its value and the
 logits' gradients: the B + B' scalar scale, or with ``kind`` 'branch-scale'
 the B + M per-branch one (with the codebooks' logits and their
@@ -24,6 +29,7 @@ rows' squared norms [B, nb] and the codewords' [M, nb], and their
 gradients).  Imports the port and torch only, never JAX.
 """
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -36,7 +42,13 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vq_gnn_tpu_torch.config import Config  # noqa: E402
-from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy  # noqa: E402
+from vq_gnn_tpu_torch.convert import (  # noqa: E402
+    batch_as,
+    predictor_as,
+    predictor_from_numpy,
+    state_as,
+    state_from_numpy,
+)
 from vq_gnn_tpu_torch.graph.datasets import prepare, synthetic_sbm  # noqa: E402
 from vq_gnn_tpu_torch.nn.model import model_static, transformer_cmax  # noqa: E402
 from vq_gnn_tpu_torch.nn.vq import VQState  # noqa: E402
@@ -44,6 +56,7 @@ from vq_gnn_tpu_torch.ops.gat import branch_scale, explosion_scale  # noqa: E402
 from vq_gnn_tpu_torch.parallel import (  # noqa: E402
     CollectiveLedger,
     DataMesh,
+    Mesh2D,
     init_distributed,
     make_mesh_2d,
     make_sharded_link_step,
@@ -58,6 +71,7 @@ from vq_gnn_tpu_torch.parallel.multihost import _Collectives  # noqa: E402
 from vq_gnn_tpu_torch.parallel.sharded import _ScaleRanks  # noqa: E402
 from vq_gnn_tpu_torch.sampler.samplers import BatchLoader  # noqa: E402
 from vq_gnn_tpu_torch.train.loop import device_features  # noqa: E402
+from vq_gnn_tpu_torch.train import step as step_mod  # noqa: E402
 from vq_gnn_tpu_torch.train.optim import rmsprop_nu  # noqa: E402
 
 VQ_FIELDS = [f.name for f in dataclasses.fields(VQState)]
@@ -100,11 +114,32 @@ def run_scale(case: dict, rank: int, meshes: dict) -> dict:
             "d_al_cb": cb[0].grad.numpy(), "d_ar_cb": cb[1].grad.numpy()}
 
 
+@contextlib.contextmanager
+def vq_inputs(into):
+    """A context in which ``train/step.py``'s ``vq_update`` appends each
+    call's branch slices of the layer input and of the probe gradient
+    (numpy, at their dtype) to the list ``into``, one call a layer; where
+    ``into`` is None, none."""
+    orig = step_mod.vq_update
+
+    def wrapped(state, X_B, grad, *a, **kw):
+        into.append({"X": X_B.detach().numpy().copy(), "G": grad.detach().numpy().copy()})
+        return orig(state, X_B, grad, *a, **kw)
+
+    if into is not None:
+        step_mod.vq_update = wrapped
+    try:
+        yield
+    finally:
+        step_mod.vq_update = orig
+
+
 def run_case(case: dict, rank: int, meshes: dict) -> dict:
     if case.get("kind") in ("scale", "branch-scale", "cmax"):
         return run_scale(case, rank, meshes)
     kind = case["mesh"]
-    if meshes[kind[1] if kind[0] == "1d" else "2d"] is None:
+    key = kind[1] if kind[0] == "1d" else tuple(kind)
+    if meshes[key] is None:
         return {}  # a rank outside the case's mesh
     cfg = Config(**case["cfg"])
     link, multilabel = case["link"], case["graph"].get("multilabel", False)
@@ -114,23 +149,28 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
                       torch.device("cpu"))
     state = state_from_numpy(case["state"], ms, cfg.lr, "cpu")
     X = device_features(g.x, "cpu")
+    dtype = torch.float64 if case["f64"] else torch.float32
+    if case["f64"]:
+        state, X = state_as(state, dtype), X.to(dtype)
     loader = BatchLoader(g, cfg, train_flag=True, shuffle=False, seed=0, device="cpu",
                          with_link_edges=link)
     batch = next(loader._epoch_iter())[0][0]  # the host batch, alike on every rank
     masks = {k: None if case[k] is None else [torch.as_tensor(m) for m in case[k]]
              for k in ("branch_masks", "dropout_keeps")}
+    mesh = meshes[key]
     if kind[0] == "1d":
-        mesh = meshes[kind[1]]
         state, X, shard = shard_train_inputs(mesh, state, X, batch)
         make = make_sharded_link_step if link else make_sharded_step
     else:
-        mesh = meshes["2d"]
         state, X, shard = shard_train_inputs_2d(mesh, state, X, batch)
         make = make_sharded_link_step_2d if link else make_sharded_step_2d
-    res = {}
+    shard = batch_as(shard, dtype) if case["f64"] else shard
+    res, vq_in = {}, [] if case["f64"] else None
     if link:
         step = make(ms, cfg, mesh)
         pred, pred_opt = predictor_from_numpy(case["pred"], case["pred_nu"], cfg.lr, "cpu")
+        if case["f64"]:
+            pred, pred_opt = predictor_as(pred, pred_opt, dtype)
         keep = None if case["pred_keep"] is None else [torch.as_tensor(k)
                                                         for k in case["pred_keep"]]
         scales, real = [], sharded.clip_scale
@@ -141,8 +181,9 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
 
         sharded.clip_scale = recorded
         try:
-            m = step(state, pred, pred_opt, X, shard, 1.0, cfg.lr, 1.0,
-                     dst_neg=torch.as_tensor(case["dst_neg"]), pred_keep=keep, **masks)
+            with vq_inputs(vq_in):
+                m = step(state, pred, pred_opt, X, shard, 1.0, cfg.lr, 1.0,
+                         dst_neg=torch.as_tensor(case["dst_neg"]), pred_keep=keep, **masks)
         finally:
             sharded.clip_scale = real
         names, pparams = zip(*pred.named_parameters())
@@ -152,9 +193,11 @@ def run_case(case: dict, rank: int, meshes: dict) -> dict:
                    clip_scales=[float(s) for s in scales])
     else:
         step = make(ms, cfg, mesh, multilabel=multilabel)
-        state, m = step(state, X, shard, 1.0, cfg.lr, 1.0, **masks)
+        with vq_inputs(vq_in):
+            state, m = step(state, X, shard, 1.0, cfg.lr, 1.0, **masks)
     return {
         **res,
+        "vq_in": vq_in,
         "metrics": {k: float(v) for k, v in m.items()},
         "params": {k: v.detach().numpy().copy() for k, v in state.model.named_parameters()},
         "nu": _nu(state),
@@ -188,9 +231,13 @@ def main():
     # every rank makes every group, in one order
     pair = dist.new_group([0, 1])
     dev = torch.device("cpu")
+    singles = [dist.new_group([r]) for r in range(2)]  # the 1 x 2 mesh's data groups
     meshes = {world: DataMesh(None, rank, world, dev),
               2: DataMesh(pair, rank, 2, dev) if rank < 2 else None,
-              "2d": make_mesh_2d(2, world // 2, device="cpu")}
+              ("2d", 2, world // 2): make_mesh_2d(2, world // 2, device="cpu"),
+              ("2d", 1, 2): Mesh2D(group=pair, data_group=singles[rank], model_group=pair,
+                                   n_data=1, n_model=2, data_rank=0, model_rank=rank, rank=rank,
+                                   device=dev) if rank < 2 else None}
     res = {case["name"]: run_case(case, rank, meshes) for case in plan["cases"]}
     with open(out_path, "wb") as f:
         pickle.dump(res, f)

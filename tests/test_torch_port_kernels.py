@@ -38,7 +38,7 @@ from vq_gnn_tpu_torch.ops.rev_kernels import (
     rev_recovery_info,
     rev_recovery_info_plain,
 )
-from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain
+from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted, segment_sum_sorted_plain, take_rows
 from vq_gnn_tpu_torch.ops.spmm import build_ell_host, long_rows_host, row_offsets_host
 from vq_gnn_tpu_torch.ops.vq_kernels import (
     assign_mismatch,
@@ -1377,3 +1377,38 @@ def test_link_step_same_bits_and_row_8(dev):
                        if torch.is_tensor(x) else np.asarray(x) for name, x in named_leaves(st)]
                       + [p.detach().cpu().numpy() for p in pred[0].parameters()])
     assert all(np.array_equal(a, b) for a, b in zip(*leaves))
+
+
+@cuda
+def test_cuda_wrappers_refuse_float64(dev):
+    """float64 is the plain versions' diagnostic on the CPU
+    (``config.sum_dtype``, ``tests/test_torch_port_f64.py``); on the card
+    each wrapper on the GCN link path refuses it by name: kernel 1 (its
+    rows), kernel 8 (its partials, also as ``take_rows``' backward sums
+    them), kernel 2 (its inputs) and kernel 3 (its table).  Nothing casts
+    or falls back to a plain version there."""
+    er, ec, ev, x = _ell_case(40, 60, 8, 16, 8)
+    ell = [torch.as_tensor(a).to(dev) for a in (er, ec, ev)]
+    x = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(3)
+    with pytest.raises(ValueError, match="ell_aggregate: x must be float32, bfloat16 or "
+                                         "float16, got torch.float64"):
+        ell_aggregate(x, *ell, 40)
+    seg = torch.as_tensor(np.sort(rng.integers(0, 30, 50)).astype(np.int32), device=dev)
+    with pytest.raises(ValueError, match="segment_sum_sorted: partials must be contiguous "
+                                         "float32"):
+        segment_sum_sorted(torch.zeros((50, 4), dtype=torch.float64, device=dev), seg, 30)
+    table = torch.zeros((30, 4), dtype=torch.float64, device=dev, requires_grad=True)
+    (r,) = take_rows(table, torch.zeros(5, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="segment_sum_sorted: partials must be contiguous "
+                                         "float32"):
+        r.sum().backward()
+    xn = torch.zeros((2, 64, 8), dtype=torch.float64, device=dev)
+    emb = torch.zeros((2, 16, 8), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="fused_assign_branches: xn must be contiguous "
+                                         "torch.float32"):
+        fused_assign_branches(xn, emb, torch.ones(64, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="lookup_codewords: emb_out must be contiguous "
+                                         "torch.float32"):
+        lookup_codewords(torch.zeros((10, 2), dtype=torch.int16, device=dev),
+                         torch.zeros(3, dtype=torch.int64, device=dev), emb)

@@ -75,7 +75,15 @@ saw to the references:
     at bf16) against the JAX ``train_step`` of ``make_step_fns(multilabel=
     True)``; the shards' link blocks reassembling the batch's pairs; the
     link ledger ([B_pad, C_out] each way a step) at the audit's graph; the
-    B + M GAT link step refused by name, as the whole batch's.
+    B + M GAT link step refused by name, as the whole batch's;
+(l) float64 (``Case.f64``: the state, features, predictor and batch cast by
+    ``convert.py:state_as``, ``predictor_as``, ``batch_as``; the plain
+    versions in float64, a diagnostic and not a compute dtype): the link
+    step at 2 ranks and on the 2-D 1 x 2 mesh, the node step at 2 ranks,
+    with the inter-layer BN, against the port's whole-batch step in float64
+    at 1e-9 of each tensor's largest value (``F64_TOL``): a sum's order
+    moves float64 by about 2^-29 of f32's reach, so what is left is a
+    fault; the VQ inputs (the probes' gradients, the layer inputs) too.
 
 The replicated state (parameters, codebooks, BN) agrees across the ranks
 that hold it.
@@ -106,7 +114,13 @@ from vq_gnn_tpu.train.state import init_train_state as j_init_train_state
 from vq_gnn_tpu.train.step import make_step_fns as j_make_step_fns
 from vq_gnn_tpu_torch import config as tcfg
 from vq_gnn_tpu_torch import parallel as tpar
-from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy
+from vq_gnn_tpu_torch.convert import (
+    batch_as,
+    predictor_as,
+    predictor_from_numpy,
+    state_as,
+    state_from_numpy,
+)
 from vq_gnn_tpu_torch.graph import datasets as tdata
 from vq_gnn_tpu_torch.nn import model as tmodel
 from vq_gnn_tpu_torch.ops import gat as tgat
@@ -116,6 +130,7 @@ from vq_gnn_tpu_torch.train import link as tlink
 from vq_gnn_tpu_torch.train.loop import device_features
 from vq_gnn_tpu_torch.train.optim import rmsprop_nu
 from vq_gnn_tpu_torch.train.step import make_step_fns
+from tests._torch_mesh_worker import vq_inputs
 from tests.test_torch_port_native import steady_native
 
 steady_native()  # one native host library on both sides (that file says why)
@@ -161,6 +176,7 @@ class Case(NamedTuple):
     # (the codebooks' gradient half starts at zero), so it would test nothing
     warm: bool = False
     link: bool = False  # a link batch through the link step
+    f64: bool = False  # the step in float64 (the plain versions), held as (l)
 
 
 CASES = {name: Case(*c) for name, c in {
@@ -266,6 +282,11 @@ CASES = {name: Case(*c) for name, c in {
     "1d-GCN-link-4-options": (OPTIONS, ("1d", 4), "port", GRAPH, False, True),
     "2d-GCN-link-options": (OPTIONS, ("2d", 2, 2), "port", GRAPH, False, True),
     "1d-GCN-link-4-audit": ({}, ("1d", 4), None, AUDIT_GRAPH, False, True),
+    # (l) float64: the link step on both meshes of the link probe
+    # (tools/link_hold_probe_torch.py: 1-D at 2, 2-D at 1 x 2), the node step
+    "1d-GCN-link-2-f64": ({}, ("1d", 2), "port", GRAPH, False, True, True),
+    "2d-GCN-link-f64": ({}, ("2d", 1, 2), "port", GRAPH, False, True, True),
+    "1d-GCN-2-f64": ({}, ("1d", 2), "port", GRAPH, False, False, True),
     "1d-GCN-ml-2": ({}, ("1d", 2), "jax", ML_GRAPH),
     "1d-GCN-ml-4": ({}, ("1d", 4), "jax", ML_GRAPH),
     "2d-GCN-ml": ({}, ("2d", 2, 2), "jax", ML_GRAPH),
@@ -297,6 +318,14 @@ NU_FLOOR = 1e-12
 # the port's whole-batch step shows against JAX alike)
 BF16_TOL = dict(loss=(5e-3, 5e-3), codebook=(2e-2, 3e-5), params=ATOL_PARAMS_BN, nu=5e-2)
 BF16_JAX_NU = 0.25
+# (l) float64: the loss to rtol 1e-9; every other tensor (the parameters,
+# their nu, the predictor's, the codebooks, the VQ inputs) to 1e-9 of its
+# largest |value|, rtol 0; nu's largest no less than NU_FLOOR (the biases
+# ahead of the BN, a zero gradient in exact arithmetic: float64 noise).
+# Measured worst, of the largest (-k f64 -s): the VQ inputs 3.0e-16, the
+# parameters 4.2e-11 (those biases: noise that RMSprop scales by lr / eps),
+# the codebooks 7.1e-18, the predictor 2.0e-16, the loss 0
+F64_TOL = dict(loss=(1e-9, 0.0), rel=1e-9)
 # (h): two ranks' logits; al's maximum 2.5 once on each rank, ar's 1.25
 # twice on rank 0 and once on rank 1, and a larger value on an invalid row
 # of each; each rank's cotangent of the scale is its part of the whole
@@ -488,7 +517,7 @@ class MeshRun:
                 self.link[name] = link
             cases.append(dict(name=name, cfg=dataclasses.asdict(cfg), graph=case.graph,
                               state=_plain(state), mesh=case.mesh, branch_masks=branch,
-                              dropout_keeps=keeps, link=case.link, **link))
+                              dropout_keeps=keeps, link=case.link, f64=case.f64, **link))
         plan = os.path.join(tmp, "plan.pkl")
         with open(plan, "wb") as f:
             pickle.dump(dict(cases=cases + [SCALE_TIE, SCALE_TIE_BRANCH, SCALE_TIE_CMAX]), f)
@@ -610,13 +639,14 @@ def _jax_link_reference(name):
             _vq_np(new.vq_states, new.vq_states_tr), batch, _pred_np(pp, nu))
 
 
-def _port_reference(case, graph, state_np, masks, link=None):
+def _port_reference(case, graph, state_np, masks, link=None, f64=False, inputs=None):
     """(metrics, ({param: value}, {param: nu}), :func:`_vq_np` of the new
     state, and with ``link`` the predictor as :func:`_pred_np`) of the
     port's ``train_step`` on the whole batch from ``state_np``, or with
     ``link`` (the worker's plan of the case: the predictor, the negatives
     and the predictor's masks) of its ``link_train_step`` on the whole link
-    batch."""
+    batch.  With ``f64`` in float64 (as the worker casts it); ``inputs``, a
+    list, takes each layer's VQ inputs (``_torch_mesh_worker.vq_inputs``)."""
     cfg, g, c, _ = case
     tc = tcfg.Config(**dataclasses.asdict(cfg))
     cpu = torch.device("cpu")
@@ -628,17 +658,24 @@ def _port_reference(case, graph, state_np, masks, link=None):
                                        )._epoch_iter())[0][0].to(cpu)
     branch, keeps = ([None if m is None else [torch.as_tensor(t) for t in m] for m in masks])
     X = device_features(tg.x, cpu)
+    if f64:
+        state, X, batch = state_as(state, torch.float64), X.double(), batch_as(batch,
+                                                                                torch.float64)
     if link is None:
-        state, m = make_step_fns(ms, tc).train_step(state, X, batch, 1.0, LR, 1.0,
-                                                    branch_masks=branch, dropout_keeps=keeps)
+        with vq_inputs(inputs):
+            state, m = make_step_fns(ms, tc).train_step(state, X, batch, 1.0, LR, 1.0,
+                                                        branch_masks=branch, dropout_keeps=keeps)
         pred = None
     else:
         pred, opt = predictor_from_numpy(link["pred"], link["pred_nu"], LR, cpu)
-        m = tlink.make_link_step(ms, tc)[0](
-            state, pred, opt, X, batch, 1.0, LR, 1.0, dst_neg=torch.tensor(link["dst_neg"]),
-            pred_keep=None if link["pred_keep"] is None else [
-                torch.as_tensor(k) for k in link["pred_keep"]], branch_masks=branch,
-            dropout_keeps=keeps)
+        if f64:
+            pred, opt = predictor_as(pred, opt, torch.float64)
+        with vq_inputs(inputs):
+            m = tlink.make_link_step(ms, tc)[0](
+                state, pred, opt, X, batch, 1.0, LR, 1.0, dst_neg=torch.tensor(link["dst_neg"]),
+                pred_keep=None if link["pred_keep"] is None else [
+                    torch.as_tensor(k) for k in link["pred_keep"]], branch_masks=branch,
+                dropout_keeps=keeps)
         names, params = zip(*pred.named_parameters())
         pred = ({k: p.detach().numpy() for k, p in zip(names, params)},
                 {k: v.numpy() for k, v in zip(names, rmsprop_nu(opt, params))})
@@ -652,7 +689,10 @@ def _model_part(a, m, n_model, axis):
 
 
 def _tol(name):
-    """bf16 and f16 compute ("f16" is in both names) at BF16_TOL."""
+    """bf16 and f16 compute ("f16" is in both names) at BF16_TOL, float64
+    at F64_TOL."""
+    if CASES[name].f64:
+        return F64_TOL
     if "f16" not in name:
         return F32_TOL
     return {**BF16_TOL, "nu": BF16_JAX_NU} if CASES[name][2] == "jax" else BF16_TOL
@@ -664,6 +704,7 @@ def _check(name, out, rank, mesh, loss, params_nu, vq, N, atol_params):
     n_model = mesh[2] if mesh[0] == "2d" else 1
     m = rank % n_model
     tol = _tol(name)
+    rel = tol.get("rel")  # float64: of each tensor's largest value
     np.testing.assert_allclose(out["metrics"]["loss"], loss, rtol=tol["loss"][0],
                                atol=tol["loss"][1], err_msg=f"{name} rank {rank} loss")
     params, nu = params_nu
@@ -683,15 +724,15 @@ def _check(name, out, rank, mesh, loss, params_nu, vq, N, atol_params):
             noisy.append(k)
             print(f"{name} rank {rank}: {k} held by nu alone, max|diff| "
                   f"{np.abs(mine - v).max():.3g}, nu {np.abs(nu_ref).max():.3g}")
+        elif rel:
+            np.testing.assert_allclose(mine, v, rtol=0, atol=rel * np.abs(v).max(),
+                                       err_msg=f"{name} rank {rank} {k}")
         else:
             np.testing.assert_allclose(mine, v, atol=tol.get("params", atol_params),
                                        err_msg=f"{name} rank {rank} {k}")
         # the first step's nu is (1 - alpha) g^2: the gradient's size, which
         # the parameters (moved by about lr sign(g)) do not show
-        rtol = tol["nu"]
-        np.testing.assert_allclose(out["nu"][k], nu_ref, rtol=rtol,
-                                   atol=rtol * max(np.abs(nu_ref).max(), NU_FLOOR),
-                                   err_msg=f"{name} rank {rank} nu of {k}")
+        _hold_nu(out["nu"][k], nu_ref, tol, f"{name} rank {rank} nu of {k}")
     # only biases, and never all of them
     assert all(params[k].ndim == 1 for k in noisy) and len(noisy) < sum(
         v.ndim == 1 for v in params.values()), (name, noisy)
@@ -702,11 +743,21 @@ def _check(name, out, rank, mesh, loss, params_nu, vq, N, atol_params):
             if n_model > 1:
                 emb, cidx = _model_part(emb, m, n_model, 0), _model_part(cidx, m, n_model, 1)
             o = out[key][l]
-            rtol, atol = tol["codebook"]
+            rtol, atol = (0.0, rel * np.abs(emb).max()) if rel else tol["codebook"]
             np.testing.assert_allclose(o["embedding"], emb, rtol=rtol, atol=atol,
                                        err_msg=f"{name} rank {rank} layer {l} {key} codebook")
             np.testing.assert_array_equal(o["c_indices"][:N], cidx[:N],
                                           err_msg=f"{name} rank {rank} layer {l} {key} c_indices")
+
+
+def _hold_nu(got, ref, tol, err):
+    """RMSprop's square averages to ``tol["nu"]`` (rtol, and times the
+    largest as the atol), or in float64 to ``tol["rel"]`` of the largest
+    (rtol 0); the largest no less than NU_FLOOR."""
+    rel = tol.get("rel")
+    scale = rel or tol["nu"]
+    np.testing.assert_allclose(got, ref, rtol=0.0 if rel else scale,
+                               atol=scale * max(np.abs(ref).max(), NU_FLOOR), err_msg=err)
 
 
 def _replicas_agree(run, name, mesh):
@@ -802,7 +853,8 @@ def test_sharded_step_matches_whole_batch(run, name):
     cfg, g, _, ms = case
     state = _start_state(name)
     masks = _masks(cfg, ms, _jax_batch(cfg, g).B_pad)
-    m, params, vq, _ = _port_reference(case, CASES[name][3], _plain(state), masks)
+    m, params, vq, _ = _port_reference(case, CASES[name][3], _plain(state), masks,
+                                       f64=CASES[name].f64)
     loss, info = m["loss"], m["info_backward"]
     if _is_bm(name):
         assert info != 0.0, name
@@ -834,14 +886,14 @@ def _check_link(name, out, rank, metrics, pred, atol_params):
                                err_msg=f"{name} rank {rank} loss_pre")
     assert not out["metrics"]["bad_init"], name
     values, nu = pred
+    rel = tol.get("rel")
     assert set(out["pred"]) == set(values), name
     for k, v in values.items():
-        np.testing.assert_allclose(out["pred"][k], v, atol=tol.get("params", atol_params),
+        np.testing.assert_allclose(out["pred"][k], v, rtol=0 if rel else 1e-7,
+                                   atol=rel * np.abs(v).max() if rel else
+                                   tol.get("params", atol_params),
                                    err_msg=f"{name} rank {rank} predictor {k}")
-        rtol = tol["nu"]
-        np.testing.assert_allclose(out["pred_nu"][k], nu[k], rtol=rtol,
-                                   atol=rtol * max(np.abs(nu[k]).max(), NU_FLOOR),
-                                   err_msg=f"{name} rank {rank} predictor nu of {k}")
+        _hold_nu(out["pred_nu"][k], nu[k], tol, f"{name} rank {rank} predictor nu of {k}")
 
 
 @pytest.mark.parametrize("jname", ["1d-GCN-link", "2d-GCN-link", "1d-SAGE-link", "1d-GAT-link",
@@ -882,24 +934,73 @@ def test_sharded_link_step_matches_whole_batch(run, name):
     """The link step with predictor and model dropout and dropbranch, 1-D
     and 2-D, against the port's ``link_train_step`` on the whole batch with
     the whole batch's masks and negatives; the dropped branches' codebooks
-    keep their values."""
+    keep their values.  The float64 cases, (l), without the options."""
     case = run.ctx[name]
     cfg, g, _, ms = case
     state = _start_state(name)
     masks = _masks(cfg, ms, _jax_batch(cfg, g).B_pad)
     metrics, params, vq, pred = _port_reference(case, CASES[name].graph, _plain(state), masks,
-                                                link=run.link[name])
+                                                link=run.link[name], f64=CASES[name].f64)
     mesh = CASES[name].mesh
     n_model = mesh[2] if mesh[0] == "2d" else 1
     for rank, out in run.ranks(name):
         _check(name, out, rank, mesh, metrics["loss"], params, vq, g.num_nodes, ATOL_PARAMS)
         _check_link(name, out, rank, metrics, pred, ATOL_PARAMS)
-        for l, keep in enumerate(masks[0]):  # a model rank's branches
+        for l, keep in enumerate(masks[0] or []):  # a model rank's branches
             keep = _model_part(keep, rank % n_model, n_model, 0)
             ref = _model_part(np.asarray(state.vq_states[l].embedding), rank % n_model,
                               n_model, 0)
             np.testing.assert_array_equal(out["vq"][l]["embedding"][~keep], ref[~keep])
     _replicas_agree(run, name, mesh)
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if CASES[n].f64])
+def test_sharded_f64_vq_inputs_match_whole_batch(run, name):
+    """(l): each layer's VQ inputs of the sharded float64 step, the probes'
+    gradients (G) and the layer inputs (X), reassembled over the ranks (the
+    1-D ranks' rows, the 2-D model ranks' branches), against the whole
+    batch's float64 step at 1e-9 of each tensor's largest value (the other
+    tensors: ``test_sharded_step_matches_whole_batch`` and
+    ``test_sharded_link_step_matches_whole_batch``).  Prints the worst
+    reading of each kind of tensor (``-s``), of its largest value."""
+    case = run.ctx[name]
+    mesh = CASES[name].mesh
+    inputs = []
+    metrics, (params, nu), vq, pred = _port_reference(
+        case, CASES[name].graph, _plain(_start_state(name)), (None, None),
+        link=run.link.get(name), f64=True, inputs=inputs)
+    outs = run.ranks(name)
+    assert len(outs) == 2 and len(inputs) == case[3].num_layers
+    n_model = mesh[2] if mesh[0] == "2d" else 1
+
+    def rel(got, ref):
+        return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+    worst = {}
+    for l, whole in enumerate(inputs):
+        for h in ("X", "G"):
+            got = np.concatenate([out["vq_in"][l][h] for _, out in outs],
+                                 axis=1 if n_model == 1 else 0)
+            assert got.dtype == whole[h].dtype == np.float64, (name, l, h)
+            np.testing.assert_allclose(got, whole[h], rtol=0,
+                                       atol=F64_TOL["rel"] * np.abs(whole[h]).max(),
+                                       err_msg=f"{name} layer {l} {h}")
+            worst[h] = max(worst.get(h, 0.0), rel(got, whole[h]))
+    for rank, out in outs:  # the readings of what _check holds
+        m = rank % n_model
+        for k, v in params.items():
+            if n_model > 1 and v.ndim >= 2:
+                v = _model_part(v, m, n_model, 1)
+            worst["params"] = max(worst.get("params", 0.0), rel(out["params"][k], v))
+        for l, ref in enumerate(vq["vq"]):
+            emb = _model_part(ref["embedding"], m, n_model, 0)
+            worst["codebooks"] = max(worst.get("codebooks", 0.0),
+                                     rel(out["vq"][l]["embedding"], emb))
+        for k, v in (pred or ({}, {}))[0].items():
+            worst["predictor"] = max(worst.get("predictor", 0.0), rel(out["pred"][k], v))
+        worst["loss"] = rel(np.float64(out["metrics"]["loss"]), np.float64(metrics["loss"]))
+    print(f"{name}: worst |sharded - whole| of the largest, float64: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 # ---------------------------------------------------------------------------

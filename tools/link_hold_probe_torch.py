@@ -40,18 +40,52 @@ EMA size and members) and tells its cause apart:
   order), so a (c) is a lead to follow, not a fault shown;
 - (d) anything else.
 
+**The float64 control** (``--f64``) tells a sum's order from a fault
+without knowing where the sums split.  For every state it casts the state,
+the predictor, the features and the batch's values to float64
+(``convert.py:state_as``, ``predictor_as``, ``batch_as``) and runs, on the
+CPU through the plain versions, the whole batch's link step and the sharded
+link step on two gloo ranks on the 1-D and on the 2-D 1 x 2 mesh, with the
+same negatives, each step's VQ inputs kept at their dtype.  float64 rounds
+2^29 times finer than f32: a gap from the order of a sum shrinks by about
+that factor, one from computing something else (a dropped or doubled
+cotangent, a mask, a count, a term one side lacks) does not.  For every
+codeword beyond the hold **on either mesh** it prints the f32 gap of its
+column's inputs over its member rows (the card's sharded step against the
+card's whole batch), the float64 gap of the same (the CPU's), their ratio,
+the same three of the codeword itself, and its class:
+
+- order: both ratios at most ``ORDER_RATIO`` (1e-4; order alone predicts
+  about 2e-9);
+- fault: either ratio at least ``FAULT_RATIO`` (1e-1);
+- (d): anything between.
+
+Where the f32 inputs agree over the member rows the codeword's gap is the
+VQ update's own (its sums over the ranks), and its ratio alone decides.
+
+For every state it also prints, per mesh and layer, the largest float64
+difference of the X and G halves, each column's relative to that column's
+largest value: a fault that stays under the hold shows there.  The f32
+columns beside it are the card's.  The control runs the plain versions:
+a kernel that disagrees with its plain version at a shard's shapes is
+outside its view (``chip_smoke.py`` phase 17b holds each kernel there).
+
 It also times the whole-batch link step at the collab widths (``--time-steps``
 steps after the first seed's, then 5 profiled ones: device busy a step) and
 lists the device kernels of one profiled step whose names are those of
 ``index_add_`` or ``scatter_add_``; ``--time-only`` stops there.
 
     python3 tools/link_hold_probe_torch.py [--seeds 0 1 2] [--steps 80] [--every 10]
-        [--twice 4] [--time-steps 20] [--time-only] [--out probe.json]
+        [--twice 4] [--time-steps 20] [--time-only] [--f64] [--out probe.json]
+        [--device cpu --nodes 3000]
 
-It needs a GPU (it exits 1 without one) and imports no JAX.  To run it on
-another tree (a parent commit unpacked beside this one), copy it into that
-tree's ``tools/`` and run it from there: it imports the package and
-``chip_smoke.py`` of the tree it lies in.
+It needs a GPU (it exits 1 without one) unless ``--device cpu``, which runs
+every step on the CPU (the plain versions, no timing) at ``--nodes`` nodes
+(``tools/link_experiment_torch.py:scaled_config``'s cut): a dry run of the
+probe itself.  It imports no JAX.  To run it on another tree (a parent
+commit unpacked beside this one), copy it into that tree's ``tools/`` and
+run it from there: it imports the package and ``chip_smoke.py`` of the tree
+it lies in.
 """
 
 import argparse
@@ -75,6 +109,8 @@ RANKS = 2
 EPS32 = 2.0 ** -24  # f32's unit roundoff
 KAPPA = 8  # the reach of an f32 sum, in eps sum|terms|: (b) within it
 HOLD = 2e-5  # chip_smoke.compare_step's codebook hold, rtol and atol
+ORDER_RATIO, FAULT_RATIO = 1e-4, 1e-1  # the float64 control's classes
+MESHES = ("1-D", "2-D 1x2")
 
 
 def load_chip_smoke():
@@ -98,8 +134,8 @@ CAPTURE = {"on": False, "calls": []}
 
 def capture_vq_inputs():
     """Wrap ``train/step.py``'s ``vq_update`` so that, while ``CAPTURE['on']``,
-    each call's state before the update, inputs and assignments are kept
-    (numpy): one call a layer, in order."""
+    each call's inputs and assignments are kept (numpy, the inputs at their
+    dtype): one call a layer, in order."""
     from vq_gnn_tpu_torch.train import step as step_mod
 
     orig = step_mod.vq_update
@@ -108,7 +144,7 @@ def capture_vq_inputs():
         new, idx = orig(state, X_B, grad, batch_idx, p, valid=valid, **kw)
         if CAPTURE["on"]:
             CAPTURE["calls"].append(dict(
-                X=X_B.detach().float().cpu().numpy(), G=grad.detach().float().cpu().numpy(),
+                X=X_B.detach().cpu().numpy(), G=grad.detach().cpu().numpy(),
                 valid=valid.cpu().numpy(), idx=idx.cpu().numpy()))
         return new, idx
 
@@ -127,17 +163,25 @@ def run_captured(fn):
 # ---------------------------------------------------------------------------
 # the ranks
 # ---------------------------------------------------------------------------
-def rank_main(rank, tmp, twice):
-    """One of the two gloo ranks on cuda:0: for every state, one sharded
-    link step on each mesh (1-D: its VQ inputs kept; the first ``twice``
-    states twice on each mesh); pickles ``out<rank>_<k>.pkl``."""
+def rank_main(rank, tmp, twice, device, f64=False):
+    """One of the two gloo ranks on ``device`` (the card: both on cuda:0):
+    for every state, one sharded link step on each mesh, its VQ inputs kept
+    (the first ``twice`` states twice on each mesh); pickles
+    ``out<rank>_<k>.pkl``.  With ``f64`` on the CPU, from the state cast to
+    float64 (the float64 control): ``f64_out<rank>_<k>.pkl``."""
     from datetime import timedelta
 
     import torch
     import torch.distributed as dist
 
     from vq_gnn_tpu_torch.config import Config, apply_matmul_precision
-    from vq_gnn_tpu_torch.convert import predictor_from_numpy, state_from_numpy
+    from vq_gnn_tpu_torch.convert import (
+        batch_as,
+        predictor_as,
+        predictor_from_numpy,
+        state_as,
+        state_from_numpy,
+    )
     from vq_gnn_tpu_torch.nn.model import model_static
     from vq_gnn_tpu_torch.parallel import (
         make_mesh,
@@ -150,40 +194,50 @@ def rank_main(rank, tmp, twice):
 
     cs = load_chip_smoke()
     capture_vq_inputs()
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", world_size=RANKS,
-                            rank=rank, timeout=timedelta(seconds=600))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // RANKS))
+    tag = "f64_" if f64 else ""
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg{tag}", world_size=RANKS,
+                            rank=rank, timeout=timedelta(seconds=1800))
     with open(os.path.join(tmp, "plan.pkl"), "rb") as f:
         plan = pickle.load(f)
-    X = torch.as_tensor(plan["X"]).cuda()
-    meshes = (("1-D", make_mesh(RANKS, device="cuda:0"), shard_train_inputs,
-               make_sharded_link_step, 1),
-              ("2-D 1x2", make_mesh_2d(1, RANKS, device="cuda:0"), shard_train_inputs_2d,
-               make_sharded_link_step_2d, RANKS))
+    dtype = torch.float64 if f64 else torch.float32
+    X = torch.as_tensor(plan["X"]).to(dev, dtype)
+    meshes = ((MESHES[0], make_mesh(RANKS, device=dev), shard_train_inputs,
+               make_sharded_link_step),
+              (MESHES[1], make_mesh_2d(1, RANKS, device=dev), shard_train_inputs_2d,
+               make_sharded_link_step_2d))
     for k, (seed, path) in enumerate(plan["states"]):
         with open(path, "rb") as f:
             snap = pickle.load(f)
         sd = plan["seeds"][seed]
         cfg = Config(**sd["cfg"])
         apply_matmul_precision(cfg)
-        dst_neg = torch.as_tensor(sd["dst_neg"], device="cuda")
+        dst_neg = torch.as_tensor(sd["dst_neg"], device=dev)
         out = {}
-        for mname, mesh, place, make, n_model in meshes:
+        for mname, mesh, place, make in meshes:
             digests = []
             for rep in range(2 if k < twice else 1):
-                ms = model_static(cfg, plan["F"], plan["C"], torch.device("cuda"))
-                state = state_from_numpy(snap["state"], ms, cfg.lr, "cuda")
-                pred = predictor_from_numpy(*snap["pred"], cfg.lr, "cuda")
+                ms = model_static(cfg, plan["F"], plan["C"], dev)
+                state = state_from_numpy(snap["state"], ms, cfg.lr, dev)
+                pred = predictor_from_numpy(*snap["pred"], cfg.lr, dev)
+                if f64:
+                    state, pred = state_as(state, dtype), predictor_as(*pred, dtype)
                 state, _, shard = place(mesh, state, X, sd["b0"])
+                if f64:
+                    shard = batch_as(shard, dtype)
                 step = make(ms, cfg, mesh)
 
                 def one():
                     return step(state, *pred, X, shard, 1.0, cfg.lr, 1.0, dst_neg=dst_neg)
 
-                if mname == "1-D" and rep == 0:
-                    m, calls = run_captured(one)
-                    out["calls"] = calls
-                    out["count"] = float(shard.link_mask.sum())
+                if rep == 0:
+                    m, out["calls", mname] = run_captured(one)
+                    if mname == MESHES[0]:  # the 1-D ranks' pair blocks
+                        out["count"] = float(shard.link_mask.sum())
                 else:
                     m = one()
                 rec = cs._step_record(torch, state, m, pred[0])
@@ -192,7 +246,7 @@ def rank_main(rank, tmp, twice):
                 if rep == 0:
                     out[mname] = rec
             out[mname, "digests"] = digests
-        with open(os.path.join(tmp, f"out{rank}_{k}.pkl"), "wb") as f:
+        with open(os.path.join(tmp, f"{tag}out{rank}_{k}.pkl"), "wb") as f:
             pickle.dump(out, f)
     dist.destroy_process_group()
 
@@ -266,17 +320,16 @@ def codeword_f64(torch, vq_prev, call, p, b, c, j):
 def classify(torch, miss, snap, p, ref_calls, got_calls, perm_calls, cpu_calls, ref, got, N,
              count_ok):
     """The cause of one 1-D codeword beyond the hold, (a)-(d), with its
-    float64 numbers.  ``perm_calls``: the VQ inputs of the whole-batch step
-    once more with its pairs in another order (the same sums, in another
-    order); ``cpu_calls``, where given, those of the whole-batch step on the
-    CPU (plain versions: every sum in another order).  Their largest
-    difference from the card's whole-batch inputs in the column is the
-    reach of f32 rounding there, measured."""
+    float64 numbers.  ``got_calls``: the 1-D sharded step's VQ inputs as
+    the whole batch's (:func:`assemble`); ``perm_calls``: those of the
+    whole-batch step once more with its pairs in another order (the same
+    sums, in another order); ``cpu_calls``, where given, those of the
+    whole-batch step on the CPU (plain versions: every sum in another
+    order).  Their largest difference from the card's whole-batch inputs in
+    the column is the reach of f32 rounding there, measured."""
     i, b, c, j = miss["layer"], miss["branch"], miss["codeword"], miss["column"]
     prev = snap["state"]["vq_states"][i]
-    r_call, q_call = ref_calls[i], perm_calls[i]
-    g_call = {k: np.concatenate([gc[i][k] for gc in got_calls], axis=1 if k in ("X", "G", "idx")
-                                else 0) for k in ("X", "G", "valid", "idx")}
+    r_call, q_call, g_call = ref_calls[i], perm_calls[i], got_calls[i]
     r = codeword_f64(torch, prev, r_call, p, b, c, j)
     g = codeword_f64(torch, prev, g_call, p, b, c, j)
     q = codeword_f64(torch, prev, q_call, p, b, c, j)
@@ -333,6 +386,82 @@ def classify(torch, miss, snap, p, ref_calls, got_calls, perm_calls, cpu_calls, 
                 max_half_all_rows=float(np.abs(a_ref).max()))
 
 
+def assemble(rank_calls, mname):
+    """The sharded step's VQ inputs on mesh ``mname`` as the whole batch's,
+    layer by layer: the 1-D ranks' rows side by side, the 2-D model ranks'
+    branches."""
+    rows = mname == MESHES[0]
+    out = []
+    for parts in zip(*rank_calls):
+        call = {k: np.concatenate([c[k] for c in parts], axis=1 if rows else 0)
+                for k in ("X", "G", "idx")}
+        call["valid"] = (np.concatenate([c["valid"] for c in parts]) if rows
+                         else parts[0]["valid"])
+        out.append(call)
+    return out
+
+
+def half_diffs(ref, got):
+    """Per layer, the largest difference of the X and of the G half over the
+    valid rows, each column's relative to that column's largest |value| in
+    ``ref``."""
+    out = []
+    for r, g in zip(ref, got):
+        v = r["valid"]
+        row = {}
+        for h in ("X", "G"):
+            e, a = r[h][:, v].astype(np.float64), g[h][:, v].astype(np.float64)
+            den, num = np.abs(e).max(1), np.abs(a - e).max(1)
+            row[h] = float(np.where(den > 0, num / np.where(den > 0, den, 1.0),
+                                    np.where(num > 0, np.inf, 0.0)).max())
+        out.append(row)
+    return out
+
+
+def halves_text(halves) -> str:
+    """:func:`half_diffs` as "[X / G, ...]" a layer."""
+    return "[" + ", ".join(f"{h['X']:.3g} / {h['G']:.3g}" for h in halves) + "]"
+
+
+def f64_control(miss, ref32, got32, ref64, got64, emb64_ref, emb64_got, D):
+    """The float64 control of one codeword beyond the hold (the module
+    docstring): over its member rows (the card's whole batch's) the f32 and
+    float64 gaps of its column's inputs, sharded against whole, and the
+    same of the codeword itself; their ratios (the inputs' none where their
+    f32 gap is 0: the codeword's gap is then the VQ update's own sums') and
+    the class."""
+    i, b, c, j = miss["layer"], miss["branch"], miss["codeword"], miss["column"]
+    r = ref32[i]
+    rows = np.nonzero(r["valid"] & (r["idx"][b] == c))[0]
+    half, col = ("G", j - D) if j >= D else ("X", j)
+
+    def gap(got, ref):
+        if not len(rows):
+            return 0.0
+        a, e = got[i][half][b, rows, col], ref[i][half][b, rows, col]
+        return float(np.abs(a.astype(np.float64) - e).max())
+
+    in32, in64 = gap(got32, ref32), gap(got64, ref64)
+    cw32 = abs(miss["got"] - miss["ref"])
+    cw64 = abs(float(emb64_got[i][b, c, j]) - float(emb64_ref[i][b, c, j]))
+    ratio_in = in64 / in32 if in32 else math.nan
+    ratio_cw = cw64 / cw32 if cw32 else math.nan
+    # where the f32 inputs agree, the codeword's gap is the update's own
+    ratios = [x for x in (ratio_in, ratio_cw) if not math.isnan(x)]
+    worst = max(ratios, default=math.nan)
+    if not ratios:
+        cls = "d"
+    elif worst >= FAULT_RATIO:
+        cls = "fault"
+    elif worst <= ORDER_RATIO:
+        cls = "order"
+    else:
+        cls = "d"
+    return dict(layer=i, branch=b, codeword=c, column=j, half=half, members=len(rows),
+                excess=miss["excess"], in_gap32=in32, in_gap64=in64, in_ratio=ratio_in,
+                cw_gap32=cw32, cw_gap64=cw64, cw_ratio=ratio_cw, f64_cls=cls)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
@@ -344,12 +473,20 @@ def main(argv=None):
     ap.add_argument("--time-only", action="store_true",
                     help="only the timing: the first seed's --steps steps, then the timed and "
                          "5 profiled steps; no states, no ranks")
+    ap.add_argument("--f64", action="store_true",
+                    help="the float64 control on the CPU, on both meshes (the module docstring)")
     ap.add_argument("--out", help="also write every state's record there, as JSON")
+    ap.add_argument("--device", default="cuda",
+                    help="'cpu': every step on the CPU, no timing (a dry run of the probe)")
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="the graph's nodes (default: collab's); fewer cut the configuration "
+                         "as tools/link_experiment_torch.py does")
     args = ap.parse_args(argv)
 
     import torch
 
-    if not torch.cuda.is_available():
+    card = args.device == "cuda"
+    if card and not torch.cuda.is_available():
         print("link_hold_probe_torch: no CUDA device", file=sys.stderr)
         return 1
     import torch.multiprocessing as mp
@@ -358,8 +495,11 @@ def main(argv=None):
     from vq_gnn_tpu_torch import ops
     from vq_gnn_tpu_torch.config import apply_matmul_precision
     from vq_gnn_tpu_torch.convert import (
+        batch_as,
+        predictor_as,
         predictor_from_numpy,
         predictor_to_numpy,
+        state_as,
         state_from_numpy,
         state_to_numpy,
     )
@@ -371,13 +511,16 @@ def main(argv=None):
 
     cs = load_chip_smoke()
     capture_vq_inputs()
-    gpu = gpu_line()
+    gpu = gpu_line() if card else "cpu"
+    dev = torch.device(args.device)
+    nodes = args.nodes or tool.N_COLLAB
     log(f"[probe] tree {ROOT} | {gpu} | torch {torch.__version__}")
     t0 = time.time()
-    g, split = tool.build_graph_and_split()
-    cfg0 = tool.vq_config("GCN", 1)
+    g, split = tool.build_graph_and_split(nodes=nodes)
+    cfg0 = tool.scaled_config(tool.vq_config("GCN", 1), nodes)
     g, _, _ = prepare(g, cfg0, 0, symmetrize_adj=False)
-    log(f"[probe graph] collab widths N={g.num_nodes} E={g.num_edges} in {time.time() - t0:.1f}s")
+    log(f"[probe graph] collab widths{'' if nodes == tool.N_COLLAB else ' cut'} N={g.num_nodes} "
+        f"E={g.num_edges} in {time.time() - t0:.1f}s")
 
     tmp = tempfile.mkdtemp(prefix="link_hold_probe_")
     plan = {"seeds": {}, "states": []}
@@ -385,7 +528,7 @@ def main(argv=None):
     for seed in args.seeds:
         t0 = time.time()
         cfg = dataclasses.replace(cfg0, seed=seed)
-        tr = LinkTrainer(g, cfg, split, device="cuda")
+        tr = LinkTrainer(g, cfg, split, device=args.device)
         tr.run_init_sweep()
         loader = tr.train_loader
         wur = 1.0 / cfg.warm_up_epochs if cfg.warm_up and 1 <= cfg.warm_up_epochs else 1.0
@@ -423,7 +566,7 @@ def main(argv=None):
             f"states at steps {[s for s in range(args.every, tr.state.step + 1, args.every)]}; "
             f"first batch B_pad {b0.B_pad}, L_pad {len(b0.link_src)} "
             f"({int(b0.link_mask.sum())} live)")
-        if seed == args.seeds[0]:
+        if seed == args.seeds[0] and card:
             # the whole-batch link step at the collab widths: ms/step, and the
             # device kernels of one profiled step
             apply_matmul_precision(cfg)
@@ -458,7 +601,8 @@ def main(argv=None):
             log(f"[probe time] device kernels of one step ({len(names)}); index_add_ / "
                 f"scatter_add_ kernels among them: {atomic or 'none'}")
         del tr, kept, b0, loader
-        torch.cuda.empty_cache()
+        if card:
+            torch.cuda.empty_cache()
         if args.time_only:
             print(json.dumps({"time": result["time"], "tree": ROOT}, default=str))
             return 0
@@ -466,11 +610,16 @@ def main(argv=None):
         pickle.dump(plan, f)
 
     t0 = time.time()
-    mp.spawn(rank_main, args=(tmp, args.twice), nprocs=RANKS, join=True)
+    mp.spawn(rank_main, args=(tmp, args.twice, args.device), nprocs=RANKS, join=True)
     log(f"[probe ranks] {len(plan['states'])} states on {RANKS} gloo ranks in "
         f"{time.time() - t0:.1f}s")
+    if args.f64:
+        t0 = time.time()
+        mp.spawn(rank_main, args=(tmp, 0, "cpu", True), nprocs=RANKS, join=True)
+        log(f"[probe f64 ranks] {len(plan['states'])} states in float64 on {RANKS} CPU gloo "
+            f"ranks, both meshes, in {time.time() - t0:.1f}s")
 
-    X = torch.as_tensor(plan["X"]).cuda()
+    X = torch.as_tensor(plan["X"]).to(dev)
     N = plan["X"].shape[0] - 1
     n_fail = 0
     for k, (seed, path) in enumerate(plan["states"]):
@@ -479,21 +628,21 @@ def main(argv=None):
         sd = plan["seeds"][seed]
         cf = type(cfg0)(**sd["cfg"])
         apply_matmul_precision(cf)
-        b0 = sd["b0"].to("cuda")
-        dst_neg = torch.as_tensor(sd["dst_neg"], device="cuda")
+        b0 = sd["b0"].to(dev)
+        dst_neg = torch.as_tensor(sd["dst_neg"], device=dev)
         # the whole-batch step twice, then once more with its pairs in
         # another order (a permutation of the pairs and their negatives: the
         # same sums, in another order)
         perm = torch.as_tensor(np.random.default_rng(k).permutation(len(sd["dst_neg"])),
-                               device="cuda")
+                               device=dev)
         b_perm = dataclasses.replace(b0, link_src=b0.link_src[perm], link_dst=b0.link_dst[perm],
                                      link_mask=b0.link_mask[perm])
         recs, digests, calls = [], [], []
         for rep, (batch, neg) in enumerate(((b0, dst_neg), (b0, dst_neg),
                                             (b_perm, dst_neg[perm]))):
-            ms = model_static(cf, plan["F"], plan["C"], torch.device("cuda"))
-            st = state_from_numpy(snap["state"], ms, cf.lr, "cuda")
-            pred = predictor_from_numpy(*snap["pred"], cf.lr, "cuda")
+            ms = model_static(cf, plan["F"], plan["C"], dev)
+            st = state_from_numpy(snap["state"], ms, cf.lr, dev)
+            pred = predictor_from_numpy(*snap["pred"], cf.lr, dev)
 
             def one():
                 return make_link_step(ms, cf)[0](st, *pred, X, batch, 1.0, cf.lr, 1.0,
@@ -548,10 +697,53 @@ def main(argv=None):
                 f"{row['whole_cpu']['excess']:.3g}, {len(row['whole_cpu']['misses'])} codewords "
                 f"beyond the hold")
             row["whole_cpu"]["misses"] = row["whole_cpu"]["misses"][:20]
-        row["classified"] = [classify(torch, ms_, snap, p, ref_calls,
-                                      [o["calls"] for o in outs], perm_calls, cpu_calls, ref,
-                                      outs[0]["1-D"], N, count_ok)
+        got32 = {mname: assemble([o["calls", mname] for o in outs], mname) for mname in MESHES}
+        row["classified"] = [classify(torch, ms_, snap, p, ref_calls, got32[MESHES[0]],
+                                      perm_calls, cpu_calls, ref, outs[0]["1-D"], N, count_ok)
                              for ms_ in row["1-D"]["misses"]]
+        row["f32_halves"] = {mname: half_diffs(ref_calls, got32[mname]) for mname in MESHES}
+        if args.f64:
+            # the float64 control: the whole batch on the CPU from the state
+            # cast to float64, against the f64 ranks' sharded steps
+            t1 = time.time()
+            ms_c = model_static(cf, plan["F"], plan["C"], torch.device("cpu"))
+            st = state_as(state_from_numpy(snap["state"], ms_c, cf.lr, "cpu"), torch.float64)
+            pred = predictor_as(*predictor_from_numpy(*snap["pred"], cf.lr, "cpu"),
+                                torch.float64)
+            _, ref64 = run_captured(lambda: make_link_step(ms_c, cf)[0](
+                st, *pred, torch.as_tensor(plan["X"]).double(),
+                batch_as(sd["b0"].to("cpu"), torch.float64), 1.0, cf.lr, 1.0,
+                dst_neg=dst_neg.cpu()))
+            emb64_ref = [s.embedding.numpy() for s in st.vq_states]
+            outs64 = []
+            for r in range(RANKS):
+                with open(os.path.join(tmp, f"f64_out{r}_{k}.pkl"), "rb") as f:
+                    outs64.append(pickle.load(f))
+            got64 = {mname: assemble([o["calls", mname] for o in outs64], mname)
+                     for mname in MESHES}
+            emb64 = {MESHES[0]: outs64[0][MESHES[0]]["emb"],
+                     MESHES[1]: [np.concatenate(e) for e in zip(*(o[MESHES[1]]["emb"]
+                                                                  for o in outs64))]}
+            row["f64_halves"] = {mname: half_diffs(ref64, got64[mname]) for mname in MESHES}
+            misses_by_mesh = {MESHES[0]: row["1-D"]["misses"],
+                              MESHES[1]: [ms_ for s2 in row["2-D"] for ms_ in s2["misses"]]}
+            row["f64"] = {mname: [f64_control(ms_, ref_calls, got32[mname], ref64, got64[mname],
+                                              emb64_ref, emb64[mname], p.num_D)
+                                  for ms_ in misses_by_mesh[mname]] for mname in MESHES}
+            for mname in MESHES:
+                hd, h32 = row["f64_halves"][mname], row["f32_halves"][mname]
+                log(f"[probe {tag} f64 {mname}] largest difference of each layer's X / G "
+                    f"half, of the column's max: float64 {halves_text(hd)}; f32 (the card) "
+                    f"{halves_text(h32)} ({time.time() - t1:.1f}s)")
+                for fc in row["f64"][mname]:
+                    log(f"[probe {tag} f64 {mname} miss] ({fc['f64_cls']}) layer {fc['layer']} "
+                        f"branch {fc['branch']} codeword {fc['codeword']} column {fc['column']} "
+                        f"({fc['half']} half, {fc['members']} members; excess "
+                        f"{fc['excess']:.3g}): inputs f32 gap {fc['in_gap32']:.3g}, float64 gap "
+                        f"{fc['in_gap64']:.3g}, ratio {fc['in_ratio']:.3g}; codeword f32 gap "
+                        f"{fc['cw_gap32']:.3g}, float64 gap {fc['cw_gap64']:.3g}, ratio "
+                        f"{fc['cw_ratio']:.3g} | {gpu}")
+            del outs64, got64, ref64
         n_fail += bool(fails)
         s1 = row["1-D"]
         log(f"[probe {tag}] 1-D: set aside {s1['moved']} codewords, c_indices agree "
@@ -583,7 +775,7 @@ def main(argv=None):
         for s in row["2-D"]:
             s["misses"] = s["misses"][:20]
         result["states"].append(row)
-        del outs, calls, recs
+        del outs, calls, recs, got32
     n = len(result["states"])
     misses = sum(bool(r["classified"]) or any(s["misses"] for s in r["2-D"])
                  for r in result["states"])
@@ -591,6 +783,18 @@ def main(argv=None):
     for r in result["states"]:
         for cl in r["classified"]:
             by_cls[cl["cls"]] = by_cls.get(cl["cls"], 0) + 1
+    by_f64 = {}
+    for r in result["states"]:
+        for mname in MESHES:
+            for fc in r.get("f64", {}).get(mname, []):
+                key = f"{mname} {fc['f64_cls']}"
+                by_f64[key] = by_f64.get(key, 0) + 1
+    if args.f64:
+        worst = max(h[x] for r in result["states"] for mname in MESHES
+                    for h in r["f64_halves"][mname] for x in ("X", "G"))
+        log(f"[probe summary f64] the codewords beyond the hold by the float64 control's class: "
+            f"{by_f64}; largest float64 difference of a half, of its column's max, over every "
+            f"state, layer and mesh: {worst:.3g} | {gpu}")
     same = all(r["whole_same_bits"] for r in result["states"])
     sh_same = [v for r in result["states"] for v in r["sharded_same_bits"].values() if v]
     perm_miss = sum(bool(r["whole_permuted"]["misses"]) for r in result["states"])
@@ -608,7 +812,7 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1, default=str)
-    print(json.dumps({"states": n, "missed": misses, "by_cause": by_cls,
+    print(json.dumps({"states": n, "missed": misses, "by_cause": by_cls, "by_f64": by_f64,
                       "whole_same_bits": same, "time": result["time"]}, default=str))
     return 0
 

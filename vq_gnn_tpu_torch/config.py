@@ -10,6 +10,13 @@ additions are the port's own:
   switches ('highest' = exact f32, 'default' = TF32 allowed).
 - ``torch_dtype``: the ``torch.dtype`` of ``compute_dtype`` ('float32',
   'bfloat16' or 'float16', the three the JAX package computes in).
+- ``sum_dtype`` and ``stream_dtype``: the dtypes the plain versions sum
+  and the convs stream rows at.  Both keep float64 rows float64: a state
+  and features cast to float64 (``convert.py:state_as``) run the plain
+  versions on the CPU in float64, a diagnostic that tells a sum's order
+  from a fault (``tools/link_hold_probe_torch.py --f64``).  float64 is not
+  a compute dtype: ``COMPUTE_DTYPES`` has no entry for it, and the CUDA
+  kernels refuse it by name.
 
 ``vq_backend`` keeps the JAX package's values: 'pallas'/'pallas_fast' select
 the hand-written CUDA kernels (exact / bf16-operand mode), 'xla'/'xla_fast'
@@ -154,6 +161,21 @@ def torch_dtype(compute_dtype: str) -> torch.dtype:
     if compute_dtype not in COMPUTE_DTYPES:
         raise no_reference_path(f"compute_dtype={compute_dtype!r}")
     return COMPUTE_DTYPES[compute_dtype]
+
+
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions sum values of ``dtype`` in: f32 for
+    f32, bf16 and f16, float64 for float64 (the module docstring)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def stream_dtype(compute_dtype: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a conv streams its input rows of ``dtype`` at:
+    ``compute_dtype``'s, or float64 where f32 compute meets float64 rows
+    (the module docstring)."""
+    if dtype == torch.float64 and compute_dtype == "float32":
+        return dtype
+    return torch_dtype(compute_dtype)
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:

@@ -15,6 +15,11 @@ its dataclass nodes as :class:`Fields`.  ``train/checkpoint.py`` writes that
 tree under the JAX package's names, so an archive of either package restores
 in the other.
 
+``state_as``, ``predictor_as`` and ``batch_as`` copy a state, a predictor
+(with its RMSprop) and a batch with their floating tensors in another
+dtype: float64, for the plain versions' float64 diagnostic on the CPU
+(``config.sum_dtype``; ``tools/link_hold_probe_torch.py --f64``).
+
 The JAX package stores a Linear weight ``w`` as [fan_in, fan_out]
 (``vq_gnn_tpu/nn/model.py:154-160``); ``nn.Linear`` keeps [out, in].  The
 transpose happens here and nowhere else.
@@ -131,6 +136,56 @@ def _state_into(state_np, model: LowRankGNN, lr: float) -> TrainState:
         step=int(np.asarray(_get(state_np, "step"))),
         vq_states_tr=None if tr_np is None else [vq_state_from_numpy(s, device) for s in tr_np],
     )
+
+
+def _floating_as(t, dtype):
+    return t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t
+
+
+def _module_as(module: torch.nn.Module, opt: torch.optim.RMSprop, dtype):
+    """(a copy of ``module`` in ``dtype``, an RMSprop over it holding
+    ``opt``'s square averages in ``dtype``)."""
+    new = copy.deepcopy(module).to(dtype)
+    new_opt = make_rmsprop(new.parameters(), opt.defaults["lr"])
+    for p_old, p in zip(module.parameters(), new.parameters()):
+        st = opt.state.get(p_old, {})
+        if "square_avg" in st:
+            new_opt.state[p] = {"step": st["step"].clone(),
+                                "square_avg": st["square_avg"].to(dtype)}
+    return new, new_opt
+
+
+def state_as(state: TrainState, dtype) -> TrainState:
+    """A copy of ``state`` whose floating tensors (parameters, their RMSprop
+    square averages, codebooks, BN statistics) are ``dtype``."""
+    model, opt = _module_as(state.model, state.optimizer, dtype)
+
+    def vq(s: VQState) -> VQState:
+        return VQState(**{f.name: _floating_as(getattr(s, f.name), dtype)
+                          for f in dataclasses.fields(VQState)})
+
+    return TrainState(
+        model=model, vq_states=[vq(s) for s in state.vq_states],
+        bn_state=BNState(mean=[m.to(dtype) for m in state.bn_state.mean],
+                         var=[v.to(dtype) for v in state.bn_state.var]),
+        optimizer=opt, step=state.step,
+        vq_states_tr=None if state.vq_states_tr is None else [vq(s) for s in state.vq_states_tr])
+
+
+def predictor_as(pred: LinkPredictor, opt: torch.optim.RMSprop, dtype):
+    """(a copy of the link predictor, its RMSprop) in ``dtype``."""
+    return _module_as(pred, opt, dtype)
+
+
+def batch_as(batch, dtype):
+    """A copy of a batch (a ``PaddedBatch`` or a row shard) whose floating
+    tensors, its adjacency's values among them, are ``dtype``."""
+    def cast(obj):
+        return dataclasses.replace(obj, **{
+            f.name: cast(v) if dataclasses.is_dataclass(v) else _floating_as(v, dtype)
+            for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)})
+
+    return cast(batch)
 
 
 def predictor_from_numpy(pred_np, nu_np, lr: float, device):

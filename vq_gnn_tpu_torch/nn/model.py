@@ -37,7 +37,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vq_gnn_tpu_torch.config import Config, check_ported, resolve_vq_backend, torch_dtype
+from vq_gnn_tpu_torch.config import (
+    Config,
+    check_ported,
+    resolve_vq_backend,
+    stream_dtype,
+    sum_dtype,
+)
 from vq_gnn_tpu_torch.nn.vq import VQParams, VQState, lookup
 from vq_gnn_tpu_torch.ops.gat import (
     branch_scale,
@@ -275,9 +281,9 @@ def alpha_dropout(x, p: float, training: bool, generator: Optional[torch.Generat
     return a * torch.where(keep, x, torch.full_like(x, alpha)) + b
 
 
-def _keep_cols(keep: torch.Tensor, width: int):
-    """A [nb] branch keep mask as a [1, nb * width] float column mask."""
-    return keep.float().repeat_interleave(width)[None, :]
+def _keep_cols(keep: torch.Tensor, width: int, dtype=torch.float32):
+    """A [nb] branch keep mask as a [1, nb * width] column mask of ``dtype``."""
+    return keep.to(dtype).repeat_interleave(width)[None, :]
 
 
 def batchnorm_infer(x, mean, var, eps=1e-5):
@@ -342,7 +348,7 @@ def layer_forward(
                                 branch_keep=branch_keep, vq_tr=vq_tr, probe_tr=probe_tr,
                                 fan_in_reduce=fan_in_reduce)
     B_pad = batch.B_pad
-    cd = torch_dtype(ms.compute_dtype)
+    cd = stream_dtype(ms.compute_dtype, x.dtype)
     # out-of-batch features/grads from the codebook (models.py v2:165-173);
     # the lookup streams bf16 when the whole compute path does (f16 compute
     # passes no stream: vq_gnn_tpu/nn/model.py:295-298)
@@ -352,15 +358,15 @@ def layer_forward(
     x_fo = x_fo * fo_mask
     grad_fo = (grad_fo * fo_mask).detach()
     if branch_keep is not None:
-        x_fo = x_fo * _keep_cols(branch_keep, ms.num_D)
-        grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim)
+        x_fo = x_fo * _keep_cols(branch_keep, ms.num_D, x_fo.dtype)
+        grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim, grad_fo.dtype)
 
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, C_in]
     if x_input.dtype != cd:
         x_input = x_input.to(cd)
     if ms.conv_type == "GAT":
         C = x_input.shape[1]
-        xf = x_input.float() if cd != torch.float32 else x_input
+        xf = x_input.to(sum_dtype(x_input.dtype))
         valid_all = torch.cat([batch.valid_B, batch.valid_fo])
         e = batch.edges
         if getattr(e, "gat", None) is not None:
@@ -629,8 +635,8 @@ def layer_forward_bm(
     x_fo = x_fo * fo_mask * warm_up_rate
     grad_fo = (grad_fo * fo_mask).detach()  # [Bp_pad, nb * Dg]
     if branch_keep is not None:
-        x_fo = x_fo * _keep_cols(branch_keep, D)
-        grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim)
+        x_fo = x_fo * _keep_cols(branch_keep, D, x_fo.dtype)
+        grad_fo = grad_fo * _keep_cols(branch_keep, ms.vq.grad_dim, grad_fo.dtype)
     x_input = torch.cat([x, x_fo], dim=0).contiguous()  # [dim_pad, nb * D]
     rev = batch.rev_slot_row is not None or batch.bm_rev_row is not None
     x_tr = None
@@ -653,7 +659,7 @@ def layer_forward_bm(
         else:
             info_backward = (x_out[B_pad:] * grad_fo * warm_up_rate).sum()
         if branch_keep is not None:
-            out_B = out_B * _keep_cols(branch_keep, D)
+            out_B = out_B * _keep_cols(branch_keep, D, out_B.dtype)
         return (_layer_output(layer, ms, x, out_B, x_tr, fan_in_reduce=fan_in_reduce),
                 info_backward + info_tr)
 
@@ -675,7 +681,7 @@ def layer_forward_bm(
     scale_n = branch_scale(al_n[:B_pad], ar_n[:B_pad], al_cb, ar_cb, batch.valid_B,
                            getattr(e, "scale_ranks", None))  # [nb]
     al_n, ar_n = al_n / scale_n, ar_n / scale_n
-    cd = torch_dtype(ms.compute_dtype)
+    cd = stream_dtype(ms.compute_dtype, x_input.dtype)
     if x_input.dtype != cd:  # 16-bit streaming halves the gathered bytes
         x_input = x_input.to(cd)
     if getattr(e, "gat_mh", None) is not None:  # a row shard's, bound to its ranks
@@ -700,7 +706,7 @@ def layer_forward_bm(
     # ones-column normalisation of the batch rows (v1/models.py:209-210)
     out_B = agg_B / (rs_B.repeat_interleave(D, dim=1) + 1e-16)
     if branch_keep is not None:
-        out_B = out_B * _keep_cols(branch_keep, D)
+        out_B = out_B * _keep_cols(branch_keep, D, out_B.dtype)
     return (_layer_output(layer, ms, x, out_B, x_tr, fan_in_reduce=fan_in_reduce),
             info_backward + info_tr)
 
@@ -838,16 +844,19 @@ def probe_shapes(ms: ModelStatic, B_pad: int) -> List[Tuple[int, ...]]:
     return [(B_pad, ms.channels[l] + extra) for l in range(ms.num_layers)]
 
 
-def zero_probes(ms: ModelStatic, B_pad: int, device) -> List[torch.Tensor]:
-    return [
-        torch.zeros(s, device=device, requires_grad=True) for s in probe_shapes(ms, B_pad)
-    ]
+def zero_probes(ms: ModelStatic, B_pad: int, device, dtype=torch.float32
+                ) -> List[torch.Tensor]:
+    """The conv outputs' hook points (:func:`probe_shapes`), f32 (float64
+    where the step runs in float64: their gradients are the VQ update's)."""
+    return [torch.zeros(s, device=device, dtype=dtype, requires_grad=True)
+            for s in probe_shapes(ms, B_pad)]
 
 
-def zero_probes_tr(ms: ModelStatic, B_pad: int, device) -> List[torch.Tensor]:
+def zero_probes_tr(ms: ModelStatic, B_pad: int, device, dtype=torch.float32
+                   ) -> List[torch.Tensor]:
     """The transformer branch's hook points: [nb, B_pad, D + 1] per layer."""
-    return [torch.zeros((nb, B_pad, ms.num_D + 1), device=device, requires_grad=True)
-            for nb in ms.num_branches]
+    return [torch.zeros((nb, B_pad, ms.num_D + 1), device=device, dtype=dtype,
+                        requires_grad=True) for nb in ms.num_branches]
 
 
 # --------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from vq_gnn_tpu_torch.config import sum_dtype
 from vq_gnn_tpu_torch.ops.vq_kernels import fused_assign_branches, lookup_codewords
 from vq_gnn_tpu_torch.ops.vq_ops import (
     assign_stats_scan,
@@ -117,11 +118,12 @@ def init_vq_state(
     return VQState(**{f.name: getattr(st, f.name).to(device) for f in dataclasses.fields(st)})
 
 
-def _grad_half(K: int, D: int, v0: float, v1: float, add_flag: bool, device=None):
+def _grad_half(K: int, D: int, v0: float, v1: float, add_flag: bool, device=None,
+               dtype=torch.float32):
     """[K] ones with v0 on the gradient half [D, 2D) and, with add_flag, v1
     on the ones-column gradient at index 2D.  Filled on ``device``: a copy
     from the host would synchronise the stream."""
-    t = torch.ones(K, device=device)
+    t = torch.ones(K, device=device, dtype=dtype)
     t[D : 2 * D] = v0
     if add_flag:
         t[2 * D] = v1
@@ -263,8 +265,8 @@ def vq_update(
     xn_f, f_mean, f_var = _bn_apply(X_B, mf, f_mean, f_var, BN_FEAT_EPS, BN_FEAT_MOMENTUM)
     xn_g, g_mean, g_var = _bn_apply(grad, mg, g_mean, g_var, p.epsilon, p.momentum)
     gs1 = p.grad_scale[1]
-    xn = torch.cat([xn_f, xn_g], dim=2) * _grad_half(
-        p.total_dim, D, gs0, gs1, p.add_flag, X_B.device)
+    xn = torch.cat([xn_f, xn_g], dim=2)
+    xn = xn * _grad_half(p.total_dim, D, gs0, gs1, p.add_flag, X_B.device, xn.dtype)
 
     idx, counts, sums = _assign_and_stats(xn, state.embedding, valid, p)
     if stats_reduce is not None:  # the psum before the EMA divide
@@ -277,7 +279,7 @@ def vq_update(
     # de-normalize for the lookup table (vq.py:261-272): undo grad_scale on
     # the grad half, then BN with the (post-update) running stats
     out = new_emb / _grad_half(
-        p.total_dim, D, gs0 + p.epsilon, gs1 + p.epsilon, p.add_flag, X_B.device)
+        p.total_dim, D, gs0 + p.epsilon, gs1 + p.epsilon, p.add_flag, X_B.device, new_emb.dtype)
     run_var = torch.cat([f_var + BN_FEAT_EPS, g_var + p.epsilon], dim=1)
     run_mean = torch.cat([f_mean, g_mean], dim=1)
     out = out * torch.sqrt(run_var)[:, None, :] + run_mean[:, None, :]
@@ -332,7 +334,7 @@ def lookup(state: VQState, node_ids: torch.Tensor, p: VQParams, stream=None):
     nb = c.shape[1]
     table = state.embedding_output[torch.arange(nb, device=c.device)[None, :], c]
     if stream is not None:
-        table = table.to(stream).float()
+        table = table.to(stream).to(sum_dtype(table.dtype))
     n = table.shape[0]
     feats = table[:, :, : p.num_D].reshape(n, nb * p.num_D)
     grads = table[:, :, p.num_D :].reshape(n, nb * p.grad_dim)

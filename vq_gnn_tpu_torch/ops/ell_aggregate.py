@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from vq_gnn_tpu_torch.config import sum_dtype
 from vq_gnn_tpu_torch.ops import _build
 
 # Channels a warp covers in one pass (32 lanes x 16 bytes: float4, or 8
@@ -72,12 +73,14 @@ def row_offsets_plain(ell_row, num_rows: int) -> torch.Tensor:
 def ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows: int) -> torch.Tensor:
     """Gather, weight, K-reduce, then a sorted segment sum — in plain
     PyTorch.  Elementwise products (no matmul), so TF32 never enters; bf16
-    or f16 x is widened to f32 first, which is exact."""
+    or f16 x is widened to f32 first, which is exact; float64 x sums in
+    float64 (``config.sum_dtype``)."""
     S, K = ell_col.shape
     C = x.shape[1]
+    wd = sum_dtype(x.dtype)
     nbrs = x.index_select(0, ell_col.reshape(-1).long().clamp(0, x.shape[0] - 1))
-    part = (ell_val.float()[:, :, None] * nbrs.float().reshape(S, K, C)).sum(1)
-    out = torch.zeros((num_rows + 1, C), dtype=torch.float32, device=x.device)
+    part = (ell_val.to(wd)[:, :, None] * nbrs.to(wd).reshape(S, K, C)).sum(1)
+    out = torch.zeros((num_rows + 1, C), dtype=wd, device=x.device)
     out.index_add_(0, ell_row.long().clamp(0, num_rows), part)
     return out[:num_rows]
 

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from vq_gnn_tpu_torch.config import sum_dtype
 from vq_gnn_tpu_torch.ops import _build
 
 
@@ -65,13 +66,15 @@ def _check_lists(ptr, long_rows, num_rows: int):
 def segment_sum_sorted_plain(partials, seg, num_rows: int, scalar_partials=None, ptr=None,
                              long_rows=None):
     """Plain version: ``index_add_`` into num_rows + 1 rows, the last one
-    collecting the padding slots.  The row lists are checked and not used."""
+    collecting the padding slots, in f32 (float64 partials in float64).
+    The row lists are checked and not used."""
     _check_lists(ptr, long_rows, num_rows)
     res = []
     if partials is not None:
-        res.append(_plain(partials.float(), seg, num_rows))
+        res.append(_plain(partials.to(sum_dtype(partials.dtype)), seg, num_rows))
     if scalar_partials is not None:
-        res.append(_plain(scalar_partials.float(), seg, num_rows))
+        res.append(_plain(scalar_partials.to(sum_dtype(scalar_partials.dtype)), seg,
+                          num_rows))
     return res[0] if len(res) == 1 else tuple(res)
 
 
@@ -145,8 +148,9 @@ class _TakeRows(torch.autograd.Function):
     backward sums the cotangents of every taken row in a fixed order:
     the indices of all the calls concatenated and sorted by row (stable, so
     a row's cotangents keep their order: the first index tensor's, then the
-    next one's, each in index order), summed by kernel 8 in f32 and cast to
-    the table's dtype."""
+    next one's, each in index order), summed by kernel 8 in f32 (by its
+    plain version in float64 for a float64 table) and cast to the table's
+    dtype."""
 
     @staticmethod
     def forward(ctx, table, *idx):
@@ -159,7 +163,8 @@ class _TakeRows(torch.autograd.Function):
         idx = ctx.saved_tensors
         like = next(g for g in grads if g is not None)
         g = torch.cat([like.new_zeros((i.shape[0],) + like.shape[1:]) if g is None else g
-                       for g, i in zip(grads, idx)]).float()
+                       for g, i in zip(grads, idx)])
+        g = g.to(sum_dtype(g.dtype))
         g = g.reshape(g.shape[0], -1)
         seg, order = torch.sort(torch.cat(idx), stable=True)
         out = segment_sum_sorted(g.index_select(0, order).contiguous(), seg.to(torch.int32),
@@ -191,7 +196,7 @@ class _TakeListed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         seg, perm, ptr, long_rows = ctx.saved_tensors
-        g = g.float().reshape(g.shape[0], -1)
+        g = g.to(sum_dtype(g.dtype)).reshape(g.shape[0], -1)
         if perm is not None:
             g = g.index_select(0, perm)
         out = segment_sum_sorted(g.contiguous(), seg, ctx.rows, ptr=ptr, long_rows=long_rows)
@@ -208,16 +213,17 @@ def take_listed(table, idx, seg, perm, rows: int, ptr, long_rows):
 
 
 def sum_at(keys, vals, size: int):
-    """f32 [size]: ``vals`` summed at ``keys`` (int64, each in [0, size)),
-    as ``zeros(size).scatter_add_(0, keys, vals)`` but in a fixed order: the
-    keys sorted (stable), each distinct key's values summed by kernel 8 in
-    their order (its row offsets the distinct keys' counts, summed up: no
-    search), written once."""
+    """f32 [size] (float64 for float64 ``vals``): ``vals`` summed at ``keys``
+    (int64, each in [0, size)), as ``zeros(size).scatter_add_(0, keys,
+    vals)`` but in a fixed order: the keys sorted (stable), each distinct
+    key's values summed by kernel 8 in their order (its row offsets the
+    distinct keys' counts, summed up: no search), written once."""
     k, order = torch.sort(keys, stable=True)
     uniq, inv, counts = torch.unique_consecutive(k, return_inverse=True, return_counts=True)
     ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
-    sums = segment_sum_sorted(vals.index_select(0, order).float()[:, None].contiguous(),
+    wd = sum_dtype(vals.dtype)
+    sums = segment_sum_sorted(vals.index_select(0, order).to(wd)[:, None].contiguous(),
                               inv.to(torch.int32), uniq.shape[0], ptr=ptr)
-    out = torch.zeros(size, dtype=torch.float32, device=vals.device)
+    out = torch.zeros(size, dtype=wd, device=vals.device)
     out[uniq] = sums[:, 0]
     return out

@@ -53,7 +53,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vq_gnn_tpu_torch.ops.ell_aggregate import LONG_SLOTS, ell_aggregate
+from vq_gnn_tpu_torch.config import sum_dtype
+from vq_gnn_tpu_torch.ops.ell_aggregate import LONG_SLOTS, ell_aggregate, ell_aggregate_plain
 from vq_gnn_tpu_torch.ops.segsum import segment_sum_sorted
 
 
@@ -181,7 +182,11 @@ def _ell_matvec(ell_row, ell_col, ell_val, x, num_rows, ptr=None, long_rows=None
     row offsets and long rows; ones built for another row count (an Edges
     whose truncation was switched off after the build) are not used."""
     if ell_row.shape[0] == 0:  # a family a row shard leaves empty: nothing to launch
-        return x.new_zeros((num_rows, x.shape[1]), dtype=torch.float32)
+        return x.new_zeros((num_rows, x.shape[1]), dtype=sum_dtype(x.dtype))
+    if x.dtype == torch.float64 and x.device.type == "cpu":
+        # the float64 diagnostic (config.sum_dtype): kernel 1's wrapper takes
+        # its kernel's row dtypes alone, so float64 rows reach its plain version
+        return ell_aggregate_plain(x, ell_row, ell_col, ell_val, num_rows)
     if ptr is None or ptr.shape[0] != num_rows + 1:
         ptr = long_rows = None
     return ell_aggregate(x, ell_row, ell_col, ell_val, num_rows, ptr=ptr, long_rows=long_rows)
@@ -191,10 +196,11 @@ def _ell_sddmm(ell_row, ell_col, g, x):
     """d val[s,k] = g[row_s] . x[col_sk] (padding rows/cols clamp, as JAX's
     ``mode='clip'``), summed in f32 from 16-bit g and x too."""
     S, K = ell_col.shape
-    g_rows = g.index_select(0, ell_row.long().clamp(max=g.shape[0] - 1)).float()
+    wd = sum_dtype(x.dtype)
+    g_rows = g.index_select(0, ell_row.long().clamp(max=g.shape[0] - 1)).to(wd)
     x_cols = x.index_select(
         0, ell_col.reshape(-1).long().clamp(max=x.shape[0] - 1)
-    ).float().reshape(S, K, x.shape[1])
+    ).to(wd).reshape(S, K, x.shape[1])
     return (g_rows[:, None, :] * x_cols).sum(-1)
 
 
@@ -321,11 +327,12 @@ def _segment_matvec(row, col, vals, x_br, num_rows, ptr=None, long_rows=None):
     not used."""
     nb, R, Dc = x_br.shape
     if row.shape[0] == 0:  # a row shard without edges: nothing to launch
-        return x_br.new_zeros((nb, num_rows, Dc), dtype=torch.float32)
+        return x_br.new_zeros((nb, num_rows, Dc), dtype=sum_dtype(x_br.dtype))
     if ptr is not None and ptr.shape[0] != num_rows + 1:
         ptr = long_rows = None
     cols = col.long().clamp(max=R - 1)
-    msgs = (x_br.index_select(1, cols).float() * vals[:, :, None]).permute(1, 0, 2)
+    msgs = (x_br.index_select(1, cols).to(sum_dtype(x_br.dtype)) * vals[:, :, None]
+            ).permute(1, 0, 2)
     out = segment_sum_sorted(msgs.reshape(len(cols), nb * Dc).contiguous(), row, num_rows,
                              ptr=ptr, long_rows=long_rows)
     return out.reshape(num_rows, nb, Dc).permute(1, 0, 2)
@@ -364,7 +371,7 @@ def _coo_sddmm(row, col, g, x_br):
     """Per branch the SDDMM d val[n, e] = g[n, row_e] . x[n, col_e] (pads
     clip; summed in f32 from x in its dtype, g unrounded)."""
     gr = g.index_select(1, row.long().clamp(max=g.shape[1] - 1))
-    xc = x_br.index_select(1, col.long().clamp(max=x_br.shape[1] - 1)).float()
+    xc = x_br.index_select(1, col.long().clamp(max=x_br.shape[1] - 1)).to(sum_dtype(x_br.dtype))
     return (gr * xc).sum(-1)
 
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from vq_gnn_tpu_torch.config import sum_dtype
+
 
 def _dot_k(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """<x[b,i], e[b,m]> -> [nb, B, M] as a K-term elementwise sum."""
@@ -39,15 +41,17 @@ def nearest_codeword(xn: torch.Tensor, emb: torch.Tensor, fast: bool = False) ->
 
 def assignment_stats(xn: torch.Tensor, idx: torch.Tensor, num_M: int, valid=None,
                      fast: bool = False):
-    """Per-codeword (counts [nb, M], sums [nb, M, K]) over valid rows.
-    ``fast`` sums bf16-rounded xn (the JAX bf16 one-hot GEMM), in f32."""
+    """Per-codeword (counts [nb, M], sums [nb, M, K]) over valid rows, f32
+    (float64 for float64 xn).  ``fast`` sums bf16-rounded xn (the JAX bf16
+    one-hot GEMM)."""
     nb, B, K = xn.shape
-    v = (torch.ones(B, device=xn.device) if valid is None else valid.to(torch.float32))
-    x = xn.to(torch.bfloat16).to(torch.float32) if fast else xn
+    wd = sum_dtype(xn.dtype)
+    v = (torch.ones(B, dtype=wd, device=xn.device) if valid is None else valid.to(wd))
+    x = xn.to(torch.bfloat16).to(wd) if fast else xn
     flat = (idx + torch.arange(nb, device=xn.device)[:, None] * num_M).reshape(-1)
-    counts = torch.zeros(nb * num_M, dtype=torch.float32, device=xn.device)
+    counts = torch.zeros(nb * num_M, dtype=wd, device=xn.device)
     counts.index_add_(0, flat, v.expand(nb, B).reshape(-1))
-    sums = torch.zeros((nb * num_M, K), dtype=torch.float32, device=xn.device)
+    sums = torch.zeros((nb * num_M, K), dtype=wd, device=xn.device)
     sums.index_add_(0, flat, (x * v[None, :, None]).reshape(-1, K))
     return counts.reshape(nb, num_M), sums.reshape(nb, num_M, K)
 
@@ -66,8 +70,8 @@ def assign_stats_scan(xn: torch.Tensor, emb: torch.Tensor, valid=None, chunk: in
     if valid is None:
         valid = torch.ones(B, dtype=torch.bool, device=xn.device)
     e2 = (emb * emb).sum(-1)[:, None, :]
-    counts = torch.zeros((nb, M), dtype=torch.float32, device=xn.device)
-    sums = torch.zeros((nb, M, K), dtype=torch.float32, device=xn.device)
+    counts = torch.zeros((nb, M), dtype=sum_dtype(xn.dtype), device=xn.device)
+    sums = torch.zeros((nb, M, K), dtype=sum_dtype(xn.dtype), device=xn.device)
     idxs = []
     for i in range(0, B, chunk):
         x, v = xn[:, i : i + chunk], valid[i : i + chunk]

@@ -42,6 +42,7 @@ from vq_gnn_tpu_torch.config import (
     apply_matmul_precision,
     no_reference_path,
     resolve_device,
+    sum_dtype,
 )
 from vq_gnn_tpu_torch.graph.store import HostGraph
 from vq_gnn_tpu_torch.nn.model import ModelStatic, model_forward, model_static, zero_probes
@@ -181,7 +182,7 @@ def make_link_step(ms: ModelStatic, cfg: Config):
             keep = dropout_masks(pred, batch.link_src.shape[0], cfg.dropout, generator, dev)
         if branch_masks is None and ms.dropbranch > 0:
             branch_masks = draw_branch_masks(ms, generator, dev)
-        probes = zero_probes(ms, batch.B_pad, dev)
+        probes = zero_probes(ms, batch.B_pad, dev, sum_dtype(X_dev.dtype))
         params = list(state.model.parameters())
         pparams = list(pred.parameters())
         x_B = X_dev.index_select(0, batch.batch_idx)

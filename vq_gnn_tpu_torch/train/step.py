@@ -33,7 +33,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 
-from vq_gnn_tpu_torch.config import Config, no_reference_path
+from vq_gnn_tpu_torch.config import Config, no_reference_path, sum_dtype
 from vq_gnn_tpu_torch.nn.model import (
     ModelStatic,
     activation,
@@ -110,9 +110,9 @@ def step_forward(state: TrainState, ms: ModelStatic, X_dev: torch.Tensor, batch:
     table, ``model_forward`` in training mode (``stats_reduce`` and
     ``model_axis`` are its hooks for a batch sharded over ranks).  Returns
     (out, info_b, layer_inputs, new_bn, probes, probes_tr)."""
-    dev = X_dev.device
-    probes = zero_probes(ms, batch.B_pad, dev)
-    probes_tr = zero_probes_tr(ms, batch.B_pad, dev) if ms.transformer_flag else []
+    dev, pd = X_dev.device, sum_dtype(X_dev.dtype)
+    probes = zero_probes(ms, batch.B_pad, dev, pd)
+    probes_tr = zero_probes_tr(ms, batch.B_pad, dev, pd) if ms.transformer_flag else []
     x_B = X_dev.index_select(0, batch.batch_idx)
     out, info_b, layer_inputs, new_bn = model_forward(
         state.model,
